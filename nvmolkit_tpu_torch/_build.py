@@ -1,0 +1,130 @@
+"""Build the port's native libraries from the repository's sources at first use.
+
+* ``libnvmk_similarity``: ``nvmolkit_tpu_torch/csrc/similarity.cu`` (the
+  hand-written similarity kernels), compiled by ``nvcc`` for ``sm_90a``
+  into a plain C-ABI shared object that ``ctypes`` loads.
+* ``libnvmolgraph``: the repository's SMILES featurizer
+  ``csrc/mol_graph.cpp``, compiled by ``g++`` with the flags of
+  ``csrc/Makefile``.
+
+Outputs go to ``nvmolkit_tpu_torch/_build/``, named by a hash of the
+source and the command, so an edited source is rebuilt. Concurrent
+builds (parallel test workers) serialize on a file lock, and each output is
+written under a temporary name and renamed into place. A failed build
+raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+
+_PKG = pathlib.Path(__file__).resolve().parent
+_REPO = _PKG.parent
+BUILD_DIR = _PKG / "_build"
+
+SIMILARITY_SRC = _PKG / "csrc" / "similarity.cu"
+GRAPH_SRC = _REPO / "csrc" / "mol_graph.cpp"
+
+_lock = threading.Lock()
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    path = shutil.which("nvcc") or os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return path
+
+
+def _build(name: str, src: pathlib.Path, cmd: list[str]) -> pathlib.Path:
+    """Compile ``src`` with ``cmd + ['-o', out]`` unless a build of the same
+    source and command exists; return the output path."""
+    digest = hashlib.sha256(src.read_bytes() + " ".join(cmd).encode()).hexdigest()[:16]
+    out = BUILD_DIR / f"{name}-{digest}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / f"{name}.lock", "w") as lock_file:
+        fcntl.flock(lock_file, fcntl.LOCK_EX)
+        if out.exists():  # another process built it while we waited
+            return out
+        tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
+        proc = subprocess.run(cmd + ["-o", str(tmp)], capture_output=True, text=True)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(
+                f"building {name} failed ({' '.join(cmd)}):\n{proc.stdout}{proc.stderr}"
+            )
+        os.replace(tmp, out)
+    return out
+
+
+def _load(name: str, build, declare) -> ctypes.CDLL:
+    """Build (once per process) and load a library, declaring its C ABI."""
+    with _lock:
+        if name not in _loaded:
+            lib = ctypes.CDLL(str(build()))
+            declare(lib)
+            _loaded[name] = lib
+        return _loaded[name]
+
+
+def _declare_similarity(lib: ctypes.CDLL) -> None:
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.nvmk_cross_similarity.restype = ci
+    lib.nvmk_cross_similarity.argtypes = [vp, ci, vp, ci, ci, ci, vp, vp]
+    lib.nvmk_neighbor_counts.restype = ci
+    lib.nvmk_neighbor_counts.argtypes = [vp, ci, ci, vp, ci, ctypes.c_float, ci, vp, ci, vp]
+
+
+def _declare_graph(lib: ctypes.CDLL) -> None:
+    i32, i32p = ctypes.c_int32, ctypes.POINTER(ctypes.c_int32)
+    u32p, u8p = ctypes.POINTER(ctypes.c_uint32), ctypes.POINTER(ctypes.c_uint8)
+    lib.nvmk_parse_batch.restype = ctypes.c_void_p
+    lib.nvmk_parse_batch.argtypes = [ctypes.POINTER(ctypes.c_char_p), i32, i32]
+    lib.nvmk_free.restype = None
+    lib.nvmk_free.argtypes = [ctypes.c_void_p]
+    lib.nvmk_num_atoms.restype = i32
+    lib.nvmk_num_atoms.argtypes = [ctypes.c_void_p, i32]
+    lib.nvmk_error.restype = ctypes.c_char_p
+    lib.nvmk_error.argtypes = [ctypes.c_void_p, i32]
+    lib.nvmk_fill_morgan_batch.restype = i32
+    lib.nvmk_fill_morgan_batch.argtypes = [
+        ctypes.c_void_p, i32p, i32, i32, i32, i32, u32p, i32p, u32p, u8p, u32p, u8p, i32p,
+    ]
+
+
+def similarity_lib() -> ctypes.CDLL:
+    """The compiled similarity kernels (needs ``nvcc`` and a CUDA runtime)."""
+    return _load(
+        "libnvmk_similarity",
+        lambda: _build(
+            "libnvmk_similarity",
+            SIMILARITY_SRC,
+            [
+                _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                "-O3", "-shared", "-Xcompiler", "-fPIC", str(SIMILARITY_SRC),
+            ],
+        ),
+        _declare_similarity,
+    )
+
+
+def graph_lib() -> ctypes.CDLL:
+    """The compiled SMILES featurizer (needs ``g++``)."""
+    return _load(
+        "libnvmolgraph",
+        lambda: _build(
+            "libnvmolgraph",
+            GRAPH_SRC,
+            ["g++", "-O3", "-std=c++20", "-fPIC", "-shared", "-pthread", str(GRAPH_SRC)],
+        ),
+        _declare_graph,
+    )

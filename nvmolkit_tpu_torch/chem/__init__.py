@@ -1,0 +1,1 @@
+"""Subpackage of nvmolkit_tpu_torch."""

@@ -1,0 +1,29 @@
+"""Carrying state between the JAX package and the port.
+
+This system has no weights: its state is packed fingerprints and
+hardware options. These helpers move both across bit for bit, so that
+tests can feed the two packages the same inputs.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from nvmolkit_tpu_torch.utils.config import HardwareOptions
+
+
+def fps_from_reference(fps: np.ndarray, device=None) -> torch.Tensor:
+    """uint32 [n, words] fingerprints (the JAX package's ``.numpy()``) ->
+    an int32 tensor holding the same bits, on ``device`` (default CPU)."""
+    fps = np.ascontiguousarray(np.asarray(fps, dtype=np.uint32))
+    return torch.from_numpy(fps.view(np.int32).copy()).to(device or "cpu")
+
+
+def fps_to_reference(t: torch.Tensor) -> np.ndarray:
+    """int32 fingerprint tensor -> uint32 numpy with the same bits."""
+    return t.detach().cpu().numpy().view(np.uint32).copy()
+
+
+def options_from_reference(d: dict) -> HardwareOptions:
+    """The JAX package's ``HardwareOptions.to_dict()`` -> the port's."""
+    return HardwareOptions.from_dict(d)

@@ -1,0 +1,122 @@
+"""Morgan fingerprints over a batch of featurized molecules, in plain torch.
+
+Same semantics as ``nvmolkit_tpu/ops/morgan.py::morgan_kernel`` (and
+bit-identical output): for each radius round, hash each atom's invariant
+with its sorted (bond code, neighbor invariant) pairs, grow the atom's
+neighborhood as a bond bitset, drop neighborhoods that repeat one of the
+same round (keeping the lowest (invariant, atom) key) or of an earlier
+round, and set bit ``invariant % fp_size`` for the survivors.
+
+Differences from the JAX program, none of which changes a bit:
+  * neighbor values come from ``torch.gather`` (the JAX version uses a
+    one-hot matmul because gathers serialize on a TPU);
+  * the two-key sort of (code, invariant) pairs is one sort of the int64
+    key ``code << 32 | invariant``; empty slots get code 256, above any
+    bond code, so they sort last;
+  * u32 words are carried in int64 (see ``utils/hashing.py``);
+  * the [B, A, A] duplicate tests loop over bitset words instead of
+    materializing [B, A, A, W].
+
+This runs as many small torch operations on the device; a hand-written
+CUDA kernel (one block per molecule, bitsets in shared memory) is queued
+in ROADMAP.md.
+"""
+from __future__ import annotations
+
+import torch
+
+from nvmolkit_tpu_torch.ops.packed_bits import pack_bits
+from nvmolkit_tpu_torch.utils.hashing import MASK32, hash_combine_u32
+
+_EMPTY_CODE = 256  # bond codes are uint8
+
+
+def _set_bits(bits: torch.Tensor, inv: torch.Tensor, active: torch.Tensor, fp_size: int) -> None:
+    """Set bit ``inv % fp_size`` of each active atom in the unpacked
+    [B, fp_size + 1] fingerprint (column fp_size takes inactive atoms)."""
+    col = torch.where(active, inv % fp_size, fp_size)
+    bits.scatter_(1, col, 1)
+
+
+def _all_words_equal(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """[B, P, W] x [B, Q, W] -> [B, P, Q]: rows equal in every word."""
+    eq = x[:, :, None, 0] == y[:, None, :, 0]
+    for w in range(1, x.shape[-1]):
+        eq &= x[:, :, None, w] == y[:, None, :, w]
+    return eq
+
+
+def morgan_kernel(
+    inv0: torch.Tensor,       # [B, A] int32 (u32 bits)
+    adj_atoms: torch.Tensor,  # [B, A, K] uint8 or integer
+    adj_code: torch.Tensor,   # [B, A, K] uint8 or integer
+    adj_mask: torch.Tensor,   # [B, A, K] bool
+    own_bits: torch.Tensor,   # [B, A, W] int32 (u32 bits)
+    atom_mask: torch.Tensor,  # [B, A] bool
+    degree: torch.Tensor,     # [B, A] uint8 or integer
+    *,
+    radius: int,
+    fp_size: int,
+) -> torch.Tensor:
+    """Packed fingerprints [B, fp_size / 32] int32 (u32 bits)."""
+    B, A, K = adj_atoms.shape
+    dev = inv0.device
+    # widen the narrow transfer dtypes on the device
+    inv = inv0.to(torch.int64) & MASK32
+    adj_atoms = adj_atoms.to(torch.int64)
+    adj_code = adj_code.to(torch.int64)
+    degree = degree.to(torch.int64)
+    nbr_index = adj_atoms.reshape(B, A * K)
+
+    bits = torch.zeros((B, fp_size + 1), dtype=torch.uint8, device=dev)
+    _set_bits(bits, inv, atom_mask, fp_size)
+
+    nbr = torch.zeros_like(own_bits)
+    alive = atom_mask & (degree > 0)
+    seen: list[tuple[torch.Tensor, torch.Tensor]] = []  # (bitsets, survivors) per round
+    atom_idx = torch.arange(A, device=dev)
+    # [i, j]: atom j precedes atom i in index order
+    idx_lt = atom_idx[None, :] < atom_idx[:, None]
+
+    for rnd in range(1, radius + 1):
+        nbr_inv = torch.gather(inv, 1, nbr_index).reshape(B, A, K)
+        code = torch.where(adj_mask, adj_code, _EMPTY_CODE)
+        key, _ = torch.sort((code << 32) | nbr_inv, dim=2)
+        code_s, inv_s = key >> 32, key & MASK32
+
+        seed = hash_combine_u32(torch.zeros_like(inv), rnd)
+        seed = hash_combine_u32(seed, inv)
+        for k in range(K):
+            s2 = hash_combine_u32(hash_combine_u32(seed, code_s[:, :, k]), inv_s[:, :, k])
+            seed = torch.where(k < degree, s2, seed)
+        next_inv = torch.where(atom_mask & (degree > 0), seed, inv)
+
+        # grow neighborhoods: own bonds | previous self | previous neighbors
+        gathered = torch.gather(
+            nbr, 1, nbr_index[:, :, None].expand(B, A * K, nbr.shape[-1])
+        ).reshape(B, A, K, -1)
+        nbr_new = nbr | own_bits
+        for k in range(K):
+            nbr_new |= torch.where(adj_mask[:, :, k, None], gathered[:, :, k], 0)
+
+        # same-round duplicates: j kills i when their bitsets are equal and
+        # j precedes i in (invariant, index) order
+        key_lt = (next_inv[:, None, :] < next_inv[:, :, None]) | (
+            (next_inv[:, None, :] == next_inv[:, :, None]) & idx_lt
+        )
+        killer = _all_words_equal(nbr_new, nbr_new) & key_lt
+        killer &= alive[:, None, :] & alive[:, :, None]
+        dead = killer.any(dim=2)
+        # duplicates of neighborhoods accepted in earlier rounds
+        for prev_bits, prev_ok in seen:
+            dead |= (_all_words_equal(prev_bits, nbr_new) & prev_ok[:, :, None]).any(dim=1)
+
+        newly_dead = alive & dead
+        survivors = alive & ~newly_dead
+        _set_bits(bits, next_inv, survivors, fp_size)
+        seen.append((nbr_new, survivors))
+        alive = survivors
+        inv = next_inv
+        nbr = nbr_new
+
+    return pack_bits(bits[:, :fp_size])

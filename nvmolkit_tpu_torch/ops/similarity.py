@@ -1,0 +1,171 @@
+"""Cross Tanimoto/cosine similarity and neighbor counts over packed fingerprints.
+
+Fingerprints are int32 tensors [n, W] holding the u32 words (W = fpSize/32).
+Each operation has two versions with the same results:
+
+* the kernel in ``csrc/similarity.cu`` (K1 ``cross_similarity_kernel``,
+  K2 ``neighbor_counts_kernel``), launched for CUDA tensors on the current
+  stream; a build or launch failure raises, there is no fallback;
+* the plain PyTorch version (``*_plain``), used for CPU tensors and by the
+  tests and ``chip_smoke.py`` as the reference on the card. It unpacks the
+  bits to float32 and runs one matmul, which is exact: every count is an
+  integer <= 4096 < 2**24.
+
+``launch_counts`` counts the kernel launches of each wrapper.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from nvmolkit_tpu_torch._build import similarity_lib
+from nvmolkit_tpu_torch.ops.packed_bits import popcount_rows, unpack_bits
+
+METRICS = {"tanimoto": 0, "cosine": 1}
+MAX_WORDS = 128  # 4096 bits
+_TILE = 64       # output rows/columns per block (csrc/similarity.cu)
+_MAX_GRID_Y = 65535
+_PLAIN_BLOCK = 4096  # rows/columns per tile of neighbor_counts_plain
+
+launch_counts = {"cross_similarity": 0, "neighbor_counts": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+def _metric_id(metric: str) -> int:
+    if metric not in METRICS:
+        raise ValueError(f"unknown metric {metric!r}")
+    return METRICS[metric]
+
+
+def _check_fps(x: torch.Tensor, name: str) -> None:
+    if x.dim() != 2 or x.dtype != torch.int32:
+        raise ValueError(f"{name} must be a 2-D int32 tensor of packed words, got {x.dtype} {tuple(x.shape)}")
+    if not 0 < x.shape[1] <= MAX_WORDS:
+        raise ValueError(f"{name} has {x.shape[1]} words per row; 1..{MAX_WORDS} are supported")
+
+
+def _check_cuda(*tensors: torch.Tensor) -> None:
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"tensors on different devices: {t.device} and {dev}")
+        if not t.is_contiguous():
+            raise ValueError("kernel inputs must be contiguous")
+
+
+def _raise_on(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed with CUDA error {rc}")
+
+
+def _similarity_from_counts(common, pa, pb, metric: str) -> torch.Tensor:
+    """Epilogue of the plain versions: float32 counts -> similarity."""
+    if metric == "tanimoto":
+        denom = pa[:, None] + pb[None, :] - common
+    else:
+        denom = torch.sqrt(pa[:, None] * pb[None, :])
+    return torch.where(denom > 0, common / denom, 0.0)
+
+
+def cross_similarity_plain(a: torch.Tensor, b: torch.Tensor, metric: str = "tanimoto") -> torch.Tensor:
+    """Dense [n, m] float32 similarity: unpack to float32, one matmul."""
+    _metric_id(metric)
+    common = unpack_bits(a) @ unpack_bits(b).T
+    pa = popcount_rows(a).to(torch.float32)
+    pb = popcount_rows(b).to(torch.float32)
+    return _similarity_from_counts(common, pa, pb, metric)
+
+
+def cross_similarity(a: torch.Tensor, b: torch.Tensor, metric: str = "tanimoto") -> torch.Tensor:
+    """Dense [n, m] float32 similarity of a [n, W] against b [m, W]:
+    kernel K1 for CUDA tensors, the plain version for CPU tensors."""
+    metric_id = _metric_id(metric)
+    _check_fps(a, "a")
+    _check_fps(b, "b")
+    if a.shape[1] != b.shape[1]:
+        raise ValueError(f"word counts differ: {a.shape[1]} and {b.shape[1]}")
+    if not a.is_cuda:
+        if b.is_cuda:
+            raise ValueError("a is on the CPU and b on CUDA")
+        return cross_similarity_plain(a, b, metric)
+    _check_cuda(a, b)
+    n, m = a.shape[0], b.shape[0]
+    if (n + _TILE - 1) // _TILE > _MAX_GRID_Y:
+        raise ValueError(f"{n} rows exceed the kernel's grid; split the call")
+    out = torch.empty((n, m), dtype=torch.float32, device=a.device)
+    lib = similarity_lib()
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.nvmk_cross_similarity(
+            a.data_ptr(), n, b.data_ptr(), m, a.shape[1], metric_id, out.data_ptr(), stream
+        )
+    _raise_on(rc, "cross_similarity")
+    launch_counts["cross_similarity"] += 1
+    return out
+
+
+def neighbor_counts_plain(
+    fps: torch.Tensor, cols: torch.Tensor, threshold: float, metric: str = "tanimoto",
+) -> torch.Tensor:
+    """counts[i] = #{r : sim(fps[i], fps[cols[r]]) >= threshold} (int32),
+    computed over [_PLAIN_BLOCK, _PLAIN_BLOCK] tiles, so memory stays
+    O(N + R) whatever the number of columns."""
+    thr = float(np.float32(threshold))
+    counts = torch.zeros(fps.shape[0], dtype=torch.int32, device=fps.device)
+    for c0 in range(0, cols.shape[0], _PLAIN_BLOCK):
+        b = fps[cols[c0:c0 + _PLAIN_BLOCK]]
+        for r0 in range(0, fps.shape[0], _PLAIN_BLOCK):
+            sim = cross_similarity_plain(fps[r0:r0 + _PLAIN_BLOCK], b, metric)
+            counts[r0:r0 + _PLAIN_BLOCK] += (sim >= thr).sum(dim=1, dtype=torch.int32)
+    return counts
+
+
+def neighbor_counts(
+    fps: torch.Tensor, cols: torch.Tensor, threshold: float, metric: str = "tanimoto",
+) -> torch.Tensor:
+    """Neighbor counts of every row of ``fps`` [N, W] among the rows
+    ``cols`` (int64 [R]), where a neighbor has similarity >= ``threshold``
+    (compared in float32). Kernel K2 on CUDA, else plain."""
+    metric_id = _metric_id(metric)
+    _check_fps(fps, "fps")
+    if cols.dim() != 1 or cols.dtype != torch.int64:
+        raise ValueError("cols must be a 1-D int64 tensor")
+    if not fps.is_cuda:
+        return neighbor_counts_plain(fps, cols, threshold, metric)
+    _check_cuda(fps, cols)
+    n, r = fps.shape[0], cols.shape[0]
+    counts = torch.zeros(n, dtype=torch.int32, device=fps.device)
+    # enough blocks to fill the card when there are few row tiles: column
+    # tiles are split over up to 8 groups, each adding into counts
+    col_tiles = (r + _TILE - 1) // _TILE
+    col_groups = max(1, min(col_tiles, 8))
+    lib = similarity_lib()
+    with torch.cuda.device(fps.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.nvmk_neighbor_counts(
+            fps.data_ptr(), n, fps.shape[1], cols.data_ptr(), r,
+            float(np.float32(threshold)), metric_id, counts.data_ptr(), col_groups, stream,
+        )
+    _raise_on(rc, "neighbor_counts")
+    launch_counts["neighbor_counts"] += 1
+    return counts
+
+
+def cross_similarity_chunked(
+    a: torch.Tensor, b: torch.Tensor, metric: str = "tanimoto",
+    max_device_memory_bytes: int = 2 << 30,
+) -> np.ndarray:
+    """Memory-bounded variant: the [n, m] output is computed in row blocks
+    (two float32 blocks fit in ``max_device_memory_bytes``) and each block
+    is copied into one host numpy array."""
+    n, m = a.shape[0], b.shape[0]
+    rows_per_chunk = max(1, int(max_device_memory_bytes // (2 * 4 * max(m, 1))))
+    out = np.empty((n, m), dtype=np.float32)
+    for start in range(0, n, rows_per_chunk):
+        stop = min(start + rows_per_chunk, n)
+        out[start:stop] = cross_similarity(a[start:stop], b, metric).cpu().numpy()
+    return out

@@ -1,0 +1,98 @@
+"""Public result types and the ``stream=`` argument.
+
+Mirrors ``nvmolkit_tpu/types.py``: :class:`AsyncResult` wraps a
+``torch.Tensor`` whose kernels were queued on a CUDA stream and may still
+be running. ``.torch()`` hands the tensor over without a copy or a sync;
+``.numpy()`` waits for it and copies it to the host.
+"""
+from __future__ import annotations
+
+import contextlib
+
+import numpy as np
+import torch
+
+from nvmolkit_tpu_torch.utils.config import HardwareOptions
+
+
+def check_stream_arg(stream) -> None:
+    """Accept ``None`` or a ``torch.cuda.Stream``, as nvMolKit does."""
+    if stream is not None and not isinstance(stream, torch.cuda.Stream):
+        raise TypeError(
+            f"stream must be None or a torch.cuda.Stream, got {type(stream).__name__}"
+        )
+
+
+def stream_scope(stream):
+    """Context in which kernels launch on ``stream`` (the current stream
+    when ``stream`` is None)."""
+    check_stream_arg(stream)
+    return contextlib.nullcontext() if stream is None else torch.cuda.stream(stream)
+
+
+def resolve_device(hardwareOptions: HardwareOptions | None, device=None) -> torch.device:
+    """The device a call runs on: ``device`` if given, else the single
+    entry of ``hardwareOptions.deviceIds``, else ``cuda:0`` when CUDA is
+    available and the CPU otherwise."""
+    if device is not None:
+        return torch.device(device)
+    ids = hardwareOptions.deviceIds if hardwareOptions is not None else []
+    if len(ids) > 1:
+        raise NotImplementedError("more than one entry in deviceIds is not supported yet")
+    if ids:
+        return torch.device("cuda", ids[0])
+    return torch.device("cuda", 0) if torch.cuda.is_available() else torch.device("cpu")
+
+
+def input_device(x, device=None, hardwareOptions: HardwareOptions | None = None) -> torch.device:
+    """The device a call on input ``x`` runs on: ``device`` or
+    ``hardwareOptions.deviceIds`` if given, else the device of a tensor or
+    AsyncResult ``x``, else (host arrays) :func:`resolve_device`'s default."""
+    if device is None and not (hardwareOptions is not None and hardwareOptions.deviceIds):
+        if isinstance(x, (torch.Tensor, AsyncResult)):
+            return x.device
+    return resolve_device(hardwareOptions, device)
+
+
+class AsyncResult:
+    """Handle to a tensor computed by queued device work.
+
+    ``numpy_dtype`` reinterprets the host copy: packed fingerprint words
+    are carried as int32 tensors (PyTorch has no uint32 arithmetic) and
+    come back from ``.numpy()`` as uint32, as in the JAX package.
+    """
+
+    def __init__(self, tensor: torch.Tensor, numpy_dtype=None):
+        self._tensor = tensor
+        self._numpy_dtype = numpy_dtype
+
+    def torch(self) -> torch.Tensor:
+        """The tensor itself, on its device; no copy, no sync."""
+        return self._tensor
+
+    def numpy(self) -> np.ndarray:
+        self.block_until_ready()
+        out = self._tensor.detach().cpu().numpy()
+        return out.view(self._numpy_dtype) if self._numpy_dtype is not None else out
+
+    def block_until_ready(self) -> "AsyncResult":
+        if self._tensor.is_cuda:
+            # the work may have been queued on any stream of the device
+            torch.cuda.synchronize(self._tensor.device)
+        return self
+
+    @property
+    def device(self) -> torch.device:
+        return self._tensor.device
+
+    @property
+    def shape(self):
+        return tuple(self._tensor.shape)
+
+    @property
+    def dtype(self):
+        return self._tensor.dtype
+
+    def __array__(self, dtype=None, copy=None):
+        out = self.numpy()
+        return out.astype(dtype) if dtype is not None else out

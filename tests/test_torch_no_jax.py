@@ -1,0 +1,52 @@
+"""nvmolkit_tpu_torch imports and runs where JAX cannot be imported.
+
+The GPU machines the port targets have no JAX, and the JAX package
+imports it at package import; the port must touch neither.
+"""
+import pathlib
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+_SCRIPT = r"""
+import sys
+sys.modules["jax"] = None  # any `import jax` now raises ImportError
+sys.path.insert(0, {root!r})
+import numpy as np
+
+from nvmolkit_tpu_torch.clustering import butina, fused_butina
+from nvmolkit_tpu_torch.fingerprints import MorganFingerprintGenerator
+from nvmolkit_tpu_torch.similarity import crossTanimotoSimilarity
+from tests.data.smiles import SMILES_100
+
+smiles = SMILES_100[:50]
+fps = MorganFingerprintGenerator(3, 2048).GetFingerprintsFromSmiles(smiles, device="cpu")
+sim = crossTanimotoSimilarity(fps)
+ids, cent = butina(1.0 - sim.torch(), 0.4, return_centroids=True)
+clusters, sizes = fused_butina(fps, 0.4)
+assert fps.numpy().shape == (50, 64) and sim.numpy().shape == (50, 50)
+assert int(sizes.sum()) == 50 and len(cent) == int(ids.numpy().max()) + 1
+leaked = sorted(m for m in sys.modules if m == "jax" and sys.modules[m] is not None
+                or m.startswith(("jax.", "jaxlib", "nvmolkit_tpu.")) or m == "nvmolkit_tpu")
+assert not leaked, leaked
+print("OK", len(clusters))
+"""
+
+
+def test_port_runs_without_jax():
+    proc = subprocess.run(
+        [sys.executable, "-c", _SCRIPT.format(root=str(ROOT))],
+        capture_output=True, text=True, timeout=300, cwd=ROOT,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.startswith("OK")
+
+
+def test_port_sources_do_not_import_jax():
+    for path in sorted((ROOT / "nvmolkit_tpu_torch").rglob("*.py")):
+        for line in path.read_text().splitlines():
+            words = line.split()
+            if words[:1] in (["import"], ["from"]) and len(words) > 1:
+                module = words[1].split(".")[0]
+                assert module not in ("jax", "jaxlib", "nvmolkit_tpu"), f"{path}: {line}"
