@@ -78,10 +78,11 @@ def _load(name: str, build, declare) -> ctypes.CDLL:
 
 def _declare_similarity(lib: ctypes.CDLL) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.nvmk_cross_similarity.restype = ci
-    lib.nvmk_cross_similarity.argtypes = [vp, ci, vp, ci, ci, ci, vp, vp]
+    for fn in (lib.nvmk_cross_similarity, lib.nvmk_few_columns_similarity):
+        fn.restype = ci
+        fn.argtypes = [vp, vp, ci, vp, ci, ci, ci, vp, vp]
     lib.nvmk_neighbor_counts.restype = ci
-    lib.nvmk_neighbor_counts.argtypes = [vp, ci, ci, vp, ci, ctypes.c_float, ci, vp, ci, vp]
+    lib.nvmk_neighbor_counts.argtypes = [vp, vp, ci, ci, vp, ci, ctypes.c_float, ci, vp, ci, vp]
 
 
 def _declare_graph(lib: ctypes.CDLL) -> None:

@@ -23,6 +23,20 @@ def _ptr(a: np.ndarray, ptype):
     return a.ctypes.data_as(ptype)
 
 
+def num_atoms(smiles: list[str], n_threads: int = 0) -> np.ndarray:
+    """Heavy-atom count of each SMILES (int32), -1 where the featurizer
+    rejects it."""
+    lib = _build.graph_lib()
+    arr = (ctypes.c_char_p * len(smiles))(*[s.encode() for s in smiles])
+    handle = lib.nvmk_parse_batch(arr, len(smiles), n_threads)
+    if not handle:
+        raise RuntimeError("nvmk_parse_batch failed")
+    try:
+        return np.array([lib.nvmk_num_atoms(handle, k) for k in range(len(smiles))], np.int32)
+    finally:
+        lib.nvmk_free(handle)
+
+
 def morgan_batches_from_smiles(
     smiles: list[str],
     atom_buckets: tuple[int, ...],

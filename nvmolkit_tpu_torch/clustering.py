@@ -8,7 +8,7 @@ Mirrors ``nvmolkit_tpu/clustering.py``:
 
 Cluster ids are renumbered so cluster 0 is the largest. The work runs on
 ``device`` if given, else on the input tensor's device (host arrays:
-``cuda:0`` when CUDA is available, else the CPU).
+``cuda:0``; without CUDA they raise unless ``device="cpu"`` is passed).
 """
 from __future__ import annotations
 

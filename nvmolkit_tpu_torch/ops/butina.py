@@ -11,7 +11,10 @@ by size, largest first, stable in formation order.
 * :func:`fused_butina` runs over packed fingerprints in O(N) memory: the
   neighbor counts come from kernel K2 (``ops/similarity.neighbor_counts``)
   and are decremented by K2 over each new cluster's members; the center's
-  neighbors are one column of kernel K1 (``ops/similarity.cross_similarity``).
+  neighbors are one column of kernel K1 (``ops/similarity.cross_similarity``,
+  its few-column configuration). Both run over the free rows only: the loop
+  keeps an ascending list of them and their counts, compacted after each
+  cluster.
 
 Both loops run on the tensors' device with two host syncs per cluster (the
 stop test and the member count); a device-side loop is queued in
@@ -25,11 +28,11 @@ import torch
 from nvmolkit_tpu_torch.ops.similarity import cross_similarity, neighbor_counts
 
 
-def _best(x: torch.Tensor) -> tuple[int, int]:
-    """(maximum, index of the maximum) of a 1-D integer tensor, ties to
-    the highest index ("argmax-last"); one host sync."""
-    n = x.shape[0]
-    key = x.to(torch.int64) * n + torch.arange(n, device=x.device)
+def _best(x: torch.Tensor, rows: torch.Tensor, n: int) -> tuple[int, int]:
+    """(maximum of ``x``, its row), ties to the highest row ("argmax-last");
+    ``rows`` holds the distinct row of each entry, each below ``n``. One
+    host sync."""
+    key = torch.add(rows, x, alpha=n)  # rows + n * x, in int64: one launch
     best = int(key.max())
     return best // n, best % n
 
@@ -73,9 +76,10 @@ def butina_matrix(hits: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, int]:
     free = torch.ones(n, dtype=torch.bool, device=dev)
     cluster_raw = torch.full((n,), -1, dtype=torch.int64, device=dev)
     centroids: list[int] = []
+    rows = torch.arange(n, device=dev)
     while n:
         masked = torch.where(free, counts, 0)
-        best, center = _best(masked)
+        best, center = _best(masked, rows, n)
         if best <= 1:
             break
         members = torch.nonzero(hits[center] & free).squeeze(1)
@@ -87,7 +91,7 @@ def butina_matrix(hits: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, int]:
 
 
 def fused_butina(
-    fps: torch.Tensor, threshold: float, metric: str = "tanimoto"
+    fps: torch.Tensor, threshold: float, metric: str = "tanimoto", on_cluster=None,
 ) -> tuple[torch.Tensor, torch.Tensor, int]:
     """O(N)-memory Butina over packed fingerprints [N, W] (int32 words):
     items are neighbors iff similarity >= ``threshold`` (float32). Returns
@@ -95,25 +99,33 @@ def fused_butina(
 
     As in the JAX version an item is its own neighbor only through its
     similarity (a zero fingerprint is not), and a cluster's center is
-    always one of its members.
+    always one of its members. ``on_cluster(free_before, center, members,
+    free_after)``, if given, sees each cluster as it forms: the free rows
+    that K1 ran over, the center, the members, and the free rows that K2
+    then runs over.
     """
     n = fps.shape[0]
     dev = fps.device
     thr = float(np.float32(threshold))
-    counts = neighbor_counts(fps, torch.arange(n, device=dev), threshold, metric)
+    free_rows = torch.arange(n, device=dev)  # ascending, so argmax-last stays right
+    counts = neighbor_counts(fps, free_rows, threshold, metric)  # counts[i]: free_rows[i]
     free = torch.ones(n, dtype=torch.bool, device=dev)
     cluster_raw = torch.full((n,), -1, dtype=torch.int64, device=dev)
     centroids: list[int] = []
-    while n:
-        masked = torch.where(free, counts, 0)
-        best, center = _best(masked)
+    n_free = n
+    while n_free:
+        best, center = _best(counts, free_rows, n)
         if best <= 1:
             break
-        hit = cross_similarity(fps, fps[center:center + 1], metric)[:, 0] >= thr
-        members = hit & free
-        members[center].fill_(True)
-        members = torch.nonzero(members).squeeze(1)
+        sim = cross_similarity(fps, fps[center:center + 1], metric, a_rows=free_rows)
+        hit = (sim[:, 0] >= thr) | (free_rows == center)
+        members = free_rows[torch.nonzero(hit).squeeze(1)]
+        n_free -= members.shape[0]
+        keep = torch.nonzero_static(~hit, size=n_free).squeeze(1)
+        before, free_rows, counts = free_rows, free_rows[keep], counts[keep]
         _take(cluster_raw, free, members, len(centroids))
         centroids.append(center)
-        counts -= neighbor_counts(fps, members, threshold, metric)
+        if on_cluster is not None:
+            on_cluster(before, center, members, free_rows)
+        counts -= neighbor_counts(fps, members, threshold, metric, rows=free_rows)
     return _finish(cluster_raw, free, centroids)

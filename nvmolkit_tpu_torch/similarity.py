@@ -6,7 +6,7 @@ Mirrors ``nvmolkit_tpu/similarity.py``: ``crossTanimotoSimilarity`` and
 row blocks and return host numpy. Fingerprints are packed uint32/int32
 (arrays, tensors or AsyncResults); int32 is read as uint32. The work runs
 on ``device`` if given, else on the first input's device (host arrays:
-``cuda:0`` when CUDA is available, else the CPU).
+``cuda:0``; without CUDA they raise unless ``device="cpu"`` is passed).
 """
 from __future__ import annotations
 

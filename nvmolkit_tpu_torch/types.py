@@ -32,8 +32,9 @@ def stream_scope(stream):
 
 def resolve_device(hardwareOptions: HardwareOptions | None, device=None) -> torch.device:
     """The device a call runs on: ``device`` if given, else the single
-    entry of ``hardwareOptions.deviceIds``, else ``cuda:0`` when CUDA is
-    available and the CPU otherwise."""
+    entry of ``hardwareOptions.deviceIds``, else ``cuda:0``. Without CUDA
+    the last raises: a run on the CPU is asked for with ``device="cpu"``,
+    never taken in silence."""
     if device is not None:
         return torch.device(device)
     ids = hardwareOptions.deviceIds if hardwareOptions is not None else []
@@ -41,13 +42,19 @@ def resolve_device(hardwareOptions: HardwareOptions | None, device=None) -> torc
         raise NotImplementedError("more than one entry in deviceIds is not supported yet")
     if ids:
         return torch.device("cuda", ids[0])
-    return torch.device("cuda", 0) if torch.cuda.is_available() else torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device=\"cpu\" to run the plain "
+            "PyTorch versions on the CPU"
+        )
+    return torch.device("cuda", 0)
 
 
 def input_device(x, device=None, hardwareOptions: HardwareOptions | None = None) -> torch.device:
     """The device a call on input ``x`` runs on: ``device`` or
     ``hardwareOptions.deviceIds`` if given, else the device of a tensor or
-    AsyncResult ``x``, else (host arrays) :func:`resolve_device`'s default."""
+    AsyncResult ``x`` (the caller put it there), else (host arrays)
+    :func:`resolve_device`'s ``cuda:0``."""
     if device is None and not (hardwareOptions is not None and hardwareOptions.deviceIds):
         if isinstance(x, (torch.Tensor, AsyncResult)):
             return x.device

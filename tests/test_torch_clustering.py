@@ -15,20 +15,21 @@ from nvmolkit_tpu_torch.clustering import butina, fused_butina
 from nvmolkit_tpu_torch.fingerprints import MorganFingerprintGenerator
 from nvmolkit_tpu_torch.interop import fps_from_reference
 from nvmolkit_tpu_torch.ops.butina import butina_matrix
+from nvmolkit_tpu_torch.ops.butina import fused_butina as fused_ops
 from tests.data.smiles import SMILES_100
 
 
 def _assert_butina_equal(dist, cutoff):
-    got_ids, got_cent = butina(dist, cutoff, return_centroids=True)
+    got_ids, got_cent = butina(dist, cutoff, return_centroids=True, device="cpu")
     want_ids, want_cent = jax_butina(dist, cutoff, return_centroids=True)
     assert got_ids.dtype == torch.int32
     np.testing.assert_array_equal(got_ids.numpy(), want_ids.numpy())
     np.testing.assert_array_equal(got_cent, want_cent)
-    np.testing.assert_array_equal(butina(dist, cutoff).numpy(), want_ids.numpy())
+    np.testing.assert_array_equal(butina(dist, cutoff, device="cpu").numpy(), want_ids.numpy())
 
 
 def _assert_fused_equal(fps, cutoff, metric):
-    got = fused_butina(fps, cutoff, return_centroids=True, metric=metric)
+    got = fused_butina(fps, cutoff, return_centroids=True, metric=metric, device="cpu")
     want = jax_fused(fps, cutoff, return_centroids=True, metric=metric)
     assert got[0] == want[0]
     np.testing.assert_array_equal(got[1], want[1])
@@ -39,7 +40,7 @@ def _assert_fused_equal(fps, cutoff, metric):
 def test_hand_case():
     pts = np.array([0.0, 1.0, 2.0, 10.0], np.float32)
     dist = np.abs(pts[:, None] - pts[None, :])
-    ids = butina(dist, 1.5).numpy()
+    ids = butina(dist, 1.5, device="cpu").numpy()
     assert ids.tolist() == [0, 0, 0, 1]
     _assert_butina_equal(dist, 1.5)
 
@@ -59,16 +60,16 @@ def test_argmax_last_tie_break():
     hits[0, 1] = hits[1, 0] = hits[2, 3] = hits[3, 2] = True
     dist = np.where(hits, 0.1, 5.0).astype(np.float32)
     np.fill_diagonal(dist, 0.0)
-    _, cent = butina(dist, 1.0, return_centroids=True)
+    _, cent = butina(dist, 1.0, return_centroids=True, device="cpu")
     assert cent[0] == 3  # the last maximum is extracted first
     _assert_butina_equal(dist, 1.0)
 
 
 def test_cutoff_is_inclusive():
     dist = np.array([[0.0, 0.5], [0.5, 0.0]], np.float32)
-    ids = butina(dist, 0.5).numpy()
+    ids = butina(dist, 0.5, device="cpu").numpy()
     assert ids[0] == ids[1]
-    ids = butina(dist, 0.49999).numpy()
+    ids = butina(dist, 0.49999, device="cpu").numpy()
     assert ids[0] != ids[1]
     for cutoff in (0.5, 0.49999):
         _assert_butina_equal(dist, cutoff)
@@ -84,7 +85,7 @@ def test_degenerate_matrices(dist):
 
 @pytest.mark.parametrize("metric", ["tanimoto", "cosine"])
 def test_single_item_and_zero_fingerprints(metric):
-    clusters, sizes = fused_butina(np.zeros((1, 4), np.uint32), 0.5, metric=metric)
+    clusters, sizes = fused_butina(np.zeros((1, 4), np.uint32), 0.5, metric=metric, device="cpu")
     assert clusters == [(0,)] and sizes.tolist() == [1]
     rng = np.random.default_rng(4)
     fps = np.repeat(rng.integers(0, 2**32, (3, 4), dtype=np.uint64).astype(np.uint32), 3, axis=0)
@@ -124,6 +125,46 @@ def test_fused_tie_heavy_1600_rows():
     assert len(fps) == 1600 and sizes[:96].tolist() == [16] * 96
 
 
+def _clustered_3000():
+    """3000 noisy copies of 60 centers, every 151st row zero."""
+    rng = np.random.default_rng(3000)
+    centers = rng.integers(0, 2**32, (60, 8), dtype=np.uint64).astype(np.uint32)
+    noise = rng.integers(0, 2**32, (3000, 8), dtype=np.uint64).astype(np.uint32)
+    for _ in range(3):
+        noise &= rng.integers(0, 2**32, (3000, 8), dtype=np.uint64).astype(np.uint32)
+    fps = centers[rng.integers(0, 60, 3000)] ^ noise
+    fps[::151] = 0
+    return fps
+
+
+def test_fused_clustered_3000_rows():
+    clusters, sizes, _ = _assert_fused_equal(_clustered_3000(), 0.5, "tanimoto")
+    assert sizes.sum() == 3000 and sizes[0] > 40
+
+
+def test_fused_loop_runs_over_free_rows_only():
+    """Each cluster's K1 column runs over the free rows before it and its
+    K2 decrement over those after it: ascending, the members taken out,
+    and the members exactly the free rows at the threshold (center
+    included)."""
+    fps = _clustered_3000()
+    t = fps_from_reference(fps)
+    seen = []
+    ids, cent, k = fused_ops(t, 0.5, "tanimoto",
+                             on_cluster=lambda *c: seen.append([x.clone() if torch.is_tensor(x)
+                                                                else x for x in c]))
+    free = np.arange(3000)
+    sim = cross_similarity_cpu(fps, fps, "tanimoto").astype(np.float32)
+    for before, center, members, after in seen:
+        np.testing.assert_array_equal(before.numpy(), free)
+        want = free[(sim[free, center] >= np.float32(0.5)) | (free == center)]
+        np.testing.assert_array_equal(members.numpy(), want)
+        free = np.setdiff1d(free, want)
+        np.testing.assert_array_equal(after.numpy(), free)
+    assert len(seen) == int((np.bincount(ids.numpy()) >= 2).sum())
+    assert sum(len(c[0]) for c in seen) < len(seen) * 3000  # rows were saved
+
+
 @pytest.mark.parametrize("metric", ["tanimoto", "cosine"])
 def test_fused_on_morgan_fingerprints_matches_jax(metric):
     fps = MorganFingerprintGenerator(2, 512).GetFingerprintsFromSmiles(
@@ -150,28 +191,28 @@ def test_butina_plain_matches_jax_oracle(seed):
 def test_fused_input_forms_agree():
     fps = np.random.default_rng(6).integers(0, 2**32, (30, 4), dtype=np.uint64).astype(np.uint32)
     fps[10:20] = fps[0]
-    want = fused_butina(fps, 0.5)
-    assert fused_butina(fps.view(np.int32), 0.5)[0] == want[0]
-    assert fused_butina(fps_from_reference(fps), 0.5)[0] == want[0]
+    want = fused_butina(fps, 0.5, device="cpu")
+    assert fused_butina(fps.view(np.int32), 0.5, device="cpu")[0] == want[0]
+    assert fused_butina(fps_from_reference(fps), 0.5)[0] == want[0]  # a CPU tensor stays there
 
 
 def test_device_argument():
     fps = np.random.default_rng(7).integers(0, 2**32, (20, 4), dtype=np.uint64).astype(np.uint32)
     fps[5:12] = fps[0]
-    want = fused_butina(fps, 0.5)
+    want = fused_butina(fps_from_reference(fps), 0.5)  # runs where the tensor is
     assert fused_butina(fps, 0.5, device="cpu")[0] == want[0]
     assert fused_butina(fps_from_reference(fps), 0.5, device=torch.device("cpu"))[0] == want[0]
     pts = np.random.default_rng(8).random((12, 2))
     dist = np.linalg.norm(pts[:, None] - pts[None, :], axis=-1).astype(np.float32)
     ids = butina(dist, 0.3, device="cpu")
     assert ids.device == torch.device("cpu")
-    np.testing.assert_array_equal(ids.numpy(), butina(dist, 0.3).numpy())
+    np.testing.assert_array_equal(ids.numpy(), butina(torch.from_numpy(dist), 0.3).numpy())
 
 
 def test_validation():
     with pytest.raises(ValueError):
-        butina(np.zeros((3, 4), np.float32), 0.5)
+        butina(np.zeros((3, 4), np.float32), 0.5, device="cpu")
     with pytest.raises(ValueError):
-        fused_butina(np.zeros((3, 8), np.uint32), 0.5, metric="nope")
+        fused_butina(np.zeros((3, 8), np.uint32), 0.5, metric="nope", device="cpu")
     with pytest.raises(TypeError):
-        butina(np.zeros((3, 3), np.float32), 0.5, stream="default")
+        butina(np.zeros((3, 3), np.float32), 0.5, stream="default", device="cpu")

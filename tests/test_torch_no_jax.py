@@ -3,6 +3,7 @@
 The GPU machines the port targets have no JAX, and the JAX package
 imports it at package import; the port must touch neither.
 """
+import json
 import pathlib
 import subprocess
 import sys
@@ -41,6 +42,35 @@ def test_port_runs_without_jax():
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.startswith("OK")
+
+
+_SMOKE_SCRIPT = r"""
+import importlib.util, json, sys
+for name in ("jax", "jaxlib", "nvmolkit_tpu"):
+    sys.modules[name] = None  # importing any of them now raises ImportError
+sys.path.insert(0, {root!r})
+spec = importlib.util.spec_from_file_location("_chip_smoke", {root!r} + "/chip_smoke.py")
+smoke = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(smoke)
+smiles = smoke.smoke_smiles()
+leaked = sorted(m for m in sys.modules if sys.modules[m] is not None
+                and m.split(".")[0] in ("jax", "jaxlib", "nvmolkit_tpu"))
+assert not leaked, leaked
+print(json.dumps(smiles[-400:]))
+"""
+
+
+def test_chip_smoke_inputs_need_no_jax():
+    """chip_smoke.py builds its SMILES (the random ones included) with the
+    JAX package's modules blocked, and gets tests/molgen.py's list."""
+    from tests.molgen import random_smiles_batch
+
+    proc = subprocess.run(
+        [sys.executable, "-c", _SMOKE_SCRIPT.format(root=str(ROOT))],
+        capture_output=True, text=True, timeout=300, cwd=ROOT,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert json.loads(proc.stdout) == random_smiles_batch(seed=7, n=400)
 
 
 def test_port_sources_do_not_import_jax():

@@ -78,7 +78,7 @@ def test_public_api_matches_jax(api, second, as_int32):
     port_fn = port.crossTanimotoSimilarity if api == "tanimoto" else port.crossCosineSimilarity
     jax_fn = jax_tanimoto if api == "tanimoto" else jax_cosine
     conv = (lambda x: x.view(np.int32)) if as_int32 else (lambda x: x)
-    got = port_fn(conv(a), None if b is None else conv(b))
+    got = port_fn(conv(a), None if b is None else conv(b), device="cpu")
     want = jax_fn(conv(a), None if b is None else conv(b)).numpy()
     assert got.device == torch.device("cpu")
     _assert_close(got.numpy(), want, api)
@@ -87,7 +87,7 @@ def test_public_api_matches_jax(api, second, as_int32):
 def test_public_api_takes_tensors_and_async_results():
     a = _fps(13, 30, 512)
     t = fps_from_reference(a)
-    want = port.crossTanimotoSimilarity(a).numpy()
+    want = port.crossTanimotoSimilarity(a, device="cpu").numpy()
     np.testing.assert_array_equal(port.crossTanimotoSimilarity(t).numpy(), want)
     np.testing.assert_array_equal(port.crossTanimotoSimilarity(t.view(torch.uint32)).numpy(), want)
     wrapped = AsyncResult(t, numpy_dtype=np.uint32)
@@ -102,12 +102,12 @@ def test_memory_constrained_matches_cpu_oracle(metric, max_bytes):
     b = _fps(22, 40, 2048)
     fn = (port.crossTanimotoSimilarityMemoryConstrained if metric == "tanimoto"
           else port.crossCosineSimilarityMemoryConstrained)
-    got = fn(a, b, maxDeviceMemoryBytes=max_bytes)
+    got = fn(a, b, maxDeviceMemoryBytes=max_bytes, device="cpu")
     assert isinstance(got, np.ndarray)
     want = cross_similarity_cpu(a, b, metric)
     # float64 oracle rounded once to float32 equals the float32 division
     _assert_close(got, want.astype(np.float32), metric)
-    _assert_close(fn(a, maxDeviceMemoryBytes=max_bytes), cross_similarity_cpu(a, a, metric)
+    _assert_close(fn(a, maxDeviceMemoryBytes=max_bytes, device="cpu"), cross_similarity_cpu(a, a, metric)
                   .astype(np.float32), metric)
 
 
@@ -174,9 +174,9 @@ def test_interop_round_trip_is_bit_exact():
 
 def test_input_validation():
     with pytest.raises(ValueError):
-        port.crossTanimotoSimilarity(np.zeros((3, 4, 5), dtype=np.uint32))
+        port.crossTanimotoSimilarity(np.zeros((3, 4, 5), dtype=np.uint32), device="cpu")
     with pytest.raises(ValueError):
-        port.crossTanimotoSimilarity(np.zeros((3, 4), dtype=np.float32))
+        port.crossTanimotoSimilarity(np.zeros((3, 4), dtype=np.float32), device="cpu")
     with pytest.raises(ValueError):
         port_ops.cross_similarity(torch.zeros((3, 4), dtype=torch.int32),
                                   torch.zeros((3, 4), dtype=torch.int32), "dice")
@@ -184,4 +184,69 @@ def test_input_validation():
         port_ops.cross_similarity(torch.zeros((3, 4), dtype=torch.int32),
                                   torch.zeros((3, 8), dtype=torch.int32))
     with pytest.raises(TypeError):
-        port.crossTanimotoSimilarity(np.zeros((3, 4), dtype=np.uint32), stream=object())
+        port.crossTanimotoSimilarity(np.zeros((3, 4), dtype=np.uint32), stream=object(),
+                                     device="cpu")
+
+
+# column counts around K1's few-column limit (its configuration changes
+# there on the card; on the CPU every count takes the plain version)
+FEW_M = sorted({1, 2, 7, 8, 9, port_ops.M_SKINNY, port_ops.M_SKINNY + 1})
+
+
+@pytest.mark.parametrize("n_bits", [128, 2048, 4096])
+@pytest.mark.parametrize("m", FEW_M)
+def test_few_columns_and_row_list_match_jax(m, n_bits):
+    """Few columns of B, over all rows of A and over an unsorted list of
+    its rows with repeats, against the JAX package on the gathered rows."""
+    a = _fps(70 + m + n_bits, 77, n_bits, zero_rows=(0, 40))
+    b = _fps(71 + m + n_bits, m, n_bits, zero_rows=(m - 1,) if m > 2 else ())
+    rows = np.random.default_rng(m).integers(0, 77, 53)
+    ta, tb = fps_from_reference(a), fps_from_reference(b)
+    for metric in ("tanimoto", "cosine"):
+        got = port_ops.cross_similarity(ta, tb, metric)
+        _assert_close(got.numpy(), jax_cross_similarity(a, b, metric=metric), metric)
+        got = port_ops.cross_similarity(ta, tb, metric, a_rows=torch.from_numpy(rows))
+        assert got.shape == (53, m)
+        _assert_close(got.numpy(), jax_cross_similarity(a[rows], b, metric=metric), metric)
+
+
+@pytest.mark.parametrize("m", FEW_M)
+def test_row_list_matches_pallas_kernel(m):
+    """The gathered few-column product against the TPU kernel K1 replaces,
+    in interpret mode, on zero-padded blocks."""
+    block = 128
+    a = _fps(90 + m, 200, 2048, zero_rows=(7,))
+    b = _fps(91 + m, m, 2048)
+    rows = np.random.default_rng(90 + m).permutation(200)[:block - 3]
+    pad = lambda x: np.concatenate([x, np.zeros((block - len(x), x.shape[1]), np.uint32)])
+    want = np.asarray(cross_tanimoto_pallas(pad(a[rows]), pad(b), block=block, interpret=True))
+    got = port_ops.cross_similarity(fps_from_reference(a), fps_from_reference(b), "tanimoto",
+                                    a_rows=torch.from_numpy(rows))
+    _assert_close(got.numpy(), want[:len(rows), :m], "tanimoto")
+
+
+@pytest.mark.parametrize("metric", ["tanimoto", "cosine"])
+@pytest.mark.parametrize("threshold", [0.0, 0.3, 1.0])
+def test_neighbor_counts_row_list_equals_indexed_counts(metric, threshold):
+    rng = np.random.default_rng(61)
+    x = _fps(62, 6, 512)[rng.integers(0, 6, 120)] ^ (_fps(63, 120, 512) & _fps(64, 120, 512))
+    x[9] = 0
+    t = fps_from_reference(x)
+    cols = torch.from_numpy(rng.integers(0, 120, 40))
+    rows = torch.from_numpy(np.sort(rng.choice(120, 70, replace=False)))
+    full = port_ops.neighbor_counts(t, cols, threshold, metric)
+    got = port_ops.neighbor_counts(t, cols, threshold, metric, rows=rows)
+    assert got.dtype == torch.int32 and got.shape == (70,)
+    np.testing.assert_array_equal(got.numpy(), full[rows].numpy())
+    np.testing.assert_array_equal(
+        port_ops.neighbor_counts_plain(t, cols, threshold, metric, rows).numpy(), got.numpy())
+    sim = np.asarray(jax_cross_similarity(x[rows.numpy()], x[cols.numpy()], metric=metric))
+    np.testing.assert_array_equal(got.numpy(), (sim >= np.float32(threshold)).sum(axis=1))
+
+
+def test_row_lists_are_validated():
+    t = torch.zeros((5, 4), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        port_ops.cross_similarity(t, t[:1], a_rows=torch.tensor([0, 1], dtype=torch.int32))
+    with pytest.raises(ValueError):
+        port_ops.neighbor_counts(t, torch.tensor([0]), 0.5, rows=torch.zeros((2, 1), dtype=torch.int64))

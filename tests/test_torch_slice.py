@@ -2,6 +2,9 @@
 SMILES -> Morgan fingerprints -> Tanimoto/cosine matrix -> Butina (matrix
 and fused). Every output must be equal; cosine similarities within 1e-6.
 """
+import importlib.util
+import pathlib
+
 import numpy as np
 import pytest
 import torch
@@ -15,6 +18,8 @@ from nvmolkit_tpu_torch.fingerprints import MorganFingerprintGenerator
 from nvmolkit_tpu_torch.types import AsyncResult, check_stream_arg
 from tests.data.smiles import SMILES_100
 from tests.molgen import random_smiles_batch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture(scope="module")
@@ -71,3 +76,48 @@ def test_stream_argument():
     with pytest.raises(TypeError):
         check_stream_arg(0)
     assert nvmolkit_tpu_torch.__version__
+
+
+def _host_calls():
+    """Each public entry point on host inputs (SMILES, numpy)."""
+    fps = np.array([[1, 2, 3, 4], [1, 2, 0, 4], [0, 0, 0, 0]], np.uint32)
+    dist = np.array([[0, 0.2, 1], [0.2, 0, 1], [1, 1, 0]], np.float32)
+    return {
+        "GetFingerprintsFromSmiles": lambda **kw: MorganFingerprintGenerator(2, 1024)
+        .GetFingerprintsFromSmiles(["CCO", "c1ccccc1"], **kw),
+        "crossTanimotoSimilarity": lambda **kw: similarity.crossTanimotoSimilarity(fps, **kw),
+        "crossCosineSimilarity": lambda **kw: similarity.crossCosineSimilarity(fps, fps, **kw),
+        "crossTanimotoSimilarityMemoryConstrained":
+            lambda **kw: similarity.crossTanimotoSimilarityMemoryConstrained(fps, **kw),
+        "crossCosineSimilarityMemoryConstrained":
+            lambda **kw: similarity.crossCosineSimilarityMemoryConstrained(fps, **kw),
+        "butina": lambda **kw: clustering.butina(dist, 0.5, **kw),
+        "fused_butina": lambda **kw: clustering.fused_butina(fps, 0.5, **kw),
+    }
+
+
+@pytest.mark.parametrize("entry", sorted(_host_calls()))
+def test_host_inputs_without_cuda_need_device_cpu(entry):
+    """No silent CPU fallback: without a card, host inputs and no device=
+    raise; device="cpu" runs the plain versions."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present, so host inputs run on cuda:0")
+    call = _host_calls()[entry]
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        call()
+    out = call(device="cpu")
+    first = out[0] if isinstance(out, tuple) else out
+    if isinstance(first, AsyncResult):
+        assert first.device == torch.device("cpu")
+
+
+def test_chip_smoke_smiles_equal_molgen():
+    """chip_smoke.py's copy of the random-SMILES generator (checked by the
+    port's featurizer) gives tests/molgen.py's list."""
+    spec = importlib.util.spec_from_file_location("_chip_smoke", ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    want = random_smiles_batch(seed=7, n=400)
+    assert smoke.random_smiles_batch(seed=7, n=400) == want
+    got = smoke.smoke_smiles()
+    assert len(got) == 24_500 and got[-400:] == want and got[24_000:24_100] == SMILES_100
