@@ -1,37 +1,56 @@
 #!/usr/bin/env python3
-"""Smoke run of nvmolkit_tpu_torch's main path on one NVIDIA GPU.
+"""Smoke run of nvmolkit_tpu_torch's paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Phases, each reported as one JSON line with its seconds:
   0. device: the card's name and power limit;
-  1. build: the similarity kernels (nvcc) and the SMILES featurizer (g++),
-     from the sources in this checkout;
+  1. build: the similarity kernels and the conformer RMSD kernel (nvcc) and
+     the SMILES featurizer (g++), from the sources in this checkout, all
+     three compilers started together;
   2. kernels: K1 (cross similarity, both launch configurations) and K2
      (neighbor counts) against their plain PyTorch versions at side shapes
      (ragged, zero rows, 128..4096 bits, with and without row lists, the
      column counts around the few-column limit M_SKINNY, 100k rows), and
      the median time of each, kernel and plain, at 16384 x 16384
-     fingerprints of 2048 bits;
+     fingerprints of 2048 bits; K3 (conformer RMSD) against its plain
+     version on ragged batches (2..300 conformers, 3..256 atoms, heavy-atom
+     masks, prealigned or not, from a flat stack and through a row list
+     with holes, and through GetConformerRMSMatrixBatch(positionsFrom=...)),
+     with exact rigid copies below the near-zero bound;
   3. main path: ~24.5k SMILES -> Morgan (r=3, 2048 bits) -> Tanimoto matrix
      -> Butina (cutoff 0.4), then fused Butina over 100k clustered
-     fingerprints (cutoff 0.6), with the kernels' launch counts;
+     fingerprints (cutoff 0.6), with the kernels' launch counts and the
+     fingerprints' peak device memory;
   4. checks of what the main path produced, and each kernel against its
      plain version at the shapes and row lists the main path gave it: K1's
      24.5k x 24.5k matrix itself, its free rows x 1 center columns, K2's
      100k x 100k counts and its free rows x members decrements; the sum
      over the fused loop of its free rows;
-  5. timings at the main path's shapes: the median of each kernel and its
+  5. the Mol path: the same SMILES parsed into Mol objects ->
+     GetFingerprints(mols), equal to the main path's fingerprints, to the
+     numpy oracle on a subset, the triple cubane and a 300-atom chain (past
+     the largest bucket: a device bucket of its own);
+  6. RMSD -> Butina: (a) 1,024 molecules x 64 seeded conformers through
+     GetConformerRMSMatrixBatch (K3, 2,064,384 pairs); (c) the same counts
+     of drug-like molecules (random SMILES drawn with 25..32 heavy atoms)
+     with their hydrogens as atoms, over all atoms and over the heavy
+     atoms; (b) one molecule of
+     2,000 conformers in 50 families through GetConformerRMSMatrix, the
+     condensed vector expanded on the device, and butina, which must find
+     the 50 families with the ids and centroids of the plain matrix;
+  7. timings at the main path's shapes: the median of each kernel and its
      plain version by CUDA events, beside its bound (the least time the
-     card could take: bytes over the memory rate or POPCs over the integer
-     pipe's rate, whichever is larger; the center columns and decrements
-     also with a cold L2), and K1's two configurations over the column
-     counts of the M_SKINNY sweep;
-  6. trace, per main-path phase: three warm untraced walls, then one run
+     card could take: bytes over the memory rate, or POPCs or FP32
+     operations over their issue rate, whichever is larger; byte-light
+     kernels also with a cold L2), K1's two configurations over the column
+     counts of the M_SKINNY sweep, and one torch.bmm of K3's Gram alone;
+  8. trace, per phase of the paths: three warm untraced walls, then one run
      under torch.profiler with its wall, the span between CUDA events around
      it, the device-busy share (union of the intervals of device events,
-     kernels and copies; null when the trace caught none), the host's
-     launch and sync calls, and the largest device events and host calls.
+     kernels and copies; null when the trace caught none), the kernels'
+     own busy time, the host's launch and sync calls, and the largest
+     device events and host calls.
 Then one JSON line with the kernels, the nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}. Any failure raises and exits non-zero
 before the last line; without CUDA it exits 1 at once.
@@ -46,12 +65,23 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = pathlib.Path(__file__).resolve().parent
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 POPC_PER_SM_CLOCK = 16     # __popc issue rate of one sm_90 SM
+FP32_PER_SM_CLOCK = 128    # FP32 FMA issue rate of one sm_90 SM
 FUSED_N, FUSED_CUTOFF = 100_000, 0.6
+# FP32 instructions per conformer pair in csrc/rmsd.cu's QCP solve and
+# epilogue, a multiply feeding an add counted once, a division or square
+# root once: coefficients 82, 12 Newton steps of 12, epilogue 7
+QCP_OPS = 233
+RMSD_MOLS, RMSD_CONFS = 1024, 64                   # RMSD batches (a) and (c)
+DRUG_HEAVY = (25, 32)                              # heavy atoms drawn for (c)
+FAMILIES, COPIES, FAMILY_SIGMA = 50, 40, 0.2       # ensemble (b)
+ENSEMBLE_CUTOFF = 1.5  # Å: copies of a family lie ~0.5 Å apart, families > 2 Å
+TRIPLE_CUBANE = "C12C3C4C1C5C2C3C45C67C8C9C6C%10C7C8C9%10C%11%12C%13C%14C%11C%15C%12C%13C%14%15"
 
 
 def check(ok: bool, what: str) -> None:
@@ -187,20 +217,32 @@ def busy_us(intervals) -> float:
     return total
 
 
-def trace(fn, reps: int = 3, top: int = 6) -> dict:
+def trace(fn, reps: int = 3, top: int = 10) -> dict:
     """Warm walls of ``fn``, then one run under torch.profiler: device-busy
     share, device events, host launch/sync calls, largest items."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     warm = [timed(fn)[0] for _ in range(reps)]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        wall, span = timed(fn)
-    dev, host, intervals = {}, {}, []
-    for e in prof.events():
+        # the profiler often drops the first device event it records (seen
+        # on the H100 in 6 of 8 short traces): a marker kernel takes that
+        # place, and only events from the traced run on are counted
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        with record_function("chip_smoke_traced_run"):
+            wall, span = timed(fn)
+    events = prof.events()
+    t0 = min(e.time_range.start for e in events if e.name == "chip_smoke_traced_run")
+    dev, host, intervals, kernels = {}, {}, [], []
+    for e in events:
+        if e.time_range.start < t0 or e.name == "chip_smoke_traced_run":
+            continue
         if e.device_type == DeviceType.CUDA:
             intervals.append((e.time_range.start, e.time_range.end))
+            if not e.name.startswith(("Memcpy", "Memset")):
+                kernels.append((e.time_range.start, e.time_range.end))
             table = dev
         elif e.name.startswith("cu"):
             table = host
@@ -217,6 +259,7 @@ def trace(fn, reps: int = 3, top: int = 6) -> dict:
     return {
         "warm_walls_s": warm, "traced_wall_s": wall, "event_span_s": span,
         "device_busy_s": busy, "busy_share": busy / wall if intervals else None,
+        "kernel_busy_s": busy_us(kernels) * 1e-6,
         "n_device_events": len(intervals),
         "n_launch_calls": sum(host.get(k, (0, 0))[1] for k in _LAUNCHES),
         "n_sync_calls": sum(host.get(k, (0, 0))[1] for k in _SYNCS),
@@ -248,8 +291,9 @@ def median_ms(fn, reps: int = 10, flush=None) -> float:
 
 
 def card_rates() -> dict:
-    """The rates the bounds use: device memory (data sheet) and POPC issue
-    (16 per SM per clock at the card's highest SM clock)."""
+    """The rates the bounds use: device memory (data sheet), POPC issue (16
+    per SM per clock) and FP32 FMA issue (128 per SM per clock), at the
+    card's highest SM clock."""
     import torch
 
     clock_mhz = float(subprocess.run(
@@ -258,32 +302,123 @@ def card_rates() -> dict:
     ).stdout.strip())
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     return {"hbm_bytes_per_s": HBM_BYTES_PER_S, "sms": sms, "max_sm_clock_mhz": clock_mhz,
-            "popc_per_s": POPC_PER_SM_CLOCK * sms * clock_mhz * 1e6}
+            "popc_per_s": POPC_PER_SM_CLOCK * sms * clock_mhz * 1e6,
+            "fp32_per_s": FP32_PER_SM_CLOCK * sms * clock_mhz * 1e6}
 
 
-def bound(n_bytes: float, n_popc: float, rates: dict) -> dict:
+def bound(n_bytes: float, n_ops: float, rates: dict, op: str = "popc") -> dict:
     """The least time for the work: bytes moved (each input read once, each
-    output written once) over the memory rate, or POPCs over their issue
-    rate, whichever is larger."""
+    output written once) over the memory rate, or the operations (``op``:
+    POPCs or FP32 instructions) over their issue rate, whichever is larger."""
     t_bytes = n_bytes / rates["hbm_bytes_per_s"] * 1e3
-    t_ops = n_popc / rates["popc_per_s"] * 1e3
+    t_ops = n_ops / rates[f"{op}_per_s"] * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": n_bytes, "popc": n_popc}
+            "bytes": n_bytes, op: n_ops}
 
 
 def k1_work(rows: int, m: int, words: int, listed: bool, rates: dict) -> dict:
     """K1 over ``rows`` A rows (gathered through an int64 list when
     ``listed``) and m B rows: one 32-bit AND-POPC per word of each pair."""
     n_bytes = 4 * words * (rows + m) + 4 * rows * m + (8 * rows if listed else 0)
-    return bound(n_bytes, rows * m * words, rates)
+    return bound(n_bytes, rows * m * words, rates, "popc")
 
 
 def k2_work(rows: int, cols: int, words: int, listed: bool, rates: dict) -> dict:
     """K2 over ``rows`` rows (listed or all) and an int64 list of ``cols``
     columns, int32 counts out."""
     n_bytes = 4 * words * (rows + cols) + 8 * cols + 4 * rows + (8 * rows if listed else 0)
-    return bound(n_bytes, rows * cols * words, rates)
+    return bound(n_bytes, rows * cols * words, rates, "popc")
+
+
+def k3_work(n_confs, n_masked, n_atoms: int, prealigned: bool, rates: dict,
+            listed: bool = False) -> dict:
+    """K3 over molecules of ``n_confs`` conformers and ``n_masked`` masked
+    atoms (rows of ``n_atoms``): the masked coordinates and the mask read
+    once (and an int64 row list when ``listed``), 4 bytes out per pair; per
+    pair 9 FMAs per masked atom and the QCP solve (prealigned: 3 FMAs per
+    atom and 5 operations), per conformer 9 operations per masked atom to
+    center it."""
+    import numpy as np
+
+    c = np.asarray(n_confs, np.int64)
+    n = np.asarray(n_masked, np.int64)
+    pairs = c * (c - 1) // 2
+    per_pair = 3 * n + 5 if prealigned else 9 * n + QCP_OPS
+    n_ops = int((pairs * per_pair).sum() + 9 * (c * n).sum())
+    n_bytes = int(12 * (c * n).sum() + len(c) * n_atoms + 4 * pairs.sum()
+                  + (8 * c.sum() if listed else 0))
+    return bound(n_bytes, n_ops, rates, "fp32")
+
+
+def with_hydrogens(mol):
+    """A copy of ``mol`` whose hydrogens are atoms of their own, each bonded
+    to its heavy atom, as RDKit's AddHs makes them for conformer work."""
+    import dataclasses
+
+    from nvmolkit_tpu_torch.chem.mol import Atom, Bond, Mol
+
+    out = Mol()
+    out.atoms = [dataclasses.replace(a, explicit_hs=0, implicit_hs=0, from_bracket=True)
+                 for a in mol.atoms]
+    out.bonds = [dataclasses.replace(b) for b in mol.bonds]
+    for i, a in enumerate(mol.atoms):
+        for _ in range(a.total_hs):
+            out.atoms.append(Atom(1, from_bracket=True))
+            out.bonds.append(Bond(i, len(out.atoms) - 1))
+    return out
+
+
+def random_rotations(rng, n: int):
+    """n random proper rotations [n, 3, 3], from uniform unit quaternions."""
+    import numpy as np
+
+    q = rng.normal(size=(n, 4))
+    w, x, y, z = (q / np.linalg.norm(q, axis=1, keepdims=True)).T
+    return np.stack([
+        np.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)], -1),
+        np.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)], -1),
+        np.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], -1),
+    ], 1)
+
+
+def conformer_ensemble(rng, n_atoms: int, n_confs: int):
+    """[n_confs, n_atoms, 3] float64: a random base geometry; each conformer
+    that base plus Gaussian noise of a sigma drawn in [0.05, 1.0] Å, then a
+    random rotation and translation; every 8th conformer an exact rigid copy
+    of conformer 0."""
+    import numpy as np
+
+    base = rng.normal(size=(n_atoms, 3)) * max(1.0, n_atoms ** (1 / 3))
+    sigma = rng.uniform(0.05, 1.0, size=(n_confs, 1, 1))
+    geom = base + rng.normal(size=(n_confs, n_atoms, 3)) * sigma
+    geom[8::8] = geom[0]
+    return geom @ random_rotations(rng, n_confs).transpose(0, 2, 1) + rng.normal(
+        size=(n_confs, 1, 3)) * 5.0
+
+
+def family_ensemble(rng, n_atoms: int):
+    """[FAMILIES * COPIES, n_atoms, 3]: FAMILIES random geometries, COPIES
+    noisy (sigma FAMILY_SIGMA Å) rotated, translated copies of each;
+    conformer k belongs to family k % FAMILIES."""
+    import numpy as np
+
+    n = FAMILIES * COPIES
+    bases = rng.normal(size=(FAMILIES, n_atoms, 3)) * max(1.0, n_atoms ** (1 / 3))
+    geom = bases[np.arange(n) % FAMILIES] + rng.normal(size=(n, n_atoms, 3)) * FAMILY_SIGMA
+    return geom @ random_rotations(rng, n).transpose(0, 2, 1) + rng.normal(size=(n, 1, 3)) * 5.0
+
+
+def square_from_condensed(cond, n: int):
+    """[n, n] symmetric matrix from a condensed lower triangle (i > j at
+    i(i-1)/2 + j), zero diagonal, on the vector's device."""
+    import torch
+
+    d = torch.zeros((n, n), dtype=cond.dtype, device=cond.device)
+    r, c = torch.tril_indices(n, n, -1, device=cond.device)
+    d[r, c] = cond
+    d[c, r] = cond
+    return d
 
 
 def random_fps(rng, n: int, words: int, n_centers: int = 0):
@@ -341,13 +476,20 @@ def main() -> int:
     import numpy as np
 
     from nvmolkit_tpu_torch import _build
-    from nvmolkit_tpu_torch.chem.native import morgan_batches_from_smiles
+    from nvmolkit_tpu_torch.chem.native import morgan_batches_from_smiles, mols_from_smiles
     from nvmolkit_tpu_torch.clustering import butina, fused_butina
+    from nvmolkit_tpu_torch.conformerRmsd import (
+        GetConformerRMSMatrix,
+        GetConformerRMSMatrixBatch,
+        conformer_stack,
+    )
     from nvmolkit_tpu_torch.fingerprints import MorganFingerprintGenerator
     from nvmolkit_tpu_torch.ops import butina as butina_ops
+    from nvmolkit_tpu_torch.ops import kabsch
     from nvmolkit_tpu_torch.ops import similarity as sim_ops
     from nvmolkit_tpu_torch.ops.packed_bits import unpack_bits_np
     from nvmolkit_tpu_torch.similarity import crossTanimotoSimilarity
+    from nvmolkit_tpu_torch.types import Dense3DResult
     from nvmolkit_tpu_torch.utils.config import HardwareOptions
 
     cuda = torch.device("cuda", 0)
@@ -360,13 +502,19 @@ def main() -> int:
     emit(phase="device", name=kind, nvidia_smi=smi_line, torch=torch.__version__,
          cuda=torch.version.cuda, count=torch.cuda.device_count(), rates=rates)
 
-    # 1. build --------------------------------------------------------------
+    # 1. build: one compiler per source, all started together -------------
+    def build(lib):
+        t = time.perf_counter()
+        lib()
+        return time.perf_counter() - t
+
     t0 = time.perf_counter()
-    _build.similarity_lib()
-    t1 = time.perf_counter()
-    _build.graph_lib()
-    t2 = time.perf_counter()
-    emit(phase="build", nvcc_s=t1 - t0, gxx_s=t2 - t1)
+    with ThreadPoolExecutor(3) as pool:
+        jobs = [pool.submit(build, lib)
+                for lib in (_build.similarity_lib, _build.rmsd_lib, _build.graph_lib)]
+        nvcc_s, nvcc_rmsd_s, gxx_s = (job.result() for job in jobs)
+    emit(phase="build", nvcc_s=nvcc_s, nvcc_rmsd_s=nvcc_rmsd_s, gxx_s=gxx_s,
+         wall_s=time.perf_counter() - t0)
 
     # 2. kernels against their plain versions ---------------------------------
     t_phase = time.perf_counter()
@@ -442,9 +590,113 @@ def main() -> int:
         "k2_plain_ms": median_ms(lambda: sim_ops.neighbor_counts_plain(x, all_cols, 0.6)),
     }
     del x, all_cols
+
+    # K3 against its plain version: ragged batches, every C in {2, 3, 17,
+    # 64, 300} and A in {3, 17, 32, 33, 128, 256}, all atoms or a
+    # heavy-atom mask, both modes, from a flat stack and through a row list
+    # of a padded stack with holes; exact rigid copies below the near-zero
+    # bound
+    K3 = "conformer_rmsd"
+    k3_err = {"near_zero": 0.0, "far": 0.0, "err_over_tolerance": 0.0, "rigid": 0.0,
+              "rigid_over_bound": 0.0, "positions_from": 0.0}
+
+    def check_k3(x, mask, n_confs, rows, prealigned, what, rigid=None):
+        """K3 against the plain version on the same inputs, within
+        kabsch.rmsd_tolerance; ``rigid``: entries that must be ~0."""
+        before = kabsch.launch_counts[K3]
+        got = kabsch.conformer_rmsd_condensed(x, mask, n_confs, rows, prealigned)
+        check(kabsch.launch_counts[K3] == before + 1, f"K3 {what} did not launch")
+        want = kabsch.conformer_rmsd_condensed_plain(x, mask, n_confs, rows, prealigned)
+        check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+              f"K3 {what}: shape {tuple(got.shape)} or non-finite values")
+        e0, n_used = kabsch.condensed_scales(x, mask, n_confs, rows, prealigned)
+        err = (got.double() - want.double()).abs()
+        ratio = err / kabsch.rmsd_tolerance(want.double(), e0, n_used)
+        check(float(ratio.max()) <= 1.0, f"K3 {what}: |err| / tolerance {float(ratio.max())}")
+        near = want < 0.1
+        for key, sel in (("near_zero", near), ("far", ~near)):
+            if bool(sel.any()):
+                k3_err[key] = max(k3_err[key], float(err[sel].max()))
+        k3_err["err_over_tolerance"] = max(k3_err["err_over_tolerance"], float(ratio.max()))
+        if rigid is not None and len(rigid) and not prealigned:
+            idx = torch.from_numpy(rigid).to(x.device)
+            zero = kabsch.rmsd_tolerance(torch.zeros_like(e0), e0, n_used)[idx]
+            r = got[idx].double()
+            check(bool((r <= zero).all()), f"K3 {what}: a rigid copy at {float(r.max())} Å")
+            k3_err["rigid"] = max(k3_err["rigid"], float(r.max()))
+            k3_err["rigid_over_bound"] = max(k3_err["rigid_over_bound"], float((r / zero).max()))
+        return got
+
+    k3_cases = [([2, 3, 17, 64, 300, 2], [3, 17, 32, 33, 128, 256]),
+                ([300, 64, 17, 3, 2, 17], [256, 3, 128, 33, 17, 32])]
+    for n_confs, n_atoms in k3_cases:
+        a_max = max(n_atoms)
+        geoms, rigid, first = [], [], 0
+        for c, a in zip(n_confs, n_atoms):
+            g = np.zeros((c, a_max, 3))
+            g[:, :a] = conformer_ensemble(rng, a, c)
+            geoms.append(g)
+            rigid += [first + k * (k - 1) // 2 for k in range(8, c, 8)]  # pairs (8j, 0)
+            first += c * (c - 1) // 2
+        rigid = np.asarray(rigid, np.int64)
+        stack = torch.from_numpy(np.concatenate(geoms).astype(np.float32)).to(cuda)
+        # the same conformers in a padded [M, C + 16, A, 3] stack with holes
+        slots = max(n_confs) + 16
+        keep = np.zeros((len(n_confs), slots), bool)
+        for m, c in enumerate(n_confs):
+            keep[m, np.sort(rng.choice(slots, c, replace=False))] = True
+        padded = torch.zeros((len(n_confs), slots, a_max, 3), device=cuda)
+        padded[torch.from_numpy(keep).to(cuda)] = stack
+        rows = torch.nonzero(torch.from_numpy(keep).to(cuda).reshape(-1)).squeeze(1)
+        flat_padded = padded.view(-1, a_max, 3)
+        for heavy in (False, True):
+            mask = np.zeros((len(n_confs), a_max), bool)
+            for m, a in enumerate(n_atoms):
+                mask[m, :a] = rng.random(a) < 0.67 if heavy else True
+                mask[m, 0] = True
+            mask = torch.from_numpy(mask).to(cuda)
+            for prealigned in (False, True):
+                what = f"C={n_confs} A={n_atoms} heavy={heavy} prealigned={prealigned}"
+                flat = check_k3(stack, mask, n_confs, None, prealigned, what, rigid)
+                listed = check_k3(flat_padded, mask, n_confs, rows, prealigned,
+                                  what + " rows", rigid)
+                check(torch.equal(flat, listed), f"K3 {what}: the row list changes the result")
+    # the public API on a Dense3DResult with holes, heavy atoms only, against
+    # the same call on the CPU (the plain version)
+    h_mols = mols_from_smiles(["[H]OC([H])([H])C([H])([H])[H]", "c1ccccc1C(=O)O[H]",
+                               "[H]N([H])CC(C)(C)C", "[H][H]"])
+    check(all(any(a.atomic_num == 1 for a in m.atoms) for m in h_mols), "explicit H kept")
+    a_max = max(m.num_atoms for m in h_mols)
+    pos = np.zeros((len(h_mols), 40, a_max, 3), np.float32)
+    for m, mol in enumerate(h_mols):
+        pos[m, :, :mol.num_atoms] = conformer_ensemble(rng, mol.num_atoms, 40)
+    cmask = rng.random((len(h_mols), 40)) < 0.7
+    amask = np.arange(a_max)[None] < np.array([m.num_atoms for m in h_mols])[:, None]
+    dense = Dense3DResult(torch.from_numpy(pos).to(cuda), torch.from_numpy(cmask).to(cuda),
+                          torch.from_numpy(amask).to(cuda))
+    for prealigned in (False, True):
+        before = kabsch.launch_counts[K3]
+        got = GetConformerRMSMatrixBatch(h_mols, prealigned, True, positionsFrom=dense)
+        check(kabsch.launch_counts[K3] == before + 1, "positionsFrom did not launch K3")
+        want = GetConformerRMSMatrixBatch(h_mols, prealigned, True, positionsFrom=dense,
+                                          device="cpu")
+        for m, (g, w) in enumerate(zip(got, want)):
+            check(g.device == cuda and w.device.type == "cpu", "positionsFrom devices")
+            sel = np.nonzero(cmask[m])[0]
+            heavy = torch.tensor([[a.atomic_num > 1 for a in h_mols[m].atoms]
+                                  + [False] * (a_max - h_mols[m].num_atoms)])
+            e0, n_used = kabsch.condensed_scales(torch.from_numpy(pos[m, sel]), heavy,
+                                                 [len(sel)], prealigned=prealigned)
+            err = (g.torch().cpu().double() - w.torch().double()).abs()
+            tol = kabsch.rmsd_tolerance(w.torch().double(), e0, n_used)
+            check(g.shape == w.shape == (len(sel) * (len(sel) - 1) // 2,)
+                  and bool((err <= tol).all()), f"positionsFrom molecule {m}")
+            if len(err):
+                k3_err["positions_from"] = max(k3_err["positions_from"], float(err.max()))
+    errs[K3] = max(k3_err["near_zero"], k3_err["far"], k3_err["positions_from"])
     emit(phase="kernels", k1_max_abs_err=errs[K1], k1_few_columns_max_abs_err=errs[K1F],
-         k2_max_abs_err=errs[K2], m_skinny=sim_ops.M_SKINNY, timed_shape="16384x16384@2048",
-         **timing, seconds=time.perf_counter() - t_phase)
+         k2_max_abs_err=errs[K2], k3_max_abs_err=k3_err, m_skinny=sim_ops.M_SKINNY,
+         timed_shape="16384x16384@2048", **timing, seconds=time.perf_counter() - t_phase)
 
     # 3. the main path ----------------------------------------------------------
     smiles = smoke_smiles()
@@ -454,11 +706,21 @@ def main() -> int:
     morgan_batches_from_smiles(smiles, HardwareOptions().atomBuckets)
     featurize_s = time.perf_counter() - t0
 
-    torch.cuda.synchronize()
-    sim_ops.reset_launch_counts()
+    def reset_counts():
+        torch.cuda.synchronize()
+        sim_ops.reset_launch_counts()
+        kabsch.reset_launch_counts()
+
+    def read_counts():
+        return {**sim_ops.launch_counts, **kabsch.launch_counts}
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    allocated_before = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     fps = gen.GetFingerprintsFromSmiles(smiles, device=cuda).block_until_ready()
     t1 = time.perf_counter()
+    fingerprints_peak = torch.cuda.max_memory_allocated()
     sim = crossTanimotoSimilarity(fps).block_until_ready()
     t2 = time.perf_counter()
     ids, centroids = butina(1.0 - sim.torch(), 0.4, return_centroids=True)
@@ -469,17 +731,20 @@ def main() -> int:
     t4 = time.perf_counter()
     clusters, sizes, fused_cent = fused_butina(fused_fps, FUSED_CUTOFF, return_centroids=True)
     t5 = time.perf_counter()
-    launches = dict(sim_ops.launch_counts)
+    launches = read_counts()
     emit(phase="main_path", n_smiles=len(smiles), featurize_s=featurize_s,
          fingerprints_s=t1 - t0, similarity_s=t2 - t1, butina_s=t3 - t2,
          n_clusters=len(centroids), fused_butina_100k_s=t5 - t4,
-         fused_n_clusters=len(clusters), launches=launches)
+         fused_n_clusters=len(clusters), launches=launches,
+         allocated_before_bytes=allocated_before, fingerprints_peak_bytes=fingerprints_peak,
+         path_peak_bytes=torch.cuda.max_memory_allocated())
 
     # 4. checks -------------------------------------------------------------------
     t_phase = time.perf_counter()
     n = len(smiles)
     multi = int((sizes >= 2).sum())  # clusters the fused loop formed
     left = int((sizes == 1).any())   # a K2 decrement follows the last one unless it took every row
+    check(launches[K3] == 0, f"K3 launched {launches[K3]} times on the main path")
     check(launches[K1] == 1, f"K1 tiles launched {launches[K1]} times, want 1 (the matrix)")
     check(launches[K1F] == multi, f"K1 few columns launched {launches[K1F]} times, want {multi}")
     check(launches[K2] == multi + left, f"K2 launched {launches[K2]} times, want {multi + left}")
@@ -571,7 +836,153 @@ def main() -> int:
          rows_each_without_compaction=multi * n_fused,
          seconds=time.perf_counter() - t_phase)
 
-    # 5. timings at the main path's shapes ------------------------------------------
+    # 5. the Mol path: the same SMILES as Mol objects -> GetFingerprints ---------
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    mols = mols_from_smiles(smiles)
+    parse_s = time.perf_counter() - t0
+    reset_counts()
+    t0 = time.perf_counter()
+    mol_fps = gen.GetFingerprints(mols, device=cuda).block_until_ready()
+    mol_fps_s = time.perf_counter() - t0
+    mol_launches = read_counts()
+    check(mol_fps.device == cuda and mol_fps.shape == (n, 64), "GetFingerprints(mols) shape")
+    check(np.array_equal(mol_fps.numpy(), fps.numpy()),
+          "GetFingerprints(mols) differs from GetFingerprintsFromSmiles")
+    subset = np.arange(0, n, n // 512)[:512]
+    check(np.array_equal(gen.GetFingerprintsCpu([mols[i] for i in subset]),
+                         mol_fps.numpy()[subset]), "GetFingerprints(mols) differs from the oracle")
+    # the triple cubane (38 bonds in the 24-atom bucket) and a chain past the
+    # largest bucket, which runs on the card in a 320-atom bucket of its own
+    odd = mols_from_smiles([TRIPLE_CUBANE, "C" * 300])
+    check(odd[1].num_atoms > HardwareOptions().atomBuckets[-1], "the chain fits a bucket")
+    odd_fps = gen.GetFingerprints(odd, device=cuda)
+    check(odd_fps.device == cuda and np.array_equal(odd_fps.numpy(), gen.GetFingerprintsCpu(odd)),
+          "cubane or chain differs from the oracle")
+    emit(phase="mol_path", n_mols=len(mols), parse_s=parse_s, get_fingerprints_s=mol_fps_s,
+         launches=mol_launches, oracle_subset=len(subset),
+         seconds=time.perf_counter() - t_phase)
+
+    # 6. RMSD -> Butina -------------------------------------------------------------
+    t_phase = time.perf_counter()
+    rng_conf = np.random.default_rng(3)
+    batch_mols = [m for m in mols if m.num_atoms >= 3][:RMSD_MOLS]
+    for m in batch_mols:
+        for x in conformer_ensemble(rng_conf, m.num_atoms, RMSD_CONFS):
+            m.add_conformer(x)
+    in_batch = {id(m) for m in batch_mols}
+    big = next(m for m in mols if m.num_atoms >= 24 and id(m) not in in_batch)
+    t0 = time.perf_counter()
+    drug_mols = [with_hydrogens(m) for m in mols_from_smiles(random_smiles_batch(
+        seed=11, n=RMSD_MOLS, min_heavy=DRUG_HEAVY[0], max_heavy=DRUG_HEAVY[1]))]
+    for m in drug_mols:
+        for x in conformer_ensemble(rng_conf, m.num_atoms, RMSD_CONFS):
+            m.add_conformer(x)
+    drug_setup_s = time.perf_counter() - t0
+    families = family_ensemble(rng_conf, big.num_atoms)
+    for x in families:
+        big.add_conformer(x)
+    n_ens = len(big.conformers)
+    family = np.arange(n_ens) % FAMILIES
+
+    def rmsd_batch():
+        return GetConformerRMSMatrixBatch(batch_mols)
+
+    def rmsd_druglike():
+        return GetConformerRMSMatrixBatch(drug_mols)
+
+    def rmsd_butina():
+        cond = GetConformerRMSMatrix(big).torch()
+        ids_b, cents_b = butina(square_from_condensed(cond, n_ens), ENSEMBLE_CUTOFF,
+                                return_centroids=True)
+        return cond, ids_b, cents_b
+
+    reset_counts()
+    t0 = time.perf_counter()
+    batch_out = rmsd_batch()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    drug_out = rmsd_druglike()
+    torch.cuda.synchronize()
+    t1_drug = time.perf_counter()
+    ens_cond, ens_ids, ens_cents = rmsd_butina()
+    ens_ids.block_until_ready()
+    t2 = time.perf_counter()
+    rmsd_launches = read_counts()
+    check(rmsd_launches[K3] == 3, f"K3 launched {rmsd_launches[K3]} times, want 3")
+    check(all(v == 0 for k, v in rmsd_launches.items() if k != K3), "RMSD path launched K1/K2")
+
+    pairs_per_mol = RMSD_CONFS * (RMSD_CONFS - 1) // 2
+    rigid = torch.from_numpy(np.concatenate([m * pairs_per_mol + np.array(
+        [k * (k - 1) // 2 for k in range(8, RMSD_CONFS, 8)]) for m in range(RMSD_MOLS)])).to(cuda)
+
+    def check_batch(out, batch, heavy, what):
+        """One batch call's vectors against the plain version on the inputs
+        the call built, and its exact rigid copies below the near-zero
+        bound. Returns those inputs and the call's flat vector."""
+        stack, mask, nc = conformer_stack(batch, heavy)
+        x, mask = torch.from_numpy(stack).to(cuda), torch.from_numpy(mask).to(cuda)
+        flat = torch.cat([r.torch() for r in out])
+        check(all(r.device == cuda for r in out) and flat.shape == (
+            RMSD_MOLS * pairs_per_mol,), f"{what}: RMSD shape or device")
+        check(len({r.torch().untyped_storage().data_ptr() for r in out}) == 1,
+              f"{what}: the per-molecule vectors are not views of one buffer")
+        want = kabsch.conformer_rmsd_condensed_plain(x, mask, nc)
+        e0, n_used = kabsch.condensed_scales(x, mask, nc)
+        err = (flat.double() - want.double()).abs()
+        check(bool(torch.isfinite(flat).all())
+              and bool((err <= kabsch.rmsd_tolerance(want.double(), e0, n_used)).all()),
+              f"{what}: RMSD differs from the plain version")
+        zero = kabsch.rmsd_tolerance(torch.zeros_like(e0[rigid]), e0[rigid], n_used[rigid])
+        check(bool((flat[rigid].double() <= zero).all()), f"{what}: a rigid copy is not ~0")
+        errs[K3] = max(errs[K3], float(err.max()))
+        return x, mask, nc, n_used, flat
+
+    # (a) and (c) against the plain version; (c) also over its heavy atoms
+    x_a, mask_a, nc_a, n_a, flat_a = check_batch(batch_out, batch_mols, False, "batch (a)")
+    x_c, mask_c, nc_c, n_c, flat_c = check_batch(drug_out, drug_mols, False, "drug-like (c)")
+    check(sum(a.atomic_num == 1 for m in drug_mols for a in m.atoms) > RMSD_MOLS,
+          "(c) lacks its hydrogens")
+    check_batch(GetConformerRMSMatrixBatch(drug_mols, heavyAtomsOnly=True), drug_mols, True,
+                "drug-like (c), heavy atoms")
+
+    # (b) the ensemble: families recovered, as the plain matrix clusters them
+    x_b = torch.from_numpy(families.astype(np.float32)).to(cuda)
+    mask_b = torch.ones((1, big.num_atoms), dtype=torch.bool, device=cuda)
+    want_b = kabsch.conformer_rmsd_condensed_plain(x_b, mask_b, [n_ens])
+    e0_b, n_b = kabsch.condensed_scales(x_b, mask_b, [n_ens])
+    err_b = (ens_cond.double() - want_b.double()).abs()
+    check(bool((err_b <= kabsch.rmsd_tolerance(want_b.double(), e0_b, n_b)).all()),
+          "ensemble RMSD differs from the plain version")
+    errs[K3] = max(errs[K3], float(err_b.max()))
+    plain_sq = square_from_condensed(want_b, n_ens)
+    same = torch.from_numpy(family[:, None] == family[None, :]).to(cuda)
+    off_diag = ~torch.eye(n_ens, dtype=torch.bool, device=cuda)
+    within = float(plain_sq[same & off_diag].max())
+    between = float(plain_sq[~same].min())
+    check(within < ENSEMBLE_CUTOFF < between, f"families not separated: {within} / {between}")
+    want_ids, want_cents = butina(plain_sq, ENSEMBLE_CUTOFF, return_centroids=True)
+    check(np.array_equal(ens_ids.numpy(), want_ids.numpy())
+          and np.array_equal(ens_cents, want_cents), "K3 and plain matrices cluster differently")
+    got_ids = ens_ids.numpy()
+    check(len(ens_cents) == FAMILIES and all(
+        len(set(family[got_ids == k])) == 1 and (got_ids == k).sum() == COPIES
+        for k in range(FAMILIES)), "the 50 families were not recovered")
+    atoms_c = mask_c.sum(dim=1).double()
+    emit(phase="rmsd_butina", batch_mols=len(batch_mols), batch_confs=RMSD_CONFS,
+         batch_pairs=int(flat_a.shape[0]), batch_atoms_max=int(x_a.shape[1]),
+         batch_atoms_mean=float(n_a.mean()), batch_first_call_s=t1 - t0,
+         druglike_setup_s=drug_setup_s, druglike_atoms_min=int(atoms_c.min()),
+         druglike_atoms_mean=float(atoms_c.mean()), druglike_atoms_max=int(atoms_c.max()),
+         druglike_first_call_s=t1_drug - t1,
+         ensemble_atoms=big.num_atoms, ensemble_confs=n_ens, ensemble_pairs=int(ens_cond.shape[0]),
+         ensemble_cutoff=ENSEMBLE_CUTOFF, within_family_max=within, between_family_min=between,
+         ensemble_clusters=len(ens_cents), ensemble_first_call_s=t2 - t1,
+         launches=rmsd_launches, k3_max_abs_err=errs[K3],
+         rigid_copies_max=max(float(flat_a[rigid].max()), float(flat_c[rigid].max())),
+         seconds=time.perf_counter() - t_phase)
+
+    # 7. timings at the main path's shapes ------------------------------------------
     t_phase = time.perf_counter()
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=cuda)  # 256 MB > the 50 MB L2
     half = torch.from_numpy(np.sort(rng.choice(n_fused, n_fused // 2, replace=False))).to(cuda)
@@ -620,18 +1031,49 @@ def main() -> int:
             "tiles_ms": median_ms(
                 lambda b=b: sim_ops._launch_k1(fused_fps, b, "tanimoto", None, few=False)),
             **k1_work(n_fused, m, 64, False, rates)})
+    # K3 at (a), (c) and (b); beside it one torch.bmm over the centered stack
+    # [M, C*3, A]: the Gram alone, a yardstick and not the same function
+    k3_rows = {}
+    for label, (x, mask_, nc) in (("batch", (x_a, mask_a, nc_a)),
+                                  ("druglike", (x_c, mask_c, nc_c)),
+                                  ("ensemble", (x_b, mask_b, np.array([n_ens])))):
+        n_mol, per_mol = len(nc), int(nc[0])
+        dense_x = x.view(n_mol, per_mol, x.shape[1], 3)
+        w = mask_.to(torch.float32)[:, None, :, None]
+        cent = (dense_x * w).sum(dim=2, keepdim=True) / w.sum(dim=2, keepdim=True).clamp_min(1)
+        gram_in = ((dense_x - cent) * w).transpose(2, 3).reshape(n_mol, per_mol * 3, -1)
+        gram_in = gram_in.contiguous()
+        entry = row(K3, f"{n_mol} mols x {per_mol} confs x {x.shape[1]} atoms ({label})",
+                    k3_work(nc, mask_.sum(dim=1).cpu().numpy(), x.shape[1], False, rates),
+                    lambda x=x, m=mask_, c=nc: kabsch.conformer_rmsd_condensed(x, m, c),
+                    lambda x=x, m=mask_, c=nc: kabsch.conformer_rmsd_condensed_plain(x, m, c),
+                    cold=True)
+        entry["gram_bmm_ms"] = median_ms(lambda g=gram_in: torch.bmm(g, g.transpose(1, 2)))
+        entry["gram_bmm_is"] = "one torch.bmm of the centered stack: the Gram alone, a yardstick"
+        k3_rows[label] = entry
+        del gram_in
     del flush
     emit(phase="timings", kernels=measured, m_skinny_sweep=sweep, m_skinny=sim_ops.M_SKINNY,
          seconds=time.perf_counter() - t_phase)
 
-    # 6. where the main path's time goes ----------------------------------------
+    # 8. where the paths' time goes ---------------------------------------------
     state = {"fps": fps, "sim": sim}
+    # the short traces first: run after the long ones, they came back without
+    # device events
     phases = {
+        # K3 alone on its inputs, for the split between its two kernels
+        "k3_batch": lambda: kabsch.conformer_rmsd_condensed(x_a, mask_a, nc_a),
+        "k3_druglike": lambda: kabsch.conformer_rmsd_condensed(x_c, mask_c, nc_c),
+        "k3_ensemble": lambda: kabsch.conformer_rmsd_condensed(x_b, mask_b, [n_ens]),
+        "rmsd_batch": rmsd_batch,
+        "rmsd_batch_druglike": rmsd_druglike,
+        "rmsd_butina_ensemble": rmsd_butina,
         "fingerprints": lambda: state.update(
             fps=gen.GetFingerprintsFromSmiles(smiles, device=cuda)),
         "similarity": lambda: state.update(sim=crossTanimotoSimilarity(state["fps"])),
         "butina": lambda: butina(1.0 - state["sim"].torch(), 0.4, return_centroids=True),
         "fused_butina_100k": lambda: fused_butina(fused_fps, FUSED_CUTOFF, return_centroids=True),
+        "fingerprints_from_mols": lambda: gen.GetFingerprints(mols, device=cuda),
     }
     for name, fn in phases.items():
         emit(phase=f"trace_{name}", **trace(fn))
@@ -639,23 +1081,32 @@ def main() -> int:
     # one line per kernel, at the main-path shape that launches it most: the
     # matrix for the tiles; a list of free rows (the loop's average, half of
     # them) for the center columns and the decrements, timed with a cold L2
-    # beside their bounds at the HBM rate
+    # beside their bounds at the HBM rate; K3's launches are the RMSD path's
+    # K3's line: the batch (a), cold if its bound is bytes, else hot
+    k3_key = "cold_l2_ms" if k3_rows["batch"]["bound_by"] == "bytes" else "ms"
     main_shape = {K1: (k1_matrix, "ms"), K1F: (listed[K1F], "cold_l2_ms"),
-                  K2: (listed[K2], "cold_l2_ms")}
+                  K2: (listed[K2], "cold_l2_ms"), K3: (k3_rows["batch"], k3_key)}
+    path_launches = {**launches, K3: rmsd_launches[K3]}
+    similarity_cu = "nvmolkit_tpu_torch/csrc/similarity.cu"
     sources = {
-        K1: ("cross_similarity_kernel (K1, 64 x 64 tiles)", "nvmolkit_tpu/ops/pallas_similarity.py:68"),
-        K1F: ("few_columns_kernel (K1, few columns)", "nvmolkit_tpu/ops/pallas_similarity.py:68"),
-        K2: ("neighbor_counts_kernel (K2)", "nvmolkit_tpu/ops/butina.py:155"),
+        K1: ("cross_similarity_kernel (K1, 64 x 64 tiles)",
+             "nvmolkit_tpu/ops/pallas_similarity.py:68", similarity_cu),
+        K1F: ("few_columns_kernel (K1, few columns)",
+              "nvmolkit_tpu/ops/pallas_similarity.py:68", similarity_cu),
+        K2: ("neighbor_counts_kernel (K2)", "nvmolkit_tpu/ops/butina.py:155", similarity_cu),
+        K3: ("conformer_rmsd (K3: center_kernel + pair_kernel)",
+             "nvmolkit_tpu/ops/kabsch.py:108", "nvmolkit_tpu_torch/csrc/rmsd.cu"),
     }
     lines = []
-    for key, (label, replaces) in sources.items():
+    for key, (label, replaces, source) in sources.items():
         entry, ms_key = main_shape[key]
         lines.append({
-            "name": label, "route": "cuda", "source": "nvmolkit_tpu_torch/csrc/similarity.cu",
-            "replaces": replaces, "launches": launches[key], "max_abs_err": errs[key],
+            "name": label, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": path_launches[key], "max_abs_err": errs[key],
             "shape": entry["shape"], "ms": entry[ms_key], "l2": "cold" if ms_key != "ms" else "hot",
             "plain_ms": entry["plain_ms"], "bound_ms": entry["bound_ms"],
-            "bound_by": entry["bound_by"], "library_ms": None})
+            "bound_by": entry["bound_by"], "share_of_bound": entry["bound_ms"] / entry[ms_key],
+            "library_ms": None})
     print(json.dumps({"kernels": lines}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

@@ -3,6 +3,8 @@
 * ``libnvmk_similarity``: ``nvmolkit_tpu_torch/csrc/similarity.cu`` (the
   hand-written similarity kernels), compiled by ``nvcc`` for ``sm_90a``
   into a plain C-ABI shared object that ``ctypes`` loads.
+* ``libnvmk_rmsd``: ``nvmolkit_tpu_torch/csrc/rmsd.cu`` (the conformer
+  RMSD kernel), built the same way.
 * ``libnvmolgraph``: the repository's SMILES featurizer
   ``csrc/mol_graph.cpp``, compiled by ``g++`` with the flags of
   ``csrc/Makefile``.
@@ -15,6 +17,7 @@ raises.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import fcntl
 import hashlib
@@ -29,9 +32,10 @@ _REPO = _PKG.parent
 BUILD_DIR = _PKG / "_build"
 
 SIMILARITY_SRC = _PKG / "csrc" / "similarity.cu"
+RMSD_SRC = _PKG / "csrc" / "rmsd.cu"
 GRAPH_SRC = _REPO / "csrc" / "mol_graph.cpp"
 
-_lock = threading.Lock()
+_locks: dict[str, threading.Lock] = collections.defaultdict(threading.Lock)
 _loaded: dict[str, ctypes.CDLL] = {}
 
 
@@ -67,8 +71,9 @@ def _build(name: str, src: pathlib.Path, cmd: list[str]) -> pathlib.Path:
 
 
 def _load(name: str, build, declare) -> ctypes.CDLL:
-    """Build (once per process) and load a library, declaring its C ABI."""
-    with _lock:
+    """Build (once per process) and load a library, declaring its C ABI.
+    Each library has its own lock, so threads build different ones at once."""
+    with _locks[name]:
         if name not in _loaded:
             lib = ctypes.CDLL(str(build()))
             declare(lib)
@@ -85,6 +90,14 @@ def _declare_similarity(lib: ctypes.CDLL) -> None:
     lib.nvmk_neighbor_counts.argtypes = [vp, vp, ci, ci, vp, ci, ctypes.c_float, ci, vp, ci, vp]
 
 
+def _declare_rmsd(lib: ctypes.CDLL) -> None:
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.nvmk_conformer_rmsd.restype = ci
+    lib.nvmk_conformer_rmsd.argtypes = [
+        vp, vp, ci, ci, vp, vp, ci, ctypes.c_longlong, ci, vp, ci, vp, vp, vp, vp,
+    ]
+
+
 def _declare_graph(lib: ctypes.CDLL) -> None:
     i32, i32p = ctypes.c_int32, ctypes.POINTER(ctypes.c_int32)
     u32p, u8p = ctypes.POINTER(ctypes.c_uint32), ctypes.POINTER(ctypes.c_uint8)
@@ -94,6 +107,12 @@ def _declare_graph(lib: ctypes.CDLL) -> None:
     lib.nvmk_free.argtypes = [ctypes.c_void_p]
     lib.nvmk_num_atoms.restype = i32
     lib.nvmk_num_atoms.argtypes = [ctypes.c_void_p, i32]
+    lib.nvmk_num_bonds.restype = i32
+    lib.nvmk_num_bonds.argtypes = [ctypes.c_void_p, i32]
+    lib.nvmk_get_atoms.restype = None
+    lib.nvmk_get_atoms.argtypes = [ctypes.c_void_p, i32] + [i32p] * 12
+    lib.nvmk_get_bonds.restype = None
+    lib.nvmk_get_bonds.argtypes = [ctypes.c_void_p, i32] + [i32p] * 3
     lib.nvmk_error.restype = ctypes.c_char_p
     lib.nvmk_error.argtypes = [ctypes.c_void_p, i32]
     lib.nvmk_fill_morgan_batch.restype = i32
@@ -102,19 +121,29 @@ def _declare_graph(lib: ctypes.CDLL) -> None:
     ]
 
 
+def _nvcc_cmd(src: pathlib.Path) -> list[str]:
+    return [
+        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+        "-O3", "-shared", "-Xcompiler", "-fPIC", str(src),
+    ]
+
+
 def similarity_lib() -> ctypes.CDLL:
     """The compiled similarity kernels (needs ``nvcc`` and a CUDA runtime)."""
     return _load(
         "libnvmk_similarity",
-        lambda: _build(
-            "libnvmk_similarity",
-            SIMILARITY_SRC,
-            [
-                _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-                "-O3", "-shared", "-Xcompiler", "-fPIC", str(SIMILARITY_SRC),
-            ],
-        ),
+        lambda: _build("libnvmk_similarity", SIMILARITY_SRC, _nvcc_cmd(SIMILARITY_SRC)),
         _declare_similarity,
+    )
+
+
+def rmsd_lib() -> ctypes.CDLL:
+    """The compiled conformer RMSD kernel K3 (needs ``nvcc`` and a CUDA
+    runtime)."""
+    return _load(
+        "libnvmk_rmsd",
+        lambda: _build("libnvmk_rmsd", RMSD_SRC, _nvcc_cmd(RMSD_SRC)),
+        _declare_rmsd,
     )
 
 

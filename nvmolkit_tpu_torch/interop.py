@@ -1,14 +1,15 @@
 """Carrying state between the JAX package and the port.
 
-This system has no weights: its state is packed fingerprints and
-hardware options. These helpers move both across bit for bit, so that
-tests can feed the two packages the same inputs.
+This system has no weights: its state is packed fingerprints, conformer
+stacks and hardware options. These helpers move them across bit for bit,
+so that tests can feed the two packages the same inputs.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from nvmolkit_tpu_torch.types import Dense3DResult
 from nvmolkit_tpu_torch.utils.config import HardwareOptions
 
 
@@ -27,3 +28,13 @@ def fps_to_reference(t: torch.Tensor) -> np.ndarray:
 def options_from_reference(d: dict) -> HardwareOptions:
     """The JAX package's ``HardwareOptions.to_dict()`` -> the port's."""
     return HardwareOptions.from_dict(d)
+
+
+def dense3d_from_reference(result, device=None) -> Dense3DResult:
+    """The JAX package's ``Dense3DResult`` (any arrays numpy can read) ->
+    the port's, with the same values, on ``device`` (default CPU)."""
+    def put(a):
+        return None if a is None else torch.from_numpy(np.array(a)).to(device or "cpu")
+
+    return Dense3DResult(put(result.positions), put(result.conf_mask), put(result.atom_mask),
+                         put(result.energies), put(result.converged))

@@ -19,16 +19,82 @@ Differences from the JAX program, none of which changes a bit:
 
 This runs as many small torch operations on the device; a hand-written
 CUDA kernel (one block per molecule, bitsets in shared memory) is queued
-in ROADMAP.md.
+in ROADMAP.md. :func:`prepare_batch` makes the kernel's inputs from
+:class:`Mol` objects on the host.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from nvmolkit_tpu_torch.chem.mol import MAX_BONDS_PER_ATOM, Mol
+from nvmolkit_tpu_torch.ops.morgan_cpu import atom_invariants
 from nvmolkit_tpu_torch.ops.packed_bits import pack_bits
 from nvmolkit_tpu_torch.utils.hashing import MASK32, hash_combine_u32
 
 _EMPTY_CODE = 256  # bond codes are uint8
+
+
+def prepare_batch(
+    mols: list[Mol], max_atoms: int, use_chirality: bool = False
+) -> dict[str, np.ndarray]:
+    """Host featurization of a bucket of molecules into the padded inputs of
+    :func:`morgan_kernel`, as ``nvmolkit_tpu/ops/morgan.py::prepare_batch``
+    makes them, vectorized per molecule.
+
+    One difference: the bond bitset holds ``2 * max_atoms`` bonds in
+    ``(2 * max_atoms + 31) // 32`` words, rounded up. The JAX version
+    rounds down, so in the 24-atom bucket (one word for up to 48 bonds) a
+    bond id >= 32 indexes past the row and raises ``IndexError``; here
+    such molecules get the CPU oracle's bits. A zero word more changes no
+    bitset comparison, so every other molecule gets the same bits.
+    Atom indices, bond codes and degrees travel as uint8 when they fit.
+    """
+    n = len(mols)
+    A = max_atoms
+    K = MAX_BONDS_PER_ATOM
+    max_bonds = 2 * A  # bond-bitset capacity; bonds <= 2*atoms for valence<=4
+    W = (max_bonds + 31) // 32
+    small = np.uint8 if A <= 256 else np.int32
+
+    inv0 = np.zeros((n, A), dtype=np.uint32)
+    adj_atoms = np.zeros((n, A, K), dtype=small)
+    adj_code = np.zeros((n, A, K), dtype=np.uint8)
+    adj_mask = np.zeros((n, A, K), dtype=bool)
+    own_bits = np.zeros((n, A, W), dtype=np.uint32)
+    atom_mask = np.zeros((n, A), dtype=bool)
+    degree = np.zeros((n, A), dtype=np.uint8)
+
+    for b, mol in enumerate(mols):
+        arrays = mol.to_arrays()
+        na = mol.num_atoms
+        if na > A:
+            raise ValueError(f"molecule with {na} atoms exceeds bucket {A}")
+        if mol.num_bonds > max_bonds:
+            raise ValueError(f"molecule with {mol.num_bonds} bonds exceeds capacity {max_bonds}")
+        inv0[b, :na] = atom_invariants(arrays, use_chirality)
+        atom_mask[b, :na] = True
+        degree[b, :na] = arrays["degree"]
+        ab = arrays["adj_bonds"]  # [na, K], bonds first, then -1
+        used = ab >= 0
+        atom, slot = np.nonzero(used)
+        bonds = ab[atom, slot]
+        adj_atoms[b, atom, slot] = arrays["adj_atoms"][atom, slot]
+        adj_code[b, atom, slot] = arrays["bond_type"][bonds]
+        adj_mask[b, :na] = used
+        np.bitwise_or.at(
+            own_bits[b], (atom, bonds // 32), np.left_shift(np.uint32(1), (bonds % 32).astype(np.uint32))
+        )
+
+    return {
+        "inv0": inv0,
+        "adj_atoms": adj_atoms,
+        "adj_code": adj_code,
+        "adj_mask": adj_mask,
+        "own_bits": own_bits,
+        "atom_mask": atom_mask,
+        "degree": degree,
+    }
 
 
 def _set_bits(bits: torch.Tensor, inv: torch.Tensor, active: torch.Tensor, fp_size: int) -> None:

@@ -3,11 +3,14 @@
 Mirrors ``nvmolkit_tpu/types.py``: :class:`AsyncResult` wraps a
 ``torch.Tensor`` whose kernels were queued on a CUDA stream and may still
 be running. ``.torch()`` hands the tensor over without a copy or a sync;
-``.numpy()`` waits for it and copies it to the host.
+``.numpy()`` waits for it and copies it to the host. :class:`Dense3DResult`
+holds padded conformer coordinates with their masks as tensors.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import enum
 
 import numpy as np
 import torch
@@ -52,13 +55,26 @@ def resolve_device(hardwareOptions: HardwareOptions | None, device=None) -> torc
 
 def input_device(x, device=None, hardwareOptions: HardwareOptions | None = None) -> torch.device:
     """The device a call on input ``x`` runs on: ``device`` or
-    ``hardwareOptions.deviceIds`` if given, else the device of a tensor or
-    AsyncResult ``x`` (the caller put it there), else (host arrays)
-    :func:`resolve_device`'s ``cuda:0``."""
+    ``hardwareOptions.deviceIds`` if given, else the device of a tensor,
+    AsyncResult or Dense3DResult ``x`` (the caller put it there), else (host
+    arrays) :func:`resolve_device`'s ``cuda:0``."""
     if device is None and not (hardwareOptions is not None and hardwareOptions.deviceIds):
         if isinstance(x, (torch.Tensor, AsyncResult)):
             return x.device
+        if isinstance(x, Dense3DResult):
+            return x.positions.device
     return resolve_device(hardwareOptions, device)
+
+
+class CoordinateOutput(enum.Enum):
+    """How conformer-producing APIs hand back coordinates (the reference's
+    ``CoordinateOutput``): ``CONFORMERS`` writes them back into each input
+    molecule's conformer list (alias ``RDKIT_CONFORMERS``); ``DEVICE``
+    returns only the device-resident :class:`Dense3DResult`."""
+
+    CONFORMERS = "rdkit"
+    RDKIT_CONFORMERS = "rdkit"  # reference spelling (enum alias)
+    DEVICE = "device"
 
 
 class AsyncResult:
@@ -103,3 +119,72 @@ class AsyncResult:
     def __array__(self, dtype=None, copy=None):
         out = self.numpy()
         return out.astype(dtype) if dtype is not None else out
+
+
+@dataclasses.dataclass
+class Dense3DResult:
+    """Padded conformer coordinates and masks, as tensors on one device.
+
+    ``positions`` (n_mols, max_confs, max_atoms, 3) float, ``conf_mask``
+    (n_mols, max_confs) bool, ``atom_mask`` (n_mols, max_atoms) bool, and
+    optionally ``energies`` (n_mols, max_confs) and ``converged`` (bool) —
+    the layout of ``nvmolkit_tpu.types.Dense3DResult`` (the reference's
+    ``Device3DResult.dense()`` view). The views below copy to the host.
+    """
+
+    positions: torch.Tensor
+    conf_mask: torch.Tensor
+    atom_mask: torch.Tensor
+    energies: torch.Tensor | None = None
+    converged: torch.Tensor | None = None
+
+    @property
+    def n_mols(self) -> int:
+        return self.positions.shape[0]
+
+    def _host(self):
+        return (self.positions.detach().cpu().numpy(), self.conf_mask.cpu().numpy(),
+                self.atom_mask.cpu().numpy())
+
+    def per_molecule(self) -> list[list[np.ndarray]]:
+        """Per-molecule lists of (n_atoms, 3) conformers (numpy)."""
+        pos, cmask, amask = self._host()
+        out: list[list[np.ndarray]] = []
+        for m in range(self.n_mols):
+            na = int(amask[m].sum())
+            out.append([pos[m, c, :na] for c in range(pos.shape[1]) if cmask[m, c]])
+        return out
+
+    def dense(self, pad_value: float = 0.0):
+        """(positions, conf_mask, atom_mask) as numpy, with masked entries set
+        to ``pad_value``."""
+        pos, cmask, amask = self._host()
+        pos = pos.copy()
+        pos[~cmask] = pad_value
+        for m in range(pos.shape[0]):
+            pos[m, :, ~amask[m]] = pad_value
+        return pos, cmask, amask
+
+    def csr(self) -> dict[str, np.ndarray]:
+        """CSR view (the reference's ``Device3DResult`` layout): flat
+        positions [total_atoms, 3] over accepted conformers, with
+        ``atom_starts``, ``mol_indices`` and ``conf_indices``."""
+        pos, cmask, amask = self._host()
+        flat, starts, mol_idx, conf_idx = [], [0], [], []
+        for m in range(self.n_mols):
+            na = int(amask[m].sum())
+            for c in np.nonzero(cmask[m])[0]:
+                flat.append(pos[m, c, :na])
+                starts.append(starts[-1] + na)
+                mol_idx.append(m)
+                conf_idx.append(c)
+        return {
+            "positions": np.concatenate(flat) if flat else np.zeros((0, 3), pos.dtype),
+            "atom_starts": np.asarray(starts, np.int64),
+            "mol_indices": np.asarray(mol_idx, np.int32),
+            "conf_indices": np.asarray(conf_idx, np.int32),
+        }
+
+
+# The reference's name for its device-resident conformer container.
+Device3DResult = Dense3DResult

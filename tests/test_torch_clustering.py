@@ -216,3 +216,45 @@ def test_validation():
         fused_butina(np.zeros((3, 8), np.uint32), 0.5, metric="nope", device="cpu")
     with pytest.raises(TypeError):
         butina(np.zeros((3, 3), np.float32), 0.5, stream="default", device="cpu")
+
+
+def _square(cond, c):
+    """[c, c] symmetric distances from a condensed lower triangle."""
+    d = torch.zeros((c, c), dtype=torch.float32)
+    r, k = torch.tril_indices(c, c, -1)
+    d[r, k] = cond
+    d[k, r] = cond
+    return d
+
+
+def test_rmsd_to_butina_matches_jax():
+    """Six families of noisy rotated copies: the port's condensed conformer
+    RMSD, expanded, clusters as the JAX package's does, ids and centroids
+    equal, one family per cluster."""
+    from nvmolkit_tpu.chem import mol_from_smiles as jax_mol_from_smiles
+    from nvmolkit_tpu.conformerRmsd import GetConformerRMSMatrix as jax_rmsd
+    from nvmolkit_tpu_torch.chem import mol_from_smiles
+    from nvmolkit_tpu_torch.conformerRmsd import GetConformerRMSMatrix
+
+    rng = np.random.default_rng(21)
+    smiles = "CC(C)(C)c1ccc(cc1)C(=O)O"
+    m, jm = mol_from_smiles(smiles), jax_mol_from_smiles(smiles)
+    families = [rng.normal(size=(m.num_atoms, 3)) * 2.5 for _ in range(6)]
+    for f in range(60):
+        q, r = np.linalg.qr(rng.normal(size=(3, 3)))
+        q = q * np.sign(np.diag(r))
+        q *= np.array([1.0, 1.0, np.linalg.det(q)])  # a proper rotation
+        x = (families[f % 6] + rng.normal(size=(m.num_atoms, 3)) * 0.2) @ q.T + rng.normal(size=3)
+        m.add_conformer(x)
+        jm.add_conformer(x)
+    cond = GetConformerRMSMatrix(m, device="cpu").torch()
+    same_family = [c * (c - 1) // 2 + k for c in range(60) for k in range(c) if (c - k) % 6 == 0]
+    assert float(cond[same_family].max()) < 1.0 < float(np.delete(cond.numpy(), same_family).min())
+    ids, cents = butina(_square(cond, 60), 1.0, return_centroids=True, device="cpu")
+    want_ids, want_cents = jax_butina(
+        np.asarray(_square(torch.from_numpy(jax_rmsd(jm).numpy()), 60)), 1.0,
+        return_centroids=True)
+    np.testing.assert_array_equal(ids.numpy(), want_ids.numpy())
+    np.testing.assert_array_equal(cents, want_cents)
+    families_of = [set(np.nonzero(ids.numpy() == k)[0] % 6) for k in range(len(cents))]
+    assert len(cents) == 6 and all(len(f) == 1 for f in families_of)

@@ -15,6 +15,8 @@ from nvmolkit_tpu.fingerprints import MorganFingerprintGenerator as JaxGenerator
 from nvmolkit_tpu.fingerprints import pack_fingerprint as jax_pack
 from nvmolkit_tpu.fingerprints import unpack_fingerprint as jax_unpack
 from nvmolkit_tpu.utils.config import HardwareOptions as JaxOptions
+from nvmolkit_tpu.chem.native import mols_from_smiles_native as jax_mols_from_smiles
+from nvmolkit_tpu_torch.chem.native import mols_from_smiles
 from nvmolkit_tpu_torch.fingerprints import MorganFingerprintGenerator, pack_fingerprint
 from nvmolkit_tpu_torch.fingerprints import unpack_fingerprint
 from nvmolkit_tpu_torch.interop import options_from_reference
@@ -115,12 +117,14 @@ def test_pack_unpack_match_jax():
 
 def test_unsupported_calls_raise():
     gen = MorganFingerprintGenerator(2, 1024)
-    with pytest.raises(NotImplementedError):
-        gen.GetFingerprints([])
-    with pytest.raises(NotImplementedError):
+    empty = gen.GetFingerprints([], device="cpu")
+    assert empty.shape == (0, 32) and empty.numpy().dtype == np.uint32
+    with pytest.raises(ValueError):  # np.stack of nothing, as in the JAX package
         gen.GetFingerprintsCpu([])
     with pytest.raises(NotImplementedError):
         gen.GetFingerprintsFromSmiles(["CCO"], hardwareOptions=HardwareOptions(deviceIds=[0, 1]))
+    with pytest.raises(NotImplementedError):
+        gen.GetFingerprints([], hardwareOptions=HardwareOptions(deviceIds=[0, 1]))
     with pytest.raises(ValueError):
         MorganFingerprintGenerator(2, 1000)
     with pytest.raises(ValueError):
@@ -154,3 +158,91 @@ def test_hash_combine_matches_jax_package():
                            torch.from_numpy(value.astype(np.int64)))
     np.testing.assert_array_equal(got.numpy().astype(np.uint32), want)
     assert int(got.min()) >= 0 and int(got.max()) < 2**32
+
+
+@pytest.fixture(scope="module")
+def mol_sets():
+    """The same SMILES as Mol objects of each package (native parsers)."""
+    smiles = SMILES_100 + random_smiles_batch(seed=7, n=100)
+    return mols_from_smiles(smiles), jax_mols_from_smiles(smiles)
+
+
+@pytest.mark.parametrize("fp_size", [128, 2048])
+@pytest.mark.parametrize("radius", [0, 2, 3])
+def test_fingerprints_from_mols_match_jax(mol_sets, radius, fp_size):
+    mols, jax_mols = mol_sets
+    got = MorganFingerprintGenerator(radius, fp_size).GetFingerprints(mols, device="cpu")
+    want = JaxGenerator(radius, fp_size).GetFingerprints(jax_mols).numpy()
+    assert got.numpy().dtype == np.uint32 and got.torch().dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_fingerprints_from_mols_match_oracle_and_smiles_path(mol_sets):
+    mols = mol_sets[0]
+    gen = MorganFingerprintGenerator(3, 2048)
+    got = gen.GetFingerprints(mols, device="cpu").numpy()
+    np.testing.assert_array_equal(got, gen.GetFingerprintsCpu(mols))
+    np.testing.assert_array_equal(got[0], gen.GetFingerprint(mols[0]))
+    smiles = SMILES_100 + random_smiles_batch(seed=7, n=100)
+    np.testing.assert_array_equal(
+        got, gen.GetFingerprintsFromSmiles(smiles, device="cpu").numpy())
+
+
+def test_golden_regression_bits_from_mols():
+    data = json.loads(GOLDEN.read_text())
+    fps = MorganFingerprintGenerator(2, 1024).GetFingerprints(
+        mols_from_smiles(data["smiles"]), device="cpu").numpy()
+    for smi, row, want in zip(data["smiles"], unpack_fingerprint(fps), data["bits"]):
+        assert np.nonzero(row)[0].tolist() == want, smi
+
+
+def test_fallback_and_triple_cubane():
+    """Molecules past the largest bucket run in a bucket of their own size
+    in the port and through the host fallback in the JAX package: the same
+    bits, those of the uncapped oracle. The triple cubane (38 bonds in the
+    24-atom bucket) gets the oracle's bits in the port, where the JAX
+    package's prepare_batch indexes past its one-word bond bitset and
+    raises IndexError."""
+    from nvmolkit_tpu_torch.ops.morgan_cpu import morgan_fingerprint_cpu_unbounded
+
+    smiles = ["CCO", "C" * 300, "c1ccccc1", "C" * 257, "C(C)(O)" * 90, "c1ccc(cc1)" * 50]
+    gen = MorganFingerprintGenerator(2, 2048)
+    mols = mols_from_smiles(smiles)
+    big = [m for m in mols if m.num_atoms > HardwareOptions().atomBuckets[-1]]
+    assert [m.num_atoms for m in big] == [300, 257, 270, 300]
+    got = gen.GetFingerprints(mols, device="cpu").numpy()
+    np.testing.assert_array_equal(got, gen.GetFingerprintsCpu(mols))
+    np.testing.assert_array_equal(
+        got, JaxGenerator(2, 2048).GetFingerprints(jax_mols_from_smiles(smiles)).numpy())
+    for row, mol in zip(got, mols):
+        np.testing.assert_array_equal(row, morgan_fingerprint_cpu_unbounded(mol, 2, 2048))
+
+    cubane = mols_from_smiles(["CCO", TRIPLE_CUBANE])
+    assert cubane[1].num_atoms == 24 and cubane[1].num_bonds == 38
+    np.testing.assert_array_equal(gen.GetFingerprints(cubane, device="cpu").numpy(),
+                                  gen.GetFingerprintsCpu(cubane))
+    with pytest.raises(IndexError):
+        JaxGenerator(2, 2048).GetFingerprints(jax_mols_from_smiles([TRIPLE_CUBANE]))
+
+
+def test_chunks_past_the_largest_bucket(monkeypatch):
+    """Buckets past 256 atoms take fewer molecules per kernel call; the rows
+    still come back in input order."""
+    from nvmolkit_tpu_torch import fingerprints
+
+    assert fingerprints._chunk_rows(32) == fingerprints._chunk_rows(256) == 8192
+    assert fingerprints._chunk_rows(512) == 2048
+    monkeypatch.setattr(fingerprints, "_MORGAN_CHUNK", 2)
+    assert fingerprints._chunk_rows(288) == 1
+    smiles = ["C" * 260, "CCO", "C" * 280, "C" * 270, "CCN", "C" * 290, "CC"]
+    mols = mols_from_smiles(smiles)
+    gen = MorganFingerprintGenerator(3, 1024)
+    np.testing.assert_array_equal(gen.GetFingerprints(mols, device="cpu").numpy(),
+                                  gen.GetFingerprintsCpu(mols))
+
+
+def test_fingerprints_from_mols_need_a_device():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError):
+        MorganFingerprintGenerator(2, 1024).GetFingerprints(mols_from_smiles(["CCO"]))

@@ -179,3 +179,114 @@ def test_slice_on_cuda_matches_cpu(cuda):
         out[str(dev)] = (fps.numpy(), sim.numpy(), ids.numpy(), cents)
     for a, b in zip(out["cpu"], out[str(cuda)]):
         np.testing.assert_array_equal(a, b)
+
+
+def _rmsd_batch(rng, n_confs, n_atoms, heavy):
+    """A flat stack of ragged molecules: noisy rotated copies of one base
+    geometry each, every 8th conformer an exact rigid copy of conformer 0;
+    with ``heavy``, a mask that drops about a third of the atoms (hydrogens)."""
+    a_max = max(n_atoms)
+    rows, mask, rigid, start = [], np.zeros((len(n_confs), a_max), bool), [], 0
+    for m, (c, a) in enumerate(zip(n_confs, n_atoms)):
+        base = rng.normal(size=(a, 3)) * max(1.0, a ** (1 / 3))
+        for k in range(c):
+            q, r = np.linalg.qr(rng.normal(size=(3, 3)))
+            q = q * np.sign(np.diag(r))
+            q *= np.array([1.0, 1.0, np.linalg.det(q)])
+            x = base if k % 8 == 0 else base + rng.normal(size=base.shape) * rng.uniform(0.05, 1.0)
+            pad = np.zeros((a_max, 3))
+            pad[:a] = x @ q.T + rng.normal(size=3) * 5.0
+            rows.append(pad)
+            if k % 8 == 0 and k:
+                rigid.append(start + k * (k - 1) // 2)  # pair (k, 0)
+        mask[m, :a] = rng.random(a) < 0.67 if heavy else True
+        mask[m, 0] = True
+        start += c * (c - 1) // 2
+    return np.stack(rows).astype(np.float32), mask, np.asarray(rigid, np.int64)
+
+
+@pytest.mark.parametrize("prealigned", [False, True])
+@pytest.mark.parametrize("heavy", [False, True])
+@pytest.mark.parametrize("n_confs,n_atoms", [
+    ([2, 3, 17, 64, 2], [3, 17, 32, 33, 256]),
+    ([300, 5], [128, 3]),
+])
+def test_conformer_rmsd_kernel_matches_plain(cuda, n_confs, n_atoms, heavy, prealigned):
+    from nvmolkit_tpu_torch.ops import kabsch
+
+    rng = np.random.default_rng(sum(n_confs) + 7 * heavy + prealigned)
+    x, mask, rigid = _rmsd_batch(rng, n_confs, n_atoms, heavy)
+    x, mask = torch.from_numpy(x).to(cuda), torch.from_numpy(mask).to(cuda)
+    before = kabsch.launch_counts["conformer_rmsd"]
+    got = kabsch.conformer_rmsd_condensed(x, mask, n_confs, prealigned=prealigned)
+    torch.cuda.synchronize()
+    assert kabsch.launch_counts["conformer_rmsd"] == before + 1
+    want = kabsch.conformer_rmsd_condensed_plain(x, mask, n_confs, prealigned=prealigned)
+    e0, n = kabsch.condensed_scales(x, mask, n_confs, prealigned=prealigned)
+    tol = kabsch.rmsd_tolerance(want.double(), e0, n)
+    ratio = (got.double() - want.double()).abs() / tol
+    k = int(ratio.argmax())
+    assert float(ratio[k]) <= 1.0, (
+        f"entry {k}: K3 {float(got[k])}, plain {float(want[k])}, tolerance {float(tol[k])}, "
+        f"e0 {float(e0[k])}, n {float(n[k])}")
+    if not prealigned:  # exact rigid copies: below the near-zero bound
+        zero = kabsch.rmsd_tolerance(torch.zeros_like(e0), e0, n)
+        assert bool((got[rigid].double() <= zero[rigid]).all())
+
+
+def test_conformer_rmsd_kernel_reads_rows_in_place(cuda):
+    """Rows through an int64 list (a padded Dense3DResult with holes):
+    the same numbers as the gathered stack."""
+    from nvmolkit_tpu_torch.ops import kabsch
+
+    rng = np.random.default_rng(4)
+    x, mask, _ = _rmsd_batch(rng, [9, 20], [40, 17], heavy=True)
+    dense = torch.zeros((2, 24, 40, 3))
+    keep = torch.zeros((2, 24), dtype=torch.bool)
+    keep[0, rng.choice(24, 9, replace=False)] = True
+    keep[1, rng.choice(24, 20, replace=False)] = True
+    dense[keep] = torch.from_numpy(x)
+    rows = torch.nonzero(keep.reshape(-1)).squeeze(1).to(cuda)
+    flat = dense.to(cuda).view(48, 40, 3)
+    mask = torch.from_numpy(mask).to(cuda)
+    got = kabsch.conformer_rmsd_condensed(flat, mask, [9, 20], rows)
+    want = kabsch.conformer_rmsd_condensed(torch.from_numpy(x).to(cuda), mask, [9, 20])
+    assert torch.equal(got, want)
+
+
+def test_conformer_rmsd_api_on_cuda_matches_cpu(cuda):
+    from nvmolkit_tpu_torch.chem.native import mols_from_smiles
+    from nvmolkit_tpu_torch.conformerRmsd import GetConformerRMSMatrixBatch
+    from nvmolkit_tpu_torch.ops import kabsch
+
+    rng = np.random.default_rng(6)
+    mols = mols_from_smiles(["[H]OC([H])([H])C", "c1ccccc1C(=O)O[H]", "[H]N([H])CC(C)(C)C"])
+    for m, c in zip(mols, (2, 30, 7)):
+        for x in _rmsd_batch(rng, [c], [m.num_atoms], False)[0]:
+            m.add_conformer(x)
+    for prealigned in (False, True):
+        got = GetConformerRMSMatrixBatch(mols, prealigned, heavyAtomsOnly=True)
+        want = GetConformerRMSMatrixBatch(mols, prealigned, heavyAtomsOnly=True, device="cpu")
+        for g, w, m in zip(got, want, mols):
+            assert g.device.type == "cuda"
+            x = torch.from_numpy(np.stack(m.conformers).astype(np.float32))
+            heavy = torch.tensor([[a.atomic_num > 1 for a in m.atoms]])
+            assert not bool(heavy.all())
+            e0, n = kabsch.condensed_scales(x, heavy, [len(m.conformers)],
+                                            prealigned=prealigned)
+            tol = kabsch.rmsd_tolerance(w.torch().double(), e0, n)
+            assert bool(((g.torch().cpu().double() - w.torch().double()).abs() <= tol).all())
+
+
+def test_fingerprints_from_mols_on_cuda_match_cpu(cuda):
+    from nvmolkit_tpu_torch.chem.native import mols_from_smiles
+    from nvmolkit_tpu_torch.fingerprints import MorganFingerprintGenerator
+
+    smiles = _load_by_path("tests/data/smiles.py").SMILES_100 + ["C" * 300]
+    mols = mols_from_smiles(smiles)
+    gen = MorganFingerprintGenerator(radius=3, fpSize=2048)
+    got = gen.GetFingerprints(mols)
+    assert got.device.type == "cuda"
+    np.testing.assert_array_equal(got.numpy(), gen.GetFingerprintsCpu(mols))
+    np.testing.assert_array_equal(
+        got.numpy()[:100], gen.GetFingerprintsFromSmiles(smiles[:100]).numpy())

@@ -28,6 +28,25 @@ ids, cent = butina(1.0 - sim.torch(), 0.4, return_centroids=True)
 clusters, sizes = fused_butina(fps, 0.4)
 assert fps.numpy().shape == (50, 64) and sim.numpy().shape == (50, 50)
 assert int(sizes.sum()) == 50 and len(cent) == int(ids.numpy().max()) + 1
+
+# the molecule model, GetFingerprints(mols) and conformer RMSD
+import nvmolkit_tpu_torch.chem.aromaticity, nvmolkit_tpu_torch.chem.rings  # noqa: E401
+import nvmolkit_tpu_torch.interop, nvmolkit_tpu_torch.ops.morgan_cpu  # noqa: E401
+from nvmolkit_tpu_torch.chem import mol_from_smiles
+from nvmolkit_tpu_torch.chem.native import mols_from_smiles
+from nvmolkit_tpu_torch.conformerRmsd import GetConformerRMSMatrix
+from nvmolkit_tpu_torch.ops import kabsch
+
+mols = mols_from_smiles(smiles) + [mol_from_smiles("c1ccccc1O")]
+gen = MorganFingerprintGenerator(3, 2048)
+mol_fps = gen.GetFingerprints(mols, device="cpu").numpy()
+assert (mol_fps[:50] == fps.numpy()).all() and (mol_fps == gen.GetFingerprintsCpu(mols)).all()
+mol = mols[-1]
+rng = np.random.default_rng(0)
+for _ in range(5):
+    mol.add_conformer(rng.normal(size=(mol.num_atoms, 3)))
+rms = GetConformerRMSMatrix(mol, device="cpu").numpy()
+assert rms.shape == (10,) and kabsch.launch_counts["conformer_rmsd"] == 0
 leaked = sorted(m for m in sys.modules if m == "jax" and sys.modules[m] is not None
                 or m.startswith(("jax.", "jaxlib", "nvmolkit_tpu.")) or m == "nvmolkit_tpu")
 assert not leaked, leaked
@@ -53,6 +72,21 @@ spec = importlib.util.spec_from_file_location("_chip_smoke", {root!r} + "/chip_s
 smoke = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(smoke)
 smiles = smoke.smoke_smiles()
+import numpy as np
+rng = np.random.default_rng(3)
+assert smoke.conformer_ensemble(rng, 12, 64).shape == (64, 12, 3)
+assert smoke.family_ensemble(rng, 30).shape == (smoke.FAMILIES * smoke.COPIES, 30, 3)
+from nvmolkit_tpu_torch.chem.native import mols_from_smiles
+drug = smoke.random_smiles_batch(seed=11, n=8, min_heavy=smoke.DRUG_HEAVY[0],
+                                 max_heavy=smoke.DRUG_HEAVY[1])
+for mol in mols_from_smiles(drug):
+    full = smoke.with_hydrogens(mol)
+    heavy = [a.atomic_num > 1 for a in full.atoms]
+    assert heavy == [True] * mol.num_atoms + [False] * sum(a.total_hs for a in mol.atoms)
+    assert mol.num_atoms >= smoke.DRUG_HEAVY[0]
+    assert full.num_bonds == mol.num_bonds + full.num_atoms - mol.num_atoms
+    assert all(full.degree(i) == mol.degree(i) + a.total_hs for i, a in enumerate(mol.atoms))
+    assert all(a.total_hs == 0 for a in full.atoms)
 leaked = sorted(m for m in sys.modules if sys.modules[m] is not None
                 and m.split(".")[0] in ("jax", "jaxlib", "nvmolkit_tpu"))
 assert not leaked, leaked
@@ -61,8 +95,10 @@ print(json.dumps(smiles[-400:]))
 
 
 def test_chip_smoke_inputs_need_no_jax():
-    """chip_smoke.py builds its SMILES (the random ones included) with the
-    JAX package's modules blocked, and gets tests/molgen.py's list."""
+    """chip_smoke.py builds its SMILES (the random ones included), its
+    drug-like molecules with their hydrogens as atoms and its conformers
+    with the JAX package's modules blocked, and gets tests/molgen.py's
+    list."""
     from tests.molgen import random_smiles_batch
 
     proc = subprocess.run(
