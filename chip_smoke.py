@@ -5,9 +5,9 @@
 
 Phases, each reported as one JSON line with its seconds:
   0. device: the card's name and power limit;
-  1. build: the similarity kernels and the conformer RMSD kernel (nvcc) and
-     the SMILES featurizer (g++), from the sources in this checkout, all
-     three compilers started together;
+  1. build: the similarity kernels, the conformer RMSD kernel and the MMFF
+     kernels (nvcc) and the SMILES featurizer (g++), from the sources in
+     this checkout, all four compilers started together;
   2. kernels: K1 (cross similarity, both launch configurations) and K2
      (neighbor counts) against their plain PyTorch versions at side shapes
      (ragged, zero rows, 128..4096 bits, with and without row lists, the
@@ -17,7 +17,11 @@ Phases, each reported as one JSON line with its seconds:
      version on ragged batches (2..300 conformers, 3..256 atoms, heavy-atom
      masks, prealigned or not, from a flat stack and through a row list
      with holes, and through GetConformerRMSMatrixBatch(positionsFrom=...)),
-     with exact rigid copies below the near-zero bound;
+     with exact rigid copies below the near-zero bound; K4 (MMFF energy and
+     gradient) against its plain version (autograd for the gradient) on the
+     committed starts (tests/data/torch_mmff_starts.npz) with 0.3 Å of
+     noise under every term toggle and dielModel 2, on the golden
+     regression molecules and on geometries where the clips bind;
   3. main path: ~24.5k SMILES -> Morgan (r=3, 2048 bits) -> Tanimoto matrix
      -> Butina (cutoff 0.4), then fused Butina over 100k clustered
      fingerprints (cutoff 0.6), with the kernels' launch counts and the
@@ -39,12 +43,21 @@ Phases, each reported as one JSON line with its seconds:
      2,000 conformers in 50 families through GetConformerRMSMatrix, the
      condensed vector expanded on the device, and butina, which must find
      the 50 families with the ids and centroids of the plain matrix;
+  6b. MMFF: the fixture's drug-like molecules x 32 conformers through
+     MMFFOptimizeMoleculesConfs(maxIters=200, output=DEVICE) (one K5 launch
+     per bucket), first call and three warm ones, converged shares and
+     step counts; the starts' minima against the JAX package's energies
+     and, on a subset, K5 against the plain minimizer on the card (same
+     basin by Kabsch RMSD); then a Dense3DResult with holes fed back
+     through positionsFrom in two groups, and RMSD -> Butina on one
+     minimized ensemble;
   7. timings at the main path's shapes: the median of each kernel and its
      plain version by CUDA events, beside its bound (the least time the
      card could take: bytes over the memory rate, or POPCs or FP32
      operations over their issue rate, whichever is larger; byte-light
      kernels also with a cold L2), K1's two configurations over the column
-     counts of the M_SKINNY sweep, and one torch.bmm of K3's Gram alone;
+     counts of the M_SKINNY sweep, one torch.bmm of K3's Gram alone, and K4
+     and K5 at the MMFF phase's largest bucket chunk;
   8. trace, per phase of the paths: three warm untraced walls, then one run
      under torch.profiler with its wall, the span between CUDA events around
      it, the device-busy share (union of the intervals of device events,
@@ -59,6 +72,7 @@ from __future__ import annotations
 
 import importlib.util
 import json
+import math
 import pathlib
 import random
 import statistics
@@ -82,6 +96,48 @@ DRUG_HEAVY = (25, 32)                              # heavy atoms drawn for (c)
 FAMILIES, COPIES, FAMILY_SIGMA = 50, 40, 0.2       # ensemble (b)
 ENSEMBLE_CUTOFF = 1.5  # Å: copies of a family lie ~0.5 Å apart, families > 2 Å
 TRIPLE_CUBANE = "C12C3C4C1C5C2C3C45C67C8C9C6C%10C7C8C9%10C%11%12C%13C%14C%11C%15C%12C%13C%14%15"
+MMFF_FIXTURE = "tests/data/torch_mmff_starts.npz"  # starts embedded by the JAX package
+MMFF_CONFS = 32             # systems per fixture molecule at the user's size
+MMFF_MAX_ITERS = 200
+MMFF_NOISE = (0.05, 0.25)   # Å: sigma of the seeded noise of conformers 8k + r, r >= 1
+MMFF_PLAIN_MOLS = 16        # molecules (x MMFF_CONFS systems) minimized by the plain version too
+K4_SIGMA = 0.3              # Å: noise on the fixture starts for K4's check
+# the same-basin contract (tests/test_f64_validation.py's geometry row): of
+# the systems converged in both, >= 75 % within 0.3 Å Kabsch RMSD. Energies
+# are held against the JAX package's own spread: its float32 minimizer,
+# started 1e-5 Å away (the fixture's energies_perturbed), ends 0.3-16
+# kcal/mol from where it ends otherwise at this shape, so each of the
+# ENERGY_QUANTILES of |E_port - E_JAX| may be at most ENERGY_SPREAD_FACTOR
+# times the same quantile of JAX's own spread, plus 0.1 kcal/mol. The
+# converged sets of two float32 minimizers differ by a few % of the systems
+# in each direction (converged_sets_agree holds the balance)
+SAME_BASIN_RMSD, SAME_BASIN_SHARE, ENERGY_SPREAD_FACTOR = 0.3, 0.75, 1.5
+ENERGY_QUANTILES = (0.5, 0.75, 0.9)
+# K5's trajectory against the plain minimizer's, at the largest bucket
+# chunk: maxIters HISTORY + 2, so that every system not converged before
+# makes that many accepted steps (the history fills and its ring wraps).
+# Status bits and probe counts must be equal on >= TRAJ_EQUAL_SHARE of the
+# systems (a rounding can flip one line-search test). On those, K5 and the
+# float32 plain run are two float32 roundings of the float64 plain run's
+# trajectory: per system, K5's distance from it may be at most TRAJ_FACTOR
+# times the float32 plain run's own spread, plus a floor (positions 1e-4 Å,
+# ~20x the 2-7e-6 Å between two float32 implementations on the CPU;
+# energies K4's bound 1e-5 sum|E_term| + 1e-4), on >= TRAJ_EQUAL_SHARE of
+# them. That spread is the larger of the float32 run's distance from the
+# float64 run and from a second float32 run on the same inputs: its
+# index_add_ sums in another order each run, and on the card a system can
+# then end 0.15 Å and 360 kcal/mol from where it ended before
+TRAJ_EQUAL_SHARE, TRAJ_FACTOR, TRAJ_FLOOR_A = 0.99, 10.0, 1e-4
+# FP32 instructions of csrc/mmff.cu's K4 per term, value and gradient,
+# counted as K3's are (a multiply feeding an add once; a division, square
+# root, arccos or arcsin once): bond 30, angle 75 and stretch-bend 85 (two
+# norms, arccos, the gradient through cos and the lengths), out-of-plane 90
+# (a cross product, arcsin), torsion 125 (two cross products, the gradient
+# through both), nonbonded pair 65 (buffered 14-7 and electrostatics, one
+# square root, four divisions); and 9 per atom of a system (load, zero,
+# write)
+K4_OPS = (30, 75, 85, 90, 125, 65)
+K4_OPS_PER_ATOM = 9
 
 
 def check(ok: bool, what: str) -> None:
@@ -465,6 +521,195 @@ def ids_from_clusters(clusters, n):
     return ids
 
 
+def mmff_fixture():
+    """The committed MMFF starts: the fixture's arrays and, per molecule,
+    its [C, n, 3] float32 starting conformers."""
+    import numpy as np
+
+    with np.load(ROOT / MMFF_FIXTURE) as f:
+        fx = {k: f[k] for k in f.files}
+    n = fx["n_atoms"].astype(np.int64)
+    c = fx["energies"].shape[1]
+    ends = np.cumsum(n * c)
+    return fx, [fx["positions"][e - c * k:e].reshape(c, k, 3) for e, k in zip(ends, n)]
+
+
+def mmff_jax_minima(fx, starts):
+    """Per molecule, the JAX package's [C, n, 3] minimized positions from
+    its starts (the fixture stores them as float16 shifts)."""
+    import numpy as np
+
+    shift = fx["minimized_shift"].astype(np.float32)
+    ends = np.cumsum([s.size // 3 for s in starts])
+    return [s + shift[e - s.size // 3:e].reshape(s.shape) for s, e in zip(starts, ends)]
+
+
+def mmff_molecules(fx):
+    """The fixture's molecules, with their hydrogens made atoms."""
+    from nvmolkit_tpu_torch.chem.mol import mols_from_smiles
+
+    return [with_hydrogens(m) for m in mols_from_smiles([str(s) for s in fx["smiles"]])]
+
+
+def mmff_user_conformers(rng, starts):
+    """[MMFF_CONFS, n, 3] float64 from a molecule's C starts: conformer
+    8k + r is start k for r = 0 and, for r = 1..7, start k plus Gaussian
+    noise of a sigma drawn in MMFF_NOISE, then a random rotation about its
+    centroid and a random translation."""
+    import numpy as np
+
+    c, n = starts.shape[:2]
+    per = MMFF_CONFS // c
+    out = np.repeat(starts.astype(np.float64), per, axis=0)
+    moved = np.arange(MMFF_CONFS) % per != 0
+    k = int(moved.sum())
+    sigma = rng.uniform(*MMFF_NOISE, size=(k, 1, 1))
+    x = out[moved] + rng.normal(size=(k, n, 3)) * sigma
+    centre = x.mean(axis=1, keepdims=True)
+    out[moved] = (x - centre) @ random_rotations(rng, k).transpose(0, 2, 1) + centre + rng.normal(
+        size=(k, 1, 3)) * 2.0
+    return out
+
+
+def mmff_clip_geometry(smiles: str):
+    """(molecule with its hydrogens, [n, 3] geometry) where MMFF's guards
+    bind: an exactly linear C-C#N or C-C#C-C axis (angles at cos = -1, past
+    the arccos clip) or benzene with its hydrogens exactly planar (its
+    out-of-plane terms at chi = 0); the hydrogens of sp3 carbons on a
+    tetrahedron."""
+    import math
+
+    import numpy as np
+
+    from nvmolkit_tpu_torch.chem import mol_from_smiles
+
+    mol = with_hydrogens(mol_from_smiles(smiles))
+    heavy = [i for i, a in enumerate(mol.atoms) if a.atomic_num > 1]
+    x = np.zeros((mol.num_atoms, 3))
+    ring = smiles == "c1ccccc1"
+    if ring:
+        for k, i in enumerate(heavy):
+            x[i] = (1.39 * math.cos(math.pi * k / 3), 1.39 * math.sin(math.pi * k / 3), 0.0)
+    else:
+        x[heavy, 0] = 1.3 * np.arange(len(heavy))
+    tetra = np.array([[-0.36, 1.03, 0.0], [-0.36, -0.51, 0.89], [-0.36, -0.51, -0.89]])
+    used: dict[int, int] = {}
+    for b in mol.bonds:
+        h, c = (b.end, b.begin) if mol.atoms[b.end].atomic_num == 1 else (b.begin, b.end)
+        if mol.atoms[h].atomic_num != 1:
+            continue
+        k = used[c] = used.get(c, -1) + 1
+        if ring:
+            x[h] = x[c] * (1 + 1.08 / 1.39)
+        else:
+            x[h] = x[c] + tetra[k] * np.array([-1.0 if c == heavy[0] else 1.0, 1, 1])
+    return mol, x
+
+
+def mmff_term_counts(batch, sys2mol):
+    """int64 [S, 6]: each system's terms of each kind."""
+    import numpy as np
+
+    off = batch.offsets.cpu().numpy().astype(np.int64)
+    return (off[:, 1:] - off[:, :-1]).T[sys2mol.cpu().numpy()]
+
+
+def mmff_work(batch, sys2mol, a_pad: int, rates: dict, evals=None) -> dict:
+    """K4 (``evals`` None: one evaluation of every system) or K5 (``evals``
+    [S]: each system's evaluations) on ``batch``'s systems ``sys2mol``:
+    the tables read once per molecule, the positions in and out, per system
+    its energy (and for K5 its status and count); the FP32 instructions of
+    K4_OPS per term and K4_OPS_PER_ATOM per atom, per evaluation (K5's
+    L-BFGS vector work, ~30 reductions of 3n per accepted step, is not
+    counted)."""
+    import numpy as np
+
+    counts = mmff_term_counts(batch, sys2mol)
+    atoms = batch.n_atoms.cpu().numpy().astype(np.int64)[sys2mol.cpu().numpy()]
+    per_eval = counts @ np.asarray(K4_OPS, np.int64) + K4_OPS_PER_ATOM * atoms
+    n_evals = np.ones(len(atoms), np.int64) if evals is None else np.asarray(evals, np.int64)
+    tables = sum(t.numel() * t.element_size() for t in batch.atoms + batch.params)
+    tables += batch.offsets.numel() * 4 + batch.n_atoms.numel() * 4
+    per_sys = 2 * a_pad * 12 + 8 + (4 if evals is None else 12)
+    return bound(tables + per_sys * len(atoms), int((per_eval * n_evals).sum()), rates, "fp32")
+
+
+def converged_sets_agree(a, b) -> tuple[bool, int, int]:
+    """Whether the converged flags ``a`` and ``b`` (bool, one per system)
+    differ without a bias: where they differ, each side is equally likely
+    to be the converged one, so the count converged only in ``a`` less the
+    count converged only in ``b`` has a spread of sqrt(their sum); a
+    difference past 4 of those spreads (a sign test) fails. Returns (ok,
+    only in a, only in b)."""
+    a_only, b_only = int((a & ~b).sum()), int((b & ~a).sum())
+    return abs(a_only - b_only) <= 4.0 * math.sqrt(a_only + b_only), a_only, b_only
+
+
+def k5_trajectory_check(x, batch, sys2mol, errs: dict, key: str) -> dict:
+    """K5 against the plain minimizer, float32 and float64, from the starts
+    ``x`` through HISTORY + 2 accepted steps: the checks stated at
+    TRAJ_EQUAL_SHARE. Sets ``errs[key]`` to the largest |E_K5 - E_plain| of
+    the systems compared."""
+    import torch
+
+    from nvmolkit_tpu_torch.models.mmff import energy as mmff_energy
+    from nvmolkit_tpu_torch.ops import lbfgs_flat
+    from nvmolkit_tpu_torch.ops.bfgs import CONVERGED, FAILED
+
+    n_steps = lbfgs_flat.HISTORY + 2
+    mask = torch.arange(x.shape[1], device=x.device)[None] < mmff_energy.system_atoms(
+        batch, sys2mol)[:, None]
+    fn = mmff_energy.plain_energy_and_grad_fn(batch, sys2mol, x.shape[1])
+    t0 = time.perf_counter()
+    got = lbfgs_flat.mmff_lbfgs(x, batch, sys2mol, n_steps)
+    torch.cuda.synchronize()
+    k5_s = time.perf_counter() - t0
+    p32 = lbfgs_flat.lbfgs_flat_plain(fn, x, mask, n_steps)
+    p32_again = lbfgs_flat.lbfgs_flat_plain(fn, x, mask, n_steps)
+    p64 = lbfgs_flat.lbfgs_flat_plain(fn, x.double(), mask, n_steps)
+    early = (got.status & (CONVERGED | FAILED)) != 0
+    full = got.n_accepted == n_steps
+    check(bool((full | early).all()), "K5: a system stopped short of HISTORY + 2 accepted steps")
+    check(float(full.double().mean()) >= TRAJ_EQUAL_SHARE,
+          f"K5: only {float(full.double().mean())} of the systems wrapped the history")
+
+    def far(a, b):  # per system, max |a - b| over its coordinates
+        return (a.double() - b.double()).abs().amax(dim=(1, 2))
+
+    same = (got.status == p32.status) & (got.n_iters == p32.n_iters) & (
+        got.n_accepted == p32.n_accepted)
+    same_share = float(same.double().mean())
+    check(same_share >= TRAJ_EQUAL_SHARE, f"K5 and plain: equal status and steps on {same_share}")
+    scale = mmff_energy.mmff_term_magnitude_plain(p64.positions.float(), batch, sys2mol)
+    x_spread = torch.maximum(far(p32.positions, p64.positions),
+                             far(p32.positions, p32_again.positions))
+    e_spread = torch.maximum((p32.energies.double() - p64.energies).abs(),
+                             (p32.energies - p32_again.energies).abs().double())
+    x_bound = TRAJ_FACTOR * x_spread + TRAJ_FLOOR_A
+    e_bound = TRAJ_FACTOR * e_spread + 1e-5 * scale + 1e-4
+    x_ratio = far(got.positions, p64.positions) / x_bound
+    e_ratio = (got.energies.double() - p64.energies).abs() / e_bound
+    within = float(((x_ratio <= 1) & (e_ratio <= 1))[same].double().mean())
+    check(within >= TRAJ_EQUAL_SHARE, f"K5's trajectory: within its bound on {within}")
+    errs[key] = float((got.energies.double() - p32.energies.double()).abs()[same].max())
+
+    def q(t):
+        return [float(v) for v in torch.quantile(t[same].double(), torch.tensor(
+            [0.5, 0.99, 1.0], dtype=torch.float64, device=t.device))]
+
+    return {"systems": int(x.shape[0]), "max_iters": n_steps,
+            "accepted_min": int(got.n_accepted.min()), "wrapped_share": float(full.double().mean()),
+            "probes_max": int(got.n_iters.max()), "equal_status_and_steps": same_share,
+            "within_bound": within, "x_ratio_max": float(x_ratio[same].max()),
+            "e_ratio_max": float(e_ratio[same].max()),
+            "dx_k5_plain32_q50_99_max": q(far(got.positions, p32.positions)),
+            "dx_k5_plain64_q50_99_max": q(far(got.positions, p64.positions)),
+            "dx_plain32_plain64_q50_99_max": q(far(p32.positions, p64.positions)),
+            "dx_plain32_twice_q50_99_max": q(far(p32.positions, p32_again.positions)),
+            "de_plain32_twice_max": float((p32.energies - p32_again.energies).abs()[same].max()),
+            "de_k5_plain32_max": errs[key], "k5_s": k5_s}
+
+
 def main() -> int:
     import torch
 
@@ -484,12 +729,16 @@ def main() -> int:
         conformer_stack,
     )
     from nvmolkit_tpu_torch.fingerprints import MorganFingerprintGenerator
+    from nvmolkit_tpu_torch.mmffOptimization import MMFFOptimizeMoleculesConfs
+    from nvmolkit_tpu_torch.models.mmff import EmpiricalMMFFProvider, MMFFProperties
+    from nvmolkit_tpu_torch.models.mmff import energy as mmff_energy
     from nvmolkit_tpu_torch.ops import butina as butina_ops
+    from nvmolkit_tpu_torch.ops import lbfgs_flat
     from nvmolkit_tpu_torch.ops import kabsch
     from nvmolkit_tpu_torch.ops import similarity as sim_ops
     from nvmolkit_tpu_torch.ops.packed_bits import unpack_bits_np
     from nvmolkit_tpu_torch.similarity import crossTanimotoSimilarity
-    from nvmolkit_tpu_torch.types import Dense3DResult
+    from nvmolkit_tpu_torch.types import CoordinateOutput, Dense3DResult
     from nvmolkit_tpu_torch.utils.config import HardwareOptions
 
     cuda = torch.device("cuda", 0)
@@ -509,12 +758,12 @@ def main() -> int:
         return time.perf_counter() - t
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
-        jobs = [pool.submit(build, lib)
-                for lib in (_build.similarity_lib, _build.rmsd_lib, _build.graph_lib)]
-        nvcc_s, nvcc_rmsd_s, gxx_s = (job.result() for job in jobs)
-    emit(phase="build", nvcc_s=nvcc_s, nvcc_rmsd_s=nvcc_rmsd_s, gxx_s=gxx_s,
-         wall_s=time.perf_counter() - t0)
+    with ThreadPoolExecutor(4) as pool:
+        jobs = [pool.submit(build, lib) for lib in (
+            _build.similarity_lib, _build.rmsd_lib, _build.mmff_lib, _build.graph_lib)]
+        nvcc_s, nvcc_rmsd_s, nvcc_mmff_s, gxx_s = (job.result() for job in jobs)
+    emit(phase="build", nvcc_s=nvcc_s, nvcc_rmsd_s=nvcc_rmsd_s, nvcc_mmff_s=nvcc_mmff_s,
+         gxx_s=gxx_s, wall_s=time.perf_counter() - t0)
 
     # 2. kernels against their plain versions ---------------------------------
     t_phase = time.perf_counter()
@@ -698,21 +947,106 @@ def main() -> int:
          k2_max_abs_err=errs[K2], k3_max_abs_err=k3_err, m_skinny=sim_ops.M_SKINNY,
          timed_shape="16384x16384@2048", **timing, seconds=time.perf_counter() - t_phase)
 
+    # K4 against its plain version (energy; gradient by autograd). Bounds:
+    # the energy is a float32 sum over ~2,000 terms taken in another order,
+    # each term's value good to a few ulps: |dE| <= 1e-5 * sum|E_term| + 1e-4
+    # kcal/mol (about 170 ulps of the sum of magnitudes). Each gradient
+    # component sums a few dozen term gradients, each good to ~1e-4 of
+    # itself where an arccos is ill-conditioned (the plain version against
+    # float64 on the CPU: 7.2e-5 of G, G the component's sum over terms of
+    # |dE_term/dx|), and two float32 evaluations differ by up to twice that:
+    # |dg| <= 1e-4 * max(1, max|g| of its system) + 2e-4 * G
+    t_phase = time.perf_counter()
+    K4, K5 = "mmff_energy_grad", "mmff_lbfgs"
+    mmff_provider = EmpiricalMMFFProvider()
+    mmff_fx, mmff_starts = mmff_fixture()
+    mmff_mols = mmff_molecules(mmff_fx)
+    check([m.num_atoms for m in mmff_mols] == mmff_fx["n_atoms"].tolist(),
+          "the fixture's atom counts differ from its SMILES'")
+    k4_worst: dict[str, dict] = {}
+    errs[K4] = 0.0
+
+    def check_k4(what, mols_, geoms, props):
+        """K4 against the plain version on the systems ``geoms`` (per
+        molecule, [C, n, 3]) of ``mols_``."""
+        a_pad = max(m.num_atoms for m in mols_)
+        s2m_np = np.repeat(np.arange(len(mols_)), [len(g) for g in geoms])
+        pos = np.zeros((len(s2m_np), a_pad, 3), np.float32)
+        k = 0
+        for m, g in zip(mols_, geoms):
+            pos[k:k + len(g), : m.num_atoms] = g
+            k += len(g)
+        batch = mmff_energy.make_batched_mmff(mols_, a_pad, props, provider=mmff_provider,
+                                              device=cuda)
+        x = torch.from_numpy(pos).to(cuda)
+        s2m = torch.from_numpy(s2m_np.astype(np.int32)).to(cuda)
+        before = mmff_energy.launch_counts[K4]
+        e, g = mmff_energy.mmff_energy_and_grad(x, batch, s2m)
+        check(mmff_energy.launch_counts[K4] == before + 1, f"K4 {what} did not launch")
+        e_p, g_p = mmff_energy.mmff_energy_and_grad_plain(x, batch, s2m)
+        scale = mmff_energy.mmff_term_magnitude_plain(x, batch, s2m)
+        check(bool(torch.isfinite(e).all() and torch.isfinite(g).all()), f"K4 {what}: not finite")
+        de = (e.double() - e_p.double()).abs()
+        e_ratio = float((de / (1e-5 * scale + 1e-4)).max())
+        g_bound = 1e-4 * g_p.abs().amax(dim=(1, 2)).double().clamp_min(1.0)[:, None, None] + (
+            2e-4 * mmff_energy.mmff_grad_magnitude_plain(x, batch, s2m))
+        g_ratio = float(((g.double() - g_p.double()).abs() / g_bound).max())
+        worst = k4_worst.setdefault(what.split(" ")[0], {"energy": 0.0, "gradient": 0.0})
+        worst["energy"] = max(worst["energy"], e_ratio)
+        worst["gradient"] = max(worst["gradient"], g_ratio)
+        errs[K4] = max(errs[K4], float(de.max()))
+        check(e_ratio <= 1.0 and g_ratio <= 1.0,
+              f"K4 {what}: |dE|/bound {e_ratio}, |dg|/bound {g_ratio}")
+
+    noise_rng = np.random.default_rng(9)
+    noisy = [s + noise_rng.normal(size=s.shape) * K4_SIGMA for s in mmff_starts]
+    variants = {"all": {}, "dielModel2": {"dielModel": 2}}
+    variants.update({f"no_{k}": {k: False} for k in (
+        "bondTerm", "angleTerm", "stretchBendTerm", "oopTerm", "torsionTerm", "vdWTerm",
+        "eleTerm")})
+    for name, kw in variants.items():
+        check_k4(f"fixture {name}", mmff_mols, noisy, MMFFProperties(**kw))
+    golden_ff = json.loads((ROOT / "tests/golden/regression_ff_energies.json").read_text())
+    golden_rng = np.random.default_rng(golden_ff["seed"])
+    from nvmolkit_tpu_torch.chem import mol_from_smiles
+
+    golden_mols = [mol_from_smiles(s) for s in golden_ff["smiles"]]
+    golden_geoms = [(golden_rng.standard_normal((m.num_atoms, 3)) * 1.7).astype(np.float32)[None]
+                    for m in golden_mols]
+    clip_cases = [mmff_clip_geometry(s) for s in ("CC#N", "CC#CC", "c1ccccc1")]
+    for name, kw in (("all", {}), ("dielModel2", {"dielModel": 2})):
+        check_k4(f"golden {name}", golden_mols, golden_geoms, MMFFProperties(**kw))
+        check_k4(f"clip {name}", [m for m, _ in clip_cases], [x[None] for _, x in clip_cases],
+                 MMFFProperties(**kw))
+    emit(phase="mmff_kernels", k4_worst_err_over_bound=k4_worst, k4_max_abs_err_kcal=errs[K4],
+         fixture_systems=sum(len(s) for s in mmff_starts), golden_systems=len(golden_mols),
+         clip_systems=len(clip_cases), seconds=time.perf_counter() - t_phase)
+
     # 3. the main path ----------------------------------------------------------
     smiles = smoke_smiles()
     fused_fps_host = clustered_fingerprints(FUSED_N, 2048)
     gen = MorganFingerprintGenerator(radius=3, fpSize=2048)
     t0 = time.perf_counter()
-    morgan_batches_from_smiles(smiles, HardwareOptions().atomBuckets)
+    morgan_inputs = morgan_batches_from_smiles(smiles, HardwareOptions().atomBuckets)
     featurize_s = time.perf_counter() - t0
+    # the bounds of the two path functions still in plain torch: morgan_kernel
+    # reads its seven inputs once and writes the fingerprint rows;
+    # butina_matrix reads the n x n bool hit matrix once for the counts and
+    # each column once more over the loop (the members' columns are disjoint)
+    morgan_bytes = sum(a.nbytes for _, arrays in morgan_inputs.values() for a in arrays.values())
+    morgan_bytes += len(smiles) * 2048 // 8
+    plain_bounds = {"morgan_kernel": bound(morgan_bytes, 0, rates, "fp32"),
+                    "butina_matrix": bound(2 * len(smiles) ** 2, 0, rates, "fp32")}
+    del morgan_inputs
 
     def reset_counts():
         torch.cuda.synchronize()
-        sim_ops.reset_launch_counts()
-        kabsch.reset_launch_counts()
+        for ops in (sim_ops, kabsch, mmff_energy, lbfgs_flat):
+            ops.reset_launch_counts()
 
     def read_counts():
-        return {**sim_ops.launch_counts, **kabsch.launch_counts}
+        return {**sim_ops.launch_counts, **kabsch.launch_counts, **mmff_energy.launch_counts,
+                **lbfgs_flat.launch_counts}
 
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
@@ -737,7 +1071,7 @@ def main() -> int:
          n_clusters=len(centroids), fused_butina_100k_s=t5 - t4,
          fused_n_clusters=len(clusters), launches=launches,
          allocated_before_bytes=allocated_before, fingerprints_peak_bytes=fingerprints_peak,
-         path_peak_bytes=torch.cuda.max_memory_allocated())
+         path_peak_bytes=torch.cuda.max_memory_allocated(), plain_bounds=plain_bounds)
 
     # 4. checks -------------------------------------------------------------------
     t_phase = time.perf_counter()
@@ -745,6 +1079,7 @@ def main() -> int:
     multi = int((sizes >= 2).sum())  # clusters the fused loop formed
     left = int((sizes == 1).any())   # a K2 decrement follows the last one unless it took every row
     check(launches[K3] == 0, f"K3 launched {launches[K3]} times on the main path")
+    check(launches[K4] == launches[K5] == 0, "the main path launched K4 or K5")
     check(launches[K1] == 1, f"K1 tiles launched {launches[K1]} times, want 1 (the matrix)")
     check(launches[K1F] == multi, f"K1 few columns launched {launches[K1F]} times, want {multi}")
     check(launches[K2] == multi + left, f"K2 launched {launches[K2]} times, want {multi + left}")
@@ -910,7 +1245,7 @@ def main() -> int:
     t2 = time.perf_counter()
     rmsd_launches = read_counts()
     check(rmsd_launches[K3] == 3, f"K3 launched {rmsd_launches[K3]} times, want 3")
-    check(all(v == 0 for k, v in rmsd_launches.items() if k != K3), "RMSD path launched K1/K2")
+    check(all(v == 0 for k, v in rmsd_launches.items() if k != K3), "RMSD path launched another")
 
     pairs_per_mol = RMSD_CONFS * (RMSD_CONFS - 1) // 2
     rigid = torch.from_numpy(np.concatenate([m * pairs_per_mol + np.array(
@@ -982,6 +1317,179 @@ def main() -> int:
          rigid_copies_max=max(float(flat_a[rigid].max()), float(flat_c[rigid].max())),
          seconds=time.perf_counter() - t_phase)
 
+    # MMFF minimization at a user's size ----------------------------------------------
+    # the fixture's molecules x MMFF_CONFS conformers, through the public API
+    t_phase = time.perf_counter()
+    conf_rng = np.random.default_rng(5)
+    for m, s in zip(mmff_mols, mmff_starts):
+        m.conformers = []
+        for x in mmff_user_conformers(conf_rng, s):
+            m.add_conformer(x)
+    n_mmff = len(mmff_mols) * MMFF_CONFS
+    buckets = HardwareOptions().atomBuckets
+    mol_bucket = np.array([next(b for b in buckets if m.num_atoms <= b) for m in mmff_mols])
+
+    def mmff_optimize():
+        return MMFFOptimizeMoleculesConfs(mmff_mols, maxIters=MMFF_MAX_ITERS,
+                                          output=CoordinateOutput.DEVICE, provider=mmff_provider,
+                                          device=cuda)
+
+    reset_counts()
+    t0 = time.perf_counter()
+    mmff_dense = mmff_optimize()
+    torch.cuda.synchronize()
+    mmff_first_s = time.perf_counter() - t0
+    mmff_launches = read_counts()
+    n_chunks = len(set(mol_bucket.tolist()))
+    # one K4 launch on each chunk's starts, then one K5 launch
+    check(mmff_launches[K5] == mmff_launches[K4] == n_chunks,
+          f"K4/K5 launched {mmff_launches[K4]}/{mmff_launches[K5]} times, want {n_chunks}")
+    check(all(v == 0 for k, v in mmff_launches.items() if k not in (K4, K5)),
+          f"the MMFF path launched another kernel: {mmff_launches}")
+    mmff_warm = [timed(mmff_optimize)[0] for _ in range(3)]
+    pos_m = mmff_dense.positions
+    check(pos_m.device == cuda and tuple(pos_m.shape) == (len(mmff_mols), MMFF_CONFS,
+                                                          int(mol_bucket.max()), 3),
+          f"MMFF result shape {tuple(pos_m.shape)}")
+    check(bool(mmff_dense.conf_mask.all()) and bool(torch.isfinite(pos_m).all())
+          and bool(torch.isfinite(mmff_dense.energies).all()), "MMFF result not finite or holed")
+    conv_m = mmff_dense.converged.cpu().numpy()
+    iters_m = mmff_dense.n_iters.cpu().numpy().astype(np.int64)
+    e_m = mmff_dense.energies.cpu().numpy()
+    by_class = {f"<={b}": float(conv_m[mol_bucket == b].mean()) for b in sorted(set(mol_bucket))}
+    # against the JAX package from the same starts (conformers 8k): the
+    # geometry same-basin contract, and the energies beside JAX's own spread
+    per = MMFF_CONFS // mmff_fx["energies"].shape[1]
+    e0, c0 = e_m[:, ::per], conv_m[:, ::per]
+    jax_e, jax_c = mmff_fx["energies"], mmff_fx["converged"]
+    both = c0 & jax_c
+    jax_pos = torch.zeros_like(pos_m[:, ::per])
+    for k, x in enumerate(mmff_jax_minima(mmff_fx, mmff_starts)):
+        jax_pos[k, :, : x.shape[1]] = torch.from_numpy(x).to(cuda)
+    a_m = pos_m.shape[2]
+    sys_mask = mmff_dense.atom_mask.repeat_interleave(mmff_fx["energies"].shape[1], 0)
+    rms_jax = kabsch.conformer_rms_matrices_plain(torch.stack(
+        [pos_m[:, ::per].reshape(-1, a_m, 3), jax_pos.reshape(-1, a_m, 3)], 1), sys_mask)[:, 1, 0]
+    rms_jax = rms_jax.cpu().numpy().reshape(both.shape)
+    same_jax = float((rms_jax[both] < SAME_BASIN_RMSD).mean())
+    check(both.sum() > 0 and same_jax >= SAME_BASIN_SHARE,
+          f"same basin as the JAX package: {same_jax} of {int(both.sum())}")
+    spread = both & mmff_fx["converged_perturbed"]
+    de_port = np.quantile(np.abs(e0 - jax_e)[both], ENERGY_QUANTILES)
+    de_jax = np.quantile(np.abs(mmff_fx["energies_perturbed"] - jax_e)[spread], ENERGY_QUANTILES)
+    check(bool((de_port <= ENERGY_SPREAD_FACTOR * de_jax + 0.1).all()),
+          f"energies: quantiles {ENERGY_QUANTILES} of |E_port - E_JAX| {de_port.tolist()} "
+          f"against JAX's own spread {de_jax.tolist()}")
+    ok, port_only, jax_only = converged_sets_agree(c0, jax_c)
+    check(ok, f"converged: {port_only} systems by the port only, {jax_only} by JAX only")
+    # against the plain minimizer on the card, on the first MMFF_PLAIN_MOLS molecules
+    sub_mols = mmff_mols[:MMFF_PLAIN_MOLS]
+    a_sub = max(m.num_atoms for m in sub_mols)
+    sub_batch = mmff_energy.make_batched_mmff(sub_mols, a_sub, MMFFProperties(),
+                                              provider=mmff_provider, device=cuda)
+    sub_s2m = torch.from_numpy(np.repeat(np.arange(len(sub_mols)), MMFF_CONFS).astype(
+        np.int32)).to(cuda)
+    sub_pos = np.zeros((len(sub_mols) * MMFF_CONFS, a_sub, 3), np.float32)
+    for k, m in enumerate(sub_mols):
+        sub_pos[k * MMFF_CONFS:(k + 1) * MMFF_CONFS, : m.num_atoms] = np.stack(m.conformers)
+    sub_x = torch.from_numpy(sub_pos).to(cuda)
+    sub_mask = torch.arange(a_sub, device=cuda)[None] < torch.from_numpy(
+        np.repeat([m.num_atoms for m in sub_mols], MMFF_CONFS)).to(cuda)[:, None]
+    k5_sub = lbfgs_flat.mmff_lbfgs(sub_x, sub_batch, sub_s2m, MMFF_MAX_ITERS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain_sub = lbfgs_flat.lbfgs_flat_plain(
+        mmff_energy.plain_energy_and_grad_fn(sub_batch, sub_s2m, a_sub), sub_x, sub_mask,
+        MMFF_MAX_ITERS)
+    torch.cuda.synchronize()
+    plain_minimize_s = time.perf_counter() - t0
+    both_sub = k5_sub.converged & plain_sub.converged
+    pair = torch.stack([k5_sub.positions, plain_sub.positions], dim=1)  # [S, 2, A, 3]
+    rms_sub = kabsch.conformer_rms_matrices_plain(pair, sub_mask)[:, 1, 0]
+    same_plain = float((rms_sub[both_sub] < SAME_BASIN_RMSD).double().mean())
+    check(int(both_sub.sum()) > 0 and same_plain >= SAME_BASIN_SHARE,
+          f"K5 and the plain minimizer: same basin for {same_plain} of {int(both_sub.sum())}")
+    ok, k5_only, plain_only = converged_sets_agree(k5_sub.converged, plain_sub.converged)
+    check(ok, f"converged: {k5_only} systems by K5 only, {plain_only} by the plain version only")
+    same_sub = both_sub & (rms_sub < SAME_BASIN_RMSD)
+    de_sub = (k5_sub.energies - plain_sub.energies).abs()[same_sub].double()
+    # K5's trajectory against the plain minimizer's (float32 and float64),
+    # at the largest bucket chunk, through HISTORY + 2 accepted steps
+    big_b = max(sorted(set(mol_bucket.tolist())), key=lambda b: int((mol_bucket == b).sum()))
+    chunk_mols = [m for m, b in zip(mmff_mols, mol_bucket) if b == big_b]
+    chunk_batch = mmff_energy.make_batched_mmff(chunk_mols, int(big_b), MMFFProperties(),
+                                                provider=mmff_provider, device=cuda)
+    chunk_s2m = torch.from_numpy(np.repeat(np.arange(len(chunk_mols)), MMFF_CONFS).astype(
+        np.int32)).to(cuda)
+    chunk_pos = np.zeros((len(chunk_mols) * MMFF_CONFS, int(big_b), 3), np.float32)
+    for k, m in enumerate(chunk_mols):
+        chunk_pos[k * MMFF_CONFS:(k + 1) * MMFF_CONFS, : m.num_atoms] = np.stack(m.conformers)
+    x_k = torch.from_numpy(chunk_pos).to(cuda)
+    traj = k5_trajectory_check(x_k, chunk_batch, chunk_s2m, errs, K5)
+    emit(phase="mmff", molecules=len(mmff_mols), systems=n_mmff,
+         atoms_min=int(mmff_fx["n_atoms"].min()), atoms_max=int(mmff_fx["n_atoms"].max()),
+         atoms_mean=float(mmff_fx["n_atoms"].mean()), max_iters=MMFF_MAX_ITERS,
+         first_call_s=mmff_first_s, warm_walls_s=mmff_warm,
+         minimizations_per_s_warm=n_mmff / min(mmff_warm), launches=mmff_launches,
+         converged=float(conv_m.mean()), converged_by_bucket=by_class,
+         steps_sum=int(iters_m.sum()), steps_max=int(iters_m.max()),
+         steps_mean=float(iters_m.mean()),
+         vs_jax={"systems": int(c0.size), "converged_both": int(both.sum()),
+                 "same_basin_share": same_jax,
+                 "rmsd_median": float(np.median(rms_jax[both])),
+                 "port_only_converged": port_only, "jax_only_converged": jax_only,
+                 "energy_quantiles": ENERGY_QUANTILES, "abs_de_quantiles": de_port.tolist(),
+                 "jax_own_abs_de_quantiles": de_jax.tolist(),
+                 "converged_share_jax": float(jax_c.mean())},
+         vs_plain={"systems": int(sub_x.shape[0]), "converged_both": int(both_sub.sum()),
+                   "same_basin_share": same_plain,
+                   "k5_only_converged": k5_only, "plain_only_converged": plain_only,
+                   "rmsd_median": float(rms_sub[both_sub].median()),
+                   "max_abs_de_same_basin": float(de_sub.max()),
+                   "abs_de_median": float(de_sub.median()),
+                   "abs_de_q95": float(torch.quantile(de_sub, 0.95)),
+                   "plain_minimize_s": plain_minimize_s,
+                   "plain_steps_max": int(plain_sub.n_iters.max())},
+         k5_trajectory=traj, seconds=time.perf_counter() - t_phase)
+
+    # positionsFrom: the minimized ensemble, with holes, minimized again in two
+    # groups (per-molecule ignoreInterfragInteractions), then RMSD -> Butina
+    t_phase = time.perf_counter()
+    chain_ids = torch.arange(MMFF_PLAIN_MOLS, 2 * MMFF_PLAIN_MOLS, device=cuda)
+    chain_mols = [mmff_mols[i] for i in chain_ids.tolist()]
+    holes = torch.from_numpy(np.random.default_rng(6).random((len(chain_mols), MMFF_CONFS))
+                             < 0.7).to(cuda)
+    holes[:, :2] = True
+    chain_in = Dense3DResult(mmff_dense.positions[chain_ids], holes,
+                             mmff_dense.atom_mask[chain_ids])
+    reset_counts()
+    chained = MMFFOptimizeMoleculesConfs(
+        chain_mols, maxIters=MMFF_MAX_ITERS, output=CoordinateOutput.DEVICE,
+        provider=mmff_provider, positionsFrom=chain_in,
+        ignoreInterfragInteractions=[i % 2 == 0 for i in range(len(chain_mols))])
+    ens = Dense3DResult(chained.positions[:1], chained.conf_mask[:1], chained.atom_mask[:1])
+    ens_rms = GetConformerRMSMatrixBatch(chain_mols[:1], positionsFrom=ens)[0].torch()
+    n_kept = int(holes[0].sum())
+    chain_ids_b, chain_cents = butina(square_from_condensed(ens_rms, n_kept), 0.5,
+                                      return_centroids=True)
+    chain_ids_b.block_until_ready()
+    chain_launches = read_counts()
+    check(chained.positions.device == cuda and torch.equal(chained.conf_mask, holes),
+          "positionsFrom: the holes moved")
+    check(not bool(chained.positions[~holes].any()), "positionsFrom: a hole holds coordinates")
+    check(bool(torch.isfinite(chained.energies[holes]).all()), "positionsFrom: energies")
+    check(chain_launches[K5] >= 2 and chain_launches[K4] == chain_launches[K5]
+          and chain_launches[K3] == 1,
+          f"positionsFrom chain launches {chain_launches}")
+    check(ens_rms.shape == (n_kept * (n_kept - 1) // 2,) and chain_ids_b.device == cuda,
+          "the chained RMSD -> Butina")
+    emit(phase="mmff_positions_from", molecules=len(chain_mols), systems=int(holes.sum()),
+         holes=int((~holes).sum()), groups=2, launches=chain_launches,
+         converged=float(chained.converged[holes].double().mean()),
+         steps_mean=float(chained.n_iters[holes].double().mean()),
+         ensemble_confs=n_kept, ensemble_clusters=len(chain_cents),
+         seconds=time.perf_counter() - t_phase)
+
     # 7. timings at the main path's shapes ------------------------------------------
     t_phase = time.perf_counter()
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=cuda)  # 256 MB > the 50 MB L2
@@ -997,7 +1505,8 @@ def main() -> int:
         back-to-back time reads them from the L2, not at the HBM rate of
         the bound)."""
         entry = {"kernel": name, "shape": shape, "ms": median_ms(kernel, reps),
-                 "plain_ms": median_ms(plain, max(3, reps // 3)), "library_ms": None, **work}
+                 "plain_ms": None if plain is None else median_ms(plain, max(3, reps // 3)),
+                 "library_ms": None, **work}
         if cold:
             entry["cold_l2_ms"] = median_ms(kernel, reps, flush=flush)
         measured.append(entry)
@@ -1052,6 +1561,27 @@ def main() -> int:
         entry["gram_bmm_is"] = "one torch.bmm of the centered stack: the Gram alone, a yardstick"
         k3_rows[label] = entry
         del gram_in
+    # K4 and K5 at the MMFF phase's largest bucket chunk, from its starts
+    # (K5's time includes the K4 launch on the starts it begins from);
+    # K5's plain version is timed on its own subset (phase mmff): at the
+    # chunk it would step every system until the slowest is done
+    chunk_shape = f"{x_k.shape[0]} systems ({len(chunk_mols)} mols x {MMFF_CONFS}) x {big_b} atoms"
+    k4_row = row(K4, chunk_shape, mmff_work(chunk_batch, chunk_s2m, int(big_b), rates),
+                 lambda: mmff_energy.mmff_energy_and_grad(x_k, chunk_batch, chunk_s2m),
+                 lambda: mmff_energy.mmff_energy_and_grad_plain(x_k, chunk_batch, chunk_s2m),
+                 cold=True)
+    chunk_res = lbfgs_flat.mmff_lbfgs(x_k, chunk_batch, chunk_s2m, MMFF_MAX_ITERS)
+    chunk_evals = chunk_res.n_iters.cpu().numpy() + 1
+    k5_row = row(K5, chunk_shape + f", maxIters {MMFF_MAX_ITERS}",
+                 mmff_work(chunk_batch, chunk_s2m, int(big_b), rates, chunk_evals),
+                 lambda: lbfgs_flat.mmff_lbfgs(x_k, chunk_batch, chunk_s2m, MMFF_MAX_ITERS),
+                 None, reps=3)
+    k5_row.update(evaluations=int(chunk_evals.sum()), evaluations_max=int(chunk_evals.max()),
+                  plain_ms=plain_minimize_s * 1e3,
+                  plain_shape=f"{sub_x.shape[0]} systems x {a_sub} atoms (phase mmff), one run",
+                  ms_at_plain_shape=median_ms(
+                      lambda: lbfgs_flat.mmff_lbfgs(sub_x, sub_batch, sub_s2m, MMFF_MAX_ITERS),
+                      3))
     del flush
     emit(phase="timings", kernels=measured, m_skinny_sweep=sweep, m_skinny=sim_ops.M_SKINNY,
          seconds=time.perf_counter() - t_phase)
@@ -1068,6 +1598,7 @@ def main() -> int:
         "rmsd_batch": rmsd_batch,
         "rmsd_batch_druglike": rmsd_druglike,
         "rmsd_butina_ensemble": rmsd_butina,
+        "mmff_optimize": mmff_optimize,
         "fingerprints": lambda: state.update(
             fps=gen.GetFingerprintsFromSmiles(smiles, device=cuda)),
         "similarity": lambda: state.update(sim=crossTanimotoSimilarity(state["fps"])),
@@ -1084,9 +1615,13 @@ def main() -> int:
     # beside their bounds at the HBM rate; K3's launches are the RMSD path's
     # K3's line: the batch (a), cold if its bound is bytes, else hot
     k3_key = "cold_l2_ms" if k3_rows["batch"]["bound_by"] == "bytes" else "ms"
+    k4_key = "cold_l2_ms" if k4_row["bound_by"] == "bytes" else "ms"
     main_shape = {K1: (k1_matrix, "ms"), K1F: (listed[K1F], "cold_l2_ms"),
-                  K2: (listed[K2], "cold_l2_ms"), K3: (k3_rows["batch"], k3_key)}
-    path_launches = {**launches, K3: rmsd_launches[K3]}
+                  K2: (listed[K2], "cold_l2_ms"), K3: (k3_rows["batch"], k3_key),
+                  K4: (k4_row, k4_key), K5: (k5_row, "ms")}
+    path_launches = {**launches, K3: rmsd_launches[K3], K4: mmff_launches[K4],
+                     K5: mmff_launches[K5]}
+    mmff_cu = "nvmolkit_tpu_torch/csrc/mmff.cu"
     similarity_cu = "nvmolkit_tpu_torch/csrc/similarity.cu"
     sources = {
         K1: ("cross_similarity_kernel (K1, 64 x 64 tiles)",
@@ -1096,17 +1631,25 @@ def main() -> int:
         K2: ("neighbor_counts_kernel (K2)", "nvmolkit_tpu/ops/butina.py:155", similarity_cu),
         K3: ("conformer_rmsd (K3: center_kernel + pair_kernel)",
              "nvmolkit_tpu/ops/kabsch.py:108", "nvmolkit_tpu_torch/csrc/rmsd.cu"),
+        K4: ("mmff_energy_grad (K4: energy_grad_kernel on each chunk's starts; its device "
+             "function mmff_eval also runs inside K5, once per probe)",
+             "nvmolkit_tpu/models/mmff/energy.py:361", mmff_cu),
+        K5: ("mmff_lbfgs (K5: lbfgs_kernel, one block per system for its whole minimization)",
+             "nvmolkit_tpu/ops/lbfgs_flat.py:160", mmff_cu),
     }
     lines = []
     for key, (label, replaces, source) in sources.items():
         entry, ms_key = main_shape[key]
+        if key == K4:  # K4's device function inside K5 on the MMFF path: one call per probe
+            entry = {**entry, "device_fn_calls_in_k5": int(iters_m.sum())}
         lines.append({
             "name": label, "route": "cuda", "source": source,
             "replaces": replaces, "launches": path_launches[key], "max_abs_err": errs[key],
             "shape": entry["shape"], "ms": entry[ms_key], "l2": "cold" if ms_key != "ms" else "hot",
             "plain_ms": entry["plain_ms"], "bound_ms": entry["bound_ms"],
             "bound_by": entry["bound_by"], "share_of_bound": entry["bound_ms"] / entry[ms_key],
-            "library_ms": None})
+            "library_ms": None,
+            **{k: entry[k] for k in ("device_fn_calls_in_k5",) if k in entry}})
     print(json.dumps({"kernels": lines}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

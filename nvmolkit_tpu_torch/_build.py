@@ -5,6 +5,8 @@
   into a plain C-ABI shared object that ``ctypes`` loads.
 * ``libnvmk_rmsd``: ``nvmolkit_tpu_torch/csrc/rmsd.cu`` (the conformer
   RMSD kernel), built the same way.
+* ``libnvmk_mmff``: ``nvmolkit_tpu_torch/csrc/mmff.cu`` (the MMFF energy
+  and gradient kernel K4 and the L-BFGS kernel K5), built the same way.
 * ``libnvmolgraph``: the repository's SMILES featurizer
   ``csrc/mol_graph.cpp``, compiled by ``g++`` with the flags of
   ``csrc/Makefile``.
@@ -33,6 +35,7 @@ BUILD_DIR = _PKG / "_build"
 
 SIMILARITY_SRC = _PKG / "csrc" / "similarity.cu"
 RMSD_SRC = _PKG / "csrc" / "rmsd.cu"
+MMFF_SRC = _PKG / "csrc" / "mmff.cu"
 GRAPH_SRC = _REPO / "csrc" / "mol_graph.cpp"
 
 _locks: dict[str, threading.Lock] = collections.defaultdict(threading.Lock)
@@ -98,6 +101,18 @@ def _declare_rmsd(lib: ctypes.CDLL) -> None:
     ]
 
 
+def _declare_mmff(lib: ctypes.CDLL) -> None:
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    tables = ctypes.POINTER(ctypes.c_void_p)
+    lib.nvmk_mmff_energy_grad.restype = ci
+    lib.nvmk_mmff_energy_grad.argtypes = [vp, ci, ci, vp, vp, vp, ci, tables, cf, ci, vp, vp, vp]
+    lib.nvmk_mmff_lbfgs.restype = ci
+    lib.nvmk_mmff_lbfgs.argtypes = [
+        vp, vp, vp, ci, ci, vp, vp, vp, ci, tables, cf, ci, ctypes.POINTER(cf), ci, ci, cf, ci,
+        vp, vp, vp, vp, vp, vp,
+    ]
+
+
 def _declare_graph(lib: ctypes.CDLL) -> None:
     i32, i32p = ctypes.c_int32, ctypes.POINTER(ctypes.c_int32)
     u32p, u8p = ctypes.POINTER(ctypes.c_uint32), ctypes.POINTER(ctypes.c_uint8)
@@ -144,6 +159,16 @@ def rmsd_lib() -> ctypes.CDLL:
         "libnvmk_rmsd",
         lambda: _build("libnvmk_rmsd", RMSD_SRC, _nvcc_cmd(RMSD_SRC)),
         _declare_rmsd,
+    )
+
+
+def mmff_lib() -> ctypes.CDLL:
+    """The compiled MMFF kernels K4 and K5 (needs ``nvcc`` and a CUDA
+    runtime)."""
+    return _load(
+        "libnvmk_mmff",
+        lambda: _build("libnvmk_mmff", MMFF_SRC, _nvcc_cmd(MMFF_SRC)),
+        _declare_mmff,
     )
 
 

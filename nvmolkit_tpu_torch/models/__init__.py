@@ -1,0 +1,10 @@
+"""Force-field models: term tables, parametrization and batched energies.
+
+The port's counterpart of ``nvmolkit_tpu/models``: host parametrization
+copied from the JAX package, and batch layouts, energies and gradients
+written for the port's kernels (``models/mmff/energy.py``).
+"""
+
+from nvmolkit_tpu_torch.models.terms import BoundedBatchCache, TermTable
+
+__all__ = ["BoundedBatchCache", "TermTable"]

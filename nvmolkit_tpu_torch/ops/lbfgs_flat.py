@@ -1,0 +1,282 @@
+"""Flat batched L-BFGS: kernel K5 and its plain PyTorch version.
+
+Per system, the minimizer of ``nvmolkit_tpu/ops/lbfgs_flat.py``
+(``_flat_impl`` with ``compact_after`` off): one energy and gradient
+evaluation per step; each system carries its own Numerical-Recipes line
+search (lambda, the previous lambda and energy, a probe count) and its own
+count of accepted steps. A probe that meets the sufficient-decrease test is
+accepted: the convergence tests run, the L-BFGS history (6 deep) is updated
+and the next direction is built by the two-loop recursion, capped at
+maxStep. A rejected probe backtracks lambda. Lambda underflow counts as
+converged, ``MAX_LS_ITERS`` probes as failed, ``max_iters`` accepted steps as
+capped, and ``max_iters * MAX_LS_ITERS`` probes end the run.
+
+* :func:`lbfgs_flat_plain` is the plain version, written as the JAX
+  function is, over any ``energy_and_grad_fn``; a system's ``n_iters`` is the
+  number of probes it made.
+* :func:`mmff_lbfgs` minimizes MMFF systems: on CUDA it launches K4 on the
+  starting positions and then K5 (``csrc/mmff.cu``) once, one block per
+  system for its whole minimization from K4's energies and gradients, each
+  probe a call of K4's device function; on the CPU it runs the plain
+  version over :func:`~nvmolkit_tpu_torch.models.mmff.energy.plain_energy_and_grad_fn`.
+  A build or launch failure raises.
+
+Both return each system's status bits, probes and accepted steps.
+
+Unlike the JAX package's driver (``ops/minimize_driver.py``), nothing
+restarts the systems still running after a phase with a fresh history and a
+second ``max_iters`` budget: ``max_iters`` is the total, as in nvMolKit.
+``launch_counts`` counts K5's launches (K4's are counted by its module).
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Callable
+
+import torch
+
+from nvmolkit_tpu_torch._build import mmff_lib
+from nvmolkit_tpu_torch.models.mmff.energy import (
+    MMFFBatch,
+    check_kernel_inputs,
+    mmff_energy_and_grad,
+    plain_energy_and_grad_fn,
+    system_atoms,
+    table_pointers,
+)
+from nvmolkit_tpu_torch.ops.bfgs import (
+    CAPPED,
+    CONVERGED,
+    EPS,
+    FAILED,
+    FUNCTOL,
+    MAX_LS_ITERS,
+    MAXSTEP_FACTOR,
+    MOVETOL,
+    TOLF,
+    TOLX,
+    BfgsResult,
+)
+
+HISTORY = 6
+
+launch_counts = {"mmff_lbfgs": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+def lbfgs_flat_plain(
+    energy_and_grad_fn: Callable,
+    positions: torch.Tensor,   # [S, A, D]
+    atom_mask: torch.Tensor,   # [S, A] bool
+    max_iters: int = 200,
+    grad_tol: float = 1e-4,
+    max_steps: int | None = None,
+) -> BfgsResult:
+    """Minimize every system of ``positions`` under ``energy_and_grad_fn``
+    (positions -> (energy [S], gradient [S, A, D])), as the JAX package's
+    ``batched_lbfgs_flat_minimize`` does with ``compact_after`` off.
+    ``max_steps`` bounds the probes (default ``max_iters * MAX_LS_ITERS``)."""
+    S, A, D = positions.shape
+    N = D * A
+    m = HISTORY
+    dev, dtype = positions.device, positions.dtype
+    dmask = atom_mask.to(dev).repeat_interleave(D, dim=1).reshape(S, N)
+    n_dof = dmask.sum(dim=1).to(dtype)
+
+    def eg(p):
+        e, g = energy_and_grad_fn(p.reshape(S, A, D))
+        return e, g.reshape(S, N)
+
+    def two_loop(grad, s_hist, y_hist, rho, gamma):
+        q = grad
+        alphas = []
+        for i in range(m):  # newest first
+            a_i = rho[i] * (s_hist[i] * q).sum(dim=1)
+            a_i = torch.where(rho[i] > 0, a_i, 0.0)
+            q = q - a_i[:, None] * y_hist[i]
+            alphas.append(a_i)
+        q = q * gamma[:, None]
+        for i in reversed(range(m)):
+            b_i = rho[i] * (y_hist[i] * q).sum(dim=1)
+            b_i = torch.where(rho[i] > 0, b_i, 0.0)
+            q = q + (alphas[i] - b_i)[:, None] * s_hist[i]
+        return -q
+
+    def prep_direction(pos, raw_dir):
+        """Cap at maxStep."""
+        step_norm = torch.sqrt((raw_dir * raw_dir).sum(dim=1))
+        max_step = MAXSTEP_FACTOR * torch.maximum(
+            torch.sqrt((pos * pos * dmask).sum(dim=1)), n_dof)
+        scale = torch.where(step_norm > max_step,
+                            max_step / torch.clamp_min(step_norm, 1e-30), 1.0)
+        return raw_dir * scale[:, None]
+
+    def lam_min_of(pos, direction):
+        rel = direction.abs() / torch.clamp_min(pos.abs(), 1.0)
+        return MOVETOL / torch.clamp_min(rel.amax(dim=1), 1e-30)
+
+    def masked_max(x):
+        return torch.where(dmask, x, 0.0).amax(dim=1)
+
+    pos = positions.reshape(S, N)
+    e, grad = eg(pos)
+    failed = ~(torch.isfinite(e) & torch.isfinite(grad).all(dim=1))
+    # zero-gradient test BEFORE the first step (NR dfpmin does the same)
+    gs0 = grad.abs() * torch.clamp_min(pos.abs(), 1.0)
+    converged = (masked_max(gs0) / torch.clamp_min(e.abs(), 1.0) < grad_tol) & ~failed
+    direction = prep_direction(pos, -grad)
+    slope = (grad * direction).sum(dim=1)
+    lam = torch.ones(S, dtype=dtype, device=dev)
+    lam2 = torch.zeros(S, dtype=dtype, device=dev)
+    e2 = e
+    lam_min = lam_min_of(pos, direction)
+    ls_it = torch.zeros(S, dtype=torch.int32, device=dev)
+    s_hist = torch.zeros((m, S, N), dtype=dtype, device=dev)
+    y_hist = torch.zeros((m, S, N), dtype=dtype, device=dev)
+    rho = torch.zeros((m, S), dtype=dtype, device=dev)
+    gamma = torch.ones(S, dtype=dtype, device=dev)
+    outer = torch.zeros(S, dtype=torch.int32, device=dev)
+    capped = torch.zeros(S, dtype=torch.bool, device=dev)
+    n_iters = torch.zeros(S, dtype=torch.int32, device=dev)
+
+    if max_steps is None:
+        max_steps = max_iters * MAX_LS_ITERS
+    for _ in range(max_steps):
+        live = ~(converged | failed | capped)
+        if not bool(live.any()):
+            break
+        n_iters += live.to(torch.int32)
+        trial = pos + lam[:, None] * direction
+        e_t, g_t = eg(trial)
+
+        # --- NR sufficient-decrease test ---------------------------------
+        accept = (e_t - e <= FUNCTOL * lam * slope) & live
+
+        # --- backtracking lambda for rejecting systems --------------------
+        rhs1 = e_t - e - lam * slope
+        rhs2 = e2 - e - lam2 * slope
+        denom = torch.where(lam != lam2, lam - lam2, 1.0)
+        lsq = torch.clamp_min(lam**2, 1e-30)
+        l2sq = torch.clamp_min(lam2**2, 1e-30)
+        a = (rhs1 / lsq - rhs2 / l2sq) / denom
+        b = (-lam2 * rhs1 / lsq + lam * rhs2 / l2sq) / denom
+        disc = b * b - 3.0 * a * slope
+        a_safe = torch.where(a.abs() < 1e-20, 1e-20, a)
+        b_safe = torch.where(b.abs() < 1e-20, 1e-20, b)
+        cubic = torch.where(
+            a.abs() < 1e-20,
+            -slope / (2.0 * b_safe),
+            torch.where(disc < 0, 0.5 * lam,
+                        (-b + torch.sqrt(torch.clamp_min(disc, 0.0))) / (3.0 * a_safe)),
+        )
+        quad = -slope * lam * lam / (2.0 * torch.clamp_min(rhs1, 1e-30))
+        tmp = torch.where(ls_it == 0, quad, cubic)
+        tmp = torch.minimum(tmp, 0.5 * lam)
+        new_lam = torch.maximum(tmp, 0.1 * lam)
+
+        reject = live & ~accept
+        # lambda underflow: no acceptable move => converged (TOLX)
+        conv_ls = reject & (new_lam < lam_min)
+        # probe-count cap: NaN-poisoned or pathological line searches
+        exhausted = reject & (ls_it + 1 >= MAX_LS_ITERS) & ~conv_ls
+
+        # --- accept path: convergence tests + L-BFGS update ---------------
+        acc_row = accept[:, None]
+        xi = torch.where(acc_row, trial - pos, 0.0)
+        xi_rel = xi.abs() / torch.clamp_min(trial.abs(), 1.0)
+        conv_x = masked_max(xi_rel) < TOLX
+        gscaled = g_t.abs() * torch.clamp_min(trial.abs(), 1.0)
+        conv_g = masked_max(gscaled) / torch.clamp_min(e_t.abs(), 1.0) < grad_tol
+        conv_f = 2.0 * (e - e_t).abs() <= TOLF * (e.abs() + e_t.abs() + 1e-10)
+        newly_conv = accept & (conv_x | conv_g | conv_f)
+
+        dgrad = g_t - grad
+        ys = (dgrad * xi).sum(dim=1)
+        yy = (dgrad * dgrad).sum(dim=1)
+        store = (ys > EPS) & accept
+        new_rho = torch.where(store, 1.0 / torch.clamp_min(ys, 1e-30), 0.0)
+        new_s = [torch.where(acc_row, torch.where(store[:, None], xi, 0.0), s_hist[0])]
+        new_y = [torch.where(acc_row, torch.where(store[:, None], dgrad, 0.0), y_hist[0])]
+        new_r = [torch.where(accept, new_rho, rho[0])]
+        for i in range(1, m):
+            new_s.append(torch.where(acc_row, s_hist[i - 1], s_hist[i]))
+            new_y.append(torch.where(acc_row, y_hist[i - 1], y_hist[i]))
+            new_r.append(torch.where(accept, rho[i - 1], rho[i]))
+        s_hist = torch.stack(new_s)
+        y_hist = torch.stack(new_y)
+        rho = torch.stack(new_r)
+        gamma = torch.where(store, ys / torch.clamp_min(yy, 1e-30), gamma)
+
+        # new state for accepted systems
+        pos = torch.where(acc_row, trial, pos)
+        e = torch.where(accept, e_t, e)
+        grad = torch.where(acc_row, g_t, grad)
+        outer = outer + accept.to(torch.int32)
+        capped = capped | (accept & ~newly_conv & (outer >= max_iters))
+
+        new_dir = prep_direction(pos, two_loop(grad, s_hist, y_hist, rho, gamma))
+        direction = torch.where(acc_row, new_dir, direction)
+        slope = torch.where(accept, (grad * direction).sum(dim=1), slope)
+        lam_min = torch.where(accept, lam_min_of(pos, direction), lam_min)
+
+        lam2 = torch.where(accept, 0.0, torch.where(reject, lam, lam2))
+        e2 = torch.where(accept, e, torch.where(reject, e_t, e2))
+        lam = torch.where(accept, 1.0, torch.where(reject, new_lam, lam))
+        ls_it = torch.where(accept, 0, ls_it + reject.to(torch.int32))
+        converged = converged | newly_conv | conv_ls
+        failed = failed | exhausted
+
+    status = (converged.to(torch.int32) * CONVERGED + failed.to(torch.int32) * FAILED
+              + capped.to(torch.int32) * CAPPED)
+    return BfgsResult(positions=pos.reshape(S, A, D), energies=e, converged=converged,
+                      n_iters=n_iters, status=status, n_accepted=outer)
+
+
+def mmff_lbfgs(
+    positions: torch.Tensor,
+    batch: MMFFBatch,
+    sys2mol: torch.Tensor,
+    max_iters: int = 200,
+    grad_tol: float = 1e-4,
+    max_steps: int | None = None,
+) -> BfgsResult:
+    """Minimize MMFF systems: ``positions`` [S, A, 3], system s being
+    molecule ``sys2mol[s]`` (int32) of ``batch``. For CUDA tensors K4 on the
+    starts, then K5 (one launch each); :func:`lbfgs_flat_plain` for CPU
+    tensors."""
+    if max_steps is None:
+        max_steps = max_iters * MAX_LS_ITERS
+    n_sys, a_pad = positions.shape[:2]
+    if not positions.is_cuda:
+        count = system_atoms(batch, sys2mol).to(torch.int64)
+        atom_mask = torch.arange(a_pad)[None] < count[:, None]
+        return lbfgs_flat_plain(plain_energy_and_grad_fn(batch, sys2mol, a_pad), positions,
+                                atom_mask, max_iters, grad_tol, max_steps=max_steps)
+    check_kernel_inputs(positions, batch, sys2mol, "K5")
+    e0, g0 = mmff_energy_and_grad(positions, batch, sys2mol)
+    dev = positions.device
+    pos_out = torch.empty_like(positions)
+    energies = torch.empty(n_sys, dtype=torch.float32, device=dev)
+    status = torch.empty(n_sys, dtype=torch.int32, device=dev)
+    steps = torch.empty(n_sys, dtype=torch.int32, device=dev)
+    accepted = torch.empty(n_sys, dtype=torch.int32, device=dev)
+    count = system_atoms(batch, sys2mol)
+    policy = (ctypes.c_float * 6)(FUNCTOL, MOVETOL, TOLX, TOLF, MAXSTEP_FACTOR, EPS)
+    lib = mmff_lib()
+    with torch.cuda.device(dev):
+        rc = lib.nvmk_mmff_lbfgs(
+            positions.data_ptr(), e0.data_ptr(), g0.data_ptr(), n_sys, a_pad,
+            sys2mol.data_ptr(), count.data_ptr(), batch.offsets.data_ptr(), batch.n_mols,
+            table_pointers(batch), batch.diel_constant, batch.diel_model, policy, MAX_LS_ITERS,
+            int(max_iters), float(grad_tol), int(max_steps), pos_out.data_ptr(),
+            energies.data_ptr(), status.data_ptr(), steps.data_ptr(), accepted.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"mmff_lbfgs kernel launch failed with CUDA error {rc}")
+    launch_counts["mmff_lbfgs"] += 1
+    return BfgsResult(positions=pos_out, energies=energies, converged=(status & CONVERGED) != 0,
+                      n_iters=steps, status=status, n_accepted=accepted)

@@ -129,7 +129,9 @@ class Dense3DResult:
     (n_mols, max_confs) bool, ``atom_mask`` (n_mols, max_atoms) bool, and
     optionally ``energies`` (n_mols, max_confs) and ``converged`` (bool) —
     the layout of ``nvmolkit_tpu.types.Dense3DResult`` (the reference's
-    ``Device3DResult.dense()`` view). The views below copy to the host.
+    ``Device3DResult.dense()`` view) — and, from a minimizer, ``n_iters``
+    (n_mols, max_confs) int32, the energy evaluations of each system. The
+    views below copy to the host.
     """
 
     positions: torch.Tensor
@@ -137,6 +139,7 @@ class Dense3DResult:
     atom_mask: torch.Tensor
     energies: torch.Tensor | None = None
     converged: torch.Tensor | None = None
+    n_iters: torch.Tensor | None = None
 
     @property
     def n_mols(self) -> int:

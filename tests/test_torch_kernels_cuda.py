@@ -290,3 +290,158 @@ def test_fingerprints_from_mols_on_cuda_match_cpu(cuda):
     np.testing.assert_array_equal(got.numpy(), gen.GetFingerprintsCpu(mols))
     np.testing.assert_array_equal(
         got.numpy()[:100], gen.GetFingerprintsFromSmiles(smiles[:100]).numpy())
+
+
+def _mmff_systems(cuda, picks, sigma, seed, props=None):
+    """K4/K5 inputs from the committed MMFF starts: the molecules ``picks``
+    of tests/data/torch_mmff_starts.npz, each start plus ``sigma`` Å of
+    seeded noise, padded to the largest molecule."""
+    from nvmolkit_tpu_torch.models.mmff import EmpiricalMMFFProvider, make_batched_mmff
+
+    smoke = _load_by_path("chip_smoke.py")
+    fx, starts = smoke.mmff_fixture()
+    mols = smoke.mmff_molecules({"smiles": fx["smiles"][picks]})
+    rng = np.random.default_rng(seed)
+    a_pad = max(m.num_atoms for m in mols)
+    geoms = [starts[i] + rng.normal(size=starts[i].shape) * sigma for i in picks]
+    pos = np.zeros((sum(len(g) for g in geoms), a_pad, 3), np.float32)
+    s2m = np.repeat(np.arange(len(picks)), [len(g) for g in geoms]).astype(np.int32)
+    k = 0
+    for m, g in zip(mols, geoms):
+        pos[k:k + len(g), : m.num_atoms] = g
+        k += len(g)
+    batch = make_batched_mmff(mols, a_pad, props, provider=EmpiricalMMFFProvider(), device=cuda)
+    return torch.from_numpy(pos).to(cuda), batch, torch.from_numpy(s2m).to(cuda)
+
+
+def _check_k4(x, batch, s2m):
+    """K4 against the plain version within chip_smoke.py's bounds: |dE| <=
+    1e-5 sum|E_term| + 1e-4; per gradient component |dg| <= 1e-4 max(1,
+    max|g| of the system) + 2e-4 G, G its sum over terms of |dE_term/dx|."""
+    from nvmolkit_tpu_torch.models.mmff import energy as mmff_energy
+
+    before = mmff_energy.launch_counts["mmff_energy_grad"]
+    e, g = mmff_energy.mmff_energy_and_grad(x, batch, s2m)
+    torch.cuda.synchronize()
+    assert mmff_energy.launch_counts["mmff_energy_grad"] == before + 1
+    e_p, g_p = mmff_energy.mmff_energy_and_grad_plain(x, batch, s2m)
+    scale = mmff_energy.mmff_term_magnitude_plain(x, batch, s2m)
+    de = (e.double() - e_p.double()).abs()
+    assert bool((de <= 1e-5 * scale + 1e-4).all()), float((de / (1e-5 * scale + 1e-4)).max())
+    g_bound = 1e-4 * g_p.abs().amax(dim=(1, 2)).double().clamp_min(1.0)[:, None, None] + (
+        2e-4 * mmff_energy.mmff_grad_magnitude_plain(x, batch, s2m))
+    ratio = (g.double() - g_p.double()).abs() / g_bound
+    assert float(ratio.max()) <= 1.0, float(ratio.max())
+
+
+@pytest.mark.parametrize("toggle", ["all", "dielModel2", "no_vdWTerm", "no_torsionTerm",
+                                    "no_stretchBendTerm"])
+def test_mmff_energy_grad_kernel_matches_plain(cuda, toggle):
+    from nvmolkit_tpu_torch.models.mmff import MMFFProperties
+
+    kw = {} if toggle == "all" else {"dielModel": 2} if toggle == "dielModel2" else {
+        toggle[3:]: False}
+    _check_k4(*_mmff_systems(cuda, [0, 1, 2, 3], 0.3, 1, MMFFProperties(**kw)))
+
+
+def test_mmff_energy_grad_kernel_where_the_clips_bind(cuda):
+    from nvmolkit_tpu_torch.models.mmff import EmpiricalMMFFProvider, make_batched_mmff
+
+    smoke = _load_by_path("chip_smoke.py")
+    cases = [smoke.mmff_clip_geometry(s) for s in ("CC#N", "CC#CC", "c1ccccc1")]
+    a_pad = max(m.num_atoms for m, _ in cases)
+    pos = np.zeros((len(cases), a_pad, 3), np.float32)
+    for k, (m, x) in enumerate(cases):
+        pos[k, : m.num_atoms] = x
+    batch = make_batched_mmff([m for m, _ in cases], a_pad, provider=EmpiricalMMFFProvider(),
+                              device=cuda)
+    _check_k4(torch.from_numpy(pos).to(cuda), batch,
+              torch.arange(len(cases), dtype=torch.int32, device=cuda))
+
+
+def test_mmff_lbfgs_kernel_matches_plain(cuda):
+    """K5 against the plain minimizer on the card: of the systems converged
+    in both, >= 75 % end within 0.3 Å (Kabsch RMSD) of each other, and the
+    systems converged by one only lean to neither side (chip_smoke.py's
+    sign test)."""
+    from nvmolkit_tpu_torch.models.mmff import energy as mmff_energy
+    from nvmolkit_tpu_torch.models.mmff.energy import plain_energy_and_grad_fn, system_atoms
+    from nvmolkit_tpu_torch.ops import kabsch, lbfgs_flat
+
+    smoke = _load_by_path("chip_smoke.py")
+    x, batch, s2m = _mmff_systems(cuda, list(range(16)), 0.1, 2)
+    before = lbfgs_flat.launch_counts["mmff_lbfgs"], mmff_energy.launch_counts["mmff_energy_grad"]
+    got = lbfgs_flat.mmff_lbfgs(x, batch, s2m)
+    torch.cuda.synchronize()
+    # one K4 launch on the starts, then one K5 launch
+    assert (lbfgs_flat.launch_counts["mmff_lbfgs"],
+            mmff_energy.launch_counts["mmff_energy_grad"]) == (before[0] + 1, before[1] + 1)
+    mask = torch.arange(x.shape[1], device=cuda)[None] < system_atoms(batch, s2m)[:, None]
+    want = lbfgs_flat.lbfgs_flat_plain(plain_energy_and_grad_fn(batch, s2m, x.shape[1]), x, mask)
+    assert bool(torch.isfinite(got.positions).all()) and bool((got.n_iters > 0).all())
+    both = got.converged & want.converged
+    rms = kabsch.conformer_rms_matrices_plain(
+        torch.stack([got.positions, want.positions], dim=1), mask)[:, 1, 0]
+    assert int(both.sum()) >= 8
+    assert float((rms[both] < 0.3).double().mean()) >= 0.75
+    assert smoke.converged_sets_agree(got.converged, want.converged)[0]
+
+
+def test_mmff_lbfgs_kernel_follows_plain_through_the_history(cuda):
+    """maxIters HISTORY + 2 from noisy starts: every system makes that many
+    accepted steps, so the history fills and its ring wraps; status bits,
+    probe and step counts equal the plain minimizer's on >= 99 % of the
+    systems, and there K5's positions and energies stay within chip_smoke.py's
+    trajectory bound of the float64 plain run (TRAJ_FACTOR times the float32
+    plain run's distance from it, plus a floor)."""
+    smoke = _load_by_path("chip_smoke.py")
+    x, batch, s2m = _mmff_systems(cuda, list(range(32)), 0.1, 3)
+    errs = {}
+    out = smoke.k5_trajectory_check(x, batch, s2m, errs, "k5")
+    assert out["wrapped_share"] >= smoke.TRAJ_EQUAL_SHARE
+    assert out["equal_status_and_steps"] >= smoke.TRAJ_EQUAL_SHARE
+    assert out["within_bound"] >= smoke.TRAJ_EQUAL_SHARE
+
+
+def test_mmff_lbfgs_kernel_zero_gradient_and_non_finite_starts(cuda):
+    from nvmolkit_tpu_torch.models.mmff import batch_mmff_terms, mmff_terms_from_arrays
+    from nvmolkit_tpu_torch.ops import lbfgs_flat
+
+    bonds = (np.array([[0, 1]]), {"r0": [1.5], "kb": [4.0]})
+    batch = batch_mmff_terms([mmff_terms_from_arrays(2, bonds=bonds)], [2], 2, device=cuda)
+    pos = torch.tensor([[[0.0, 0, 0], [1.5, 0, 0]], [[0.0, 0, 0], [float("nan"), 0, 0]]],
+                       device=cuda)
+    res = lbfgs_flat.mmff_lbfgs(pos, batch, torch.zeros(2, dtype=torch.int32, device=cuda))
+    assert res.n_iters.tolist() == [0, 0]
+    assert res.converged.tolist() == [True, False]
+    assert torch.equal(res.positions[0], pos[0])
+
+
+def test_mmff_optimize_api_on_cuda_matches_cpu(cuda):
+    from nvmolkit_tpu_torch.mmffOptimization import MMFFOptimizeMoleculesConfs
+    from nvmolkit_tpu_torch.models.mmff import EmpiricalMMFFProvider
+
+    from nvmolkit_tpu_torch.ops import kabsch
+
+    smoke = _load_by_path("chip_smoke.py")
+    fx, starts = smoke.mmff_fixture()
+    out = {}
+    for dev in ("cpu", cuda):
+        mols = smoke.mmff_molecules({"smiles": fx["smiles"][:6]})
+        for m, s in zip(mols, starts[:6]):
+            for c in s:
+                m.add_conformer(c)
+        out[str(dev)] = MMFFOptimizeMoleculesConfs(mols, provider=EmpiricalMMFFProvider(),
+                                                   device=dev)
+    (cpu_res, cpu_dense), (gpu_res, gpu_dense) = out["cpu"], out[str(cuda)]
+    assert gpu_dense.positions.device.type == "cuda"
+    assert [len(r) for r in gpu_res] == [len(r) for r in cpu_res]
+    # the same basin (Kabsch RMSD < 0.3 Å) for >= 75 % of the systems
+    # converged in both
+    both = (gpu_dense.converged.cpu() & cpu_dense.converged).reshape(-1)
+    a = cpu_dense.positions.shape[2]
+    mask = cpu_dense.atom_mask.repeat_interleave(cpu_dense.positions.shape[1], 0)
+    rms = kabsch.conformer_rms_matrices_plain(torch.stack(
+        [gpu_dense.positions.cpu().reshape(-1, a, 3), cpu_dense.positions.reshape(-1, a, 3)], 1),
+        mask)[:, 1, 0]
+    assert int(both.sum()) >= 2 and float((rms[both] < 0.3).double().mean()) >= 0.75

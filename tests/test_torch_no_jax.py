@@ -47,6 +47,34 @@ for _ in range(5):
     mol.add_conformer(rng.normal(size=(mol.num_atoms, 3)))
 rms = GetConformerRMSMatrix(mol, device="cpu").numpy()
 assert rms.shape == (10,) and kabsch.launch_counts["conformer_rmsd"] == 0
+
+# MMFF: every new module, and a minimization of two molecules from the
+# committed starts
+import nvmolkit_tpu_torch.models, nvmolkit_tpu_torch.models.terms  # noqa: E401
+import nvmolkit_tpu_torch.models.uff, nvmolkit_tpu_torch.models.uff.params  # noqa: E401
+import nvmolkit_tpu_torch.models.mmff.params_files, nvmolkit_tpu_torch.models.mmff.typing  # noqa: E401
+import nvmolkit_tpu_torch.ops.bfgs  # noqa: F401
+from nvmolkit_tpu_torch.mmffOptimization import MMFFOptimizeMoleculesConfs
+from nvmolkit_tpu_torch.models.mmff import EmpiricalMMFFProvider, default_provider
+from nvmolkit_tpu_torch.models.optimize import merge_group_dense  # noqa: F401
+from nvmolkit_tpu_torch.ops import lbfgs_flat
+from nvmolkit_tpu_torch.models.mmff import energy as mmff_energy
+import importlib.util
+spec = importlib.util.spec_from_file_location("_chip_smoke", {root!r} + "/chip_smoke.py")
+smoke = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(smoke)
+fx, starts = smoke.mmff_fixture()
+two = smoke.mmff_molecules({{"smiles": fx["smiles"][:2]}})
+for m, s in zip(two, starts[:2]):
+    for c in s[:2]:
+        m.add_conformer(c)
+assert type(default_provider()).__name__ in ("EmpiricalMMFFProvider", "RDKitMMFFProvider",
+                                             "MMFFParameterFileProvider")
+results, dense = MMFFOptimizeMoleculesConfs(two, maxIters=20, provider=EmpiricalMMFFProvider(),
+                                            device="cpu")
+assert [len(r) for r in results] == [2, 2] and dense.positions.device.type == "cpu"
+assert np.isfinite(dense.energies.numpy()).all()
+assert lbfgs_flat.launch_counts["mmff_lbfgs"] == 0 == mmff_energy.launch_counts["mmff_energy_grad"]
 leaked = sorted(m for m in sys.modules if m == "jax" and sys.modules[m] is not None
                 or m.startswith(("jax.", "jaxlib", "nvmolkit_tpu.")) or m == "nvmolkit_tpu")
 assert not leaked, leaked
@@ -87,6 +115,18 @@ for mol in mols_from_smiles(drug):
     assert full.num_bonds == mol.num_bonds + full.num_atoms - mol.num_atoms
     assert all(full.degree(i) == mol.degree(i) + a.total_hs for i, a in enumerate(mol.atoms))
     assert all(a.total_hs == 0 for a in full.atoms)
+# the MMFF inputs: the committed starts x 32 conformers, and the clip geometries
+fx, starts = smoke.mmff_fixture()
+mmff_mols = smoke.mmff_molecules(fx)
+assert [m.num_atoms for m in mmff_mols] == fx["n_atoms"].tolist()
+confs = smoke.mmff_user_conformers(np.random.default_rng(5), starts[0])
+assert confs.shape == (smoke.MMFF_CONFS, mmff_mols[0].num_atoms, 3)
+per = smoke.MMFF_CONFS // len(starts[0])
+assert np.array_equal(confs[::per], starts[0].astype(np.float64))
+assert not np.allclose(confs[1], starts[0][0], atol=0.01)
+for s in ("CC#N", "CC#CC", "c1ccccc1"):
+    mol, x = smoke.mmff_clip_geometry(s)
+    assert x.shape == (mol.num_atoms, 3) and np.isfinite(x).all()
 leaked = sorted(m for m in sys.modules if sys.modules[m] is not None
                 and m.split(".")[0] in ("jax", "jaxlib", "nvmolkit_tpu"))
 assert not leaked, leaked
