@@ -3,8 +3,10 @@
 A second package beside the JAX one, with the same public module names
 and call signatures: ``chem`` (the molecule model and SMILES parsing),
 ``fingerprints`` (Morgan), ``similarity``, ``clustering`` (Butina),
-``conformerRmsd``, ``mmffOptimization`` (MMFF94 minimization), ``models``
-(force-field parametrization and energies) and ``types``. Plain tensor code is PyTorch; the device
+``conformerRmsd``, ``mmffOptimization`` (MMFF94 minimization),
+``uffOptimization`` (UFF minimization), ``batchedForcefield`` (batched MMFF
+and UFF force fields with constraints), ``models`` (force-field
+parametrization and energies) and ``types``. Plain tensor code is PyTorch; the device
 kernels are written by hand in CUDA C++ for Hopper (``csrc/``) and built at
 first use. The JAX package stays as the reference that the port is tested
 against; this package imports neither it nor JAX.

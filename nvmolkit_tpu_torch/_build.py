@@ -6,13 +6,19 @@
 * ``libnvmk_rmsd``: ``nvmolkit_tpu_torch/csrc/rmsd.cu`` (the conformer
   RMSD kernel), built the same way.
 * ``libnvmk_mmff``: ``nvmolkit_tpu_torch/csrc/mmff.cu`` (the MMFF energy
-  and gradient kernel K4 and the L-BFGS kernel K5), built the same way.
+  and gradient kernel K4, and the L-BFGS kernel K5 and the BFGS kernel K8
+  over it), built the same way.
+* ``libnvmk_uff``: ``nvmolkit_tpu_torch/csrc/uff.cu`` (the UFF energy and
+  gradient kernel K6, and K5 and K8 over it), built the same way.
+* ``libnvmk_constraints``: ``nvmolkit_tpu_torch/csrc/constraints.cu`` (the
+  constraint kernel K7), built the same way.
 * ``libnvmolgraph``: the repository's SMILES featurizer
   ``csrc/mol_graph.cpp``, compiled by ``g++`` with the flags of
   ``csrc/Makefile``.
 
 Outputs go to ``nvmolkit_tpu_torch/_build/``, named by a hash of the
-source and the command, so an edited source is rebuilt. Concurrent
+source, every header it includes (``#include "x.cuh"``, followed through
+the headers) and the command, so an edited source or header is rebuilt. Concurrent
 builds (parallel test workers) serialize on a file lock, and each output is
 written under a temporary name and renamed into place. A failed build
 raises.
@@ -36,6 +42,8 @@ BUILD_DIR = _PKG / "_build"
 SIMILARITY_SRC = _PKG / "csrc" / "similarity.cu"
 RMSD_SRC = _PKG / "csrc" / "rmsd.cu"
 MMFF_SRC = _PKG / "csrc" / "mmff.cu"
+UFF_SRC = _PKG / "csrc" / "uff.cu"
+CONSTRAINTS_SRC = _PKG / "csrc" / "constraints.cu"
 GRAPH_SRC = _REPO / "csrc" / "mol_graph.cpp"
 
 _locks: dict[str, threading.Lock] = collections.defaultdict(threading.Lock)
@@ -50,10 +58,27 @@ def _nvcc() -> str:
     return path
 
 
+def _sources(src: pathlib.Path) -> list[pathlib.Path]:
+    """``src`` and every header it includes by a quoted path relative to
+    its directory, followed through the headers, each once."""
+    out, todo = [], [src]
+    while todo:
+        path = todo.pop()
+        if path in out:
+            continue
+        out.append(path)
+        for line in path.read_text().splitlines():
+            words = line.split()
+            if words[:1] == ["#include"] and len(words) > 1 and words[1].startswith('"'):
+                todo.append(path.parent / words[1].strip('"'))
+    return out
+
+
 def _build(name: str, src: pathlib.Path, cmd: list[str]) -> pathlib.Path:
     """Compile ``src`` with ``cmd + ['-o', out]`` unless a build of the same
-    source and command exists; return the output path."""
-    digest = hashlib.sha256(src.read_bytes() + " ".join(cmd).encode()).hexdigest()[:16]
+    source, headers and command exists; return the output path."""
+    data = b"".join(p.read_bytes() for p in _sources(src))
+    digest = hashlib.sha256(data + " ".join(cmd).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"{name}-{digest}.so"
     if out.exists():
         return out
@@ -106,11 +131,35 @@ def _declare_mmff(lib: ctypes.CDLL) -> None:
     tables = ctypes.POINTER(ctypes.c_void_p)
     lib.nvmk_mmff_energy_grad.restype = ci
     lib.nvmk_mmff_energy_grad.argtypes = [vp, ci, ci, vp, vp, vp, ci, tables, cf, ci, vp, vp, vp]
-    lib.nvmk_mmff_lbfgs.restype = ci
-    lib.nvmk_mmff_lbfgs.argtypes = [
-        vp, vp, vp, ci, ci, vp, vp, vp, ci, tables, cf, ci, ctypes.POINTER(cf), ci, ci, cf, ci,
-        vp, vp, vp, vp, vp, vp,
-    ]
+    _declare_ff(lib, "mmff", [cf, ci])
+
+
+def _declare_ff(lib: ctypes.CDLL, ff: str, extra: list) -> None:
+    """K5 and K8 of one force field; ``extra`` are the force field's own
+    arguments after its tables (MMFF's dielectric constant and model)."""
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    tables, fp = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(cf)
+    lbfgs, bfgs = getattr(lib, f"nvmk_{ff}_lbfgs"), getattr(lib, f"nvmk_{ff}_bfgs")
+    lbfgs.restype = bfgs.restype = ci
+    lbfgs.argtypes = [vp, vp, vp, ci, ci, vp, vp, vp, ci, tables, *extra, fp, ci, ci, cf, ci,
+                      vp, vp, vp, vp, vp, vp]
+    bfgs.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp, vp, vp, ci, tables, *extra, tables, fp, ci,
+                     ci, cf, vp, vp, vp, vp, vp, vp, vp, vp, vp]
+
+
+def _declare_uff(lib: ctypes.CDLL) -> None:
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.nvmk_uff_energy_grad.restype = ci
+    lib.nvmk_uff_energy_grad.argtypes = [vp, ci, ci, vp, vp, vp, ci,
+                                         ctypes.POINTER(ctypes.c_void_p), vp, vp, vp]
+    _declare_ff(lib, "uff", [])
+
+
+def _declare_constraints(lib: ctypes.CDLL) -> None:
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.nvmk_constraint_energy_grad.restype = ci
+    lib.nvmk_constraint_energy_grad.argtypes = [vp, ci, ci, vp, ctypes.POINTER(ctypes.c_void_p),
+                                                vp, vp, vp]
 
 
 def _declare_graph(lib: ctypes.CDLL) -> None:
@@ -163,12 +212,32 @@ def rmsd_lib() -> ctypes.CDLL:
 
 
 def mmff_lib() -> ctypes.CDLL:
-    """The compiled MMFF kernels K4 and K5 (needs ``nvcc`` and a CUDA
-    runtime)."""
+    """The compiled MMFF kernels K4, and K5 and K8 over it (needs ``nvcc``
+    and a CUDA runtime)."""
     return _load(
         "libnvmk_mmff",
         lambda: _build("libnvmk_mmff", MMFF_SRC, _nvcc_cmd(MMFF_SRC)),
         _declare_mmff,
+    )
+
+
+def uff_lib() -> ctypes.CDLL:
+    """The compiled UFF kernels K6, and K5 and K8 over it (needs ``nvcc``
+    and a CUDA runtime)."""
+    return _load(
+        "libnvmk_uff",
+        lambda: _build("libnvmk_uff", UFF_SRC, _nvcc_cmd(UFF_SRC)),
+        _declare_uff,
+    )
+
+
+def constraints_lib() -> ctypes.CDLL:
+    """The compiled constraint kernel K7 (needs ``nvcc`` and a CUDA
+    runtime)."""
+    return _load(
+        "libnvmk_constraints",
+        lambda: _build("libnvmk_constraints", CONSTRAINTS_SRC, _nvcc_cmd(CONSTRAINTS_SRC)),
+        _declare_constraints,
     )
 
 

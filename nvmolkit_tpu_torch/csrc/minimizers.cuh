@@ -1,0 +1,465 @@
+// The minimizer kernels K5 (L-BFGS) and K8 (BFGS), one block per system for
+// its whole minimization, templated on the force field: ``FF`` is a struct
+// with a device function ``float eval(int mol, const float* x, float* g,
+// int n_dof, float* red) const`` that returns the energy of one system of
+// molecule ``mol`` at ``x`` (shared) in every thread and overwrites the first
+// n_dof entries of ``g`` (shared) with its gradient (K4's mmff_eval in
+// mmff.cu, K6's uff_eval in uff.cu). Each force field's file instantiates
+// both, so MMFF and UFF share one body of each minimizer.
+//
+// Both take the start's energy and gradient from one launch of the force
+// field's energy kernel (as the JAX functions evaluate the start before
+// their loops) and call ``eval`` once per probe of the line search; a system
+// that is done ends its block at once. The line search is Numerical
+// Recipes' (the first probe quadratic, later ones cubic, clamped to [0.1,
+// 0.5] lambda), with sufficient decrease FUNCTOL * lambda * slope; lambda
+// below lambda_min counts as converged (TOLX), MAX_LS_ITERS probes as failed.
+//
+// K5 replaces nvmolkit_tpu/ops/lbfgs_flat.py _flat_impl (compact_after off):
+// a probe that is accepted runs the convergence tests and the history update
+// (6 deep, kept in shared memory: 17 x 3A floats), and the next probe
+// starts the next line search. See mmff.cu for what bounds it.
+//
+// K8 replaces nvmolkit_tpu/ops/bfgs.py _minimize_impl and _line_search: per
+// outer iteration one whole line search, then, on acceptance, the TOLX,
+// scaled-gradient and functional tests and the inverse-Hessian update
+// H += xi xi^T / fac - (H dg)(H dg)^T / fae + fae u u^T (when fac >
+// sqrt(EPS |dg|^2 |xi|^2)), and the direction -H g. The probe's energy and
+// gradient are those of the point it accepts, so nothing is evaluated again
+// (the JAX function re-evaluates the accepted point, bfgs.py:261). H is
+// n_dof x n_dof floats of global memory per system (331 KB at 96 atoms, more
+// than a block's shared memory); the padded dofs, decoupled in JAX's H, are
+// dropped. What bounds K8: its evaluations, as K5's, plus per accepted step
+// three passes over H (H dg, the rank-2 update, H g), 4 n_dof^2 FP32
+// operations and 3 n_dof^2 floats read (one written) from the L2, where one
+// system's slab stays while its block runs; each pass is a warp per row,
+// its 32 lanes on neighbouring columns. A later version keeps H in tiles of
+// shared memory (nvMolKit's bfgs_hessian.cu). With constraints (K7's tables)
+// every probe adds constraint_eval after the force field.
+#pragma once
+
+#include "constraints.cuh"
+#include "ff_common.cuh"
+
+namespace nvmk {
+
+constexpr int HISTORY = 6;
+
+// ||d|| capped at maxStep = MAXSTEP_FACTOR * max(||x||, n_dof) (ops/bfgs.py:241-246)
+__device__ void cap_step(const float* x, float* d, int n_dof, float maxstep_factor, float* red) {
+  float v[2] = {0.0f, 0.0f};
+  for (int i = threadIdx.x; i < n_dof; i += THREADS) {
+    v[0] += d[i] * d[i];
+    v[1] += x[i] * x[i];
+  }
+  block_reduce<2, true>(v, red);
+  const float step_norm = sqrtf(v[0]);
+  const float max_step = maxstep_factor * nmax(sqrtf(v[1]), (float)n_dof);
+  if (step_norm > max_step) {
+    const float scale = max_step / nmax(step_norm, 1e-30f);
+    for (int i = threadIdx.x; i < n_dof; i += THREADS) d[i] *= scale;
+  }
+}
+
+// the slope g . d and lambda_min = MOVETOL / max_i(|d_i| / max(|x_i|, 1))
+__device__ void slope_and_lam_min(const float* x, const float* g, const float* d, int n_dof,
+                                  float movetol, float* red, float& slope, float& lam_min) {
+  float s[1] = {0.0f}, m[1] = {0.0f};
+  for (int i = threadIdx.x; i < n_dof; i += THREADS) {
+    s[0] += g[i] * d[i];
+    m[0] = nmax(m[0], fabsf(d[i]) / nmax(fabsf(x[i]), 1.0f));
+  }
+  block_reduce<1, true>(s, red);
+  block_reduce<1, false>(m, red);
+  slope = s[0];
+  lam_min = movetol / nmax(m[0], 1e-30f);
+}
+
+// the next lambda after a rejected probe at ``lam`` (energy ``et``): the
+// quadratic model on the first probe of a search, the cubic through the
+// last two after (ops/bfgs.py:86-112)
+__device__ __forceinline__ float backtrack(float et, float e, float slope, float lam, float lam2,
+                                           float e2, int ls_it) {
+  const float rhs1 = et - e - lam * slope;
+  const float rhs2 = e2 - e - lam2 * slope;
+  const float denom = lam != lam2 ? lam - lam2 : 1.0f;
+  const float lsq = nmax(lam * lam, 1e-30f), l2sq = nmax(lam2 * lam2, 1e-30f);
+  const float a = (rhs1 / lsq - rhs2 / l2sq) / denom;
+  const float b = (-lam2 * rhs1 / lsq + lam * rhs2 / l2sq) / denom;
+  const float disc = b * b - 3.0f * a * slope;
+  const float a_safe = fabsf(a) < 1e-20f ? 1e-20f : a;
+  const float b_safe = fabsf(b) < 1e-20f ? 1e-20f : b;
+  const float cubic = fabsf(a) < 1e-20f ? -slope / (2.0f * b_safe)
+                      : disc < 0.0f     ? 0.5f * lam
+                                        : (-b + sqrtf(nmax(disc, 0.0f))) / (3.0f * a_safe);
+  const float quad = -slope * lam * lam / (2.0f * nmax(rhs1, 1e-30f));
+  const float tmp = nmin(ls_it == 0 ? quad : cubic, 0.5f * lam);
+  return nmax(tmp, 0.1f * lam);
+}
+
+// failed0 (a non-finite start) and conv0 (the scaled-gradient test before
+// any step); returns conv0 && !failed0 and sets ``failed``
+__device__ bool start_tests(const float* x, const float* g, float e, int n_dof, float grad_tol,
+                            float* red, bool& failed) {
+  float v[2] = {0.0f, 0.0f};
+  for (int i = threadIdx.x; i < n_dof; i += THREADS) {
+    v[0] = nmax(v[0], isfinite(g[i]) ? 0.0f : 1.0f);
+    v[1] = nmax(v[1], fabsf(g[i]) * nmax(fabsf(x[i]), 1.0f));
+  }
+  block_reduce<2, false>(v, red);
+  failed = !isfinite(e) || v[0] > 0.0f;
+  return (v[1] / nmax(fabsf(e), 1.0f) < grad_tol) && !failed;
+}
+
+// the convergence tests on acceptance of the probe (xt, gt, et) from (x, e):
+// TOLX on |xt - x| / max(|xt|, 1), the scaled gradient against ``grad_tol``
+// and the functional test 2|e - et| <= TOLF (|e| + |et| + 1e-10)
+__device__ bool accept_tests(const float* x, const float* xt, const float* gt, float e, float et,
+                             int n_dof, const Policy& pol, float grad_tol, float* red) {
+  float mx[2] = {0.0f, 0.0f};
+  for (int i = threadIdx.x; i < n_dof; i += THREADS) {
+    const float big = nmax(fabsf(xt[i]), 1.0f);
+    mx[0] = nmax(mx[0], fabsf(xt[i] - x[i]) / big);
+    mx[1] = nmax(mx[1], fabsf(gt[i]) * big);
+  }
+  block_reduce<2, false>(mx, red);
+  const bool conv_x = mx[0] < pol.tolx;
+  const bool conv_g = mx[1] / nmax(fabsf(et), 1.0f) < grad_tol;
+  const bool conv_f = 2.0f * fabsf(e - et) <= pol.tolf * (fabsf(e) + fabsf(et) + 1e-10f);
+  return conv_x || conv_g || conv_f;
+}
+
+// ---- K5 ---------------------------------------------------------------------
+
+template <class FF>
+__global__ void __launch_bounds__(THREADS)
+lbfgs_kernel(FF ff, const float* __restrict__ pos0, const float* __restrict__ e0,
+             const float* __restrict__ g0, int a_pad, const int* __restrict__ sys2mol,
+             const int* __restrict__ atom_count, Policy pol, int max_iters, float grad_tol,
+             int max_steps, float* __restrict__ pos_out, float* __restrict__ e_out,
+             int* __restrict__ status_out, int* __restrict__ steps_out,
+             int* __restrict__ accepted_out) {
+  extern __shared__ float smem[];
+  const int row = 3 * a_pad;
+  float* x = smem;
+  float* xt = x + row;
+  float* g = xt + row;
+  float* gt = g + row;
+  float* d = gt + row;
+  float* s_hist = d + row;            // HISTORY rows, a ring
+  float* y_hist = s_hist + HISTORY * row;
+  float* red = y_hist + HISTORY * row;
+
+  const size_t sys = blockIdx.x;
+  const int mol = sys2mol[sys];
+  const int n_dof = 3 * atom_count[sys];
+  const float* px = pos0 + sys * row;
+  const float* pg = g0 + sys * row;
+  for (int i = threadIdx.x; i < n_dof; i += THREADS) {
+    x[i] = px[i];
+    g[i] = pg[i];
+  }
+  __syncthreads();
+
+  float e = e0[sys];
+  bool failed;
+  bool converged = start_tests(x, g, e, n_dof, grad_tol, red, failed);
+  bool capped = false;
+
+  for (int i = threadIdx.x; i < n_dof; i += THREADS) d[i] = -g[i];
+  cap_step(x, d, n_dof, pol.maxstep_factor, red);
+  float slope, lam_min;
+  slope_and_lam_min(x, g, d, n_dof, pol.movetol, red, slope, lam_min);
+  float lam = 1.0f, lam2 = 0.0f, e2 = e, gamma = 1.0f;
+  float rho[HISTORY];  // newest first
+#pragma unroll
+  for (int k = 0; k < HISTORY; ++k) rho[k] = 0.0f;
+  int head = 0, ls_it = 0, outer = 0, steps = 0;
+
+  while (!(converged || failed || capped) && steps < max_steps) {
+    for (int i = threadIdx.x; i < n_dof; i += THREADS) xt[i] = x[i] + lam * d[i];
+    __syncthreads();
+    const float et = ff.eval(mol, xt, gt, n_dof, red);
+    ++steps;
+    if (et - e <= pol.functol * lam * slope) {
+      // accepted: convergence tests, history, next direction
+      const bool newly = accept_tests(x, xt, gt, e, et, n_dof, pol, grad_tol, red);
+      float sm[2] = {0.0f, 0.0f};
+      for (int i = threadIdx.x; i < n_dof; i += THREADS) {
+        const float xi = xt[i] - x[i], dg = gt[i] - g[i];
+        sm[0] += dg * xi;
+        sm[1] += dg * dg;
+      }
+      block_reduce<2, true>(sm, red);
+      const float ys = sm[0], yy = sm[1];
+      const bool store = ys > pol.eps;
+      head = head == 0 ? HISTORY - 1 : head - 1;
+      float* s_new = s_hist + head * row;
+      float* y_new = y_hist + head * row;
+      for (int i = threadIdx.x; i < n_dof; i += THREADS) {
+        s_new[i] = store ? xt[i] - x[i] : 0.0f;
+        y_new[i] = store ? gt[i] - g[i] : 0.0f;
+      }
+#pragma unroll
+      for (int k = HISTORY - 1; k > 0; --k) rho[k] = rho[k - 1];
+      rho[0] = store ? 1.0f / nmax(ys, 1e-30f) : 0.0f;
+      if (store) gamma = ys / nmax(yy, 1e-30f);
+      // the trial point becomes the position (each thread swaps the same
+      // pointers; every entry it touched was its own)
+      float* tmp = x; x = xt; xt = tmp;
+      tmp = g; g = gt; gt = tmp;
+      e = et;
+      ++outer;
+      capped = !newly && outer >= max_iters;
+      converged = newly;
+
+      // two-loop recursion, newest first: d = -H g
+      float alpha[HISTORY];
+      for (int i = threadIdx.x; i < n_dof; i += THREADS) d[i] = g[i];
+#pragma unroll
+      for (int k = 0; k < HISTORY; ++k) {
+        alpha[k] = 0.0f;
+        if (rho[k] > 0.0f) {
+          const int slot = (head + k) % HISTORY;
+          const float* sk = s_hist + slot * row;
+          const float* yk = y_hist + slot * row;
+          float part = 0.0f;
+          for (int i = threadIdx.x; i < n_dof; i += THREADS) part += sk[i] * d[i];
+          alpha[k] = rho[k] * block_sum(part, red);
+          for (int i = threadIdx.x; i < n_dof; i += THREADS) d[i] -= alpha[k] * yk[i];
+        }
+      }
+      for (int i = threadIdx.x; i < n_dof; i += THREADS) d[i] *= gamma;
+#pragma unroll
+      for (int k = HISTORY - 1; k >= 0; --k) {
+        if (rho[k] > 0.0f) {
+          const int slot = (head + k) % HISTORY;
+          const float* sk = s_hist + slot * row;
+          const float* yk = y_hist + slot * row;
+          float part = 0.0f;
+          for (int i = threadIdx.x; i < n_dof; i += THREADS) part += yk[i] * d[i];
+          const float beta = rho[k] * block_sum(part, red);
+          for (int i = threadIdx.x; i < n_dof; i += THREADS) d[i] += (alpha[k] - beta) * sk[i];
+        }
+      }
+      for (int i = threadIdx.x; i < n_dof; i += THREADS) d[i] = -d[i];
+      cap_step(x, d, n_dof, pol.maxstep_factor, red);
+      slope_and_lam_min(x, g, d, n_dof, pol.movetol, red, slope, lam_min);
+      lam2 = 0.0f;
+      e2 = e;
+      lam = 1.0f;
+      ls_it = 0;
+    } else {
+      // rejected: backtrack (quadratic on the first probe, then cubic)
+      const float new_lam = backtrack(et, e, slope, lam, lam2, e2, ls_it);
+      const bool conv_ls = new_lam < lam_min;  // lambda underflow: converged (TOLX)
+      failed = !conv_ls && ls_it + 1 >= pol.max_ls_iters;
+      converged = conv_ls;
+      lam2 = lam;
+      e2 = et;
+      lam = new_lam;
+      ++ls_it;
+    }
+  }
+
+  float* po = pos_out + sys * row;
+  for (int i = threadIdx.x; i < row; i += THREADS) po[i] = i < n_dof ? x[i] : px[i];
+  if (threadIdx.x == 0) {
+    e_out[sys] = e;
+    status_out[sys] = (converged ? 1 : 0) | (failed ? 2 : 0) | (capped ? 4 : 0);
+    steps_out[sys] = steps;
+    accepted_out[sys] = outer;
+  }
+}
+
+// K5 over the systems at ``pos0``, whose energies ``e0`` and gradients
+// ``g0`` the force field's energy kernel computed; positions, energies,
+// status bits (1 converged, 2 failed, 4 capped), probe counts and accepted
+// steps out
+template <class FF>
+int launch_lbfgs(const FF& ff, const float* pos0, const float* e0, const float* g0, int n_sys,
+                 int a_pad, const int* sys2mol, const int* atom_count, const float* policy,
+                 int max_ls_iters, int max_iters, float grad_tol, int max_steps, float* pos_out,
+                 float* e_out, int* status, int* steps, int* accepted, void* stream) {
+  if (n_sys == 0) return 0;
+  const size_t smem = ((5 + 2 * HISTORY) * 3 * (size_t)a_pad + 2 * WARPS) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(lbfgs_kernel<FF>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  lbfgs_kernel<FF><<<n_sys, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      ff, pos0, e0, g0, a_pad, sys2mol, atom_count, make_policy(policy, max_ls_iters), max_iters,
+      grad_tol, max_steps, pos_out, e_out, status, steps, accepted);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- K8 ---------------------------------------------------------------------
+
+// out = sign * H (a - b), b optional; H n x n row-major (global). A warp per
+// row, its lanes on neighbouring columns; the warps' rows are disjoint
+__device__ void hess_apply(const float* H, int n, const float* a, const float* b, float sign,
+                           float* out) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  for (int r = w; r < n; r += WARPS) {
+    const float* hr = H + (size_t)r * n;
+    float acc = 0.0f;
+    for (int c = lane; c < n; c += 32) acc += hr[c] * (b != nullptr ? a[c] - b[c] : a[c]);
+    acc = warp_sum(acc);
+    if (lane == 0) out[r] = sign * acc;
+  }
+  __syncthreads();
+}
+
+template <class FF>
+__global__ void __launch_bounds__(THREADS)
+bfgs_kernel(FF ff, CTables ct, int sys_base, const float* __restrict__ pos0,
+            const float* __restrict__ e0, const float* __restrict__ g0, int a_pad,
+            const int* __restrict__ sys2mol, const int* __restrict__ atom_count, Policy pol,
+            int max_iters, float grad_tol, const int* __restrict__ iter_caps,
+            const float* __restrict__ grad_tols, float* __restrict__ hess,
+            float* __restrict__ pos_out, float* __restrict__ e_out, int* __restrict__ status_out,
+            int* __restrict__ steps_out, int* __restrict__ accepted_out) {
+  extern __shared__ float smem[];
+  const int row = 3 * a_pad;
+  float* x = smem;
+  float* xt = x + row;
+  float* g = xt + row;
+  float* gt = g + row;
+  float* d = gt + row;
+  float* xi = d + row;
+  float* hdg = xi + row;
+  float* red = hdg + row;
+
+  const size_t sys = sys_base + (size_t)blockIdx.x;
+  const int mol = sys2mol[sys];
+  const int n_dof = 3 * atom_count[sys];
+  const float tol = grad_tols != nullptr ? grad_tols[sys] : grad_tol;
+  const int cap = iter_caps != nullptr ? iter_caps[sys] : max_iters;
+  float* H = hess + (size_t)blockIdx.x * row * row;
+  const float* px = pos0 + sys * row;
+  const float* pg = g0 + sys * row;
+  for (int i = threadIdx.x; i < n_dof; i += THREADS) {
+    x[i] = px[i];
+    g[i] = pg[i];
+    d[i] = -pg[i];
+  }
+  for (int r = threadIdx.x >> 5; r < n_dof; r += WARPS)
+    for (int c = threadIdx.x & 31; c < n_dof; c += 32) H[(size_t)r * n_dof + c] = r == c ? 1.0f : 0.0f;
+  __syncthreads();
+
+  auto energy = [&](const float* at_x, float* at_g) {
+    const float e_ff = ff.eval(mol, at_x, at_g, n_dof, red);
+    return e_ff + constraint_eval(ct, (int)sys, at_x, at_g, red);
+  };
+
+  float e = e0[sys];
+  bool failed;
+  bool converged = start_tests(x, g, e, n_dof, tol, red, failed);
+  int it = 0, steps = 0, accepted = 0;
+
+  while (!(converged || failed) && it < max_iters) {
+    cap_step(x, d, n_dof, pol.maxstep_factor, red);
+    float slope, lam_min;
+    slope_and_lam_min(x, g, d, n_dof, pol.movetol, red, slope, lam_min);
+    // the line search: probes until one is accepted, lambda underflows or
+    // MAX_LS_ITERS probes are spent
+    float lam = 1.0f, lam2 = 0.0f, e2 = e, et = e;
+    bool ls_ok = false, underflow = false;
+    for (int ls_it = 0; ls_it < pol.max_ls_iters; ++ls_it) {
+      for (int i = threadIdx.x; i < n_dof; i += THREADS) xt[i] = x[i] + lam * d[i];
+      __syncthreads();
+      et = energy(xt, gt);
+      ++steps;
+      if (et - e <= pol.functol * lam * slope) {
+        ls_ok = true;
+        break;
+      }
+      const float new_lam = backtrack(et, e, slope, lam, lam2, e2, ls_it);
+      if (new_lam < lam_min) {
+        underflow = true;
+        break;
+      }
+      lam2 = lam;
+      e2 = et;
+      lam = new_lam;
+    }
+    ++it;
+    bool newly = underflow;  // lambda underflow: converged (TOLX)
+    failed = !ls_ok && !underflow;
+    if (ls_ok) {
+      ++accepted;
+      newly = accept_tests(x, xt, gt, e, et, n_dof, pol, tol, red);
+      // xi, H dg and the update's four sums
+      for (int i = threadIdx.x; i < n_dof; i += THREADS) xi[i] = xt[i] - x[i];
+      __syncthreads();
+      hess_apply(H, n_dof, gt, g, 1.0f, hdg);
+      float sm[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      for (int i = threadIdx.x; i < n_dof; i += THREADS) {
+        const float dg = gt[i] - g[i];
+        sm[0] += dg * xi[i];
+        sm[1] += dg * hdg[i];
+        sm[2] += dg * dg;
+        sm[3] += xi[i] * xi[i];
+      }
+      block_reduce<4, true>(sm, red);
+      const float fac = sm[0], fae = sm[1];
+      if (fac > sqrtf(pol.eps * sm[2] * sm[3])) {
+        const float fac_i = 1.0f / nmax(fac, 1e-30f), fad_i = 1.0f / nmax(fae, 1e-30f);
+        const int lane = threadIdx.x & 31;
+        for (int r = threadIdx.x >> 5; r < n_dof; r += WARPS) {
+          float* hr = H + (size_t)r * n_dof;
+          const float ur = fac_i * xi[r] - fad_i * hdg[r];
+          for (int c = lane; c < n_dof; c += 32) {
+            const float uc = fac_i * xi[c] - fad_i * hdg[c];
+            hr[c] += fac_i * (xi[r] * xi[c]) - fad_i * (hdg[r] * hdg[c]) + fae * (ur * uc);
+          }
+        }
+        __syncthreads();
+      }
+      // the probe becomes the position; the next direction is -H g
+      float* tmp = x; x = xt; xt = tmp;
+      tmp = g; g = gt; gt = tmp;
+      e = et;
+      hess_apply(H, n_dof, g, nullptr, -1.0f, d);
+    }
+    converged = newly;
+    // a per-system budget spent without converging fails (bfgs.py:299-301)
+    if (iter_caps != nullptr && !converged && it >= cap) failed = true;
+  }
+
+  float* po = pos_out + sys * row;
+  for (int i = threadIdx.x; i < row; i += THREADS) po[i] = i < n_dof ? x[i] : px[i];
+  if (threadIdx.x == 0) {
+    const bool capped = !(converged || failed);
+    e_out[sys] = e;
+    status_out[sys] = (converged ? 1 : 0) | (failed ? 2 : 0) | (capped ? 4 : 0);
+    steps_out[sys] = steps;
+    accepted_out[sys] = accepted;
+  }
+}
+
+// K8 over systems [sys_base, sys_base + n_launch) of the arrays (``hess``
+// holds n_launch slabs of (3 a_pad)^2 floats); ``iter_caps``, ``grad_tols``
+// and ``ctables`` (K7's: offsets, four atom columns, four parameter rows)
+// may be null; outputs as K5's, with accepted steps
+template <class FF>
+int launch_bfgs(const FF& ff, const void* const* ctables, int n_sys, int sys_base, int n_launch,
+                const float* pos0, const float* e0, const float* g0, int a_pad,
+                const int* sys2mol, const int* atom_count, const float* policy, int max_ls_iters,
+                int max_iters, float grad_tol, const int* iter_caps, const float* grad_tols,
+                float* hess, float* pos_out, float* e_out, int* status, int* steps, int* accepted,
+                void* stream) {
+  if (n_launch == 0) return 0;
+  const size_t smem = (7 * 3 * (size_t)a_pad + 4 * WARPS) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(bfgs_kernel<FF>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  bfgs_kernel<FF><<<n_launch, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      ff, make_ctables(ctables, n_sys), sys_base, pos0, e0, g0, a_pad, sys2mol, atom_count,
+      make_policy(policy, max_ls_iters), max_iters, grad_tol, iter_caps, grad_tols, hess, pos_out,
+      e_out, status, steps, accepted);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace nvmk

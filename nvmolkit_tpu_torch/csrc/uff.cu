@@ -1,0 +1,226 @@
+// Kernel K6, UFF energy and analytic gradient, and the minimizers K5
+// (L-BFGS) and K8 (BFGS) instantiated over it, for Hopper (sm_90a).
+//
+// K6 replaces the XLA program nvmolkit_tpu/models/uff/energy.py
+// uff_energy_and_grad (bonded terms gathered by one-hot matmuls,
+// models/terms.py select_slots; the vdW sum over the dense A x A square,
+// _vdw_energy_dense; the gradient by autodiff). As K4 does for MMFF, every
+// term is evaluated once from flat per-molecule tables with CSR offsets, the
+// vdW terms from a pair list (exactly the nonzero entries of the JAX
+// package's dense square, models/uff/energy.py:98-128), and the gradient is
+// written by hand (Rappe et al., JACS 114 (1992) 10024):
+//   bond       E = k/2 (r - r0)^2
+//   angle      E = k (a0 + a1 c + a2 c^2 + a3 c^3 + a4 c^4), c = cos theta
+//   torsion    E = b0 + b1 c + ... + b6 c^6, c = cos phi between n1 = b1 x b2
+//              and n2 = b2 x b3
+//   inversion  E = k (1 - cos w), cos w = sqrt(clip(1 - sin^2 y, 1e-10, 1))
+//   vdW        E = D ((x2/r^2)^6 - 2 (x2/r^2)^3), x2 = x_i x_j, D = sqrt(D_i D_j)
+// with the JAX function's guards kept: norms are sqrt(|d|^2 + 1e-10); the
+// angle and torsion cosines and sin y are clipped to +-1, and the
+// derivative is zero where a clip is active (as autodiff through a clip
+// gives: an exactly perpendicular out-of-plane bond, or a rounding past 1);
+// r^2 >= 1e-2 with a zero gradient below. There is no inverse trigonometric
+// call: the gradients go through the cosines.
+//
+// K5 and K8 (minimizers.cuh) call K6's device function uff_eval once per
+// probe. What bounds K6: FP32 work, ~25 instructions per vdW pair (one
+// division, no square root), ~60-120 per bonded term; pairs are ~85 % of the
+// terms at drug-like sizes. Its bytes are the tables (once per molecule) and
+// the positions and gradients. One block of 128 threads per system, each
+// thread a contiguous run of each kind's terms, the gradient in shared
+// memory by atomics; IEEE division and square root, float32 throughout.
+
+#include "constraints.cuh"
+#include "ff_common.cuh"
+#include "minimizers.cuh"
+
+namespace {
+
+using namespace nvmk;
+
+constexpr int N_KINDS = 5;  // bonds, angles, torsions, inversions, vdW pairs
+
+struct Tables {
+  const int* off;  // [N_KINDS, n_mols + 1]
+  int n_mols;
+  const int* atoms[N_KINDS];
+  const float* params[N_KINDS];
+};
+
+// ---- the terms: each returns its energy and pushes its gradient ----------
+
+__device__ float bond_term(const int* a, const float* p, const float* x, float* g) {
+  const float r0 = p[0], k = p[1];
+  const V3 d = sub(at(x, a[0]), at(x, a[1]));
+  const float r = norm(d);
+  const float dr = r - r0;
+  const V3 gd = mul(d, k * dr / r);
+  push(g, a[0], gd);
+  push(g, a[1], mul(gd, -1.0f));
+  return 0.5f * k * dr * dr;
+}
+
+__device__ float angle_term(const int* a, const float* p, const float* x, float* g) {
+  const float k = p[0], a0 = p[1], a1 = p[2], a2 = p[3], a3 = p[4], a4 = p[5];
+  const Angle ang(x, a[0], a[1], a[2], 1.0f);
+  const float c = ang.c;
+  const float poly = a0 + c * (a1 + c * (a2 + c * (a3 + c * a4)));
+  const float dpoly = a1 + c * (2.0f * a2 + c * (3.0f * a3 + c * 4.0f * a4));
+  ang.push_grad(g, a[0], a[1], a[2], k * dpoly, 0.0f, 0.0f);
+  return k * poly;
+}
+
+__device__ float torsion_term(const int* a, const float* p, const float* x, float* g) {
+  const Dihedral t(x, a[0], a[1], a[2], a[3]);
+  const float c = t.c;
+  const float poly =
+      p[0] + c * (p[1] + c * (p[2] + c * (p[3] + c * (p[4] + c * (p[5] + c * p[6])))));
+  const float dpoly =
+      p[1] + c * (2.0f * p[2] + c * (3.0f * p[3] + c * (4.0f * p[4] + c * (5.0f * p[5]
+                                                                         + c * 6.0f * p[6]))));
+  t.push_grad(g, a[0], a[1], a[2], a[3], dpoly);
+  return poly;
+}
+
+__device__ float inversion_term(const int* a, const float* p, const float* x, float* g) {
+  const float k = p[0];
+  const OutOfPlane o(x, a[0], a[1], a[2], a[3], 1.0f);
+  const float q = 1.0f - o.s * o.s;
+  const float cos_w = sqrtf(nmin(nmax(q, NORM_EPS), 1.0f));
+  if (inside(o.sraw, 1.0f) && q >= NORM_EPS && q <= 1.0f)
+    o.push_grad(g, a[0], a[1], a[2], a[3], k * o.s / cos_w);
+  return k * (1.0f - cos_w);
+}
+
+__device__ float pair_term(const int* a, const float* p, const float* x, float* g) {
+  const float x2 = p[0], depth = p[1];
+  const V3 d = sub(at(x, a[0]), at(x, a[1]));
+  const float r2raw = dot(d, d);
+  const float r2 = nmax(r2raw, 1e-2f);
+  const float t = x2 / r2;
+  const float r6 = t * t * t;
+  if (r2raw >= 1e-2f) {
+    // dE/d(r^2) = -6 D r6 (r6 - 1) / r^2; d(r^2)/dd = 2 d
+    const V3 gd = mul(d, -12.0f * depth * r6 * (r6 - 1.0f) / r2);
+    push(g, a[0], gd);
+    push(g, a[1], mul(gd, -1.0f));
+  }
+  return depth * (r6 * r6 - 2.0f * r6);
+}
+
+// K6's device function: the energy of one system of molecule ``mol`` at
+// positions ``x`` (shared, 3 floats per atom) and its gradient into ``g``
+// (shared; its first n_dof entries are overwritten). Returns the energy in
+// every thread; ``g`` is complete on return.
+__device__ float uff_eval(const Tables& t, int mol, const float* x, float* g, int n_dof,
+                          float* red) {
+  for (int i = threadIdx.x; i < n_dof; i += THREADS) g[i] = 0.0f;
+  __syncthreads();
+  float e = 0.0f;
+  const int stride = t.n_mols + 1;
+#pragma unroll
+  for (int kind = 0; kind < N_KINDS; ++kind) {
+    constexpr int arity[N_KINDS] = {2, 3, 4, 4, 2};
+    constexpr int n_par[N_KINDS] = {2, 6, 7, 1, 2};
+    int first, last;
+    my_run(t.off[kind * stride + mol], t.off[kind * stride + mol + 1], first, last);
+    for (int k = first; k < last; ++k) {
+      const int* a = t.atoms[kind] + (size_t)k * arity[kind];
+      const float* p = t.params[kind] + (size_t)k * n_par[kind];
+      switch (kind) {
+        case 0: e += bond_term(a, p, x, g); break;
+        case 1: e += angle_term(a, p, x, g); break;
+        case 2: e += torsion_term(a, p, x, g); break;
+        case 3: e += inversion_term(a, p, x, g); break;
+        default: e += pair_term(a, p, x, g); break;
+      }
+    }
+  }
+  __syncthreads();  // every term's atomics into g are done
+  return block_sum(e, red);
+}
+
+// the force field the minimizers take
+struct Uff {
+  Tables t;
+  __device__ float eval(int mol, const float* x, float* g, int n_dof, float* red) const {
+    return uff_eval(t, mol, x, g, n_dof, red);
+  }
+};
+
+// ---- K6 ---------------------------------------------------------------------
+
+__global__ void __launch_bounds__(THREADS)
+energy_grad_kernel(const float* __restrict__ pos, int a_pad, const int* __restrict__ sys2mol,
+                   const int* __restrict__ atom_count, Tables t, float* __restrict__ energy,
+                   float* __restrict__ grad) {
+  extern __shared__ float smem[];
+  const int row = 3 * a_pad;
+  float* x = smem;
+  float* g = x + row;
+  float* red = g + row;
+  const size_t s = blockIdx.x;
+  const int n_dof = 3 * atom_count[s];
+  const float* px = pos + s * row;
+  for (int i = threadIdx.x; i < n_dof; i += THREADS) x[i] = px[i];
+  __syncthreads();
+  const float e = uff_eval(t, sys2mol[s], x, g, n_dof, red);
+  if (threadIdx.x == 0) energy[s] = e;
+  float* pg = grad + s * row;
+  for (int i = threadIdx.x; i < row; i += THREADS) pg[i] = i < n_dof ? g[i] : 0.0f;
+}
+
+Uff make_uff(const int* off, int n_mols, const void* const* tables) {
+  Tables t;
+  t.off = off;
+  t.n_mols = n_mols;
+  for (int k = 0; k < N_KINDS; ++k) {
+    t.atoms[k] = static_cast<const int*>(tables[k]);
+    t.params[k] = static_cast<const float*>(tables[N_KINDS + k]);
+  }
+  return Uff{t};
+}
+
+}  // namespace
+
+extern "C" {
+
+// K6: energy [n_sys] and gradient [n_sys, a_pad, 3] of the systems at ``pos``
+// [n_sys, a_pad, 3]. ``tables`` holds 10 device pointers: the int32 atom
+// columns of the five kinds, then their float32 parameter rows.
+int nvmk_uff_energy_grad(const float* pos, int n_sys, int a_pad, const int* sys2mol,
+                         const int* atom_count, const int* off, int n_mols,
+                         const void* const* tables, float* energy, float* grad, void* stream) {
+  if (n_sys == 0) return 0;
+  const size_t smem = (6 * (size_t)a_pad + 2 * WARPS) * sizeof(float);
+  energy_grad_kernel<<<n_sys, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      pos, a_pad, sys2mol, atom_count, make_uff(off, n_mols, tables).t, energy, grad);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K5 over UFF (see launch_lbfgs)
+int nvmk_uff_lbfgs(const float* pos0, const float* e0, const float* g0, int n_sys, int a_pad,
+                   const int* sys2mol, const int* atom_count, const int* off, int n_mols,
+                   const void* const* tables, const float* policy, int max_ls_iters,
+                   int max_iters, float grad_tol, int max_steps, float* pos_out, float* e_out,
+                   int* status, int* steps, int* accepted, void* stream) {
+  return launch_lbfgs(make_uff(off, n_mols, tables), pos0, e0, g0, n_sys, a_pad, sys2mol,
+                      atom_count, policy, max_ls_iters, max_iters, grad_tol, max_steps, pos_out,
+                      e_out, status, steps, accepted, stream);
+}
+
+// K8 over UFF, with K7's constraint tables ``ctables`` or null (see launch_bfgs)
+int nvmk_uff_bfgs(const float* pos0, const float* e0, const float* g0, int n_sys, int sys_base,
+                  int n_launch, int a_pad, const int* sys2mol, const int* atom_count,
+                  const int* off, int n_mols, const void* const* tables,
+                  const void* const* ctables, const float* policy, int max_ls_iters,
+                  int max_iters, float grad_tol, const int* iter_caps, const float* grad_tols,
+                  float* hess, float* pos_out, float* e_out, int* status, int* steps,
+                  int* accepted, void* stream) {
+  return launch_bfgs(make_uff(off, n_mols, tables), ctables, n_sys, sys_base, n_launch, pos0,
+                     e0, g0, a_pad, sys2mol, atom_count, policy, max_ls_iters, max_iters,
+                     grad_tol, iter_caps, grad_tols, hess, pos_out, e_out, status, steps,
+                     accepted, stream);
+}
+
+}  // extern "C"

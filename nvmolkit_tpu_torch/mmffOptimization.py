@@ -4,8 +4,9 @@ Mirrors ``nvmolkit_tpu/mmffOptimization.py`` (and nvMolKit's
 ``nvmolkit/mmffOptimization.py:60-201``):
 ``MMFFOptimizeMoleculesConfs(molecules, maxIters, properties, ...)``
 minimizes every conformer under MMFF94. On CUDA each bucket chunk is one
-launch of kernel K5 (``csrc/mmff.cu``), which runs every system's whole
-L-BFGS minimization on the device, each probe an evaluation of kernel K4.
+launch of kernel K5 (L-BFGS) or K8 (BFGS), which runs every system's whole
+minimization on the device, each probe an evaluation of kernel K4's device
+function (``csrc/mmff.cu``).
 
 The work runs on ``device`` if given, else on ``hardwareOptions.deviceIds``
 or ``targetGpu``, else on the device of ``positionsFrom``, else on
@@ -15,18 +16,21 @@ plain PyTorch versions then run).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from collections.abc import Sequence
 
-import torch
-
 from nvmolkit_tpu_torch.chem.mol import Mol
+from nvmolkit_tpu_torch.models import flat
 from nvmolkit_tpu_torch.models.mmff import MMFFProperties, make_batched_mmff
+from nvmolkit_tpu_torch.models.mmff.energy import MMFF
 from nvmolkit_tpu_torch.models.optimize import (
     finalize_output,
+    group_positions_from,
     merge_group_dense,
     optimize_molecules_confs,
 )
-from nvmolkit_tpu_torch.ops.lbfgs_flat import mmff_lbfgs
+from nvmolkit_tpu_torch.ops.bfgs import bfgs_minimize
+from nvmolkit_tpu_torch.ops.lbfgs_flat import lbfgs
 from nvmolkit_tpu_torch.types import CoordinateOutput, Dense3DResult, input_device
 from nvmolkit_tpu_torch.utils.config import HardwareOptions
 
@@ -39,6 +43,21 @@ def _per_mol(value, i: int, n: int, name: str):
             raise ValueError(f"{name} sequence length {len(value)} != molecule count {n}")
         return value[i]
     return value
+
+
+def minimizer(ff: flat.ForceField, backend: str):
+    """The chunk minimizer ``(pos0, batch, sys2mol, max_iters, grad_tol)`` of
+    ``backend``: ``"flat"`` L-BFGS (K5), ``"bfgs"`` BFGS (K8)."""
+    if backend == "flat":
+        return functools.partial(lbfgs, ff)
+    if backend == "bfgs":
+        return lambda pos, batch, s2m, max_iters, grad_tol: bfgs_minimize(
+            ff, pos, batch, s2m, None, max_iters, grad_tol)
+    if backend == "lbfgs":
+        raise NotImplementedError(
+            "backend='lbfgs' (the JAX package's lockstep L-BFGS) is not ported; use 'flat' or "
+            "'bfgs'")
+    raise ValueError(f"unknown backend {backend!r}")
 
 
 def MMFFOptimizeMoleculesConfs(
@@ -75,20 +94,17 @@ def MMFFOptimizeMoleculesConfs(
     ``nonBondedThreshold`` is accepted and keys the caches, as in the JAX
     package, which does not apply it either.
 
-    Only ``backend="flat"`` runs (kernel K5 on CUDA); ``"bfgs"`` and
-    ``"lbfgs"`` come with the port's ``batchedForcefield`` slice.
+    ``backend="flat"`` runs the L-BFGS minimizer (kernel K5 on CUDA),
+    ``"bfgs"`` the BFGS one (kernel K8); ``"lbfgs"`` (the JAX package's
+    lockstep L-BFGS) is not ported. ``maxIters`` is the total budget:
+    accepted steps for ``"flat"``, line searches for ``"bfgs"``.
 
     Raises nvMolKit's structured ``ValueError`` when inputs are invalid:
     ``e.args[1]`` is ``{"none": [...], "no_params": [...]}`` with the
     offending molecule indices (``no_params`` is populated under the RDKit
     provider, which is where parametrization can fail).
     """
-    if backend in ("bfgs", "lbfgs"):
-        raise NotImplementedError(
-            f"backend={backend!r} comes with the port's batchedForcefield slice; "
-            "use backend='flat'")
-    if backend != "flat":
-        raise ValueError(f"unknown backend {backend!r}")
+    minimize = minimizer(MMFF, backend)
     if not molecules:
         if output == CoordinateOutput.DEVICE:
             raise ValueError("MMFFOptimizeMoleculesConfs(output=DEVICE) requires at least "
@@ -156,19 +172,13 @@ def MMFFOptimizeMoleculesConfs(
     dense_parts: list = []
     for mol_ids in groups.values():
         props = per_mol[mol_ids[0]]
-        group_pf = positionsFrom
-        if positionsFrom is not None and len(groups) > 1:
-            rows = torch.as_tensor(mol_ids, dtype=torch.int64,
-                                   device=positionsFrom.positions.device)
-            group_pf = Dense3DResult(positions=positionsFrom.positions[rows],
-                                     conf_mask=positionsFrom.conf_mask[rows],
-                                     atom_mask=positionsFrom.atom_mask[rows])
+        group_pf = group_positions_from(positionsFrom, mol_ids, len(groups))
 
         def make_batch(mols, max_atoms, _props=props):
             return make_batched_mmff(mols, max_atoms, _props, provider=provider, device=dev)
 
         energies, statuses, dense = optimize_molecules_confs(
-            [molecules[i] for i in mol_ids], make_batch, mmff_lbfgs, max_iters=maxIters,
+            [molecules[i] for i in mol_ids], make_batch, minimize, max_iters=maxIters,
             hardware_options=hardwareOptions, positions_from=group_pf, device=dev)
         for g, mi in enumerate(mol_ids):
             results[mi] = [(statuses[g][c], energies[g][c]) for c in range(len(energies[g]))]

@@ -24,14 +24,15 @@ failure raises. ``launch_counts`` counts K4's launches.
 """
 from __future__ import annotations
 
-import ctypes
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
 from nvmolkit_tpu_torch._build import mmff_lib
 from nvmolkit_tpu_torch.chem.mol import Mol
+from nvmolkit_tpu_torch.models import flat
 from nvmolkit_tpu_torch.models.mmff.terms import MMFFProperties, MMFFTerms
 from nvmolkit_tpu_torch.models.terms import BoundedBatchCache
 
@@ -54,9 +55,6 @@ PARAMS = (
     ("rstar", "eps", "qq_scale"),
 )
 _BONDED = KINDS[:5]
-# K5 keeps 17 rows of 3 floats per atom in shared memory: 209 KB at 1024 atoms,
-# within the 227 KB a block can have
-MAX_KERNEL_ATOMS = 1024
 
 launch_counts = {"mmff_energy_grad": 0}
 
@@ -170,10 +168,12 @@ def make_batched_mmff(
     max_atoms: int,
     properties: MMFFProperties | None = None,
     provider=None,
-    device=None,
+    *,
+    device,
 ) -> MMFFBatch:
     """Build and batch MMFF terms for a bucket of unique molecules, on
-    ``device`` (default CPU).
+    ``device``, which the caller resolves (the entry points by
+    ``types.resolve_device``).
 
     Per-molecule parametrization is cached on the Mol object (the
     reference caches contribs per ROMol*, ``bfgs_mmff.cpp:199``), keyed by
@@ -194,7 +194,7 @@ def make_batched_mmff(
     )
     batch_key = (
         tuple(id(m) for m in mols), max_atoms, key,
-        tuple(sorted(vars(props).items())), str(torch.device(device or "cpu")),
+        tuple(sorted(vars(props).items())), str(torch.device(device)),
     )
     hit = _BATCH_CACHE.get(batch_key)
     if hit is not None:
@@ -287,35 +287,7 @@ def _pairs(p, q, diel_constant, diel_model, split=False):
 _TERMS = (_bond, _angle, _stretch_bend, _oop, _torsion)
 
 
-def _check_inputs(positions: torch.Tensor, batch: MMFFBatch, sys2mol: torch.Tensor) -> None:
-    if positions.dim() != 3 or positions.shape[2] != 3:
-        raise ValueError(f"positions must be [S, A, 3], got {tuple(positions.shape)}")
-    if sys2mol.dim() != 1 or sys2mol.shape[0] != positions.shape[0]:
-        raise ValueError(f"sys2mol must be [{positions.shape[0]}], got {tuple(sys2mol.shape)}")
-    if positions.shape[1] < batch.max_atoms:
-        raise ValueError(f"positions hold {positions.shape[1]} atoms, the batch up to "
-                         f"{batch.max_atoms}")
-
-
-def _expand(batch: MMFFBatch, sys2mol: torch.Tensor, a_pad: int):
-    """Per kind, the terms of every system: (system of each term, flat atom
-    indices into [S * a_pad], parameter rows)."""
-    dev = batch.device
-    s2m = sys2mol.to(dev, torch.int64)
-    systems = torch.arange(s2m.shape[0], device=dev)
-    out = []
-    for k in range(len(KINDS)):
-        off = batch.offsets[k].to(torch.int64)
-        count = (off[1:] - off[:-1])[s2m]
-        sys_of = torch.repeat_interleave(systems, count)
-        first = torch.cumsum(count, 0) - count
-        term = off[s2m][sys_of] + torch.arange(sys_of.shape[0], device=dev) - first[sys_of]
-        atoms = batch.atoms[k].to(torch.int64)[term] + (sys_of * a_pad)[:, None]
-        out.append((sys_of, atoms, batch.params[k][term]))
-    return out
-
-
-def _kind_energies(k: int, p, par, batch: MMFFBatch, split=False):
+def _kind_energies(k: int, p, par, split, batch: MMFFBatch):
     """Term energies of kind ``k`` at the term atoms' positions ``p``; with
     ``split`` the pairs give (vdW, electrostatics), else a tuple of one."""
     if KINDS[k] != "pairs":
@@ -324,59 +296,29 @@ def _kind_energies(k: int, p, par, batch: MMFFBatch, split=False):
     return e if split else (e,)
 
 
-def _term_energies(flat, expanded, batch: MMFFBatch, split=False):
-    """(kind, system of each term, term energies) for positions ``flat``
-    [S * a_pad, 3]; with ``split`` the pairs give vdW and electrostatics
-    separately."""
-    out = []
-    for k, (sys_of, atoms, par) in enumerate(expanded):
-        p = [flat[atoms[:, q]] for q in range(ARITY[k])]
-        out += [(k, sys_of, e) for e in _kind_energies(k, p, par, batch, split)]
-    return out
+def _kinds(batch: MMFFBatch):
+    return functools.partial(_kind_energies, batch=batch)
 
 
 def plain_energy_fn(batch: MMFFBatch, sys2mol: torch.Tensor, a_pad: int):
     """The plain per-system energy ``fn(positions [S, a_pad, 3]) -> [S]`` of
     ``batch``'s molecules ``sys2mol``; the term index is built once, so a
     minimizer calls ``fn`` at every probe."""
-    expanded = _expand(batch, sys2mol, a_pad)
-    n_sys = sys2mol.shape[0]
-
-    def energy(positions: torch.Tensor) -> torch.Tensor:
-        flat = positions.reshape(-1, 3)
-        total = torch.zeros(n_sys, dtype=positions.dtype, device=positions.device)
-        # the nonbonded sum first, then the bonded kinds, as the JAX function adds them
-        terms = _term_energies(flat, expanded, batch)
-        for k, sys_of, e in terms[-1:] + terms[:-1]:
-            total = total + torch.zeros_like(total).index_add_(0, sys_of, e)
-        return total
-
-    return energy
+    return flat.plain_energy_fn(batch, sys2mol, a_pad, _kinds(batch))
 
 
 def plain_energy_and_grad_fn(batch: MMFFBatch, sys2mol: torch.Tensor, a_pad: int):
     """``fn(positions) -> (energy [S], gradient [S, a_pad, 3])``, the gradient
     by autograd of :func:`plain_energy_fn`, zero outside each system's
     atoms."""
-    energy = plain_energy_fn(batch, sys2mol, a_pad)
-    count = batch.n_atoms.to(torch.int64)[sys2mol.to(batch.device, torch.int64)]
-    mask = (torch.arange(a_pad, device=batch.device)[None] < count[:, None])[..., None]
-
-    def energy_and_grad(positions: torch.Tensor):
-        with torch.enable_grad():
-            x = positions.detach().requires_grad_(True)
-            e = energy(x)
-            (g,) = torch.autograd.grad(e.sum(), x)
-        return e.detach(), torch.where(mask, g, 0.0)
-
-    return energy_and_grad
+    return flat.plain_energy_and_grad_fn(batch, sys2mol, a_pad, _kinds(batch))
 
 
 def mmff_energy_plain(positions: torch.Tensor, batch: MMFFBatch,
                       sys2mol: torch.Tensor) -> torch.Tensor:
     """Per-system MMFF energies [S] (kcal/mol) of ``positions`` [S, A, 3];
     system s is molecule ``sys2mol[s]`` of ``batch``."""
-    _check_inputs(positions, batch, sys2mol)
+    flat.check_inputs(positions, batch, sys2mol)
     return plain_energy_fn(batch, sys2mol, positions.shape[1])(positions)
 
 
@@ -384,7 +326,7 @@ def mmff_energy_and_grad_plain(positions: torch.Tensor, batch: MMFFBatch,
                                sys2mol: torch.Tensor):
     """The plain version of :func:`mmff_energy_and_grad`: (energy [S],
     gradient [S, A, 3]) by ``torch.autograd.grad``."""
-    _check_inputs(positions, batch, sys2mol)
+    flat.check_inputs(positions, batch, sys2mol)
     return plain_energy_and_grad_fn(batch, sys2mol, positions.shape[1])(positions)
 
 
@@ -392,14 +334,7 @@ def mmff_term_magnitude_plain(positions: torch.Tensor, batch: MMFFBatch,
                               sys2mol: torch.Tensor) -> torch.Tensor:
     """Per-system sum of |E_term| [S] (float64; vdW and electrostatics of a
     pair counted apart): the scale of float32 rounding in the energy."""
-    _check_inputs(positions, batch, sys2mol)
-    n_sys = positions.shape[0]
-    flat = positions.detach().reshape(-1, 3)
-    total = torch.zeros(n_sys, dtype=torch.float64, device=positions.device)
-    for _, sys_of, e in _term_energies(flat, _expand(batch, sys2mol, positions.shape[1]), batch,
-                                       split=True):
-        total.index_add_(0, sys_of, e.abs().double())
-    return total
+    return flat.term_magnitude_plain(positions, batch, sys2mol, _kinds(batch))
 
 
 def mmff_grad_magnitude_plain(positions: torch.Tensor, batch: MMFFBatch,
@@ -407,18 +342,7 @@ def mmff_grad_magnitude_plain(positions: torch.Tensor, batch: MMFFBatch,
     """Per gradient component, the sum over terms of |dE_term/dx| [S, A, 3]
     (float64; vdW and electrostatics apart): the scale of float32 rounding
     in a gradient whose terms cancel."""
-    _check_inputs(positions, batch, sys2mol)
-    flat = positions.detach().reshape(-1, 3)
-    out = torch.zeros(flat.shape, dtype=torch.float64, device=positions.device)
-    for k, (_, atoms, par) in enumerate(_expand(batch, sys2mol, positions.shape[1])):
-        for part in range(2 if KINDS[k] == "pairs" else 1):
-            with torch.enable_grad():
-                p = [flat[atoms[:, q]].requires_grad_(True) for q in range(ARITY[k])]
-                e = _kind_energies(k, p, par, batch, split=True)[part]
-                grads = torch.autograd.grad(e.sum(), p)
-            for q, gq in enumerate(grads):
-                out.index_add_(0, atoms[:, q], gq.abs().double())
-    return out.reshape(positions.shape)
+    return flat.grad_magnitude_plain(positions, batch, sys2mol, _kinds(batch))
 
 
 def mmff_energy(positions: torch.Tensor, batch: MMFFBatch, sys2mol: torch.Tensor) -> torch.Tensor:
@@ -431,35 +355,6 @@ def mmff_energy(positions: torch.Tensor, batch: MMFFBatch, sys2mol: torch.Tensor
 
 # ---- kernel K4 ------------------------------------------------------------------
 
-def table_pointers(batch: MMFFBatch):
-    """The 12 device pointers ``csrc/mmff.cu`` takes: the atom columns of the
-    six kinds, then their parameter rows."""
-    return (ctypes.c_void_p * 12)(*[t.data_ptr() for t in batch.atoms + batch.params])
-
-
-def check_kernel_inputs(positions: torch.Tensor, batch: MMFFBatch, sys2mol: torch.Tensor,
-                        what: str) -> None:
-    """What K4 and K5 take: float32 contiguous positions, int32 sys2mol and
-    the batch's tables, all contiguous on one device."""
-    _check_inputs(positions, batch, sys2mol)
-    if positions.dtype != torch.float32:
-        raise ValueError(f"{what} takes float32 positions, got {positions.dtype}")
-    if sys2mol.dtype != torch.int32:
-        raise ValueError(f"{what} takes int32 sys2mol, got {sys2mol.dtype}")
-    tensors = (positions, sys2mol, batch.n_atoms, batch.offsets) + batch.atoms + batch.params
-    for t in tensors:
-        if t.device != positions.device or not t.is_contiguous():
-            raise ValueError(f"{what}'s inputs must be contiguous and on one device")
-    if positions.shape[1] > MAX_KERNEL_ATOMS:
-        raise ValueError(f"{what} takes up to {MAX_KERNEL_ATOMS} atoms per system, got "
-                         f"{positions.shape[1]}")
-
-
-def system_atoms(batch: MMFFBatch, sys2mol: torch.Tensor) -> torch.Tensor:
-    """int32 [S]: each system's atom count."""
-    return batch.n_atoms[sys2mol.to(torch.int64)].contiguous()
-
-
 def mmff_energy_and_grad(positions: torch.Tensor, batch: MMFFBatch, sys2mol: torch.Tensor):
     """(energy [S], gradient [S, A, 3]) of ``positions`` [S, A, 3], system s
     being molecule ``sys2mol[s]`` (int32) of ``batch``; the gradient is zero
@@ -467,20 +362,24 @@ def mmff_energy_and_grad(positions: torch.Tensor, batch: MMFFBatch, sys2mol: tor
     CPU tensors."""
     if not positions.is_cuda:
         return mmff_energy_and_grad_plain(positions, batch, sys2mol)
-    check_kernel_inputs(positions, batch, sys2mol, "K4")
+    flat.check_kernel_inputs(positions, batch, sys2mol, "K4")
     n_sys, a_pad = positions.shape[:2]
     dev = positions.device
     energy = torch.empty(n_sys, dtype=torch.float32, device=dev)
     grad = torch.empty_like(positions)
-    count = system_atoms(batch, sys2mol)
+    count = flat.system_atoms(batch, sys2mol)
     lib = mmff_lib()
     with torch.cuda.device(dev):
         rc = lib.nvmk_mmff_energy_grad(
             positions.data_ptr(), n_sys, a_pad, sys2mol.data_ptr(), count.data_ptr(),
-            batch.offsets.data_ptr(), batch.n_mols, table_pointers(batch),
+            batch.offsets.data_ptr(), batch.n_mols, flat.table_pointers(batch),
             batch.diel_constant, batch.diel_model, energy.data_ptr(), grad.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"mmff_energy_grad kernel launch failed with CUDA error {rc}")
     launch_counts["mmff_energy_grad"] += 1
     return energy, grad
+
+
+MMFF = flat.ForceField("mmff", mmff_energy_and_grad, plain_energy_and_grad_fn, mmff_lib,
+                       lambda batch: (batch.diel_constant, batch.diel_model))

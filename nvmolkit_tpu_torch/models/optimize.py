@@ -171,6 +171,17 @@ def finalize_output(molecules, results, dense: Dense3DResult, output):
     return results, dense
 
 
+def group_positions_from(pf: Dense3DResult | None, mol_ids: list[int],
+                         n_groups: int) -> Dense3DResult | None:
+    """The rows ``mol_ids`` of a ``positionsFrom`` input, for one of
+    ``n_groups`` groups of molecules (the whole input when there is one)."""
+    if pf is None or n_groups == 1:
+        return pf
+    rows = torch.as_tensor(mol_ids, dtype=torch.int64, device=pf.positions.device)
+    return Dense3DResult(positions=pf.positions[rows], conf_mask=pf.conf_mask[rows],
+                         atom_mask=pf.atom_mask[rows])
+
+
 def merge_group_dense(molecules, dense_parts) -> Dense3DResult:
     """Merge per-group optimize results back into input molecule order.
 

@@ -14,41 +14,35 @@ capped, and ``max_iters * MAX_LS_ITERS`` probes end the run.
 * :func:`lbfgs_flat_plain` is the plain version, written as the JAX
   function is, over any ``energy_and_grad_fn``; a system's ``n_iters`` is the
   number of probes it made.
-* :func:`mmff_lbfgs` minimizes MMFF systems: on CUDA it launches K4 on the
-  starting positions and then K5 (``csrc/mmff.cu``) once, one block per
-  system for its whole minimization from K4's energies and gradients, each
-  probe a call of K4's device function; on the CPU it runs the plain
-  version over :func:`~nvmolkit_tpu_torch.models.mmff.energy.plain_energy_and_grad_fn`.
-  A build or launch failure raises.
+* :func:`lbfgs` minimizes the systems of a force-field batch
+  (:func:`mmff_lbfgs`, :func:`uff_lbfgs`): on CUDA it launches the force
+  field's energy kernel (K4 or K6) on the starting positions and then K5
+  (``csrc/minimizers.cuh``, instantiated in ``csrc/mmff.cu`` and
+  ``csrc/uff.cu``) once, one block per system for its whole minimization
+  from those energies and gradients, each probe a call of the force field's
+  device function; on the CPU it runs the plain version over the force
+  field's plain energy and gradient. A build or launch failure raises.
 
 Both return each system's status bits, probes and accepted steps.
 
 Unlike the JAX package's driver (``ops/minimize_driver.py``), nothing
 restarts the systems still running after a phase with a fresh history and a
 second ``max_iters`` budget: ``max_iters`` is the total, as in nvMolKit.
-``launch_counts`` counts K5's launches (K4's are counted by its module).
+``launch_counts`` counts K5's launches per force field (K4's and K6's are
+counted by their modules).
 """
 from __future__ import annotations
 
-import ctypes
 from typing import Callable
 
 import torch
 
-from nvmolkit_tpu_torch._build import mmff_lib
-from nvmolkit_tpu_torch.models.mmff.energy import (
-    MMFFBatch,
-    check_kernel_inputs,
-    mmff_energy_and_grad,
-    plain_energy_and_grad_fn,
-    system_atoms,
-    table_pointers,
-)
+from nvmolkit_tpu_torch.models import flat
+from nvmolkit_tpu_torch.models.mmff.energy import MMFF
+from nvmolkit_tpu_torch.models.uff.energy import UFF
 from nvmolkit_tpu_torch.ops.bfgs import (
-    CAPPED,
     CONVERGED,
     EPS,
-    FAILED,
     FUNCTOL,
     MAX_LS_ITERS,
     MAXSTEP_FACTOR,
@@ -56,11 +50,13 @@ from nvmolkit_tpu_torch.ops.bfgs import (
     TOLF,
     TOLX,
     BfgsResult,
+    policy,
+    status_bits,
 )
 
 HISTORY = 6
 
-launch_counts = {"mmff_lbfgs": 0}
+launch_counts = {"mmff_lbfgs": 0, "uff_lbfgs": 0}
 
 
 def reset_launch_counts() -> None:
@@ -230,53 +226,60 @@ def lbfgs_flat_plain(
         converged = converged | newly_conv | conv_ls
         failed = failed | exhausted
 
-    status = (converged.to(torch.int32) * CONVERGED + failed.to(torch.int32) * FAILED
-              + capped.to(torch.int32) * CAPPED)
     return BfgsResult(positions=pos.reshape(S, A, D), energies=e, converged=converged,
-                      n_iters=n_iters, status=status, n_accepted=outer)
+                      n_iters=n_iters, status=status_bits(converged, failed, capped),
+                      n_accepted=outer)
 
 
-def mmff_lbfgs(
+def lbfgs(
+    ff: flat.ForceField,
     positions: torch.Tensor,
-    batch: MMFFBatch,
+    batch,
     sys2mol: torch.Tensor,
     max_iters: int = 200,
     grad_tol: float = 1e-4,
     max_steps: int | None = None,
 ) -> BfgsResult:
-    """Minimize MMFF systems: ``positions`` [S, A, 3], system s being
-    molecule ``sys2mol[s]`` (int32) of ``batch``. For CUDA tensors K4 on the
-    starts, then K5 (one launch each); :func:`lbfgs_flat_plain` for CPU
-    tensors."""
+    """Minimize the systems ``positions`` [S, A, 3] of force field ``ff``,
+    system s being molecule ``sys2mol[s]`` (int32) of ``batch``. For CUDA
+    tensors the force field's kernel (K4 or K6) on the starts, then K5 (one
+    launch each); :func:`lbfgs_flat_plain` for CPU tensors."""
     if max_steps is None:
         max_steps = max_iters * MAX_LS_ITERS
     n_sys, a_pad = positions.shape[:2]
     if not positions.is_cuda:
-        count = system_atoms(batch, sys2mol).to(torch.int64)
-        atom_mask = torch.arange(a_pad)[None] < count[:, None]
-        return lbfgs_flat_plain(plain_energy_and_grad_fn(batch, sys2mol, a_pad), positions,
-                                atom_mask, max_iters, grad_tol, max_steps=max_steps)
-    check_kernel_inputs(positions, batch, sys2mol, "K5")
-    e0, g0 = mmff_energy_and_grad(positions, batch, sys2mol)
+        return lbfgs_flat_plain(ff.plain_energy_and_grad_fn(batch, sys2mol, a_pad), positions,
+                                flat.atom_mask(batch, sys2mol, a_pad), max_iters, grad_tol,
+                                max_steps=max_steps)
+    flat.check_kernel_inputs(positions, batch, sys2mol, "K5")
+    e0, g0 = ff.energy_and_grad(positions, batch, sys2mol)
     dev = positions.device
     pos_out = torch.empty_like(positions)
     energies = torch.empty(n_sys, dtype=torch.float32, device=dev)
     status = torch.empty(n_sys, dtype=torch.int32, device=dev)
     steps = torch.empty(n_sys, dtype=torch.int32, device=dev)
     accepted = torch.empty(n_sys, dtype=torch.int32, device=dev)
-    count = system_atoms(batch, sys2mol)
-    policy = (ctypes.c_float * 6)(FUNCTOL, MOVETOL, TOLX, TOLF, MAXSTEP_FACTOR, EPS)
-    lib = mmff_lib()
+    count = flat.system_atoms(batch, sys2mol)
     with torch.cuda.device(dev):
-        rc = lib.nvmk_mmff_lbfgs(
+        rc = getattr(ff.lib(), f"nvmk_{ff.name}_lbfgs")(
             positions.data_ptr(), e0.data_ptr(), g0.data_ptr(), n_sys, a_pad,
             sys2mol.data_ptr(), count.data_ptr(), batch.offsets.data_ptr(), batch.n_mols,
-            table_pointers(batch), batch.diel_constant, batch.diel_model, policy, MAX_LS_ITERS,
+            flat.table_pointers(batch), *ff.extra_args(batch), policy(), MAX_LS_ITERS,
             int(max_iters), float(grad_tol), int(max_steps), pos_out.data_ptr(),
             energies.data_ptr(), status.data_ptr(), steps.data_ptr(), accepted.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"mmff_lbfgs kernel launch failed with CUDA error {rc}")
-    launch_counts["mmff_lbfgs"] += 1
+        raise RuntimeError(f"{ff.name}_lbfgs kernel launch failed with CUDA error {rc}")
+    launch_counts[f"{ff.name}_lbfgs"] += 1
     return BfgsResult(positions=pos_out, energies=energies, converged=(status & CONVERGED) != 0,
                       n_iters=steps, status=status, n_accepted=accepted)
+
+
+def mmff_lbfgs(positions, batch, sys2mol, max_iters=200, grad_tol=1e-4, max_steps=None):
+    """:func:`lbfgs` over MMFF (K4, then K5)."""
+    return lbfgs(MMFF, positions, batch, sys2mol, max_iters, grad_tol, max_steps)
+
+
+def uff_lbfgs(positions, batch, sys2mol, max_iters=200, grad_tol=1e-4, max_steps=None):
+    """:func:`lbfgs` over UFF (K6, then K5)."""
+    return lbfgs(UFF, positions, batch, sys2mol, max_iters, grad_tol, max_steps)

@@ -292,11 +292,12 @@ def test_fingerprints_from_mols_on_cuda_match_cpu(cuda):
         got.numpy()[:100], gen.GetFingerprintsFromSmiles(smiles[:100]).numpy())
 
 
-def _mmff_systems(cuda, picks, sigma, seed, props=None):
-    """K4/K5 inputs from the committed MMFF starts: the molecules ``picks``
-    of tests/data/torch_mmff_starts.npz, each start plus ``sigma`` Å of
-    seeded noise, padded to the largest molecule."""
+def _mmff_systems(cuda, picks, sigma, seed, props=None, uff=False):
+    """K4/K5 (with ``uff``, K6) inputs from the committed starts: the
+    molecules ``picks`` of tests/data/torch_mmff_starts.npz, each start plus
+    ``sigma`` Å of seeded noise, padded to the largest molecule."""
     from nvmolkit_tpu_torch.models.mmff import EmpiricalMMFFProvider, make_batched_mmff
+    from nvmolkit_tpu_torch.models.uff.energy import make_batched_uff
 
     smoke = _load_by_path("chip_smoke.py")
     fx, starts = smoke.mmff_fixture()
@@ -310,7 +311,11 @@ def _mmff_systems(cuda, picks, sigma, seed, props=None):
     for m, g in zip(mols, geoms):
         pos[k:k + len(g), : m.num_atoms] = g
         k += len(g)
-    batch = make_batched_mmff(mols, a_pad, props, provider=EmpiricalMMFFProvider(), device=cuda)
+    if uff:
+        batch = make_batched_uff(mols, a_pad, device=cuda)
+    else:
+        batch = make_batched_mmff(mols, a_pad, props, provider=EmpiricalMMFFProvider(),
+                                  device=cuda)
     return torch.from_numpy(pos).to(cuda), batch, torch.from_numpy(s2m).to(cuda)
 
 
@@ -364,8 +369,9 @@ def test_mmff_lbfgs_kernel_matches_plain(cuda):
     in both, >= 75 % end within 0.3 Å (Kabsch RMSD) of each other, and the
     systems converged by one only lean to neither side (chip_smoke.py's
     sign test)."""
+    from nvmolkit_tpu_torch.models.flat import system_atoms
     from nvmolkit_tpu_torch.models.mmff import energy as mmff_energy
-    from nvmolkit_tpu_torch.models.mmff.energy import plain_energy_and_grad_fn, system_atoms
+    from nvmolkit_tpu_torch.models.mmff.energy import plain_energy_and_grad_fn
     from nvmolkit_tpu_torch.ops import kabsch, lbfgs_flat
 
     smoke = _load_by_path("chip_smoke.py")
@@ -398,7 +404,7 @@ def test_mmff_lbfgs_kernel_follows_plain_through_the_history(cuda):
     x, batch, s2m = _mmff_systems(cuda, list(range(32)), 0.1, 3)
     errs = {}
     out = smoke.k5_trajectory_check(x, batch, s2m, errs, "k5")
-    assert out["wrapped_share"] >= smoke.TRAJ_EQUAL_SHARE
+    assert out["full_share"] >= smoke.TRAJ_EQUAL_SHARE
     assert out["equal_status_and_steps"] >= smoke.TRAJ_EQUAL_SHARE
     assert out["within_bound"] >= smoke.TRAJ_EQUAL_SHARE
 
@@ -445,3 +451,203 @@ def test_mmff_optimize_api_on_cuda_matches_cpu(cuda):
         [gpu_dense.positions.cpu().reshape(-1, a, 3), cpu_dense.positions.reshape(-1, a, 3)], 1),
         mask)[:, 1, 0]
     assert int(both.sum()) >= 2 and float((rms[both] < 0.3).double().mean()) >= 0.75
+
+
+# ---- UFF (K6), constraints (K7), K5 over UFF and BFGS (K8) ---------------------------
+
+def _check_energy_kernel(e, g, e_p, g_p, scale, G):
+    """chip_smoke.py's bounds: |dE| <= 1e-5 sum|E_term| + 1e-4; per gradient
+    component |dg| <= 1e-4 max(1, max|g| of the system) + 2e-4 G."""
+    de = (e.double() - e_p.double()).abs()
+    assert bool((de <= 1e-5 * scale + 1e-4).all()), float((de / (1e-5 * scale + 1e-4)).max())
+    g_bound = 1e-4 * g_p.abs().amax(dim=(1, 2)).double().clamp_min(1.0)[:, None, None] + 2e-4 * G
+    ratio = (g.double() - g_p.double()).abs() / g_bound
+    assert float(ratio.max()) <= 1.0, float(ratio.max())
+
+
+def test_uff_energy_grad_kernel_matches_plain(cuda):
+    from nvmolkit_tpu_torch.models.uff import energy as U
+    from nvmolkit_tpu_torch.models.uff.energy import make_batched_uff
+
+    smoke = _load_by_path("chip_smoke.py")
+    cases = [(_mmff_systems(cuda, [0, 1, 2, 3], 0.3, 1, uff=True))]
+    clips = [smoke.mmff_clip_geometry(s) for s in ("CC#N", "CC#CC", "c1ccccc1")]
+    a_pad = max(m.num_atoms for m, _ in clips)
+    pos = np.zeros((len(clips), a_pad, 3), np.float32)
+    for k, (m, x) in enumerate(clips):
+        pos[k, : m.num_atoms] = x
+    cases.append((torch.from_numpy(pos).to(cuda),
+                  make_batched_uff([m for m, _ in clips], a_pad, device=cuda),
+                  torch.arange(len(clips), dtype=torch.int32, device=cuda)))
+    for x, batch, s2m in cases:
+        before = U.launch_counts["uff_energy_grad"]
+        e, g = U.uff_energy_and_grad(x, batch, s2m)
+        torch.cuda.synchronize()
+        assert U.launch_counts["uff_energy_grad"] == before + 1
+        e_p, g_p = U.uff_energy_and_grad_plain(x, batch, s2m)
+        _check_energy_kernel(e, g, e_p, g_p, U.uff_term_magnitude_plain(x, batch, s2m),
+                             U.uff_grad_magnitude_plain(x, batch, s2m))
+
+
+def _constraint_systems(cuda, picks, sigma, seed):
+    """Every kind of constraint (chip_smoke.constraint_set) on the systems
+    of ``picks``, resolved at the starts, and positions moved ``sigma`` Å."""
+    from nvmolkit_tpu_torch.models.constraints import build_constraint_batch
+
+    smoke = _load_by_path("chip_smoke.py")
+    x, batch, s2m = _mmff_systems(cuda, picks, 0.0, seed)
+    fx, _ = smoke.mmff_fixture()
+    mols = smoke.mmff_molecules({"smiles": fx["smiles"][picks]})
+    cons = [smoke.constraint_set(mols[u]) for u in s2m.tolist()]
+    cb = build_constraint_batch(cons, x.cpu().numpy(), device=cuda)
+    moved = x + torch.randn(x.shape, generator=torch.Generator().manual_seed(seed)).to(cuda) * sigma
+    mask = torch.arange(x.shape[1], device=cuda)[None] < batch.n_atoms[s2m.long()][:, None]
+    return torch.where(mask[..., None], moved, 0.0).contiguous(), batch, s2m, cb
+
+
+def test_constraint_kernel_matches_plain(cuda):
+    from nvmolkit_tpu_torch.models import constraints as C
+
+    x, batch, s2m, cb = _constraint_systems(cuda, [0, 1, 2, 3, 4, 5], 0.4, 5)
+    count = batch.n_atoms[s2m.long()].contiguous()
+    before = C.launch_counts["constraint_energy_grad"]
+    e, g = C.constraint_energy_and_grad(x, cb, count)
+    torch.cuda.synchronize()
+    assert C.launch_counts["constraint_energy_grad"] == before + 1
+    e_p, g_p = C.constraint_energy_and_grad_plain(x, cb)
+    scale, G = C.constraint_magnitudes_plain(x, cb)
+    assert bool((e_p > 0).all())
+    _check_energy_kernel(e, g, e_p, g_p, scale, G)
+
+
+def test_uff_lbfgs_kernel_follows_plain_through_the_history(cuda):
+    from nvmolkit_tpu_torch.models.uff.energy import UFF
+
+    smoke = _load_by_path("chip_smoke.py")
+    x, batch, s2m = _mmff_systems(cuda, list(range(32)), 0.1, 3, uff=True)
+    out = smoke.k5_trajectory_check(x, batch, s2m, {}, "k5_uff", UFF)
+    assert out["equal_status_and_steps"] >= smoke.TRAJ_EQUAL_SHARE
+    assert out["within_bound"] >= smoke.TRAJ_EQUAL_SHARE
+
+
+@pytest.mark.parametrize("kind", ["mmff_constraints", "uff"])
+def test_bfgs_kernel_follows_plain(cuda, kind):
+    """K8 against the plain BFGS through 8 outer iterations, MMFF with every
+    kind of constraint, and UFF without, on 256 systems: chip_smoke.py's
+    shares (TRAJ_EQUAL_SHARE) then let 2 systems take the other branch of a
+    float32 bistability, as one of 64 did in one run on an H100."""
+    from nvmolkit_tpu_torch.models.mmff.energy import MMFF
+    from nvmolkit_tpu_torch.models.uff.energy import UFF
+    from nvmolkit_tpu_torch.ops import bfgs
+
+    smoke = _load_by_path("chip_smoke.py")
+    if kind == "uff":
+        (x, batch, s2m), cb, ff = _mmff_systems(cuda, list(range(64)), 0.1, 4, uff=True), None, UFF
+    else:
+        x, batch, s2m, cb = _constraint_systems(cuda, list(range(64)), 0.1, 4)
+        ff = MMFF
+    before = bfgs.launch_counts[f"{ff.name}_bfgs"]
+    out = smoke.k8_trajectory_check(x, batch, s2m, cb, {}, "k8", ff)
+    assert bfgs.launch_counts[f"{ff.name}_bfgs"] == before + 1
+    assert out["equal_status_and_steps"] >= smoke.TRAJ_EQUAL_SHARE
+    assert out["within_bound"] >= smoke.TRAJ_EQUAL_SHARE
+
+
+def test_bfgs_kernel_caps_tolerances_and_bad_starts(cuda):
+    """Per-system caps and tolerances, a zero-gradient start and a
+    non-finite one: the same status bits and counts as the plain BFGS."""
+    from nvmolkit_tpu_torch.models import flat
+    from nvmolkit_tpu_torch.models.uff.energy import UFF
+    from nvmolkit_tpu_torch.ops import bfgs
+
+    x, batch, s2m = _mmff_systems(cuda, [0, 1], 0.0, 6, uff=True)
+    x[1, 2, 0] = float("nan")
+    caps = torch.tensor([2, 3, 5, 8, 8, 8, 1, 8], dtype=torch.int32, device=cuda)
+    tols = torch.tensor([1e-4, 1e-4, 1e3, 1e-4, 1e-4, 1e-4, 1e-4, 1e-4], device=cuda)
+    got = bfgs.bfgs_minimize(UFF, x, batch, s2m, None, 8, 1e-4, caps, tols)
+    want = bfgs.bfgs_plain(UFF.plain_energy_and_grad_fn(batch, s2m, x.shape[1]), x,
+                           flat.atom_mask(batch, s2m, x.shape[1]), 8, 1e-4, caps, tols)
+    assert got.status.tolist() == want.status.tolist()
+    assert got.n_accepted.tolist() == want.n_accepted.tolist()
+    assert got.status.tolist()[1] == bfgs.FAILED and got.status.tolist()[2] == bfgs.CONVERGED
+    assert int(got.n_iters[2]) == 0 and int(got.n_iters[1]) == 0
+
+
+def test_batched_forcefields_on_cuda_match_cpu(cuda):
+    """Both wrappers with the rule's constraints: energies and gradients on
+    the card (K4/K6 plus K7) equal the CPU's plain ones within K4's bounds,
+    and minimize() launches K8 once, lowers every system's energy from its
+    start (BFGS accepts only probes below it) and converges about as many
+    systems as the CPU run (the sign test). K8's steps are held against the
+    plain BFGS by test_bfgs_kernel_follows_plain: at 200 iterations two
+    float32 runs of these drug-like systems part ways (chip_smoke.py)."""
+    from nvmolkit_tpu_torch.batchedForcefield import MMFFBatchedForcefield, UFFBatchedForcefield
+    from nvmolkit_tpu_torch.models import constraints as C
+    from nvmolkit_tpu_torch.models.mmff import EmpiricalMMFFProvider
+    from nvmolkit_tpu_torch.models.mmff import energy as M
+    from nvmolkit_tpu_torch.models.uff import energy as U
+    from nvmolkit_tpu_torch.ops import bfgs
+
+    smoke = _load_by_path("chip_smoke.py")
+    fx, starts = smoke.mmff_fixture()
+    for cls, kw, name in ((MMFFBatchedForcefield, {"provider": EmpiricalMMFFProvider()}, "mmff"),
+                          (UFFBatchedForcefield, {}, "uff")):
+        out = {}
+        for dev in ("cpu", cuda):
+            mols = smoke.mmff_molecules({"smiles": fx["smiles"][:4]})
+            for m, s in zip(mols, starts[:4]):
+                for c in s:
+                    m.add_conformer(c)
+            ff = cls(mols, device=dev, **kw)
+            smoke.add_rule_constraints(ff, mols)
+            x0 = ff.positions.clone()
+            before = (C.launch_counts["constraint_energy_grad"], bfgs.launch_counts[f"{name}_bfgs"])
+            e, g = ff.compute_energy().torch(), ff.compute_gradients().torch()
+            dense = ff.minimize(output=smoke_output())
+            after = (C.launch_counts["constraint_energy_grad"], bfgs.launch_counts[f"{name}_bfgs"])
+            out[str(dev)] = (e.cpu(), g.cpu(), dense, ff, x0, after[0] - before[0],
+                             after[1] - before[1])
+        e_c, g_c, d_c, ff_c, x0, _, _ = out["cpu"]
+        e_g, g_g, d_g, ff_g, _, n_k7, n_k8 = out[str(cuda)]
+        assert (n_k7, n_k8) == (3, 1)  # energy, gradients, the minimization's start; one K8
+        # K4's bounds, with the force field's and the constraints' magnitudes
+        magnitudes = ((M.mmff_term_magnitude_plain, M.mmff_grad_magnitude_plain) if name == "mmff"
+                      else (U.uff_term_magnitude_plain, U.uff_grad_magnitude_plain))
+        cb = ff_c._constraints_now()
+        c_scale, c_g = C.constraint_magnitudes_plain(x0, cb)
+        _check_energy_kernel(e_g, g_g, e_c, g_c,
+                             magnitudes[0](x0, ff_c._batch, ff_c._sys2mol) + c_scale,
+                             magnitudes[1](x0, ff_c._batch, ff_c._sys2mol) + c_g)
+        assert d_g.positions.device.type == "cuda"
+        for d, e0 in ((d_g, e_g), (d_c, e_c)):
+            end = d.energies.cpu().reshape(-1)
+            assert bool(torch.isfinite(end).all())
+            assert bool((end <= e0 + 1e-5 * e0.abs() + 1e-3).all()), (end, e0)
+        assert smoke.converged_sets_agree(d_g.converged.cpu().reshape(-1),
+                                          d_c.converged.reshape(-1))[0]
+
+
+def smoke_output():
+    from nvmolkit_tpu_torch.types import CoordinateOutput
+
+    return CoordinateOutput.DEVICE
+
+
+@pytest.mark.parametrize("backend", ["flat", "bfgs"])
+def test_uff_optimize_api_on_cuda(cuda, backend):
+    from nvmolkit_tpu_torch.ops import bfgs, lbfgs_flat
+    from nvmolkit_tpu_torch.uffOptimization import UFFOptimizeMoleculesConfs
+
+    smoke = _load_by_path("chip_smoke.py")
+    fx, starts = smoke.mmff_fixture()
+    mols = smoke.mmff_molecules({"smiles": fx["smiles"][:6]})
+    for m, s in zip(mols, starts[:6]):
+        for c in s:
+            m.add_conformer(c)
+    counts = (lbfgs_flat.launch_counts["uff_lbfgs"], bfgs.launch_counts["uff_bfgs"])
+    results, dense = UFFOptimizeMoleculesConfs(mols, backend=backend, device=cuda)
+    after = (lbfgs_flat.launch_counts["uff_lbfgs"], bfgs.launch_counts["uff_bfgs"])
+    assert dense.positions.device.type == "cuda" and [len(r) for r in results] == [4] * 6
+    assert (after[0] > counts[0]) == (backend == "flat") and (after[1] > counts[1]) == (
+        backend == "bfgs")
+    assert bool(torch.isfinite(dense.energies).all())

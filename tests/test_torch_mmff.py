@@ -168,7 +168,8 @@ def _systems(inputs, a_pad, jprops, pprops):
     s2m = np.asarray(s2m)
     jbatch = jmmff.make_batched_mmff([jmols[u] for u in s2m], a_pad, jprops,
                                      provider=jmmff.EmpiricalMMFFProvider())
-    pbatch = make_batched_mmff(pmols, a_pad, pprops, provider=EmpiricalMMFFProvider())
+    pbatch = make_batched_mmff(pmols, a_pad, pprops, provider=EmpiricalMMFFProvider(),
+                               device="cpu")
     return pos, s2m, jbatch, pbatch
 
 
@@ -249,7 +250,7 @@ def test_regression_golden_energies():
     pos = np.zeros((len(mols), a_pad, 3), np.float32)
     for k, m in enumerate(mols):
         pos[k, : m.num_atoms] = (rng.standard_normal((m.num_atoms, 3)) * 1.7).astype(np.float32)
-    batch = make_batched_mmff(mols, a_pad)
+    batch = make_batched_mmff(mols, a_pad, device="cpu")
     e = mmff_energy_plain(torch.from_numpy(pos), batch, torch.arange(len(mols), dtype=torch.int32))
     np.testing.assert_allclose(e.numpy(), data["mmff"], rtol=1e-4, atol=1e-3)
 
@@ -369,7 +370,7 @@ def test_gradients_fd():
     rng = np.random.default_rng(3)
     m = mol_from_smiles("CC(=O)O")
     a_pad = 16
-    batch = make_batched_mmff([m], a_pad)
+    batch = make_batched_mmff([m], a_pad, device="cpu")
     side = math.ceil(m.num_atoms ** (1 / 3))
     grid = np.array([(x, y, z) for x in range(side) for y in range(side)
                      for z in range(side)], float)[: m.num_atoms]
@@ -639,8 +640,10 @@ def test_structured_value_error_and_backends():
     with pytest.raises(ValueError) as info:
         MMFFOptimizeMoleculesConfs([pmols[0], None], device="cpu")
     assert info.value.args[1] == {"none": [1], "no_params": []}
-    with pytest.raises(NotImplementedError, match="batchedForcefield"):
-        MMFFOptimizeMoleculesConfs(pmols, backend="bfgs", device="cpu")
+    with pytest.raises(NotImplementedError, match="lockstep"):
+        MMFFOptimizeMoleculesConfs(pmols, backend="lbfgs", device="cpu")
+    results, _ = MMFFOptimizeMoleculesConfs(pmols, backend="bfgs", maxIters=20, device="cpu")
+    assert [len(r) for r in results] == [len(m.conformers) for m in pmols]
     assert MMFFOptimizeMoleculesConfs([], device="cpu") == ([], None)
     with pytest.raises(ValueError):
         MMFFOptimizeMoleculesConfs([], output=CoordinateOutput.DEVICE, device="cpu")

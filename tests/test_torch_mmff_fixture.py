@@ -134,7 +134,8 @@ def test_fixture_plain_energy_matches_jax():
     for k, i in enumerate(pick):
         pos[k * CONFS:(k + 1) * CONFS, : fx["n_atoms"][i]] = starts[i]
     sys2mol = np.repeat(np.arange(len(pick)), CONFS)
-    batch = make_batched_mmff(mols, a, MMFFProperties(), provider=EmpiricalMMFFProvider())
+    batch = make_batched_mmff(mols, a, MMFFProperties(), provider=EmpiricalMMFFProvider(),
+                              device="cpu")
     x = torch.from_numpy(pos)
     s2m = torch.from_numpy(sys2mol.astype(np.int32))
     got = mmff_energy_plain(x, batch, s2m).numpy()

@@ -91,6 +91,67 @@ def test_port_runs_without_jax():
     assert proc.stdout.startswith("OK")
 
 
+_FF_SCRIPT = r"""
+import importlib.util, sys
+for name in ("jax", "jaxlib", "nvmolkit_tpu"):
+    sys.modules[name] = None  # importing any of them now raises ImportError
+sys.path.insert(0, {root!r})
+import numpy as np
+import nvmolkit_tpu_torch.models.flat, nvmolkit_tpu_torch.models.uff.energy  # noqa: E401
+from nvmolkit_tpu_torch.batchedForcefield import MMFFBatchedForcefield, UFFBatchedForcefield
+from nvmolkit_tpu_torch.interop import constraints_from_reference  # noqa: F401
+from nvmolkit_tpu_torch.models import constraints
+from nvmolkit_tpu_torch.models.mmff import EmpiricalMMFFProvider
+from nvmolkit_tpu_torch.ops import bfgs, lbfgs_flat
+from nvmolkit_tpu_torch.uffOptimization import UFFOptimizeMoleculesConfs
+spec = importlib.util.spec_from_file_location("_chip_smoke", {root!r} + "/chip_smoke.py")
+smoke = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(smoke)
+fx, starts = smoke.mmff_fixture()
+
+def two_mols():
+    mols = smoke.mmff_molecules({{"smiles": fx["smiles"][:2]}})
+    for m, s in zip(mols, starts[:2]):
+        for c in s[:2]:
+            m.add_conformer(c)
+    return mols
+
+for backend in ("flat", "bfgs"):
+    results, dense = UFFOptimizeMoleculesConfs(two_mols(), maxIters=10, backend=backend,
+                                               device="cpu")
+    assert [len(r) for r in results] == [2, 2] and np.isfinite(dense.energies.numpy()).all()
+for cls, kw in ((MMFFBatchedForcefield, {{"provider": EmpiricalMMFFProvider()}}),
+                (UFFBatchedForcefield, {{}})):
+    mols = two_mols()
+    ff = cls(mols, device="cpu", **kw)
+    smoke.add_rule_constraints(ff, mols)
+    assert all(not c.empty() for c in ff._constraints)
+    e = ff.compute_energy().numpy()
+    g = ff.compute_gradients().numpy()
+    energies, converged = ff.minimize(maxIters=10)
+    assert e.shape == (4,) and g.shape == (4, ff.max_atoms, 3)
+    assert np.isfinite(energies.numpy()).all() and converged.numpy().shape == (4,)
+assert all(v == 0 for v in (*lbfgs_flat.launch_counts.values(), *bfgs.launch_counts.values(),
+                            *constraints.launch_counts.values()))
+leaked = sorted(m for m in sys.modules if sys.modules[m] is not None
+                and m.split(".")[0] in ("jax", "jaxlib", "nvmolkit_tpu"))
+assert not leaked, leaked
+print("OK")
+"""
+
+
+def test_force_fields_run_without_jax():
+    """UFF optimization (both backends) and both batched forcefields, with
+    chip_smoke.py's constraints, on the CPU with the JAX package's modules
+    blocked."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _FF_SCRIPT.format(root=str(ROOT))],
+        capture_output=True, text=True, timeout=300, cwd=ROOT,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.startswith("OK")
+
+
 _SMOKE_SCRIPT = r"""
 import importlib.util, json, sys
 for name in ("jax", "jaxlib", "nvmolkit_tpu"):
