@@ -6,8 +6,9 @@
 Phases, each reported as one JSON line with its seconds:
   0. device: the card's name and power limit;
   1. build: the similarity kernels, the conformer RMSD kernel, the MMFF,
-     UFF and constraint kernels (nvcc) and the SMILES featurizer (g++), from
-     the sources in this checkout, all six compilers started together;
+     UFF and constraint kernels, the embedding's four kernels (nvcc), the
+     SMILES featurizer and the bounds builder (g++), from the sources in
+     this checkout, all eleven compilers started together;
   2. kernels: K1 (cross similarity, both launch configurations) and K2
      (neighbor counts) against their plain PyTorch versions at side shapes
      (ragged, zero rows, 128..4096 bits, with and without row lists, the
@@ -64,6 +65,19 @@ Phases, each reported as one JSON line with its seconds:
      at maxIters and step for step through K8_TRAJ_ITERS iterations, and the
      constraint residuals; UFFBatchedForcefield likewise without
      constraints, its DEVICE output fed to GetConformerRMSMatrixBatch;
+  6d. embedding: set (c)'s 1,024 drug-like molecules with hydrogens, per
+     atom bucket; K9 (triangle smoothing) equal to its plain version bit for
+     bit (and in global memory at 200 atoms), K10 (coordinates) against its
+     plain version on the same uniforms, K11 (the 4-D DG force field) under
+     K4's bounds at K10's starts, K5 and K8 over DG step for step against
+     the plain minimizers; EmbedMolecules (plain DG parameters, 8 conformers,
+     maxIterations 10) with both minimizers, every accepted conformer
+     through check_bounds_satisfied and check_chirality_preserved, its
+     success share and failure counters on the first 128 molecules against
+     the JAX package's (tests/data/torch_dg_embed.npz) by a two-proportion
+     bound, K12 (the checks) against its plain version on moved and
+     distorted conformers; then the conformer workflow on the card: the
+     embedded conformers (DEVICE) -> MMFF -> RMSD -> Butina;
   7. timings at the main path's shapes: the median of each kernel and its
      plain version by CUDA events, beside its bound (the least time the
      card could take: bytes over the memory rate, or POPCs or FP32
@@ -72,7 +86,10 @@ Phases, each reported as one JSON line with its seconds:
      counts of the M_SKINNY sweep, one torch.bmm of K3's Gram alone, K4,
      K5, K6, K5 over UFF and K7 at the MMFF phase's largest bucket chunk,
      and K8 (both force fields) at the batched forcefields' 8,192 systems
-     beside one torch.bmm/baddbmm step over their inverse Hessians;
+     beside one torch.bmm/baddbmm step over their inverse Hessians; K9 to
+     K12 and K5/K8 over DG at the embedding's largest chunk (K9 and K10 at
+     each bucket too), K10 beside one torch.linalg.eigh of 512 of its
+     metric matrices;
   8. trace, per phase of the paths: three warm untraced walls, then one run
      under torch.profiler with its wall, the span between CUDA events around
      it, the device-busy share (union of the intervals of device events,
@@ -85,6 +102,7 @@ before the last line; without CUDA it exits 1 at once.
 """
 from __future__ import annotations
 
+import dataclasses
 import importlib.util
 import json
 import math
@@ -152,9 +170,51 @@ ENERGY_QUANTILES = (0.5, 0.75, 0.9)
 # them. That spread is the larger of the float32 run's distance from the
 # float64 run and from a second float32 run on the same inputs: its
 # index_add_ sums in another order each run, and on the card a system can
-# then end 0.15 Å and 360 kcal/mol from where it ended before
+# then end 0.15 Å and 360 kcal/mol from where it ended before. The DG
+# minimizers start from K10's random coordinates, where the first steps
+# amplify a rounding; the plain DG energy has no index_add_ over pairs, so
+# its second float32 run would repeat the first: there the second run starts
+# from the starts moved by seeded noise of TRAJ_DG_MOVED Å (a few float32
+# ulps of coordinates of 1-10 Å), which measures the same amplification
 TRAJ_EQUAL_SHARE, TRAJ_FACTOR, TRAJ_FLOOR_A = 0.99, 10.0, 1e-4
+TRAJ_DG_MOVED = 1e-6
 K8_TRAJ_ITERS = 8  # K8's outer iterations for its trajectory check
+# K10 against its plain version, on the same uniforms: both run 40 float32
+# power rounds from the same start and differ in summation order only (and
+# the 4 x 4 Ritz eigensolve: Jacobi in double in the kernel, torch.linalg.eigh
+# in float32 for plain); rounding in the converged subspace neither grows nor
+# decays over the rounds, so the eigenvalues and the 4-D Gram matrix of the
+# coordinates must agree within K10_TOL of the largest eigenvalue (a float32
+# eigenproblem of ~50-100 rows loses ~1e-5 of it; 1e-3 leaves room for
+# near-degenerate pairs, where one subspace mixes)
+K10_TOL = 1e-3
+# the embedding phases: set (c)'s drug-like molecules x EMBED_CONFS, plain
+# distance geometry, EMBED_ITERS attempts; the JAX package's DG embedding of
+# its first 128 molecules (tests/test_torch_embed_fixture.py), whose counters
+# come in EMBED_COUNTERS' order; the stage weights (chiral, fourth
+# dimension) of the first and second DG minimizations; Butina (cutoff in Å)
+# over the first EMBED_CHAIN_BUTINA molecules' minimized ensembles
+EMBED_MOLS, EMBED_CONFS, EMBED_ITERS = 1024, 8, 10
+EMBED_FIXTURE = "tests/data/torch_dg_embed.npz"
+EMBED_COUNTERS = ("double_bond_geometry", "double_bond_stereo", "chiral_dist_check", "smoothing",
+                  "initial_coords", "first_minimize", "bounds_check", "chiral_check",
+                  "tetrahedral_check")
+EMBED_W = (1.0, 0.1, 0.2, 1.0)
+EMBED_CHAIN_BUTINA, EMBED_CHAIN_CUTOFF = 64, 1.0
+EMBED_PLAIN = 256  # systems the plain DG minimizers are timed on
+EMBED_EIGH = 512   # metric matrices of torch.linalg.eigh's yardstick beside K10
+# FP32 instructions, counted as K4_OPS are: K9 per pivot update (an add and
+# a min for the upper bound, two subtracts and two max for the lower); K11
+# per pair i < j, evaluated once for both gradient rows (4-D difference and
+# square, the branch that binds with its divisions, the factor, two
+# gradient rows, the energy; K11 itself evaluates each pair twice and so
+# spends about this per ordered pair) and per chiral quartet (a cross
+# product, the window, three cross products of the gradient, 12 shared
+# atomics); K12 per pair (the distance, a square root, two divisions, two
+# max) and per check term (a volume or two cross products and a square root)
+K9_OPS = 6
+DG_PAIR_OPS, DG_CHIRAL_OPS = 30, 60
+K12_PAIR_OPS, K12_TERM_OPS = 14, 40
 # FP32 instructions of csrc/mmff.cu's K4 per term, value and gradient,
 # counted as K3's are (a multiply feeding an add once; a division, square
 # root, arccos or arcsin once): bond 30, angle 75 and stretch-bend 85 (two
@@ -754,6 +814,76 @@ def ff_work(batch, sys2mol, a_pad: int, rates: dict, ops_per_term, evals=None,
     return bound(tables + per_sys * len(atoms), n_ops, rates, "fp32")
 
 
+def k9_work(n_atoms, a_pad: int, rates: dict) -> dict:
+    """K9 over molecules of ``n_atoms`` real atoms padded to ``a_pad``: both
+    bounds matrices read once and written once, the flags out; per molecule
+    n^3 pivot updates of K9_OPS FP32 instructions."""
+    import numpy as np
+
+    n = np.asarray(n_atoms, np.int64)
+    return bound(16 * len(n) * a_pad * a_pad + len(n) * 5, int(K9_OPS * (n ** 3).sum()),
+                 rates, "fp32")
+
+
+def k10_work(n_atoms_sys, n_mols: int, a_pad: int, rates: dict, iters: int = 40) -> dict:
+    """K10 over systems of ``n_atoms_sys`` real atoms: the uniforms of each
+    system's upper triangle, its q0 and randNegEig uniforms and its
+    coordinates (4 floats an atom), each molecule's two bounds matrices
+    once; per system 8 n^2 FP32 instructions to draw and center, then per
+    power round 4 n^2 multiply-adds for G Q and ~20 n for Gram-Schmidt
+    (iters + 1 rounds), and 16 n for the Ritz matrix."""
+    import numpy as np
+
+    n = np.asarray(n_atoms_sys, np.int64)
+    n_bytes = int((4 * n * (n - 1) // 2 + 3 * 16 * n + 5).sum()) + 8 * n_mols * a_pad * a_pad
+    n_ops = int((8 * n * n + (iters + 1) * (4 * n * n + 20 * n) + 16 * n).sum())
+    return bound(n_bytes, n_ops, rates, "fp32")
+
+
+def dg_work(batch, sys2mol, rates: dict, evals=None, accepted=None) -> dict:
+    """K11 (or K5/K8 over it) on ``batch``'s systems: each molecule's bounds
+    and chiral tables once, the positions (4 floats an atom) in and out;
+    per evaluation (``evals`` [S], one each when None) DG_PAIR_OPS per
+    pair i < j of real atoms, DG_CHIRAL_OPS per chiral quartet and
+    K4_OPS_PER_ATOM per atom; with ``accepted`` (K8) 7 n^2 more per accepted
+    step, n = 4 * atoms."""
+    import numpy as np
+
+    s2m = sys2mol.cpu().numpy()
+    atoms = batch.n_atoms.cpu().numpy().astype(np.int64)[s2m]
+    off = batch.offsets.cpu().numpy().astype(np.int64)[0]
+    chiral = (off[1:] - off[:-1])[s2m]
+    per_eval = (DG_PAIR_OPS * (atoms * (atoms - 1) // 2) + DG_CHIRAL_OPS * chiral
+                + K4_OPS_PER_ATOM * atoms)
+    n_evals = np.ones(len(atoms), np.int64) if evals is None else np.asarray(evals, np.int64)
+    n_ops = int((per_eval * n_evals).sum())
+    if accepted is not None:
+        n_ops += int((7 * (4 * atoms) ** 2 * np.asarray(accepted, np.int64)).sum())
+    tables = sum(t.numel() * t.element_size() for t in batch.atoms + batch.params)
+    return bound(tables + int((2 * 16 * atoms + 8).sum()), n_ops, rates, "fp32")
+
+
+def k12_work(n_atoms_sys, batch, tables, rates: dict) -> dict:
+    """K12 on systems of ``n_atoms_sys`` real atoms: their positions and each
+    molecule's bounds read once, six flags out per system; K12_PAIR_OPS per
+    real pair i < j and K12_TERM_OPS per check term."""
+    import numpy as np
+
+    n = np.asarray(n_atoms_sys, np.int64)
+    terms = int(tables.offsets[:, -1].sum()) * len(n) // max(1, batch.n_mols)
+    n_ops = int((K12_PAIR_OPS * n * (n - 1) // 2).sum()) + K12_TERM_OPS * terms
+    bounds_bytes = 8 * int((batch.n_atoms.cpu().numpy().astype(np.int64) ** 2).sum())
+    return bound(int((12 * n + 6).sum()) + bounds_bytes, n_ops, rates, "fp32")
+
+
+def two_proportion_ok(k1: int, n1: int, k2: int, n2: int) -> bool:
+    """|k1/n1 - k2/n2| within 4 standard errors of the difference (pooled;
+    at least one system of slack when both shares are 0 or 1)."""
+    p = (k1 + k2) / (n1 + n2)
+    se = math.sqrt(max(p * (1 - p), 1.0 / (n1 + n2)) * (1.0 / n1 + 1.0 / n2))
+    return abs(k1 / n1 - k2 / n2) <= 4.0 * se
+
+
 def constraint_work(positions, cb, rates: dict) -> dict:
     """K7 on ``positions`` [S, A, 3]: the positions and the constraint
     tables read once, energies and gradient rows written; CONSTRAINT_OPS
@@ -962,10 +1092,11 @@ def same_basin_ok(same: float, n: int, own: float | None, n_own: int) -> bool:
 
 
 def trajectory_check(run_kernel, run_plain, x, energy_scale, n_steps: int, errs: dict,
-                     key: str, what: str) -> dict:
-    """A minimizer kernel against its plain version, float32 (twice) and
-    float64, from the starts ``x`` through ``n_steps`` accepted steps: the
-    checks stated at TRAJ_EQUAL_SHARE. ``run_kernel(x)`` and ``run_plain(x)``
+                     key: str, what: str, moved: float = 0.0) -> dict:
+    """A minimizer kernel against its plain version, float32 (twice: with
+    ``moved``, the second from the starts moved by seeded noise of that many
+    Å) and float64, from the starts ``x`` through ``n_steps`` accepted steps:
+    the checks stated at TRAJ_EQUAL_SHARE. ``run_kernel(x)`` and ``run_plain(x)``
     return BfgsResults; ``energy_scale(positions)`` is the per-system sum of
     |E_term|. Sets ``errs[key]`` to the largest |E_kernel - E_plain| of the
     systems compared."""
@@ -975,10 +1106,17 @@ def trajectory_check(run_kernel, run_plain, x, energy_scale, n_steps: int, errs:
 
     t0 = time.perf_counter()
     got = run_kernel(x)
-    torch.cuda.synchronize()
+    if x.is_cuda:
+        torch.cuda.synchronize()
     kernel_s = time.perf_counter() - t0
     p32 = run_plain(x)
-    p32_again = run_plain(x)
+    x_again = x
+    if moved:  # the second plain float32 run from starts moved by seeded noise of ``moved``
+        gen = torch.Generator(device=x.device)
+        gen.manual_seed(17)
+        noise = moved * torch.randn(x.shape, generator=gen, device=x.device, dtype=x.dtype)
+        x_again = x + noise * (x != 0)
+    p32_again = run_plain(x_again)
     p64 = run_plain(x.double())
     early = (got.status & (CONVERGED | FAILED)) != 0
     full = got.n_accepted == n_steps
@@ -1003,7 +1141,14 @@ def trajectory_check(run_kernel, run_plain, x, energy_scale, n_steps: int, errs:
     x_ratio = far(got.positions, p64.positions) / x_bound
     e_ratio = (got.energies.double() - p64.energies).abs() / e_bound
     within = float(((x_ratio <= 1) & (e_ratio <= 1))[same].double().mean())
-    check(within >= TRAJ_EQUAL_SHARE, f"{what}'s trajectory: within its bound on {within}")
+    # the share under the spread of the same starts alone (float32 against float64)
+    x_same = far(got.positions, p64.positions) / (
+        TRAJ_FACTOR * far(p32.positions, p64.positions) + TRAJ_FLOOR_A)
+    e_same = (got.energies.double() - p64.energies).abs() / (
+        TRAJ_FACTOR * (p32.energies.double() - p64.energies).abs() + 1e-5 * scale + 1e-4)
+    within_same = float(((x_same <= 1) & (e_same <= 1))[same].double().mean())
+    check(within >= TRAJ_EQUAL_SHARE, f"{what}'s trajectory: within its bound on {within} "
+                                      f"({within_same} under the same starts' spread)")
     errs[key] = max(errs.get(key, 0.0),
                     float((got.energies.double() - p32.energies.double()).abs()[same].max()))
 
@@ -1014,7 +1159,8 @@ def trajectory_check(run_kernel, run_plain, x, energy_scale, n_steps: int, errs:
     return {"systems": int(x.shape[0]), "max_iters": n_steps,
             "accepted_min": int(got.n_accepted.min()), "full_share": float(full.double().mean()),
             "probes_max": int(got.n_iters.max()), "equal_status_and_steps": same_share,
-            "within_bound": within, "x_ratio_max": float(x_ratio[same].max()),
+            "within_bound": within, "within_bound_same_starts_spread": within_same,
+            "moved_second_run_a": moved, "x_ratio_max": float(x_ratio[same].max()),
             "e_ratio_max": float(e_ratio[same].max()),
             "dx_kernel_plain32_q50_99_max": q(far(got.positions, p32.positions)),
             "dx_kernel_plain64_q50_99_max": q(far(got.positions, p64.positions)),
@@ -1039,7 +1185,8 @@ def k5_trajectory_check(x, batch, sys2mol, errs: dict, key: str, ff=None) -> dic
     return trajectory_check(
         lambda p: lbfgs_flat.lbfgs(ff, p, batch, sys2mol, n_steps),
         lambda p: lbfgs_flat.lbfgs_flat_plain(fn, p, mask, n_steps), x,
-        lambda p: ff_term_magnitude(ff, p, batch, sys2mol), n_steps, errs, key, f"K5 {ff.name}")
+        lambda p: ff_term_magnitude(ff, p, batch, sys2mol), n_steps, errs, key, f"K5 {ff.name}",
+        TRAJ_DG_MOVED if ff.name == "dg" else 0.0)
 
 
 def k8_trajectory_check(x, batch, sys2mol, constraints, errs: dict, key: str, ff) -> dict:
@@ -1062,17 +1209,105 @@ def k8_trajectory_check(x, batch, sys2mol, constraints, errs: dict, key: str, ff
     return trajectory_check(
         lambda p: bfgs.bfgs_minimize(ff, p, batch, sys2mol, constraints, K8_TRAJ_ITERS),
         lambda p: bfgs.bfgs_plain(fn, p, mask, K8_TRAJ_ITERS), x, scale, K8_TRAJ_ITERS, errs,
-        key, f"K8 {ff.name}")
+        key, f"K8 {ff.name}", TRAJ_DG_MOVED if ff.name == "dg" else 0.0)
 
 
 def ff_term_magnitude(ff, positions, batch, sys2mol):
-    """Per-system sum of |E_term| of force field ``ff``'s terms."""
+    """Per-system sum of |E_term| of force field ``ff``'s terms (the DG
+    terms are all >= 0: their sum is the float64 energy)."""
+    import dataclasses
+
+    from nvmolkit_tpu_torch.models import dist_geom
     from nvmolkit_tpu_torch.models.mmff import energy as mmff_energy
     from nvmolkit_tpu_torch.models.uff import energy as uff_energy
 
+    if ff.name == "dg":
+        b64 = dataclasses.replace(batch, params=tuple(t.double() for t in batch.params))
+        return dist_geom.dg_energy_plain(positions.double(), b64, sys2mol)
     fn = (mmff_energy.mmff_term_magnitude_plain if ff.name == "mmff"
           else uff_energy.uff_term_magnitude_plain)
     return fn(positions, batch, sys2mol)
+
+
+def dg_chunk(mols, a_pad: int, confs: int, device, seed: int = 0) -> dict:
+    """The DG inputs of ``confs`` systems of each molecule of ``mols`` in
+    atom bucket ``a_pad``: the native bounds, their smoothing (K9 on the
+    card), the DGBatch, sys2mol, K10's uniforms from a seeded generator and
+    the checks' tables."""
+    import torch
+
+    from nvmolkit_tpu_torch.chem.bounds import topological_bounds_batch
+    from nvmolkit_tpu_torch.models import dist_geom
+    from nvmolkit_tpu_torch.ops import embed_checks
+    from nvmolkit_tpu_torch.ops.triangle_smooth import triangle_smooth_bounds
+
+    up, lo = topological_bounds_batch(mols, a_pad)
+    n = torch.tensor([m.num_atoms for m in mols], dtype=torch.int32, device=device)
+    up_t, lo_t = torch.from_numpy(up).to(device), torch.from_numpy(lo).to(device)
+    ub, lb, ok = triangle_smooth_bounds(up_t, lo_t, n)
+    sets = [dist_geom.build_chiral_sets(m) for m in mols]
+    s2m = torch.arange(len(mols), dtype=torch.int32, device=device).repeat_interleave(confs)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return {"upper": up_t, "lower": lo_t, "n_atoms": n, "consistent": ok, "sets": sets,
+            "batch": dist_geom.make_dg_batch(ub, lb, n, sets), "s2m": s2m,
+            "uniforms": dist_geom.draw_uniforms(gen, s2m.shape[0], a_pad, device),
+            "tables": embed_checks.build_check_tables(mols, sets, device)}
+
+
+def k10_compare(got, want) -> dict:
+    """K10's (coords, eig_ok, eigenvalues) against the plain version's on the
+    same uniforms, under the bound stated at K10_TOL: the eigenvalues, and
+    the 4-D Gram matrix of the coordinates (blind to the eigenvectors' signs
+    and rotations) over the systems whose eigenvalues sit on the same side
+    of the randNegEig cut (1e-6) in both; the others are counted."""
+    import torch
+
+    coords, ok, vals = got
+    coords_p, ok_p, vals_p = want
+    scale = vals_p[:, :1].abs().double().clamp_min(1e-6)
+    same_side = ((vals > 1e-6) == (vals_p > 1e-6)).all(dim=1)
+    gram = torch.bmm(coords.double(), coords.double().transpose(1, 2))
+    gram_p = torch.bmm(coords_p.double(), coords_p.double().transpose(1, 2))
+    val_ratio = (vals.double() - vals_p.double()).abs() / (K10_TOL * scale)
+    gram_ratio = (gram - gram_p).abs().amax(dim=(1, 2)) / (K10_TOL * scale[:, 0])
+    return {"eig_ratio_max": float(val_ratio.max()),
+            "gram_ratio_max": float(gram_ratio[same_side].max()) if same_side.any() else 0.0,
+            "other_side_of_cut": int((~same_side).sum()),
+            "eig_ok_equal": bool(torch.equal(ok, ok_p)), "systems": int(coords.shape[0])}
+
+
+def embed_check_cases(pos3, mols, s2m, seed: int):
+    """Positions to hold K12 against its plain version: ``pos3`` [S, A, 3],
+    moved by seeded noise of 0.05, 0.2 and 0.6 Å, mirrored, flattened, and
+    with each molecule's first double-bond end pulled onto the bond's line.
+    Returns the stacked positions and their sys2mol."""
+    import numpy as np
+    import torch
+
+    from nvmolkit_tpu_torch.chem.stereo import find_double_bond_ends
+
+    gen = torch.Generator(device=pos3.device)
+    gen.manual_seed(seed)
+    cases = [pos3]
+    for sigma in (0.05, 0.2, 0.6):
+        cases.append(pos3 + sigma * torch.randn(pos3.shape, generator=gen, device=pos3.device))
+    cases.append(pos3 * torch.tensor([-1.0, 1.0, 1.0], device=pos3.device))
+    cases.append(pos3 * torch.tensor([1.0, 1.0, 0.01], device=pos3.device))
+    lin = pos3.clone()
+    ends = [find_double_bond_ends(m) for m in mols]
+    s2m_np = s2m.cpu().numpy()
+    rows = [r for r in range(len(s2m_np)) if ends[s2m_np[r]]]
+    if rows:
+        trip = torch.tensor([ends[s2m_np[r]][0] for r in rows], device=pos3.device)
+        r = torch.tensor(rows, device=pos3.device)
+        lin[r, trip[:, 0]] = 2 * lin[r, trip[:, 1]] - lin[r, trip[:, 2]]
+    cases.append(lin)
+    n = torch.tensor([m.num_atoms for m in mols], device=pos3.device)[s2m.long()]
+    out = torch.cat(cases)
+    pad = torch.arange(pos3.shape[1], device=pos3.device)[None] >= n.repeat(len(cases))[:, None]
+    out[pad] = 0.0
+    return out.contiguous(), s2m.repeat(len(cases))
 
 
 def constraint_set(mol):
@@ -1133,6 +1368,10 @@ def main() -> int:
     from nvmolkit_tpu_torch.types import CoordinateOutput, Dense3DResult
     from nvmolkit_tpu_torch.uffOptimization import UFFOptimizeMoleculesConfs
     from nvmolkit_tpu_torch.utils.config import HardwareOptions
+    from nvmolkit_tpu_torch import embedMolecules as embed_api
+    from nvmolkit_tpu_torch.models import dist_geom
+    from nvmolkit_tpu_torch.ops import embed_checks, triangle_smooth
+    from nvmolkit_tpu_torch.testutils import check_bounds_satisfied, check_chirality_preserved
 
     cuda = torch.device("cuda", 0)
     smi_line = subprocess.run(
@@ -1153,7 +1392,11 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = {"nvcc_s": _build.similarity_lib, "nvcc_rmsd_s": _build.rmsd_lib,
             "nvcc_mmff_s": _build.mmff_lib, "nvcc_uff_s": _build.uff_lib,
-            "nvcc_constraints_s": _build.constraints_lib, "gxx_s": _build.graph_lib}
+            "nvcc_constraints_s": _build.constraints_lib,
+            "nvcc_triangle_smooth_s": _build.triangle_smooth_lib,
+            "nvcc_coordgen_s": _build.coordgen_lib, "nvcc_dist_geom_s": _build.dist_geom_lib,
+            "nvcc_embed_checks_s": _build.embed_checks_lib, "gxx_s": _build.graph_lib,
+            "gxx_bounds_s": _build.bounds_lib}
     with ThreadPoolExecutor(len(libs)) as pool:
         jobs = {key: pool.submit(build, lib) for key, lib in libs.items()}
         build_s = {key: job.result() for key, job in jobs.items()}
@@ -1332,8 +1575,14 @@ def main() -> int:
                                                  [len(sel)], prealigned=prealigned)
             err = (g.torch().cpu().double() - w.torch().double()).abs()
             tol = kabsch.rmsd_tolerance(w.torch().double(), e0, n_used)
-            check(g.shape == w.shape == (len(sel) * (len(sel) - 1) // 2,)
-                  and bool((err <= tol).all()), f"positionsFrom molecule {m}")
+            check(g.shape == w.shape == (len(sel) * (len(sel) - 1) // 2,),
+                  f"positionsFrom molecule {m} prealigned={prealigned}: shapes {g.shape} "
+                  f"(K3) and {w.shape} (plain) for {len(sel)} conformers")
+            worst = int((err / tol).argmax()) if len(err) else 0
+            check(bool((err <= tol).all()),
+                  f"positionsFrom molecule {m} prealigned={prealigned}: {int((err > tol).sum())} "
+                  f"pairs over the tolerance; worst pair {worst}: K3 {float(g.torch()[worst])}, "
+                  f"plain {float(w.torch()[worst])}, tolerance {float(tol[worst])}")
             if len(err):
                 k3_err["positions_from"] = max(k3_err["positions_from"], float(err.max()))
     errs[K3] = max(k3_err["near_zero"], k3_err["far"], k3_err["positions_from"])
@@ -1430,7 +1679,8 @@ def main() -> int:
                     "butina_matrix": bound(2 * len(smiles) ** 2, 0, rates, "fp32")}
     del morgan_inputs
 
-    counted = (sim_ops, kabsch, mmff_energy, lbfgs_flat, uff_energy, cons, bfgs)
+    counted = (sim_ops, kabsch, mmff_energy, lbfgs_flat, uff_energy, cons, bfgs,
+               triangle_smooth, dist_geom, embed_checks)
 
     def reset_counts():
         torch.cuda.synchronize()
@@ -2110,6 +2360,210 @@ def main() -> int:
          vs_plain={**ffu_vs_plain, "plain_minimize_s": k8u_plain_s}, k8_trajectory=ffu_traj,
          rmsd_molecules=len(ffu_rms), seconds=time.perf_counter() - t_phase)
 
+    # 6d. embedding: K9-K12 against their plain versions, EmbedMolecules on
+    # set (c) x EMBED_CONFS (both backends), against the JAX fixture, and the
+    # conformer workflow chained on the card ------------------------------------
+    t_phase = time.perf_counter()
+    K9, K10, K11 = "triangle_smooth", "coordgen", "dg_energy_grad"
+    K5D, K8D, K12 = "dg_lbfgs", "dg_bfgs", "embed_checks"
+    errs.update({K9: 0.0, K10: 0.0, K11: 0.0, K5D: 0.0, K8D: 0.0, K12: 0.0})
+    embed_smiles = random_smiles_batch(seed=11, n=EMBED_MOLS, min_heavy=DRUG_HEAVY[0],
+                                       max_heavy=DRUG_HEAVY[1])
+
+    def embed_molecules(n=EMBED_MOLS):
+        return [with_hydrogens(m) for m in mols_from_smiles(embed_smiles[:n])]
+
+    emols = embed_molecules()
+    e_buckets = {}
+    for i, m in enumerate(emols):
+        e_buckets.setdefault(next(b for b in HardwareOptions().atomBuckets if m.num_atoms <= b),
+                             []).append(i)
+    chunks = {b: dg_chunk([emols[i] for i in ids], b, EMBED_CONFS, cuda, seed=b)
+              for b, ids in sorted(e_buckets.items())}
+    big_e = max(chunks, key=lambda b: chunks[b]["s2m"].shape[0])  # the largest chunk
+    # K9: the chunks' bounds (smoothed by dg_chunk) bit for bit, and random
+    # windows in global memory (200 atoms) with an inconsistent lower bound
+    for b, ch in chunks.items():
+        want = triangle_smooth.triangle_smooth_bounds_plain(ch["upper"], ch["lower"],
+                                                            ch["n_atoms"])
+        check(torch.equal(ch["batch"].upper, want[0]) and torch.equal(ch["batch"].lower, want[1])
+              and torch.equal(ch["consistent"], want[2]), f"K9 at the {b}-atom bucket")
+    g_rng = np.random.default_rng(9)
+    for inconsistent in (False, True):
+        n_r = g_rng.integers(3, 201, size=16).astype(np.int32)
+        p_r = g_rng.normal(size=(16, 200, 3)) * 3.0
+        d_r = np.linalg.norm(p_r[:, :, None] - p_r[:, None], axis=-1)
+        up_r = np.minimum(d_r * 1.1, (d_r * 1.1).transpose(0, 2, 1)).astype(np.float32)
+        lo_r = (d_r * 0.9).astype(np.float32)
+        if inconsistent:
+            lo_r[:, 0, 2] = lo_r[:, 2, 0] = up_r[:, 0, 1] + up_r[:, 1, 2] + 1.0
+        args = [torch.from_numpy(a).to(cuda) for a in (up_r, lo_r, n_r)]
+        got, want = (triangle_smooth.triangle_smooth_bounds(*args),
+                     triangle_smooth.triangle_smooth_bounds_plain(*args))
+        check(all(torch.equal(g, w) for g, w in zip(got, want))
+              and bool(got[2].all()) != inconsistent, f"K9 in global memory ({inconsistent})")
+    # K10 on each chunk's uniforms (the main path's parameters; then the
+    # rank flag on and randNegEig off at the largest chunk)
+    k10_out = {}
+    for b, ch in chunks.items():
+        for rand_neg, nzf in ((True, 0),) + (((False, 1),) if b == big_e else ()):
+            args = (ch["batch"], ch["s2m"], ch["uniforms"], 2.0, rand_neg, nzf)
+            got = dist_geom.random_distance_matrices(*args)
+            want = dist_geom.random_distance_matrices_plain(*args)
+            out = k10_compare(got, want)
+            check(out["eig_ratio_max"] <= 1 and out["gram_ratio_max"] <= 1 and out["eig_ok_equal"]
+                  and out["other_side_of_cut"] <= max(1, out["systems"] // 100),
+                  f"K10 at the {b}-atom bucket: {out}")
+            errs[K10] = max(errs[K10], float((got[2] - want[2]).abs().max()))
+            k10_out[f"{b}_randneg{int(rand_neg)}_nzf{nzf}"] = out
+            ch.setdefault("x0", got[0])  # the main path's parameters come first
+    # K11 at K10's starts, both weightings, under K4's bounds
+    k11_ratios = {}
+    for b, ch in chunks.items():
+        for w in ((EMBED_W[0], EMBED_W[1]), (EMBED_W[2], EMBED_W[3])):
+            bw = ch["batch"].weighted(*w)
+            e, g = dist_geom.dg_energy_and_grad(ch["x0"], bw, ch["s2m"])
+            e_p, g_p = dist_geom.dg_energy_and_grad_plain(ch["x0"], bw, ch["s2m"])
+            e_r, g_r, de = energy_grad_ratios(
+                e, g, e_p, g_p, ff_term_magnitude(dist_geom.DG, ch["x0"], bw, ch["s2m"]),
+                dist_geom.dg_grad_magnitude_plain(ch["x0"], bw, ch["s2m"]))
+            check(e_r <= 1 and g_r <= 1, f"K11 at the {b}-atom bucket {w}: {e_r}, {g_r}")
+            errs[K11] = max(errs[K11], de)
+            k11_ratios[f"{b}_{w}"] = [e_r, g_r]
+    # K5 and K8 over DG against the plain minimizers, 8 accepted steps from
+    # K10's starts at the largest chunk
+    big_ch = chunks[big_e]
+    dg_first = big_ch["batch"].weighted(EMBED_W[0], EMBED_W[1])
+    k5d_traj = k5_trajectory_check(big_ch["x0"], dg_first, big_ch["s2m"], errs, K5D, dist_geom.DG)
+    k8d_traj = k8_trajectory_check(big_ch["x0"], dg_first, big_ch["s2m"], None, errs, K8D,
+                                   dist_geom.DG)
+    emit(phase="embed_kernels", buckets={b: len(ids) for b, ids in e_buckets.items()},
+         k9_equal=True, k10=k10_out, k11_err_over_bound=k11_ratios, k5_dg_trajectory=k5d_traj,
+         k8_dg_trajectory=k8d_traj, seconds=time.perf_counter() - t_phase)
+
+    t_phase = time.perf_counter()
+    dg_params = {"useExpTorsionAnglePrefs": False, "useBasicKnowledge": False}
+
+    def embed_call(mols, backend, fail=None):
+        return embed_api.EmbedMolecules(
+            mols, embed_api.EmbedParameters(**dg_params, minimizerBackend=backend),
+            confsPerMolecule=EMBED_CONFS, maxIterations=EMBED_ITERS, failures=fail,
+            output=CoordinateOutput.DEVICE, device=cuda)
+
+    embed_runs = {}
+    for backend in ("flat", "bfgs"):
+        fail = embed_api.EmbedFailureCounts()
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        dense = embed_call(emols, backend, fail)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        run_launches = read_counts()
+        minimizer = K5D if backend == "flat" else K8D
+        check(all(run_launches[k] > 0 for k in (K9, K10, K11, minimizer, K12))
+              and run_launches[K5D if backend == "bfgs" else K8D] == 0,
+              f"EmbedMolecules({backend}) launches {run_launches}")
+        cmask = dense.conf_mask.cpu().numpy()
+        pos = dense.positions.cpu().numpy()
+        bad = [(m, c) for m in range(len(emols)) for c in np.nonzero(cmask[m])[0]
+               if not (check_bounds_satisfied(emols[m], pos[m, c, : emols[m].num_atoms])
+                       and check_chirality_preserved(emols[m], pos[m, c, : emols[m].num_atoms]))]
+        check(not bad, f"EmbedMolecules({backend}): {len(bad)} accepted conformers fail the "
+                       f"conformer checkers, first {bad[:5]}")
+        check(bool(torch.isfinite(dense.positions).all()), "embedded positions finite")
+        embed_runs[backend] = {
+            "dense": dense, "first_call_s": first_s, "success": float(cmask.mean()),
+            "failures": dataclasses.asdict(fail), "attempts_k10_launches": run_launches[K10],
+            "launches": {k: v for k, v in run_launches.items() if v},
+            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    # against the JAX package's DG embedding of the fixture's molecules
+    with np.load(ROOT / EMBED_FIXTURE) as f:
+        fx_e = {k: f[k] for k in f.files}
+    check([str(s) for s in fx_e["smiles"]] == embed_smiles[:len(fx_e["smiles"])]
+          and fx_e["flat_success"].shape[1] == EMBED_CONFS,
+          "the embed fixture's systems are set (c)'s first molecules x EMBED_CONFS")
+    vs_fixture = {}
+    for backend in ("flat", "bfgs"):
+        fail = embed_api.EmbedFailureCounts()
+        n_fx = len(fx_e["smiles"])
+        got = embed_call(embed_molecules(n_fx), backend, fail).conf_mask.cpu().numpy()
+        n_sys = got.size
+        jax_ok = fx_e[f"{backend}_success"]
+        shares = {"success": (int(got.sum()), int(jax_ok.sum()))}
+        mine = dataclasses.asdict(fail)
+        for name, v in zip(EMBED_COUNTERS, fx_e[f"{backend}_counters"].tolist()):
+            shares[name] = (mine[name], int(v))
+        for name, (k_port, k_jax) in shares.items():
+            check(two_proportion_ok(k_port, n_sys, k_jax, n_sys),
+                  f"EmbedMolecules({backend}) {name}: {k_port} against JAX's {k_jax} of {n_sys}")
+        vs_fixture[backend] = {k: {"port": a, "jax": b} for k, (a, b) in shares.items()}
+    # K12 on the flat run's 64-atom... largest chunk, moved and distorted
+    big_ids = torch.tensor(e_buckets[big_e], device=cuda)
+    dense = embed_runs["flat"]["dense"]
+    pos3 = dense.positions[big_ids][:, :, :big_e].reshape(-1, big_e, 3).contiguous()
+    pos_k12, s2m_k12 = embed_check_cases(pos3, [emols[i] for i in e_buckets[big_e]],
+                                         big_ch["s2m"], 12)
+    k12_args = (pos_k12, big_ch["batch"].upper, big_ch["batch"].lower, s2m_k12,
+                big_ch["n_atoms"][s2m_k12.long()].contiguous(), big_ch["tables"],
+                embed_api.EmbedParameters().maxViolationRatio,
+                embed_api.EmbedParameters().minTetrahedralVolume)
+    got = embed_checks.embed_checks(*k12_args)
+    want = embed_checks.embed_checks_plain(*k12_args)
+    near = embed_checks.near_threshold_plain(*k12_args)
+    k12_mismatch = int((got != want).sum())
+    check(bool(((got == want) | near).all()), "K12 and plain disagree away from a threshold")
+    has_terms = [True] + [int(big_ch["tables"].offsets[k, -1]) > 0 for k in range(5)]
+    check(all(bool((~got[k]).any()) for k in range(4) if has_terms[k]),
+          "K12's cases fail no bounds, chiral, tetrahedral or linearity check that has terms")
+    errs[K12] = float(k12_mismatch)
+    emit(phase="embed", molecules=len(emols), confs=EMBED_CONFS, systems=len(emols) * EMBED_CONFS,
+         max_iterations=EMBED_ITERS,
+         runs={b: {k: v for k, v in r.items() if k != "dense"} for b, r in embed_runs.items()},
+         vs_jax_fixture=vs_fixture, k12_cases=int(pos_k12.shape[0]),
+         k12_mismatches=k12_mismatch, k12_near_threshold=int(near.sum()),
+         k12_checks_with_terms=has_terms,
+         k12_fails_per_check=(~got).sum(dim=1).tolist(), seconds=time.perf_counter() - t_phase)
+
+    # the conformer workflow on the card: the accepted conformers (DEVICE)
+    # -> MMFF -> RMSD -> Butina
+    t_phase = time.perf_counter()
+
+    def embed_chain():
+        dense = embed_call(emols, "flat")
+        minimized = MMFFOptimizeMoleculesConfs(emols, maxIters=MMFF_MAX_ITERS,
+                                               output=CoordinateOutput.DEVICE,
+                                               provider=mmff_provider, positionsFrom=dense,
+                                               device=cuda)
+        rms = GetConformerRMSMatrixBatch(emols, positionsFrom=minimized)
+        clusters = []
+        for m in range(EMBED_CHAIN_BUTINA):
+            n_c = int(minimized.conf_mask[m].sum())
+            if n_c > 1:
+                square = square_from_condensed(rms[m].torch(), n_c)
+                clusters.append(butina(square, EMBED_CHAIN_CUTOFF).torch())
+        return dense, minimized, rms, clusters
+
+    reset_counts()
+    t0 = time.perf_counter()
+    c_dense, c_min, c_rms, c_clusters = embed_chain()
+    torch.cuda.synchronize()
+    chain_s = time.perf_counter() - t0
+    chain_launches = read_counts()
+    check(all(chain_launches[k] > 0 for k in (K9, K10, K11, K5D, K12, K4, K5, K3)),
+          f"embed chain launches {chain_launches}")
+    check(torch.equal(c_min.conf_mask, c_dense.conf_mask), "the chain kept the accepted slots")
+    check(bool(torch.isfinite(c_min.energies[c_min.conf_mask]).all()), "chain: MMFF energies")
+    check(not bool(c_min.positions[~c_min.conf_mask].any()), "chain: a hole holds coordinates")
+    check(all(bool(torch.isfinite(r.torch()).all()) for r in c_rms), "chain: RMSD finite")
+    check(all(int(c.min()) == 0 for c in c_clusters) and len(c_clusters) > 0, "chain: butina")
+    emit(phase="embed_chain", molecules=len(emols), embedded=int(c_dense.conf_mask.sum()),
+         wall_s=chain_s, mmff_converged=float(c_min.converged[c_min.conf_mask].double().mean()),
+         butina_molecules=len(c_clusters),
+         clusters_mean=float(np.mean([int(c.max()) + 1 for c in c_clusters])),
+         launches={k: v for k, v in chain_launches.items() if v},
+         seconds=time.perf_counter() - t_phase)
+
     # 7. timings at the main path's shapes ------------------------------------------
     t_phase = time.perf_counter()
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=cuda)  # 256 MB > the 50 MB L2
@@ -2254,6 +2708,80 @@ def main() -> int:
 
     k8_rows[K8M]["linalg_hessian_step_ms"] = median_ms(hessian_step, 5)
     del h_stack, h_vecs
+    # the embedding's kernels at its largest chunk: K9 on its molecules'
+    # bounds, K10 and K11 on its systems (K11 at K10's starts), K5 and K8 over
+    # DG through the first DG minimization from those starts (their plain
+    # versions timed once on EMBED_PLAIN systems), K12 on the flat run's
+    # positions; beside K10, one torch.linalg.eigh of the chunk's metric
+    # matrices: all eigenpairs of a given matrix, not the same function, a
+    # yardstick
+    eb = chunks[big_e]
+    e_n = eb["n_atoms"].cpu().numpy()
+    e_sys_n = e_n[eb["s2m"].cpu().numpy()]
+    e_shape = f"{len(e_n)} mols x {EMBED_CONFS} confs x {big_e} atoms"
+    k9_row = row(K9, f"{len(e_n)} mols x {big_e} atoms", k9_work(e_n, big_e, rates),
+                 lambda: triangle_smooth.triangle_smooth_bounds(eb["upper"], eb["lower"],
+                                                                eb["n_atoms"]),
+                 lambda: triangle_smooth.triangle_smooth_bounds_plain(eb["upper"], eb["lower"],
+                                                                      eb["n_atoms"]), cold=True)
+    k10_row = row(K10, e_shape, k10_work(e_sys_n, len(e_n), big_e, rates),
+                  lambda: dist_geom.random_distance_matrices(eb["batch"], eb["s2m"],
+                                                             eb["uniforms"]),
+                  lambda: dist_geom.random_distance_matrices_plain(eb["batch"], eb["s2m"],
+                                                                   eb["uniforms"]), reps=5)
+    for b, ch in chunks.items():  # K9 and K10 at each bucket's chunk, beside their bounds
+        ch_n = ch["n_atoms"].cpu().numpy()
+        k9_row.setdefault("by_bucket", {})[b] = {
+            "ms": median_ms(lambda ch=ch: triangle_smooth.triangle_smooth_bounds(
+                ch["upper"], ch["lower"], ch["n_atoms"])),
+            "bound_ms": k9_work(ch_n, b, rates)["bound_ms"], "molecules": len(ch_n)}
+        k10_row.setdefault("by_bucket", {})[b] = {
+            "ms": median_ms(lambda ch=ch: dist_geom.random_distance_matrices(
+                ch["batch"], ch["s2m"], ch["uniforms"]), 5),
+            "bound_ms": k10_work(ch_n[ch["s2m"].cpu().numpy()], len(ch_n), b,
+                                 rates)["bound_ms"], "systems": int(ch["s2m"].shape[0])}
+    s2m_l = eb["s2m"].long()
+    few = s2m_l[:EMBED_EIGH]
+    g_metric = dist_geom.metric_matrices_plain(
+        eb["batch"].upper[few], eb["batch"].lower[few],
+        dist_geom.flat.atom_mask(eb["batch"], eb["s2m"][:EMBED_EIGH], big_e),
+        eb["uniforms"].pairs[:EMBED_EIGH])
+    k10_row["linalg_eigh_ms"] = median_ms(lambda: torch.linalg.eigh(g_metric), 1)
+    k10_row["linalg_eigh_shape"] = f"{EMBED_EIGH} metric matrices of {big_e} atoms"
+    del g_metric
+    k11_row = row(K11, e_shape, dg_work(dg_first, eb["s2m"], rates),
+                  lambda: dist_geom.dg_energy_and_grad(eb["x0"], dg_first, eb["s2m"]),
+                  lambda: dist_geom.dg_energy_and_grad_plain(eb["x0"], dg_first, eb["s2m"]),
+                  cold=True)
+    first_iters = embed_api.EmbedParameters().firstMinimizeIters
+    sub_x, sub_s = eb["x0"][:EMBED_PLAIN].contiguous(), eb["s2m"][:EMBED_PLAIN].contiguous()
+    sub_mask = dist_geom.flat.atom_mask(dg_first, sub_s, big_e)
+    sub_fn = dist_geom.plain_energy_and_grad_fn(dg_first, sub_s, big_e)
+    dg_rows = {}
+    for key, minimize, plain in ((K5D, lbfgs_flat.lbfgs, lbfgs_flat.lbfgs_flat_plain),
+                                 (K8D, bfgs.bfgs_minimize, bfgs.bfgs_plain)):
+        res = minimize(dist_geom.DG, eb["x0"], dg_first, eb["s2m"], max_iters=first_iters)
+        evals = res.n_iters.cpu().numpy() + 1
+        entry = row(key, e_shape + f", first DG minimization, maxIters {first_iters}",
+                    dg_work(dg_first, eb["s2m"], rates, evals,
+                            res.n_accepted.cpu().numpy() if key == K8D else None),
+                    lambda m=minimize: m(dist_geom.DG, eb["x0"], dg_first, eb["s2m"],
+                                         max_iters=first_iters), None, reps=3)
+        t0 = time.perf_counter()
+        plain(sub_fn, sub_x, sub_mask, first_iters)
+        torch.cuda.synchronize()
+        entry.update(evaluations=int(evals.sum()), accepted_mean=float(
+            res.n_accepted.double().mean()), plain_ms=(time.perf_counter() - t0) * 1e3,
+            plain_shape=f"{EMBED_PLAIN} systems x {big_e} atoms, one run",
+            converged=float(res.converged.double().mean()))
+        dg_rows[key] = entry
+    pos3_t = pos3[: eb["s2m"].shape[0]]
+    k12_args_t = (pos3_t, eb["batch"].upper, eb["batch"].lower, eb["s2m"],
+                  eb["n_atoms"][s2m_l].contiguous(), eb["tables"], k12_args[6], k12_args[7])
+    k12_row = row(K12, e_shape + " (the flat run's positions)",
+                  k12_work(e_sys_n, eb["batch"], eb["tables"], rates),
+                  lambda: embed_checks.embed_checks(*k12_args_t),
+                  lambda: embed_checks.embed_checks_plain(*k12_args_t), cold=True)
     del flush
     emit(phase="timings", kernels=measured, m_skinny_sweep=sweep, m_skinny=sim_ops.M_SKINNY,
          seconds=time.perf_counter() - t_phase)
@@ -2274,6 +2802,9 @@ def main() -> int:
         "uff_optimize": uff_optimize,
         "batched_ff_mmff": lambda: ff_minimize(ffm, x_ff0),
         "batched_ff_uff": lambda: ff_minimize(ffu, x_ff0),
+        "embed_flat": lambda: embed_call(emols, "flat"),
+        "embed_bfgs": lambda: embed_call(emols, "bfgs"),
+        "embed_chain": embed_chain,
         "fingerprints": lambda: state.update(
             fps=gen.GetFingerprintsFromSmiles(smiles, device=cuda)),
         "similarity": lambda: state.update(sim=crossTanimotoSimilarity(state["fps"])),
@@ -2298,15 +2829,24 @@ def main() -> int:
                   K4: (k4_row, k4_key), K5: (k5_row, "ms"), K6: (k6_row, k6_key),
                   K5U: (k5u_row, "ms"), K7: (k7_row, k7_key), K8M: (k8_rows[K8M], "ms"),
                   K8U: (k8_rows[K8U], "ms")}
+    for key, entry in ((K9, k9_row), (K10, k10_row), (K11, k11_row), (K5D, dg_rows[K5D]),
+                       (K8D, dg_rows[K8D]), (K12, k12_row)):
+        main_shape[key] = (entry, "cold_l2_ms" if entry["bound_by"] == "bytes"
+                           and "cold_l2_ms" in entry else "ms")
     # each kernel's launches on its own path: the MMFF and UFF minimizations,
     # the constrained MMFF and the UFF batched forcefields
     path_launches = {**launches, K3: rmsd_launches[K3], K4: mmff_launches[K4],
                      K5: mmff_launches[K5], K6: uff_launches[K6], K5U: uff_launches[K5U],
                      K7: ffm_launches[K7], K8M: ffm_launches[K8M], K8U: ffu_launches[K8U]}
+    # the embedding's: the flat run of EmbedMolecules (K8 over DG: the bfgs run)
+    path_launches.update({k: embed_runs["flat"]["launches"].get(k, 0)
+                          for k in (K9, K10, K11, K5D, K12)})
+    path_launches[K8D] = embed_runs["bfgs"]["launches"].get(K8D, 0)
     mmff_cu = "nvmolkit_tpu_torch/csrc/mmff.cu"
     uff_cu = "nvmolkit_tpu_torch/csrc/uff.cu"
     bfgs_at = "nvmolkit_tpu/ops/bfgs.py:144"
     similarity_cu = "nvmolkit_tpu_torch/csrc/similarity.cu"
+    dist_geom_cu = "nvmolkit_tpu_torch/csrc/dist_geom.cu"
     sources = {
         K1: ("cross_similarity_kernel (K1, 64 x 64 tiles)",
              "nvmolkit_tpu/ops/pallas_similarity.py:68", similarity_cu),
@@ -2331,6 +2871,20 @@ def main() -> int:
         K8M: ("mmff_bfgs (K8 over MMFF with constraints: bfgs_kernel<Mmff>, one block per "
               "system)", bfgs_at, mmff_cu),
         K8U: ("uff_bfgs (K8 over UFF: bfgs_kernel<Uff>)", bfgs_at, uff_cu),
+        K9: ("triangle_smooth (K9: one block per molecule, every pivot)",
+             "nvmolkit_tpu/ops/triangle_smooth.py:28",
+             "nvmolkit_tpu_torch/csrc/triangle_smooth.cu"),
+        K10: ("coordgen (K10: distance matrices, double centering, block power iteration "
+              "with a Rayleigh-Ritz finish, one block per system)",
+              "nvmolkit_tpu/models/dist_geom.py:193", "nvmolkit_tpu_torch/csrc/coordgen.cu"),
+        K11: ("dg_energy_grad (K11: energy_grad_kernel; its device function dg_eval also "
+              "runs inside K5 and K8, once per probe)", "nvmolkit_tpu/models/dist_geom.py:95",
+              dist_geom_cu),
+        K5D: ("dg_lbfgs (K5 over DG, 4 coordinates per atom: lbfgs_kernel<Dg>)",
+              "nvmolkit_tpu/ops/lbfgs_flat.py:160", dist_geom_cu),
+        K8D: ("dg_bfgs (K8 over DG: bfgs_kernel<Dg>)", bfgs_at, dist_geom_cu),
+        K12: ("embed_checks (K12: the six checks, one block per system)",
+              "nvmolkit_tpu/embedMolecules.py:1077", "nvmolkit_tpu_torch/csrc/embed_checks.cu"),
     }
     lines = []
     for key, (label, replaces, source) in sources.items():
@@ -2344,7 +2898,8 @@ def main() -> int:
             "plain_ms": entry["plain_ms"], "bound_ms": entry["bound_ms"],
             "bound_by": entry["bound_by"], "share_of_bound": entry["bound_ms"] / entry[ms_key],
             "library_ms": None,
-            **{k: entry[k] for k in ("device_fn_calls_in_k5", "linalg_hessian_step_ms")
+            **{k: entry[k] for k in ("device_fn_calls_in_k5", "linalg_hessian_step_ms",
+                                     "linalg_eigh_ms", "linalg_eigh_shape", "by_bucket")
                if k in entry}})
     print(json.dumps({"kernels": lines}))
     print(smi_line)

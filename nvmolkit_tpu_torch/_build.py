@@ -12,9 +12,21 @@
   gradient kernel K6, and K5 and K8 over it), built the same way.
 * ``libnvmk_constraints``: ``nvmolkit_tpu_torch/csrc/constraints.cu`` (the
   constraint kernel K7), built the same way.
+* ``libnvmk_triangle_smooth``: ``nvmolkit_tpu_torch/csrc/triangle_smooth.cu``
+  (the triangle-smoothing kernel K9), built the same way.
+* ``libnvmk_coordgen``: ``nvmolkit_tpu_torch/csrc/coordgen.cu`` (the
+  coordinate-generation kernel K10), built the same way.
+* ``libnvmk_dist_geom``: ``nvmolkit_tpu_torch/csrc/dist_geom.cu`` (the 4-D
+  distance-geometry energy and gradient K11, and K5 and K8 over it), built
+  the same way.
+* ``libnvmk_embed_checks``: ``nvmolkit_tpu_torch/csrc/embed_checks.cu`` (the
+  embedding checks K12), built the same way.
 * ``libnvmolgraph``: the repository's SMILES featurizer
   ``csrc/mol_graph.cpp``, compiled by ``g++`` with the flags of
   ``csrc/Makefile``.
+* ``libnvmolbounds``: the repository's topological-bounds builder
+  ``csrc/topo_bounds.cpp``, compiled the same way (never by ``make`` in
+  ``csrc/``, and never the committed ``csrc/libnvmolbounds.so``).
 
 Outputs go to ``nvmolkit_tpu_torch/_build/``, named by a hash of the
 source, every header it includes (``#include "x.cuh"``, followed through
@@ -44,7 +56,14 @@ RMSD_SRC = _PKG / "csrc" / "rmsd.cu"
 MMFF_SRC = _PKG / "csrc" / "mmff.cu"
 UFF_SRC = _PKG / "csrc" / "uff.cu"
 CONSTRAINTS_SRC = _PKG / "csrc" / "constraints.cu"
+TRIANGLE_SMOOTH_SRC = _PKG / "csrc" / "triangle_smooth.cu"
+COORDGEN_SRC = _PKG / "csrc" / "coordgen.cu"
+DIST_GEOM_SRC = _PKG / "csrc" / "dist_geom.cu"
+EMBED_CHECKS_SRC = _PKG / "csrc" / "embed_checks.cu"
 GRAPH_SRC = _REPO / "csrc" / "mol_graph.cpp"
+BOUNDS_SRC = _REPO / "csrc" / "topo_bounds.cpp"
+# csrc/Makefile's flags
+_GXX_FLAGS = ["-O3", "-std=c++20", "-fPIC", "-shared", "-pthread", "-Wall"]
 
 _locks: dict[str, threading.Lock] = collections.defaultdict(threading.Lock)
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -248,7 +267,99 @@ def graph_lib() -> ctypes.CDLL:
         lambda: _build(
             "libnvmolgraph",
             GRAPH_SRC,
-            ["g++", "-O3", "-std=c++20", "-fPIC", "-shared", "-pthread", str(GRAPH_SRC)],
+            ["g++", *_GXX_FLAGS, str(GRAPH_SRC)],
         ),
         _declare_graph,
+    )
+
+
+def _declare_bounds(lib: ctypes.CDLL) -> None:
+    i32p, f64p = ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_double)
+    f32p, u8p = ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_uint8)
+    lib.nvmk_topo_bounds.restype = None
+    lib.nvmk_topo_bounds.argtypes = [
+        ctypes.c_int32, i32p,                   # n_mols, atom_off
+        f64p, f64p, f64p, f64p,                 # r1, chi, theta0, vdw
+        i32p, i32p, f64p,                       # bond_off, bond_ij, order
+        i32p, i32p, u8p,                        # sdb_off, quads, cis
+        ctypes.c_int32, ctypes.c_int32,         # relaxed, pad_n
+        f32p, f32p,                             # upper, lower
+    ]
+
+
+def bounds_lib() -> ctypes.CDLL:
+    """The compiled topological-bounds builder (needs ``g++``)."""
+    return _load(
+        "libnvmolbounds",
+        lambda: _build("libnvmolbounds", BOUNDS_SRC, ["g++", *_GXX_FLAGS, str(BOUNDS_SRC)]),
+        _declare_bounds,
+    )
+
+
+def _declare_triangle_smooth(lib: ctypes.CDLL) -> None:
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.nvmk_triangle_smooth.restype = ci
+    lib.nvmk_triangle_smooth.argtypes = [vp, vp, vp, ci, ci, vp, vp, vp, vp]
+
+
+def triangle_smooth_lib() -> ctypes.CDLL:
+    """The compiled triangle-smoothing kernel K9 (needs ``nvcc`` and a CUDA
+    runtime)."""
+    return _load(
+        "libnvmk_triangle_smooth",
+        lambda: _build("libnvmk_triangle_smooth", TRIANGLE_SMOOTH_SRC,
+                       _nvcc_cmd(TRIANGLE_SMOOTH_SRC)),
+        _declare_triangle_smooth,
+    )
+
+
+def _declare_coordgen(lib: ctypes.CDLL) -> None:
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.nvmk_coordgen.restype = ci
+    lib.nvmk_coordgen.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, vp, vp, ci, cf, ci, ci, vp, vp,
+                                  vp, vp, vp]
+
+
+def coordgen_lib() -> ctypes.CDLL:
+    """The compiled coordinate-generation kernel K10 (needs ``nvcc`` and a
+    CUDA runtime)."""
+    return _load(
+        "libnvmk_coordgen",
+        lambda: _build("libnvmk_coordgen", COORDGEN_SRC, _nvcc_cmd(COORDGEN_SRC)),
+        _declare_coordgen,
+    )
+
+
+def _declare_dist_geom(lib: ctypes.CDLL) -> None:
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    tables = ctypes.POINTER(ctypes.c_void_p)
+    lib.nvmk_dg_energy_grad.restype = ci
+    lib.nvmk_dg_energy_grad.argtypes = [vp, ci, ci, vp, vp, vp, ci, tables, cf, cf, vp, vp, vp]
+    _declare_ff(lib, "dg", [cf, cf])
+
+
+def dist_geom_lib() -> ctypes.CDLL:
+    """The compiled distance-geometry kernels K11, and K5 and K8 over it
+    (needs ``nvcc`` and a CUDA runtime)."""
+    return _load(
+        "libnvmk_dist_geom",
+        lambda: _build("libnvmk_dist_geom", DIST_GEOM_SRC, _nvcc_cmd(DIST_GEOM_SRC)),
+        _declare_dist_geom,
+    )
+
+
+def _declare_embed_checks(lib: ctypes.CDLL) -> None:
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.nvmk_embed_checks.restype = ci
+    lib.nvmk_embed_checks.argtypes = [vp, ci, ci, vp, vp, vp, vp, ci,
+                                      ctypes.POINTER(ctypes.c_void_p), cf, cf, vp, vp, vp]
+
+
+def embed_checks_lib() -> ctypes.CDLL:
+    """The compiled embedding-check kernel K12 (needs ``nvcc`` and a CUDA
+    runtime)."""
+    return _load(
+        "libnvmk_embed_checks",
+        lambda: _build("libnvmk_embed_checks", EMBED_CHECKS_SRC, _nvcc_cmd(EMBED_CHECKS_SRC)),
+        _declare_embed_checks,
     )

@@ -42,13 +42,13 @@ def butina(
     dev = input_device(distance_matrix, device)
     if isinstance(distance_matrix, AsyncResult):
         distance_matrix = distance_matrix.torch()
-    d = torch.as_tensor(distance_matrix).to(dev)
-    if d.dim() != 2 or d.shape[0] != d.shape[1]:
-        raise ValueError(f"distance matrix must be square, got {tuple(d.shape)}")
     with stream_scope(stream):
+        d = torch.as_tensor(distance_matrix).to(dev)
+        if d.dim() != 2 or d.shape[0] != d.shape[1]:
+            raise ValueError(f"distance matrix must be square, got {tuple(d.shape)}")
         cluster_ids, centroids, _ = butina_matrix(d <= cutoff)
-    if return_centroids:
-        return AsyncResult(cluster_ids), centroids.cpu().numpy()
+        if return_centroids:
+            return AsyncResult(cluster_ids), centroids.cpu().numpy()
     return AsyncResult(cluster_ids)
 
 
@@ -71,14 +71,16 @@ def fused_butina(
     """
     if metric not in ("tanimoto", "cosine"):
         raise ValueError(f"unknown metric {metric!r}")
-    fps = as_packed(x, input_device(x, device))
+    dev = input_device(x, device)
     with stream_scope(stream):
+        fps = as_packed(x, dev)
         cluster_ids, centroids, n_clusters = _fused_butina(fps, 1.0 - cutoff, metric)
-    ids = cluster_ids.cpu().numpy()
+        ids = cluster_ids.cpu().numpy()
+        centroids = centroids.cpu().numpy()
     # one stable sort groups the items of each cluster in index order
     members = np.argsort(ids, kind="stable")
     sizes = np.bincount(ids, minlength=n_clusters)
     clusters = [tuple(c.tolist()) for c in np.split(members, np.cumsum(sizes)[:-1])]
     if return_centroids:
-        return clusters, sizes, centroids.cpu().numpy()
+        return clusters, sizes, centroids
     return clusters, sizes

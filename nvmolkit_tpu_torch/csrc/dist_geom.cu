@@ -1,0 +1,247 @@
+// Kernel K11, the 4-D distance-geometry energy and analytic gradient, and the
+// minimizers K5 (L-BFGS) and K8 (BFGS) instantiated over it, for Hopper
+// (sm_90a).
+//
+// K11 replaces the XLA programs nvmolkit_tpu/models/dist_geom.py dg_energy,
+// dg_energy_and_grad and dg_eg (the distance terms as one masked [S, A, A]
+// expression, the chiral centres gathered by a one-hot einsum, the gradient
+// by autodiff). Terms, for the positions x (4 coordinates per atom):
+//   distance  over the real pairs i < j, d2 = |x_i - x_j|^2 (4-D):
+//             v = d2 / max(ub^2, 1e-8) - 1               where d2 > ub^2
+//               + 2 lb^2 / max(lb^2 + d2, 1e-8) - 1     where d2 < lb^2
+//             E = v^2
+//   chiral    the signed volume V = (p0 - p3) . ((p1 - p3) x (p2 - p3)) of a
+//             quartet on the first three coordinates (a quartet may name its
+//             centre itself); E = w_chiral (lb - V)^2 below the window
+//             [lb, ub], w_chiral (V - ub)^2 above it
+//   fourth    E = w_fourth x_4^2 per atom
+// with the JAX function's guards: no derivative of the 1e-8 floor where it
+// binds. The weights are launch arguments ((1.0, 0.1) in the first
+// embedding stage, (0.2, 1.0) in the second). The bounds are each
+// molecule's smoothed [a_pad, a_pad] matrices, read from global memory
+// (the L2 holds them: the conformers of a molecule share them).
+//
+// One block of 128 threads per system. The pair terms go by rows: a group of
+// 1..32 lanes (as many as fit 2 n <= 128 threads) owns an atom i, loops over
+// the other atoms j, and sums its own gradient row and the energies of its
+// pairs j > i in registers; the group's partials meet by shuffles. Each pair
+// is evaluated twice, and nothing is an atomic; the chiral terms (a few per
+// molecule) push their gradients by shared atomics after. What bounds K11:
+// FP32 work, ~30 instructions per pair i < j for both gradient rows (K11
+// spends about that per ordered pair); its bytes are the positions,
+// gradients and each molecule's bounds once.
+
+#include "ff_common.cuh"
+#include "minimizers.cuh"
+
+namespace {
+
+using namespace nvmk;
+
+struct DgTables {
+  const int* off;        // [n_mols + 1] chiral quartets of each molecule
+  const int* chiral;     // [C, 4] int32
+  const float* cbounds;  // [C, 2] float32: the volume window (lb, ub)
+  const float* ub;       // [n_mols, a_pad, a_pad] float32 smoothed upper bounds
+  const float* lb;       // [n_mols, a_pad, a_pad] float32 smoothed lower bounds
+  int a_pad;
+  float w_chiral, w_fourth;
+};
+
+// K11's device function: the energy of one system of molecule ``mol`` at
+// positions ``x`` (shared, 4 floats per atom) and its gradient into ``g``
+// (shared; its first n_dof entries are overwritten). Returns the energy in
+// every thread; ``g`` is complete on return.
+__device__ float dg_eval(const DgTables& t, int mol, const float* x, float* g, int n_dof,
+                         float* red) {
+  const int n = n_dof / 4;
+  int tpa = 1;  // lanes per atom: a power of two dividing 32
+  while (tpa < 32 && 2 * tpa * n <= THREADS) tpa *= 2;
+  const int lane = threadIdx.x & (tpa - 1);
+  const int groups = THREADS / tpa;
+  const size_t mat = (size_t)mol * t.a_pad * t.a_pad;
+  const float* ubm = t.ub + mat;
+  const float* lbm = t.lb + mat;
+  float e = 0.0f;
+  for (int i0 = 0; i0 < n; i0 += groups) {  // the same trip count in every thread
+    const int i = i0 + (int)threadIdx.x / tpa;
+    float gi[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    float ei = 0.0f;
+    if (i < n) {
+      const float xi0 = x[4 * i], xi1 = x[4 * i + 1], xi2 = x[4 * i + 2], xi3 = x[4 * i + 3];
+      for (int j = lane; j < n; j += tpa) {
+        if (j == i) continue;
+        const float d0 = xi0 - x[4 * j], d1 = xi1 - x[4 * j + 1];
+        const float d2c = xi2 - x[4 * j + 2], d3 = xi3 - x[4 * j + 3];
+        const float d2 = d0 * d0 + d1 * d1 + d2c * d2c + d3 * d3;
+        const size_t at_ij = i < j ? (size_t)i * t.a_pad + j : (size_t)j * t.a_pad + i;
+        const float u = ubm[at_ij], l = lbm[at_ij];
+        const float u2 = u * u, l2 = l * l;
+        float v = 0.0f, dv = 0.0f;  // the violation and dv/dd2
+        if (d2 > u2) {
+          const float den = nmax(u2, 1e-8f);
+          v += d2 / den - 1.0f;
+          dv += 1.0f / den;
+        }
+        if (d2 < l2) {
+          const float s = l2 + d2;
+          const float den = nmax(s, 1e-8f);
+          v += 2.0f * l2 / den - 1.0f;
+          if (s > 1e-8f) dv -= 2.0f * l2 / (den * den);
+        }
+        // E = v^2: dE/dx_i = 2 v dv * 2 (x_i - x_j)
+        const float c = 4.0f * v * dv;
+        gi[0] += c * d0;
+        gi[1] += c * d1;
+        gi[2] += c * d2c;
+        gi[3] += c * d3;
+        if (j > i) ei += v * v;
+      }
+    }
+    for (int o = tpa >> 1; o > 0; o >>= 1) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) gi[q] += __shfl_xor_sync(FULL, gi[q], o);
+      ei += __shfl_xor_sync(FULL, ei, o);
+    }
+    if (i < n && lane == 0) {
+      const float x4 = x[4 * i + 3];
+      g[4 * i] = gi[0];
+      g[4 * i + 1] = gi[1];
+      g[4 * i + 2] = gi[2];
+      g[4 * i + 3] = gi[3] + 2.0f * t.w_fourth * x4;
+      e += ei + t.w_fourth * (x4 * x4);
+    }
+  }
+  __syncthreads();  // every gradient row is written
+  for (int c = t.off[mol] + threadIdx.x; c < t.off[mol + 1]; c += THREADS) {
+    const int* a = t.chiral + 4 * (size_t)c;
+    const float lo = t.cbounds[2 * (size_t)c], hi = t.cbounds[2 * (size_t)c + 1];
+    const V3 p3 = {x[4 * a[3]], x[4 * a[3] + 1], x[4 * a[3] + 2]};
+    const V3 v1 = sub({x[4 * a[0]], x[4 * a[0] + 1], x[4 * a[0] + 2]}, p3);
+    const V3 v2 = sub({x[4 * a[1]], x[4 * a[1] + 1], x[4 * a[1] + 2]}, p3);
+    const V3 v3 = sub({x[4 * a[2]], x[4 * a[2] + 1], x[4 * a[2] + 2]}, p3);
+    const V3 c23 = cross(v2, v3);
+    const float vol = dot(v1, c23);
+    float viol = 0.0f, dedv = 0.0f;
+    if (vol < lo) {
+      viol = lo - vol;
+      dedv = -2.0f * t.w_chiral * viol;
+    } else if (vol > hi) {
+      viol = vol - hi;
+      dedv = 2.0f * t.w_chiral * viol;
+    }
+    e += t.w_chiral * (viol * viol);
+    if (dedv != 0.0f) {
+      const V3 g0 = mul(c23, dedv), g1 = mul(cross(v3, v1), dedv), g2 = mul(cross(v1, v2), dedv);
+      const V3 gs[4] = {g0, g1, g2, mul(add(add(g0, g1), g2), -1.0f)};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        atomicAdd(g + 4 * a[q], gs[q].x);
+        atomicAdd(g + 4 * a[q] + 1, gs[q].y);
+        atomicAdd(g + 4 * a[q] + 2, gs[q].z);
+      }
+    }
+  }
+  __syncthreads();  // the chiral atomics into g are done
+  return block_sum(e, red);
+}
+
+// the force field the minimizers take
+struct Dg {
+  static constexpr int kDim = 4;
+  DgTables t;
+  __device__ float eval(int mol, const float* x, float* g, int n_dof, float* red) const {
+    return dg_eval(t, mol, x, g, n_dof, red);
+  }
+};
+
+// ---- K11 --------------------------------------------------------------------
+
+__global__ void __launch_bounds__(THREADS)
+energy_grad_kernel(const float* __restrict__ pos, int a_pad, const int* __restrict__ sys2mol,
+                   const int* __restrict__ atom_count, DgTables t, float* __restrict__ energy,
+                   float* __restrict__ grad) {
+  extern __shared__ float smem[];
+  const int row = 4 * a_pad;
+  float* x = smem;
+  float* g = x + row;
+  float* red = g + row;
+  const size_t s = blockIdx.x;
+  const int n_dof = 4 * atom_count[s];
+  const float* px = pos + s * row;
+  for (int i = threadIdx.x; i < n_dof; i += THREADS) x[i] = px[i];
+  __syncthreads();
+  const float e = dg_eval(t, sys2mol[s], x, g, n_dof, red);
+  if (threadIdx.x == 0) energy[s] = e;
+  float* pg = grad + s * row;
+  for (int i = threadIdx.x; i < row; i += THREADS) pg[i] = i < n_dof ? g[i] : 0.0f;
+}
+
+// ``tables``: the chiral quartets, their windows, then the upper and lower
+// bounds matrices
+Dg make_dg(const int* off, const void* const* tables, int a_pad, float w_chiral,
+           float w_fourth) {
+  DgTables t;
+  t.off = off;
+  t.chiral = static_cast<const int*>(tables[0]);
+  t.cbounds = static_cast<const float*>(tables[1]);
+  t.ub = static_cast<const float*>(tables[2]);
+  t.lb = static_cast<const float*>(tables[3]);
+  t.a_pad = a_pad;
+  t.w_chiral = w_chiral;
+  t.w_fourth = w_fourth;
+  return Dg{t};
+}
+
+}  // namespace
+
+extern "C" {
+
+// the coordinates per atom that this library's kernels take (the
+// wrappers size rows and Hessian slabs by it)
+int nvmk_dg_dim() { return Dg::kDim; }
+
+// K11: energy [n_sys] and gradient [n_sys, a_pad, 4] of the systems at ``pos``
+// [n_sys, a_pad, 4]. ``tables`` holds 4 device pointers: the int32 chiral
+// quartets [C, 4], their float32 windows [C, 2], and the float32 smoothed
+// upper and lower bounds [n_mols, a_pad, a_pad].
+int nvmk_dg_energy_grad(const float* pos, int n_sys, int a_pad, const int* sys2mol,
+                        const int* atom_count, const int* off, int n_mols,
+                        const void* const* tables, float w_chiral, float w_fourth, float* energy,
+                        float* grad, void* stream) {
+  if (n_sys == 0) return 0;
+  const size_t smem = (8 * (size_t)a_pad + 2 * WARPS) * sizeof(float);
+  energy_grad_kernel<<<n_sys, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      pos, a_pad, sys2mol, atom_count, make_dg(off, tables, a_pad, w_chiral, w_fourth).t,
+      energy, grad);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K5 over the DG force field (see launch_lbfgs)
+int nvmk_dg_lbfgs(const float* pos0, const float* e0, const float* g0, int n_sys, int a_pad,
+                  const int* sys2mol, const int* atom_count, const int* off, int n_mols,
+                  const void* const* tables, float w_chiral, float w_fourth, const float* policy,
+                  int max_ls_iters, int max_iters, float grad_tol, int max_steps, float* pos_out,
+                  float* e_out, int* status, int* steps, int* accepted, void* stream) {
+  return launch_lbfgs(make_dg(off, tables, a_pad, w_chiral, w_fourth), pos0, e0, g0,
+                      n_sys, a_pad, sys2mol, atom_count, policy, max_ls_iters, max_iters,
+                      grad_tol, max_steps, pos_out, e_out, status, steps, accepted, stream);
+}
+
+// K8 over the DG force field (see launch_bfgs); the DG stages take no
+// constraints, so ``ctables`` must be null
+int nvmk_dg_bfgs(const float* pos0, const float* e0, const float* g0, int n_sys, int sys_base,
+                 int n_launch, int a_pad, const int* sys2mol, const int* atom_count,
+                 const int* off, int n_mols, const void* const* tables, float w_chiral,
+                 float w_fourth, const void* const* ctables, const float* policy,
+                 int max_ls_iters, int max_iters, float grad_tol, const int* iter_caps,
+                 const float* grad_tols, float* hess, float* pos_out, float* e_out, int* status,
+                 int* steps, int* accepted, void* stream) {
+  if (ctables != nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_bfgs(make_dg(off, tables, a_pad, w_chiral, w_fourth), ctables, n_sys,
+                     sys_base, n_launch, pos0, e0, g0, a_pad, sys2mol, atom_count, policy,
+                     max_ls_iters, max_iters, grad_tol, iter_caps, grad_tols, hess, pos_out,
+                     e_out, status, steps, accepted, stream);
+}
+
+}  // extern "C"

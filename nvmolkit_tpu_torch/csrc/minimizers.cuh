@@ -1,11 +1,15 @@
 // The minimizer kernels K5 (L-BFGS) and K8 (BFGS), one block per system for
 // its whole minimization, templated on the force field: ``FF`` is a struct
-// with a device function ``float eval(int mol, const float* x, float* g,
-// int n_dof, float* red) const`` that returns the energy of one system of
-// molecule ``mol`` at ``x`` (shared) in every thread and overwrites the first
-// n_dof entries of ``g`` (shared) with its gradient (K4's mmff_eval in
-// mmff.cu, K6's uff_eval in uff.cu). Each force field's file instantiates
-// both, so MMFF and UFF share one body of each minimizer.
+// with the number of coordinates per atom ``static constexpr int kDim`` (3,
+// or 4 for the distance-geometry force field) and a device function ``float
+// eval(int mol, const float* x, float* g, int n_dof, float* red) const``
+// that returns the energy of one system of molecule ``mol`` at ``x``
+// (shared, kDim floats per atom) in every thread and overwrites the first
+// n_dof = kDim * atoms entries of ``g`` (shared) with its gradient (K4's
+// mmff_eval in mmff.cu, K6's uff_eval in uff.cu, K11's dg_eval in
+// dist_geom.cu). Each force field's file instantiates both, so the force
+// fields share one body of each minimizer; n_dof counts the coordinates of
+// the real atoms, as the JAX minimizers' maxStep does.
 //
 // Both take the start's energy and gradient from one launch of the force
 // field's energy kernel (as the JAX functions evaluate the start before
@@ -17,7 +21,7 @@
 //
 // K5 replaces nvmolkit_tpu/ops/lbfgs_flat.py _flat_impl (compact_after off):
 // a probe that is accepted runs the convergence tests and the history update
-// (6 deep, kept in shared memory: 17 x 3A floats), and the next probe
+// (6 deep, kept in shared memory: 17 x kDim A floats), and the next probe
 // starts the next line search. See mmff.cu for what bounds it.
 //
 // K8 replaces nvmolkit_tpu/ops/bfgs.py _minimize_impl and _line_search: per
@@ -140,7 +144,7 @@ lbfgs_kernel(FF ff, const float* __restrict__ pos0, const float* __restrict__ e0
              int* __restrict__ status_out, int* __restrict__ steps_out,
              int* __restrict__ accepted_out) {
   extern __shared__ float smem[];
-  const int row = 3 * a_pad;
+  const int row = FF::kDim * a_pad;
   float* x = smem;
   float* xt = x + row;
   float* g = xt + row;
@@ -152,7 +156,7 @@ lbfgs_kernel(FF ff, const float* __restrict__ pos0, const float* __restrict__ e0
 
   const size_t sys = blockIdx.x;
   const int mol = sys2mol[sys];
-  const int n_dof = 3 * atom_count[sys];
+  const int n_dof = FF::kDim * atom_count[sys];
   const float* px = pos0 + sys * row;
   const float* pg = g0 + sys * row;
   for (int i = threadIdx.x; i < n_dof; i += THREADS) {
@@ -282,7 +286,7 @@ int launch_lbfgs(const FF& ff, const float* pos0, const float* e0, const float* 
                  int max_ls_iters, int max_iters, float grad_tol, int max_steps, float* pos_out,
                  float* e_out, int* status, int* steps, int* accepted, void* stream) {
   if (n_sys == 0) return 0;
-  const size_t smem = ((5 + 2 * HISTORY) * 3 * (size_t)a_pad + 2 * WARPS) * sizeof(float);
+  const size_t smem = ((5 + 2 * HISTORY) * FF::kDim * (size_t)a_pad + 2 * WARPS) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(lbfgs_kernel<FF>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
@@ -320,7 +324,7 @@ bfgs_kernel(FF ff, CTables ct, int sys_base, const float* __restrict__ pos0,
             float* __restrict__ pos_out, float* __restrict__ e_out, int* __restrict__ status_out,
             int* __restrict__ steps_out, int* __restrict__ accepted_out) {
   extern __shared__ float smem[];
-  const int row = 3 * a_pad;
+  const int row = FF::kDim * a_pad;
   float* x = smem;
   float* xt = x + row;
   float* g = xt + row;
@@ -332,7 +336,7 @@ bfgs_kernel(FF ff, CTables ct, int sys_base, const float* __restrict__ pos0,
 
   const size_t sys = sys_base + (size_t)blockIdx.x;
   const int mol = sys2mol[sys];
-  const int n_dof = 3 * atom_count[sys];
+  const int n_dof = FF::kDim * atom_count[sys];
   const float tol = grad_tols != nullptr ? grad_tols[sys] : grad_tol;
   const int cap = iter_caps != nullptr ? iter_caps[sys] : max_iters;
   float* H = hess + (size_t)blockIdx.x * row * row;
@@ -439,7 +443,7 @@ bfgs_kernel(FF ff, CTables ct, int sys_base, const float* __restrict__ pos0,
 }
 
 // K8 over systems [sys_base, sys_base + n_launch) of the arrays (``hess``
-// holds n_launch slabs of (3 a_pad)^2 floats); ``iter_caps``, ``grad_tols``
+// holds n_launch slabs of (kDim a_pad)^2 floats); ``iter_caps``, ``grad_tols``
 // and ``ctables`` (K7's: offsets, four atom columns, four parameter rows)
 // may be null; outputs as K5's, with accepted steps
 template <class FF>
@@ -450,7 +454,7 @@ int launch_bfgs(const FF& ff, const void* const* ctables, int n_sys, int sys_bas
                 float* hess, float* pos_out, float* e_out, int* status, int* steps, int* accepted,
                 void* stream) {
   if (n_launch == 0) return 0;
-  const size_t smem = (7 * 3 * (size_t)a_pad + 4 * WARPS) * sizeof(float);
+  const size_t smem = (7 * FF::kDim * (size_t)a_pad + 4 * WARPS) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(bfgs_kernel<FF>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));

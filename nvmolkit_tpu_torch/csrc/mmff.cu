@@ -206,6 +206,7 @@ __device__ float mmff_eval(const Tables& t, int mol, const float* x, float* g, i
 
 // the force field the minimizers take
 struct Mmff {
+  static constexpr int kDim = 3;
   Tables t;
   __device__ float eval(int mol, const float* x, float* g, int n_dof, float* red) const {
     return mmff_eval(t, mol, x, g, n_dof, red);
@@ -251,6 +252,10 @@ Mmff make_mmff(const int* off, int n_mols, const void* const* tables, float diel
 }  // namespace
 
 extern "C" {
+
+// the coordinates per atom that this library's kernels take (the
+// wrappers size rows and Hessian slabs by it)
+int nvmk_mmff_dim() { return Mmff::kDim; }
 
 // K4: energy [n_sys] and gradient [n_sys, a_pad, 3] of the systems at ``pos``
 // [n_sys, a_pad, 3]. ``tables`` holds 12 device pointers: the int32 atom

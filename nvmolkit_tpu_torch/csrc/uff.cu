@@ -142,6 +142,7 @@ __device__ float uff_eval(const Tables& t, int mol, const float* x, float* g, in
 
 // the force field the minimizers take
 struct Uff {
+  static constexpr int kDim = 3;
   Tables t;
   __device__ float eval(int mol, const float* x, float* g, int n_dof, float* red) const {
     return uff_eval(t, mol, x, g, n_dof, red);
@@ -184,6 +185,10 @@ Uff make_uff(const int* off, int n_mols, const void* const* tables) {
 }  // namespace
 
 extern "C" {
+
+// the coordinates per atom that this library's kernels take (the
+// wrappers size rows and Hessian slabs by it)
+int nvmk_uff_dim() { return Uff::kDim; }
 
 // K6: energy [n_sys] and gradient [n_sys, a_pad, 3] of the systems at ``pos``
 // [n_sys, a_pad, 3]. ``tables`` holds 10 device pointers: the int32 atom

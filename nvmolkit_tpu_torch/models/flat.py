@@ -29,8 +29,9 @@ class ForceField:
     force field: its name (its library's C functions are ``nvmk_<name>_lbfgs``
     and ``nvmk_<name>_bfgs``), its energy-and-gradient router
     ``(positions, batch, sys2mol) -> (e, g)`` (its kernel on CUDA), the plain
-    ``(batch, sys2mol, a_pad) -> fn`` of the CPU path, its library, and the
-    C functions' arguments after the tables, from a batch."""
+    ``(batch, sys2mol, a_pad) -> fn`` of the CPU path, its library, the C
+    functions' arguments after the tables, from a batch. Its kernels'
+    coordinates per atom are the library's (:func:`kernel_dim`)."""
 
     name: str
     energy_and_grad: Callable
@@ -39,14 +40,21 @@ class ForceField:
     extra_args: Callable = lambda batch: ()
 
 
+def kernel_dim(lib, name: str) -> int:
+    """The coordinates per atom that force field ``name``'s kernels take, as
+    its library ``lib`` reports them (``nvmk_<name>_dim``, the force field's
+    ``kDim`` in ``csrc/minimizers.cuh``)."""
+    return int(getattr(lib, f"nvmk_{name}_dim")())
+
+
 # K5 keeps 17 rows of 3 floats per atom in shared memory: 209 KB at 1024 atoms,
-# within the 227 KB a block can have
+# within the 227 KB a block can have (with 4 floats per atom, 3/4 of the atoms)
 MAX_KERNEL_ATOMS = 1024
 
 
-def check_inputs(positions: torch.Tensor, batch, sys2mol: torch.Tensor) -> None:
-    if positions.dim() != 3 or positions.shape[2] != 3:
-        raise ValueError(f"positions must be [S, A, 3], got {tuple(positions.shape)}")
+def check_inputs(positions: torch.Tensor, batch, sys2mol: torch.Tensor, dim: int) -> None:
+    if positions.dim() != 3 or positions.shape[2] != dim:
+        raise ValueError(f"positions must be [S, A, {dim}], got {tuple(positions.shape)}")
     if sys2mol.dim() != 1 or sys2mol.shape[0] != positions.shape[0]:
         raise ValueError(f"sys2mol must be [{positions.shape[0]}], got {tuple(sys2mol.shape)}")
     if positions.shape[1] < batch.max_atoms:
@@ -55,10 +63,11 @@ def check_inputs(positions: torch.Tensor, batch, sys2mol: torch.Tensor) -> None:
 
 
 def check_kernel_inputs(positions: torch.Tensor, batch, sys2mol: torch.Tensor,
-                        what: str) -> None:
+                        what: str, dim: int) -> None:
     """What the force-field kernels take: float32 contiguous positions,
-    int32 sys2mol and the batch's tables, all contiguous on one device."""
-    check_inputs(positions, batch, sys2mol)
+    int32 sys2mol and the batch's tables, all contiguous on one device;
+    ``dim`` coordinates per atom."""
+    check_inputs(positions, batch, sys2mol, dim)
     if positions.dtype != torch.float32:
         raise ValueError(f"{what} takes float32 positions, got {positions.dtype}")
     if sys2mol.dtype != torch.int32:
@@ -67,9 +76,9 @@ def check_kernel_inputs(positions: torch.Tensor, batch, sys2mol: torch.Tensor,
     for t in tensors:
         if t.device != positions.device or not t.is_contiguous():
             raise ValueError(f"{what}'s inputs must be contiguous and on one device")
-    if positions.shape[1] > MAX_KERNEL_ATOMS:
-        raise ValueError(f"{what} takes up to {MAX_KERNEL_ATOMS} atoms per system, got "
-                         f"{positions.shape[1]}")
+    if positions.shape[1] > MAX_KERNEL_ATOMS * 3 // dim:
+        raise ValueError(f"{what} takes up to {MAX_KERNEL_ATOMS * 3 // dim} atoms per system, "
+                         f"got {positions.shape[1]}")
 
 
 def system_atoms(batch, sys2mol: torch.Tensor) -> torch.Tensor:
@@ -159,7 +168,7 @@ def term_magnitude_plain(positions: torch.Tensor, batch, sys2mol: torch.Tensor,
                          kind_energies: Callable) -> torch.Tensor:
     """Per-system sum of |E_term| [S] (float64; a pair's parts counted
     apart): the scale of float32 rounding in the energy."""
-    check_inputs(positions, batch, sys2mol)
+    check_inputs(positions, batch, sys2mol, 3)
     flat = positions.detach().reshape(-1, 3)
     total = torch.zeros(positions.shape[0], dtype=torch.float64, device=positions.device)
     expanded = expand(batch, sys2mol, positions.shape[1])
@@ -173,7 +182,7 @@ def grad_magnitude_plain(positions: torch.Tensor, batch, sys2mol: torch.Tensor,
     """Per gradient component, the sum over terms of |dE_term/dx| [S, A, 3]
     (float64; a pair's parts apart): the scale of float32 rounding in a
     gradient whose terms cancel."""
-    check_inputs(positions, batch, sys2mol)
+    check_inputs(positions, batch, sys2mol, 3)
     flat = positions.detach().reshape(-1, 3)
     out = torch.zeros(flat.shape, dtype=torch.float64, device=positions.device)
     for k, (_, atoms, par) in enumerate(expand(batch, sys2mol, positions.shape[1])):

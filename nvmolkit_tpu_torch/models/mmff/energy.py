@@ -318,7 +318,7 @@ def mmff_energy_plain(positions: torch.Tensor, batch: MMFFBatch,
                       sys2mol: torch.Tensor) -> torch.Tensor:
     """Per-system MMFF energies [S] (kcal/mol) of ``positions`` [S, A, 3];
     system s is molecule ``sys2mol[s]`` of ``batch``."""
-    flat.check_inputs(positions, batch, sys2mol)
+    flat.check_inputs(positions, batch, sys2mol, 3)
     return plain_energy_fn(batch, sys2mol, positions.shape[1])(positions)
 
 
@@ -326,7 +326,7 @@ def mmff_energy_and_grad_plain(positions: torch.Tensor, batch: MMFFBatch,
                                sys2mol: torch.Tensor):
     """The plain version of :func:`mmff_energy_and_grad`: (energy [S],
     gradient [S, A, 3]) by ``torch.autograd.grad``."""
-    flat.check_inputs(positions, batch, sys2mol)
+    flat.check_inputs(positions, batch, sys2mol, 3)
     return plain_energy_and_grad_fn(batch, sys2mol, positions.shape[1])(positions)
 
 
@@ -362,13 +362,13 @@ def mmff_energy_and_grad(positions: torch.Tensor, batch: MMFFBatch, sys2mol: tor
     CPU tensors."""
     if not positions.is_cuda:
         return mmff_energy_and_grad_plain(positions, batch, sys2mol)
-    flat.check_kernel_inputs(positions, batch, sys2mol, "K4")
+    lib = mmff_lib()
+    flat.check_kernel_inputs(positions, batch, sys2mol, "K4", flat.kernel_dim(lib, "mmff"))
     n_sys, a_pad = positions.shape[:2]
     dev = positions.device
     energy = torch.empty(n_sys, dtype=torch.float32, device=dev)
     grad = torch.empty_like(positions)
     count = flat.system_atoms(batch, sys2mol)
-    lib = mmff_lib()
     with torch.cuda.device(dev):
         rc = lib.nvmk_mmff_energy_grad(
             positions.data_ptr(), n_sys, a_pad, sys2mol.data_ptr(), count.data_ptr(),

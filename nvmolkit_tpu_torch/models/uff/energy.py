@@ -268,14 +268,14 @@ def uff_energy_plain(positions: torch.Tensor, batch: UFFBatch,
                      sys2mol: torch.Tensor) -> torch.Tensor:
     """Per-system UFF energies [S] (kcal/mol) of ``positions`` [S, A, 3];
     system s is molecule ``sys2mol[s]`` of ``batch``."""
-    flat.check_inputs(positions, batch, sys2mol)
+    flat.check_inputs(positions, batch, sys2mol, 3)
     return flat.plain_energy_fn(batch, sys2mol, positions.shape[1], _kind_energies)(positions)
 
 
 def uff_energy_and_grad_plain(positions: torch.Tensor, batch: UFFBatch, sys2mol: torch.Tensor):
     """The plain version of :func:`uff_energy_and_grad`: (energy [S],
     gradient [S, A, 3]) by ``torch.autograd.grad``."""
-    flat.check_inputs(positions, batch, sys2mol)
+    flat.check_inputs(positions, batch, sys2mol, 3)
     return plain_energy_and_grad_fn(batch, sys2mol, positions.shape[1])(positions)
 
 
@@ -311,13 +311,13 @@ def uff_energy_and_grad(positions: torch.Tensor, batch: UFFBatch, sys2mol: torch
     CPU tensors."""
     if not positions.is_cuda:
         return uff_energy_and_grad_plain(positions, batch, sys2mol)
-    flat.check_kernel_inputs(positions, batch, sys2mol, "K6")
+    lib = uff_lib()
+    flat.check_kernel_inputs(positions, batch, sys2mol, "K6", flat.kernel_dim(lib, "uff"))
     n_sys, a_pad = positions.shape[:2]
     dev = positions.device
     energy = torch.empty(n_sys, dtype=torch.float32, device=dev)
     grad = torch.empty_like(positions)
     count = flat.system_atoms(batch, sys2mol)
-    lib = uff_lib()
     with torch.cuda.device(dev):
         rc = lib.nvmk_uff_energy_grad(
             positions.data_ptr(), n_sys, a_pad, sys2mol.data_ptr(), count.data_ptr(),

@@ -56,12 +56,12 @@ MAX_LS_ITERS = 64
 # the status bits of BfgsResult.status
 CONVERGED, FAILED, CAPPED = 1, 2, 4
 
-# K8 keeps one (3 a_pad)^2 float32 inverse Hessian per system in device
+# K8 keeps one (D a_pad)^2 float32 inverse Hessian per system in device
 # memory; a call over more systems than fit in this many bytes runs K8 once
 # per slice of that size, one after another on the stream
 HESSIAN_BYTES = 4 << 30
 
-launch_counts = {"mmff_bfgs": 0, "uff_bfgs": 0}
+launch_counts = {"mmff_bfgs": 0, "uff_bfgs": 0, "dg_bfgs": 0}
 
 
 def reset_launch_counts() -> None:
@@ -71,7 +71,7 @@ def reset_launch_counts() -> None:
 
 @dataclasses.dataclass
 class BfgsResult:
-    positions: torch.Tensor   # [S, A, 3]
+    positions: torch.Tensor   # [S, A, D]
     energies: torch.Tensor    # [S]
     converged: torch.Tensor   # [S] bool (True = gradient/position test met)
     n_iters: torch.Tensor     # [S] int32: energy evaluations (probes) of each system
@@ -252,7 +252,7 @@ def bfgs_minimize(
     iter_caps: torch.Tensor | None = None,
     grad_tols: torch.Tensor | None = None,
 ) -> BfgsResult:
-    """Minimize the systems ``positions`` [S, A, 3] of force field ``ff``,
+    """Minimize the systems ``positions`` [S, A, D] of force field ``ff``,
     system s being molecule ``sys2mol[s]`` (int32) of ``batch``, with the
     penalties of ``constraints`` (its systems the same S) if given. For CUDA
     tensors the force field's kernel (and K7) on the starts, then K8; for
@@ -264,7 +264,8 @@ def bfgs_minimize(
         fn = with_constraints(ff.plain_energy_and_grad_fn(batch, sys2mol, a_pad), constraints)
         return bfgs_plain(fn, positions, flat.atom_mask(batch, sys2mol, a_pad), max_iters,
                           grad_tol, iter_caps, grad_tols)
-    flat.check_kernel_inputs(positions, batch, sys2mol, "K8")
+    dim = flat.kernel_dim(ff.lib(), ff.name)
+    flat.check_kernel_inputs(positions, batch, sys2mol, "K8", dim)
     dev = positions.device
     for name, t, dtype in (("iter_caps", iter_caps, torch.int32),
                            ("grad_tols", grad_tols, torch.float32)):
@@ -281,7 +282,7 @@ def bfgs_minimize(
     status = torch.empty(n_sys, dtype=torch.int32, device=dev)
     steps = torch.empty(n_sys, dtype=torch.int32, device=dev)
     accepted = torch.empty(n_sys, dtype=torch.int32, device=dev)
-    slab = (3 * a_pad) ** 2
+    slab = (dim * a_pad) ** 2
     piece = max(1, min(n_sys, HESSIAN_BYTES // (4 * slab)))
     hess = torch.empty((piece, slab), dtype=torch.float32, device=dev)
     fn = getattr(ff.lib(), f"nvmk_{ff.name}_bfgs")

@@ -56,7 +56,7 @@ from nvmolkit_tpu_torch.ops.bfgs import (
 
 HISTORY = 6
 
-launch_counts = {"mmff_lbfgs": 0, "uff_lbfgs": 0}
+launch_counts = {"mmff_lbfgs": 0, "uff_lbfgs": 0, "dg_lbfgs": 0}
 
 
 def reset_launch_counts() -> None:
@@ -240,7 +240,7 @@ def lbfgs(
     grad_tol: float = 1e-4,
     max_steps: int | None = None,
 ) -> BfgsResult:
-    """Minimize the systems ``positions`` [S, A, 3] of force field ``ff``,
+    """Minimize the systems ``positions`` [S, A, D] of force field ``ff``,
     system s being molecule ``sys2mol[s]`` (int32) of ``batch``. For CUDA
     tensors the force field's kernel (K4 or K6) on the starts, then K5 (one
     launch each); :func:`lbfgs_flat_plain` for CPU tensors."""
@@ -251,7 +251,7 @@ def lbfgs(
         return lbfgs_flat_plain(ff.plain_energy_and_grad_fn(batch, sys2mol, a_pad), positions,
                                 flat.atom_mask(batch, sys2mol, a_pad), max_iters, grad_tol,
                                 max_steps=max_steps)
-    flat.check_kernel_inputs(positions, batch, sys2mol, "K5")
+    flat.check_kernel_inputs(positions, batch, sys2mol, "K5", flat.kernel_dim(ff.lib(), ff.name))
     e0, g0 = ff.energy_and_grad(positions, batch, sys2mol)
     dev = positions.device
     pos_out = torch.empty_like(positions)

@@ -48,8 +48,8 @@ def crossTanimotoSimilarity(
     fingerprint_group_one, fingerprint_group_two=None, hardwareOptions=None,
     stream=None, *, device=None,
 ) -> AsyncResult:
-    a, b = _inputs(fingerprint_group_one, fingerprint_group_two, hardwareOptions, device)
     with stream_scope(stream):
+        a, b = _inputs(fingerprint_group_one, fingerprint_group_two, hardwareOptions, device)
         return AsyncResult(cross_similarity(a, b, "tanimoto"))
 
 
@@ -57,8 +57,8 @@ def crossCosineSimilarity(
     fingerprint_group_one, fingerprint_group_two=None, hardwareOptions=None,
     stream=None, *, device=None,
 ) -> AsyncResult:
-    a, b = _inputs(fingerprint_group_one, fingerprint_group_two, hardwareOptions, device)
     with stream_scope(stream):
+        a, b = _inputs(fingerprint_group_one, fingerprint_group_two, hardwareOptions, device)
         return AsyncResult(cross_similarity(a, b, "cosine"))
 
 

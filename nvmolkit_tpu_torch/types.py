@@ -26,11 +26,20 @@ def check_stream_arg(stream) -> None:
         )
 
 
+@contextlib.contextmanager
 def stream_scope(stream):
-    """Context in which kernels launch on ``stream`` (the current stream
-    when ``stream`` is None)."""
+    """Context in which copies and kernels run on ``stream`` (the current
+    stream when ``stream`` is None). ``stream`` first waits for the work
+    queued on the caller's current stream, so inputs made there are ready;
+    the entry points make their own host-to-device copies inside the scope,
+    so the copies and their temporaries belong to ``stream``."""
     check_stream_arg(stream)
-    return contextlib.nullcontext() if stream is None else torch.cuda.stream(stream)
+    if stream is None:
+        yield
+        return
+    stream.wait_stream(torch.cuda.current_stream(stream.device))
+    with torch.cuda.stream(stream):
+        yield
 
 
 def resolve_device(hardwareOptions: HardwareOptions | None, device=None) -> torch.device:

@@ -15,7 +15,6 @@ plain PyTorch versions then run).
 from __future__ import annotations
 
 import dataclasses
-import math
 from collections.abc import Sequence
 
 from nvmolkit_tpu_torch.chem.mol import Mol
@@ -57,9 +56,11 @@ def UFFOptimizeMoleculesConfs(
     its slots and holes.
 
     ``vdwThreshold`` and ``ignoreInterfragInteractions`` may be
-    per-molecule sequences; molecules sharing both values run in one pass.
-    ``vdwThreshold`` must be positive; it drops no pair (as in the JAX
-    package). ``ignoreInterfragInteractions=False`` keeps the pairs between
+    per-molecule sequences; molecules sharing ``ignoreInterfragInteractions``
+    run in one pass.
+    ``vdwThreshold`` is converted with ``float()`` per molecule and
+    dropped, as in the JAX package: it changes no energy and does not split
+    the molecules into passes. ``ignoreInterfragInteractions=False`` keeps the pairs between
     fragments (the JAX package drops them whatever the flag).
     ``nonBondedThreshold`` is accepted and unused (UFF takes
     ``vdwThreshold``). ``backend="flat"`` runs the L-BFGS minimizer (K5 on
@@ -87,20 +88,18 @@ def UFFOptimizeMoleculesConfs(
     dev = input_device(positionsFrom, device, hardwareOptions)
 
     n = len(molecules)
-    groups: dict[tuple[bool, float], list[int]] = {}
+    groups: dict[bool, list[int]] = {}
     for mi in range(n):
-        vdw = float(_per_mol(vdwThreshold, mi, n, "vdwThreshold"))
-        if not (math.isfinite(vdw) and vdw > 0):
-            raise ValueError(f"vdwThreshold must be a positive number, got {vdw}")
+        float(_per_mol(vdwThreshold, mi, n, "vdwThreshold"))  # checked, then dropped
         interfrag = bool(_per_mol(ignoreInterfragInteractions, mi, n,
                                   "ignoreInterfragInteractions"))
-        groups.setdefault((interfrag, vdw), []).append(mi)
+        groups.setdefault(interfrag, []).append(mi)
 
     results: list = [None] * n
     dense_parts: list = []
-    for (interfrag, vdw), mol_ids in groups.items():
-        def make_batch(mols, max_atoms, _interfrag=interfrag, _vdw=vdw):
-            return make_batched_uff(mols, max_atoms, _vdw, _interfrag, device=dev)
+    for interfrag, mol_ids in groups.items():
+        def make_batch(mols, max_atoms, _interfrag=interfrag):
+            return make_batched_uff(mols, max_atoms, ignore_interfrag=_interfrag, device=dev)
 
         energies, statuses, dense = optimize_molecules_confs(
             [molecules[i] for i in mol_ids], make_batch, minimize, max_iters=maxIters,

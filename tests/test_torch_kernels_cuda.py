@@ -278,6 +278,51 @@ def test_conformer_rmsd_api_on_cuda_matches_cpu(cuda):
             assert bool(((g.torch().cpu().double() - w.torch().double()).abs() <= tol).all())
 
 
+def test_conformer_rmsd_positions_from_repeats_bit_for_bit(cuda):
+    """``positionsFrom`` (a Dense3DResult with holes, heavy atoms only, a
+    molecule with no heavy atom): 20 calls, the caching allocator's free
+    blocks filled with NaN or 1e30 before each, give the first call's
+    numbers bit for bit, and those are within the tolerance of the call on
+    the CPU. K3 reads no memory it did not write."""
+    from nvmolkit_tpu_torch.chem.native import mols_from_smiles
+    from nvmolkit_tpu_torch.conformerRmsd import GetConformerRMSMatrixBatch
+    from nvmolkit_tpu_torch.ops import kabsch
+    from nvmolkit_tpu_torch.types import Dense3DResult
+
+    rng = np.random.default_rng(12)
+    mols = mols_from_smiles(["[H]OC([H])([H])C([H])([H])[H]", "c1ccccc1C(=O)O[H]",
+                             "[H]N([H])CC(C)(C)C", "[H][H]"])
+    a_max = max(m.num_atoms for m in mols)
+    pos = np.zeros((len(mols), 40, a_max, 3), np.float32)
+    for m, mol in enumerate(mols):
+        pos[m, :, :mol.num_atoms] = _rmsd_batch(rng, [40], [mol.num_atoms], False)[0]
+    cmask = rng.random((len(mols), 40)) < 0.7
+    amask = np.arange(a_max)[None] < np.array([m.num_atoms for m in mols])[:, None]
+    dense = Dense3DResult(*(torch.from_numpy(a).to(cuda) for a in (pos, cmask, amask)))
+    for prealigned in (False, True):
+        first = None
+        for rep in range(20):
+            junk = [torch.full((1 << k,), (float("nan"), 1e30)[rep % 2], device=cuda)
+                    for k in range(8, 24)]
+            del junk
+            got = [g.torch().cpu() for g in
+                   GetConformerRMSMatrixBatch(mols, prealigned, True, positionsFrom=dense)]
+            if first is None:
+                first = got
+            assert all(torch.equal(g, f) for g, f in zip(got, first)), f"call {rep} differs"
+        want = GetConformerRMSMatrixBatch(mols, prealigned, True, positionsFrom=dense,
+                                          device="cpu")
+        for m, (g, w) in enumerate(zip(first, want)):
+            sel = np.nonzero(cmask[m])[0]
+            heavy = torch.from_numpy(np.array([[a.atomic_num > 1 for a in mols[m].atoms]
+                                               + [False] * (a_max - mols[m].num_atoms)]))
+            e0, n = kabsch.condensed_scales(torch.from_numpy(pos[m, sel]), heavy, [len(sel)],
+                                            prealigned=prealigned)
+            tol = kabsch.rmsd_tolerance(w.torch().double(), e0, n)
+            assert g.shape == w.shape == (len(sel) * (len(sel) - 1) // 2,)
+            assert bool(((g.double() - w.torch().double()).abs() <= tol).all()), m
+
+
 def test_fingerprints_from_mols_on_cuda_match_cpu(cuda):
     from nvmolkit_tpu_torch.chem.native import mols_from_smiles
     from nvmolkit_tpu_torch.fingerprints import MorganFingerprintGenerator
@@ -651,3 +696,249 @@ def test_uff_optimize_api_on_cuda(cuda, backend):
     assert (after[0] > counts[0]) == (backend == "flat") and (after[1] > counts[1]) == (
         backend == "bfgs")
     assert bool(torch.isfinite(dense.energies).all())
+
+
+# ---- the embedding slice: K9-K12, K5 and K8 over DG, EmbedMolecules --------
+
+DG_PARAMS = dict(useExpTorsionAnglePrefs=False, useBasicKnowledge=False)
+
+
+def _drug_like(n, cuda, a_pad=96, confs=4, seed=0):
+    """chip_smoke.py's DG inputs for the first ``n`` fixture molecules (drug-
+    like, hydrogens as atoms, 37-77 atoms)."""
+    smoke = _load_by_path("chip_smoke.py")
+    fx, _ = smoke.mmff_fixture()
+    mols = smoke.mmff_molecules({"smiles": fx["smiles"][:n]})
+    return smoke, mols, smoke.dg_chunk(mols, a_pad, confs, cuda, seed)
+
+
+def _random_bounds(rng, m, a, inconsistent):
+    n = rng.integers(3, a + 1, size=m).astype(np.int32)
+    p = rng.normal(size=(m, a, 3)) * 2.0
+    d = np.linalg.norm(p[:, :, None] - p[:, None], axis=-1)
+    up = (d * rng.uniform(1.02, 1.3, size=(m, a, a))).astype(np.float32)
+    up = np.minimum(up, up.transpose(0, 2, 1))
+    lo = (d * rng.uniform(0.7, 0.98, size=(m, a, a))).astype(np.float32)
+    lo = np.minimum(lo, lo.transpose(0, 2, 1))
+    if inconsistent:
+        lo[:, 0, 2] = lo[:, 2, 0] = up[:, 0, 1] + up[:, 1, 2] + 1.0
+    for k in range(m):
+        np.fill_diagonal(up[k], 0.0)
+        np.fill_diagonal(lo[k], 0.0)
+    return up, lo, n
+
+
+@pytest.mark.parametrize("inconsistent", [False, True])
+@pytest.mark.parametrize("a_pad", [24, 96, 200])
+def test_triangle_smooth_kernel_equals_plain(cuda, a_pad, inconsistent):
+    """K9 equals its plain version bit for bit, in shared memory (<= 160
+    atoms) and in global memory (200), with and without an inconsistent
+    lower bound."""
+    from nvmolkit_tpu_torch.ops import triangle_smooth as ts
+
+    rng = np.random.default_rng(a_pad + inconsistent)
+    up, lo, n = _random_bounds(rng, 16, a_pad, inconsistent)
+    args = [torch.from_numpy(x).to(cuda) for x in (up, lo, n)]
+    before = ts.launch_counts["triangle_smooth"]
+    got = ts.triangle_smooth_bounds(*args)
+    torch.cuda.synchronize()
+    assert ts.launch_counts["triangle_smooth"] == before + 1
+    want = ts.triangle_smooth_bounds_plain(*args)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert bool(got[2].all()) != inconsistent
+
+
+def test_triangle_smooth_kernel_on_molecules(cuda):
+    from nvmolkit_tpu_torch.ops import triangle_smooth as ts
+
+    _, _, chunk = _drug_like(32, cuda)
+    b = chunk["batch"]
+    want = ts.triangle_smooth_bounds_plain(chunk["upper"], chunk["lower"], chunk["n_atoms"])
+    assert torch.equal(b.upper, want[0]) and torch.equal(b.lower, want[1])
+    assert torch.equal(chunk["consistent"], want[2]) and bool(want[2].all())
+
+
+def test_coordgen_kernel_matches_plain(cuda):
+    """K10 against its plain version on the same uniforms (chip_smoke.py's
+    K10_TOL), with randNegEig on and off and the rank flag on."""
+    from nvmolkit_tpu_torch.models import dist_geom
+
+    smoke, _, chunk = _drug_like(32, cuda, confs=4, seed=1)
+    before = dist_geom.launch_counts["coordgen"]
+    for rand_neg, nzf in ((True, 0), (False, 1)):
+        args = (chunk["batch"], chunk["s2m"], chunk["uniforms"], 2.0, rand_neg, nzf)
+        got = dist_geom.random_distance_matrices(*args)
+        want = dist_geom.random_distance_matrices_plain(*args)
+        out = smoke.k10_compare(got, want)
+        assert out["eig_ratio_max"] <= 1 and out["gram_ratio_max"] <= 1, out
+        assert out["eig_ok_equal"] and out["other_side_of_cut"] <= 1, out
+        mask = dist_geom.flat.atom_mask(chunk["batch"], chunk["s2m"], 96)
+        assert not bool(got[0][~mask].any())
+    assert dist_geom.launch_counts["coordgen"] == before + 2
+
+
+@pytest.mark.parametrize("a_pad", [24, 200])
+def test_coordgen_kernel_projects_fixed_matrices(cuda, a_pad):
+    """The projection alone on metric matrices of seeded points (and a
+    tetrahedron's, with a repeated eigenvalue), G in shared memory (24) and
+    in global memory (200)."""
+    from nvmolkit_tpu_torch.models import dist_geom
+
+    smoke = _load_by_path("chip_smoke.py")
+    rng = np.random.default_rng(a_pad)
+    s = 12
+    n = rng.integers(4, a_pad + 1, size=s).astype(np.int32)
+    n[0] = 4
+    g = np.zeros((s, a_pad, a_pad), np.float32)
+    for k in range(s):
+        p = rng.normal(size=(n[k], 4)) * np.array([3.0, 2.0, 1.2, 0.5])
+        if k == 0:
+            p = np.array([[1, 1, 1, 0], [1, -1, -1, 0], [-1, 1, -1, 0], [-1, -1, 1, 0]], float)
+        p -= p.mean(axis=0)
+        g[k, : n[k], : n[k]] = p @ p.T
+    uni = dist_geom.Uniforms(
+        pairs=torch.zeros(1, device=cuda),
+        q0=torch.from_numpy(rng.uniform(size=(s, a_pad, 4)).astype(np.float32)).to(cuda),
+        neg=torch.from_numpy(rng.uniform(size=(s, a_pad, 4)).astype(np.float32)).to(cuda))
+    g_t, n_t = torch.from_numpy(g).to(cuda), torch.from_numpy(n).to(cuda)
+    got = dist_geom.project(g_t, n_t, uni)
+    mask = torch.arange(a_pad, device=cuda)[None] < n_t[:, None]
+    want = dist_geom.project_plain(g_t, mask, uni, 2.0, True, 0)
+    out = smoke.k10_compare(got, want)
+    assert out["eig_ratio_max"] <= 1 and out["gram_ratio_max"] <= 1, out
+
+
+def test_dg_energy_grad_kernel_matches_plain(cuda):
+    """K11 against its plain version at K10's starts and at 0.3 Å from a
+    partly minimized geometry, both weightings: |dE| <= 1e-5 E + 1e-4, each
+    gradient component within 1e-4 max(1, max|g|) + 2e-4 G (K4's bounds)."""
+    from nvmolkit_tpu_torch.models import dist_geom
+    from nvmolkit_tpu_torch.ops.lbfgs_flat import lbfgs
+
+    smoke, _, chunk = _drug_like(32, cuda, confs=4, seed=2)
+    b, s2m = chunk["batch"], chunk["s2m"]
+    x0, _, _ = dist_geom.random_distance_matrices(b, s2m, chunk["uniforms"])
+    x1 = lbfgs(dist_geom.DG, x0, b, s2m, max_iters=20).positions
+    x1 = x1 + 0.3 * torch.randn(x1.shape, device=cuda) * (x1 != 0)
+    for x in (x0, x1):
+        for w in ((1.0, 0.1), (0.2, 1.0)):
+            bw = b.weighted(*w)
+            e, g = dist_geom.dg_energy_and_grad(x, bw, s2m)
+            e_p, g_p = dist_geom.dg_energy_and_grad_plain(x, bw, s2m)
+            scale = smoke.ff_term_magnitude(dist_geom.DG, x, bw, s2m)
+            G = dist_geom.dg_grad_magnitude_plain(x, bw, s2m)
+            e_r, g_r, _ = smoke.energy_grad_ratios(e, g, e_p, g_p, scale, G)
+            assert e_r <= 1 and g_r <= 1, (e_r, g_r)
+
+
+@pytest.mark.parametrize("backend", ["flat", "bfgs"])
+def test_dg_minimizers_follow_plain(cuda, backend):
+    """K5 and K8 over the DG force field (four coordinates per atom) against
+    the plain minimizers through 8 accepted steps from K10's starts, under
+    chip_smoke.py's trajectory contract."""
+    from nvmolkit_tpu_torch.models import dist_geom
+
+    smoke, _, chunk = _drug_like(32, cuda, confs=4, seed=3)
+    b, s2m = chunk["batch"], chunk["s2m"]
+    x0, _, _ = dist_geom.random_distance_matrices(b, s2m, chunk["uniforms"])
+    if backend == "flat":
+        out = smoke.k5_trajectory_check(x0, b, s2m, {}, "k5_dg", dist_geom.DG)
+    else:
+        out = smoke.k8_trajectory_check(x0, b, s2m, None, {}, "k8_dg", dist_geom.DG)
+    assert out["equal_status_and_steps"] >= smoke.TRAJ_EQUAL_SHARE, out
+    assert out["within_bound"] >= smoke.TRAJ_EQUAL_SHARE, out
+
+
+def test_embed_checks_kernel_matches_plain(cuda):
+    """K12 against its plain version on embedded, moved, mirrored, flattened
+    and linearized positions: equal booleans except where a quantity lies
+    within float32 rounding of its threshold."""
+    from nvmolkit_tpu_torch.embedMolecules import EmbedMolecules, EmbedParameters
+    from nvmolkit_tpu_torch.ops import embed_checks
+    from nvmolkit_tpu_torch.types import CoordinateOutput
+
+    smoke, mols, chunk = _drug_like(16, cuda, confs=4, seed=4)
+    dense = EmbedMolecules(mols, EmbedParameters(**DG_PARAMS), confsPerMolecule=4,
+                           output=CoordinateOutput.DEVICE, device=cuda)
+    a = dense.positions.shape[2]
+    pos3 = torch.zeros((dense.positions.shape[0] * 4, 96, 3), device=cuda)
+    pos3[:, :a] = dense.positions.reshape(-1, a, 3)
+    pos, s2m = smoke.embed_check_cases(pos3, mols, chunk["s2m"], 5)
+    b = chunk["batch"]
+    args = (pos, b.upper, b.lower, s2m, chunk["n_atoms"][s2m.long()].contiguous(),
+            chunk["tables"], 0.35, 0.5)
+    got = embed_checks.embed_checks(*args)
+    want = embed_checks.embed_checks_plain(*args)
+    near = embed_checks.near_threshold_plain(*args)
+    assert bool(((got == want) | near).all())
+    has_terms = [True] + [int(chunk["tables"].offsets[k, -1]) > 0 for k in range(5)]
+    assert all(bool((~got[k]).any()) for k in range(4) if has_terms[k])
+
+
+@pytest.mark.parametrize("backend", ["flat", "bfgs"])
+def test_embed_molecules_on_cuda(cuda, backend):
+    """EmbedMolecules on the card runs K9, K10, K5 or K8 over K11, and K12;
+    its accepted conformers pass the conformer checkers, are written back,
+    and its success share is the CPU's within a two-proportion bound."""
+    from nvmolkit_tpu_torch import embedMolecules as pem
+    from nvmolkit_tpu_torch.chem.mol import mols_from_smiles
+    from nvmolkit_tpu_torch.models import dist_geom
+    from nvmolkit_tpu_torch.ops import bfgs, embed_checks, lbfgs_flat
+    from nvmolkit_tpu_torch.ops import triangle_smooth as ts
+    from nvmolkit_tpu_torch.testutils import check_bounds_satisfied, check_chirality_preserved
+
+    smiles = ["C[C@H](N)C(=O)O", "F/C=C/Cl", "F/C=C\\C", "CC(C)(C)c1ccc(O)cc1",
+              "C1CCC(CC1)C(=O)NC", "O=C1CC[C@H](C)CC1", "c1ccccc1C[C@@H](O)CC", "N#CCC(=O)N"]
+    params = pem.EmbedParameters(**DG_PARAMS, minimizerBackend=backend)
+    counters = (ts.launch_counts["triangle_smooth"], dist_geom.launch_counts["coordgen"],
+                lbfgs_flat.launch_counts["dg_lbfgs"], bfgs.launch_counts["dg_bfgs"],
+                embed_checks.launch_counts["embed_checks"])
+    mols = mols_from_smiles(smiles)
+    dense = pem.EmbedMolecules(mols, params, confsPerMolecule=8, device=cuda)
+    after = (ts.launch_counts["triangle_smooth"], dist_geom.launch_counts["coordgen"],
+             lbfgs_flat.launch_counts["dg_lbfgs"], bfgs.launch_counts["dg_bfgs"],
+             embed_checks.launch_counts["embed_checks"])
+    ran = [a > c for a, c in zip(after, counters)]
+    assert ran == [True, True, backend == "flat", backend == "bfgs", True]
+    assert dense.positions.device.type == "cuda"
+    mask = dense.conf_mask.cpu().numpy()
+    cpu = pem.EmbedMolecules(mols_from_smiles(smiles), params, confsPerMolecule=8,
+                             device="cpu").conf_mask.numpy()
+    k1, k2, n = int(mask.sum()), int(cpu.sum()), mask.size
+    p = (k1 + k2) / (2 * n)
+    assert abs(k1 - k2) / n <= 4 * max(np.sqrt(p * (1 - p) * 2 / n), 1.0 / n)
+    for m, mol in enumerate(mols):
+        assert len(mol.conformers) == mask[m].sum()
+        for c in mol.conformers:
+            assert check_bounds_satisfied(mol, c) and check_chirality_preserved(mol, c)
+
+
+def test_host_inputs_on_a_side_stream(cuda):
+    """Host arrays passed with a side stream: the entry points copy them on
+    that stream, which first waits for the caller's stream (ROADMAP fault
+    14), and give the CPU's results."""
+    from nvmolkit_tpu_torch.clustering import butina, fused_butina
+    from nvmolkit_tpu_torch.fingerprints import MorganFingerprintGenerator
+    from nvmolkit_tpu_torch.similarity import crossTanimotoSimilarity
+
+    smiles = _load_by_path("tests/data/smiles.py").SMILES_100
+    fps = MorganFingerprintGenerator(radius=3, fpSize=2048).GetFingerprintsFromSmiles(
+        smiles, device="cpu").numpy()
+    side = torch.cuda.Stream()
+    torch.cuda._sleep(20_000_000)  # keep the current stream busy while the side one runs
+    sim = crossTanimotoSimilarity(fps, stream=side, device=cuda)
+    with torch.cuda.stream(side):
+        sim_host = sim.torch().cpu().numpy()
+    want = crossTanimotoSimilarity(fps, device="cpu").numpy()
+    np.testing.assert_array_equal(sim_host, want)
+    dist = 1.0 - want
+    ids, cents = butina(dist, 0.4, return_centroids=True, stream=side, device=cuda)
+    with torch.cuda.stream(side):
+        ids_host = ids.torch().cpu().numpy()
+    ids_c, cents_c = butina(dist, 0.4, return_centroids=True, device="cpu")
+    np.testing.assert_array_equal(ids_host, ids_c.numpy())
+    np.testing.assert_array_equal(cents, cents_c)
+    clusters, sizes = fused_butina(fps, 0.4, stream=side, device=cuda)
+    clusters_c, sizes_c = fused_butina(fps, 0.4, device="cpu")
+    assert clusters == clusters_c and np.array_equal(sizes, sizes_c)

@@ -217,3 +217,50 @@ def test_port_sources_do_not_import_jax():
             if words[:1] in (["import"], ["from"]) and len(words) > 1:
                 module = words[1].split(".")[0]
                 assert module not in ("jax", "jaxlib", "nvmolkit_tpu"), f"{path}: {line}"
+
+
+_EMBED_SCRIPT = r"""
+import sys
+for name in ("jax", "jaxlib", "nvmolkit_tpu"):
+    sys.modules[name] = None  # importing any of them now raises ImportError
+sys.path.insert(0, {root!r})
+import numpy as np
+import nvmolkit_tpu_torch.chem.stereo, nvmolkit_tpu_torch.ops.triangle_smooth  # noqa: E401
+from nvmolkit_tpu_torch.chem.bounds import topological_bounds, topological_bounds_batch
+from nvmolkit_tpu_torch.chem.mol import mols_from_smiles
+from nvmolkit_tpu_torch.embedMolecules import EmbedFailureCounts, EmbedMolecules, EmbedParameters
+from nvmolkit_tpu_torch.models import dist_geom
+from nvmolkit_tpu_torch.ops import embed_checks, triangle_smooth
+from nvmolkit_tpu_torch.testutils import check_bounds_satisfied, check_chirality_preserved
+
+mols = mols_from_smiles(["C[C@H](N)C(=O)O", "F/C=C/Cl"])
+up, lo = topological_bounds_batch(mols, 16)
+assert np.array_equal(up[0, :6, :6], topological_bounds(mols[0])[0])
+fail = EmbedFailureCounts()
+dense = EmbedMolecules(mols, EmbedParameters(useExpTorsionAnglePrefs=False,
+                                             useBasicKnowledge=False),
+                       confsPerMolecule=2, failures=fail, device="cpu")
+assert dense.conf_mask.all() and [len(m.conformers) for m in mols] == [2, 2]
+for m in mols:
+    for c in m.conformers:
+        assert check_bounds_satisfied(m, c) and check_chirality_preserved(m, c)
+assert all(v == 0 for v in (*dist_geom.launch_counts.values(),
+                            *embed_checks.launch_counts.values(),
+                            *triangle_smooth.launch_counts.values()))
+leaked = sorted(m for m in sys.modules if sys.modules[m] is not None
+                and m.split(".")[0] in ("jax", "jaxlib", "nvmolkit_tpu"))
+assert not leaked, leaked
+print("OK")
+"""
+
+
+def test_embedding_runs_without_jax():
+    """The embedding slice (bounds, stereo, triangle smoothing, the DG force
+    field, coordinate generation, the checks, EmbedMolecules and the
+    conformer checkers) on the CPU with the JAX package's modules blocked."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _EMBED_SCRIPT.format(root=str(ROOT))],
+        capture_output=True, text=True, timeout=300, cwd=ROOT,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.startswith("OK")

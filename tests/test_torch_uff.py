@@ -399,8 +399,14 @@ def test_sequence_kwargs_positions_from_and_output_device():
     assert torch.equal(dense.energies[0], alone.energies[0])
     with pytest.raises(ValueError, match="vdwThreshold sequence length"):
         UFFOptimizeMoleculesConfs(pmols, vdwThreshold=[10.0], device="cpu")
-    with pytest.raises(ValueError, match="positive"):
-        UFFOptimizeMoleculesConfs(pmols, vdwThreshold=-1.0, device="cpu")
+    # vdwThreshold is converted and dropped, as in the JAX package: -1.0 runs
+    # and gives the default's result
+    neg = UFFOptimizeMoleculesConfs(pmols, vdwThreshold=-1.0, maxIters=40,
+                                    output=CoordinateOutput.DEVICE, device="cpu")
+    default = UFFOptimizeMoleculesConfs(pmols, maxIters=40, output=CoordinateOutput.DEVICE,
+                                        device="cpu")
+    assert torch.equal(neg.positions, default.positions)
+    assert torch.equal(neg.energies, default.energies)
 
 
 def test_structured_value_error_and_backends(monkeypatch):
