@@ -6,9 +6,10 @@
 Phases, each reported as one JSON line with its seconds:
   0. device: the card's name and power limit;
   1. build: the similarity kernels, the conformer RMSD kernel, the MMFF,
-     UFF and constraint kernels, the embedding's four kernels (nvcc), the
-     SMILES featurizer and the bounds builder (g++), from the sources in
-     this checkout, all eleven compilers started together;
+     UFF and constraint kernels, the embedding's four kernels, the ETK
+     kernel (nvcc), the SMILES featurizer, the bounds builder and the
+     torsion-library matcher (g++), from the sources in this checkout, all
+     thirteen compilers started together;
   2. kernels: K1 (cross similarity, both launch configurations) and K2
      (neighbor counts) against their plain PyTorch versions at side shapes
      (ragged, zero rows, 128..4096 bits, with and without row lists, the
@@ -78,6 +79,17 @@ Phases, each reported as one JSON line with its seconds:
      bound, K12 (the checks) against its plain version on moved and
      distorted conformers; then the conformer workflow on the card: the
      embedded conformers (DEVICE) -> MMFF -> RMSD -> Butina;
+  6e. ETKDG: the same 1,024 molecules x 8 with the default
+     EmbedParameters() (the ETK stage with the torsion library), both
+     backends: the host term build (the native matcher and the terms) timed
+     alone on fresh molecules, K13 (the ETK force field) against its plain
+     version at K10's 3-D starts and at the DG stages' output, K5 and K8 over
+     ETK step for step against the plain minimizers (the moved-start
+     contract) and the contract failing a planted fault (the sixth harmonic
+     dropped), EmbedMolecules with every kernel of the path launched, every
+     accepted conformer through the conformer checkers, the stage times,
+     and the success share and counters on the first 128 molecules against
+     the JAX package's (tests/data/torch_etkdg_embed.npz);
   7. timings at the main path's shapes: the median of each kernel and its
      plain version by CUDA events, beside its bound (the least time the
      card could take: bytes over the memory rate, or POPCs or FP32
@@ -89,7 +101,8 @@ Phases, each reported as one JSON line with its seconds:
      beside one torch.bmm/baddbmm step over their inverse Hessians; K9 to
      K12 and K5/K8 over DG at the embedding's largest chunk (K9 and K10 at
      each bucket too), K10 beside one torch.linalg.eigh of 512 of its
-     metric matrices;
+     metric matrices; K13 and K5/K8 over ETK at that chunk from the DG
+     stages' output;
   8. trace, per phase of the paths: three warm untraced walls, then one run
      under torch.profiler with its wall, the span between CUDA events around
      it, the device-busy share (union of the intervals of device events,
@@ -102,12 +115,16 @@ before the last line; without CUDA it exits 1 at once.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import importlib.util
+import io
 import json
 import math
 import pathlib
 import random
+import re
 import statistics
 import subprocess
 import sys
@@ -202,18 +219,44 @@ EMBED_COUNTERS = ("double_bond_geometry", "double_bond_stereo", "chiral_dist_che
 EMBED_W = (1.0, 0.1, 0.2, 1.0)
 EMBED_CHAIN_BUTINA, EMBED_CHAIN_CUTOFF = 64, 1.0
 EMBED_PLAIN = 256  # systems the plain DG minimizers are timed on
+# the ETKDG phase: the JAX package's default-EmbedParameters() embedding of
+# the same first 128 molecules x EMBED_CONFS (tests/test_torch_etkdg_fixture.py);
+# the systems of the largest chunk that the planted-fault check runs on
+ETKDG_FIXTURE = "tests/data/torch_etkdg_embed.npz"
+ETK_FAULT_SYSTEMS = 512
 EMBED_EIGH = 512   # metric matrices of torch.linalg.eigh's yardstick beside K10
 # FP32 instructions, counted as K4_OPS are: K9 per pivot update (an add and
-# a min for the upper bound, two subtracts and two max for the lower); K11
-# per pair i < j, evaluated once for both gradient rows (4-D difference and
-# square, the branch that binds with its divisions, the factor, two
-# gradient rows, the energy; K11 itself evaluates each pair twice and so
-# spends about this per ordered pair) and per chiral quartet (a cross
-# product, the window, three cross products of the gradient, 12 shared
-# atomics); K12 per pair (the distance, a square root, two divisions, two
-# max) and per check term (a volume or two cross products and a square root)
+# a min for the upper bound, two subtracts and two max for the lower); the
+# distance-bounds pair loop of K11 and K13 (dg_pairs.cuh) per pair i < j at
+# D coordinates an atom, evaluated once for both gradient rows (K11 and K13
+# evaluate each pair twice and so spend about this per ordered pair): per
+# coordinate a subtract, the FMA of d^2 and the FMA of the gradient row (3
+# D), then the two squared bounds and their compares (4), the branch that
+# binds with its max, divisions and sums (up to 10), the factor 4 v dv (2),
+# the energy and the j > i test (2); K11 per chiral quartet (a cross
+# product, the window, three cross products of the gradient: 48); K12 per
+# pair (the distance, a square root, two divisions, two max) and per check
+# term (a volume or two cross products and a square root). Shared-memory
+# atomics are not FP32 instructions and are not counted.
 K9_OPS = 6
-DG_PAIR_OPS, DG_CHIRAL_OPS = 30, 60
+
+
+def dg_pair_ops(dim: int) -> int:
+    """FP32 instructions of the distance-bounds pair loop per pair i < j at
+    ``dim`` coordinates an atom (30 at K11's 4, 27 at K13's 3)."""
+    return 3 * dim + 18
+
+
+DG_CHIRAL_OPS = 48
+# K13 per improper (three differences, a cross product, two norms, the sine
+# and its two clips, the square root, the gradient through both norms and
+# two cross products: ~78) and per torsion (three differences, three cross
+# products, a norm and the unit vector, two dots, atan2 once, per harmonic
+# an FMA for the angle, sincos once and two FMAs for the energy and its
+# derivative (6 x 6), atan2's derivative, the gradient through n1, n2 and
+# the unit vector (five cross products and their sums): ~158); its pairs at
+# dg_pair_ops(3)
+ETK_IMPROPER_OPS, ETK_TORSION_OPS = 78, 158
 K12_PAIR_OPS, K12_TERM_OPS = 14, 40
 # FP32 instructions of csrc/mmff.cu's K4 per term, value and gradient,
 # counted as K3's are (a multiply feeding an add once; a division, square
@@ -840,11 +883,25 @@ def k10_work(n_atoms_sys, n_mols: int, a_pad: int, rates: dict, iters: int = 40)
     return bound(n_bytes, n_ops, rates, "fp32")
 
 
+def pair_tables_bytes(batch) -> int:
+    """The bytes of ``batch``'s tables that a kernel over the distance-bounds
+    pair loop reads once per molecule: its term tables whole, and of the two
+    smoothed bounds matrices [M, a_pad, a_pad] only the entries it reads,
+    (min(i, j), max(i, j)) over each molecule's real atoms i != j."""
+    import numpy as np
+
+    bounds = (batch.upper, batch.lower)
+    tables = sum(t.numel() * t.element_size() for t in (batch.offsets,) + batch.atoms
+                 + batch.params if all(t is not b for b in bounds))
+    n = batch.n_atoms.cpu().numpy().astype(np.int64)
+    return tables + int((8 * (n * (n - 1) // 2)).sum())
+
+
 def dg_work(batch, sys2mol, rates: dict, evals=None, accepted=None) -> dict:
     """K11 (or K5/K8 over it) on ``batch``'s systems: each molecule's bounds
-    and chiral tables once, the positions (4 floats an atom) in and out;
-    per evaluation (``evals`` [S], one each when None) DG_PAIR_OPS per
-    pair i < j of real atoms, DG_CHIRAL_OPS per chiral quartet and
+    (:func:`pair_tables_bytes`) and chiral tables once, the positions (4
+    floats an atom) in and out; per evaluation (``evals`` [S], one each when
+    None) dg_pair_ops(4) per pair i < j of real atoms, DG_CHIRAL_OPS per chiral quartet and
     K4_OPS_PER_ATOM per atom; with ``accepted`` (K8) 7 n^2 more per accepted
     step, n = 4 * atoms."""
     import numpy as np
@@ -853,14 +910,38 @@ def dg_work(batch, sys2mol, rates: dict, evals=None, accepted=None) -> dict:
     atoms = batch.n_atoms.cpu().numpy().astype(np.int64)[s2m]
     off = batch.offsets.cpu().numpy().astype(np.int64)[0]
     chiral = (off[1:] - off[:-1])[s2m]
-    per_eval = (DG_PAIR_OPS * (atoms * (atoms - 1) // 2) + DG_CHIRAL_OPS * chiral
+    per_eval = (dg_pair_ops(4) * (atoms * (atoms - 1) // 2) + DG_CHIRAL_OPS * chiral
                 + K4_OPS_PER_ATOM * atoms)
     n_evals = np.ones(len(atoms), np.int64) if evals is None else np.asarray(evals, np.int64)
     n_ops = int((per_eval * n_evals).sum())
     if accepted is not None:
         n_ops += int((7 * (4 * atoms) ** 2 * np.asarray(accepted, np.int64)).sum())
-    tables = sum(t.numel() * t.element_size() for t in batch.atoms + batch.params)
-    return bound(tables + int((2 * 16 * atoms + 8).sum()), n_ops, rates, "fp32")
+    return bound(pair_tables_bytes(batch) + int((2 * 16 * atoms + 8).sum()), n_ops, rates,
+                 "fp32")
+
+
+def etk_work(batch, sys2mol, rates: dict, evals=None, accepted=None) -> dict:
+    """K13 (or K5/K8 over it) on ``batch``'s systems: each molecule's bounds
+    (:func:`pair_tables_bytes`) and term tables once, the positions (3
+    floats an atom) in and out; per evaluation (``evals`` [S], one each when
+    None) dg_pair_ops(3) per pair i < j of real atoms, ETK_IMPROPER_OPS per improper, ETK_TORSION_OPS per torsion
+    and K4_OPS_PER_ATOM per atom; with ``accepted`` (K8) 7 n^2 more per
+    accepted step, n = 3 * atoms."""
+    import numpy as np
+
+    s2m = sys2mol.cpu().numpy()
+    atoms = batch.n_atoms.cpu().numpy().astype(np.int64)[s2m]
+    off = batch.offsets.cpu().numpy().astype(np.int64)
+    impropers = (off[0, 1:] - off[0, :-1])[s2m]
+    torsions = (off[1, 1:] - off[1, :-1])[s2m]
+    per_eval = (dg_pair_ops(3) * (atoms * (atoms - 1) // 2) + ETK_IMPROPER_OPS * impropers
+                + ETK_TORSION_OPS * torsions + K4_OPS_PER_ATOM * atoms)
+    n_evals = np.ones(len(atoms), np.int64) if evals is None else np.asarray(evals, np.int64)
+    n_ops = int((per_eval * n_evals).sum())
+    if accepted is not None:
+        n_ops += int((7 * (3 * atoms) ** 2 * np.asarray(accepted, np.int64)).sum())
+    return bound(pair_tables_bytes(batch) + int((2 * 12 * atoms + 8).sum()), n_ops, rates,
+                 "fp32")
 
 
 def k12_work(n_atoms_sys, batch, tables, rates: dict) -> dict:
@@ -1092,12 +1173,13 @@ def same_basin_ok(same: float, n: int, own: float | None, n_own: int) -> bool:
 
 
 def trajectory_check(run_kernel, run_plain, x, energy_scale, n_steps: int, errs: dict,
-                     key: str, what: str, moved: float = 0.0) -> dict:
+                     key: str, what: str, moved: float = 0.0, checker=check) -> dict:
     """A minimizer kernel against its plain version, float32 (twice: with
     ``moved``, the second from the starts moved by seeded noise of that many
     Å) and float64, from the starts ``x`` through ``n_steps`` accepted steps:
-    the checks stated at TRAJ_EQUAL_SHARE. ``run_kernel(x)`` and ``run_plain(x)``
-    return BfgsResults; ``energy_scale(positions)`` is the per-system sum of
+    the checks stated at TRAJ_EQUAL_SHARE, made by ``checker(ok, what)``
+    (default :func:`check`). ``run_kernel(x)`` and ``run_plain(x)`` return
+    BfgsResults; ``energy_scale(positions)`` is the per-system sum of
     |E_term|. Sets ``errs[key]`` to the largest |E_kernel - E_plain| of the
     systems compared."""
     import torch
@@ -1120,8 +1202,8 @@ def trajectory_check(run_kernel, run_plain, x, energy_scale, n_steps: int, errs:
     p64 = run_plain(x.double())
     early = (got.status & (CONVERGED | FAILED)) != 0
     full = got.n_accepted == n_steps
-    check(bool((full | early).all()), f"{what}: a system stopped short of {n_steps} accepted steps")
-    check(float(full.double().mean()) >= TRAJ_EQUAL_SHARE,
+    checker(bool((full | early).all()), f"{what}: a system stopped short of {n_steps} accepted steps")
+    checker(float(full.double().mean()) >= TRAJ_EQUAL_SHARE,
           f"{what}: only {float(full.double().mean())} of the systems made {n_steps} steps")
 
     def far(a, b):  # per system, max |a - b| over its coordinates
@@ -1130,7 +1212,7 @@ def trajectory_check(run_kernel, run_plain, x, energy_scale, n_steps: int, errs:
     same = (got.status == p32.status) & (got.n_iters == p32.n_iters) & (
         got.n_accepted == p32.n_accepted)
     same_share = float(same.double().mean())
-    check(same_share >= TRAJ_EQUAL_SHARE, f"{what} and plain: equal status and steps on {same_share}")
+    checker(same_share >= TRAJ_EQUAL_SHARE, f"{what} and plain: equal status and steps on {same_share}")
     scale = energy_scale(p64.positions.float())
     x_spread = torch.maximum(far(p32.positions, p64.positions),
                              far(p32.positions, p32_again.positions))
@@ -1147,7 +1229,7 @@ def trajectory_check(run_kernel, run_plain, x, energy_scale, n_steps: int, errs:
     e_same = (got.energies.double() - p64.energies).abs() / (
         TRAJ_FACTOR * (p32.energies.double() - p64.energies).abs() + 1e-5 * scale + 1e-4)
     within_same = float(((x_same <= 1) & (e_same <= 1))[same].double().mean())
-    check(within >= TRAJ_EQUAL_SHARE, f"{what}'s trajectory: within its bound on {within} "
+    checker(within >= TRAJ_EQUAL_SHARE, f"{what}'s trajectory: within its bound on {within} "
                                       f"({within_same} under the same starts' spread)")
     errs[key] = max(errs.get(key, 0.0),
                     float((got.energies.double() - p32.energies.double()).abs()[same].max()))
@@ -1186,7 +1268,7 @@ def k5_trajectory_check(x, batch, sys2mol, errs: dict, key: str, ff=None) -> dic
         lambda p: lbfgs_flat.lbfgs(ff, p, batch, sys2mol, n_steps),
         lambda p: lbfgs_flat.lbfgs_flat_plain(fn, p, mask, n_steps), x,
         lambda p: ff_term_magnitude(ff, p, batch, sys2mol), n_steps, errs, key, f"K5 {ff.name}",
-        TRAJ_DG_MOVED if ff.name == "dg" else 0.0)
+        TRAJ_DG_MOVED if ff.name in ("dg", "etk") else 0.0)
 
 
 def k8_trajectory_check(x, batch, sys2mol, constraints, errs: dict, key: str, ff) -> dict:
@@ -1209,7 +1291,7 @@ def k8_trajectory_check(x, batch, sys2mol, constraints, errs: dict, key: str, ff
     return trajectory_check(
         lambda p: bfgs.bfgs_minimize(ff, p, batch, sys2mol, constraints, K8_TRAJ_ITERS),
         lambda p: bfgs.bfgs_plain(fn, p, mask, K8_TRAJ_ITERS), x, scale, K8_TRAJ_ITERS, errs,
-        key, f"K8 {ff.name}", TRAJ_DG_MOVED if ff.name == "dg" else 0.0)
+        key, f"K8 {ff.name}", TRAJ_DG_MOVED if ff.name in ("dg", "etk") else 0.0)
 
 
 def ff_term_magnitude(ff, positions, batch, sys2mol):
@@ -1217,10 +1299,12 @@ def ff_term_magnitude(ff, positions, batch, sys2mol):
     terms are all >= 0: their sum is the float64 energy)."""
     import dataclasses
 
-    from nvmolkit_tpu_torch.models import dist_geom
+    from nvmolkit_tpu_torch.models import dist_geom, etk
     from nvmolkit_tpu_torch.models.mmff import energy as mmff_energy
     from nvmolkit_tpu_torch.models.uff import energy as uff_energy
 
+    if ff.name == "etk":
+        return etk.etk_term_magnitude_plain(positions, batch, sys2mol)
     if ff.name == "dg":
         b64 = dataclasses.replace(batch, params=tuple(t.double() for t in batch.params))
         return dist_geom.dg_energy_plain(positions.double(), b64, sys2mol)
@@ -1369,7 +1453,8 @@ def main() -> int:
     from nvmolkit_tpu_torch.uffOptimization import UFFOptimizeMoleculesConfs
     from nvmolkit_tpu_torch.utils.config import HardwareOptions
     from nvmolkit_tpu_torch import embedMolecules as embed_api
-    from nvmolkit_tpu_torch.models import dist_geom
+    from nvmolkit_tpu_torch.models import dist_geom, etk
+    from nvmolkit_tpu_torch.models.etkdg_torsions import default_torsion_provider
     from nvmolkit_tpu_torch.ops import embed_checks, triangle_smooth
     from nvmolkit_tpu_torch.testutils import check_bounds_satisfied, check_chirality_preserved
 
@@ -1395,8 +1480,9 @@ def main() -> int:
             "nvcc_constraints_s": _build.constraints_lib,
             "nvcc_triangle_smooth_s": _build.triangle_smooth_lib,
             "nvcc_coordgen_s": _build.coordgen_lib, "nvcc_dist_geom_s": _build.dist_geom_lib,
-            "nvcc_embed_checks_s": _build.embed_checks_lib, "gxx_s": _build.graph_lib,
-            "gxx_bounds_s": _build.bounds_lib}
+            "nvcc_embed_checks_s": _build.embed_checks_lib, "nvcc_etk_s": _build.etk_ff_lib,
+            "gxx_s": _build.graph_lib, "gxx_bounds_s": _build.bounds_lib,
+            "gxx_etk_match_s": _build.etk_lib}
     with ThreadPoolExecutor(len(libs)) as pool:
         jobs = {key: pool.submit(build, lib) for key, lib in libs.items()}
         build_s = {key: job.result() for key, job in jobs.items()}
@@ -1680,15 +1766,15 @@ def main() -> int:
     del morgan_inputs
 
     counted = (sim_ops, kabsch, mmff_energy, lbfgs_flat, uff_energy, cons, bfgs,
-               triangle_smooth, dist_geom, embed_checks)
+               triangle_smooth, dist_geom, embed_checks, etk)
 
     def reset_counts():
         torch.cuda.synchronize()
         for ops in counted:
             ops.reset_launch_counts()
 
-    def read_counts():
-        return {k: v for ops in counted for k, v in ops.launch_counts.items()}
+    def read_counts():  # 0 for a kernel not launched since the reset
+        return collections.Counter({k: v for ops in counted for k, v in ops.launch_counts.items()})
 
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
@@ -2450,33 +2536,41 @@ def main() -> int:
             confsPerMolecule=EMBED_CONFS, maxIterations=EMBED_ITERS, failures=fail,
             output=CoordinateOutput.DEVICE, device=cuda)
 
-    embed_runs = {}
-    for backend in ("flat", "bfgs"):
-        fail = embed_api.EmbedFailureCounts()
+    def checked_embedding(mols, call, what, ran, idle) -> dict:
+        """One run of ``call()`` (an EmbedMolecules call on ``mols``), the
+        launch counts set to 0 just before it and read just after: every
+        kernel of ``ran`` launched and none of ``idle``, every accepted
+        conformer through the conformer checkers, finite positions."""
         reset_counts()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        dense = embed_call(emols, backend, fail)
+        dense = call()
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
         run_launches = read_counts()
-        minimizer = K5D if backend == "flat" else K8D
-        check(all(run_launches[k] > 0 for k in (K9, K10, K11, minimizer, K12))
-              and run_launches[K5D if backend == "bfgs" else K8D] == 0,
-              f"EmbedMolecules({backend}) launches {run_launches}")
+        check(all(run_launches[k] > 0 for k in ran) and all(run_launches[k] == 0 for k in idle),
+              f"{what} launches {run_launches}")
         cmask = dense.conf_mask.cpu().numpy()
         pos = dense.positions.cpu().numpy()
-        bad = [(m, c) for m in range(len(emols)) for c in np.nonzero(cmask[m])[0]
-               if not (check_bounds_satisfied(emols[m], pos[m, c, : emols[m].num_atoms])
-                       and check_chirality_preserved(emols[m], pos[m, c, : emols[m].num_atoms]))]
-        check(not bad, f"EmbedMolecules({backend}): {len(bad)} accepted conformers fail the "
-                       f"conformer checkers, first {bad[:5]}")
-        check(bool(torch.isfinite(dense.positions).all()), "embedded positions finite")
-        embed_runs[backend] = {
-            "dense": dense, "first_call_s": first_s, "success": float(cmask.mean()),
-            "failures": dataclasses.asdict(fail), "attempts_k10_launches": run_launches[K10],
-            "launches": {k: v for k, v in run_launches.items() if v},
-            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+        bad = [(m, c) for m in range(len(mols)) for c in np.nonzero(cmask[m])[0]
+               if not (check_bounds_satisfied(mols[m], pos[m, c, : mols[m].num_atoms])
+                       and check_chirality_preserved(mols[m], pos[m, c, : mols[m].num_atoms]))]
+        check(not bad, f"{what}: {len(bad)} accepted conformers fail the conformer checkers, "
+                       f"first {bad[:5]}")
+        check(bool(torch.isfinite(dense.positions).all()), f"{what}: positions finite")
+        return {"dense": dense, "first_call_s": first_s, "success": float(cmask.mean()),
+                "attempts_k10_launches": run_launches[K10],
+                "launches": {k: v for k, v in run_launches.items() if v},
+                "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+
+    embed_runs = {}
+    for backend in ("flat", "bfgs"):
+        fail = embed_api.EmbedFailureCounts()
+        minimizer, other = (K5D, K8D) if backend == "flat" else (K8D, K5D)
+        run = checked_embedding(emols, lambda: embed_call(emols, backend, fail),
+                                f"EmbedMolecules({backend})", (K9, K10, K11, minimizer, K12),
+                                (other,))
+        embed_runs[backend] = {**run, "failures": dataclasses.asdict(fail)}
     # against the JAX package's DG embedding of the fixture's molecules
     with np.load(ROOT / EMBED_FIXTURE) as f:
         fx_e = {k: f[k] for k in f.files}
@@ -2563,6 +2657,149 @@ def main() -> int:
          clusters_mean=float(np.mean([int(c.max()) + 1 for c in c_clusters])),
          launches={k: v for k, v in chain_launches.items() if v},
          seconds=time.perf_counter() - t_phase)
+
+    # 6e. ETKDG: the default EmbedParameters() through the ETK stage ---------------
+    t_phase = time.perf_counter()
+    K13, K5E, K8E = "etk_energy_grad", "etk_lbfgs", "etk_bfgs"
+    errs.update({K13: 0.0, K5E: 0.0, K8E: 0.0})
+    etkdg = embed_api.EmbedParameters()
+    provider = default_torsion_provider()
+    # the host term build alone, on fresh molecules: the native matcher over
+    # the whole set, then the terms (what EmbedMolecules runs per chunk)
+    fresh = embed_molecules()
+    t0 = time.perf_counter()
+    provider.precompute(fresh)
+    t1 = time.perf_counter()
+    fresh_terms = etk.build_etk_terms_batch(fresh, provider, etkdg.forceTransAmides)
+    host_terms = {"molecules": len(fresh), "match_s": t1 - t0,
+                  "terms_s": time.perf_counter() - t1,
+                  "torsions": int(sum(len(t.torsion_idx) for t in fresh_terms)),
+                  "impropers": int(sum(len(t.improper_idx) for t in fresh_terms))}
+    del fresh, fresh_terms
+    # K13 at each chunk's 3-D starts, then at the largest chunk's DG stages'
+    # output (the ETK stage's own input)
+    etk_batches, k13_ratios = {}, {}
+    for b, ch in chunks.items():
+        mols_b = [emols[i] for i in e_buckets[b]]
+        provider.precompute(mols_b)
+        etk_batches[b] = etk.make_etk_batch(
+            ch["batch"], etk.build_etk_terms_batch(mols_b, provider, etkdg.forceTransAmides))
+    dg_second = big_ch["batch"].weighted(EMBED_W[2], EMBED_W[3])
+    r_first = lbfgs_flat.lbfgs(dist_geom.DG, big_ch["x0"], dg_first, big_ch["s2m"],
+                               max_iters=etkdg.firstMinimizeIters)
+    x_etk = lbfgs_flat.lbfgs(dist_geom.DG, r_first.positions, dg_second, big_ch["s2m"],
+                             max_iters=etkdg.fourthDimMinimizeIters).positions[..., :3].contiguous()
+    del r_first
+    big_etk = etk_batches[big_e]
+    starts = [(f"{b}_k10", ch["x0"][..., :3].contiguous(), etk_batches[b], ch["s2m"])
+              for b, ch in chunks.items()] + [(f"{big_e}_dg_stages", x_etk, big_etk,
+                                                big_ch["s2m"])]
+    for label, x, eb_, s2m_ in starts:
+        e, g = etk.etk_energy_and_grad(x, eb_, s2m_)
+        e_p, g_p = etk.etk_energy_and_grad_plain(x, eb_, s2m_)
+        e_r, g_r, de = energy_grad_ratios(e, g, e_p, g_p,
+                                          etk.etk_term_magnitude_plain(x, eb_, s2m_),
+                                          etk.etk_grad_magnitude_plain(x, eb_, s2m_))
+        check(e_r <= 1 and g_r <= 1, f"K13 at {label}: {e_r}, {g_r}")
+        check(bool(torch.isfinite(e).all()), f"K13 at {label}: finite energies")
+        errs[K13] = max(errs[K13], de)
+        k13_ratios[label] = [e_r, g_r]
+    # K5 and K8 over ETK step for step from the DG stages' output, and the
+    # contract failing a planted fault: a plain L-BFGS without the sixth
+    # harmonic (k capped at 5) in the kernel's place, on the chunk's first
+    # ETK_FAULT_SYSTEMS systems
+    k5e_traj = k5_trajectory_check(x_etk, big_etk, big_ch["s2m"], errs, K5E, etk.ETK)
+    k8e_traj = k8_trajectory_check(x_etk, big_etk, big_ch["s2m"], None, errs, K8E, etk.ETK)
+    fault_s2m = big_ch["s2m"][:ETK_FAULT_SYSTEMS].contiguous()
+    fault_x = x_etk[:ETK_FAULT_SYSTEMS].contiguous()
+    tor_par = big_etk.params[1].clone()
+    tor_par[:, 5] = 0.0
+    capped = dataclasses.replace(big_etk, params=(big_etk.params[0], tor_par) + big_etk.params[2:])
+    n_fault = lbfgs_flat.HISTORY + 2
+    fault_mask = flat_ff.atom_mask(big_etk, fault_s2m, big_e)
+    fault_fn = etk.plain_energy_and_grad_fn(capped, fault_s2m, big_e)
+    good_fn = etk.plain_energy_and_grad_fn(big_etk, fault_s2m, big_e)
+    fault_failures = []
+    fault_out = trajectory_check(
+        lambda p: lbfgs_flat.lbfgs_flat_plain(fault_fn, p, fault_mask, n_fault),
+        lambda p: lbfgs_flat.lbfgs_flat_plain(good_fn, p, fault_mask, n_fault), fault_x,
+        lambda p: etk.etk_term_magnitude_plain(p, big_etk, fault_s2m), n_fault, {}, "fault",
+        "planted fault: k capped at 5", TRAJ_DG_MOVED,
+        checker=lambda ok, what: None if ok else fault_failures.append(what))
+    check(bool(fault_failures), "the ETK trajectory contract passed a minimizer with the sixth "
+                                f"harmonic dropped: {fault_out}")
+    emit(phase="etkdg_kernels", host_term_build=host_terms, k13_err_over_bound=k13_ratios,
+         k5_etk_trajectory=k5e_traj, k8_etk_trajectory=k8e_traj,
+         planted_fault={"fault": "k capped at 5 (L-BFGS)", "failed_checks": fault_failures,
+                        "equal_status_and_steps": fault_out["equal_status_and_steps"],
+                        "within_bound": fault_out["within_bound"]},
+         seconds=time.perf_counter() - t_phase)
+
+    t_phase = time.perf_counter()
+
+    def etkdg_call(mols, backend, fail=None, debug=False):
+        return embed_api.EmbedMolecules(
+            mols, embed_api.EmbedParameters(minimizerBackend=backend),
+            confsPerMolecule=EMBED_CONFS, maxIterations=EMBED_ITERS, failures=fail,
+            output=CoordinateOutput.DEVICE, device=cuda, debugMode=debug)
+
+    etkdg_runs, etkdg_mols = {}, {}
+    for backend in ("flat", "bfgs"):
+        # fresh molecules: the host term build is part of the first call;
+        # debugMode times each stage, the device synchronized at its end
+        mols_run = embed_molecules()
+        fail = embed_api.EmbedFailureCounts()
+        report = io.StringIO()
+
+        def debug_call(mols_run=mols_run, backend=backend, fail=fail, report=report):
+            with contextlib.redirect_stdout(report):
+                return etkdg_call(mols_run, backend, fail, debug=True)
+
+        used = (K5D, K5E) if backend == "flat" else (K8D, K8E)
+        unused = (K8D, K8E) if backend == "flat" else (K5D, K5E)
+        run = checked_embedding(mols_run, debug_call, f"EmbedMolecules(ETKDG, {backend})",
+                                (K9, K10, K11, K13, K12) + used, unused)
+        stages = {name: float(sec) for name, sec in re.findall(
+            r"(\w+) ([0-9.]+) s", report.getvalue())}
+        check("etk_term_build" in stages and "etk_minimization" in stages,
+              f"ETKDG stage times: {report.getvalue()}")
+        etkdg_mols[backend] = mols_run
+        etkdg_runs[backend] = {**run, "failures": dataclasses.asdict(fail), "stages_s": stages}
+    with np.load(ROOT / ETKDG_FIXTURE) as f:
+        fx_k = {k: f[k] for k in f.files}
+    check([str(s) for s in fx_k["smiles"]] == embed_smiles[:len(fx_k["smiles"])]
+          and fx_k["flat_success"].shape[1] == EMBED_CONFS,
+          "the ETKDG fixture's systems are set (c)'s first molecules x EMBED_CONFS")
+    # Half the systems fail every attempt, so a counter sums up to ten
+    # failures per system: each is held as a share of its run's tries (a
+    # system's try fails one check, its first failing one, or embeds it),
+    # the success share as a share of the systems
+    etkdg_vs_fixture = {}
+    for backend in ("flat", "bfgs"):
+        fail = embed_api.EmbedFailureCounts()
+        got = etkdg_call(embed_molecules(len(fx_k["smiles"])), backend,
+                         fail).conf_mask.cpu().numpy()
+        n_sys = got.size
+        mine = dataclasses.asdict(fail)
+        jax_counts = dict(zip(EMBED_COUNTERS, fx_k[f"{backend}_counters"].tolist()))
+        k_ok, k_ok_jax = int(got.sum()), int(fx_k[f"{backend}_success"].sum())
+        tries = k_ok + sum(v for k, v in mine.items() if k != "smoothing")
+        tries_jax = k_ok_jax + sum(v for k, v in jax_counts.items() if k != "smoothing")
+        check(two_proportion_ok(k_ok, n_sys, k_ok_jax, n_sys),
+              f"EmbedMolecules(ETKDG, {backend}) success: {k_ok} against JAX's {k_ok_jax} "
+              f"of {n_sys}")
+        for name in EMBED_COUNTERS:
+            check(two_proportion_ok(mine[name], tries, int(jax_counts[name]), tries_jax),
+                  f"EmbedMolecules(ETKDG, {backend}) {name}: {mine[name]} of {tries} tries "
+                  f"against JAX's {jax_counts[name]} of {tries_jax}")
+        etkdg_vs_fixture[backend] = {
+            "systems": n_sys, "tries": {"port": tries, "jax": tries_jax},
+            "success": {"port": k_ok, "jax": k_ok_jax},
+            **{k: {"port": mine[k], "jax": int(jax_counts[k])} for k in EMBED_COUNTERS}}
+    emit(phase="etkdg", molecules=len(emols), confs=EMBED_CONFS,
+         systems=len(emols) * EMBED_CONFS, max_iterations=EMBED_ITERS,
+         runs={b: {k: v for k, v in r.items() if k != "dense"} for b, r in etkdg_runs.items()},
+         vs_jax_fixture=etkdg_vs_fixture, seconds=time.perf_counter() - t_phase)
 
     # 7. timings at the main path's shapes ------------------------------------------
     t_phase = time.perf_counter()
@@ -2782,6 +3019,32 @@ def main() -> int:
                   k12_work(e_sys_n, eb["batch"], eb["tables"], rates),
                   lambda: embed_checks.embed_checks(*k12_args_t),
                   lambda: embed_checks.embed_checks_plain(*k12_args_t), cold=True)
+    # K13 and K5/K8 over ETK at the largest chunk from the DG stages' output
+    # (their plain versions timed once on EMBED_PLAIN systems)
+    k13_row = row(K13, e_shape + " (the DG stages' output)", etk_work(big_etk, eb["s2m"], rates),
+                  lambda: etk.etk_energy_and_grad(x_etk, big_etk, eb["s2m"]),
+                  lambda: etk.etk_energy_and_grad_plain(x_etk, big_etk, eb["s2m"]), cold=True)
+    etk_iters = etkdg.etkMinimizeIters
+    sub_xe = x_etk[:EMBED_PLAIN].contiguous()
+    sub_fn_e = etk.plain_energy_and_grad_fn(big_etk, sub_s, big_e)
+    etk_rows = {}
+    for key, minimize, plain in ((K5E, lbfgs_flat.lbfgs, lbfgs_flat.lbfgs_flat_plain),
+                                 (K8E, bfgs.bfgs_minimize, bfgs.bfgs_plain)):
+        res = minimize(etk.ETK, x_etk, big_etk, eb["s2m"], max_iters=etk_iters)
+        evals = res.n_iters.cpu().numpy() + 1
+        entry = row(key, e_shape + f", the ETK minimization, maxIters {etk_iters}",
+                    etk_work(big_etk, eb["s2m"], rates, evals,
+                             res.n_accepted.cpu().numpy() if key == K8E else None),
+                    lambda m=minimize: m(etk.ETK, x_etk, big_etk, eb["s2m"],
+                                         max_iters=etk_iters), None, reps=3)
+        t0 = time.perf_counter()
+        plain(sub_fn_e, sub_xe, sub_mask, etk_iters)
+        torch.cuda.synchronize()
+        entry.update(evaluations=int(evals.sum()), accepted_mean=float(
+            res.n_accepted.double().mean()), plain_ms=(time.perf_counter() - t0) * 1e3,
+            plain_shape=f"{EMBED_PLAIN} systems x {big_e} atoms, one run",
+            converged=float(res.converged.double().mean()))
+        etk_rows[key] = entry
     del flush
     emit(phase="timings", kernels=measured, m_skinny_sweep=sweep, m_skinny=sim_ops.M_SKINNY,
          seconds=time.perf_counter() - t_phase)
@@ -2805,6 +3068,8 @@ def main() -> int:
         "embed_flat": lambda: embed_call(emols, "flat"),
         "embed_bfgs": lambda: embed_call(emols, "bfgs"),
         "embed_chain": embed_chain,
+        "etkdg_flat": lambda: etkdg_call(etkdg_mols["flat"], "flat"),
+        "etkdg_bfgs": lambda: etkdg_call(etkdg_mols["bfgs"], "bfgs"),
         "fingerprints": lambda: state.update(
             fps=gen.GetFingerprintsFromSmiles(smiles, device=cuda)),
         "similarity": lambda: state.update(sim=crossTanimotoSimilarity(state["fps"])),
@@ -2813,7 +3078,9 @@ def main() -> int:
         "fingerprints_from_mols": lambda: gen.GetFingerprints(mols, device=cuda),
     }
     for name, fn in phases.items():
-        emit(phase=f"trace_{name}", **trace(fn))
+        # the bfgs ETKDG run retries half its systems for every attempt: one
+        # warm wall before its traced run
+        emit(phase=f"trace_{name}", **trace(fn, reps=1 if name == "etkdg_bfgs" else 3))
 
     # one line per kernel, at the main-path shape that launches it most: the
     # matrix for the tiles; a list of free rows (the loop's average, half of
@@ -2830,7 +3097,8 @@ def main() -> int:
                   K5U: (k5u_row, "ms"), K7: (k7_row, k7_key), K8M: (k8_rows[K8M], "ms"),
                   K8U: (k8_rows[K8U], "ms")}
     for key, entry in ((K9, k9_row), (K10, k10_row), (K11, k11_row), (K5D, dg_rows[K5D]),
-                       (K8D, dg_rows[K8D]), (K12, k12_row)):
+                       (K8D, dg_rows[K8D]), (K12, k12_row), (K13, k13_row),
+                       (K5E, etk_rows[K5E]), (K8E, etk_rows[K8E])):
         main_shape[key] = (entry, "cold_l2_ms" if entry["bound_by"] == "bytes"
                            and "cold_l2_ms" in entry else "ms")
     # each kernel's launches on its own path: the MMFF and UFF minimizations,
@@ -2842,11 +3110,15 @@ def main() -> int:
     path_launches.update({k: embed_runs["flat"]["launches"].get(k, 0)
                           for k in (K9, K10, K11, K5D, K12)})
     path_launches[K8D] = embed_runs["bfgs"]["launches"].get(K8D, 0)
+    # the ETKDG path's: its flat run (K8 over ETK: the bfgs run)
+    path_launches.update({k: etkdg_runs["flat"]["launches"].get(k, 0) for k in (K13, K5E)})
+    path_launches[K8E] = etkdg_runs["bfgs"]["launches"].get(K8E, 0)
     mmff_cu = "nvmolkit_tpu_torch/csrc/mmff.cu"
     uff_cu = "nvmolkit_tpu_torch/csrc/uff.cu"
     bfgs_at = "nvmolkit_tpu/ops/bfgs.py:144"
     similarity_cu = "nvmolkit_tpu_torch/csrc/similarity.cu"
     dist_geom_cu = "nvmolkit_tpu_torch/csrc/dist_geom.cu"
+    etk_cu = "nvmolkit_tpu_torch/csrc/etk.cu"
     sources = {
         K1: ("cross_similarity_kernel (K1, 64 x 64 tiles)",
              "nvmolkit_tpu/ops/pallas_similarity.py:68", similarity_cu),
@@ -2885,6 +3157,12 @@ def main() -> int:
         K8D: ("dg_bfgs (K8 over DG: bfgs_kernel<Dg>)", bfgs_at, dist_geom_cu),
         K12: ("embed_checks (K12: the six checks, one block per system)",
               "nvmolkit_tpu/embedMolecules.py:1077", "nvmolkit_tpu_torch/csrc/embed_checks.cu"),
+        K13: ("etk_energy_grad (K13: energy_grad_kernel; its device function etk_eval also "
+              "runs inside K5 and K8, once per probe)", "nvmolkit_tpu/models/etk.py:517",
+              etk_cu),
+        K5E: ("etk_lbfgs (K5 over ETK: lbfgs_kernel<Etk>)", "nvmolkit_tpu/ops/lbfgs_flat.py:160",
+              etk_cu),
+        K8E: ("etk_bfgs (K8 over ETK: bfgs_kernel<Etk>)", bfgs_at, etk_cu),
     }
     lines = []
     for key, (label, replaces, source) in sources.items():

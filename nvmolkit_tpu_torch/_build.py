@@ -21,12 +21,17 @@
   the same way.
 * ``libnvmk_embed_checks``: ``nvmolkit_tpu_torch/csrc/embed_checks.cu`` (the
   embedding checks K12), built the same way.
+* ``libnvmk_etk``: ``nvmolkit_tpu_torch/csrc/etk.cu`` (the 3-D ETK energy and
+  gradient K13, and K5 and K8 over it), built the same way.
 * ``libnvmolgraph``: the repository's SMILES featurizer
   ``csrc/mol_graph.cpp``, compiled by ``g++`` with the flags of
   ``csrc/Makefile``.
 * ``libnvmolbounds``: the repository's topological-bounds builder
   ``csrc/topo_bounds.cpp``, compiled the same way (never by ``make`` in
   ``csrc/``, and never the committed ``csrc/libnvmolbounds.so``).
+* ``libnvmoletk``: the repository's torsion-library matcher
+  ``csrc/etk_match.cpp``, compiled the same way (never the committed
+  ``csrc/libnvmoletk.so``).
 
 Outputs go to ``nvmolkit_tpu_torch/_build/``, named by a hash of the
 source, every header it includes (``#include "x.cuh"``, followed through
@@ -60,8 +65,10 @@ TRIANGLE_SMOOTH_SRC = _PKG / "csrc" / "triangle_smooth.cu"
 COORDGEN_SRC = _PKG / "csrc" / "coordgen.cu"
 DIST_GEOM_SRC = _PKG / "csrc" / "dist_geom.cu"
 EMBED_CHECKS_SRC = _PKG / "csrc" / "embed_checks.cu"
+ETK_SRC = _PKG / "csrc" / "etk.cu"
 GRAPH_SRC = _REPO / "csrc" / "mol_graph.cpp"
 BOUNDS_SRC = _REPO / "csrc" / "topo_bounds.cpp"
+ETK_MATCH_SRC = _REPO / "csrc" / "etk_match.cpp"
 # csrc/Makefile's flags
 _GXX_FLAGS = ["-O3", "-std=c++20", "-fPIC", "-shared", "-pthread", "-Wall"]
 
@@ -362,4 +369,54 @@ def embed_checks_lib() -> ctypes.CDLL:
         "libnvmk_embed_checks",
         lambda: _build("libnvmk_embed_checks", EMBED_CHECKS_SRC, _nvcc_cmd(EMBED_CHECKS_SRC)),
         _declare_embed_checks,
+    )
+
+
+def _declare_etk_match(lib: ctypes.CDLL) -> None:
+    i32, i64 = ctypes.c_int32, ctypes.c_int64
+    i32p, i64p = ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int64)
+    u8p, u16p = ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_uint16)
+    u64p = ctypes.POINTER(ctypes.c_uint64)
+    lib.nvmk_etk_compile.restype = ctypes.c_void_p
+    lib.nvmk_etk_compile.argtypes = [
+        i32, i32, i32p, i32p,                   # props, exprs
+        i32, u16p,                              # bond masks
+        i32, i32p, u64p,                        # rules
+        i32p, i32p, i32p, i32p, i32p, i32p,     # aeids/steps/clos
+    ]
+    lib.nvmk_etk_free.restype = None
+    lib.nvmk_etk_free.argtypes = [ctypes.c_void_p]
+    lib.nvmk_etk_match_batch.restype = i64
+    lib.nvmk_etk_match_batch.argtypes = [
+        ctypes.c_void_p, i32, i32p, i64p, i32p,
+        i32p, i64p, i32p, u8p, u64p,
+        i32, i64, i32p, i32p, i32p,
+    ]
+
+
+def etk_lib() -> ctypes.CDLL:
+    """The compiled torsion-library matcher (needs ``g++``)."""
+    return _load(
+        "libnvmoletk",
+        lambda: _build("libnvmoletk", ETK_MATCH_SRC,
+                       ["g++", *_GXX_FLAGS, str(ETK_MATCH_SRC)]),
+        _declare_etk_match,
+    )
+
+
+def _declare_etk(lib: ctypes.CDLL) -> None:
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    tables = ctypes.POINTER(ctypes.c_void_p)
+    lib.nvmk_etk_energy_grad.restype = ci
+    lib.nvmk_etk_energy_grad.argtypes = [vp, ci, ci, vp, vp, vp, ci, tables, cf, vp, vp, vp]
+    _declare_ff(lib, "etk", [cf])
+
+
+def etk_ff_lib() -> ctypes.CDLL:
+    """The compiled ETK kernels K13, and K5 and K8 over it (needs ``nvcc``
+    and a CUDA runtime)."""
+    return _load(
+        "libnvmk_etk",
+        lambda: _build("libnvmk_etk", ETK_SRC, _nvcc_cmd(ETK_SRC)),
+        _declare_etk,
     )

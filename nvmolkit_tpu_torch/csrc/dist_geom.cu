@@ -21,16 +21,16 @@
 // molecule's smoothed [a_pad, a_pad] matrices, read from global memory
 // (the L2 holds them: the conformers of a molecule share them).
 //
-// One block of 128 threads per system. The pair terms go by rows: a group of
-// 1..32 lanes (as many as fit 2 n <= 128 threads) owns an atom i, loops over
-// the other atoms j, and sums its own gradient row and the energies of its
-// pairs j > i in registers; the group's partials meet by shuffles. Each pair
-// is evaluated twice, and nothing is an atomic; the chiral terms (a few per
+// One block of 128 threads per system. The pair terms go by rows
+// (dg_pairs.cuh, shared with K13 at 3 coordinates): a group of 1..32 lanes
+// owns an atom i and sums its own gradient row in registers. Each pair is
+// evaluated twice, and nothing is an atomic; the chiral terms (a few per
 // molecule) push their gradients by shared atomics after. What bounds K11:
 // FP32 work, ~30 instructions per pair i < j for both gradient rows (K11
 // spends about that per ordered pair); its bytes are the positions,
 // gradients and each molecule's bounds once.
 
+#include "dg_pairs.cuh"
 #include "ff_common.cuh"
 #include "minimizers.cuh"
 
@@ -54,64 +54,17 @@ struct DgTables {
 // every thread; ``g`` is complete on return.
 __device__ float dg_eval(const DgTables& t, int mol, const float* x, float* g, int n_dof,
                          float* red) {
-  const int n = n_dof / 4;
-  int tpa = 1;  // lanes per atom: a power of two dividing 32
-  while (tpa < 32 && 2 * tpa * n <= THREADS) tpa *= 2;
-  const int lane = threadIdx.x & (tpa - 1);
-  const int groups = THREADS / tpa;
   const size_t mat = (size_t)mol * t.a_pad * t.a_pad;
-  const float* ubm = t.ub + mat;
-  const float* lbm = t.lb + mat;
-  float e = 0.0f;
-  for (int i0 = 0; i0 < n; i0 += groups) {  // the same trip count in every thread
-    const int i = i0 + (int)threadIdx.x / tpa;
-    float gi[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    float ei = 0.0f;
-    if (i < n) {
-      const float xi0 = x[4 * i], xi1 = x[4 * i + 1], xi2 = x[4 * i + 2], xi3 = x[4 * i + 3];
-      for (int j = lane; j < n; j += tpa) {
-        if (j == i) continue;
-        const float d0 = xi0 - x[4 * j], d1 = xi1 - x[4 * j + 1];
-        const float d2c = xi2 - x[4 * j + 2], d3 = xi3 - x[4 * j + 3];
-        const float d2 = d0 * d0 + d1 * d1 + d2c * d2c + d3 * d3;
-        const size_t at_ij = i < j ? (size_t)i * t.a_pad + j : (size_t)j * t.a_pad + i;
-        const float u = ubm[at_ij], l = lbm[at_ij];
-        const float u2 = u * u, l2 = l * l;
-        float v = 0.0f, dv = 0.0f;  // the violation and dv/dd2
-        if (d2 > u2) {
-          const float den = nmax(u2, 1e-8f);
-          v += d2 / den - 1.0f;
-          dv += 1.0f / den;
-        }
-        if (d2 < l2) {
-          const float s = l2 + d2;
-          const float den = nmax(s, 1e-8f);
-          v += 2.0f * l2 / den - 1.0f;
-          if (s > 1e-8f) dv -= 2.0f * l2 / (den * den);
-        }
-        // E = v^2: dE/dx_i = 2 v dv * 2 (x_i - x_j)
-        const float c = 4.0f * v * dv;
-        gi[0] += c * d0;
-        gi[1] += c * d1;
-        gi[2] += c * d2c;
-        gi[3] += c * d3;
-        if (j > i) ei += v * v;
-      }
-    }
-    for (int o = tpa >> 1; o > 0; o >>= 1) {
-#pragma unroll
-      for (int q = 0; q < 4; ++q) gi[q] += __shfl_xor_sync(FULL, gi[q], o);
-      ei += __shfl_xor_sync(FULL, ei, o);
-    }
-    if (i < n && lane == 0) {
-      const float x4 = x[4 * i + 3];
-      g[4 * i] = gi[0];
-      g[4 * i + 1] = gi[1];
-      g[4 * i + 2] = gi[2];
-      g[4 * i + 3] = gi[3] + 2.0f * t.w_fourth * x4;
-      e += ei + t.w_fourth * (x4 * x4);
-    }
-  }
+  const float w4 = t.w_fourth;
+  float e = distance_pairs<4>(t.ub + mat, t.lb + mat, t.a_pad, x, n_dof / 4,
+                              [&](int i, const float (&gi)[4], float ei) {
+    const float x4 = x[4 * i + 3];
+    g[4 * i] = gi[0];
+    g[4 * i + 1] = gi[1];
+    g[4 * i + 2] = gi[2];
+    g[4 * i + 3] = gi[3] + 2.0f * w4 * x4;
+    return ei + w4 * (x4 * x4);
+  });
   __syncthreads();  // every gradient row is written
   for (int c = t.off[mol] + threadIdx.x; c < t.off[mol + 1]; c += THREADS) {
     const int* a = t.chiral + 4 * (size_t)c;

@@ -1,0 +1,237 @@
+// Kernel K13, the 3-D ETK (experimental-torsion and basic-knowledge) energy
+// and analytic gradient, and the minimizers K5 (L-BFGS) and K8 (BFGS)
+// instantiated over it, for Hopper (sm_90a).
+//
+// K13 replaces the XLA programs nvmolkit_tpu/models/etk.py etk_energy,
+// etk_energy_and_grad and etk_eg (the bounds term as one masked [S, A, A]
+// expression, the improper and torsion quartets gathered by a one-hot
+// matmul, the gradient by autodiff). Terms, for the positions x (3
+// coordinates per atom), each written here with its hand gradient:
+//   bounds    w_bounds x the DG distance term over the pairs i < j
+//             (dg_pairs.cuh, K11's loop at 3 coordinates; no chiral and no
+//             fourth-dimension term)
+//   improper  (i, centre j, k, l): sin w = n . r_jl / (|n| |r_jl|), n =
+//             r_ji x r_jk, clipped to [-1, 1]; cos w = sqrt(clip(1 - sin^2,
+//             1e-10, 1)); E = k_imp (1 - cos w)
+//   torsion   (i, j, k, l): b1 = x_j - x_i, b2 = x_k - x_j, b3 = x_l - x_k,
+//             n1 = b1 x b2, n2 = b2 x b3, m1 = n1 x b2 / |b2|; phi =
+//             atan2(m1 . n2, n1 . n2); E = sum_{k=1..6} F_k (1 + cos(k phi
+//             - phi0_k))
+// with the JAX function's guards: every norm is sqrt(|d|^2 + 1e-10), and no
+// derivative passes a clip where it binds. The torsion gradient follows
+// atan2's, (x dy - y dx) / (x^2 + y^2), as autodiff does: at a collinear
+// b1, b2 or b2, b3 both are 0/0.
+//
+// One block of 128 threads per system. The pair terms go by rows as K11's
+// do; the impropers and torsions (tens per molecule, from per-molecule CSR
+// tables) are split into contiguous runs per thread and push their
+// gradients by shared atomics after the rows are written. What bounds K13:
+// its FP32 work, ~27 instructions per pair i < j of the bounds term (most
+// of them at drug-like sizes), ~78 per improper and ~158 per torsion (three
+// cross products, atan2, six sines and cosines), ahead of its bytes (the
+// upper triangle of each molecule's two bounds matrices, the tables, the
+// positions and gradients once).
+
+#include "dg_pairs.cuh"
+#include "ff_common.cuh"
+#include "minimizers.cuh"
+
+namespace {
+
+using namespace nvmk;
+
+constexpr int N_HARMONICS = 6;
+
+struct EtkTables {
+  const int* off;        // [2, n_mols + 1]: impropers, torsions of each molecule
+  const int* improper;   // [I, 4] int32 (i, centre, k, l)
+  const int* torsion;    // [T, 4] int32
+  const float* k_imp;    // [I, 1] float32
+  const float* tor_par;  // [T, 12] float32: F_1..F_6, phi0_1..phi0_6 (radians)
+  const float* ub;       // [n_mols, a_pad, a_pad] float32 smoothed upper bounds
+  const float* lb;       // [n_mols, a_pad, a_pad] float32 smoothed lower bounds
+  int a_pad, n_mols;
+  float w_bounds;
+};
+
+__device__ __forceinline__ float improper_term(const int* a, float k, const float* x, float* g) {
+  const OutOfPlane o(x, a[0], a[1], a[2], a[3], 1.0f);
+  const float c2 = 1.0f - o.s * o.s;
+  const float cw = sqrtf(nmin(nmax(c2, 1e-10f), 1.0f));
+  // dE/dsin = k sin / cos w, none where either clip binds
+  if (inside(o.sraw, 1.0f) && c2 >= 1e-10f && c2 <= 1.0f) {
+    o.push_grad(g, a[0], a[1], a[2], a[3], k * o.s / cw);
+  }
+  return k * (1.0f - cw);
+}
+
+__device__ __forceinline__ float torsion_term(const int* a, const float* p, const float* x,
+                                              float* g) {
+  const V3 pj = at(x, a[1]), pk = at(x, a[2]);
+  const V3 b1 = sub(pj, at(x, a[0]));
+  const V3 b2 = sub(pk, pj);
+  const V3 b3 = sub(at(x, a[3]), pk);
+  const V3 n1 = cross(b1, b2), n2 = cross(b2, b3);
+  const float s = norm(b2);
+  const V3 u = mul(b2, 1.0f / s);
+  const V3 m1 = cross(n1, u);
+  const float yy = dot(m1, n2), xx = dot(n1, n2);
+  const float phi = atan2f(yy, xx);
+  float e = 0.0f, dphi = 0.0f;
+#pragma unroll
+  for (int k = 1; k <= N_HARMONICS; ++k) {
+    float sn, cs;
+    sincosf(k * phi - p[N_HARMONICS + k - 1], &sn, &cs);
+    e += p[k - 1] * (1.0f + cs);
+    dphi -= p[k - 1] * k * sn;
+  }
+  // atan2's derivative, then y = m1 . n2 = n1 . (u x n2) = u . (n2 x n1)
+  // and x = n1 . n2 back to n1, n2 and u
+  const float r2 = xx * xx + yy * yy;
+  const float gy = dphi * xx / r2, gx = -dphi * yy / r2;
+  const V3 g_n1 = add(mul(n2, gx), mul(cross(u, n2), gy));
+  const V3 g_n2 = add(mul(n1, gx), mul(m1, gy));
+  const V3 g_u = mul(cross(n2, n1), gy);
+  // u = b2 / s, s = sqrt(|b2|^2 + eps): du^T g = g / s - b2 (b2 . g) / s^3
+  const V3 gb1 = cross(b2, g_n1);                       // n1 = b1 x b2
+  const V3 gb3 = cross(g_n2, b2);                       // n2 = b2 x b3
+  const V3 gb2 = add(add(cross(g_n1, b1), cross(b3, g_n2)),
+                     sub(mul(g_u, 1.0f / s), mul(b2, dot(b2, g_u) / (s * s * s))));
+  push(g, a[0], mul(gb1, -1.0f));
+  push(g, a[1], sub(gb1, gb2));
+  push(g, a[2], sub(gb2, gb3));
+  push(g, a[3], gb3);
+  return e;
+}
+
+// K13's device function: the energy of one system of molecule ``mol`` at
+// positions ``x`` (shared, 3 floats per atom) and its gradient into ``g``
+// (shared; its first n_dof entries are overwritten). Returns the energy in
+// every thread; ``g`` is complete on return.
+__device__ float etk_eval(const EtkTables& t, int mol, const float* x, float* g, int n_dof,
+                          float* red) {
+  const size_t mat = (size_t)mol * t.a_pad * t.a_pad;
+  const float w = t.w_bounds;
+  float e = distance_pairs<3>(t.ub + mat, t.lb + mat, t.a_pad, x, n_dof / 3,
+                              [&](int i, const float (&gi)[3], float ei) {
+    g[3 * i] = w * gi[0];
+    g[3 * i + 1] = w * gi[1];
+    g[3 * i + 2] = w * gi[2];
+    return w * ei;
+  });
+  __syncthreads();  // every gradient row is written before the terms' atomics
+  const int stride = t.n_mols + 1;
+  int first, last;
+  my_run(t.off[mol], t.off[mol + 1], first, last);
+  for (int c = first; c < last; ++c) {
+    e += improper_term(t.improper + 4 * (size_t)c, t.k_imp[c], x, g);
+  }
+  my_run(t.off[stride + mol], t.off[stride + mol + 1], first, last);
+  for (int c = first; c < last; ++c) {
+    e += torsion_term(t.torsion + 4 * (size_t)c, t.tor_par + 2 * N_HARMONICS * (size_t)c, x, g);
+  }
+  __syncthreads();  // the terms' atomics into g are done
+  return block_sum(e, red);
+}
+
+// the force field the minimizers take
+struct Etk {
+  static constexpr int kDim = 3;
+  EtkTables t;
+  __device__ float eval(int mol, const float* x, float* g, int n_dof, float* red) const {
+    return etk_eval(t, mol, x, g, n_dof, red);
+  }
+};
+
+// ---- K13 --------------------------------------------------------------------
+
+__global__ void __launch_bounds__(THREADS)
+energy_grad_kernel(const float* __restrict__ pos, int a_pad, const int* __restrict__ sys2mol,
+                   const int* __restrict__ atom_count, EtkTables t, float* __restrict__ energy,
+                   float* __restrict__ grad) {
+  extern __shared__ float smem[];
+  const int row = 3 * a_pad;
+  float* x = smem;
+  float* g = x + row;
+  float* red = g + row;
+  const size_t s = blockIdx.x;
+  const int n_dof = 3 * atom_count[s];
+  const float* px = pos + s * row;
+  for (int i = threadIdx.x; i < n_dof; i += THREADS) x[i] = px[i];
+  __syncthreads();
+  const float e = etk_eval(t, sys2mol[s], x, g, n_dof, red);
+  if (threadIdx.x == 0) energy[s] = e;
+  float* pg = grad + s * row;
+  for (int i = threadIdx.x; i < row; i += THREADS) pg[i] = i < n_dof ? g[i] : 0.0f;
+}
+
+// ``tables``: the improper and torsion atom columns, their parameter rows,
+// then the upper and lower bounds matrices
+Etk make_etk(const int* off, int n_mols, const void* const* tables, int a_pad, float w_bounds) {
+  EtkTables t;
+  t.off = off;
+  t.improper = static_cast<const int*>(tables[0]);
+  t.torsion = static_cast<const int*>(tables[1]);
+  t.k_imp = static_cast<const float*>(tables[2]);
+  t.tor_par = static_cast<const float*>(tables[3]);
+  t.ub = static_cast<const float*>(tables[4]);
+  t.lb = static_cast<const float*>(tables[5]);
+  t.a_pad = a_pad;
+  t.n_mols = n_mols;
+  t.w_bounds = w_bounds;
+  return Etk{t};
+}
+
+}  // namespace
+
+extern "C" {
+
+// the coordinates per atom that this library's kernels take (the
+// wrappers size rows and Hessian slabs by it)
+int nvmk_etk_dim() { return Etk::kDim; }
+
+// K13: energy [n_sys] and gradient [n_sys, a_pad, 3] of the systems at ``pos``
+// [n_sys, a_pad, 3]. ``tables`` holds 6 device pointers: the int32 improper
+// and torsion quartets [I, 4] and [T, 4], their float32 rows [I, 1] and
+// [T, 12], and the float32 smoothed upper and lower bounds [n_mols, a_pad,
+// a_pad].
+int nvmk_etk_energy_grad(const float* pos, int n_sys, int a_pad, const int* sys2mol,
+                         const int* atom_count, const int* off, int n_mols,
+                         const void* const* tables, float w_bounds, float* energy, float* grad,
+                         void* stream) {
+  if (n_sys == 0) return 0;
+  const size_t smem = (6 * (size_t)a_pad + 2 * WARPS) * sizeof(float);
+  energy_grad_kernel<<<n_sys, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      pos, a_pad, sys2mol, atom_count, make_etk(off, n_mols, tables, a_pad, w_bounds).t, energy,
+      grad);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K5 over the ETK force field (see launch_lbfgs)
+int nvmk_etk_lbfgs(const float* pos0, const float* e0, const float* g0, int n_sys, int a_pad,
+                   const int* sys2mol, const int* atom_count, const int* off, int n_mols,
+                   const void* const* tables, float w_bounds, const float* policy,
+                   int max_ls_iters, int max_iters, float grad_tol, int max_steps, float* pos_out,
+                   float* e_out, int* status, int* steps, int* accepted, void* stream) {
+  return launch_lbfgs(make_etk(off, n_mols, tables, a_pad, w_bounds), pos0, e0, g0, n_sys,
+                      a_pad, sys2mol, atom_count, policy, max_ls_iters, max_iters, grad_tol,
+                      max_steps, pos_out, e_out, status, steps, accepted, stream);
+}
+
+// K8 over the ETK force field (see launch_bfgs); the ETK stage takes no
+// constraints, so ``ctables`` must be null
+int nvmk_etk_bfgs(const float* pos0, const float* e0, const float* g0, int n_sys, int sys_base,
+                  int n_launch, int a_pad, const int* sys2mol, const int* atom_count,
+                  const int* off, int n_mols, const void* const* tables, float w_bounds,
+                  const void* const* ctables, const float* policy, int max_ls_iters,
+                  int max_iters, float grad_tol, const int* iter_caps, const float* grad_tols,
+                  float* hess, float* pos_out, float* e_out, int* status, int* steps,
+                  int* accepted, void* stream) {
+  if (ctables != nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_bfgs(make_etk(off, n_mols, tables, a_pad, w_bounds), ctables, n_sys, sys_base,
+                     n_launch, pos0, e0, g0, a_pad, sys2mol, atom_count, policy, max_ls_iters,
+                     max_iters, grad_tol, iter_caps, grad_tols, hess, pos_out, e_out, status,
+                     steps, accepted, stream);
+}
+
+}  // extern "C"

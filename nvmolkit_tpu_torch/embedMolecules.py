@@ -1,4 +1,4 @@
-"""Conformer embedding by distance geometry — public API.
+"""ETKDG conformer embedding — public API.
 
 The port's counterpart of ``nvmolkit_tpu/embedMolecules.py``, with its
 public names: :class:`EmbedParameters` (every field), the presets
@@ -15,18 +15,26 @@ public names: :class:`EmbedParameters` (every field), the presets
      ``torch.Generator`` seeded by ``randomSeed``), the first DG
      minimization in four dimensions and the fourth-dimension compression
      (K5 under ``minimizerBackend="flat"``, K8 under ``"bfgs"``, over the DG
-     force field K11), then the six checks (K12); the passing systems'
+     force field K11), then, with the ETK stage (``useBasicKnowledge`` or
+     ``useExpTorsionAnglePrefs``, as the default ``EmbedParameters()`` and
+     every preset have it), the ETK minimization in three dimensions on K5
+     or K8 over the ETK force field K13 (``etkMinimizeIters``, the bounds
+     at weight 1), then the six checks (K12); the passing systems'
      positions are copied into the chunk's accepted buffer on the device.
 
-Only plain distance geometry is ported (``useExpTorsionAnglePrefs=False,
-useBasicKnowledge=False``, RDKit's default ``EmbedParameters()``): a call
-that needs the ETK stage raises ``NotImplementedError`` (the ETK stage and
-the torsion library are the next slice). ``torsionProvider`` is accepted and
-unused, as in the JAX package when the ETK stage is off.
+The ETK stage's terms are built on the host once per chunk, after the
+smoothing: the torsion provider (``torsionProvider`` if given; else a fresh
+:class:`~nvmolkit_tpu_torch.models.etkdg_torsions.ExperimentalTorsionProvider`
+for the small-ring and macrocycle tiers, the cached default otherwise; none
+with ``useExpTorsionAnglePrefs=False``) matches the chunk's molecules with
+its native matcher (``precompute``), then ``build_etk_terms_batch`` builds
+the impropers and torsions (cached on each ``Mol``), which go to the device
+as per-molecule tables (``models/etk.py``).
 
-Two departures of the JAX package from RDKit stand, as there: ``numZeroFail``
-defaults to 0, and ``forceTransAmides`` is an ETK torsion pin (so it has no
-effect here).
+Two departures of the JAX package from RDKit stand, as there (fault 7):
+``numZeroFail`` defaults to 0, and ``forceTransAmides`` is an ETK torsion
+pin with its minimum at omega = 180 degrees (RDKit clamps the 1-4 bounds).
+``minimizerBackend="lbfgs"`` (the lockstep L-BFGS) is not ported.
 """
 from __future__ import annotations
 
@@ -39,7 +47,7 @@ import torch
 
 from nvmolkit_tpu_torch.chem.bounds import topological_bounds, topological_bounds_batch
 from nvmolkit_tpu_torch.chem.mol import Mol
-from nvmolkit_tpu_torch.models import dist_geom
+from nvmolkit_tpu_torch.models import dist_geom, etk
 from nvmolkit_tpu_torch.ops import embed_checks as checks
 from nvmolkit_tpu_torch.ops.bfgs import bfgs_minimize
 from nvmolkit_tpu_torch.ops.lbfgs_flat import lbfgs
@@ -51,6 +59,10 @@ from nvmolkit_tpu_torch.utils.config import HardwareOptions
 # distance matrices, 4 A^2 bytes a system, dominate; K8's inverse Hessians
 # are sliced by ops/bfgs.HESSIAN_BYTES on their own)
 CHUNK_BYTES = 4 << 30
+# the ETK tables of a molecule, per atom: up to ~4 torsion rows (64 bytes
+# each: 4 atoms, 6 F and 6 phi0) per bond and ~1.1 bonds per atom, an
+# improper (20 bytes) per third of the atoms
+ETK_BYTES_PER_ATOM = 320
 
 
 @dataclasses.dataclass
@@ -165,12 +177,13 @@ class _StageTimer:
         return "embed stages: " + ", ".join(f"{k} {v:.4f} s" for k, v in self.seconds.items())
 
 
-def _chunk_cap(bucket: int, confs: int) -> int:
+def _chunk_cap(bucket: int, confs: int, use_etk: bool = False) -> int:
     """Systems per chunk of atom bucket ``bucket``: CHUNK_BYTES over a
     system's device bytes (the [A, A] uniforms, the positions, gradients and
     checks at ~160 bytes an atom, and its share of the molecule's two
-    smoothed [A, A] bounds)."""
-    per_system = 4.0 * bucket * bucket + 160.0 * bucket + 8.0 * bucket * bucket / max(1, confs)
+    smoothed [A, A] bounds and, with the ETK stage, of its ETK tables)."""
+    per_mol = 8.0 * bucket * bucket + (ETK_BYTES_PER_ATOM * bucket if use_etk else 0.0)
+    per_system = 4.0 * bucket * bucket + 160.0 * bucket + per_mol / max(1, confs)
     return max(8, int(CHUNK_BYTES / per_system))
 
 
@@ -202,26 +215,24 @@ def EmbedMolecules(
     device=None,
 ) -> Dense3DResult:
     """Generate ``confsPerMolecule`` conformers for every molecule by
-    distance geometry; also appends them to each ``Mol``'s conformer list
+    ETKDG (or its plain distance-geometry or partial variants, as ``params``
+    say); also appends them to each ``Mol``'s conformer list
     unless ``output=CoordinateOutput.DEVICE``. Returns a
     :class:`Dense3DResult` on the device (``conf_mask`` marks the embedded
     conformers). Each system gets up to ``maxIterations`` attempts; the
     retries run the failing systems in sub-batches whose spare lanes try
     them again (a passing duplicate fills the slot), and the failure counters
     count each system's first row of an attempt. ``failures`` accumulates
-    the counters; ``debugMode`` prints the stage times; ``targetGpu`` >= 0
+    the counters; ``torsionProvider`` (a callable ``mol -> (idx [T, 4],
+    coeffs [T, 6], phase [T, 6])``, with an optional ``precompute(mols)``)
+    replaces the torsion library when ``useExpTorsionAnglePrefs`` is on;
+    ``debugMode`` prints the stage times; ``targetGpu`` >= 0
     selects that card when ``hardwareOptions.deviceIds`` is unset; the work
     runs on ``device`` if given (``"cpu"`` for the plain versions), else on
     ``cuda``."""
-    del torsionProvider  # the ETK stage is not ported (see below)
     params = params or EmbedParameters()
     if not params.useRandomCoords:
         raise ValueError("only useRandomCoords=True is supported")
-    if params.useBasicKnowledge or params.useExpTorsionAnglePrefs:
-        raise NotImplementedError(
-            "EmbedMolecules with the ETK stage (useBasicKnowledge or "
-            "useExpTorsionAnglePrefs) is not ported yet: the ETK slice follows; pass "
-            "EmbedParameters(useExpTorsionAnglePrefs=False, useBasicKnowledge=False)")
     if params.minimizerBackend == "flat":
         minimize = lbfgs
     elif params.minimizerBackend == "bfgs":
@@ -257,14 +268,17 @@ def EmbedMolecules(
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(params.randomSeed))
     timer = _StageTimer(dev) if debugMode else None
+    use_etk = params.useBasicKnowledge or params.useExpTorsionAnglePrefs
+    provider = _torsion_provider(params, torsionProvider)
 
     for bucket, mol_ids in sorted(buckets.items()):
-        cap = opts.batchSize if opts.batchSize > 0 else _chunk_cap(bucket, confsPerMolecule)
+        cap = (opts.batchSize if opts.batchSize > 0
+               else _chunk_cap(bucket, confsPerMolecule, use_etk))
         per_chunk = max(1, cap // max(1, confsPerMolecule))
         for start in range(0, len(mol_ids), per_chunk):
             _embed_chunk(molecules, mol_ids[start:start + per_chunk], bucket, confsPerMolecule,
                          maxIterations, params, gen, minimize, out_pos, out_conf_mask, fail,
-                         timer, dev)
+                         timer, dev, use_etk, provider)
     if timer is not None:
         print(timer.report())
 
@@ -279,6 +293,26 @@ def EmbedMolecules(
 
     return Dense3DResult(positions=out_pos, conf_mask=torch.from_numpy(out_conf_mask).to(dev),
                          atom_mask=torch.from_numpy(out_atom_mask).to(dev))
+
+
+def _torsion_provider(params: EmbedParameters, torsion_provider):
+    """The ETK stage's torsion provider, as the JAX package resolves it:
+    none without ``useExpTorsionAnglePrefs``; the caller's if given; a fresh
+    provider with the small-ring or macrocycle tiers when they are asked
+    for; else the cached default."""
+    if not params.useExpTorsionAnglePrefs:
+        return None
+    if torsion_provider is not None:
+        return torsion_provider
+    from nvmolkit_tpu_torch.models.etkdg_torsions import (
+        ExperimentalTorsionProvider,
+        default_torsion_provider,
+    )
+
+    if params.useSmallRingTorsions or params.useMacrocycleTorsions:
+        return ExperimentalTorsionProvider(use_small_rings=params.useSmallRingTorsions,
+                                           use_macrocycles=params.useMacrocycleTorsions)
+    return default_torsion_provider()
 
 
 def _prune(out_pos, out_conf_mask, out_atom_mask, threshold: float) -> None:
@@ -310,7 +344,7 @@ def _prune(out_pos, out_conf_mask, out_atom_mask, threshold: float) -> None:
 
 
 def _embed_chunk(molecules, mol_ids, bucket, confs, max_iterations, params, gen, minimize,
-                 out_pos, out_conf_mask, fail, timer, dev) -> None:
+                 out_pos, out_conf_mask, fail, timer, dev, use_etk, provider) -> None:
     def stage(name):
         return timer.stage(name) if timer is not None else contextlib.nullcontext()
 
@@ -348,8 +382,14 @@ def _embed_chunk(molecules, mol_ids, bucket, confs, max_iterations, params, gen,
         ub[rows_t], lb[rows_t] = ub_r, lb_r
         consistent[rows] = cons_r
     fail.smoothing += int((~consistent).sum()) * confs
+    if use_etk:
+        with stage("etk_term_build"):
+            if provider is not None and hasattr(provider, "precompute"):
+                provider.precompute(mols)  # the native matcher, the whole chunk at once
+            etk_terms = etk.build_etk_terms_batch(mols, provider, params.forceTransAmides)
 
     batch = dist_geom.make_dg_batch(ub, lb, n_t, chiral)
+    etk_batch = etk.make_etk_batch(batch, etk_terms) if use_etk else None
     first = batch.weighted(params.chiralWeightFirst, params.fourthDimWeightFirst)
     second = batch.weighted(params.chiralWeightSecond, params.fourthDimWeightSecond)
     sys_mol = np.repeat(np.arange(len(mols)), confs)
@@ -385,6 +425,10 @@ def _embed_chunk(molecules, mol_ids, bucket, confs, max_iterations, params, gen,
             res = minimize(dist_geom.DG, res.positions, second, rows_mol,
                            max_iters=params.fourthDimMinimizeIters)
         pos3 = res.positions[..., :3].contiguous()
+        if use_etk:
+            with stage("etk_minimization"):
+                pos3 = minimize(etk.ETK, pos3, etk_batch, rows_mol,
+                                max_iters=params.etkMinimizeIters).positions
         with stage("stereo_checks"):
             oks = checks.embed_checks(pos3, ub, lb, rows_mol,
                                       n_t[rows_mol.to(torch.int64)].contiguous(), tables,

@@ -3,9 +3,15 @@
 This system has no weights: its state is packed fingerprints, conformer
 stacks, hardware options and a batched forcefield's constraint lists. These
 helpers move them across bit for bit, so that tests can feed the two
-packages the same inputs.
+packages the same inputs. :func:`reference_natives_from_port_build` points
+the JAX package's loaders of its featurizer and of its torsion-rule matcher
+at the port's builds of the same C++ sources, so that parallel test workers
+never load a library that another worker is still writing.
 """
 from __future__ import annotations
+
+import contextlib
+import pathlib
 
 import numpy as np
 import torch
@@ -57,3 +63,45 @@ def constraints_from_reference(ff_ref, into=None) -> list[PerSystemConstraints]:
         into._constraints = out
         into._constraints_dirty = True
     return out
+
+
+# the JAX loader's module attributes (library path, handle, load error) and
+# the port's build of the same source, per native library
+_REFERENCE_LIBS = {"graph": (("_LIB_PATH", "_lib", "_load_error"), "graph_lib"),
+                   "etk": (("_ETK_LIB_PATH", "_etk_lib", "_etk_load_error"), "etk_lib")}
+
+
+@contextlib.contextmanager
+def reference_natives_from_port_build(native, libs=("graph",)):
+    """Within the block, the JAX package's native module ``native`` (its
+    ``nvmolkit_tpu.chem.native``, passed in by the caller: the port imports
+    nothing of that package) loads each of ``libs`` ("graph": the SMILES
+    featurizer; "etk": the torsion-rule matcher) from the port's build of
+    the same source with the same flags (``_build.graph_lib`` and
+    ``_build.etk_lib``: hashed, locked, renamed into place) and forgets any
+    handle or load error it held; on exit its own paths and state come back.
+
+    The JAX loader builds ``csrc/libnvmolgraph.so`` and
+    ``csrc/libnvmoletk.so``, which no checkout holds, with ``make`` at first
+    use and loads those paths. In a fresh checkout parallel test workers run
+    ``make`` at once; a worker that meanwhile finds a file half written
+    either fails to load it ("file too short", "invalid ELF header") and
+    keeps that error for the rest of its run, so that every JAX parse raises
+    ``RuntimeError`` and the JAX torsion provider's ``precompute`` returns
+    False (its Python matcher then serves every molecule), or maps a library
+    that the linker is still writing.
+    """
+    from nvmolkit_tpu_torch import _build
+
+    saved = {}
+    for lib in libs:
+        (path, handle, error), build = _REFERENCE_LIBS[lib]
+        saved.update({attr: getattr(native, attr) for attr in (path, handle, error)})
+        setattr(native, path, pathlib.Path(getattr(_build, build)()._name))
+        setattr(native, handle, None)
+        setattr(native, error, None)
+    try:
+        yield
+    finally:
+        for attr, value in saved.items():
+            setattr(native, attr, value)

@@ -105,10 +105,10 @@ def _chiral_terms(batch: DGBatch, sys2mol: torch.Tensor, a_pad: int):
     return flat.expand(batch, sys2mol, a_pad)[0]
 
 
-def dg_energy_plain(positions: torch.Tensor, batch: DGBatch, sys2mol: torch.Tensor,
-                    terms=None) -> torch.Tensor:
-    """Per-system energy [S] of ``positions`` [S, A, D], as the JAX
-    ``dg_energy`` computes it."""
+def distance_energy_plain(positions: torch.Tensor, batch, sys2mol: torch.Tensor) -> torch.Tensor:
+    """The distance terms of ``dg_energy`` [S] at ``positions`` [S, A, D]
+    (any D), under the smoothed bounds ``batch.upper``/``batch.lower`` of
+    each system's molecule (the DG and the ETK force fields)."""
     S, A, D = positions.shape
     s2m = sys2mol.to(positions.device, torch.int64)
     ub = batch.upper[s2m]
@@ -125,7 +125,15 @@ def dg_energy_plain(positions: torch.Tensor, batch: DGBatch, sys2mol: torch.Tens
     upper_viol = torch.where(d2 > ub2, d2 / torch.clamp_min(ub2, 1e-8) - 1.0, 0.0)
     lower_viol = torch.where(d2 < lb2, 2.0 * lb2 / torch.clamp_min(lb2 + d2, 1e-8) - 1.0, 0.0)
     v = upper_viol + lower_viol
-    e = torch.where(pair_mask, v * v, 0.0).sum(dim=(1, 2))
+    return torch.where(pair_mask, v * v, 0.0).sum(dim=(1, 2))
+
+
+def dg_energy_plain(positions: torch.Tensor, batch: DGBatch, sys2mol: torch.Tensor,
+                    terms=None) -> torch.Tensor:
+    """Per-system energy [S] of ``positions`` [S, A, D], as the JAX
+    ``dg_energy`` computes it."""
+    S, A, D = positions.shape
+    e = distance_energy_plain(positions, batch, sys2mol)
 
     sys_of, atoms, win = terms if terms is not None else _chiral_terms(batch, sys2mol, A)
     p = positions.reshape(-1, D)[:, :3]
@@ -163,17 +171,12 @@ def dg_energy_and_grad_plain(positions: torch.Tensor, batch: DGBatch, sys2mol: t
     return plain_energy_and_grad_fn(batch, sys2mol, positions.shape[1])(positions)
 
 
-def dg_grad_magnitude_plain(positions: torch.Tensor, batch: DGBatch,
-                            sys2mol: torch.Tensor) -> torch.Tensor:
-    """Per gradient component, the sum over terms of |dE_term/dx| [S, A, D]
-    (float64): the scale of float32 rounding in a gradient whose terms
-    cancel. (Every term is >= 0, so the energy itself is the sum of
-    |E_term|.)"""
-    x = positions.detach().double()
+def distance_grad_magnitude_plain(x: torch.Tensor, batch, sys2mol: torch.Tensor) -> torch.Tensor:
+    """Per gradient component, the sum over the distance terms of
+    |dE_term/dx| [S, A, D] at ``x`` (float64, as the batch's bounds)."""
     S, A, D = x.shape
-    b64 = dataclasses.replace(batch, params=tuple(t.double() for t in batch.params))
     s2m = sys2mol.to(x.device, torch.int64)
-    ub2, lb2 = b64.upper[s2m] ** 2, b64.lower[s2m] ** 2
+    ub2, lb2 = batch.upper[s2m] ** 2, batch.lower[s2m] ** 2
     mask = flat.atom_mask(batch, sys2mol.to(batch.n_atoms.device), A).to(x.device)
     pair = mask[:, :, None] & mask[:, None, :]
     pair &= ~torch.eye(A, dtype=torch.bool, device=x.device)[None]
@@ -185,7 +188,20 @@ def dg_grad_magnitude_plain(positions: torch.Tensor, batch: DGBatch,
     v = v + torch.where(d2 < lb2, 2.0 * lb2 / s - 1.0, 0.0)
     dv = dv - torch.where(d2 < lb2, 2.0 * lb2 / (s * s), 0.0)
     coef = torch.where(pair, (4.0 * v * dv).abs(), 0.0)
-    out = (coef[..., None] * diff.abs()).sum(dim=2)
+    return (coef[..., None] * diff.abs()).sum(dim=2)
+
+
+def dg_grad_magnitude_plain(positions: torch.Tensor, batch: DGBatch,
+                            sys2mol: torch.Tensor) -> torch.Tensor:
+    """Per gradient component, the sum over terms of |dE_term/dx| [S, A, D]
+    (float64): the scale of float32 rounding in a gradient whose terms
+    cancel. (Every term is >= 0, so the energy itself is the sum of
+    |E_term|.)"""
+    x = positions.detach().double()
+    S, A, D = x.shape
+    b64 = dataclasses.replace(batch, params=tuple(t.double() for t in batch.params))
+    mask = flat.atom_mask(batch, sys2mol.to(batch.n_atoms.device), A).to(x.device)
+    out = distance_grad_magnitude_plain(x, b64, sys2mol)
     if D > 3:
         out[..., 3] += (2.0 * batch.fourth_dim_weight * x[..., 3]).abs()
     sys_of, atoms, win = _chiral_terms(b64, sys2mol, A)

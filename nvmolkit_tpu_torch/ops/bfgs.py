@@ -24,10 +24,12 @@ them as arguments.
   on the CPU the plain version. A build or launch failure raises.
 
 Both return each system's status bits, probes and accepted steps.
-``launch_counts`` counts K8's launches per force field.
+``launch_counts`` counts K8's launches per force field, under
+``<name>_bfgs`` (0 for one not launched since the last reset).
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 from typing import Callable
@@ -61,12 +63,11 @@ CONVERGED, FAILED, CAPPED = 1, 2, 4
 # per slice of that size, one after another on the stream
 HESSIAN_BYTES = 4 << 30
 
-launch_counts = {"mmff_bfgs": 0, "uff_bfgs": 0, "dg_bfgs": 0}
+launch_counts: collections.Counter = collections.Counter()
 
 
 def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
+    launch_counts.clear()
 
 
 @dataclasses.dataclass

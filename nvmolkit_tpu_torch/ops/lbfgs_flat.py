@@ -28,11 +28,13 @@ Both return each system's status bits, probes and accepted steps.
 Unlike the JAX package's driver (``ops/minimize_driver.py``), nothing
 restarts the systems still running after a phase with a fresh history and a
 second ``max_iters`` budget: ``max_iters`` is the total, as in nvMolKit.
-``launch_counts`` counts K5's launches per force field (K4's and K6's are
-counted by their modules).
+``launch_counts`` counts K5's launches per force field, under
+``<name>_lbfgs`` (0 for one not launched since the last reset; the force
+fields' own kernels are counted by their modules).
 """
 from __future__ import annotations
 
+import collections
 from typing import Callable
 
 import torch
@@ -56,12 +58,11 @@ from nvmolkit_tpu_torch.ops.bfgs import (
 
 HISTORY = 6
 
-launch_counts = {"mmff_lbfgs": 0, "uff_lbfgs": 0, "dg_lbfgs": 0}
+launch_counts: collections.Counter = collections.Counter()
 
 
 def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
+    launch_counts.clear()
 
 
 def lbfgs_flat_plain(

@@ -11,11 +11,22 @@ import pytest
 from nvmolkit_tpu.chem import mol_from_smiles as jax_mol_from_smiles
 from nvmolkit_tpu.chem.mol import fragment_ids as jax_fragment_ids
 from nvmolkit_tpu.chem.native import mols_from_smiles_native as jax_native
+import nvmolkit_tpu.chem.native as jax_native_module
 from nvmolkit_tpu_torch.chem import Mol, mol_from_smiles
 from nvmolkit_tpu_torch.chem.mol import fragment_ids
 from nvmolkit_tpu_torch.chem.native import mols_from_smiles, mols_from_smiles_native
+from nvmolkit_tpu_torch.interop import reference_natives_from_port_build
 from tests.data.smiles import SMILES_100
 from tests.molgen import random_smiles_batch
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_featurizer():
+    """The JAX package loads its SMILES featurizer from the port's build of
+    the same source (``interop.reference_natives_from_port_build``)."""
+    with reference_natives_from_port_build(jax_native_module):
+        yield
+
 
 KEKULE_AND_ODD = ["C1=CC=CC=C1", "O=C1C=CC=CN1", "CC.O", "[13CH3][O-]", "C[C@H](N)C(=O)O",
                   "F/C=C/F", "C%10CC%10", "[H]C([H])([H])C"]
@@ -85,3 +96,23 @@ def test_mol_model_edits_and_conformers():
     for parse in (mol_from_smiles, jax_mol_from_smiles):
         with pytest.raises(ValueError, match="9 bonds > 8"):
             parse(nine).to_arrays()
+
+
+def test_reference_featurizer_from_the_port_build(tmp_path, monkeypatch):
+    """A test worker that loads the JAX package's featurizer while another
+    worker's ``make`` is still writing it fails ("file too short") and keeps
+    that error, so its JAX parses raise RuntimeError; within
+    reference_natives_from_port_build the JAX loader takes the port's
+    build of the same source, and on exit its own state comes back."""
+    half = tmp_path / "libnvmolgraph.so"
+    half.write_bytes(b"")  # the linker's output as it first appears
+    monkeypatch.setattr(jax_native_module, "_LIB_PATH", half)
+    monkeypatch.setattr(jax_native_module, "_lib", None)
+    monkeypatch.setattr(jax_native_module, "_load_error", None)
+    with pytest.raises(RuntimeError, match="unavailable"):
+        jax_native(["CCO"])
+    assert jax_native_module._load_error is not None
+    with reference_natives_from_port_build(jax_native_module):
+        _assert_same_arrays(mols_from_smiles_native(["CCO"])[0], jax_native(["CCO"])[0])
+    assert jax_native_module._LIB_PATH == half and jax_native_module._lib is None
+    assert jax_native_module._load_error is not None

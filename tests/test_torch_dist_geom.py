@@ -47,6 +47,18 @@ from nvmolkit_tpu_torch.chem.mol import mols_from_smiles
 from nvmolkit_tpu_torch.models import dist_geom as pdg
 from nvmolkit_tpu_torch.ops.triangle_smooth import triangle_smooth_bounds
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread while this module runs: its plain minimizers run
+    thousands of small torch ops, and beside the other test workers' threads
+    each op's parallel region waits for the scheduler."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 SMILES = [
     "C[C@H](N)C(=O)O",               # a stereocentre with an implicit H
     "F/C=C/Cl",                      # E double bond
@@ -391,10 +403,10 @@ def test_dg_trajectory_contract_rejects_planted_faults(backend, fault, monkeypat
         return minimize(wrong, p)
 
     failed = []
-    monkeypatch.setattr(smoke, "check", lambda ok, what: None if ok else failed.append(what))
     out = smoke.trajectory_check(
         run_kernel, run_plain, x0, lambda p: smoke.ff_term_magnitude(pdg.DG, p, first, s2m),
-        n_steps, {}, "k", f"{backend} {fault}", smoke.TRAJ_DG_MOVED)
+        n_steps, {}, "k", f"{backend} {fault}", smoke.TRAJ_DG_MOVED,
+        checker=lambda ok, what: None if ok else failed.append(what))
     print(backend, fault, failed, {k: out[k] for k in (
         "equal_status_and_steps", "within_bound", "x_ratio_max", "e_ratio_max")})
     assert (not failed) == (fault == "none_float64"), failed

@@ -36,6 +36,18 @@ from nvmolkit_tpu_torch.ops.triangle_smooth import triangle_smooth_bounds
 from nvmolkit_tpu_torch.testutils import check_bounds_satisfied, check_chirality_preserved
 from nvmolkit_tpu_torch.types import CoordinateOutput
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread while this module runs: its plain minimizers run
+    thousands of small torch ops, and beside the other test workers' threads
+    each op's parallel region waits for the scheduler."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 SMILES = [
     "C[C@H](N)C(=O)O",
     "F/C=C/Cl",
@@ -180,12 +192,20 @@ def test_whole_slice_against_jax(backend):
 
 
 def test_presets_and_backends():
+    """Every preset and the default EmbedParameters() run (the ETK stage with
+    each), with both ported backends; only the lockstep "lbfgs" raises."""
+    for preset in (pem.ETKDG, pem.ETKDGv2, pem.ETKDGv3, pem.srETKDGv3, pem.KDG, pem.ETDG,
+                   pem.EmbedParameters):
+        for backend in ("flat", "bfgs"):
+            mols = mols_from_smiles(SMILES[1:2])
+            out = pem.EmbedMolecules(mols, preset(minimizerBackend=backend), maxIterations=3,
+                                     device="cpu")
+            assert out.conf_mask.all() and len(mols[0].conformers) == 1, (preset, backend)
+            assert check_bounds_satisfied(mols[0], mols[0].conformers[0])
     mols = mols_from_smiles(SMILES[:1])
-    for preset in (pem.ETKDG, pem.ETKDGv2, pem.ETKDGv3, pem.srETKDGv3, pem.KDG, pem.ETDG):
-        with pytest.raises(NotImplementedError, match="ETK"):
-            pem.EmbedMolecules(mols, preset(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ETK"):
-        pem.EmbedMolecules(mols, device="cpu")  # the default EmbedParameters()
+    for preset in (pem.ETKDG, pem.KDG, pem.EmbedParameters):
+        with pytest.raises(NotImplementedError, match="lbfgs"):
+            pem.EmbedMolecules(mols, preset(minimizerBackend="lbfgs"), device="cpu")
     with pytest.raises(NotImplementedError, match="lbfgs"):
         pem.EmbedMolecules(mols, pem.EmbedParameters(**DG, minimizerBackend="lbfgs"),
                            device="cpu")
@@ -202,6 +222,37 @@ def test_presets_and_backends():
             getattr(jem, name)())
     assert dataclasses.asdict(pem.EmbedFailureCounts()) == dataclasses.asdict(
         jem.EmbedFailureCounts())
+
+
+ETK_PRESETS = {"KDG": "KDG", "ETDG": "ETDG", "ETKDGv3": "ETKDGv3",
+               "default": "EmbedParameters"}
+
+
+@pytest.mark.parametrize("preset, backend", [("KDG", "flat"), ("ETDG", "flat"),
+                                             ("ETKDGv3", "flat"), ("default", "flat"),
+                                             ("default", "bfgs")])
+def test_etk_presets_against_jax(preset, backend):
+    """The public EmbedMolecules with the ETK stage on the CPU: the success
+    share and every failure counter within 4 standard errors of the JAX
+    package's on the same molecules, every accepted conformer through the
+    port's conformer checkers."""
+    make_p, make_j = getattr(pem, ETK_PRESETS[preset]), getattr(jem, ETK_PRESETS[preset])
+    pmols = mols_from_smiles(SMILES)
+    pf, jf = pem.EmbedFailureCounts(), jem.EmbedFailureCounts()
+    dense = pem.EmbedMolecules(pmols, make_p(minimizerBackend=backend), confsPerMolecule=CONFS,
+                               failures=pf, device="cpu")
+    jd = jem.EmbedMolecules(jax_mols(SMILES), make_j(minimizerBackend=backend),
+                            confsPerMolecule=CONFS, failures=jf, output=CoordinateOutput.DEVICE)
+    mask, jmask = dense.conf_mask.numpy(), np.asarray(jd.conf_mask)
+    n = mask.size
+    assert _two_proportion_ok(int(mask.sum()), n, int(jmask.sum()), n)
+    for name in dataclasses.asdict(jf):
+        assert _two_proportion_ok(getattr(pf, name), n, getattr(jf, name), n), name
+    assert mask.mean() >= 0.75
+    for m, mol in enumerate(pmols):
+        assert len(mol.conformers) == mask[m].sum()
+        for c in mol.conformers:
+            assert check_bounds_satisfied(mol, c) and check_chirality_preserved(mol, c)
 
 
 def test_counters_count_first_rows_as_jax():

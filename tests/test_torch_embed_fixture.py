@@ -51,8 +51,8 @@ def load_smoke():
     return mod
 
 
-def load_fixture() -> dict:
-    with np.load(FIXTURE) as f:
+def load_fixture(path: pathlib.Path = FIXTURE) -> dict:
+    with np.load(path) as f:
         return {k: f[k] for k in f.files}
 
 
@@ -124,7 +124,11 @@ def test_jax_conformers_pass_the_ports_checks():
 
 # ---------------------------------------------------------------- the generator
 
-def generate() -> None:
+def generate(path: pathlib.Path = FIXTURE, **params) -> None:
+    """Write the JAX package's embedding of the fixture's systems with
+    ``EmbedParameters(**params)`` (default: plain distance geometry) to
+    ``path``."""
+    params = params or {"useExpTorsionAnglePrefs": False, "useBasicKnowledge": False}
     sys.path.insert(0, str(ROOT / "tests"))
     from test_torch_mmff_fixture import with_hydrogens_jax
 
@@ -141,8 +145,7 @@ def generate() -> None:
         fail = EmbedFailureCounts()
         t0 = time.time()
         dense = EmbedMolecules(
-            mols, EmbedParameters(useExpTorsionAnglePrefs=False, useBasicKnowledge=False,
-                                  randomSeed=SEED, minimizerBackend=backend),
+            mols, EmbedParameters(**params, randomSeed=SEED, minimizerBackend=backend),
             confsPerMolecule=CONFS, maxIterations=MAX_ITERATIONS, failures=fail,
             output=CoordinateOutput.DEVICE)
         ok = np.asarray(dense.conf_mask)
@@ -155,9 +158,9 @@ def generate() -> None:
              if ok[m, c]]).astype(np.float32)
         print(f"{backend}: {ok.mean():.4f} embedded, {counts}, {time.time() - t0:.0f} s",
               flush=True)
-    FIXTURE.parent.mkdir(parents=True, exist_ok=True)
-    np.savez_compressed(FIXTURE, **out)
-    print(f"wrote {FIXTURE} ({FIXTURE.stat().st_size} bytes)")
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(path, **out)
+    print(f"wrote {path} ({path.stat().st_size} bytes)")
 
 
 if __name__ == "__main__":

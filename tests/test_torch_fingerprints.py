@@ -16,13 +16,24 @@ from nvmolkit_tpu.fingerprints import pack_fingerprint as jax_pack
 from nvmolkit_tpu.fingerprints import unpack_fingerprint as jax_unpack
 from nvmolkit_tpu.utils.config import HardwareOptions as JaxOptions
 from nvmolkit_tpu.chem.native import mols_from_smiles_native as jax_mols_from_smiles
+import nvmolkit_tpu.chem.native as jax_native_module
 from nvmolkit_tpu_torch.chem.native import mols_from_smiles
 from nvmolkit_tpu_torch.fingerprints import MorganFingerprintGenerator, pack_fingerprint
 from nvmolkit_tpu_torch.fingerprints import unpack_fingerprint
 from nvmolkit_tpu_torch.interop import options_from_reference
+from nvmolkit_tpu_torch.interop import reference_natives_from_port_build
 from nvmolkit_tpu_torch.utils.config import HardwareOptions
 from tests.data.smiles import SMILES_100
 from tests.molgen import random_smiles_batch
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_featurizer():
+    """The JAX package loads its SMILES featurizer from the port's build of
+    the same source (``interop.reference_natives_from_port_build``)."""
+    with reference_natives_from_port_build(jax_native_module):
+        yield
+
 
 GOLDEN = pathlib.Path(__file__).parent / "golden" / "regression_morgan.json"
 # 24 atoms, 38 bonds: bond ids past 32 overrun the featurizer's bond

@@ -4,6 +4,7 @@ These need an NVIDIA GPU with nvcc (the kernels are built at first use)
 and skip elsewhere. Run them on the card with
 ``python -m pytest tests/test_torch_kernels_cuda.py``.
 """
+import dataclasses
 import importlib.util
 import pathlib
 
@@ -902,6 +903,151 @@ def test_embed_molecules_on_cuda(cuda, backend):
     ran = [a > c for a, c in zip(after, counters)]
     assert ran == [True, True, backend == "flat", backend == "bfgs", True]
     assert dense.positions.device.type == "cuda"
+    mask = dense.conf_mask.cpu().numpy()
+    cpu = pem.EmbedMolecules(mols_from_smiles(smiles), params, confsPerMolecule=8,
+                             device="cpu").conf_mask.numpy()
+    k1, k2, n = int(mask.sum()), int(cpu.sum()), mask.size
+    p = (k1 + k2) / (2 * n)
+    assert abs(k1 - k2) / n <= 4 * max(np.sqrt(p * (1 - p) * 2 / n), 1.0 / n)
+    for m, mol in enumerate(mols):
+        assert len(mol.conformers) == mask[m].sum()
+        for c in mol.conformers:
+            assert check_bounds_satisfied(mol, c) and check_chirality_preserved(mol, c)
+
+
+# ---- the ETK stage: K13, K5 and K8 over ETK, EmbedMolecules with ETKDG ---------
+
+def _etk_inputs(n, cuda, confs=4, seed=0):
+    """The ETK inputs of ``confs`` systems of the first ``n`` fixture
+    molecules: the default torsion library with the amide pins, the DG
+    chunk's bounds, and the 3-D part of K10's coordinates as starts."""
+    from nvmolkit_tpu_torch.models import dist_geom, etk
+    from nvmolkit_tpu_torch.models.etkdg_torsions import default_torsion_provider
+
+    smoke, mols, chunk = _drug_like(n, cuda, confs=confs, seed=seed)
+    prov = default_torsion_provider()
+    prov.precompute(mols)
+    batch = etk.make_etk_batch(chunk["batch"], etk.build_etk_terms_batch(mols, prov, True))
+    x0 = dist_geom.random_distance_matrices(chunk["batch"], chunk["s2m"],
+                                            chunk["uniforms"])[0][..., :3].contiguous()
+    return smoke, batch, chunk["s2m"], x0
+
+
+def test_etk_energy_grad_kernel_matches_plain(cuda):
+    """K13 against its plain version at K10's 3-D starts and at 0.3 Å from a
+    partly minimized geometry, under K4's bounds: |dE| <= 1e-5 sum|E_term| +
+    1e-4, each gradient component within 1e-4 max(1, max|g|) + 2e-4 G."""
+    from nvmolkit_tpu_torch.models import etk
+    from nvmolkit_tpu_torch.ops.lbfgs_flat import lbfgs
+
+    smoke, b, s2m, x0 = _etk_inputs(32, cuda, seed=6)
+    assert int(b.offsets[1, -1]) > 0 and int(b.offsets[0, -1]) > 0
+    x1 = lbfgs(etk.ETK, x0, b, s2m, max_iters=20).positions
+    x1 = x1 + 0.3 * torch.randn(x1.shape, device=cuda) * (x1 != 0)
+    for x in (x0, x1):
+        before = etk.launch_counts["etk_energy_grad"]
+        e, g = etk.etk_energy_and_grad(x, b, s2m)
+        assert etk.launch_counts["etk_energy_grad"] == before + 1
+        e_p, g_p = etk.etk_energy_and_grad_plain(x, b, s2m)
+        e_r, g_r, _ = smoke.energy_grad_ratios(e, g, e_p, g_p,
+                                               etk.etk_term_magnitude_plain(x, b, s2m),
+                                               etk.etk_grad_magnitude_plain(x, b, s2m))
+        assert e_r <= 1 and g_r <= 1, (e_r, g_r)
+
+
+def test_etk_energy_grad_kernel_at_degenerate_geometry(cuda):
+    """K13 against the plain version where the angle terms sit at their
+    clips and epsilons: torsion arms 1e-2 and 1e-4 rad from collinear,
+    planar and perpendicular impropers (a float32 rounding of the
+    geometry's own scale apart), and an exactly collinear arm (both
+    non-finite on the torsion's atoms, as the JAX function is)."""
+    from nvmolkit_tpu_torch.chem.mol import mols_from_smiles
+    from nvmolkit_tpu_torch.models import dist_geom, etk
+
+    n = torch.tensor([8], dtype=torch.int32)
+    dg = dist_geom.make_dg_batch(torch.full((1, 8, 8), 100.0), torch.zeros((1, 8, 8)), n,
+                                 [dist_geom.build_chiral_sets(mols_from_smiles(["C"])[0])])
+    host = etk.ETKTermsHost(
+        improper_idx=np.array([[4, 5, 6, 7]], np.int32), improper_k=np.array([10.0], np.float32),
+        torsion_idx=np.array([[0, 1, 2, 3]], np.int32),
+        torsion_coeffs=np.array([[1.0, 2.0, 0.5, 0.3, 0.0, 0.15]], np.float32),
+        torsion_phase=np.array([[0.0, np.pi, 0.0, 0.0, 0.0, np.pi]], np.float32))
+    rng = np.random.default_rng(21)
+    base = rng.normal(size=(8, 3)) * 1.5
+    cases = [base]
+    for delta in (1e-2, 1e-4):
+        x = base.copy()
+        x[1], x[2] = (0.0, 0.0, 0.0), (1.5, 0.0, 0.0)
+        x[0] = -1.5 * np.array([np.cos(delta), np.sin(delta), 0.0])
+        cases.append(x)
+        y = x.copy()
+        y[0] = base[0]
+        y[3] = y[2] + 1.5 * np.array([np.cos(delta), 0.0, np.sin(delta)])
+        cases.append(y)
+    for imp in ([[1.3, 0.2, 0.0], [0.0, 0.0, 0.0], [-0.7, 1.1, 0.0], [-0.6, -1.2, 0.0]],
+                [[1.4, 0.0, 0.0], [0.0, 0.0, 0.0], [0.0, 1.4, 0.0], [0.0, 0.0, 1.4]]):
+        x = base.copy()
+        x[4:8] = np.array(imp) + 3.0
+        cases.append(x)
+    x = base.copy()
+    x[0], x[1], x[2] = (-1.5, 0.0, 0.0), (0.0, 0.0, 0.0), (1.5, 0.0, 0.0)
+    cases.append(x)
+    pos = torch.tensor(np.stack(cases), dtype=torch.float32)
+    s2m = torch.zeros(len(cases), dtype=torch.int32)
+    e_p, g_p = etk.etk_energy_and_grad_plain(pos, etk.make_etk_batch(dg, [host]), s2m)
+    b = etk.make_etk_batch(dataclasses.replace(
+        dg, n_atoms=dg.n_atoms.to(cuda), params=tuple(t.to(cuda) for t in dg.params)), [host])
+    e, g = etk.etk_energy_and_grad(pos.to(cuda), b, s2m.to(cuda))
+    e, g = e.cpu(), g.cpu()
+    assert torch.equal(torch.isnan(g), torch.isnan(g_p)) and bool(torch.isnan(g[-1, :4]).all())
+    ok = ~torch.isnan(g_p)
+    scale = g_p[ok].abs().max().clamp_min(1.0)
+    assert float((g[ok] - g_p[ok]).abs().max()) <= 2e-5 * float(scale)
+    assert bool(((e - e_p).abs() <= 1e-5 * e_p.abs().clamp_min(1.0)).all())
+
+
+@pytest.mark.parametrize("backend", ["flat", "bfgs"])
+def test_etk_minimizers_follow_plain(cuda, backend):
+    """K5 and K8 over the ETK force field against the plain minimizers
+    through 8 accepted steps, under chip_smoke.py's trajectory contract
+    (its moved second run, as for DG)."""
+    from nvmolkit_tpu_torch.models import etk
+
+    smoke, b, s2m, x0 = _etk_inputs(32, cuda, seed=7)
+    if backend == "flat":
+        out = smoke.k5_trajectory_check(x0, b, s2m, {}, "k5_etk", etk.ETK)
+    else:
+        out = smoke.k8_trajectory_check(x0, b, s2m, None, {}, "k8_etk", etk.ETK)
+    assert out["moved_second_run_a"] == smoke.TRAJ_DG_MOVED
+    assert out["equal_status_and_steps"] >= smoke.TRAJ_EQUAL_SHARE, out
+    assert out["within_bound"] >= smoke.TRAJ_EQUAL_SHARE, out
+
+
+@pytest.mark.parametrize("backend", ["flat", "bfgs"])
+def test_embed_molecules_etkdg_on_cuda(cuda, backend):
+    """EmbedMolecules with the default EmbedParameters() on the card runs
+    K13 and K5 or K8 over it after the DG stages; its accepted conformers
+    pass the conformer checkers, and its success share is the CPU's within
+    a two-proportion bound."""
+    from nvmolkit_tpu_torch import embedMolecules as pem
+    from nvmolkit_tpu_torch.chem.mol import mols_from_smiles
+    from nvmolkit_tpu_torch.models import etk
+    from nvmolkit_tpu_torch.ops import bfgs, lbfgs_flat
+    from nvmolkit_tpu_torch.testutils import check_bounds_satisfied, check_chirality_preserved
+
+    smiles = ["C[C@H](N)C(=O)O", "F/C=C/Cl", "CC(=O)NCc1ccccc1OC", "CC(C)(C)c1ccc(O)cc1",
+              "C1CCC(CC1)C(=O)NC", "O=C1CC[C@H](C)CC1", "c1ccccc1-c1ccncc1", "CCOC(=O)C=C"]
+    params = pem.EmbedParameters(minimizerBackend=backend)
+
+    def counts():
+        return (etk.launch_counts["etk_energy_grad"], lbfgs_flat.launch_counts["etk_lbfgs"],
+                bfgs.launch_counts["etk_bfgs"])
+
+    before = counts()
+    mols = mols_from_smiles(smiles)
+    dense = pem.EmbedMolecules(mols, params, confsPerMolecule=8, device=cuda)
+    ran = [a > c for a, c in zip(counts(), before)]
+    assert ran == [True, backend == "flat", backend == "bfgs"]
     mask = dense.conf_mask.cpu().numpy()
     cpu = pem.EmbedMolecules(mols_from_smiles(smiles), params, confsPerMolecule=8,
                              device="cpu").conf_mask.numpy()

@@ -264,3 +264,53 @@ def test_embedding_runs_without_jax():
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.startswith("OK")
+
+
+_ETKDG_SCRIPT = r"""
+import sys
+for name in ("jax", "jaxlib", "nvmolkit_tpu"):
+    sys.modules[name] = None  # importing any of them now raises ImportError
+sys.path.insert(0, {root!r})
+import numpy as np
+from nvmolkit_tpu_torch.chem.mol import mols_from_smiles
+from nvmolkit_tpu_torch.chem.smarts import parse_smarts
+from nvmolkit_tpu_torch.embedMolecules import ETKDG, EmbedMolecules, EmbedParameters
+from nvmolkit_tpu_torch.models import etk
+from nvmolkit_tpu_torch.models.etkdg_torsions import (TORSION_LIBRARY_V2,
+                                                       default_torsion_provider)
+from nvmolkit_tpu_torch.ops import bfgs, lbfgs_flat
+from nvmolkit_tpu_torch.ops.substruct import featurize_target, query_uses_prop
+from nvmolkit_tpu_torch.testutils import check_bounds_satisfied, check_chirality_preserved
+
+assert all(parse_smarts(r.smarts).num_atoms >= 4 for r in TORSION_LIBRARY_V2)
+mols = mols_from_smiles(["CC(=O)NCc1ccccc1", "C[C@H](N)C(=O)O"])
+assert featurize_target(mols[0]).n_atoms == mols[0].num_atoms
+assert default_torsion_provider().precompute(mols)
+for params in (EmbedParameters(), ETKDG(minimizerBackend="bfgs")):
+    for m in mols:
+        m.conformers.clear()
+    dense = EmbedMolecules(mols, params, confsPerMolecule=2, maxIterations=3, device="cpu")
+    assert dense.conf_mask.any()
+    for m in mols:
+        assert all(check_bounds_satisfied(m, c) and check_chirality_preserved(m, c)
+                   for c in m.conformers)
+assert all(v == 0 for v in (*etk.launch_counts.values(), *lbfgs_flat.launch_counts.values(),
+                            *bfgs.launch_counts.values()))
+leaked = sorted(m for m in sys.modules if sys.modules[m] is not None
+                and m.split(".")[0] in ("jax", "jaxlib", "nvmolkit_tpu"))
+assert not leaked, leaked
+print("OK")
+"""
+
+
+def test_etkdg_runs_without_jax():
+    """The ETK slice (the SMARTS parser, the substructure features, the
+    torsion library with its native matcher, the ETK force field and
+    EmbedMolecules with the default EmbedParameters() and ETKDG()) on the CPU
+    with the JAX package's modules blocked."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _ETKDG_SCRIPT.format(root=str(ROOT))],
+        capture_output=True, text=True, timeout=300, cwd=ROOT,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.startswith("OK")

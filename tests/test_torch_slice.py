@@ -13,11 +13,22 @@ import nvmolkit_tpu_torch
 from nvmolkit_tpu import clustering as jax_clustering
 from nvmolkit_tpu import similarity as jax_similarity
 from nvmolkit_tpu.fingerprints import MorganFingerprintGenerator as JaxGenerator
+import nvmolkit_tpu.chem.native as jax_native_module
 from nvmolkit_tpu_torch import clustering, similarity
 from nvmolkit_tpu_torch.fingerprints import MorganFingerprintGenerator
+from nvmolkit_tpu_torch.interop import reference_natives_from_port_build
 from nvmolkit_tpu_torch.types import AsyncResult, check_stream_arg
 from tests.data.smiles import SMILES_100
 from tests.molgen import random_smiles_batch
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_featurizer():
+    """The JAX package loads its SMILES featurizer from the port's build of
+    the same source (``interop.reference_natives_from_port_build``)."""
+    with reference_natives_from_port_build(jax_native_module):
+        yield
+
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
