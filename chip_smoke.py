@@ -7,9 +7,10 @@ Phases, each reported as one JSON line with its seconds:
   0. device: the card's name and power limit;
   1. build: the similarity kernels, the conformer RMSD kernel, the MMFF,
      UFF and constraint kernels, the embedding's four kernels, the ETK
-     kernel (nvcc), the SMILES featurizer, the bounds builder and the
-     torsion-library matcher (g++), from the sources in this checkout, all
-     thirteen compilers started together;
+     kernel, the Morgan kernel and the Butina loops (nvcc), the SMILES
+     featurizer, the bounds builder and the torsion-library matcher (g++),
+     from the sources in this checkout, all fifteen compilers started
+     together;
   2. kernels: K1 (cross similarity, both launch configurations) and K2
      (neighbor counts) against their plain PyTorch versions at side shapes
      (ragged, zero rows, 128..4096 bits, with and without row lists, the
@@ -24,19 +25,25 @@ Phases, each reported as one JSON line with its seconds:
      committed starts (tests/data/torch_mmff_starts.npz) with 0.3 Å of
      noise under every term toggle and dielModel 2, on the golden
      regression molecules and on geometries where the clips bind;
-  3. main path: ~24.5k SMILES -> Morgan (r=3, 2048 bits) -> Tanimoto matrix
-     -> Butina (cutoff 0.4), then fused Butina over 100k clustered
-     fingerprints (cutoff 0.6), with the kernels' launch counts and the
-     fingerprints' peak device memory;
+  3. main path: ~24.5k SMILES -> Morgan (r=3, 2048 bits; K14 per chunk) ->
+     Tanimoto matrix (K1) -> Butina (cutoff 0.4; K15), then fused Butina
+     over 100k clustered fingerprints (cutoff 0.6; K2, then K16), with the
+     kernels' launch counts (one K14 per chunk, one K1, K15, K2 and K16, no
+     K1 few-column launch) and the fingerprints' peak device memory;
   4. checks of what the main path produced, and each kernel against its
-     plain version at the shapes and row lists the main path gave it: K1's
-     24.5k x 24.5k matrix itself, its free rows x 1 center columns, K2's
-     100k x 100k counts and its free rows x members decrements; the sum
-     over the fused loop of its free rows;
+     plain version at the shapes the main path gave it: K14 on every chunk,
+     K1's 24.5k x 24.5k matrix, K15 on the 24.5k hit matrix and on an
+     asymmetric 8192 x 8192 one, K16 (ids, centroids and each cluster's
+     record: center, member count, free rows before) at 8,192 and at 100k
+     fingerprints, K2's 100k x 100k counts; fused equal to matrix Butina at
+     8,192; K1's few-column launch and K2 at the free rows x 1 center
+     columns and free rows x members decrements of the plain loop (watched
+     at three clusters);
   5. the Mol path: the same SMILES parsed into Mol objects ->
-     GetFingerprints(mols), equal to the main path's fingerprints, to the
-     numpy oracle on a subset, the triple cubane and a 300-atom chain (past
-     the largest bucket: a device bucket of its own);
+     GetFingerprints(mols) (K14), equal to the main path's fingerprints and
+     to the numpy oracle on every molecule; the triple cubane and a 300-atom
+     chain (past the largest bucket: a device bucket of its own) against the
+     oracle, and K14 against plain on both at every radius 0..6;
   6. RMSD -> Butina: (a) 1,024 molecules x 64 seeded conformers through
      GetConformerRMSMatrixBatch (K3, 2,064,384 pairs); (c) the same counts
      of drug-like molecules (random SMILES drawn with 25..32 heavy atoms)
@@ -102,13 +109,16 @@ Phases, each reported as one JSON line with its seconds:
      K12 and K5/K8 over DG at the embedding's largest chunk (K9 and K10 at
      each bucket too), K10 beside one torch.linalg.eigh of 512 of its
      metric matrices; K13 and K5/K8 over ETK at that chunk from the DG
-     stages' output;
+     stages' output; K14 over the main path's chunks, K15 at its 24.5k hit
+     matrix and K16 at its 100k fingerprints from K2's counts, with bounds
+     that count INT32 operations or POPCs as well as bytes;
   8. trace, per phase of the paths: three warm untraced walls, then one run
      under torch.profiler with its wall, the span between CUDA events around
      it, the device-busy share (union of the intervals of device events,
      kernels and copies; null when the trace caught none), the kernels'
      own busy time, the host's launch and sync calls, and the largest
-     device events and host calls.
+     device events and host calls; butina and fused_butina must make no
+     host sync per cluster (at most 20 a call).
 Then one JSON line with the kernels, the nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}. Any failure raises and exits non-zero
 before the last line; without CUDA it exits 1 at once.
@@ -136,6 +146,8 @@ ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 POPC_PER_SM_CLOCK = 16     # __popc issue rate of one sm_90 SM
 FP32_PER_SM_CLOCK = 128    # FP32 FMA issue rate of one sm_90 SM
+INT32_PER_SM_CLOCK = 64    # INT32 issue rate of one sm_90 SM (Hopper white paper)
+HASH_OPS = 6               # integer operations of one hash_combine: 3 adds, 2 shifts, 1 xor
 FUSED_N, FUSED_CUTOFF = 100_000, 0.6
 # FP32 instructions per conformer pair in csrc/rmsd.cu's QCP solve and
 # epilogue, a multiply feeding an add counted once, a division or square
@@ -389,7 +401,8 @@ def smoke_smiles() -> list[str]:
     )
 
 
-_LAUNCHES = ("cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx", "cudaLaunchKernelExC")
+_LAUNCHES = ("cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx", "cudaLaunchKernelExC",
+             "cudaLaunchCooperativeKernel")
 _SYNCS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
 
 
@@ -493,8 +506,8 @@ def median_ms(fn, reps: int = 10, flush=None) -> float:
 
 def card_rates() -> dict:
     """The rates the bounds use: device memory (data sheet), POPC issue (16
-    per SM per clock) and FP32 FMA issue (128 per SM per clock), at the
-    card's highest SM clock."""
+    per SM per clock), FP32 FMA issue (128 per SM per clock) and INT32
+    issue (64 per SM per clock), at the card's highest SM clock."""
     import torch
 
     clock_mhz = float(subprocess.run(
@@ -504,13 +517,15 @@ def card_rates() -> dict:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     return {"hbm_bytes_per_s": HBM_BYTES_PER_S, "sms": sms, "max_sm_clock_mhz": clock_mhz,
             "popc_per_s": POPC_PER_SM_CLOCK * sms * clock_mhz * 1e6,
-            "fp32_per_s": FP32_PER_SM_CLOCK * sms * clock_mhz * 1e6}
+            "fp32_per_s": FP32_PER_SM_CLOCK * sms * clock_mhz * 1e6,
+            "int32_per_s": INT32_PER_SM_CLOCK * sms * clock_mhz * 1e6}
 
 
 def bound(n_bytes: float, n_ops: float, rates: dict, op: str = "popc") -> dict:
     """The least time for the work: bytes moved (each input read once, each
     output written once) over the memory rate, or the operations (``op``:
-    POPCs or FP32 instructions) over their issue rate, whichever is larger."""
+    POPCs, FP32 or INT32 instructions) over their issue rate, whichever is
+    larger."""
     t_bytes = n_bytes / rates["hbm_bytes_per_s"] * 1e3
     t_ops = n_ops / rates[f"{op}_per_s"] * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
@@ -530,6 +545,48 @@ def k2_work(rows: int, cols: int, words: int, listed: bool, rates: dict) -> dict
     columns, int32 counts out."""
     n_bytes = 4 * words * (rows + cols) + 8 * cols + 4 * rows + (8 * rows if listed else 0)
     return bound(n_bytes, rows * cols * words, rates, "popc")
+
+
+def k14_work(chunks, radius: int, fp_size: int, rates: dict) -> dict:
+    """K14 over the chunks (dicts of its numpy inputs): every input read once
+    and the packed rows written once; INT32 operations: per round and real
+    atom with bonds its hash chain (2 + 2 degree hash_combines of HASH_OPS)
+    and its bitset growth (W words OR'd from itself, its own bonds and each
+    neighbor), and once per molecule one comparison per ordered pair of its
+    atoms alive before round 1 (the least round 1's duplicate tests read)."""
+    import numpy as np
+
+    n_bytes = n_ops = 0
+    for arrays in chunks:
+        n_bytes += sum(a.nbytes for a in arrays.values())
+        n_bytes += arrays["inv0"].shape[0] * fp_size // 8
+        deg = arrays["degree"].astype(np.int64) * arrays["atom_mask"]
+        w = arrays["own_bits"].shape[-1]
+        per_atom = HASH_OPS * (2 + 2 * deg) + w * (deg + 2)
+        n_ops += radius * int(per_atom[deg > 0].sum())
+        n_ops += int(((deg > 0).sum(axis=1) ** 2).sum())
+    return bound(n_bytes, n_ops, rates, "int32")
+
+
+def k15_work(n: int, n_formed: int, rates: dict) -> dict:
+    """K15 over an n x n bool hit matrix: the matrix read once, the cluster
+    of each item (int64) and the formed clusters' centers written once; one
+    INT32 add per entry for the row sums."""
+    return bound(n * n + 8 * n + 8 * n_formed, n * n, rates, "int32")
+
+
+def k16_work(table, n: int, words: int, rates: dict) -> dict:
+    """K16 over n packed rows of ``words`` words from K2's counts, for the
+    formed clusters of ``table`` (center, member count, free rows before):
+    the rows and the counts read once, the cluster of each item and the
+    centers written once; POPCs: each free row against the center, and each
+    row still free after a cluster against each of its members."""
+    import numpy as np
+
+    t = np.asarray(table, np.int64).reshape(-1, 3)
+    free_before, members = t[:, 2], t[:, 1]
+    pairs = int((free_before + (free_before - members) * members).sum())
+    return bound(4 * words * n + 4 * n + 8 * n + 8 * len(t), pairs * words, rates, "popc")
 
 
 def k3_work(n_confs, n_masked, n_atoms: int, prealigned: bool, rates: dict,
@@ -1443,7 +1500,9 @@ def main() -> int:
     from nvmolkit_tpu_torch.models.mmff import energy as mmff_energy
     from nvmolkit_tpu_torch.models.uff import energy as uff_energy
     from nvmolkit_tpu_torch.ops import bfgs
+    from nvmolkit_tpu_torch import fingerprints as fp_api
     from nvmolkit_tpu_torch.ops import butina as butina_ops
+    from nvmolkit_tpu_torch.ops import morgan as morgan_ops
     from nvmolkit_tpu_torch.ops import lbfgs_flat
     from nvmolkit_tpu_torch.ops import kabsch
     from nvmolkit_tpu_torch.ops import similarity as sim_ops
@@ -1481,6 +1540,7 @@ def main() -> int:
             "nvcc_triangle_smooth_s": _build.triangle_smooth_lib,
             "nvcc_coordgen_s": _build.coordgen_lib, "nvcc_dist_geom_s": _build.dist_geom_lib,
             "nvcc_embed_checks_s": _build.embed_checks_lib, "nvcc_etk_s": _build.etk_ff_lib,
+            "nvcc_morgan_s": _build.morgan_lib, "nvcc_butina_s": _build.butina_lib,
             "gxx_s": _build.graph_lib, "gxx_bounds_s": _build.bounds_lib,
             "gxx_etk_match_s": _build.etk_lib}
     with ThreadPoolExecutor(len(libs)) as pool:
@@ -1755,18 +1815,16 @@ def main() -> int:
     t0 = time.perf_counter()
     morgan_inputs = morgan_batches_from_smiles(smiles, HardwareOptions().atomBuckets)
     featurize_s = time.perf_counter() - t0
-    # the bounds of the two path functions still in plain torch: morgan_kernel
-    # reads its seven inputs once and writes the fingerprint rows;
-    # butina_matrix reads the n x n bool hit matrix once for the counts and
-    # each column once more over the loop (the members' columns are disjoint)
-    morgan_bytes = sum(a.nbytes for _, arrays in morgan_inputs.values() for a in arrays.values())
-    morgan_bytes += len(smiles) * 2048 // 8
-    plain_bounds = {"morgan_kernel": bound(morgan_bytes, 0, rates, "fp32"),
-                    "butina_matrix": bound(2 * len(smiles) ** 2, 0, rates, "fp32")}
+    # K14's inputs on the main path, chunk by chunk as GetFingerprintsFromSmiles
+    # cuts them (one K14 launch each)
+    morgan_chunks = [
+        {k: arrays[k][start:start + fp_api._chunk_rows(b)] for k in fp_api._KERNEL_INPUTS}
+        for b, (idx, arrays) in sorted(morgan_inputs.items())
+        for start in range(0, len(idx), fp_api._chunk_rows(b))]
     del morgan_inputs
 
     counted = (sim_ops, kabsch, mmff_energy, lbfgs_flat, uff_energy, cons, bfgs,
-               triangle_smooth, dist_geom, embed_checks, etk)
+               triangle_smooth, dist_geom, embed_checks, etk, morgan_ops, butina_ops)
 
     def reset_counts():
         torch.cuda.synchronize()
@@ -1799,18 +1857,23 @@ def main() -> int:
          n_clusters=len(centroids), fused_butina_100k_s=t5 - t4,
          fused_n_clusters=len(clusters), launches=launches,
          allocated_before_bytes=allocated_before, fingerprints_peak_bytes=fingerprints_peak,
-         path_peak_bytes=torch.cuda.max_memory_allocated(), plain_bounds=plain_bounds)
+         path_peak_bytes=torch.cuda.max_memory_allocated(), morgan_chunks=len(morgan_chunks))
 
     # 4. checks -------------------------------------------------------------------
     t_phase = time.perf_counter()
     n = len(smiles)
+    K14, K15, K16 = "morgan", "butina_matrix", "fused_butina_loop"
+    errs.update({K14: 0.0, K15: 0.0, K16: 0.0})  # integer outputs: 0 or a failed check
     multi = int((sizes >= 2).sum())  # clusters the fused loop formed
-    left = int((sizes == 1).any())   # a K2 decrement follows the last one unless it took every row
     check(launches[K3] == 0, f"K3 launched {launches[K3]} times on the main path")
     check(launches[K4] == launches[K5] == 0, "the main path launched K4 or K5")
+    check(launches[K14] == len(morgan_chunks),
+          f"K14 launched {launches[K14]} times, want one per chunk ({len(morgan_chunks)})")
     check(launches[K1] == 1, f"K1 tiles launched {launches[K1]} times, want 1 (the matrix)")
-    check(launches[K1F] == multi, f"K1 few columns launched {launches[K1F]} times, want {multi}")
-    check(launches[K2] == multi + left, f"K2 launched {launches[K2]} times, want {multi + left}")
+    check(launches[K15] == 1, f"K15 launched {launches[K15]} times, want 1 (butina)")
+    check(launches[K2] == 1, f"K2 launched {launches[K2]} times, want 1 (the first counts)")
+    check(launches[K16] == 1, f"K16 launched {launches[K16]} times, want 1 (the fused loop)")
+    check(launches[K1F] == 0, f"K1 few columns launched {launches[K1F]} times, want 0")
     for name, t in (("fingerprints", fps.torch()), ("similarity", sim.torch()),
                     ("cluster ids", ids.torch())):
         check(t.is_cuda, f"{name} are not on the GPU")
@@ -1828,6 +1891,17 @@ def main() -> int:
     check(bool((ids_np[centroids] == np.arange(len(centroids))).all()),
           "each butina centroid lies in its cluster")
 
+    # K14 against its plain version on every chunk the main path gave it
+    def k14_args(arrays):
+        return [torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a).to(cuda)
+                for a in arrays.values()]
+
+    k14_inputs = [k14_args(c) for c in morgan_chunks]
+    for args in k14_inputs:
+        got = morgan_ops.morgan_kernel(*args, radius=3, fp_size=2048)
+        want = morgan_ops.morgan_kernel_plain(*args, radius=3, fp_size=2048)
+        check(torch.equal(got, want), f"K14 differs from plain on the chunk {tuple(args[0].shape)}:"
+                                      f" {int((got != want).sum())} words")
     subset = np.arange(0, n, n // 2000)[:2000]
     cpu_fps = gen.GetFingerprintsFromSmiles([smiles[i] for i in subset], device="cpu")
     check(np.array_equal(cpu_fps.numpy(), fps.numpy()[subset]),
@@ -1839,6 +1913,21 @@ def main() -> int:
     for smi, row, want in zip(golden["smiles"], unpack_bits_np(gold_fps), golden["bits"]):
         check(np.nonzero(row)[0].tolist() == want, f"golden Morgan bits of {smi}")
 
+    # K15 against its plain version at the main path's matrix (24.5k, cutoff
+    # 0.4, the hits butina made) and on an asymmetric matrix
+    hits24 = ((1.0 - s) <= 0.4).contiguous()
+    want_ids, want_cent, want_k = butina_ops.butina_matrix_plain(hits24)
+    check(want_k == len(centroids) and torch.equal(ids.torch(), want_ids)
+          and np.array_equal(centroids, want_cent.cpu().numpy()),
+          "K15 (butina) and the plain loop cluster the main path's matrix differently")
+    asym = torch.rand((8192, 8192), device=cuda, generator=torch.Generator(cuda).manual_seed(4)
+                      ) < 0.002
+    check(not torch.equal(asym, asym.T), "the asymmetric matrix is symmetric")
+    got_a, want_a = butina_ops.butina_matrix(asym), butina_ops.butina_matrix_plain(asym)
+    check(got_a[2] == want_a[2] and torch.equal(got_a[0], want_a[0])
+          and torch.equal(got_a[1], want_a[1]), "K15 differs from plain on an asymmetric matrix")
+    del asym
+
     cut = 0.4
     sub = fps.torch()[:8192]
     fused_sub, _, fused_sub_cent = fused_butina(sub, cut, return_centroids=True)
@@ -1849,10 +1938,25 @@ def main() -> int:
     check(np.array_equal(fused_sub_cent, mat_cent.cpu().numpy()),
           "fused and matrix Butina centroids differ on 8192 fingerprints")
 
+    def check_k16(x, threshold, what, on_cluster=None):
+        """K16 (after K2) against the plain loop on the same fingerprints: ids,
+        centroids and each formed cluster's (center, member count, free rows
+        before). Returns the record and the plain loop's seconds."""
+        got = butina_ops.fused_butina(x, threshold, record=True)
+        t0 = time.perf_counter()
+        want = butina_ops.fused_butina_plain(x, threshold, on_cluster=on_cluster, record=True)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        check(got[2] == want[2] and torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+              and torch.equal(got[3], want[3]),
+              f"K16 differs from the plain loop {what}: {got[2]} / {want[2]} clusters")
+        return got[3], plain_s
+
+    check_k16(sub, 1.0 - cut, "at 8192 fingerprints")
     n_fused = fused_fps.shape[0]
     check(int(sizes.sum()) == n_fused, "fused cluster sizes sum to N")
-    # the fused loop again, watched: the free rows each K1 center column and
-    # each K2 decrement ran over
+    # at 100k, the plain loop watched: the free rows each center column and
+    # each decrement of the plain loop ran over, for K1 and K2 at those shapes
     fused_thr = 1.0 - FUSED_CUTOFF
     seen = {"k1_rows": 0, "k2_rows": 0, "clusters": []}
     keep_at = {0, multi // 2, multi - 1}
@@ -1865,10 +1969,11 @@ def main() -> int:
         if k in keep_at:
             seen["clusters"][k] = (before.clone(), center, members.clone(), after.clone())
 
-    raw_ids, _, _ = butina_ops.fused_butina(fused_fps, fused_thr, on_cluster=watch)
-    check(len(seen["clusters"]) == multi, "the watched fused loop formed other clusters")
+    fused_table, fused_plain_s = check_k16(fused_fps, fused_thr, f"at {n_fused} fingerprints",
+                                           watch)
+    check(len(seen["clusters"]) == multi == fused_table.shape[0],
+          "the watched fused loop formed other clusters")
     fused_ids = ids_from_clusters(clusters, n_fused)
-    check(np.array_equal(raw_ids.cpu().numpy(), fused_ids), "the watched fused loop differs")
     for k in sorted(keep_at):
         before, center, members, after = seen["clusters"][k]
         check(bool((before.diff() > 0).all()) and bool((after.diff() > 0).all()),
@@ -1877,12 +1982,14 @@ def main() -> int:
               and bool(torch.isin(members, before).all())
               and not bool(torch.isin(after, members).any()),
               f"cluster {k}: free rows before != members + free rows after")
+        check(fused_table[k].tolist() == [center, members.shape[0], before.shape[0]],
+              f"cluster {k}: K16's record differs from the watched loop")
         col = fused_fps[center:center + 1]
-        check_k1(fused_fps, col, "tanimoto", f"main path center column {before.shape[0]}x1",
+        check_k1(fused_fps, col, "tanimoto", f"the plain loop's center column {before.shape[0]}x1",
                  before)
         compare(K2, sim_ops.neighbor_counts(fused_fps, members, fused_thr, rows=after),
                 sim_ops.neighbor_counts_plain(fused_fps, members, fused_thr, rows=after), 0,
-                f"main path decrement {after.shape[0]}x{members.shape[0]}")
+                f"the plain loop's decrement {after.shape[0]}x{members.shape[0]}")
     all_cols = torch.arange(n_fused, device=cuda)
     compare(K2, sim_ops.neighbor_counts(fused_fps, all_cols, fused_thr),
             sim_ops.neighbor_counts_plain(fused_fps, all_cols, fused_thr), 0,
@@ -1894,9 +2001,11 @@ def main() -> int:
     cents = torch.from_numpy(fused_cent[fused_ids[sample]]).to(cuda)
     pair_sim = sim_ops.cross_similarity(fused_fps[members], fused_fps[cents]).diagonal()
     check(bool((pair_sim >= np.float32(0.4)).all()), "a fused member is farther than the cutoff")
-    emit(phase="checks", fused_loop_clusters=multi,
-         sum_free_rows_k1=seen["k1_rows"], sum_free_rows_k2=seen["k2_rows"],
-         rows_each_without_compaction=multi * n_fused,
+    emit(phase="checks", fused_loop_clusters=multi, k14_chunks=len(k14_inputs),
+         butina_k15_clusters=len(centroids), fused_plain_loop_s=fused_plain_s,
+         sum_free_rows_center=seen["k1_rows"], sum_free_rows_decrement=seen["k2_rows"],
+         sum_free_rows_times_members=int(((fused_table[:, 2] - fused_table[:, 1])
+                                          * fused_table[:, 1]).sum()),
          seconds=time.perf_counter() - t_phase)
 
     # 5. the Mol path: the same SMILES as Mol objects -> GetFingerprints ---------
@@ -1910,20 +2019,34 @@ def main() -> int:
     mol_fps_s = time.perf_counter() - t0
     mol_launches = read_counts()
     check(mol_fps.device == cuda and mol_fps.shape == (n, 64), "GetFingerprints(mols) shape")
+    check(mol_launches[K14] >= 1 and all(v == 0 for k, v in mol_launches.items() if k != K14),
+          f"GetFingerprints(mols) launches {mol_launches}")
     check(np.array_equal(mol_fps.numpy(), fps.numpy()),
           "GetFingerprints(mols) differs from GetFingerprintsFromSmiles")
-    subset = np.arange(0, n, n // 512)[:512]
-    check(np.array_equal(gen.GetFingerprintsCpu([mols[i] for i in subset]),
-                         mol_fps.numpy()[subset]), "GetFingerprints(mols) differs from the oracle")
+    # every molecule of the main path against the numpy oracle (so K14's
+    # rows on both paths)
+    t0 = time.perf_counter()
+    oracle = gen.GetFingerprintsCpu(mols)
+    oracle_s = time.perf_counter() - t0
+    bad = np.nonzero((oracle != mol_fps.numpy()).any(axis=1))[0]
+    check(not len(bad), f"GetFingerprints(mols) differs from the oracle on {len(bad)} molecules, "
+                        f"first {[smiles[i] for i in bad[:3]]}")
     # the triple cubane (38 bonds in the 24-atom bucket) and a chain past the
-    # largest bucket, which runs on the card in a 320-atom bucket of its own
+    # largest bucket, which runs on the card in a 320-atom bucket of its own;
+    # K14 against plain on them at every radius 0..6
     odd = mols_from_smiles([TRIPLE_CUBANE, "C" * 300])
     check(odd[1].num_atoms > HardwareOptions().atomBuckets[-1], "the chain fits a bucket")
     odd_fps = gen.GetFingerprints(odd, device=cuda)
     check(odd_fps.device == cuda and np.array_equal(odd_fps.numpy(), gen.GetFingerprintsCpu(odd)),
           "cubane or chain differs from the oracle")
+    for mol, bucket in ((odd[0], 24), (odd[1], 320)):
+        args = k14_args(morgan_ops.prepare_batch([mol], bucket))
+        for radius in range(7):
+            check(torch.equal(morgan_ops.morgan_kernel(*args, radius=radius, fp_size=2048),
+                              morgan_ops.morgan_kernel_plain(*args, radius=radius, fp_size=2048)),
+                  f"K14 differs from plain on a {mol.num_atoms}-atom molecule at radius {radius}")
     emit(phase="mol_path", n_mols=len(mols), parse_s=parse_s, get_fingerprints_s=mol_fps_s,
-         launches=mol_launches, oracle_subset=len(subset),
+         launches=mol_launches, oracle_molecules=len(mols), oracle_s=oracle_s,
          seconds=time.perf_counter() - t_phase)
 
     # 6. RMSD -> Butina -------------------------------------------------------------
@@ -1973,7 +2096,9 @@ def main() -> int:
     t2 = time.perf_counter()
     rmsd_launches = read_counts()
     check(rmsd_launches[K3] == 3, f"K3 launched {rmsd_launches[K3]} times, want 3")
-    check(all(v == 0 for k, v in rmsd_launches.items() if k != K3), "RMSD path launched another")
+    check(rmsd_launches[K15] == 1, f"K15 launched {rmsd_launches[K15]} times, want 1 (butina)")
+    check(all(v == 0 for k, v in rmsd_launches.items() if k not in (K3, K15)),
+          "RMSD path launched another")
 
     pairs_per_mol = RMSD_CONFS * (RMSD_CONFS - 1) // 2
     rigid = torch.from_numpy(np.concatenate([m * pairs_per_mol + np.array(
@@ -2163,7 +2288,7 @@ def main() -> int:
     check(not bool(chained.positions[~holes].any()), "positionsFrom: a hole holds coordinates")
     check(bool(torch.isfinite(chained.energies[holes]).all()), "positionsFrom: energies")
     check(chain_launches[K5] >= 2 and chain_launches[K4] == chain_launches[K5]
-          and chain_launches[K3] == 1,
+          and chain_launches[K3] == 1 and chain_launches[K15] == 1,
           f"positionsFrom chain launches {chain_launches}")
     check(ens_rms.shape == (n_kept * (n_kept - 1) // 2,) and chain_ids_b.device == cuda,
           "the chained RMSD -> Butina")
@@ -2644,7 +2769,7 @@ def main() -> int:
     torch.cuda.synchronize()
     chain_s = time.perf_counter() - t0
     chain_launches = read_counts()
-    check(all(chain_launches[k] > 0 for k in (K9, K10, K11, K5D, K12, K4, K5, K3)),
+    check(all(chain_launches[k] > 0 for k in (K9, K10, K11, K5D, K12, K4, K5, K3, K15)),
           f"embed chain launches {chain_launches}")
     check(torch.equal(c_min.conf_mask, c_dense.conf_mask), "the chain kept the accepted slots")
     check(bool(torch.isfinite(c_min.energies[c_min.conf_mask]).all()), "chain: MMFF energies")
@@ -3045,7 +3170,30 @@ def main() -> int:
             plain_shape=f"{EMBED_PLAIN} systems x {big_e} atoms, one run",
             converged=float(res.converged.double().mean()))
         etk_rows[key] = entry
-    del flush
+    # K14 over every chunk of the main path, back to back; K15 alone at the
+    # main path's matrix; K16 alone at 100k from K2's counts (a fresh copy
+    # each run, K16 decrements it), its plain version the loop timed once in
+    # phase checks
+    def k14_all(fn):
+        for args in k14_inputs:
+            fn(*args, radius=3, fp_size=2048)
+
+    k14_row = row(K14, f"{n} molecules in {len(k14_inputs)} chunks, r=3, 2048 bits",
+                  k14_work(morgan_chunks, 3, 2048, rates),
+                  lambda: k14_all(morgan_ops.morgan_kernel),
+                  lambda: k14_all(morgan_ops.morgan_kernel_plain), cold=True)
+    k15_formed = int(butina_ops._launch_k15(hits24)["n_clusters"])
+    k15_row = row(K15, f"{n}x{n}, cutoff 0.4 ({k15_formed} clusters formed)",
+                  k15_work(n, k15_formed, rates), lambda: butina_ops._launch_k15(hits24),
+                  lambda: butina_ops.butina_matrix_plain(hits24), reps=5)
+    counts0 = sim_ops.neighbor_counts(fused_fps, all_cols, fused_thr)
+    k16_row = row(K16, f"{n_fused} rows @2048, cutoff {FUSED_CUTOFF} ({multi} clusters formed)",
+                  k16_work(fused_table.cpu().numpy(), n_fused, 64, rates),
+                  lambda: butina_ops._launch_k16(fused_fps, counts0.clone(), fused_thr,
+                                                 "tanimoto", False), None, reps=3)
+    k16_row.update(plain_ms=fused_plain_s * 1e3,
+                   plain_shape="the plain loop (K2's first counts included), one run (phase checks)")
+    del flush, hits24
     emit(phase="timings", kernels=measured, m_skinny_sweep=sweep, m_skinny=sim_ops.M_SKINNY,
          seconds=time.perf_counter() - t_phase)
 
@@ -3077,10 +3225,17 @@ def main() -> int:
         "fused_butina_100k": lambda: fused_butina(fused_fps, FUSED_CUTOFF, return_centroids=True),
         "fingerprints_from_mols": lambda: gen.GetFingerprints(mols, device=cuda),
     }
+    traces = {}
     for name, fn in phases.items():
         # the bfgs ETKDG run retries half its systems for every attempt: one
         # warm wall before its traced run
-        emit(phase=f"trace_{name}", **trace(fn, reps=1 if name == "etkdg_bfgs" else 3))
+        traces[name] = trace(fn, reps=1 if name == "etkdg_bfgs" else 3)
+        emit(phase=f"trace_{name}", **traces[name])
+    # the Butina loops run on the card: a handful of host syncs per call, none
+    # per cluster
+    for name, formed in (("butina", k15_formed), ("fused_butina_100k", multi)):
+        syncs = traces[name]["n_sync_calls"]
+        check(syncs <= 20 < formed, f"{name}: {syncs} host syncs for {formed} clusters")
 
     # one line per kernel, at the main-path shape that launches it most: the
     # matrix for the tiles; a list of free rows (the loop's average, half of
@@ -3095,8 +3250,8 @@ def main() -> int:
                   K2: (listed[K2], "cold_l2_ms"), K3: (k3_rows["batch"], k3_key),
                   K4: (k4_row, k4_key), K5: (k5_row, "ms"), K6: (k6_row, k6_key),
                   K5U: (k5u_row, "ms"), K7: (k7_row, k7_key), K8M: (k8_rows[K8M], "ms"),
-                  K8U: (k8_rows[K8U], "ms")}
-    for key, entry in ((K9, k9_row), (K10, k10_row), (K11, k11_row), (K5D, dg_rows[K5D]),
+                  K8U: (k8_rows[K8U], "ms"), K15: (k15_row, "ms"), K16: (k16_row, "ms")}
+    for key, entry in ((K14, k14_row), (K9, k9_row), (K10, k10_row), (K11, k11_row), (K5D, dg_rows[K5D]),
                        (K8D, dg_rows[K8D]), (K12, k12_row), (K13, k13_row),
                        (K5E, etk_rows[K5E]), (K8E, etk_rows[K8E])):
         main_shape[key] = (entry, "cold_l2_ms" if entry["bound_by"] == "bytes"
@@ -3119,6 +3274,7 @@ def main() -> int:
     similarity_cu = "nvmolkit_tpu_torch/csrc/similarity.cu"
     dist_geom_cu = "nvmolkit_tpu_torch/csrc/dist_geom.cu"
     etk_cu = "nvmolkit_tpu_torch/csrc/etk.cu"
+    butina_cu = "nvmolkit_tpu_torch/csrc/butina.cu"
     sources = {
         K1: ("cross_similarity_kernel (K1, 64 x 64 tiles)",
              "nvmolkit_tpu/ops/pallas_similarity.py:68", similarity_cu),
@@ -3163,6 +3319,12 @@ def main() -> int:
         K5E: ("etk_lbfgs (K5 over ETK: lbfgs_kernel<Etk>)", "nvmolkit_tpu/ops/lbfgs_flat.py:160",
               etk_cu),
         K8E: ("etk_bfgs (K8 over ETK: bfgs_kernel<Etk>)", bfgs_at, etk_cu),
+        K14: ("morgan_kernel (K14: one block per molecule, bitsets in shared memory)",
+              "nvmolkit_tpu/ops/morgan.py:112", "nvmolkit_tpu_torch/csrc/morgan.cu"),
+        K15: ("butina_matrix_kernel (K15: the dense Butina loop in one cooperative launch)",
+              "nvmolkit_tpu/ops/butina.py:41", butina_cu),
+        K16: ("fused_loop_kernel (K16: the fused Butina loop in one cooperative launch, after "
+              "K2's first counts)", "nvmolkit_tpu/ops/butina.py:131", butina_cu),
     }
     lines = []
     for key, (label, replaces, source) in sources.items():

@@ -23,6 +23,10 @@
   embedding checks K12), built the same way.
 * ``libnvmk_etk``: ``nvmolkit_tpu_torch/csrc/etk.cu`` (the 3-D ETK energy and
   gradient K13, and K5 and K8 over it), built the same way.
+* ``libnvmk_morgan``: ``nvmolkit_tpu_torch/csrc/morgan.cu`` (the Morgan
+  fingerprint kernel K14), built the same way.
+* ``libnvmk_butina``: ``nvmolkit_tpu_torch/csrc/butina.cu`` (the Butina loops
+  K15, over a hit matrix, and K16, over fingerprints), built the same way.
 * ``libnvmolgraph``: the repository's SMILES featurizer
   ``csrc/mol_graph.cpp``, compiled by ``g++`` with the flags of
   ``csrc/Makefile``.
@@ -66,6 +70,8 @@ COORDGEN_SRC = _PKG / "csrc" / "coordgen.cu"
 DIST_GEOM_SRC = _PKG / "csrc" / "dist_geom.cu"
 EMBED_CHECKS_SRC = _PKG / "csrc" / "embed_checks.cu"
 ETK_SRC = _PKG / "csrc" / "etk.cu"
+MORGAN_SRC = _PKG / "csrc" / "morgan.cu"
+BUTINA_SRC = _PKG / "csrc" / "butina.cu"
 GRAPH_SRC = _REPO / "csrc" / "mol_graph.cpp"
 BOUNDS_SRC = _REPO / "csrc" / "topo_bounds.cpp"
 ETK_MATCH_SRC = _REPO / "csrc" / "etk_match.cpp"
@@ -419,4 +425,40 @@ def etk_ff_lib() -> ctypes.CDLL:
         "libnvmk_etk",
         lambda: _build("libnvmk_etk", ETK_SRC, _nvcc_cmd(ETK_SRC)),
         _declare_etk,
+    )
+
+
+def _declare_morgan(lib: ctypes.CDLL) -> None:
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.nvmk_morgan_scratch_words.restype = ctypes.c_longlong
+    lib.nvmk_morgan_scratch_words.argtypes = [ci, ci, ci, ci]
+    lib.nvmk_morgan.restype = ci
+    lib.nvmk_morgan.argtypes = [vp, vp, ci, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp, vp, vp]
+
+
+def morgan_lib() -> ctypes.CDLL:
+    """The compiled Morgan fingerprint kernel K14 (needs ``nvcc`` and a CUDA
+    runtime)."""
+    return _load(
+        "libnvmk_morgan",
+        lambda: _build("libnvmk_morgan", MORGAN_SRC, _nvcc_cmd(MORGAN_SRC)),
+        _declare_morgan,
+    )
+
+
+def _declare_butina(lib: ctypes.CDLL) -> None:
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.nvmk_butina_matrix.restype = ci
+    lib.nvmk_butina_matrix.argtypes = [vp, ci] + [vp] * 11
+    lib.nvmk_fused_butina_loop.restype = ci
+    lib.nvmk_fused_butina_loop.argtypes = [vp, ci, ci, ctypes.c_float, ci] + [vp] * 12
+
+
+def butina_lib() -> ctypes.CDLL:
+    """The compiled Butina loops K15 and K16 (needs ``nvcc`` and a CUDA
+    runtime)."""
+    return _load(
+        "libnvmk_butina",
+        lambda: _build("libnvmk_butina", BUTINA_SRC, _nvcc_cmd(BUTINA_SRC)),
+        _declare_butina,
     )

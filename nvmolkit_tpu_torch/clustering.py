@@ -2,9 +2,11 @@
 
 Mirrors ``nvmolkit_tpu/clustering.py``:
 
-* :func:`butina` — from a dense distance matrix;
+* :func:`butina` — from a dense distance matrix (kernel K15 on CUDA: the
+  whole loop in one launch, the diagonal counted as a hit without a copy
+  of the matrix);
 * :func:`fused_butina` — from packed fingerprints, never materializing
-  the N x N matrix (kernel K2).
+  the N x N matrix (kernels K2 and K16 on CUDA).
 
 Cluster ids are renumbered so cluster 0 is the largest. The work runs on
 ``device`` if given, else on the input tensor's device (host arrays:
@@ -46,7 +48,7 @@ def butina(
         d = torch.as_tensor(distance_matrix).to(dev)
         if d.dim() != 2 or d.shape[0] != d.shape[1]:
             raise ValueError(f"distance matrix must be square, got {tuple(d.shape)}")
-        cluster_ids, centroids, _ = butina_matrix(d <= cutoff)
+        cluster_ids, centroids, _ = butina_matrix((d <= cutoff).contiguous())
         if return_centroids:
             return AsyncResult(cluster_ids), centroids.cpu().numpy()
     return AsyncResult(cluster_ids)

@@ -6,8 +6,9 @@
 ``[n, fpSize / 32]`` (int32 words holding the u32 bits; ``.numpy()`` gives
 uint32) as an :class:`AsyncResult`, with the same bits as the JAX package.
 Molecules are grouped by atom bucket; each bucket runs :func:`morgan_kernel`
-in chunks on the device and the rows are put back in input order there.
-``GetFingerprintsCpu`` is the numpy oracle.
+in chunks on the device (kernel K14 on CUDA, one launch per chunk) and the
+rows are put back in input order there. ``GetFingerprintsCpu`` is the numpy
+oracle.
 """
 from __future__ import annotations
 
@@ -24,8 +25,11 @@ from nvmolkit_tpu_torch.utils.config import HardwareOptions
 
 _SUPPORTED_FP_SIZES = (128, 256, 512, 1024, 2048, 4096)
 
-# Molecules per kernel call in buckets of up to 256 atoms; larger buckets
-# take fewer, so the [B, A, A] duplicate tests stay within the same size.
+# Molecules per kernel call in buckets of up to 256 atoms (the SMILES path's
+# largest: one K14 launch per 8192 molecules of a bucket). Larger buckets
+# take fewer in proportion to A^2: that bounds a chunk's bond bitsets
+# ([B, A, W], W ~ A / 16 words) and K14's global scratch for them alike, and
+# the plain version's [B, A, A] duplicate tests on the CPU.
 _MORGAN_CHUNK = 8192
 
 
@@ -140,7 +144,10 @@ class MorganFingerprintGenerator:
 
     def _rows_in_order(self, chunks, n: int, dev: torch.device) -> AsyncResult:
         """:func:`morgan_kernel` over each (input indices, kernel inputs)
-        chunk on ``dev``; the rows gathered back into input order there."""
+        chunk on ``dev``; the rows gathered back into input order there. The
+        inputs travel in their narrow transfer dtypes (uint8 atom indices,
+        codes and degrees; int32 indices past 256 atoms; bool masks), which
+        K14 reads as they are."""
         chunk_idx: list[np.ndarray] = [np.zeros(0, np.int64)]
         chunk_fps: list[torch.Tensor] = [
             torch.zeros((0, self.fpSize // 32), dtype=torch.int32, device=dev)

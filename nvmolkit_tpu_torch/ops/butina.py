@@ -7,25 +7,44 @@ free neighbors a cluster, until the best count is 1; every item still
 free becomes a singleton, in index order. Cluster ids are then renumbered
 by size, largest first, stable in formation order.
 
-* :func:`butina_matrix` runs over a dense boolean hit matrix.
-* :func:`fused_butina` runs over packed fingerprints in O(N) memory: the
-  neighbor counts come from kernel K2 (``ops/similarity.neighbor_counts``)
-  and are decremented by K2 over each new cluster's members; the center's
-  neighbors are one column of kernel K1 (``ops/similarity.cross_similarity``,
-  its few-column configuration). Both run over the free rows only: the loop
-  keeps an ascending list of them and their counts, compacted after each
-  cluster.
+* :func:`butina_matrix` runs over a dense boolean hit matrix: kernel K15
+  (``csrc/butina.cu``) for a CUDA tensor, the whole loop in one cooperative
+  launch; :func:`butina_matrix_plain` for a CPU tensor.
+* :func:`fused_butina` runs over packed fingerprints in O(N) memory: for
+  CUDA tensors kernel K2 (``ops/similarity.neighbor_counts``) counts every
+  row's neighbors and kernel K16 (``csrc/butina.cu``) runs every extraction
+  in one cooperative launch; :func:`fused_butina_plain`, a loop over the
+  free rows on ``cross_similarity_plain`` and ``neighbor_counts_plain``, for
+  CPU tensors.
 
-Both loops run on the tensors' device with two host syncs per cluster (the
-stop test and the member count); a device-side loop is queued in
-ROADMAP.md.
+The plain versions are the tests' and ``chip_smoke.py``'s reference for
+K15 and K16 on the card; a CUDA tensor never falls back to them. Both
+paths end in :func:`_finish` on the device. ``launch_counts`` counts the
+launches of K15 and K16.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from nvmolkit_tpu_torch.ops.similarity import cross_similarity, neighbor_counts
+from nvmolkit_tpu_torch._build import butina_lib
+from nvmolkit_tpu_torch.ops.similarity import (
+    METRICS,
+    _check_fps,
+    _raise_on,
+    cross_similarity_plain,
+    neighbor_counts,
+    neighbor_counts_plain,
+)
+
+_KEYS = 4096  # the kernels' per-block keys buffer (MAX_GRID in csrc/butina.cu)
+
+launch_counts = {"butina_matrix": 0, "fused_butina_loop": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
 
 
 def _best(x: torch.Tensor, rows: torch.Tensor, n: int) -> tuple[int, int]:
@@ -46,16 +65,17 @@ def _take(cluster_raw: torch.Tensor, free: torch.Tensor, members: torch.Tensor, 
 
 
 def _finish(
-    cluster_raw: torch.Tensor, free: torch.Tensor, centroids: list[int]
+    cluster_raw: torch.Tensor, free: torch.Tensor, centroids: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor, int]:
     """Make the free items singletons in index order, then renumber the
-    clusters by size (descending, stable). Returns (ids int32, centroids
-    int64 in renumbered order, n_clusters)."""
+    clusters by size (descending, stable). ``centroids`` (int64) are the
+    formed clusters' centers in formation order. Returns (ids int32,
+    centroids int64 in renumbered order, n_clusters)."""
     dev = cluster_raw.device
-    k = len(centroids)
+    k = centroids.shape[0]
     singles = torch.nonzero(free).squeeze(1)
     cluster_raw[singles] = k + torch.arange(singles.shape[0], device=dev)
-    cent = torch.cat([torch.tensor(centroids, dtype=torch.int64, device=dev), singles])
+    cent = torch.cat([centroids, singles])
     n_clusters = k + singles.shape[0]
     sizes = torch.bincount(cluster_raw, minlength=n_clusters)
     order = torch.argsort(-sizes, stable=True)         # new -> old
@@ -64,10 +84,20 @@ def _finish(
     return rank[cluster_raw].to(torch.int32), cent[order], n_clusters
 
 
-def butina_matrix(hits: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, int]:
-    """Cluster from a dense [n, n] bool neighbor matrix (the diagonal is
-    forced true). Returns ``(cluster_ids int32 [n], centroids int64
-    [n_clusters], n_clusters)`` with centroids in renumbered order."""
+def _loop_outputs(n: int, dev: torch.device) -> dict[str, torch.Tensor]:
+    """What K15 and K16 write: every item free and unassigned at the start."""
+    return {
+        "free": torch.ones(n, dtype=torch.bool, device=dev),
+        "cluster_raw": torch.full((n,), -1, dtype=torch.int64, device=dev),
+        "centroids": torch.empty(n, dtype=torch.int64, device=dev),
+        "keys": torch.empty(_KEYS, dtype=torch.int64, device=dev),
+        "n_clusters": torch.zeros(1, dtype=torch.int32, device=dev),
+    }
+
+
+def butina_matrix_plain(hits: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """:func:`butina_matrix` as a torch loop on the tensor's device, two host
+    syncs per cluster (the stop test and the member list)."""
     n = hits.shape[0]
     dev = hits.device
     hits = hits.clone()
@@ -87,45 +117,162 @@ def butina_matrix(hits: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, int]:
         centroids.append(center)
         # remove the members' columns from every row's count
         counts -= hits[:, members].sum(dim=1, dtype=torch.int32)
-    return _finish(cluster_raw, free, centroids)
+    return _finish(cluster_raw, free, torch.tensor(centroids, dtype=torch.int64, device=dev))
 
 
-def fused_butina(
+def _launch_k15(hits: torch.Tensor) -> dict[str, torch.Tensor]:
+    """K15 over a checked contiguous CUDA bool matrix [n, n], n >= 2: the
+    loop's outputs before the singletons, ``n_clusters`` still on the
+    device."""
+    n = hits.shape[0]
+    dev = hits.device
+    nw = (n + 31) // 32
+    out = _loop_outputs(n, dev)
+    colbits = torch.empty((n, nw), dtype=torch.int32, device=dev)
+    counts = torch.zeros(n, dtype=torch.int32, device=dev)
+    freebits = torch.empty(nw, dtype=torch.int32, device=dev)
+    members = torch.empty(n, dtype=torch.int32, device=dev)
+    n_members = torch.zeros(2, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = butina_lib().nvmk_butina_matrix(
+            hits.data_ptr(), n, colbits.data_ptr(), counts.data_ptr(), freebits.data_ptr(),
+            out["free"].data_ptr(), out["cluster_raw"].data_ptr(), out["centroids"].data_ptr(),
+            members.data_ptr(), n_members.data_ptr(), out["keys"].data_ptr(),
+            out["n_clusters"].data_ptr(), torch.cuda.current_stream().cuda_stream)
+    _raise_on(rc, "butina_matrix")
+    launch_counts["butina_matrix"] += 1
+    return out
+
+
+def butina_matrix(hits: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """Cluster from a dense [n, n] bool neighbor matrix (the diagonal is
+    counted true; the matrix need not be symmetric: members come from the
+    center's row, decrements from their columns). Returns ``(cluster_ids
+    int32 [n], centroids int64 [n_clusters], n_clusters)`` with centroids
+    in renumbered order. Kernel K15 for a CUDA tensor (bool, contiguous;
+    one host sync for the cluster count), else the plain loop."""
+    if hits.dim() != 2 or hits.shape[0] != hits.shape[1]:
+        raise ValueError(f"hit matrix must be square, got {tuple(hits.shape)}")
+    if not hits.is_cuda:
+        return butina_matrix_plain(hits)
+    if hits.dtype != torch.bool or not hits.is_contiguous():
+        raise ValueError(f"K15 takes a contiguous bool matrix, got {hits.dtype}, "
+                         f"contiguous={hits.is_contiguous()}")
+    n = hits.shape[0]
+    if n < 2:  # nothing to cluster: every item a singleton
+        out = _loop_outputs(n, hits.device)
+    else:
+        out = _launch_k15(hits)
+    k = int(out["n_clusters"])
+    return _finish(out["cluster_raw"], out["free"], out["centroids"][:k])
+
+
+def fused_butina_plain(
     fps: torch.Tensor, threshold: float, metric: str = "tanimoto", on_cluster=None,
-) -> tuple[torch.Tensor, torch.Tensor, int]:
-    """O(N)-memory Butina over packed fingerprints [N, W] (int32 words):
-    items are neighbors iff similarity >= ``threshold`` (float32). Returns
-    ``(cluster_ids, centroids, n_clusters)`` as :func:`butina_matrix`.
-
-    As in the JAX version an item is its own neighbor only through its
-    similarity (a zero fingerprint is not), and a cluster's center is
-    always one of its members. ``on_cluster(free_before, center, members,
-    free_after)``, if given, sees each cluster as it forms: the free rows
-    that K1 ran over, the center, the members, and the free rows that K2
-    then runs over.
-    """
+    record: bool = False,
+):
+    """:func:`fused_butina` as a loop on the tensor's device over the free
+    rows: ``cross_similarity_plain`` for the center's column and
+    ``neighbor_counts_plain`` for the counts and their decrements, two host
+    syncs per cluster. The loop keeps an ascending list of the free rows and
+    their counts, compacted after each cluster. ``on_cluster(free_before,
+    center, members, free_after)``, if given, sees each cluster as it forms:
+    the free rows the center's column ran over, the center, the members, and
+    the free rows whose counts then drop."""
     n = fps.shape[0]
     dev = fps.device
     thr = float(np.float32(threshold))
     free_rows = torch.arange(n, device=dev)  # ascending, so argmax-last stays right
-    counts = neighbor_counts(fps, free_rows, threshold, metric)  # counts[i]: free_rows[i]
+    counts = neighbor_counts_plain(fps, free_rows, threshold, metric)  # counts[i]: free_rows[i]
     free = torch.ones(n, dtype=torch.bool, device=dev)
     cluster_raw = torch.full((n,), -1, dtype=torch.int64, device=dev)
-    centroids: list[int] = []
+    clusters: list[tuple[int, int, int]] = []  # (center, member count, free rows before)
     n_free = n
     while n_free:
         best, center = _best(counts, free_rows, n)
         if best <= 1:
             break
-        sim = cross_similarity(fps, fps[center:center + 1], metric, a_rows=free_rows)
+        sim = cross_similarity_plain(fps, fps[center:center + 1], metric, a_rows=free_rows)
         hit = (sim[:, 0] >= thr) | (free_rows == center)
         members = free_rows[torch.nonzero(hit).squeeze(1)]
+        clusters.append((center, members.shape[0], n_free))
         n_free -= members.shape[0]
         keep = torch.nonzero_static(~hit, size=n_free).squeeze(1)
         before, free_rows, counts = free_rows, free_rows[keep], counts[keep]
-        _take(cluster_raw, free, members, len(centroids))
-        centroids.append(center)
+        _take(cluster_raw, free, members, len(clusters) - 1)
         if on_cluster is not None:
             on_cluster(before, center, members, free_rows)
-        counts -= neighbor_counts(fps, members, threshold, metric, rows=free_rows)
-    return _finish(cluster_raw, free, centroids)
+        counts -= neighbor_counts_plain(fps, members, threshold, metric, rows=free_rows)
+    table = torch.tensor(clusters, dtype=torch.int64, device=dev).reshape(-1, 3)
+    out = _finish(cluster_raw, free, table[:, 0].clone())
+    return (*out, table) if record else out
+
+
+def _launch_k16(
+    fps: torch.Tensor, counts: torch.Tensor, threshold: float, metric: str, record: bool,
+) -> dict[str, torch.Tensor]:
+    """K16 over checked CUDA fingerprints [n, W], n >= 2, from K2's counts
+    (decremented in place): the loop's outputs before the singletons, and
+    with ``record`` each cluster's (center, member count, free rows before)
+    in ``record`` [n, 3]."""
+    n, w = fps.shape
+    dev = fps.device
+    out = _loop_outputs(n, dev)
+    free_rows = torch.empty((2, n), dtype=torch.int64, device=dev)
+    free_rows[0] = torch.arange(n, device=dev)
+    n_free = torch.tensor([n, 0], dtype=torch.int32, device=dev)
+    members = torch.empty(n, dtype=torch.int64, device=dev)
+    n_members = torch.zeros(1, dtype=torch.int32, device=dev)
+    if record:
+        out["record"] = torch.empty((n, 3), dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        rc = butina_lib().nvmk_fused_butina_loop(
+            fps.data_ptr(), n, w, float(np.float32(threshold)), METRICS[metric],
+            counts.data_ptr(), free_rows.data_ptr(), n_free.data_ptr(), members.data_ptr(),
+            n_members.data_ptr(), out["free"].data_ptr(), out["cluster_raw"].data_ptr(),
+            out["centroids"].data_ptr(), out["record"].data_ptr() if record else None,
+            out["keys"].data_ptr(), out["n_clusters"].data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(rc, "fused_butina_loop")
+    launch_counts["fused_butina_loop"] += 1
+    return out
+
+
+def fused_butina(
+    fps: torch.Tensor, threshold: float, metric: str = "tanimoto", on_cluster=None,
+    record: bool = False,
+):
+    """O(N)-memory Butina over packed fingerprints [N, W] (int32 words):
+    items are neighbors iff similarity >= ``threshold`` (float32). Returns
+    ``(cluster_ids, centroids, n_clusters)`` as :func:`butina_matrix`, and
+    with ``record`` also an int64 [k, 3] table of the k formed clusters in
+    formation order: (center, member count, free rows before it).
+
+    As in the JAX version an item is its own neighbor only through its
+    similarity (a zero fingerprint is not), and a cluster's center is
+    always one of its members. For CUDA tensors: K2 for the first counts,
+    then K16 for the whole loop (one host sync for the cluster count);
+    ``on_cluster`` (see :func:`fused_butina_plain`) is a host callback the
+    device loop cannot make, so it raises there: use ``record``. For CPU
+    tensors: :func:`fused_butina_plain`.
+    """
+    if metric not in METRICS:
+        raise ValueError(f"unknown metric {metric!r}")
+    _check_fps(fps, "fps")
+    if not fps.is_cuda:
+        return fused_butina_plain(fps, threshold, metric, on_cluster, record)
+    if on_cluster is not None:
+        raise ValueError("on_cluster runs on the plain loop (CPU tensors); on CUDA pass "
+                         "record=True for each cluster's (center, members, free rows)")
+    if not fps.is_contiguous():
+        raise ValueError("K16 takes contiguous fingerprints")
+    n = fps.shape[0]
+    if n < 2:  # nothing to cluster: every item a singleton
+        out = _loop_outputs(n, fps.device)
+        out["record"] = torch.empty((0, 3), dtype=torch.int64, device=fps.device)
+    else:
+        counts = neighbor_counts(fps, torch.arange(n, device=fps.device), threshold, metric)
+        out = _launch_k16(fps, counts, threshold, metric, record)
+    k = int(out["n_clusters"])
+    result = _finish(out["cluster_raw"], out["free"], out["centroids"][:k])
+    return (*result, out["record"][:k]) if record else result

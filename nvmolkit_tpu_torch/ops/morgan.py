@@ -17,22 +17,34 @@ Differences from the JAX program, none of which changes a bit:
   * the [B, A, A] duplicate tests loop over bitset words instead of
     materializing [B, A, A, W].
 
-This runs as many small torch operations on the device; a hand-written
-CUDA kernel (one block per molecule, bitsets in shared memory) is queued
-in ROADMAP.md. :func:`prepare_batch` makes the kernel's inputs from
-:class:`Mol` objects on the host.
+Two versions with the same bits: kernel K14 (``csrc/morgan.cu``: one block
+per molecule, bitsets in shared memory), launched by :func:`morgan_kernel`
+for CUDA tensors on the current stream (a build or launch failure raises,
+there is no fallback), and :func:`morgan_kernel_plain`, many small torch
+operations, used for CPU tensors and by the tests and ``chip_smoke.py`` as
+K14's reference on the card. ``launch_counts`` counts K14's launches.
+:func:`prepare_batch` makes the inputs from :class:`Mol` objects on the
+host.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from nvmolkit_tpu_torch._build import morgan_lib
 from nvmolkit_tpu_torch.chem.mol import MAX_BONDS_PER_ATOM, Mol
 from nvmolkit_tpu_torch.ops.morgan_cpu import atom_invariants
 from nvmolkit_tpu_torch.ops.packed_bits import pack_bits
 from nvmolkit_tpu_torch.utils.hashing import MASK32, hash_combine_u32
 
 _EMPTY_CODE = 256  # bond codes are uint8
+
+launch_counts = {"morgan": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
 
 
 def prepare_batch(
@@ -112,7 +124,7 @@ def _all_words_equal(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return eq
 
 
-def morgan_kernel(
+def morgan_kernel_plain(
     inv0: torch.Tensor,       # [B, A] int32 (u32 bits)
     adj_atoms: torch.Tensor,  # [B, A, K] uint8 or integer
     adj_code: torch.Tensor,   # [B, A, K] uint8 or integer
@@ -124,7 +136,8 @@ def morgan_kernel(
     radius: int,
     fp_size: int,
 ) -> torch.Tensor:
-    """Packed fingerprints [B, fp_size / 32] int32 (u32 bits)."""
+    """Packed fingerprints [B, fp_size / 32] int32 (u32 bits), in plain
+    torch."""
     B, A, K = adj_atoms.shape
     dev = inv0.device
     # widen the narrow transfer dtypes on the device
@@ -186,3 +199,71 @@ def morgan_kernel(
         nbr = nbr_new
 
     return pack_bits(bits[:, :fp_size])
+
+
+# K14's input dtypes: (name, dtypes it takes)
+_K14_DTYPES = (
+    ("inv0", (torch.int32,)),
+    ("adj_atoms", (torch.uint8, torch.int32)),
+    ("adj_code", (torch.uint8,)),
+    ("adj_mask", (torch.bool,)),
+    ("own_bits", (torch.int32,)),
+    ("atom_mask", (torch.bool,)),
+    ("degree", (torch.uint8,)),
+)
+
+
+def morgan_kernel(
+    inv0: torch.Tensor,       # [B, A] int32 (u32 bits)
+    adj_atoms: torch.Tensor,  # [B, A, K] uint8, or int32 past 256 atoms
+    adj_code: torch.Tensor,   # [B, A, K] uint8
+    adj_mask: torch.Tensor,   # [B, A, K] bool
+    own_bits: torch.Tensor,   # [B, A, W] int32 (u32 bits)
+    atom_mask: torch.Tensor,  # [B, A] bool
+    degree: torch.Tensor,     # [B, A] uint8
+    *,
+    radius: int,
+    fp_size: int,
+) -> torch.Tensor:
+    """Packed fingerprints [B, fp_size / 32] int32 (u32 bits): kernel K14 for
+    CUDA tensors, which takes the narrow transfer dtypes above as they are,
+    and raises on others; :func:`morgan_kernel_plain` for CPU tensors."""
+    args = (inv0, adj_atoms, adj_code, adj_mask, own_bits, atom_mask, degree)
+    if not inv0.is_cuda:
+        if any(t.is_cuda for t in args):
+            raise ValueError("inv0 is on the CPU and another input on CUDA")
+        return morgan_kernel_plain(*args, radius=radius, fp_size=fp_size)
+    if radius < 0 or fp_size <= 0 or fp_size % 32:
+        raise ValueError(f"radius {radius} and fp_size {fp_size}: need radius >= 0 and a "
+                         "positive multiple of 32 bits")
+    B, A, K = adj_atoms.shape
+    W = own_bits.shape[-1]
+    shapes = {"inv0": (B, A), "adj_atoms": (B, A, K), "adj_code": (B, A, K),
+              "adj_mask": (B, A, K), "own_bits": (B, A, W), "atom_mask": (B, A),
+              "degree": (B, A)}
+    if K != MAX_BONDS_PER_ATOM:
+        raise ValueError(f"K14 takes {MAX_BONDS_PER_ATOM} adjacency slots, got {K}")
+    for t, (name, dtypes) in zip(args, _K14_DTYPES):
+        if t.dtype not in dtypes or tuple(t.shape) != shapes[name]:
+            raise ValueError(f"{name}: K14 takes {dtypes} of shape {shapes[name]}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t.device != inv0.device or not t.is_contiguous():
+            raise ValueError(f"{name}: K14's inputs must be contiguous and on one device")
+    out = torch.empty((B, fp_size // 32), dtype=torch.int32, device=inv0.device)
+    if B == 0:
+        return out
+    lib = morgan_lib()
+    with torch.cuda.device(inv0.device):
+        per_mol = lib.nvmk_morgan_scratch_words(A, W, radius, fp_size)
+        scratch = (torch.empty(B * per_mol, dtype=torch.int32, device=inv0.device)
+                   if per_mol else None)
+        rc = lib.nvmk_morgan(
+            inv0.data_ptr(), adj_atoms.data_ptr(), adj_atoms.element_size(),
+            adj_code.data_ptr(), adj_mask.data_ptr(), own_bits.data_ptr(),
+            atom_mask.data_ptr(), degree.data_ptr(), B, A, W, radius, fp_size,
+            None if scratch is None else scratch.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"morgan kernel launch failed with CUDA error {rc}")
+    launch_counts["morgan"] += 1
+    return out

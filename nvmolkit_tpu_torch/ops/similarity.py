@@ -12,9 +12,9 @@ Each operation has two versions with the same results:
   bits to float32 and runs one matmul, which is exact: every count is an
   integer <= 4096 < 2**24.
 
-Both take an optional int64 list of rows, so the fused Butina loop works
-on its free rows only. ``launch_counts`` counts the launches of each
-kernel.
+Both take an optional int64 list of rows, read in place (the plain fused
+Butina loop, ``ops/butina.fused_butina_plain``, runs over its free rows
+only). ``launch_counts`` counts the launches of each kernel.
 """
 from __future__ import annotations
 

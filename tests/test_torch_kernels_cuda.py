@@ -143,16 +143,22 @@ def test_neighbor_counts_row_list_matches_plain(cuda, metric):
 
 
 def test_fused_butina_cuda_matches_cpu(cuda):
+    """The public call on the card: K2 once for the first counts, K16 once
+    for the whole loop, K1 not at all; the CPU's clusters."""
     from nvmolkit_tpu_torch.clustering import fused_butina
+    from nvmolkit_tpu_torch.ops import butina as butina_ops
 
     rng = np.random.default_rng(5)
     base = _fps(rng, 40, 32).numpy().view(np.uint32)
     x = base[rng.integers(0, 40, 3000)] ^ _fps(rng, 3000, 32).numpy().view(np.uint32)
     want = fused_butina(x, 0.6, return_centroids=True, device="cpu")
     before = dict(sim_ops.launch_counts)
+    loops = butina_ops.launch_counts["fused_butina_loop"]
     got = fused_butina(x, 0.6, return_centroids=True, device=cuda)
-    for name in ("cross_similarity_few_columns", "neighbor_counts"):
-        assert sim_ops.launch_counts[name] > before[name], name
+    assert sim_ops.launch_counts["neighbor_counts"] == before["neighbor_counts"] + 1
+    assert butina_ops.launch_counts["fused_butina_loop"] == loops + 1
+    for name in ("cross_similarity", "cross_similarity_few_columns"):
+        assert sim_ops.launch_counts[name] == before[name], name
     assert got[0] == want[0]
     np.testing.assert_array_equal(got[1], want[1])
     np.testing.assert_array_equal(got[2], want[2])
@@ -1088,3 +1094,177 @@ def test_host_inputs_on_a_side_stream(cuda):
     clusters, sizes = fused_butina(fps, 0.4, stream=side, device=cuda)
     clusters_c, sizes_c = fused_butina(fps, 0.4, device="cpu")
     assert clusters == clusters_c and np.array_equal(sizes, sizes_c)
+
+
+# K14 (Morgan), K15 (the dense Butina loop) and K16 (the fused Butina loop)
+# against their plain versions on the card; bit for bit and integer-exact.
+
+CUBANE = "C12C3C4C1C5C2C3C45"
+ADAMANTANE = "C1C2CC3CC1CC(C2)C3"
+TRIPLE_CUBANE = (
+    "C12C3C4C1C5C2C3C45C67C8C9C6C%10C7C8C9%10C%11%12C%13C%14C%11C%15C%12C%13C%14%15"
+)
+MORGAN_INPUTS = ("inv0", "adj_atoms", "adj_code", "adj_mask", "own_bits", "atom_mask", "degree")
+
+
+def _morgan_batches(cuda, chirality):
+    """K14's inputs as the two paths make them: the SMILES path (the native
+    featurizer, per bucket) over tests/data/smiles.py, tests/molgen.py's
+    molecules, the golden Morgan file and the cages; the Mol path
+    (prepare_batch) over the cages, a 300-atom chain (a 320-atom bucket of
+    its own, int32 indices, bitsets in shared memory past 48 KB) and a
+    1,000-atom chain (a 1,024-atom bucket whose bitsets take K14's global
+    scratch)."""
+    import json
+
+    from nvmolkit_tpu_torch.chem.native import morgan_batches_from_smiles, mols_from_smiles
+    from nvmolkit_tpu_torch.ops.morgan import prepare_batch
+    from nvmolkit_tpu_torch.utils.config import HardwareOptions
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    golden = json.loads((root / "tests/golden/regression_morgan.json").read_text())["smiles"]
+    smiles = (_load_by_path("tests/data/smiles.py").SMILES_100
+              + _load_by_path("tests/molgen.py").random_smiles_batch(seed=7, n=400)
+              + golden + [CUBANE, ADAMANTANE, TRIPLE_CUBANE])
+    arrays = [a for _, a in morgan_batches_from_smiles(
+        smiles, HardwareOptions().atomBuckets, use_chirality=chirality).values()]
+    cages = mols_from_smiles([CUBANE, ADAMANTANE, TRIPLE_CUBANE, "C[C@H](N)C(=O)O"])
+    arrays.append(prepare_batch(cages, 24, chirality))
+    arrays.append(prepare_batch(mols_from_smiles(["C" * 300]), 320, chirality))
+    arrays.append(prepare_batch(mols_from_smiles(["C" * 1000]), 1024, chirality))
+    return [[torch.from_numpy(a[k].view(np.int32) if a[k].dtype == np.uint32 else a[k]).to(cuda)
+             for k in MORGAN_INPUTS] for a in arrays]
+
+
+@pytest.mark.parametrize("radius", range(7))
+def test_morgan_kernel_matches_plain(cuda, radius):
+    from nvmolkit_tpu_torch.ops import morgan
+
+    for chirality in (False, True):
+        for args in _morgan_batches(cuda, chirality):
+            for fp_size in (128, 256, 512, 1024, 2048, 4096):
+                before = morgan.launch_counts["morgan"]
+                got = morgan.morgan_kernel(*args, radius=radius, fp_size=fp_size)
+                torch.cuda.synchronize()
+                assert morgan.launch_counts["morgan"] == before + 1
+                want = morgan.morgan_kernel_plain(*args, radius=radius, fp_size=fp_size)
+                assert got.is_cuda and torch.equal(got, want), (args[0].shape, fp_size, chirality)
+
+
+def test_morgan_kernel_refuses_what_it_does_not_take(cuda):
+    from nvmolkit_tpu_torch.ops import morgan
+
+    args = _morgan_batches(cuda, False)[0]
+    wide = list(args)
+    wide[1] = args[1].to(torch.int64)
+    with pytest.raises(ValueError):
+        morgan.morgan_kernel(*wide, radius=2, fp_size=2048)
+    with pytest.raises(ValueError):
+        morgan.morgan_kernel(*args, radius=2, fp_size=1000)
+    with pytest.raises(ValueError):
+        morgan.morgan_kernel(*args[:-1], args[-1].cpu(), radius=2, fp_size=2048)
+
+
+def _hit_matrices(kind):
+    rng = np.random.default_rng(len(kind))
+    if kind == "random":  # symmetric, as a distance cutoff makes them
+        out = []
+        for n in (5, 64, 1001, 3000):
+            pts = rng.random((n, 2))
+            d = np.linalg.norm(pts[:, None] - pts[None], axis=-1)
+            out.append(d <= 0.08)
+        return out
+    if kind == "asymmetric":
+        return [rng.random((n, n)) < p for n, p in ((17, 0.3), (300, 0.02), (2051, 0.004),
+                                                     (4096, 0.001))]
+    if kind == "tie_heavy":
+        out = []
+        for n, size in ((96, 6), (3000, 10)):
+            block = rng.permutation(np.arange(n) // size)
+            out.append(block[:, None] == block[None, :])
+        return out
+    return [np.ones((9, 9), bool), np.zeros((300, 300), bool), np.zeros((1, 1), bool),
+            np.array([[False, True], [False, False]]), np.ones((2, 2), bool),
+            np.zeros((0, 0), bool)]
+
+
+@pytest.mark.parametrize("kind", ["random", "asymmetric", "tie_heavy", "degenerate"])
+def test_butina_matrix_kernel_matches_plain(cuda, kind):
+    from nvmolkit_tpu_torch.ops import butina as butina_ops
+
+    for hits_np in _hit_matrices(kind):
+        hits = torch.from_numpy(hits_np).to(cuda)
+        before = butina_ops.launch_counts["butina_matrix"]
+        ids, cent, k = butina_ops.butina_matrix(hits)
+        torch.cuda.synchronize()
+        n = hits.shape[0]
+        assert butina_ops.launch_counts["butina_matrix"] == before + (n >= 2)
+        want = butina_ops.butina_matrix_plain(hits)
+        assert ids.is_cuda and k == want[2], (kind, n)
+        assert torch.equal(ids, want[0]) and torch.equal(cent, want[1]), (kind, n)
+
+
+def test_butina_matrix_kernel_refuses_what_it_does_not_take(cuda):
+    from nvmolkit_tpu_torch.ops import butina as butina_ops
+
+    hits = torch.rand((50, 50), device=cuda) < 0.1
+    with pytest.raises(ValueError):
+        butina_ops.butina_matrix(hits.to(torch.uint8))
+    with pytest.raises(ValueError):
+        butina_ops.butina_matrix(hits.t())
+    with pytest.raises(ValueError):
+        butina_ops.butina_matrix(hits[:, :40])
+
+
+def _fused_inputs(kind, words):
+    rng = np.random.default_rng(words)
+    if kind == "clustered":
+        base = _fps(rng, 60, words).numpy().view(np.uint32)
+        x = base[rng.integers(0, 60, 5000)] ^ _fps(rng, 5000, words).numpy().view(np.uint32)
+        x[::151] = 0
+        return x
+    if kind == "tie_heavy":
+        centers = rng.integers(0, 2**32, (96, words), dtype=np.uint64).astype(np.uint32)
+        noise = rng.integers(0, 2**32, (64, words), dtype=np.uint64).astype(np.uint32)
+        x = np.concatenate([np.repeat(centers, 16, axis=0), noise])
+        return x[rng.permutation(len(x))]
+    if kind == "zero":
+        x = _fps(rng, 300, words).numpy().view(np.uint32)
+        x[rng.random(300) < 0.3] = 0
+        x[100:120] = x[99]
+        return x
+    return _fps(rng, 1, words).numpy().view(np.uint32)  # a single item
+
+
+@pytest.mark.parametrize("metric", ["tanimoto", "cosine"])
+@pytest.mark.parametrize("kind", ["clustered", "tie_heavy", "zero", "single"])
+def test_fused_butina_loop_kernel_matches_plain(cuda, kind, metric):
+    """K16 after K2 against the plain loop on the same CUDA tensor: ids,
+    centroids and each formed cluster's (center, member count, free rows
+    before), at fingerprints of 3, 4, 64 and 128 words."""
+    from nvmolkit_tpu_torch.ops import butina as butina_ops
+
+    for words in (3, 4, 64, 128):
+        fps = torch.from_numpy(_fused_inputs(kind, words).view(np.int32)).to(cuda)
+        for threshold in (0.3, 0.6, 1.0):
+            before = butina_ops.launch_counts["fused_butina_loop"]
+            counts_before = sim_ops.launch_counts["neighbor_counts"]
+            ids, cent, k, table = butina_ops.fused_butina(fps, threshold, metric, record=True)
+            torch.cuda.synchronize()
+            ran = fps.shape[0] >= 2
+            assert butina_ops.launch_counts["fused_butina_loop"] == before + ran
+            assert sim_ops.launch_counts["neighbor_counts"] == counts_before + ran
+            want = butina_ops.fused_butina_plain(fps, threshold, metric, record=True)
+            what = (kind, words, threshold)
+            assert k == want[2] and torch.equal(ids, want[0]), what
+            assert torch.equal(cent, want[1]) and torch.equal(table, want[3]), what
+            plain_ids = butina_ops.fused_butina(fps, threshold, metric)
+            assert torch.equal(plain_ids[0], ids) and torch.equal(plain_ids[1], cent)
+
+
+def test_fused_butina_on_cuda_refuses_a_host_callback(cuda):
+    from nvmolkit_tpu_torch.ops import butina as butina_ops
+
+    fps = _fps(np.random.default_rng(0), 100, 8).to(cuda)
+    with pytest.raises(ValueError):
+        butina_ops.fused_butina(fps, 0.5, on_cluster=lambda *a: None)

@@ -314,3 +314,47 @@ def test_etkdg_runs_without_jax():
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.startswith("OK")
+
+
+_MAIN_PATH_SCRIPT = r"""
+import sys
+for name in ("jax", "jaxlib", "nvmolkit_tpu"):
+    sys.modules[name] = None  # importing any of them now raises ImportError
+sys.path.insert(0, {root!r})
+import numpy as np
+import torch
+from nvmolkit_tpu_torch.chem.native import mols_from_smiles
+from nvmolkit_tpu_torch.ops import butina, morgan
+from nvmolkit_tpu_torch.ops.morgan import prepare_batch
+
+arrays = prepare_batch(mols_from_smiles(["C12C3C4C1C5C2C3C45", "CCO", "C" * 20]), 24)
+args = [torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a)
+        for a in arrays.values()]
+fp = morgan.morgan_kernel(*args, radius=3, fp_size=2048)
+assert torch.equal(fp, morgan.morgan_kernel_plain(*args, radius=3, fp_size=2048))
+hits = torch.from_numpy(np.random.default_rng(0).random((40, 40)) < 0.1)
+ids, cent, k = butina.butina_matrix(hits)
+assert torch.equal(ids, butina.butina_matrix_plain(hits)[0]) and len(cent) == k
+fps = torch.from_numpy(np.repeat(np.arange(1, 9, dtype=np.int32)[:, None], 4, axis=1))
+seen = []
+ids, cent, k, table = butina.fused_butina(fps, 0.5, record=True,
+                                          on_cluster=lambda *c: seen.append(c[1]))
+assert table[:, 0].tolist() == seen and k == int(ids.max()) + 1
+assert all(v == 0 for v in (*morgan.launch_counts.values(), *butina.launch_counts.values()))
+leaked = sorted(m for m in sys.modules if sys.modules[m] is not None
+                and m.split(".")[0] in ("jax", "jaxlib", "nvmolkit_tpu"))
+assert not leaked, leaked
+print("OK")
+"""
+
+
+def test_main_path_kernels_dispatch_without_jax():
+    """morgan_kernel, butina_matrix and fused_butina (with its record and
+    on_cluster) take their plain versions on CPU tensors, launch nothing,
+    and import nothing of the JAX package."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _MAIN_PATH_SCRIPT.format(root=str(ROOT))],
+        capture_output=True, text=True, timeout=300, cwd=ROOT,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.startswith("OK")
