@@ -9,8 +9,8 @@ Phases, each reported as one JSON line with its seconds:
      UFF and constraint kernels, the embedding's four kernels, the ETK
      kernel, the Morgan kernel and the Butina loops (nvcc), the SMILES
      featurizer, the bounds builder and the torsion-library matcher (g++),
-     from the sources in this checkout, all fifteen compilers started
-     together;
+     and the TFD kernels (nvcc), from the sources in this checkout, all
+     sixteen compilers started together;
   2. kernels: K1 (cross similarity, both launch configurations) and K2
      (neighbor counts) against their plain PyTorch versions at side shapes
      (ragged, zero rows, 128..4096 bits, with and without row lists, the
@@ -52,6 +52,18 @@ Phases, each reported as one JSON line with its seconds:
      2,000 conformers in 50 families through GetConformerRMSMatrix, the
      condensed vector expanded on the device, and butina, which must find
      the 50 families with the ids and centroids of the plain matrix;
+  6a. TFD: (c) through GetTFDMatrices (one K17 and one K18 launch; the
+     first call's wall, then its steps timed one by one: the host
+     enumeration, the conformers' packing, the batch's copies, K17 + K18,
+     the split; then a second call's wall), its vectors
+     views of one buffer equal to K18's on the call's batch, the rigid
+     copies' TFD within tfd_tolerance of 0; K17 against its plain version
+     (circular difference within dihedral_tolerance) and K18 on K17's
+     angles against its plain version (K18_TOL) at (c), (b) and bench.py's
+     TFD configuration (make_smiles(64) x 100 conformers from the port's
+     EmbedMolecules, maxIterations 8, through positionsFrom: first and warm
+     walls, pairs/s); (b) through GetTFDMatrix -> square -> butina, valid
+     clusters;
   6b. MMFF: the fixture's drug-like molecules x 32 conformers through
      MMFFOptimizeMoleculesConfs(maxIters=200, output=DEVICE) (one K5 launch
      per bucket), first call and three warm ones, converged shares and
@@ -85,7 +97,10 @@ Phases, each reported as one JSON line with its seconds:
      the JAX package's (tests/data/torch_dg_embed.npz) by a two-proportion
      bound, K12 (the checks) against its plain version on moved and
      distorted conformers; then the conformer workflow on the card: the
-     embedded conformers (DEVICE) -> MMFF -> RMSD -> Butina;
+     embedded conformers (DEVICE) -> MMFF -> {RMSD, TFD (K17, K18; equal to
+     the host path on the same minimized coordinates, and to the same
+     steps with the torsions enumerated before)} -> Butina, the part
+     without TFD timed and traced apart from the TFD step;
   6e. ETKDG: the same 1,024 molecules x 8 with the default
      EmbedParameters() (the ETK stage with the torsion library), both
      backends: the host term build (the native matcher and the terms) timed
@@ -111,7 +126,8 @@ Phases, each reported as one JSON line with its seconds:
      metric matrices; K13 and K5/K8 over ETK at that chunk from the DG
      stages' output; K14 over the main path's chunks, K15 at its 24.5k hit
      matrix and K16 at its 100k fingerprints from K2's counts, with bounds
-     that count INT32 operations or POPCs as well as bytes;
+     that count INT32 operations or POPCs as well as bytes; K17 and K18 at
+     (c) and (b);
   8. trace, per phase of the paths: three warm untraced walls, then one run
      under torch.profiler with its wall, the span between CUDA events around
      it, the device-busy share (union of the intervals of device events,
@@ -127,6 +143,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import copy
 import dataclasses
 import importlib.util
 import io
@@ -153,6 +170,20 @@ FUSED_N, FUSED_CUTOFF = 100_000, 0.6
 # epilogue, a multiply feeding an add counted once, a division or square
 # root once: coefficients 82, 12 Newton steps of 12, epilogue 7
 QCP_OPS = 233
+# FP32 operations in csrc/tfd.cu, a division, square root or atan2 counted
+# once. K17 per angle: the three differences 9, the two normals 18, their
+# cross product 9, two dot products 10, three norms 18, the division and its
+# clamp 2, atan2 and degrees 2, the guard and the wrap 4. K18 per pair: the
+# float64 index recovery 6 and the final clamp, test and division 3; per
+# torsion: the clamp, division, product and two sums 5; per Single torsion 4
+# (circular difference), per Ring quartet 6 and per Ring 4 (two divisions, a
+# difference, an absolute value), per Symmetric pairing 5 (circular
+# difference and minimum)
+DIHEDRAL_OPS = 72
+TFD_PAIR_OPS, TFD_TORSION_OPS, TFD_SINGLE_OPS = 9, 5, 4
+TFD_RING_QUARTET_OPS, TFD_RING_OPS, TFD_SYM_PAIRING_OPS = 6, 4, 5
+K18_TOL = 1e-6  # K18 sums in its plain version's order: equal but for the last bit
+TFD_CUTOFF = 0.2  # Butina over the ensemble's (b) TFD matrix
 RMSD_MOLS, RMSD_CONFS = 1024, 64                   # RMSD batches (a) and (c)
 DRUG_HEAVY = (25, 32)                              # heavy atoms drawn for (c)
 FAMILIES, COPIES, FAMILY_SIGMA = 50, 40, 0.2       # ensemble (b)
@@ -230,6 +261,7 @@ EMBED_COUNTERS = ("double_bond_geometry", "double_bond_stereo", "chiral_dist_che
                   "tetrahedral_check")
 EMBED_W = (1.0, 0.1, 0.2, 1.0)
 EMBED_CHAIN_BUTINA, EMBED_CHAIN_CUTOFF = 64, 1.0
+EMBED_CHAIN_TFD_CUTOFF = 0.2  # TFD cutoff of the chain's Butina over TFD
 EMBED_PLAIN = 256  # systems the plain DG minimizers are timed on
 # the ETKDG phase: the JAX package's default-EmbedParameters() embedding of
 # the same first 128 molecules x EMBED_CONFS (tests/test_torch_etkdg_fixture.py);
@@ -606,6 +638,42 @@ def k3_work(n_confs, n_masked, n_atoms: int, prealigned: bool, rates: dict,
     n_ops = int((pairs * per_pair).sum() + 9 * (c * n).sum())
     n_bytes = int(12 * (c * n).sum() + len(c) * n_atoms + 4 * pairs.sum()
                   + (8 * c.sum() if listed else 0))
+    return bound(n_bytes, n_ops, rates, "fp32")
+
+
+def k17_work(sets, n_confs, rates: dict) -> dict:
+    """K17 over molecules of torsion sets ``sets`` and ``n_confs``
+    conformers: per conformer the coordinates of the atoms its quartets name
+    (12 bytes each) and its row (8 bytes), the quartets (16 bytes each) and
+    the offsets read once, 4 bytes out per angle; DIHEDRAL_OPS FP32
+    operations per angle."""
+    import numpy as np
+
+    n_bytes = n_ops = 0
+    for ts, c in zip(sets, n_confs):
+        if ts.n_torsions:
+            q = len(ts.quartets)
+            n_bytes += 12 * c * len(np.unique(ts.quartets)) + 8 * c + 16 * q + 48 + 4 * c * q
+            n_ops += DIHEDRAL_OPS * c * q
+    return bound(n_bytes, n_ops, rates, "fp32")
+
+
+def k18_work(sets, n_confs, rates: dict) -> dict:
+    """K18 over the same: the angles read once (4 bytes each), the torsion
+    tables (8 + 4 + 4 + 4 bytes a torsion) and the offsets, 4 bytes out per
+    pair; per pair TFD_PAIR_OPS, per torsion TFD_TORSION_OPS and its type's
+    own (csrc/tfd.cu: a torsion does only its type's work)."""
+    import numpy as np
+
+    n_bytes = n_ops = 0
+    for ts, c in zip(sets, n_confs):
+        if ts.n_torsions:
+            pairs = c * (c - 1) // 2
+            nq = np.diff(ts.quartet_starts).astype(np.int64)
+            own = np.where(ts.types == 1, TFD_RING_QUARTET_OPS * nq + TFD_RING_OPS,
+                           np.where(ts.types == 2, TFD_SYM_PAIRING_OPS * nq * nq, TFD_SINGLE_OPS))
+            n_ops += pairs * (TFD_PAIR_OPS + int((own + TFD_TORSION_OPS).sum()))
+            n_bytes += 4 * c * len(ts.quartets) + 20 * ts.n_torsions + 48 + 4 * pairs
     return bound(n_bytes, n_ops, rates, "fp32")
 
 
@@ -1516,6 +1584,9 @@ def main() -> int:
     from nvmolkit_tpu_torch.models.etkdg_torsions import default_torsion_provider
     from nvmolkit_tpu_torch.ops import embed_checks, triangle_smooth
     from nvmolkit_tpu_torch.testutils import check_bounds_satisfied, check_chirality_preserved
+    from nvmolkit_tpu_torch import tfd as tfd_api
+    from nvmolkit_tpu_torch.tfd import GetTFDMatrices, GetTFDMatrix
+    from nvmolkit_tpu_torch.ops import tfd as tfd_ops
 
     cuda = torch.device("cuda", 0)
     smi_line = subprocess.run(
@@ -1541,6 +1612,7 @@ def main() -> int:
             "nvcc_coordgen_s": _build.coordgen_lib, "nvcc_dist_geom_s": _build.dist_geom_lib,
             "nvcc_embed_checks_s": _build.embed_checks_lib, "nvcc_etk_s": _build.etk_ff_lib,
             "nvcc_morgan_s": _build.morgan_lib, "nvcc_butina_s": _build.butina_lib,
+            "nvcc_tfd_s": _build.tfd_lib,
             "gxx_s": _build.graph_lib, "gxx_bounds_s": _build.bounds_lib,
             "gxx_etk_match_s": _build.etk_lib}
     with ThreadPoolExecutor(len(libs)) as pool:
@@ -1824,7 +1896,7 @@ def main() -> int:
     del morgan_inputs
 
     counted = (sim_ops, kabsch, mmff_energy, lbfgs_flat, uff_energy, cons, bfgs,
-               triangle_smooth, dist_geom, embed_checks, etk, morgan_ops, butina_ops)
+               triangle_smooth, dist_geom, embed_checks, etk, morgan_ops, butina_ops, tfd_ops)
 
     def reset_counts():
         torch.cuda.synchronize()
@@ -2169,6 +2241,158 @@ def main() -> int:
          launches=rmsd_launches, k3_max_abs_err=errs[K3],
          rigid_copies_max=max(float(flat_a[rigid].max()), float(flat_c[rigid].max())),
          seconds=time.perf_counter() - t_phase)
+
+    # 6a. TFD: (c) through GetTFDMatrices, K17 and K18 against their plain
+    # versions at (c), (b) and bench.py's configuration, which then runs
+    # through positionsFrom; (b) on into Butina --------------------------------------
+    t_phase = time.perf_counter()
+    K17, K18 = "dihedral_angles", "tfd_pairs"
+    errs.update({K17: 0.0, K18: 0.0})
+    reset_counts()
+    t0 = time.perf_counter()
+    tfd_c = GetTFDMatrices(drug_mols)
+    torch.cuda.synchronize()
+    tfd_c_s = time.perf_counter() - t0
+    tfd_launches = read_counts()
+    check(tfd_launches[K17] == 1 and tfd_launches[K18] == 1
+          and sum(tfd_launches.values()) == 2, f"TFD (c) launches {tfd_launches}")
+    # where the first call's wall goes: its steps again, one by one
+    steps_c = {}
+    t0 = time.perf_counter()
+    sets_c = [tfd_ops.enumerate_torsions(m) for m in drug_mols]
+    steps_c["enumeration_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    np.concatenate([np.asarray(c, np.float32).reshape(-1, 3)
+                    for m in drug_mols for c in m.conformers])
+    steps_c["packing_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    coords_c, batch_c = tfd_api.conformer_batch(drug_mols, sets_c, cuda)
+    torch.cuda.synchronize()
+    steps_c["batch_s"] = time.perf_counter() - t0  # the packing, the tables, pinning, copies
+    t0 = time.perf_counter()
+    flat_c = tfd_ops.tfd_pairs(tfd_ops.dihedral_angles(coords_c, batch_c), batch_c)
+    torch.cuda.synchronize()
+    steps_c["kernels_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tfd_api._split(flat_c, [RMSD_CONFS] * RMSD_MOLS, None)
+    steps_c["split_s"] = time.perf_counter() - t0
+    steps_c["other_s"] = tfd_c_s - sum(steps_c[k] for k in ("enumeration_s", "batch_s",
+                                                            "kernels_s", "split_s"))
+    t0 = time.perf_counter()
+    GetTFDMatrices(drug_mols)
+    torch.cuda.synchronize()
+    steps_c["second_call_s"] = time.perf_counter() - t0
+    del flat_c
+    enumerate_c_s = steps_c["enumeration_s"]
+    sets_b = [tfd_ops.enumerate_torsions(big)]
+    coords_b, batch_b = tfd_api.conformer_batch([big], sets_b, cuda)
+
+    def check_tfd(coords, batch, what):
+        """K17 against its plain version (circular difference within
+        dihedral_tolerance), K18 on K17's angles against its plain version
+        (K18_TOL); returns K18's buffer."""
+        angles = tfd_ops.dihedral_angles(coords, batch)
+        plain = tfd_ops.dihedral_angles_plain(coords, batch)
+        diff = (angles.double() - plain.double()).abs()
+        diff = torch.minimum(diff, 360.0 - diff)
+        tol = tfd_ops.dihedral_tolerance(coords, batch)
+        check(bool((diff <= tol).all()), f"K17 {what}: angles differ from the plain version")
+        errs[K17] = max(errs[K17], float(diff.max()))
+        k17_fit[what] = {"err_over_bound": float((diff / tol).max()),
+                         "max_err_where_bound_below_1e-3_deg": float(diff[tol < 1e-3].max())}
+        out = tfd_ops.tfd_pairs(angles, batch)
+        err = float((out - tfd_ops.tfd_pairs_plain(angles, batch)).abs().max())
+        check(err <= K18_TOL, f"K18 {what}: max |err| {err} > {K18_TOL}")
+        errs[K18] = max(errs[K18], err)
+        return out
+
+    k17_fit = {}
+    out_c = check_tfd(coords_c, batch_c, "(c)")
+    check(len({r.torch().untyped_storage().data_ptr() for r in tfd_c}) == 1,
+          "TFD (c): the per-molecule vectors are not views of one buffer")
+    flat_tfd_c = torch.cat([r.torch() for r in tfd_c])
+    check(flat_tfd_c.shape == (RMSD_MOLS * pairs_per_mol,) and torch.equal(flat_tfd_c, out_c),
+          "TFD (c): GetTFDMatrices differs from K18 on its own batch")
+    check(bool(torch.isfinite(flat_tfd_c).all()) and bool((flat_tfd_c >= 0).all()),
+          "TFD (c): not finite or negative")
+    tol_c = tfd_ops.tfd_tolerance(coords_c, batch_c)
+    check(bool((flat_tfd_c[rigid].double() <= tol_c[rigid]).all()),
+          "TFD (c): a rigid copy's TFD is not ~0")
+    out_b = check_tfd(coords_b, batch_b, "(b)")
+    del tol_c
+    # bench.py's TFD configuration: make_smiles(64) x 100 conformers from
+    # EmbedMolecules (default parameters, maxIterations 8), on the card
+    bench_mols = mols_from_smiles(load_by_path("benchmarks/_common.py").make_smiles(64))
+    t0 = time.perf_counter()
+    bench_dense = embed_api.EmbedMolecules(bench_mols, confsPerMolecule=100, maxIterations=8,
+                                           output=CoordinateOutput.DEVICE, device=cuda)
+    torch.cuda.synchronize()
+    bench_embed_s = time.perf_counter() - t0
+    bench_confs = bench_dense.conf_mask.sum(dim=1).tolist()
+    kept = [k for k, c in enumerate(bench_confs) if c >= 2]
+    sel = torch.tensor(kept, device=cuda)
+    bench_pf = Dense3DResult(bench_dense.positions[sel].contiguous(), bench_dense.conf_mask[sel],
+                             bench_dense.atom_mask[sel])
+    bench_set = [bench_mols[k] for k in kept]
+    bench_pairs = sum(bench_confs[k] * (bench_confs[k] - 1) // 2 for k in kept)
+
+    def tfd_bench():
+        return GetTFDMatrices(bench_set, positionsFrom=bench_pf, return_type="numpy")
+
+    reset_counts()
+    t0 = time.perf_counter()
+    bench_out = tfd_bench()
+    bench_first_s = time.perf_counter() - t0
+    bench_launches = read_counts()
+    bench_warm = [timed(tfd_bench)[0] for _ in range(3)]
+    check(bench_launches[K17] == 1 and bench_launches[K18] == 1
+          and sum(bench_launches.values()) == 2, f"TFD bench launches {bench_launches}")
+    check([len(v) for v in bench_out] == [bench_confs[k] * (bench_confs[k] - 1) // 2
+                                          for k in kept]
+          and all(np.isfinite(v).all() for v in bench_out), "TFD bench: shape or finite")
+    slots_bench = [np.nonzero(r)[0] for r in bench_pf.conf_mask.cpu().numpy()]
+    check_tfd(*tfd_api.positions_batch(
+        bench_pf.positions, slots_bench, [tfd_ops.enumerate_torsions(m) for m in bench_set],
+        cuda), "(bench)")
+
+    # (b) -> Butina: the public call, the condensed vector expanded, butina
+    def tfd_big_butina():
+        cond = GetTFDMatrix(big).torch()
+        ids_t, cents_t = butina(square_from_condensed(cond, n_ens), TFD_CUTOFF,
+                                return_centroids=True)
+        return cond, ids_t, cents_t
+
+    reset_counts()
+    t0 = time.perf_counter()
+    tfd_b, tfd_ids, tfd_cents = tfd_big_butina()
+    tfd_ids.block_until_ready()
+    tfd_big_s = time.perf_counter() - t0
+    big_launches = read_counts()
+    check(big_launches[K17] == big_launches[K18] == big_launches[K15] == 1
+          and sum(big_launches.values()) == 3, f"TFD -> butina launches {big_launches}")
+    check(torch.equal(tfd_b, out_b) and tfd_b.shape == (n_ens * (n_ens - 1) // 2,),
+          "TFD (b): GetTFDMatrix differs from K18 on its own batch")
+    tfd_ids_np = tfd_ids.numpy()
+    tfd_sizes = np.bincount(tfd_ids_np)
+    check(tfd_ids_np.min() == 0 and len(tfd_sizes) == len(tfd_cents)
+          and bool((np.diff(tfd_sizes) <= 0).all())
+          and bool((tfd_ids_np[tfd_cents] == np.arange(len(tfd_cents))).all()),
+          "TFD -> butina: ids are not valid clusters")
+    emit(phase="tfd", druglike_first_call_s=tfd_c_s, druglike_enumeration_s=enumerate_c_s,
+         druglike_steps=steps_c,
+         druglike_pairs=int(flat_tfd_c.shape[0]), druglike_launches=tfd_launches,
+         druglike_torsions=int(sum(ts.n_torsions for ts in sets_c)),
+         druglike_quartets=int(sum(len(ts.quartets) for ts in sets_c)),
+         druglike_tfd_mean=float(flat_tfd_c.double().mean()),
+         rigid_copies_max=float(flat_tfd_c[rigid].max()),
+         bench_molecules=len(bench_mols), bench_kept=len(kept), bench_embed_s=bench_embed_s,
+         bench_conformers=int(sum(bench_confs[k] for k in kept)), bench_pairs=bench_pairs,
+         bench_first_call_s=bench_first_s, bench_warm_walls_s=bench_warm,
+         bench_pairs_per_s=bench_pairs / min(bench_warm), bench_launches=bench_launches,
+         ensemble_pairs=int(tfd_b.shape[0]), ensemble_first_call_s=tfd_big_s,
+         ensemble_cutoff=TFD_CUTOFF, ensemble_clusters=len(tfd_cents),
+         ensemble_launches=big_launches, k17_max_abs_err_deg=errs[K17], k17_fit=k17_fit,
+         k18_max_abs_err=errs[K18], seconds=time.perf_counter() - t_phase)
 
     # MMFF minimization at a user's size ----------------------------------------------
     # the fixture's molecules x MMFF_CONFS conformers, through the public API
@@ -2745,7 +2969,8 @@ def main() -> int:
          k12_fails_per_check=(~got).sum(dim=1).tolist(), seconds=time.perf_counter() - t_phase)
 
     # the conformer workflow on the card: the accepted conformers (DEVICE)
-    # -> MMFF -> RMSD -> Butina
+    # -> MMFF -> {RMSD, TFD} -> Butina; embed_chain is the part without TFD
+    # (traced as before), chain_tfd the TFD step on its minimized output
     t_phase = time.perf_counter()
 
     def embed_chain():
@@ -2763,14 +2988,65 @@ def main() -> int:
                 clusters.append(butina(square, EMBED_CHAIN_CUTOFF).torch())
         return dense, minimized, rms, clusters
 
+    def chain_tfd(minimized, sets=None):
+        """TFD over the molecules with two accepted conformers or more, then
+        butina over the first EMBED_CHAIN_BUTINA molecules' ensembles: through
+        GetTFDMatrices, or, given the molecules' torsion sets, through the same
+        steps with the host enumeration left out (the trace's device work)."""
+        n_acc = minimized.conf_mask.sum(dim=1).tolist()
+        kept = [m for m, n_c in enumerate(n_acc) if n_c > 1]
+        sel = torch.tensor(kept, device=cuda)
+        pf = Dense3DResult(minimized.positions[sel], minimized.conf_mask[sel],
+                           minimized.atom_mask[sel])
+        if sets is None:
+            tfd = [r.torch() for r in GetTFDMatrices([emols[m] for m in kept], positionsFrom=pf)]
+        else:
+            slots = [np.nonzero(r)[0] for r in pf.conf_mask.cpu().numpy()]
+            coords, batch = tfd_api.positions_batch(pf.positions, slots, sets, cuda)
+            flat = tfd_ops.tfd_pairs(tfd_ops.dihedral_angles(coords, batch), batch)
+            tfd = list(flat.split([len(s) * (len(s) - 1) // 2 for s in slots]))
+        clusters = []
+        for k, m in enumerate(kept):
+            if m < EMBED_CHAIN_BUTINA:
+                square = square_from_condensed(tfd[k], n_acc[m])
+                clusters.append(butina(square, EMBED_CHAIN_TFD_CUTOFF).torch())
+        return kept, tfd, clusters
+
     reset_counts()
     t0 = time.perf_counter()
     c_dense, c_min, c_rms, c_clusters = embed_chain()
     torch.cuda.synchronize()
     chain_s = time.perf_counter() - t0
+    c_kept, c_tfd, c_tfd_clusters = chain_tfd(c_min)
+    torch.cuda.synchronize()
+    chain_tfd_s = time.perf_counter() - t0 - chain_s
     chain_launches = read_counts()
-    check(all(chain_launches[k] > 0 for k in (K9, K10, K11, K5D, K12, K4, K5, K3, K15)),
+    check(all(chain_launches[k] > 0 for k in (K9, K10, K11, K5D, K12, K4, K5, K3, K15))
+          and chain_launches[K17] == chain_launches[K18] == 1,
           f"embed chain launches {chain_launches}")
+    t0 = time.perf_counter()
+    chain_sets = [tfd_ops.enumerate_torsions(emols[m]) for m in c_kept]
+    chain_enumeration_s = time.perf_counter() - t0
+    # the device half alone gives the public call's values
+    _, dev_tfd, dev_clusters = chain_tfd(c_min, chain_sets)
+    check(all(torch.equal(a, b) for a, b in zip(dev_tfd, c_tfd))
+          and all(torch.equal(a, b) for a, b in zip(dev_clusters, c_tfd_clusters)),
+          "chain: TFD's device half differs from GetTFDMatrices")
+    del dev_tfd, dev_clusters
+    # the chain's TFD against the host path on the same minimized coordinates
+    # (the first 128 molecules: the same kernels on the same values, equal)
+    per_mol = c_min.per_molecule()
+    host_mols = []
+    for m in c_kept[:128]:
+        host = copy.copy(emols[m])  # the molecule's graph, conformers of its own
+        host.conformers = [x.astype(np.float64) for x in per_mol[m]]
+        host_mols.append(host)
+    host_tfd = GetTFDMatrices(host_mols)
+    check(all(torch.equal(h.torch(), c) for h, c in zip(host_tfd, c_tfd)),
+          "chain: TFD through positionsFrom differs from the host path")
+    check(all(bool(torch.isfinite(r).all()) for r in c_tfd), "chain: TFD finite")
+    check(all(int(c.min()) == 0 for c in c_tfd_clusters) and len(c_tfd_clusters) > 0,
+          "chain: butina over TFD")
     check(torch.equal(c_min.conf_mask, c_dense.conf_mask), "the chain kept the accepted slots")
     check(bool(torch.isfinite(c_min.energies[c_min.conf_mask]).all()), "chain: MMFF energies")
     check(not bool(c_min.positions[~c_min.conf_mask].any()), "chain: a hole holds coordinates")
@@ -2780,6 +3056,9 @@ def main() -> int:
          wall_s=chain_s, mmff_converged=float(c_min.converged[c_min.conf_mask].double().mean()),
          butina_molecules=len(c_clusters),
          clusters_mean=float(np.mean([int(c.max()) + 1 for c in c_clusters])),
+         tfd_wall_s=chain_tfd_s, tfd_enumeration_s=chain_enumeration_s,
+         tfd_molecules=len(c_kept), tfd_host_path_molecules=len(host_mols),
+         tfd_clusters_mean=float(np.mean([int(c.max()) + 1 for c in c_tfd_clusters])),
          launches={k: v for k, v in chain_launches.items() if v},
          seconds=time.perf_counter() - t_phase)
 
@@ -3193,6 +3472,24 @@ def main() -> int:
                                                  "tanimoto", False), None, reps=3)
     k16_row.update(plain_ms=fused_plain_s * 1e3,
                    plain_shape="the plain loop (K2's first counts included), one run (phase checks)")
+    # K17 and K18 at (c) and (b), K18 on K17's angles
+    tfd_rows = {}
+    for label, coords, batch, sets, nc in (
+            ("druglike", coords_c, batch_c, sets_c, [RMSD_CONFS] * RMSD_MOLS),
+            ("ensemble", coords_b, batch_b, sets_b, [n_ens])):
+        tfd_rows[K17, label] = row(
+            K17, f"{len(nc)} mols x {nc[0]} confs, {batch.n_angles} angles ({label})",
+            k17_work(sets, nc, rates), lambda c=coords, b=batch: tfd_ops.dihedral_angles(c, b),
+            lambda c=coords, b=batch: tfd_ops.dihedral_angles_plain(c, b), cold=True)
+        angles = tfd_ops.dihedral_angles(coords, batch)
+        tfd_rows[K18, label] = row(
+            K18, f"{len(nc)} mols x {nc[0]} confs, {batch.n_pairs} pairs ({label})",
+            k18_work(sets, nc, rates), lambda a=angles, b=batch: tfd_ops.tfd_pairs(a, b),
+            lambda a=angles, b=batch: tfd_ops.tfd_pairs_plain(a, b), cold=True)
+    for key in (K17, K18):  # the kernels line holds (c), with (b) beside it
+        tfd_rows[key, "druglike"]["at_ensemble"] = {
+            k: tfd_rows[key, "ensemble"][k] for k in ("shape", "ms", "cold_l2_ms", "plain_ms",
+                                                      "bound_ms", "bound_by")}
     del flush, hits24
     emit(phase="timings", kernels=measured, m_skinny_sweep=sweep, m_skinny=sim_ops.M_SKINNY,
          seconds=time.perf_counter() - t_phase)
@@ -3209,6 +3506,8 @@ def main() -> int:
         "rmsd_batch": rmsd_batch,
         "rmsd_batch_druglike": rmsd_druglike,
         "rmsd_butina_ensemble": rmsd_butina,
+        "tfd_bench": tfd_bench,
+        "tfd_butina_ensemble": tfd_big_butina,
         "mmff_optimize": mmff_optimize,
         "uff_optimize": uff_optimize,
         "batched_ff_mmff": lambda: ff_minimize(ffm, x_ff0),
@@ -3216,6 +3515,7 @@ def main() -> int:
         "embed_flat": lambda: embed_call(emols, "flat"),
         "embed_bfgs": lambda: embed_call(emols, "bfgs"),
         "embed_chain": embed_chain,
+        "embed_chain_tfd": lambda: chain_tfd(c_min, chain_sets),
         "etkdg_flat": lambda: etkdg_call(etkdg_mols["flat"], "flat"),
         "etkdg_bfgs": lambda: etkdg_call(etkdg_mols["bfgs"], "bfgs"),
         "fingerprints": lambda: state.update(
@@ -3251,7 +3551,8 @@ def main() -> int:
                   K4: (k4_row, k4_key), K5: (k5_row, "ms"), K6: (k6_row, k6_key),
                   K5U: (k5u_row, "ms"), K7: (k7_row, k7_key), K8M: (k8_rows[K8M], "ms"),
                   K8U: (k8_rows[K8U], "ms"), K15: (k15_row, "ms"), K16: (k16_row, "ms")}
-    for key, entry in ((K14, k14_row), (K9, k9_row), (K10, k10_row), (K11, k11_row), (K5D, dg_rows[K5D]),
+    for key, entry in ((K17, tfd_rows[K17, "druglike"]), (K18, tfd_rows[K18, "druglike"]),
+                       (K14, k14_row), (K9, k9_row), (K10, k10_row), (K11, k11_row), (K5D, dg_rows[K5D]),
                        (K8D, dg_rows[K8D]), (K12, k12_row), (K13, k13_row),
                        (K5E, etk_rows[K5E]), (K8E, etk_rows[K8E])):
         main_shape[key] = (entry, "cold_l2_ms" if entry["bound_by"] == "bytes"
@@ -3268,6 +3569,8 @@ def main() -> int:
     # the ETKDG path's: its flat run (K8 over ETK: the bfgs run)
     path_launches.update({k: etkdg_runs["flat"]["launches"].get(k, 0) for k in (K13, K5E)})
     path_launches[K8E] = etkdg_runs["bfgs"]["launches"].get(K8E, 0)
+    # the TFD path's: GetTFDMatrices on (c)
+    path_launches.update({K17: tfd_launches[K17], K18: tfd_launches[K18]})
     mmff_cu = "nvmolkit_tpu_torch/csrc/mmff.cu"
     uff_cu = "nvmolkit_tpu_torch/csrc/uff.cu"
     bfgs_at = "nvmolkit_tpu/ops/bfgs.py:144"
@@ -3325,6 +3628,10 @@ def main() -> int:
               "nvmolkit_tpu/ops/butina.py:41", butina_cu),
         K16: ("fused_loop_kernel (K16: the fused Butina loop in one cooperative launch, after "
               "K2's first counts)", "nvmolkit_tpu/ops/butina.py:131", butina_cu),
+        K17: ("dihedral_kernel (K17: one thread per conformer and quartet)",
+              "nvmolkit_tpu/ops/tfd.py:334", "nvmolkit_tpu_torch/csrc/tfd.cu"),
+        K18: ("tfd_kernel (K18: one thread per conformer pair, each torsion its type's work)",
+              "nvmolkit_tpu/ops/tfd.py:367", "nvmolkit_tpu_torch/csrc/tfd.cu"),
     }
     lines = []
     for key, (label, replaces, source) in sources.items():
@@ -3339,7 +3646,8 @@ def main() -> int:
             "bound_by": entry["bound_by"], "share_of_bound": entry["bound_ms"] / entry[ms_key],
             "library_ms": None,
             **{k: entry[k] for k in ("device_fn_calls_in_k5", "linalg_hessian_step_ms",
-                                     "linalg_eigh_ms", "linalg_eigh_shape", "by_bucket")
+                                     "linalg_eigh_ms", "linalg_eigh_shape", "by_bucket",
+                                     "at_ensemble")
                if k in entry}})
     print(json.dumps({"kernels": lines}))
     print(smi_line)

@@ -6,7 +6,8 @@ and call signatures: ``chem`` (the molecule model and SMILES parsing),
 ``conformerRmsd``, ``mmffOptimization`` (MMFF94 minimization),
 ``uffOptimization`` (UFF minimization), ``batchedForcefield`` (batched MMFF
 and UFF force fields with constraints), ``embedMolecules`` (ETKDG
-conformer embedding), ``models`` (force-field parametrization
+conformer embedding), ``tfd`` (Torsion Fingerprint Deviation
+matrices), ``models`` (force-field parametrization
 and energies), ``testutils`` (conformer checkers) and ``types``. Plain
 tensor code is PyTorch; the device kernels are written by hand in CUDA C++
 for Hopper (``csrc/``) and built at first use. The JAX package stays as the

@@ -27,6 +27,9 @@
   fingerprint kernel K14), built the same way.
 * ``libnvmk_butina``: ``nvmolkit_tpu_torch/csrc/butina.cu`` (the Butina loops
   K15, over a hit matrix, and K16, over fingerprints), built the same way.
+* ``libnvmk_tfd``: ``nvmolkit_tpu_torch/csrc/tfd.cu`` (the TFD kernels K17,
+  the dihedral angles, and K18, the deviation per conformer pair), built the
+  same way.
 * ``libnvmolgraph``: the repository's SMILES featurizer
   ``csrc/mol_graph.cpp``, compiled by ``g++`` with the flags of
   ``csrc/Makefile``.
@@ -72,6 +75,7 @@ EMBED_CHECKS_SRC = _PKG / "csrc" / "embed_checks.cu"
 ETK_SRC = _PKG / "csrc" / "etk.cu"
 MORGAN_SRC = _PKG / "csrc" / "morgan.cu"
 BUTINA_SRC = _PKG / "csrc" / "butina.cu"
+TFD_SRC = _PKG / "csrc" / "tfd.cu"
 GRAPH_SRC = _REPO / "csrc" / "mol_graph.cpp"
 BOUNDS_SRC = _REPO / "csrc" / "topo_bounds.cpp"
 ETK_MATCH_SRC = _REPO / "csrc" / "etk_match.cpp"
@@ -461,4 +465,22 @@ def butina_lib() -> ctypes.CDLL:
         "libnvmk_butina",
         lambda: _build("libnvmk_butina", BUTINA_SRC, _nvcc_cmd(BUTINA_SRC)),
         _declare_butina,
+    )
+
+
+def _declare_tfd(lib: ctypes.CDLL) -> None:
+    vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.nvmk_dihedral_angles.restype = ci
+    lib.nvmk_dihedral_angles.argtypes = [vp, vp, vp, vp, vp, ci, cll, vp, vp]
+    lib.nvmk_tfd_pairs.restype = ci
+    lib.nvmk_tfd_pairs.argtypes = [vp, vp, vp, vp, vp, vp, ci, cll, vp, vp]
+
+
+def tfd_lib() -> ctypes.CDLL:
+    """The compiled TFD kernels K17 and K18 (needs ``nvcc`` and a CUDA
+    runtime)."""
+    return _load(
+        "libnvmk_tfd",
+        lambda: _build("libnvmk_tfd", TFD_SRC, _nvcc_cmd(TFD_SRC)),
+        _declare_tfd,
     )

@@ -1,7 +1,8 @@
 """Carrying state between the JAX package and the port.
 
 This system has no weights: its state is packed fingerprints, conformer
-stacks, hardware options and a batched forcefield's constraint lists. These
+stacks, hardware options, a batched forcefield's constraint lists and
+torsion tables. These
 helpers move them across bit for bit, so that tests can feed the two
 packages the same inputs. :func:`reference_natives_from_port_build` points
 the JAX package's loaders of its featurizer and of its torsion-rule matcher
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from nvmolkit_tpu_torch.models.constraints import PerSystemConstraints
+from nvmolkit_tpu_torch.ops.tfd import TorsionSet
 from nvmolkit_tpu_torch.types import Dense3DResult
 from nvmolkit_tpu_torch.utils.config import HardwareOptions
 
@@ -63,6 +65,16 @@ def constraints_from_reference(ff_ref, into=None) -> list[PerSystemConstraints]:
         into._constraints = out
         into._constraints_dirty = True
     return out
+
+
+def torsion_set_from_reference(ts) -> TorsionSet:
+    """The JAX package's ``TorsionSet`` (numpy arrays) -> the port's, with
+    the same values and dtypes, so that both device halves can be fed one
+    torsion table."""
+    return TorsionSet(
+        np.array(ts.quartets, np.int32).reshape(-1, 4), np.array(ts.quartet_starts, np.int32),
+        np.array(ts.types, np.int32), np.array(ts.weights, np.float32),
+        np.array(ts.max_dev, np.float32))
 
 
 # the JAX loader's module attributes (library path, handle, load error) and

@@ -1268,3 +1268,127 @@ def test_fused_butina_on_cuda_refuses_a_host_callback(cuda):
     fps = _fps(np.random.default_rng(0), 100, 8).to(cuda)
     with pytest.raises(ValueError):
         butina_ops.fused_butina(fps, 0.5, on_cluster=lambda *a: None)
+
+
+# SMILES for the TFD kernels: a ring of 3 and one of 15 (>= 14), symmetric
+# sides (tert-butyl, CF3, isopropyl), and a torsion-free molecule
+_TFD_SMILES = ["C1CC1CC(C)C", "C1CCCCCCCCCCCCCC1CC", "CC(C)(C)CC(=O)O",
+               "FC(F)(F)c1ccccc1C(C)C", "CCO", "OC1CCC(CC1)N(C)C"]
+
+
+def _tfd_mols(rng, n_confs):
+    from nvmolkit_tpu_torch.chem.native import mols_from_smiles
+
+    mols = mols_from_smiles(_TFD_SMILES)
+    for m, c in zip(mols, n_confs):
+        base = rng.standard_normal((m.num_atoms, 3)) * 1.7
+        for k in range(c):
+            m.add_conformer(base + rng.standard_normal(base.shape) * (0.3 if k % 5 else 0.0))
+    return mols
+
+
+def _check_tfd_kernels(coords, batch):
+    """K17 and K18 against their plain versions on the same CUDA tensors:
+    angles by circular difference within ``dihedral_tolerance``, K18 on
+    K17's angles within 1e-6 (it sums in the plain version's order)."""
+    from nvmolkit_tpu_torch.ops import tfd
+
+    before = dict(tfd.launch_counts)
+    angles = tfd.dihedral_angles(coords, batch)
+    out = tfd.tfd_pairs(angles, batch)
+    torch.cuda.synchronize()
+    assert tfd.launch_counts == {k: v + 1 for k, v in before.items()}
+    plain = tfd.dihedral_angles_plain(coords, batch)
+    diff = (angles.double() - plain.double()).abs()
+    diff = torch.minimum(diff, 360.0 - diff)
+    assert bool((diff <= tfd.dihedral_tolerance(coords, batch)).all())
+    want = tfd.tfd_pairs_plain(angles, batch)
+    assert out.is_cuda and out.shape == want.shape
+    assert float((out - want).abs().max()) <= 1e-6
+    return out
+
+
+def test_tfd_kernels_match_plain(cuda):
+    """Host conformers (every 5th an exact copy of the first) and a
+    Dense3DResult with holes, through the public call and through the
+    kernels against their plain versions; a torsion-free molecule's entries
+    stay 0."""
+    from nvmolkit_tpu_torch.ops import tfd
+    from nvmolkit_tpu_torch.tfd import GetTFDMatrices, conformer_batch, positions_batch
+    from nvmolkit_tpu_torch.types import Dense3DResult
+
+    rng = np.random.default_rng(17)
+    mols = _tfd_mols(rng, [2, 40, 7, 31, 5, 12])
+    sets = [tfd.enumerate_torsions(m) for m in mols]
+    assert sets[4].n_torsions == 0 and {1, 2} <= {t for s in sets for t in s.types.tolist()}
+    coords, batch = conformer_batch(mols, sets, cuda)
+    out = _check_tfd_kernels(coords, batch)
+    got = GetTFDMatrices(mols)
+    flat = torch.cat([g.torch() for g in got])
+    assert torch.equal(flat, out)
+    want = torch.cat([g.torch() for g in GetTFDMatrices(mols, device="cpu")])
+    assert bool(((flat.cpu().double() - want.double()).abs()
+                 <= tfd.tfd_tolerance(coords, batch).cpu()).all())
+    assert not bool(got[4].torch().any())
+    # positionsFrom: the same conformers in slots with holes
+    a_max, c_max = max(m.num_atoms for m in mols) + 3, 50
+    pos = np.zeros((len(mols), c_max, a_max, 3), np.float32)
+    cmask = np.zeros((len(mols), c_max), bool)
+    for k, m in enumerate(mols):
+        slots = np.sort(rng.choice(c_max, len(m.conformers), replace=False))
+        pos[k, slots, :m.num_atoms] = np.stack(m.conformers)
+        cmask[k, slots] = True
+    amask = np.arange(a_max)[None] < np.array([m.num_atoms for m in mols])[:, None]
+    dense = Dense3DResult(*(torch.from_numpy(a).to(cuda) for a in (pos, cmask, amask)))
+    chained = torch.cat([g.torch() for g in GetTFDMatrices(mols, positionsFrom=dense)])
+    assert torch.equal(chained, flat)
+    _check_tfd_kernels(*positions_batch(dense.positions, [np.nonzero(r)[0] for r in cmask],
+                                        sets, cuda))
+
+
+def test_tfd_kernel_pair_recovery_at_two_million_pairs(cuda):
+    """One molecule of 2,000 conformers (1,999,000 pairs): K18 recovers
+    (i, j) from the condensed index as the plain version's pair_ij does."""
+    from nvmolkit_tpu_torch.ops import tfd
+    from nvmolkit_tpu_torch.tfd import conformer_batch
+
+    rng = np.random.default_rng(3)
+    mols = _tfd_mols(rng, [1, 1, 2000, 1, 1, 1])[2:3]
+    coords, batch = conformer_batch(mols, [tfd.enumerate_torsions(mols[0])], cuda)
+    assert batch.n_pairs == 1_999_000
+    _check_tfd_kernels(coords, batch)
+
+
+def test_tfd_kernels_raise_on_failure(cuda, tmp_path, monkeypatch):
+    """A failed build and a failed launch raise; nothing falls back to the
+    plain versions."""
+    from nvmolkit_tpu_torch import _build
+    from nvmolkit_tpu_torch.ops import tfd
+    from nvmolkit_tpu_torch.tfd import GetTFDMatrices, conformer_batch
+
+    mols = _tfd_mols(np.random.default_rng(1), [3] * 6)
+    coords, batch = conformer_batch(mols, [tfd.enumerate_torsions(m) for m in mols], cuda)
+    with pytest.raises(ValueError):
+        tfd.dihedral_angles(coords.double(), batch)
+    with pytest.raises(ValueError):
+        tfd.tfd_pairs(torch.zeros(batch.n_angles, dtype=torch.float64, device=cuda), batch)
+    with monkeypatch.context() as m:
+        bad = tmp_path / "tfd.cu"
+        bad.write_text("this is not CUDA\n")
+        m.setattr(_build, "TFD_SRC", bad)
+        m.setattr(_build, "BUILD_DIR", tmp_path / "_build")
+        m.setattr(_build, "_loaded", {})
+        with pytest.raises(RuntimeError, match="building libnvmk_tfd failed"):
+            GetTFDMatrices(mols)
+
+    class Refusing:  # a library whose launches report cudaErrorLaunchOutOfResources
+        def __getattr__(self, name):
+            return lambda *args: 701
+
+    before = dict(tfd.launch_counts)
+    monkeypatch.setattr(tfd, "tfd_lib", Refusing)
+    with pytest.raises(RuntimeError, match="CUDA error 701"):
+        tfd.dihedral_angles(coords, batch)
+    with pytest.raises(RuntimeError, match="CUDA error 701"):
+        tfd.tfd_pairs(torch.zeros(batch.n_angles, device=cuda), batch)
+    assert tfd.launch_counts == before

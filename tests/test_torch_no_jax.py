@@ -358,3 +358,54 @@ def test_main_path_kernels_dispatch_without_jax():
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.startswith("OK")
+
+
+_TFD_SCRIPT = r"""
+import sys
+for name in ("jax", "jaxlib", "nvmolkit_tpu"):
+    sys.modules[name] = None  # importing any of them now raises ImportError
+sys.path.insert(0, {root!r})
+import numpy as np
+import torch
+from nvmolkit_tpu_torch.chem import mol_from_smiles
+from nvmolkit_tpu_torch.interop import torsion_set_from_reference  # noqa: F401
+from nvmolkit_tpu_torch.ops import tfd
+from nvmolkit_tpu_torch.tfd import GetTFDMatrices, GetTFDMatrix
+from nvmolkit_tpu_torch.types import Dense3DResult
+
+rng = np.random.default_rng(0)
+mols = [mol_from_smiles(s) for s in ("CC(C)(C)CC(=O)O", "CCO", "C1CC1CC(C)C")]
+for m in mols:
+    for _ in range(4):
+        m.add_conformer(rng.normal(size=(m.num_atoms, 3)) * 1.7)
+out = GetTFDMatrices(mols, maxDev="spec", device="cpu", return_type="numpy")
+assert [v.shape for v in out] == [(6,), (6,), (6,)] and not out[1].any() and out[0].all()
+pos = torch.zeros((3, 5, 12, 3))
+for k, m in enumerate(mols):
+    pos[k, 1:, :m.num_atoms] = torch.from_numpy(np.stack(m.conformers)).float()
+cmask = torch.tensor([[False] + [True] * 4] * 3)
+dense = Dense3DResult(pos, cmask, torch.ones((3, 12), dtype=torch.bool))
+chained = GetTFDMatrices(mols, positionsFrom=dense, return_type="numpy")
+# alone, a molecule's angles take other lanes of the CPU's vector atan2
+alone = [GetTFDMatrix(m, maxDev="spec", device="cpu").numpy() for m in mols]
+assert all(np.abs(a - b).max() <= 1e-6 for a, b in zip(out, alone))
+assert all(np.array_equal(a, b) for a, b in zip(chained, GetTFDMatrices(mols, device="cpu",
+                                                                         return_type="numpy")))
+assert all(v == 0 for v in tfd.launch_counts.values())
+leaked = sorted(m for m in sys.modules if sys.modules[m] is not None
+                and m.split(".")[0] in ("jax", "jaxlib", "nvmolkit_tpu"))
+assert not leaked, leaked
+print("OK")
+"""
+
+
+def test_tfd_runs_without_jax():
+    """The TFD slice (the torsion enumeration, the batch, the plain K17 and
+    K18, GetTFDMatrix and GetTFDMatrices from host conformers and from a
+    Dense3DResult) on the CPU with the JAX package's modules blocked."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _TFD_SCRIPT.format(root=str(ROOT))],
+        capture_output=True, text=True, timeout=300, cwd=ROOT,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.startswith("OK")
