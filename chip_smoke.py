@@ -9,8 +9,9 @@ Phases, each reported as one JSON line with its seconds:
      UFF and constraint kernels, the embedding's four kernels, the ETK
      kernel, the Morgan kernel and the Butina loops (nvcc), the SMILES
      featurizer, the bounds builder and the torsion-library matcher (g++),
-     and the TFD kernels (nvcc), from the sources in this checkout, all
-     sixteen compilers started together;
+     the TFD kernels and the substructure kernels (nvcc) and the host
+     substructure engine (g++), from the sources in this checkout, all
+     eighteen compilers started together;
   2. kernels: K1 (cross similarity, both launch configurations) and K2
      (neighbor counts) against their plain PyTorch versions at side shapes
      (ragged, zero rows, 128..4096 bits, with and without row lists, the
@@ -112,6 +113,18 @@ Phases, each reported as one JSON line with its seconds:
      accepted conformer through the conformer checkers, the stage times,
      and the success share and counters on the first 128 molecules against
      the JAX package's (tests/data/torch_etkdg_embed.npz);
+  6f. substructure search, bench.py's configuration: make_druglike_smiles
+     (8192) x benchmarks/substruct_bench.py's 8 queries (one recursive),
+     and x bench.py's 6 recursive queries, through SubstructLibrary,
+     countSubstructMatches and getSubstructMatches on the device engine
+     (K19 and K22 in the counts screens, K21 in the matches, K20 in a
+     uniquify=True search; the launch counts of those four searches), every
+     launch of them and of a deviceFrontierCap=8 search with drained pairs
+     (its first 1,024 targets) held against the plain versions on the card;
+     the totals and each pair's counts equal to the native engine's (as
+     bench.py asserts), each pair's rows equal to the native engine's as
+     sorted row sets, hasSubstructMatch equal to counts > 0; first and
+     warm walls, pairs/s, drained and overflowed pairs;
   7. timings at the main path's shapes: the median of each kernel and its
      plain version by CUDA events, beside its bound (the least time the
      card could take: bytes over the memory rate, or POPCs or FP32
@@ -127,7 +140,9 @@ Phases, each reported as one JSON line with its seconds:
      stages' output; K14 over the main path's chunks, K15 at its 24.5k hit
      matrix and K16 at its 100k fingerprints from K2's counts, with bounds
      that count INT32 operations or POPCs as well as bytes; K17 and K18 at
-     (c) and (b);
+     (c) and (b); K19-K22 at the substructure path's largest launches, with
+     INT32 bounds from each launch's data (K19's: the bond-code rows its
+     back edges read and the candidates each level's rows admit);
   8. trace, per phase of the paths: three warm untraced walls, then one run
      under torch.profiler with its wall, the span between CUDA events around
      it, the device-busy share (union of the intervals of device events,
@@ -184,6 +199,23 @@ TFD_PAIR_OPS, TFD_TORSION_OPS, TFD_SINGLE_OPS = 9, 5, 4
 TFD_RING_QUARTET_OPS, TFD_RING_OPS, TFD_SYM_PAIRING_OPS = 6, 4, 5
 K18_TOL = 1e-6  # K18 sums in its plain version's order: equal but for the last bit
 TFD_CUTOFF = 0.2  # Butina over the ensemble's (b) TFD matrix
+# bench.py's substructure configuration: make_druglike_smiles(8192) x the
+# queries of benchmarks/substruct_bench.py, and its recursive screen
+# (bench.py:319-322, copied: bench.py imports the JAX package)
+SUB_TARGETS = 8192
+SUB_REC_QUERIES = ["[NX3;!$(NC=O)]", "[$([CX4][OX2H1])]", "[c;$(c1ccccc1)]",
+                   "[O;$(OC)]", "[C$(C=O)]", "[!$([#6])!$([#1])]"]
+SUB_CAP8_TARGETS = 1024  # targets of the deviceFrontierCap=8 search (its drained pairs
+                         # take the Python engine, ~1 ms a pair)
+# INT32 operations in csrc/substruct.cu. K19 per cell the data admit (a
+# label survivor, at levels >= 1 also bonded to the row's back-edge atoms):
+# its row and atom (a division, a multiply-subtract), the label word's
+# index, shift and test, its share of the ballot: 6; one compare per earlier
+# slot; per back edge the code's index, the shift and the test: 3. K20 per row an OR per slot into its mask, per pair of
+# rows one compare per mask word. K21 per output element 2 per step of the
+# binary search and 4 for the row's index. K22 per frontier row the bound
+# test (2), per valid row the store's index (3).
+SUB_CELL_OPS, SUB_EDGE_OPS, SUB_EXTRACT_OPS = 6, 3, 4
 RMSD_MOLS, RMSD_CONFS = 1024, 64                   # RMSD batches (a) and (c)
 DRUG_HEAVY = (25, 32)                              # heavy atoms drawn for (c)
 FAMILIES, COPIES, FAMILY_SIGMA = 50, 40, 0.2       # ensemble (b)
@@ -675,6 +707,88 @@ def k18_work(sets, n_confs, rates: dict) -> dict:
             n_ops += pairs * (TFD_PAIR_OPS + int((own + TFD_TORSION_OPS).sum()))
             n_bytes += 4 * c * len(ts.quartets) + 20 * ts.n_torsions + 48 + 4 * pairs
     return bound(n_bytes, n_ops, rates, "fp32")
+
+
+def k19_work(args, counts, rates: dict) -> dict:
+    """K19 over one launch (``args``: label words, bond codes, rows, back
+    slots and masks, P) as this launch's data needs it. Bytes: each input
+    read once (the pairs' label words and rows, the back-edge tables, and
+    the bond-code rows [pair, atom] that some back edge of a live row
+    reads, T bytes each), the last level's valid rows (2 bytes a slot), the
+    counts and the overflow flags written once. INT32 operations only for
+    the cells the data admit: at level 0 slot 0's label survivors; at level
+    i, per live row, the label survivors bonded to each of its back-edge
+    atoms (the fewest over the edges: the neighbour list a join would walk),
+    each with its tests (SUB_CELL_OPS, i compares, SUB_EDGE_OPS an edge).
+    Each level's live rows are the plain version's over the query's first i
+    slots (count 0 once a pair overflowed: K19 stops there)."""
+    import torch
+
+    from nvmolkit_tpu_torch.ops import substruct_kernels as sk
+
+    words, adj, rows, back_slot, back_mask, P = args
+    B, nq, W, T = rows.shape[0], words.shape[1], words.shape[2], adj.shape[1]
+    labels = sk._label_bits(words, rows, T)                             # [B, nq, T]
+    rows_l, slots = rows.long(), back_slot.tolist()
+    read = torch.zeros((B, T), dtype=torch.bool, device=adj.device)     # bond-code rows read
+    n_ops = SUB_CELL_OPS * float(labels[:, 0].sum())
+    for i in range(1, nq):
+        f, n, _ = sk.gsi_join_plain(words[:, :i], adj, rows, back_slot[:i], back_mask[:i], P)
+        valid = (torch.arange(P, device=adj.device)[None, :] < n[:, None])[:, :, None]
+        live = [s for s in slots[i] if s >= 0]
+        atoms = f[:, :, live].long().clamp(min=0)                       # [B, P, edges]
+        pair = torch.arange(B, device=adj.device)[:, None, None].expand_as(atoms)
+        keep = valid.expand_as(atoms)
+        read[pair[keep], atoms[keep]] = True
+        cand = torch.stack([(adj[rows_l[:, None], atoms[:, :, e]] != 0) & labels[:, i][:, None]
+                            for e in range(len(live))]).sum(dim=3).amin(dim=0)  # [B, P]
+        n_ops += float((cand * valid[:, :, 0]).sum()) * (SUB_CELL_OPS + i + SUB_EDGE_OPS * len(live))
+    n_rows = rows.unique().numel()
+    n_bytes = (4 * n_rows * nq * W + 4 * B + 8 * back_slot.numel() + T * float(read.sum())
+               + 2 * nq * float(counts.double().sum()) + 5 * B)
+    return bound(n_bytes, n_ops, rates, "int32")
+
+
+def k20_work(frontier, counts, new_counts, T: int, rates: dict) -> dict:
+    """K20: each valid row read, each kept row written (2 bytes a slot), the
+    counts in and out; per row an OR per slot, per pair of rows a compare
+    per mask word."""
+    B, _P, nq = frontier.shape
+    n = counts.double()
+    n_bytes = 2 * nq * float(n.sum() + new_counts.double().sum()) + 8 * B
+    n_ops = nq * float(n.sum()) + -(-T // 64) * float((n * (n - 1) / 2).sum())
+    return bound(n_bytes, n_ops, rates, "int32")
+
+
+def k21_work(n_rows: int, nq: int, B: int, rates: dict) -> dict:
+    """K21: each kept slot read (2 bytes) and written (4), the offsets and
+    the perm; per element the binary search over B + 1 offsets and the
+    row's index."""
+    n_el = n_rows * nq
+    n_bytes = 6 * n_el + 8 * (B + 1) + 4 * nq
+    n_ops = n_el * (2 * max(1, math.ceil(math.log2(B + 1))) + SUB_EXTRACT_OPS)
+    return bound(n_bytes, n_ops, rates, "int32")
+
+
+def k22_work(frontier, counts, T: int, rates: dict) -> dict:
+    """K22: the counts and each valid row's root slot read, the [B, T] mask
+    written; 2 operations a frontier row, 3 a valid row."""
+    B, P, _nq = frontier.shape
+    valid = float(counts.double().sum())
+    return bound(4 * B + 2 * valid + B * T, 2 * B * P + 3 * valid, rates, "int32")
+
+
+def match_rows(res, qi: int, width: int):
+    """Every match of query ``qi`` in a SubstructMatchResults as rows
+    (target, atoms...), sorted."""
+    import numpy as np
+
+    p = np.arange(res.n_targets) * res.n_queries + qi
+    first, last = res.pair_indptr[p], res.pair_indptr[p + 1]
+    m = np.concatenate([np.arange(a, b) for a, b in zip(first, last)] + [np.zeros(0, np.int64)])
+    rows = res.atom_indices[res.match_indptr[m][:, None] + np.arange(width)]
+    out = np.column_stack([np.repeat(np.arange(res.n_targets), last - first), rows])
+    return out[np.lexsort(out.T[::-1])] if len(out) else out
 
 
 def with_hydrogens(mol):
@@ -1587,6 +1701,8 @@ def main() -> int:
     from nvmolkit_tpu_torch import tfd as tfd_api
     from nvmolkit_tpu_torch.tfd import GetTFDMatrices, GetTFDMatrix
     from nvmolkit_tpu_torch.ops import tfd as tfd_ops
+    from nvmolkit_tpu_torch import substructure as sub_api
+    from nvmolkit_tpu_torch.ops import substruct_kernels as sk
 
     cuda = torch.device("cuda", 0)
     smi_line = subprocess.run(
@@ -1612,7 +1728,8 @@ def main() -> int:
             "nvcc_coordgen_s": _build.coordgen_lib, "nvcc_dist_geom_s": _build.dist_geom_lib,
             "nvcc_embed_checks_s": _build.embed_checks_lib, "nvcc_etk_s": _build.etk_ff_lib,
             "nvcc_morgan_s": _build.morgan_lib, "nvcc_butina_s": _build.butina_lib,
-            "nvcc_tfd_s": _build.tfd_lib,
+            "nvcc_tfd_s": _build.tfd_lib, "nvcc_substruct_s": _build.substruct_gpu_lib,
+            "gxx_substruct_s": _build.substruct_lib,
             "gxx_s": _build.graph_lib, "gxx_bounds_s": _build.bounds_lib,
             "gxx_etk_match_s": _build.etk_lib}
     with ThreadPoolExecutor(len(libs)) as pool:
@@ -1896,7 +2013,7 @@ def main() -> int:
     del morgan_inputs
 
     counted = (sim_ops, kabsch, mmff_energy, lbfgs_flat, uff_energy, cons, bfgs,
-               triangle_smooth, dist_geom, embed_checks, etk, morgan_ops, butina_ops, tfd_ops)
+               triangle_smooth, dist_geom, embed_checks, etk, morgan_ops, butina_ops, tfd_ops, sk)
 
     def reset_counts():
         torch.cuda.synchronize()
@@ -3205,6 +3322,174 @@ def main() -> int:
          runs={b: {k: v for k, v in r.items() if k != "dense"} for b, r in etkdg_runs.items()},
          vs_jax_fixture=etkdg_vs_fixture, seconds=time.perf_counter() - t_phase)
 
+    # 6f. substructure search: bench.py's configuration (make_druglike_smiles
+    # (8192) x benchmarks/substruct_bench.py's 8 queries, and x its 6 recursive
+    # queries) on the device engine, every launch recorded and K19-K22 held
+    # against their plain versions on the card, the totals and each pair's
+    # rows against the native engine --------------------------------------------------
+    t_phase = time.perf_counter()
+    K19, K20, K21, K22 = "gsi_join", "dedup", "extract", "root_mask"
+    errs.update({K19: 0.0, K20: 0.0, K21: 0.0, K22: 0.0})  # integer outputs: 0 or a failed check
+    sub_queries = list(load_by_path("benchmarks/substruct_bench.py").QUERIES)
+    t0 = time.perf_counter()
+    sub_mols = mols_from_smiles(
+        load_by_path("benchmarks/_common.py").make_druglike_smiles(SUB_TARGETS))
+    sub_parse_s = time.perf_counter() - t0
+    n_sub_pairs, n_rec_pairs = SUB_TARGETS * len(sub_queries), SUB_TARGETS * len(SUB_REC_QUERIES)
+    sub_cfg = sub_api.SubstructSearchConfig()  # useDeviceEngine=None: the engine on cuda:0
+    sub_lib, rec_lib = sub_api.SubstructLibrary(sub_mols), sub_api.SubstructLibrary(sub_mols)
+    recorded = []  # (kernel, args, output) of every launch while recording
+    originals = {name: getattr(sk, name) for name in (K19, K20, K21, K22)}
+
+    def recording(name):
+        def call(*args):
+            out = originals[name](*args)
+            recorded.append((name, args, out))
+            return out
+        return call
+
+    @contextlib.contextmanager
+    def record_launches():
+        for name in originals:
+            setattr(sk, name, recording(name))
+        try:
+            yield
+        finally:
+            for name, fn in originals.items():
+                setattr(sk, name, fn)
+
+    def sub_timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    sub_walls, results, bounds_of = {}, {}, {}  # bounds_of: each search's slice of `recorded`
+    with record_launches():
+        reset_counts()
+        for key, fn in (
+                ("counts", lambda: sub_api.countSubstructMatches(sub_lib, sub_queries, sub_cfg)),
+                ("recursive_counts", lambda: sub_api.countSubstructMatches(
+                    rec_lib, SUB_REC_QUERIES, sub_cfg)),
+                ("matches", lambda: sub_api.getSubstructMatches(sub_lib, sub_queries, sub_cfg)),
+                ("uniquify_matches", lambda: sub_api.getSubstructMatches(
+                    sub_lib, sub_queries, sub_api.SubstructSearchConfig(uniquify=True)))):
+            start = len(recorded)
+            results[key], sub_walls[f"{key}_first_s"] = sub_timed(fn)
+            bounds_of[key] = (start, len(recorded))
+        sub_launches = read_counts()
+        start = len(recorded)
+        cap8_mols = sub_mols[:SUB_CAP8_TARGETS]
+        cap8 = sub_api.getSubstructMatches(cap8_mols, sub_queries,
+                                           sub_api.SubstructSearchConfig(deviceFrontierCap=8))
+        bounds_of["cap8_matches"] = (start, len(recorded))
+    check(all(sub_launches[k] > 0 for k in (K19, K20, K21, K22)),
+          f"substructure main path launches {dict(sub_launches)}")
+    check(sum(sub_launches.values()) == sum(sub_launches[k] for k in (K19, K20, K21, K22)),
+          f"the substructure path launched another kernel: {dict(sub_launches)}")
+    counts_dev, rec_dev = results["counts"], results["recursive_counts"]
+    res_dev, uniq = results["matches"], results["uniquify_matches"]
+    # the launches per search, and the pairs each search drained to the host
+    # (a K19 overflow; the recursive masks' overflowed rows are evaluated there too)
+    per_search = {}
+    for key, (lo, hi) in bounds_of.items():
+        entries = recorded[lo:hi]
+        per_search[key] = {
+            "launches": dict(collections.Counter(name for name, _, _ in entries)),
+            "drained_pairs": int(sum(int(out[2].sum()) for name, _, out in entries
+                                     if name == K19))}
+    # K19-K22 against their plain versions on the card, launch by launch
+    for idx, (name, args, out) in enumerate(recorded):
+        if name == K19:
+            pf, pc, po = sk.gsi_join_plain(*args)
+            f, c, o = out
+            valid = torch.arange(f.shape[1], device=cuda)[None, :] < c[:, None]
+            check(torch.equal(o, po) and torch.equal(c, pc) and torch.equal(f[valid], pf[valid]),
+                  f"K19 differs from its plain version at launch {idx}")
+        elif name == K20:
+            (f, c, T), (df, dc) = args, out
+            pdf, pdc = sk.dedup_plain(f, c, T)
+            valid = torch.arange(f.shape[1], device=cuda)[None, :] < dc[:, None]
+            check(torch.equal(dc, pdc) and torch.equal(df[valid], pdf[valid]),
+                  f"K20 differs from its plain version at launch {idx}")
+        elif name == K21:
+            check(torch.equal(out, sk.extract_plain(*args[:4])),
+                  f"K21 differs from its plain version at launch {idx}")
+        else:
+            check(torch.equal(out, sk.root_mask_plain(*args)),
+                  f"K22 differs from its plain version at launch {idx}")
+    # the result against the native engine: bench.py's totals, each pair's
+    # counts, and each pair's rows as sorted row sets
+    nat_cfg = sub_api.SubstructSearchConfig(useDeviceEngine=False)
+    counts_nat, sub_walls["native_counts_s"] = sub_timed(
+        lambda: sub_api.countSubstructMatches(sub_lib, sub_queries, nat_cfg))
+    rec_nat, sub_walls["native_recursive_counts_s"] = sub_timed(
+        lambda: sub_api.countSubstructMatches(rec_lib, SUB_REC_QUERIES, nat_cfg))
+    res_nat, sub_walls["native_matches_s"] = sub_timed(
+        lambda: sub_api.getSubstructMatches(sub_lib, sub_queries, nat_cfg))
+    check(int(counts_dev.sum()) == int(counts_nat.sum()) and np.array_equal(counts_dev, counts_nat),
+          f"device counts {int(counts_dev.sum())} != native {int(counts_nat.sum())}")
+    check(int(rec_dev.sum()) == int(rec_nat.sum()) and np.array_equal(rec_dev, rec_nat),
+          f"recursive device counts {int(rec_dev.sum())} != native {int(rec_nat.sum())}")
+    check(np.array_equal(res_dev.counts(), counts_dev), "matches' counts != counts")
+    cap8_nat = sub_api.getSubstructMatches(cap8_mols, sub_queries, nat_cfg)
+    for qi, q in enumerate(sub_queries):
+        width = sub_api.parse_smarts(q).num_atoms
+        check(np.array_equal(match_rows(res_dev, qi, width), match_rows(res_nat, qi, width)),
+              f"{q}: device rows != native rows")
+        check(np.array_equal(match_rows(cap8, qi, width),
+                             match_rows(cap8_nat, qi, width)),
+              f"{q}: deviceFrontierCap=8 rows != native rows")
+    check(per_search["cap8_matches"]["drained_pairs"] > 0, "the cap-8 search drained no pair")
+    has = sub_api.hasSubstructMatch(sub_lib, sub_queries, sub_cfg)
+    check(np.array_equal(has, counts_dev > 0), "hasSubstructMatch != counts > 0")
+    check(bool((uniq.counts() <= counts_dev).all()) and bool((uniq.counts() > 0).sum()
+                                                            == (counts_dev > 0).sum()),
+          "uniquify changed which pairs match")
+    # warm walls, the library's labels on the card
+    for key, fn in (("counts", lambda: sub_api.countSubstructMatches(sub_lib, sub_queries,
+                                                                      sub_cfg)),
+                    ("matches", lambda: sub_api.getSubstructMatches(sub_lib, sub_queries,
+                                                                     sub_cfg)),
+                    ("recursive_counts", lambda: sub_api.countSubstructMatches(
+                        rec_lib, SUB_REC_QUERIES, sub_cfg))):
+        sub_walls[f"{key}_warm_s"] = [sub_timed(fn)[1] for _ in range(3)]
+    # the recursive screen on a new library (its root masks made again on the card)
+    sub_walls["recursive_counts_new_library_s"] = [sub_timed(
+        lambda: sub_api.countSubstructMatches(sub_api.SubstructLibrary(sub_mols),
+                                              SUB_REC_QUERIES, sub_cfg))[1] for _ in range(2)]
+    pairs_per_s = {
+        "counts_first": n_sub_pairs / sub_walls["counts_first_s"],
+        "counts_warm": n_sub_pairs / min(sub_walls["counts_warm_s"]),
+        "matches_first": n_sub_pairs / sub_walls["matches_first_s"],
+        "matches_warm": n_sub_pairs / min(sub_walls["matches_warm_s"]),
+        "recursive_counts_warm": n_rec_pairs / min(sub_walls["recursive_counts_warm_s"]),
+        "recursive_counts_new_library": n_rec_pairs / min(
+            sub_walls["recursive_counts_new_library_s"]),
+        "native_counts": n_sub_pairs / sub_walls["native_counts_s"],
+        "native_matches": n_sub_pairs / sub_walls["native_matches_s"]}
+    # the launches timed below: each kernel's largest of the path
+    def largest(name, keys, size):
+        cand = [(size(args, out), idx) for key in keys
+                for idx in range(*bounds_of[key]) for name_, args, out in [recorded[idx]]
+                if name_ == name]
+        return recorded[max(cand)[1]] + (max(cand)[1],)
+
+    sub_launch = {
+        K19: largest(K19, ("counts",), lambda a, o: a[2].shape[0] * a[0].shape[1]),
+        K20: largest(K20, ("uniquify_matches",), lambda a, o: int(a[1].sum())),
+        K21: largest(K21, ("matches",), lambda a, o: o.numel()),
+        K22: largest(K22, ("counts", "recursive_counts"), lambda a, o: a[0].shape[0])}
+    emit(phase="substruct", targets=SUB_TARGETS, queries=sub_queries,
+         recursive_queries=SUB_REC_QUERIES, pairs=n_sub_pairs, recursive_pairs=n_rec_pairs,
+         parse_s=sub_parse_s, walls=sub_walls, pairs_per_s=pairs_per_s,
+         total_matches=int(counts_dev.sum()), recursive_total=int(rec_dev.sum()),
+         uniquify_total=int(uniq.counts().sum()), launches=sub_launches,
+         per_search=per_search,
+         overflowed={"matches": len(res_dev.overflowed), "cap8": len(cap8.overflowed)},
+         atom_buckets=sorted(sub_lib.device_library(sub_lib.features(False), cuda)._by_T),
+         recorded_launches=len(recorded), seconds=time.perf_counter() - t_phase)
+
     # 7. timings at the main path's shapes ------------------------------------------
     t_phase = time.perf_counter()
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=cuda)  # 256 MB > the 50 MB L2
@@ -3490,6 +3775,38 @@ def main() -> int:
         tfd_rows[key, "druglike"]["at_ensemble"] = {
             k: tfd_rows[key, "ensemble"][k] for k in ("shape", "ms", "cold_l2_ms", "plain_ms",
                                                       "bound_ms", "bound_by")}
+    # K19-K22 at the substructure path's largest launches (K19 and K22 in the
+    # counts screens, K20 in the uniquify search, K21 in getSubstructMatches);
+    # K21 by its raw launch, its offsets' cumsum made once before
+    sub_rows = {}
+    _, a19, o19, _ = sub_launch[K19]
+    sub_rows[K19] = row(K19, f"{a19[2].shape[0]} pairs x {a19[0].shape[1]} slots, T {a19[1].shape[1]}"
+                        f", P {a19[5]} (counts screen)", k19_work(a19, o19[1], rates),
+                        lambda: sk.gsi_join(*a19), lambda: sk.gsi_join_plain(*a19), cold=True)
+    _, a20, o20, _ = sub_launch[K20]
+    sub_rows[K20] = row(K20, f"{a20[0].shape[0]} pairs x {int(a20[1].sum())} rows of "
+                        f"{a20[0].shape[2]} slots (uniquify search)",
+                        k20_work(a20[0], a20[1], o20[1], a20[2], rates),
+                        lambda: sk.dedup(*a20), lambda: sk.dedup_plain(*a20), cold=True)
+    _, a21, o21, _ = sub_launch[K21]
+    offs21, out21 = sk.kept_offsets(a21[1], a21[3]), torch.empty_like(o21)
+    lib21 = _build.substruct_gpu_lib()
+    B21, P21, nq21 = a21[0].shape
+
+    def k21_launch():
+        rc = lib21.nvmk_extract(a21[0].data_ptr(), offs21.data_ptr(), a21[2].data_ptr(), B21, nq21,
+                                P21, o21.numel(), out21.data_ptr(),
+                                torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"K21 launch returned {rc}")
+
+    sub_rows[K21] = row(K21, f"{B21} pairs, {o21.shape[0]} rows of {nq21} atoms (matches search)",
+                        k21_work(o21.shape[0], nq21, B21, rates), k21_launch,
+                        lambda: sk.extract_plain(*a21[:4]), cold=True)
+    _, a22, o22, _ = sub_launch[K22]
+    sub_rows[K22] = row(K22, f"{a22[0].shape[0]} pairs, {int(a22[1].sum())} rows, T {a22[3]} "
+                        f"(a recursive sub-pattern)", k22_work(a22[0], a22[1], a22[3], rates),
+                        lambda: sk.root_mask(*a22), lambda: sk.root_mask_plain(*a22), cold=True)
+    del recorded, sub_launch
     del flush, hits24
     emit(phase="timings", kernels=measured, m_skinny_sweep=sweep, m_skinny=sim_ops.M_SKINNY,
          seconds=time.perf_counter() - t_phase)
@@ -3507,6 +3824,12 @@ def main() -> int:
         "rmsd_batch_druglike": rmsd_druglike,
         "rmsd_butina_ensemble": rmsd_butina,
         "tfd_bench": tfd_bench,
+        "substruct_counts": lambda: sub_api.countSubstructMatches(sub_lib, sub_queries, sub_cfg),
+        "substruct_matches": lambda: sub_api.getSubstructMatches(sub_lib, sub_queries, sub_cfg),
+        # a fresh library each run: on a reused one every recursive query here is
+        # a label read of its cached root masks, with no device work
+        "substruct_recursive_counts_new_library": lambda: sub_api.countSubstructMatches(
+            sub_api.SubstructLibrary(sub_mols), SUB_REC_QUERIES, sub_cfg),
         "tfd_butina_ensemble": tfd_big_butina,
         "mmff_optimize": mmff_optimize,
         "uff_optimize": uff_optimize,
@@ -3552,6 +3875,7 @@ def main() -> int:
                   K5U: (k5u_row, "ms"), K7: (k7_row, k7_key), K8M: (k8_rows[K8M], "ms"),
                   K8U: (k8_rows[K8U], "ms"), K15: (k15_row, "ms"), K16: (k16_row, "ms")}
     for key, entry in ((K17, tfd_rows[K17, "druglike"]), (K18, tfd_rows[K18, "druglike"]),
+                       *sub_rows.items(),
                        (K14, k14_row), (K9, k9_row), (K10, k10_row), (K11, k11_row), (K5D, dg_rows[K5D]),
                        (K8D, dg_rows[K8D]), (K12, k12_row), (K13, k13_row),
                        (K5E, etk_rows[K5E]), (K8E, etk_rows[K8E])):
@@ -3571,6 +3895,10 @@ def main() -> int:
     path_launches[K8E] = etkdg_runs["bfgs"]["launches"].get(K8E, 0)
     # the TFD path's: GetTFDMatrices on (c)
     path_launches.update({K17: tfd_launches[K17], K18: tfd_launches[K18]})
+    # the substructure path's: the counts screens, getSubstructMatches and the
+    # uniquify search
+    path_launches.update({k: sub_launches[k] for k in (K19, K20, K21, K22)})
+    substruct_cu = "nvmolkit_tpu_torch/csrc/substruct.cu"
     mmff_cu = "nvmolkit_tpu_torch/csrc/mmff.cu"
     uff_cu = "nvmolkit_tpu_torch/csrc/uff.cu"
     bfgs_at = "nvmolkit_tpu/ops/bfgs.py:144"
@@ -3632,6 +3960,15 @@ def main() -> int:
               "nvmolkit_tpu/ops/tfd.py:334", "nvmolkit_tpu_torch/csrc/tfd.cu"),
         K18: ("tfd_kernel (K18: one thread per conformer pair, each torsion its type's work)",
               "nvmolkit_tpu/ops/tfd.py:367", "nvmolkit_tpu_torch/csrc/tfd.cu"),
+        K19: ("gsi_join_kernel (K19: the GSI join, one block per pair, an order-keeping "
+              "block scan per chunk of cells)", "nvmolkit_tpu/ops/substruct_device.py:316",
+              substruct_cu),
+        K20: ("dedup_kernel (K20: uniquify, one block per pair)",
+              "nvmolkit_tpu/ops/substruct_device.py:463", substruct_cu),
+        K21: ("extract_kernel (K21: match rows into query-atom order at CSR offsets, one "
+              "thread per slot)", "nvmolkit_tpu/ops/substruct_device.py:514", substruct_cu),
+        K22: ("root_mask_kernel (K22: recursive SMARTS root masks, one thread per row)",
+              "nvmolkit_tpu/ops/substruct_device.py:557", substruct_cu),
     }
     lines = []
     for key, (label, replaces, source) in sources.items():

@@ -7,8 +7,9 @@ and call signatures: ``chem`` (the molecule model and SMILES parsing),
 ``uffOptimization`` (UFF minimization), ``batchedForcefield`` (batched MMFF
 and UFF force fields with constraints), ``embedMolecules`` (ETKDG
 conformer embedding), ``tfd`` (Torsion Fingerprint Deviation
-matrices), ``models`` (force-field parametrization
-and energies), ``testutils`` (conformer checkers) and ``types``. Plain
+matrices), ``substructure`` (SMARTS substructure search), ``models``
+(force-field parametrization and energies), ``testutils`` (conformer
+checkers) and ``types``. Plain
 tensor code is PyTorch; the device kernels are written by hand in CUDA C++
 for Hopper (``csrc/``) and built at first use. The JAX package stays as the
 reference that the port is tested against; this package imports neither it

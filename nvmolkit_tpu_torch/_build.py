@@ -30,6 +30,9 @@
 * ``libnvmk_tfd``: ``nvmolkit_tpu_torch/csrc/tfd.cu`` (the TFD kernels K17,
   the dihedral angles, and K18, the deviation per conformer pair), built the
   same way.
+* ``libnvmk_substruct``: ``nvmolkit_tpu_torch/csrc/substruct.cu`` (the
+  substructure kernels K19-K22: the GSI join, uniquify, match extraction and
+  recursive root masks), built the same way.
 * ``libnvmolgraph``: the repository's SMILES featurizer
   ``csrc/mol_graph.cpp``, compiled by ``g++`` with the flags of
   ``csrc/Makefile``.
@@ -39,6 +42,9 @@
 * ``libnvmoletk``: the repository's torsion-library matcher
   ``csrc/etk_match.cpp``, compiled the same way (never the committed
   ``csrc/libnvmoletk.so``).
+* ``libnvmolsubstruct``: the repository's host substructure engine
+  ``csrc/substruct_join.cpp``, compiled the same way (never by ``make`` in
+  ``csrc/``, and never the committed ``csrc/libnvmolsubstruct.so``).
 
 Outputs go to ``nvmolkit_tpu_torch/_build/``, named by a hash of the
 source, every header it includes (``#include "x.cuh"``, followed through
@@ -76,9 +82,11 @@ ETK_SRC = _PKG / "csrc" / "etk.cu"
 MORGAN_SRC = _PKG / "csrc" / "morgan.cu"
 BUTINA_SRC = _PKG / "csrc" / "butina.cu"
 TFD_SRC = _PKG / "csrc" / "tfd.cu"
+SUBSTRUCT_GPU_SRC = _PKG / "csrc" / "substruct.cu"
 GRAPH_SRC = _REPO / "csrc" / "mol_graph.cpp"
 BOUNDS_SRC = _REPO / "csrc" / "topo_bounds.cpp"
 ETK_MATCH_SRC = _REPO / "csrc" / "etk_match.cpp"
+SUBSTRUCT_SRC = _REPO / "csrc" / "substruct_join.cpp"
 # csrc/Makefile's flags
 _GXX_FLAGS = ["-O3", "-std=c++20", "-fPIC", "-shared", "-pthread", "-Wall"]
 
@@ -483,4 +491,49 @@ def tfd_lib() -> ctypes.CDLL:
         "libnvmk_tfd",
         lambda: _build("libnvmk_tfd", TFD_SRC, _nvcc_cmd(TFD_SRC)),
         _declare_tfd,
+    )
+
+
+def _declare_substruct_gpu(lib: ctypes.CDLL) -> None:
+    vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.nvmk_gsi_join.restype = ci
+    lib.nvmk_gsi_join.argtypes = [vp] * 5 + [ci] * 6 + [vp] * 5
+    lib.nvmk_dedup.restype = ci
+    lib.nvmk_dedup.argtypes = [vp, vp, ci, ci, ci, ci, vp, vp, vp, vp]
+    lib.nvmk_extract.restype = ci
+    lib.nvmk_extract.argtypes = [vp, vp, vp, ci, ci, ci, cll, vp, vp]
+    lib.nvmk_root_mask.restype = ci
+    lib.nvmk_root_mask.argtypes = [vp, vp, ci, ci, ci, ci, ci, vp, vp]
+
+
+def substruct_gpu_lib() -> ctypes.CDLL:
+    """The compiled substructure kernels K19-K22 (needs ``nvcc`` and a CUDA
+    runtime)."""
+    return _load(
+        "libnvmk_substruct",
+        lambda: _build("libnvmk_substruct", SUBSTRUCT_GPU_SRC, _nvcc_cmd(SUBSTRUCT_GPU_SRC)),
+        _declare_substruct_gpu,
+    )
+
+
+def _declare_substruct(lib: ctypes.CDLL) -> None:
+    # the six entry points, declared as nvmolkit_tpu/chem/native_substruct.py
+    # declares them (nvmk_substruct_search's arguments go as typed ctypes values)
+    vp = ctypes.c_void_p
+    lib.nvmk_substruct_search.restype = vp
+    lib.nvmk_substruct_total_atoms.restype = ctypes.c_int64
+    lib.nvmk_substruct_total_atoms.argtypes = [vp]
+    lib.nvmk_substruct_counts.argtypes = [vp, vp]
+    lib.nvmk_substruct_overflows.argtypes = [vp, vp]
+    lib.nvmk_substruct_copy_atoms.argtypes = [vp, vp]
+    lib.nvmk_substruct_free.argtypes = [vp]
+
+
+def substruct_lib() -> ctypes.CDLL:
+    """The compiled host substructure engine (needs ``g++``)."""
+    return _load(
+        "libnvmolsubstruct",
+        lambda: _build("libnvmolsubstruct", SUBSTRUCT_SRC,
+                       ["g++", *_GXX_FLAGS, str(SUBSTRUCT_SRC)]),
+        _declare_substruct,
     )

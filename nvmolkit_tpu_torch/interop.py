@@ -5,9 +5,10 @@ stacks, hardware options, a batched forcefield's constraint lists and
 torsion tables. These
 helpers move them across bit for bit, so that tests can feed the two
 packages the same inputs. :func:`reference_natives_from_port_build` points
-the JAX package's loaders of its featurizer and of its torsion-rule matcher
-at the port's builds of the same C++ sources, so that parallel test workers
-never load a library that another worker is still writing.
+the JAX package's loaders of its featurizer, its torsion-rule matcher and
+its host substructure engine at the port's builds of the same C++ sources,
+so that parallel test workers never load a library that another worker is
+still writing.
 """
 from __future__ import annotations
 
@@ -77,21 +78,31 @@ def torsion_set_from_reference(ts) -> TorsionSet:
         np.array(ts.max_dev, np.float32))
 
 
-# the JAX loader's module attributes (library path, handle, load error) and
-# the port's build of the same source, per native library
-_REFERENCE_LIBS = {"graph": (("_LIB_PATH", "_lib", "_load_error"), "graph_lib"),
-                   "etk": (("_ETK_LIB_PATH", "_etk_lib", "_etk_load_error"), "etk_lib")}
+# per native library: the JAX loader's module attributes (library path,
+# handle, load error and its cleared value), the port's build of the same
+# source, and whether the handle becomes the port's loaded library (the
+# substructure loader runs make whenever its handle is unset, and a failed
+# make quietly switches it to its Python engine)
+_REFERENCE_LIBS = {
+    "graph": ("_LIB_PATH", "_lib", "_load_error", None, "graph_lib", False),
+    "etk": ("_ETK_LIB_PATH", "_etk_lib", "_etk_load_error", None, "etk_lib", False),
+    "substruct": ("_LIB_PATH", "_lib", "_load_failed", False, "substruct_lib", True),
+}
 
 
 @contextlib.contextmanager
 def reference_natives_from_port_build(native, libs=("graph",)):
     """Within the block, the JAX package's native module ``native`` (its
-    ``nvmolkit_tpu.chem.native``, passed in by the caller: the port imports
-    nothing of that package) loads each of ``libs`` ("graph": the SMILES
-    featurizer; "etk": the torsion-rule matcher) from the port's build of
-    the same source with the same flags (``_build.graph_lib`` and
-    ``_build.etk_lib``: hashed, locked, renamed into place) and forgets any
-    handle or load error it held; on exit its own paths and state come back.
+    ``nvmolkit_tpu.chem.native``, or ``nvmolkit_tpu.chem.native_substruct``
+    for "substruct", passed in by the caller: the port imports nothing of
+    that package) loads each of ``libs`` ("graph": the SMILES featurizer;
+    "etk": the torsion-rule matcher; "substruct": the host substructure
+    engine) from the port's build of the same source with the same flags
+    (``_build.graph_lib``, ``_build.etk_lib`` and ``_build.substruct_lib``:
+    hashed, locked, renamed into place) and forgets any handle or load error
+    it held; the substructure loader is handed the port's loaded library
+    itself, declared as it declares it, so that it never runs ``make``. On
+    exit its own paths and state come back.
 
     The JAX loader builds ``csrc/libnvmolgraph.so`` and
     ``csrc/libnvmoletk.so``, which no checkout holds, with ``make`` at first
@@ -101,17 +112,20 @@ def reference_natives_from_port_build(native, libs=("graph",)):
     keeps that error for the rest of its run, so that every JAX parse raises
     ``RuntimeError`` and the JAX torsion provider's ``precompute`` returns
     False (its Python matcher then serves every molecule), or maps a library
-    that the linker is still writing.
+    that the linker is still writing. The substructure loader runs ``make``
+    on the committed ``csrc/libnvmolsubstruct.so`` at every first use, which
+    a checkout's modification times can turn into a rebuild.
     """
     from nvmolkit_tpu_torch import _build
 
     saved = {}
     for lib in libs:
-        (path, handle, error), build = _REFERENCE_LIBS[lib]
+        path, handle, error, cleared, build, hand_over = _REFERENCE_LIBS[lib]
         saved.update({attr: getattr(native, attr) for attr in (path, handle, error)})
-        setattr(native, path, pathlib.Path(getattr(_build, build)()._name))
-        setattr(native, handle, None)
-        setattr(native, error, None)
+        loaded = getattr(_build, build)()
+        setattr(native, path, pathlib.Path(loaded._name))
+        setattr(native, handle, loaded if hand_over else None)
+        setattr(native, error, cleared)
     try:
         yield
     finally:

@@ -6,10 +6,12 @@ framework import): the rules, the ring tiers, the anchored match plans and
 (``csrc/etk_match.cpp``, compiled by ``_build.etk_lib``; a failed build
 raises) runs in :meth:`ExperimentalTorsionProvider.precompute`, which the
 embedding calls on every chunk; the Python matcher (``__call__`` on a
-molecule that was not precomputed) is its test oracle. Rules that only the
-substructure matcher can run (recursive SMARTS, a quad whose central atoms
-are not bonded in the pattern; none of the embedded ones) are refused when
-the provider is made: the port has no such matcher yet.
+molecule that was not precomputed) is its test oracle. A library with a rule
+the native matcher cannot run (a recursive SMARTS leaf, or a quad whose
+central atoms are not bonded in the pattern; none of the embedded ones) takes
+the JAX package's route: ``precompute`` returns False and the Python matcher
+serves every molecule, running the substructure search (``find_matches``)
+for a rule without a plan.
 
 ETKDG's defining feature is a SMARTS-pattern-driven torsion-preference
 library (Riniker & Landrum 2015, building on the Schaerfer et al. 2013
@@ -409,6 +411,13 @@ def _build_match_plan(query, quad, atom_ids, bond_ids) -> _MatchPlan | None:
     )
 
 
+def _bond_index(mol: Mol, j: int, k: int) -> int | None:
+    for bi in mol.atom_bonds(j):
+        if mol.bonds[bi].other(j) == k:
+            return bi
+    return None
+
+
 def _required_element(expr) -> int | None:
     """Atomic number an atom expression definitely requires, or None.
 
@@ -528,11 +537,6 @@ class ExperimentalTorsionProvider:
                 self._rule_phase[r, kk - 1] = math.radians(phi0)
         self._native = None
         self._native_blob = self._compile_native_blob()
-        if self._native_blob is None:
-            raise NotImplementedError(
-                "a rule with a recursive SMARTS leaf or a quad whose central atoms are not "
-                "bonded in its pattern needs the substructure matcher, which the port does "
-                "not have yet")
 
     # -- native (C++) batch matcher -------------------------------------
     # csrc/etk_match.cpp executes the same rotor-anchored plans over a
@@ -547,7 +551,7 @@ class ExperimentalTorsionProvider:
         recursive-SMARTS leaves — neither occurs in the embedded
         libraries)."""
         from nvmolkit_tpu_torch.chem.smarts import AND, LEAF, NOT
-        from nvmolkit_tpu_torch.ops.substruct import _bond_code_mask
+        from nvmolkit_tpu_torch.ops.substruct_device import _bond_code_mask
 
         if any(p is None for p in self._plans):
             return None
@@ -628,8 +632,8 @@ class ExperimentalTorsionProvider:
 
     def _native_handle(self):
         """(library, compiled rules): built and compiled at first use; a
-        failed build or compile raises."""
-        if self._native is not None:
+        failed build or compile raises. None when a rule cannot run natively."""
+        if self._native is not None or self._native_blob is None:
             return self._native
         from nvmolkit_tpu_torch._build import etk_lib
 
@@ -657,13 +661,18 @@ class ExperimentalTorsionProvider:
     def precompute(self, mols) -> bool:
         """Batch-match the library over ``mols`` with the native matcher,
         caching per-molecule results (consumed by ``__call__``). Returns
-        True; a failed build of the matcher raises (the Python matcher is
-        never a silent stand-in)."""
+        True; False (no-op) when a rule cannot run natively, so that the
+        per-molecule Python matcher serves every molecule. A failed build of
+        the matcher raises (the Python matcher is never a silent stand-in
+        for it)."""
         import ctypes
 
         from nvmolkit_tpu_torch.ops.substruct import featurize_target
 
-        lib, handle = self._native_handle()
+        native = self._native_handle()
+        if native is None:
+            return False
+        lib, handle = native
 
         todo = [m for m in mols
                 if getattr(m, "_etk_match_cache", (None,))[0] is not self]
@@ -797,6 +806,7 @@ class ExperimentalTorsionProvider:
             _bond_ok_matrix,
             _eval_expr,
             featurize_target,
+            find_matches,
         )
 
         mol_mask = 0
@@ -891,6 +901,22 @@ class ExperimentalTorsionProvider:
 
         for mask, plan, rule, query, eid_j, eid_k, rcode in self._rule_exec:
             if mask & mol_mask != mask:
+                continue
+            if plan is None:
+                # pattern whose quad anchors aren't bonded: generic search
+                matches, _ = find_matches(query, tf, max_matches=256, uniquify=False)
+                for row in matches:
+                    qi, qj, qk, ql = rule.quad
+                    i, j, k, l = (int(row[x]) for x in (qi, qj, qk, ql))
+                    bidx = _bond_index(mol, j, k)
+                    if (
+                        bidx is None
+                        or claimed_vec[bidx]
+                        or bond_class[bidx] != rcode
+                    ):
+                        continue
+                    claim(rule, i, j, k, l)
+                    claimed_vec[bidx] = claimed_vec[bidx + n_bonds] = True
                 continue
             # vectorized central-bond candidate screen on the bond list
             if not (lab_any(eid_j) and lab_any(eid_k)):

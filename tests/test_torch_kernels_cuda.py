@@ -1392,3 +1392,153 @@ def test_tfd_kernels_raise_on_failure(cuda, tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA error 701"):
         tfd.tfd_pairs(torch.zeros(batch.n_angles, device=cuda), batch)
     assert tfd.launch_counts == before
+
+
+def _substruct_random(rng, T, smarts, n=96):
+    """Random label bits and symmetric bond codes (chain and ring codes of
+    every kind) over ``n`` targets of T atoms, and a compiled query."""
+    from nvmolkit_tpu_torch.chem.smarts import parse_smarts
+    from nvmolkit_tpu_torch.ops import substruct_device as psd
+
+    cq = psd.compile_query(parse_smarts(smarts))
+    labels = rng.random((n, cq.nq, T)) < rng.uniform(0.05, 0.9, (n, 1, 1))
+    codes = np.array([1, 2, 3, 4, 9, 10, 12], np.uint8)
+    adj = np.where(rng.random((n, T, T)) < 4.0 / T, codes[rng.integers(0, 7, (n, T, T))], 0)
+    adj = np.triu(adj, 1)
+    return labels, (adj + adj.transpose(0, 2, 1)).astype(np.uint8), cq
+
+
+def _check_substruct_kernels(cuda, labels, adj, cq, P, rows=None):
+    """K19-K22 against their plain versions on the card, on one launch's
+    inputs; returns the overflow flags."""
+    from nvmolkit_tpu_torch.ops import substruct_kernels as sk
+
+    T = adj.shape[1]
+    rows = np.arange(len(labels)) if rows is None else rows
+    args = [torch.from_numpy(sk.pack_label_words(labels)).to(cuda), torch.from_numpy(adj).to(cuda),
+            torch.from_numpy(np.asarray(rows, np.int32)).to(cuda)]
+    args += [torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(cuda)
+             for a in (cq.back_slot, cq.back_mask)]
+    before = dict(sk.launch_counts)
+    f, c, o = sk.gsi_join(*args, P)
+    pf, pc, po = sk.gsi_join_plain(*args, P)
+    assert torch.equal(o, po) and torch.equal(c, pc)
+    valid = torch.arange(P, device=cuda)[None, :] < c[:, None]
+    assert torch.equal(f[valid], pf[valid])
+    df, dc = sk.dedup(f, c, T)
+    pdf, pdc = sk.dedup_plain(f, c, T)
+    dvalid = torch.arange(P, device=cuda)[None, :] < dc[:, None]
+    assert torch.equal(dc, pdc) and torch.equal(df[dvalid], pdf[dvalid])
+    perm = torch.from_numpy(cq.perm.astype(np.int32)).to(cuda)
+    for mm in (2**31 - 1, 1, 3):
+        got = sk.extract(f, c, perm, mm)
+        assert got.dtype == torch.int32 and torch.equal(got, sk.extract_plain(f, c, perm, mm))
+    slot0 = int(cq.perm[0])
+    assert torch.equal(sk.root_mask(f, c, slot0, T), sk.root_mask_plain(f, c, slot0, T))
+    after = sk.launch_counts
+    assert [after[k] - before[k] for k in ("gsi_join", "dedup", "root_mask")] == [1, 1, 1]
+    assert after["extract"] - before["extract"] == 3 * (int(c.sum()) > 0)
+    return o.cpu().numpy()
+
+
+@pytest.mark.parametrize("T", [16, 24, 32, 48, 64, 96, 128, 192, 256])
+def test_substruct_kernels_match_plain(cuda, T):
+    """Every atom bucket, random inputs, a chain, a ring, a slot with four
+    back edges (E = 4) and typed bonds, at P = 128 and P = 8 (overflows)."""
+    rng = np.random.default_rng(T)
+    for smarts in ("[#6]~[#7]~[#8]~[#6]", "[#6]1~[#6]~[#6]~[#6]~1", "C(=O)[#7]",
+                   "*1*2*3**123"):
+        labels, adj, cq = _substruct_random(rng, T, smarts)
+        overflowed = 0
+        for P in (128, 8):
+            overflowed += _check_substruct_kernels(cuda, labels, adj, cq, P,
+                                                   rows=rng.permutation(len(labels))[:80]).sum()
+        assert overflowed > 0, smarts
+    assert cq.n_edges == 4
+
+
+def test_substruct_overflow_exactly_at_the_cap(cuda):
+    """P candidates (or P cells at a level) do not overflow; P + 1 do, at
+    level 0 and at level 1."""
+    from nvmolkit_tpu_torch.chem.smarts import parse_smarts
+    from nvmolkit_tpu_torch.ops import substruct_device as psd
+
+    T, P = 64, 16
+    cq = psd.compile_query(parse_smarts("[#6]~[#6]"))
+    for first, second, want in ((16, 1, False), (17, 1, True), (8, 2, False), (4, 5, True)):
+        labels = np.zeros((1, 2, T), bool)
+        labels[0, 0, :first] = True
+        labels[0, 1, 32:32 + second] = True
+        adj = np.zeros((1, T, T), np.uint8)
+        adj[0, :32, 32:] = adj[0, 32:, :32] = 1
+        assert bool(_check_substruct_kernels(cuda, labels, adj, cq, P)[0]) == want
+
+
+def test_substructure_on_cuda_equals_the_cpu(cuda):
+    """The public API on the card (K19-K22) equals its plain run on the CPU
+    bit for bit, with uniquify, maxMatches, a frontier cap of 8 and
+    recursive queries, and launches every kernel."""
+    from nvmolkit_tpu_torch.chem.native import mols_from_smiles
+    from nvmolkit_tpu_torch.ops import substruct_kernels as sk
+    from nvmolkit_tpu_torch.substructure import (
+        SubstructLibrary, SubstructSearchConfig, countSubstructMatches, getSubstructMatches)
+
+    mols = mols_from_smiles(_load_by_path("tests/data/smiles.py").SMILES_100
+                            + ["C" * 300, "c1ccc2ccccc2c1"])
+    queries = ["c1ccccc1", "[CX3](=O)[NX3]", "[NX3;!$(NC=O)]", "[$([C$(CO)])]", "[#6]~[#6]~[#6]",
+               "[OX2H1]", "C.O"]
+    lib = SubstructLibrary(mols)
+    sk.reset_launch_counts()
+    for kw in (dict(), dict(uniquify=True), dict(maxMatches=3), dict(deviceFrontierCap=8)):
+        cfg = SubstructSearchConfig(**kw)
+        got = getSubstructMatches(lib, queries, cfg, device=cuda)
+        want = getSubstructMatches(mols, queries, cfg, device="cpu")
+        for name in ("atom_indices", "match_indptr", "pair_indptr"):
+            assert np.array_equal(getattr(got, name), getattr(want, name)), (kw, name)
+        assert sorted(got.overflowed) == sorted(want.overflowed)
+        assert np.array_equal(countSubstructMatches(lib, queries, cfg, device=cuda),
+                              want.counts())
+    assert all(v > 0 for v in sk.launch_counts.values()), sk.launch_counts
+
+
+def test_substruct_kernels_raise_on_failure(cuda, tmp_path, monkeypatch):
+    """A failed build and a failed launch raise; nothing falls back to the
+    plain versions; wrong dtypes are refused."""
+    from nvmolkit_tpu_torch import _build
+    from nvmolkit_tpu_torch.chem.native import mols_from_smiles
+    from nvmolkit_tpu_torch.ops import substruct_kernels as sk
+    from nvmolkit_tpu_torch.substructure import countSubstructMatches
+
+    labels, adj, cq = _substruct_random(np.random.default_rng(0), 32, "[#6]~[#6]~[#6]")
+    words = torch.from_numpy(sk.pack_label_words(labels)).to(cuda)
+    codes = torch.from_numpy(adj).to(cuda)
+    rows = torch.arange(len(labels), dtype=torch.int32, device=cuda)
+    tables = [torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(cuda)
+              for a in (cq.back_slot, cq.back_mask)]
+    with pytest.raises(ValueError):
+        sk.gsi_join(words, codes.long(), rows, *tables, 128)
+    f, c, _ = sk.gsi_join(words, codes, rows, *tables, 128)
+    with pytest.raises(ValueError):
+        sk.dedup(f.int(), c, 32)
+    with monkeypatch.context() as m:
+        bad = tmp_path / "substruct.cu"
+        bad.write_text("this is not CUDA\n")
+        m.setattr(_build, "SUBSTRUCT_GPU_SRC", bad)
+        m.setattr(_build, "BUILD_DIR", tmp_path / "_build")
+        m.setattr(_build, "_loaded", {})
+        with pytest.raises(RuntimeError, match="building libnvmk_substruct failed"):
+            countSubstructMatches(mols_from_smiles(["CCCO"]), ["CCO"], device=cuda)
+
+    class Refusing:  # a library whose launches report cudaErrorLaunchOutOfResources
+        def __getattr__(self, name):
+            return lambda *args: 701
+
+    before = dict(sk.launch_counts)
+    monkeypatch.setattr(sk, "substruct_gpu_lib", Refusing)
+    perm = torch.zeros(3, dtype=torch.int32, device=cuda)
+    for call in (lambda: sk.gsi_join(words, codes, rows, *tables, 128),
+                 lambda: sk.dedup(f, c, 32), lambda: sk.extract(f, c + 1, perm, 5),
+                 lambda: sk.root_mask(f, c, 0, 32)):
+        with pytest.raises(RuntimeError, match="CUDA error 701"):
+            call()
+    assert sk.launch_counts == before

@@ -409,3 +409,55 @@ def test_tfd_runs_without_jax():
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.startswith("OK")
+
+
+_SUBSTRUCT_SCRIPT = r"""
+import sys
+for name in ("jax", "jaxlib", "nvmolkit_tpu"):
+    sys.modules[name] = None  # importing any of them now raises ImportError
+sys.path.insert(0, {root!r})
+import numpy as np
+import nvmolkit_tpu_torch.interop  # noqa: F401
+from nvmolkit_tpu_torch.chem.native import mols_from_smiles
+from nvmolkit_tpu_torch.models.etkdg_torsions import ExperimentalTorsionProvider, TorsionRule
+from nvmolkit_tpu_torch.ops import substruct_kernels
+from nvmolkit_tpu_torch.substructure import (
+    SubstructLibrary, SubstructSearchConfig, countSubstructMatches, getSubstructMatches,
+    hasSubstructMatch)
+
+mols = mols_from_smiles(["CC(=O)NC", "c1ccccc1O", "CCN(CC)CC", "OC(=O)c1ccccc1"])
+queries = ["c1ccccc1", "[NX3;!$(NC=O)]", "[$([C$(CO)])]", "[OX2H1]", "C.O", "[#6]"]
+lib = SubstructLibrary(mols)
+dev = getSubstructMatches(lib, queries, device="cpu")
+host = getSubstructMatches(mols, queries, SubstructSearchConfig(useDeviceEngine=False))
+py = getSubstructMatches(mols, queries, SubstructSearchConfig(useDeviceEngine=False,
+                                                              useNativeEngine=False))
+assert np.array_equal(dev.counts(), host.counts()) and np.array_equal(dev.counts(), py.counts())
+for t in range(len(mols)):
+    for q in range(len(queries)):
+        assert sorted(dev.matches(t, q)) == sorted(host.matches(t, q)) == sorted(py.matches(t, q))
+counts = countSubstructMatches(lib, queries, SubstructSearchConfig(uniquify=True), device="cpu")
+assert (hasSubstructMatch(lib, queries, device="cpu") == (counts > 0)).all()
+assert counts.tolist()[0] == [0, 0, 0, 0, 3, 3] and counts[3].tolist() == [1, 0, 1, 1, 2, 7]
+prov = ExperimentalTorsionProvider(rules=(TorsionRule("[$(C=O)][CX4][CX4][*]", ((3, 1.0, 0.0),),
+                                                      (60.0,)),))
+assert prov.precompute(mols) is False and len(prov(mols_from_smiles(["CC(=O)CCC"])[0])[0]) == 1
+assert all(v == 0 for v in substruct_kernels.launch_counts.values())
+leaked = sorted(m for m in sys.modules if sys.modules[m] is not None
+                and m.split(".")[0] in ("jax", "jaxlib", "nvmolkit_tpu"))
+assert not leaked, leaked
+print("OK")
+"""
+
+
+def test_substructure_runs_without_jax():
+    """The substructure slice (the device engine's plain K19-K22 through a
+    SubstructLibrary, the native and Python engines, the counts, and a
+    torsion rule with a recursive leaf) on the CPU with the JAX package's
+    modules blocked."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _SUBSTRUCT_SCRIPT.format(root=str(ROOT))],
+        capture_output=True, text=True, timeout=300, cwd=ROOT,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.startswith("OK")

@@ -176,11 +176,17 @@ def test_load_torsion_rules_and_refused_rules(tmp_path):
                   jtors.ExperimentalTorsionProvider(rules=want)(jax_mols(["OCc1ccccc1CCCC"])[0]),
                   "loaded rules")
     # the substructure matcher's rules: a recursive leaf, a quad whose central
-    # atoms are not bonded in the pattern
-    for rule in (ptors.TorsionRule("[$(C=O)][CX4][CX4][*]", ((3, 1.0, 0.0),), (60.0,)),
-                 ptors.TorsionRule("[C][C][C][C]", ((3, 1.0, 0.0),), (60.0,), quad=(0, 1, 3, 2))):
-        with pytest.raises(NotImplementedError, match="substructure matcher"):
-            ptors.ExperimentalTorsionProvider(rules=(rule,))
+    # atoms are not bonded in the pattern; the native matcher refuses them, and
+    # the Python matcher serves them, as in the JAX package
+    ref = jax_mols(["CC(=O)CCCC", "CCCCC"])
+    for args in (("[$(C=O)][CX4][CX4][*]", ((3, 1.0, 0.0),), (60.0,)),
+                 ("[C][C][C][C]", ((3, 1.0, 0.0),), (60.0,), (0, 1, 3, 2))):
+        prov = ptors.ExperimentalTorsionProvider(rules=(ptors.TorsionRule(*args),))
+        jprov = jtors.ExperimentalTorsionProvider(rules=(jtors.TorsionRule(*args),))
+        port = mols_from_smiles(["CC(=O)CCCC", "CCCCC"])
+        assert prov.precompute(port) is False and jprov.precompute(ref) is False
+        for m, jm in zip(port, ref):
+            _claims_equal(prov(m), jprov(jm), args[0])
 
 
 def test_failed_matcher_build_raises(tmp_path, monkeypatch):
