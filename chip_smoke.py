@@ -113,6 +113,23 @@ Phases, each reported as one JSON line with its seconds:
      accepted conformer through the conformer checkers, the stage times,
      and the success share and counters on the first 128 molecules against
      the JAX package's (tests/data/torch_etkdg_embed.npz);
+  6e'. the lockstep L-BFGS (K23, ``lbfgs_kernel<FF, true>`` in each force
+     field's library): MMFFOptimizeMoleculesConfs and
+     UFFOptimizeMoleculesConfs with backend="lbfgs" on the MMFF phase's
+     8,192 systems (per bucket chunk exactly two launches each of the force
+     field's kernel and K23: phase 1 and the restart at iteration 96), first
+     call and three warm ones, the converged share, the systems the restart
+     took, the same basin and energies against JAX's public lockstep minima
+     (tests/data/torch_lbfgs_minima.npz) by vs_jax; EmbedMolecules with
+     EmbedParameters(minimizerBackend="lbfgs") on the ETKDG phase's systems
+     (K23 over DG and ETK, every accepted conformer through the checkers,
+     the embedded share beside the flat and bfgs runs', the share and
+     counters on the first 128 molecules against JAX's lockstep embedding);
+     K23 against the plain lockstep L-BFGS over MMFF, UFF, DG and ETK at each one's largest
+     bucket chunk through HISTORY + 2 line searches (float32 and float64),
+     the restart driver against its plain twin with phase 1 cut to
+     RESTART_ITERS[0], and the ``done`` input (systems passed as converged
+     come out unmoved, with no iteration);
   6f. substructure search, bench.py's configuration: make_druglike_smiles
      (8192) x benchmarks/substruct_bench.py's 8 queries (one recursive),
      and x bench.py's 6 recursive queries, through SubstructLibrary,
@@ -137,8 +154,10 @@ Phases, each reported as one JSON line with its seconds:
      K12 and K5/K8 over DG at the embedding's largest chunk (K9 and K10 at
      each bucket too), K10 beside one torch.linalg.eigh of 512 of its
      metric matrices; K13 and K5/K8 over ETK at that chunk from the DG
-     stages' output; K14 over the main path's chunks, K15 at its 24.5k hit
-     matrix and K16 at its 100k fingerprints from K2's counts, with bounds
+     stages' output; K23 (the restart driver over MMFF and UFF at the MMFF
+     chunk, over DG and ETK beside K5/K8), hot and with a cold L2, its bound
+     from its evaluations; K14 over the main path's chunks, K15 at its 24.5k
+     hit matrix and K16 at its 100k fingerprints from K2's counts, with bounds
      that count INT32 operations or POPCs as well as bytes; K17 and K18 at
      (c) and (b); K19-K22 at the substructure path's largest launches, with
      INT32 bounds from each launch's data (K19's: the bond-code rows its
@@ -353,6 +372,12 @@ K4_OPS_PER_ATOM = 9
 UFF_OPS = (25, 65, 120, 90, 27)
 CONSTRAINT_OPS = (20, 18, 65, 110)
 FF_FIXTURE = "tests/data/torch_ff_minima.npz"  # JAX's UFF and constrained-MMFF minima
+# JAX's public backend="lbfgs" MMFF and UFF minima of the MMFF fixture's
+# starts (tests/test_torch_lbfgs_fixture.py); the restart driver's check
+# against its plain twin: phase 1 of RESTART_ITERS[0] iterations of
+# RESTART_ITERS[1] (most systems are restarted)
+LBFGS_FIXTURE = "tests/data/torch_lbfgs_minima.npz"
+RESTART_ITERS = (4, 10)
 # the batched-forcefield phase's constraints (constraint_rule): a relative
 # distance window of +-0.2 Å at 100 kcal/mol/Å^2, a relative torsion window
 # of +-10 degrees at 1 kcal/mol/degree^2, atom 0 held within 0.3 Å at 100
@@ -1510,6 +1535,34 @@ def k5_trajectory_check(x, batch, sys2mol, errs: dict, key: str, ff=None) -> dic
         TRAJ_DG_MOVED if ff.name in ("dg", "etk") else 0.0)
 
 
+def k23_trajectory_check(x, batch, sys2mol, errs: dict, key: str, ff,
+                         iters: tuple[int, int] | None = None) -> dict:
+    """K23 (the lockstep L-BFGS) over force field ``ff`` against its plain
+    version through HISTORY + 2 line searches (the history fills and its
+    ring wraps); with ``iters`` (phase 1, total), the MMFF/UFF driver's
+    restart (two launches of the force field's kernel and K23) against its
+    plain twin through ``iters[1]`` line searches, phase 1 cut to
+    ``iters[0]``."""
+    from nvmolkit_tpu_torch.models import flat
+    from nvmolkit_tpu_torch.ops import lbfgs
+
+    mask = flat.atom_mask(batch, sys2mol, x.shape[1])
+    fn = ff.plain_energy_and_grad_fn(batch, sys2mol, x.shape[1])
+    moved = TRAJ_DG_MOVED if ff.name in ("dg", "etk") else 0.0
+    scale = lambda p: ff_term_magnitude(ff, p, batch, sys2mol)  # noqa: E731
+    if iters is None:
+        n = lbfgs.HISTORY + 2
+        return trajectory_check(
+            lambda p: lbfgs.lbfgs_lockstep(ff, p, batch, sys2mol, n),
+            lambda p: lbfgs.lbfgs_lockstep_plain(fn, p, mask, n), x, scale, n, errs, key,
+            f"K23 {ff.name}", moved)
+    p1, n = iters
+    return trajectory_check(
+        lambda p: lbfgs.minimize_restarting(ff, p, batch, sys2mol, n, phase1_iters=p1),
+        lambda p: lbfgs.minimize_restarting_plain(fn, p, mask, n, phase1_iters=p1), x, scale, n,
+        errs, key, f"K23 {ff.name} restarting after {p1} of {n}", moved)
+
+
 def k8_trajectory_check(x, batch, sys2mol, constraints, errs: dict, key: str, ff) -> dict:
     """K8 over force field ``ff`` (with ``constraints`` or None) against the
     plain BFGS through K8_TRAJ_ITERS outer iterations."""
@@ -1686,6 +1739,7 @@ def main() -> int:
     from nvmolkit_tpu_torch.ops import butina as butina_ops
     from nvmolkit_tpu_torch.ops import morgan as morgan_ops
     from nvmolkit_tpu_torch.ops import lbfgs_flat
+    from nvmolkit_tpu_torch.ops import lbfgs as lockstep_ops
     from nvmolkit_tpu_torch.ops import kabsch
     from nvmolkit_tpu_torch.ops import similarity as sim_ops
     from nvmolkit_tpu_torch.ops.packed_bits import unpack_bits_np
@@ -2012,8 +2066,9 @@ def main() -> int:
         for start in range(0, len(idx), fp_api._chunk_rows(b))]
     del morgan_inputs
 
-    counted = (sim_ops, kabsch, mmff_energy, lbfgs_flat, uff_energy, cons, bfgs,
-               triangle_smooth, dist_geom, embed_checks, etk, morgan_ops, butina_ops, tfd_ops, sk)
+    counted = (sim_ops, kabsch, mmff_energy, lbfgs_flat, lockstep_ops, uff_energy, cons, bfgs,
+               triangle_smooth, dist_geom, embed_checks, etk, morgan_ops, butina_ops, tfd_ops,
+               sk)
 
     def reset_counts():
         torch.cuda.synchronize()
@@ -3295,15 +3350,16 @@ def main() -> int:
     # failures per system: each is held as a share of its run's tries (a
     # system's try fails one check, its first failing one, or embeds it),
     # the success share as a share of the systems
-    etkdg_vs_fixture = {}
-    for backend in ("flat", "bfgs"):
+    def vs_etkdg_fixture(backend, jax_success, jax_counters) -> dict:
+        """EmbedMolecules(ETKDG, ``backend``) on the fixture's systems against
+        the JAX package's success mask and counters there."""
         fail = embed_api.EmbedFailureCounts()
         got = etkdg_call(embed_molecules(len(fx_k["smiles"])), backend,
                          fail).conf_mask.cpu().numpy()
         n_sys = got.size
         mine = dataclasses.asdict(fail)
-        jax_counts = dict(zip(EMBED_COUNTERS, fx_k[f"{backend}_counters"].tolist()))
-        k_ok, k_ok_jax = int(got.sum()), int(fx_k[f"{backend}_success"].sum())
+        jax_counts = dict(zip(EMBED_COUNTERS, jax_counters.tolist()))
+        k_ok, k_ok_jax = int(got.sum()), int(jax_success.sum())
         tries = k_ok + sum(v for k, v in mine.items() if k != "smoothing")
         tries_jax = k_ok_jax + sum(v for k, v in jax_counts.items() if k != "smoothing")
         check(two_proportion_ok(k_ok, n_sys, k_ok_jax, n_sys),
@@ -3313,14 +3369,114 @@ def main() -> int:
             check(two_proportion_ok(mine[name], tries, int(jax_counts[name]), tries_jax),
                   f"EmbedMolecules(ETKDG, {backend}) {name}: {mine[name]} of {tries} tries "
                   f"against JAX's {jax_counts[name]} of {tries_jax}")
-        etkdg_vs_fixture[backend] = {
-            "systems": n_sys, "tries": {"port": tries, "jax": tries_jax},
-            "success": {"port": k_ok, "jax": k_ok_jax},
-            **{k: {"port": mine[k], "jax": int(jax_counts[k])} for k in EMBED_COUNTERS}}
+        return {"systems": n_sys, "tries": {"port": tries, "jax": tries_jax},
+                "success": {"port": k_ok, "jax": k_ok_jax},
+                **{k: {"port": mine[k], "jax": int(jax_counts[k])} for k in EMBED_COUNTERS}}
+
+    etkdg_vs_fixture = {b: vs_etkdg_fixture(b, fx_k[f"{b}_success"], fx_k[f"{b}_counters"])
+                        for b in ("flat", "bfgs")}
     emit(phase="etkdg", molecules=len(emols), confs=EMBED_CONFS,
          systems=len(emols) * EMBED_CONFS, max_iterations=EMBED_ITERS,
          runs={b: {k: v for k, v in r.items() if k != "dense"} for b, r in etkdg_runs.items()},
          vs_jax_fixture=etkdg_vs_fixture, seconds=time.perf_counter() - t_phase)
+
+    # 6e'. the lockstep L-BFGS: backend="lbfgs" (K23 over MMFF and UFF, with the
+    # JAX driver's restart at iteration 96) on the MMFF phase's 8,192 systems,
+    # minimizerBackend="lbfgs" (K23 over DG and ETK) on the ETKDG phase's
+    t_phase = time.perf_counter()
+    K23M, K23U, K23D, K23E = (f"{ff}_lbfgs_lockstep" for ff in ("mmff", "uff", "dg", "etk"))
+    errs.update({K23M: 0.0, K23U: 0.0, K23D: 0.0, K23E: 0.0})
+    with np.load(ROOT / LBFGS_FIXTURE) as f:
+        lb_fx = {k: f[k] for k in f.files}
+    lockstep_calls, lockstep_runs = {}, {}
+    for name, key, k_ff, api, kw in (
+            ("mmff", K23M, K4, MMFFOptimizeMoleculesConfs, {"provider": mmff_provider}),
+            ("uff", K23U, K6, UFFOptimizeMoleculesConfs, {})):
+        def call(api=api, kw=kw, max_iters=MMFF_MAX_ITERS):
+            return api(mmff_mols, maxIters=max_iters, backend="lbfgs",
+                       output=CoordinateOutput.DEVICE, device=cuda, **kw)
+
+        lockstep_calls[name] = call
+        reset_counts()
+        t0 = time.perf_counter()
+        dense_l = call()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        got = read_counts()
+        # per bucket chunk: the force field's kernel and K23 for phase 1, then
+        # again for the restart
+        check(got[key] == got[k_ff] == 2 * n_chunks,
+              f"{name} lbfgs: {k_ff}/{key} launched {got[k_ff]}/{got[key]} times, "
+              f"want {2 * n_chunks}")
+        check(all(v == 0 for k, v in got.items() if k not in (key, k_ff)),
+              f"the {name} lbfgs path launched another kernel: {got}")
+        warm = [timed(call)[0] for _ in range(3)]
+        check(tuple(dense_l.positions.shape) == tuple(mmff_dense.positions.shape)
+              and bool(dense_l.conf_mask.all()) and bool(torch.isfinite(dense_l.positions).all())
+              and bool(torch.isfinite(dense_l.energies).all()),
+              f"{name} lbfgs result not finite or shaped")
+        conv_l = dense_l.converged.cpu().numpy()
+        # the systems that the restart took: those phase 1 alone leaves unconverged
+        phase1 = call(max_iters=lockstep_ops.PHASE1_ITERS).converged.cpu().numpy()
+        steps_l = dense_l.n_iters.cpu().numpy().astype(np.int64)
+        lockstep_runs[name] = {
+            "systems": int(conv_l.size), "first_call_s": first_s, "warm_walls_s": warm,
+            "minimizations_per_s_warm": conv_l.size / min(warm), "launches": got,
+            "converged": float(conv_l.mean()),
+            "converged_by_bucket": {f"<={b}": float(conv_l[mol_bucket == b].mean())
+                                    for b in sorted(set(mol_bucket))},
+            "restarted": int((~phase1).sum()),
+            "converged_after_restart": int((conv_l & ~phase1).sum()),
+            "probes_mean": float(steps_l.mean()), "probes_max": int(steps_l.max()),
+            "converged_flat": float((mmff_dense if name == "mmff" else uff_dense)
+                                    .converged.double().mean()),
+            "vs_jax": vs_jax(dense_l, per,
+                             jax_minima(mmff_starts, lb_fx[f"{name}_minimized_shift"]),
+                             lb_fx[f"{name}_energies"], lb_fx[f"{name}_converged"],
+                             lb_fx[f"{name}_energies_perturbed"],
+                             lb_fx[f"{name}_converged_perturbed"], f"{name} lbfgs",
+                             jax_minima(mmff_starts, lb_fx[f"{name}_minimized_shift_perturbed"]))}
+        del dense_l
+    # EmbedMolecules(minimizerBackend="lbfgs"): K23 over DG and ETK, beside the
+    # flat and bfgs runs of the etkdg phase
+    lb_mols = embed_molecules()
+    lb_fail = embed_api.EmbedFailureCounts()
+    lb_run = checked_embedding(lb_mols, lambda: etkdg_call(lb_mols, "lbfgs", lb_fail),
+                               "EmbedMolecules(ETKDG, lbfgs)",
+                               (K9, K10, K11, K13, K12, K23D, K23E), (K5D, K5E, K8D, K8E))
+    lb_run = {**{k: v for k, v in lb_run.items() if k != "dense"},
+              "failures": dataclasses.asdict(lb_fail),
+              "success_flat": etkdg_runs["flat"]["success"],
+              "success_bfgs": etkdg_runs["bfgs"]["success"],
+              # against JAX's lockstep ETKDG embedding of the fixture's systems
+              "vs_jax_fixture": vs_etkdg_fixture("lbfgs", lb_fx["etkdg_success"],
+                                                 lb_fx["etkdg_counters"])}
+    # K23 against the plain version on the card at each force field's largest
+    # bucket chunk, through HISTORY + 2 line searches, and the restart driver
+    # against its plain twin (phase 1 cut to RESTART_ITERS[0])
+    lock_traj = {
+        K23M: k23_trajectory_check(x_k, chunk_batch, chunk_s2m, errs, K23M, mmff_energy.MMFF),
+        K23U: k23_trajectory_check(x_k, uchunk_batch, chunk_s2m, errs, K23U, uff_energy.UFF),
+        K23D: k23_trajectory_check(big_ch["x0"], dg_first, big_ch["s2m"], errs, K23D,
+                                   dist_geom.DG),
+        K23E: k23_trajectory_check(x_etk, big_etk, big_ch["s2m"], errs, K23E, etk.ETK)}
+    lock_traj["restart_mmff"] = k23_trajectory_check(x_k, chunk_batch, chunk_s2m, errs, K23M,
+                                                     mmff_energy.MMFF, RESTART_ITERS)
+    # done: every other system of the chunk passed as converged comes out as
+    # it went in, with its status and no iteration; the others run
+    kept = torch.arange(x_k.shape[0], device=cuda) % 2 == 0
+    done = kept.to(torch.int32) * bfgs.CONVERGED
+    r_done = lockstep_ops.lbfgs_lockstep(mmff_energy.MMFF, x_k, chunk_batch, chunk_s2m,
+                                         RESTART_ITERS[0], done=done)
+    check(torch.equal(r_done.positions[kept], x_k[kept])
+          and torch.equal(r_done.status[kept], done[kept])
+          and not bool(r_done.n_searches[kept].any())
+          and bool((r_done.n_searches[~kept] > 0).all()), "K23 and a system passed as done")
+    lock_traj["done_kept"] = int(kept.sum())
+    del r_done, kept, done
+    emit(phase="lbfgs", max_iters=MMFF_MAX_ITERS, phase1_iters=lockstep_ops.PHASE1_ITERS,
+         runs=lockstep_runs, etkdg=lb_run, k23_trajectories=lock_traj,
+         seconds=time.perf_counter() - t_phase)
 
     # 6f. substructure search: bench.py's configuration (make_druglike_smiles
     # (8192) x benchmarks/substruct_bench.py's 8 queries, and x its 6 recursive
@@ -3601,6 +3757,32 @@ def main() -> int:
                   None, reps=3)
     k5u_row.update(evaluations=int(uchunk_evals.sum()), plain_ms=uff_plain_minimize_s * 1e3,
                    plain_shape=f"{usub_x.shape[0]} systems x {a_sub} atoms (phase uff), one run")
+    # K23 over MMFF and UFF at the same chunk: the restart driver's whole
+    # minimization (two launches each of the force field's kernel and K23),
+    # hot and with a cold L2; its plain twin timed once on the subsets of the
+    # mmff and uff phases
+    lock_rows = {}
+    for key, ff, work_fn, b_chunk, b_sub, x_sub, s_sub in (
+            (K23M, mmff_energy.MMFF, mmff_work, chunk_batch, sub_batch, sub_x, sub_s2m),
+            (K23U, uff_energy.UFF, uff_work, uchunk_batch, usub_batch, usub_x, usub_s2m)):
+        res = lockstep_ops.minimize_restarting(ff, x_k, b_chunk, chunk_s2m, MMFF_MAX_ITERS)
+        evals = res.n_iters.cpu().numpy() + 2  # and the starts of both phases
+        entry = row(key, chunk_shape + f", maxIters {MMFF_MAX_ITERS}, restart after "
+                    f"{lockstep_ops.PHASE1_ITERS}", work_fn(b_chunk, chunk_s2m, int(big_b), rates,
+                                                            evals),
+                    lambda ff=ff, b=b_chunk: lockstep_ops.minimize_restarting(
+                        ff, x_k, b, chunk_s2m, MMFF_MAX_ITERS), None, reps=3, cold=True)
+        t0 = time.perf_counter()
+        lockstep_ops.minimize_restarting_plain(ff.plain_energy_and_grad_fn(b_sub, s_sub, a_sub),
+                                               x_sub, sub_mask, MMFF_MAX_ITERS)
+        torch.cuda.synchronize()
+        entry.update(evaluations=int(evals.sum()), evaluations_max=int(evals.max()),
+                     searches_mean=float(res.n_searches.double().mean()),
+                     converged=float(res.converged.double().mean()),
+                     plain_ms=(time.perf_counter() - t0) * 1e3,
+                     plain_shape=f"{x_sub.shape[0]} systems x {a_sub} atoms, one run")
+        lock_rows[key] = entry
+        del res
     k7_row = row(K7, chunk_shape + ", moved 0.3 Å", constraint_work(x_moved, cb_k, rates),
                  lambda: cons.constraint_energy_and_grad(x_moved, cb_k, chunk_count),
                  lambda: cons.constraint_energy_and_grad_plain(x_moved, cb_k), cold=True)
@@ -3685,14 +3867,17 @@ def main() -> int:
     sub_fn = dist_geom.plain_energy_and_grad_fn(dg_first, sub_s, big_e)
     dg_rows = {}
     for key, minimize, plain in ((K5D, lbfgs_flat.lbfgs, lbfgs_flat.lbfgs_flat_plain),
-                                 (K8D, bfgs.bfgs_minimize, bfgs.bfgs_plain)):
+                                 (K8D, bfgs.bfgs_minimize, bfgs.bfgs_plain),
+                                 (K23D, lockstep_ops.lbfgs_lockstep,
+                                  lockstep_ops.lbfgs_lockstep_plain)):
         res = minimize(dist_geom.DG, eb["x0"], dg_first, eb["s2m"], max_iters=first_iters)
         evals = res.n_iters.cpu().numpy() + 1
         entry = row(key, e_shape + f", first DG minimization, maxIters {first_iters}",
                     dg_work(dg_first, eb["s2m"], rates, evals,
                             res.n_accepted.cpu().numpy() if key == K8D else None),
                     lambda m=minimize: m(dist_geom.DG, eb["x0"], dg_first, eb["s2m"],
-                                         max_iters=first_iters), None, reps=3)
+                                         max_iters=first_iters), None, reps=3,
+                    cold=key == K23D)
         t0 = time.perf_counter()
         plain(sub_fn, sub_x, sub_mask, first_iters)
         torch.cuda.synchronize()
@@ -3718,14 +3903,17 @@ def main() -> int:
     sub_fn_e = etk.plain_energy_and_grad_fn(big_etk, sub_s, big_e)
     etk_rows = {}
     for key, minimize, plain in ((K5E, lbfgs_flat.lbfgs, lbfgs_flat.lbfgs_flat_plain),
-                                 (K8E, bfgs.bfgs_minimize, bfgs.bfgs_plain)):
+                                 (K8E, bfgs.bfgs_minimize, bfgs.bfgs_plain),
+                                 (K23E, lockstep_ops.lbfgs_lockstep,
+                                  lockstep_ops.lbfgs_lockstep_plain)):
         res = minimize(etk.ETK, x_etk, big_etk, eb["s2m"], max_iters=etk_iters)
         evals = res.n_iters.cpu().numpy() + 1
         entry = row(key, e_shape + f", the ETK minimization, maxIters {etk_iters}",
                     etk_work(big_etk, eb["s2m"], rates, evals,
                              res.n_accepted.cpu().numpy() if key == K8E else None),
                     lambda m=minimize: m(etk.ETK, x_etk, big_etk, eb["s2m"],
-                                         max_iters=etk_iters), None, reps=3)
+                                         max_iters=etk_iters), None, reps=3,
+                    cold=key == K23E)
         t0 = time.perf_counter()
         plain(sub_fn_e, sub_xe, sub_mask, etk_iters)
         torch.cuda.synchronize()
@@ -3841,6 +4029,19 @@ def main() -> int:
         "embed_chain_tfd": lambda: chain_tfd(c_min, chain_sets),
         "etkdg_flat": lambda: etkdg_call(etkdg_mols["flat"], "flat"),
         "etkdg_bfgs": lambda: etkdg_call(etkdg_mols["bfgs"], "bfgs"),
+        # the lockstep L-BFGS: the public MMFF and UFF calls (K23 with the
+        # restart), K23 over DG through both DG stages and over ETK at the
+        # embedding's largest chunk, and the ETKDG embedding on it
+        "lbfgs_mmff_optimize": lockstep_calls["mmff"],
+        "lbfgs_uff_optimize": lockstep_calls["uff"],
+        "lbfgs_dg": lambda: lockstep_ops.lbfgs_lockstep(
+            dist_geom.DG, lockstep_ops.lbfgs_lockstep(
+                dist_geom.DG, big_ch["x0"], dg_first, big_ch["s2m"],
+                etkdg.firstMinimizeIters).positions, dg_second, big_ch["s2m"],
+            etkdg.fourthDimMinimizeIters),
+        "lbfgs_etk": lambda: lockstep_ops.lbfgs_lockstep(etk.ETK, x_etk, big_etk, big_ch["s2m"],
+                                                          etkdg.etkMinimizeIters),
+        "etkdg_lbfgs": lambda: etkdg_call(lb_mols, "lbfgs"),
         "fingerprints": lambda: state.update(
             fps=gen.GetFingerprintsFromSmiles(smiles, device=cuda)),
         "similarity": lambda: state.update(sim=crossTanimotoSimilarity(state["fps"])),
@@ -3878,7 +4079,9 @@ def main() -> int:
                        *sub_rows.items(),
                        (K14, k14_row), (K9, k9_row), (K10, k10_row), (K11, k11_row), (K5D, dg_rows[K5D]),
                        (K8D, dg_rows[K8D]), (K12, k12_row), (K13, k13_row),
-                       (K5E, etk_rows[K5E]), (K8E, etk_rows[K8E])):
+                       (K5E, etk_rows[K5E]), (K8E, etk_rows[K8E]),
+                       (K23M, lock_rows[K23M]), (K23U, lock_rows[K23U]),
+                       (K23D, dg_rows[K23D]), (K23E, etk_rows[K23E])):
         main_shape[key] = (entry, "cold_l2_ms" if entry["bound_by"] == "bytes"
                            and "cold_l2_ms" in entry else "ms")
     # each kernel's launches on its own path: the MMFF and UFF minimizations,
@@ -3893,6 +4096,12 @@ def main() -> int:
     # the ETKDG path's: its flat run (K8 over ETK: the bfgs run)
     path_launches.update({k: etkdg_runs["flat"]["launches"].get(k, 0) for k in (K13, K5E)})
     path_launches[K8E] = etkdg_runs["bfgs"]["launches"].get(K8E, 0)
+    # the lockstep L-BFGS's: the public MMFF and UFF calls, and the lbfgs
+    # ETKDG run for DG and ETK
+    path_launches.update({K23M: lockstep_runs["mmff"]["launches"][K23M],
+                          K23U: lockstep_runs["uff"]["launches"][K23U],
+                          K23D: lb_run["launches"].get(K23D, 0),
+                          K23E: lb_run["launches"].get(K23E, 0)})
     # the TFD path's: GetTFDMatrices on (c)
     path_launches.update({K17: tfd_launches[K17], K18: tfd_launches[K18]})
     # the substructure path's: the counts screens, getSubstructMatches and the
@@ -3902,6 +4111,7 @@ def main() -> int:
     mmff_cu = "nvmolkit_tpu_torch/csrc/mmff.cu"
     uff_cu = "nvmolkit_tpu_torch/csrc/uff.cu"
     bfgs_at = "nvmolkit_tpu/ops/bfgs.py:144"
+    lockstep_at = "nvmolkit_tpu/ops/lbfgs.py:60"
     similarity_cu = "nvmolkit_tpu_torch/csrc/similarity.cu"
     dist_geom_cu = "nvmolkit_tpu_torch/csrc/dist_geom.cu"
     etk_cu = "nvmolkit_tpu_torch/csrc/etk.cu"
@@ -3950,6 +4160,14 @@ def main() -> int:
         K5E: ("etk_lbfgs (K5 over ETK: lbfgs_kernel<Etk>)", "nvmolkit_tpu/ops/lbfgs_flat.py:160",
               etk_cu),
         K8E: ("etk_bfgs (K8 over ETK: bfgs_kernel<Etk>)", bfgs_at, etk_cu),
+        K23M: ("mmff_lbfgs_lockstep (K23 over MMFF: lbfgs_kernel<Mmff, true>, one block per "
+               "system; launched twice by the restart driver)", lockstep_at, mmff_cu),
+        K23U: ("uff_lbfgs_lockstep (K23 over UFF: lbfgs_kernel<Uff, true>)", lockstep_at,
+               uff_cu),
+        K23D: ("dg_lbfgs_lockstep (K23 over DG, 4 coordinates per atom: lbfgs_kernel<Dg, "
+               "true>)", lockstep_at, dist_geom_cu),
+        K23E: ("etk_lbfgs_lockstep (K23 over ETK: lbfgs_kernel<Etk, true>)", lockstep_at,
+               etk_cu),
         K14: ("morgan_kernel (K14: one block per molecule, bitsets in shared memory)",
               "nvmolkit_tpu/ops/morgan.py:112", "nvmolkit_tpu_torch/csrc/morgan.cu"),
         K15: ("butina_matrix_kernel (K15: the dense Butina loop in one cooperative launch)",

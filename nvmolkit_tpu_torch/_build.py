@@ -6,10 +6,10 @@
 * ``libnvmk_rmsd``: ``nvmolkit_tpu_torch/csrc/rmsd.cu`` (the conformer
   RMSD kernel), built the same way.
 * ``libnvmk_mmff``: ``nvmolkit_tpu_torch/csrc/mmff.cu`` (the MMFF energy
-  and gradient kernel K4, and the L-BFGS kernel K5 and the BFGS kernel K8
-  over it), built the same way.
+  and gradient kernel K4, and the L-BFGS kernels K5 and K23 (lockstep) and
+  the BFGS kernel K8 over it), built the same way.
 * ``libnvmk_uff``: ``nvmolkit_tpu_torch/csrc/uff.cu`` (the UFF energy and
-  gradient kernel K6, and K5 and K8 over it), built the same way.
+  gradient kernel K6, and K5, K23 and K8 over it), built the same way.
 * ``libnvmk_constraints``: ``nvmolkit_tpu_torch/csrc/constraints.cu`` (the
   constraint kernel K7), built the same way.
 * ``libnvmk_triangle_smooth``: ``nvmolkit_tpu_torch/csrc/triangle_smooth.cu``
@@ -17,12 +17,12 @@
 * ``libnvmk_coordgen``: ``nvmolkit_tpu_torch/csrc/coordgen.cu`` (the
   coordinate-generation kernel K10), built the same way.
 * ``libnvmk_dist_geom``: ``nvmolkit_tpu_torch/csrc/dist_geom.cu`` (the 4-D
-  distance-geometry energy and gradient K11, and K5 and K8 over it), built
-  the same way.
+  distance-geometry energy and gradient K11, and K5, K23 and K8 over it),
+  built the same way.
 * ``libnvmk_embed_checks``: ``nvmolkit_tpu_torch/csrc/embed_checks.cu`` (the
   embedding checks K12), built the same way.
 * ``libnvmk_etk``: ``nvmolkit_tpu_torch/csrc/etk.cu`` (the 3-D ETK energy and
-  gradient K13, and K5 and K8 over it), built the same way.
+  gradient K13, and K5, K23 and K8 over it), built the same way.
 * ``libnvmk_morgan``: ``nvmolkit_tpu_torch/csrc/morgan.cu`` (the Morgan
   fingerprint kernel K14), built the same way.
 * ``libnvmk_butina``: ``nvmolkit_tpu_torch/csrc/butina.cu`` (the Butina loops
@@ -179,14 +179,17 @@ def _declare_mmff(lib: ctypes.CDLL) -> None:
 
 
 def _declare_ff(lib: ctypes.CDLL, ff: str, extra: list) -> None:
-    """K5 and K8 of one force field; ``extra`` are the force field's own
+    """K5, K23 and K8 of one force field; ``extra`` are the force field's own
     arguments after its tables (MMFF's dielectric constant and model)."""
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     tables, fp = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(cf)
     lbfgs, bfgs = getattr(lib, f"nvmk_{ff}_lbfgs"), getattr(lib, f"nvmk_{ff}_bfgs")
-    lbfgs.restype = bfgs.restype = ci
+    lockstep = getattr(lib, f"nvmk_{ff}_lbfgs_lockstep")
+    lbfgs.restype = bfgs.restype = lockstep.restype = ci
     lbfgs.argtypes = [vp, vp, vp, ci, ci, vp, vp, vp, ci, tables, *extra, fp, ci, ci, cf, ci,
                       vp, vp, vp, vp, vp, vp]
+    lockstep.argtypes = [vp, vp, vp, vp, ci, ci, vp, vp, vp, ci, tables, *extra, fp, ci, ci, cf,
+                         vp, vp, vp, vp, vp, vp, vp]
     bfgs.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp, vp, vp, ci, tables, *extra, tables, fp, ci,
                      ci, cf, vp, vp, vp, vp, vp, vp, vp, vp, vp]
 
@@ -256,8 +259,8 @@ def rmsd_lib() -> ctypes.CDLL:
 
 
 def mmff_lib() -> ctypes.CDLL:
-    """The compiled MMFF kernels K4, and K5 and K8 over it (needs ``nvcc``
-    and a CUDA runtime)."""
+    """The compiled MMFF kernels K4, and K5, K23 and K8 over it (needs
+    ``nvcc`` and a CUDA runtime)."""
     return _load(
         "libnvmk_mmff",
         lambda: _build("libnvmk_mmff", MMFF_SRC, _nvcc_cmd(MMFF_SRC)),
@@ -266,8 +269,8 @@ def mmff_lib() -> ctypes.CDLL:
 
 
 def uff_lib() -> ctypes.CDLL:
-    """The compiled UFF kernels K6, and K5 and K8 over it (needs ``nvcc``
-    and a CUDA runtime)."""
+    """The compiled UFF kernels K6, and K5, K23 and K8 over it (needs
+    ``nvcc`` and a CUDA runtime)."""
     return _load(
         "libnvmk_uff",
         lambda: _build("libnvmk_uff", UFF_SRC, _nvcc_cmd(UFF_SRC)),
@@ -364,7 +367,7 @@ def _declare_dist_geom(lib: ctypes.CDLL) -> None:
 
 
 def dist_geom_lib() -> ctypes.CDLL:
-    """The compiled distance-geometry kernels K11, and K5 and K8 over it
+    """The compiled distance-geometry kernels K11, and K5, K23 and K8 over it
     (needs ``nvcc`` and a CUDA runtime)."""
     return _load(
         "libnvmk_dist_geom",
@@ -431,8 +434,8 @@ def _declare_etk(lib: ctypes.CDLL) -> None:
 
 
 def etk_ff_lib() -> ctypes.CDLL:
-    """The compiled ETK kernels K13, and K5 and K8 over it (needs ``nvcc``
-    and a CUDA runtime)."""
+    """The compiled ETK kernels K13, and K5, K23 and K8 over it (needs
+    ``nvcc`` and a CUDA runtime)."""
     return _load(
         "libnvmk_etk",
         lambda: _build("libnvmk_etk", ETK_SRC, _nvcc_cmd(ETK_SRC)),

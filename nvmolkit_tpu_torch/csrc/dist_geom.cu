@@ -1,6 +1,6 @@
 // Kernel K11, the 4-D distance-geometry energy and analytic gradient, and the
-// minimizers K5 (L-BFGS) and K8 (BFGS) instantiated over it, for Hopper
-// (sm_90a).
+// minimizers K5 (L-BFGS), K23 (the lockstep L-BFGS) and K8 (BFGS)
+// instantiated over it, for Hopper (sm_90a).
 //
 // K11 replaces the XLA programs nvmolkit_tpu/models/dist_geom.py dg_energy,
 // dg_energy_and_grad and dg_eg (the distance terms as one masked [S, A, A]
@@ -176,9 +176,25 @@ int nvmk_dg_lbfgs(const float* pos0, const float* e0, const float* g0, int n_sys
                   const void* const* tables, float w_chiral, float w_fourth, const float* policy,
                   int max_ls_iters, int max_iters, float grad_tol, int max_steps, float* pos_out,
                   float* e_out, int* status, int* steps, int* accepted, void* stream) {
-  return launch_lbfgs(make_dg(off, tables, a_pad, w_chiral, w_fourth), pos0, e0, g0,
-                      n_sys, a_pad, sys2mol, atom_count, policy, max_ls_iters, max_iters,
-                      grad_tol, max_steps, pos_out, e_out, status, steps, accepted, stream);
+  return launch_lbfgs<false>(make_dg(off, tables, a_pad, w_chiral, w_fourth), pos0, e0, g0, nullptr,
+                             n_sys, a_pad, sys2mol, atom_count, policy, max_ls_iters, max_iters,
+                             grad_tol, max_steps, pos_out, e_out, status, steps, accepted, nullptr,
+                             stream);
+}
+
+// K23 over the DG force field (see launch_lbfgs): max_iters line searches at most;
+// ``done`` (null, or int32 status per system) skips the systems whose bit 1
+// is set. Out: positions, energies, status, line searches, probes and
+// accepted steps.
+int nvmk_dg_lbfgs_lockstep(const float* pos0, const float* e0, const float* g0, const int* done,
+                           int n_sys, int a_pad, const int* sys2mol, const int* atom_count,
+                           const int* off, int n_mols, const void* const* tables, float w_chiral,
+                           float w_fourth, const float* policy, int max_ls_iters, int max_iters,
+                           float grad_tol, float* pos_out, float* e_out, int* status, int* iters,
+                           int* probes, int* accepted, void* stream) {
+  return launch_lbfgs<true>(make_dg(off, tables, a_pad, w_chiral, w_fourth), pos0, e0, g0, done,
+                            n_sys, a_pad, sys2mol, atom_count, policy, max_ls_iters, max_iters,
+                            grad_tol, 0, pos_out, e_out, status, probes, accepted, iters, stream);
 }
 
 // K8 over the DG force field (see launch_bfgs); the DG stages take no

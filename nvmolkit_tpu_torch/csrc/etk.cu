@@ -1,6 +1,6 @@
 // Kernel K13, the 3-D ETK (experimental-torsion and basic-knowledge) energy
-// and analytic gradient, and the minimizers K5 (L-BFGS) and K8 (BFGS)
-// instantiated over it, for Hopper (sm_90a).
+// and analytic gradient, and the minimizers K5 (L-BFGS), K23 (the lockstep
+// L-BFGS) and K8 (BFGS) instantiated over it, for Hopper (sm_90a).
 //
 // K13 replaces the XLA programs nvmolkit_tpu/models/etk.py etk_energy,
 // etk_energy_and_grad and etk_eg (the bounds term as one masked [S, A, A]
@@ -213,9 +213,25 @@ int nvmk_etk_lbfgs(const float* pos0, const float* e0, const float* g0, int n_sy
                    const void* const* tables, float w_bounds, const float* policy,
                    int max_ls_iters, int max_iters, float grad_tol, int max_steps, float* pos_out,
                    float* e_out, int* status, int* steps, int* accepted, void* stream) {
-  return launch_lbfgs(make_etk(off, n_mols, tables, a_pad, w_bounds), pos0, e0, g0, n_sys,
-                      a_pad, sys2mol, atom_count, policy, max_ls_iters, max_iters, grad_tol,
-                      max_steps, pos_out, e_out, status, steps, accepted, stream);
+  return launch_lbfgs<false>(make_etk(off, n_mols, tables, a_pad, w_bounds), pos0, e0, g0, nullptr,
+                             n_sys, a_pad, sys2mol, atom_count, policy, max_ls_iters, max_iters,
+                             grad_tol, max_steps, pos_out, e_out, status, steps, accepted, nullptr,
+                             stream);
+}
+
+// K23 over the ETK force field (see launch_lbfgs): max_iters line searches at most;
+// ``done`` (null, or int32 status per system) skips the systems whose bit 1
+// is set. Out: positions, energies, status, line searches, probes and
+// accepted steps.
+int nvmk_etk_lbfgs_lockstep(const float* pos0, const float* e0, const float* g0, const int* done,
+                            int n_sys, int a_pad, const int* sys2mol, const int* atom_count,
+                            const int* off, int n_mols, const void* const* tables, float w_bounds,
+                            const float* policy, int max_ls_iters, int max_iters, float grad_tol,
+                            float* pos_out, float* e_out, int* status, int* iters, int* probes,
+                            int* accepted, void* stream) {
+  return launch_lbfgs<true>(make_etk(off, n_mols, tables, a_pad, w_bounds), pos0, e0, g0, done,
+                            n_sys, a_pad, sys2mol, atom_count, policy, max_ls_iters, max_iters,
+                            grad_tol, 0, pos_out, e_out, status, probes, accepted, iters, stream);
 }
 
 // K8 over the ETK force field (see launch_bfgs); the ETK stage takes no

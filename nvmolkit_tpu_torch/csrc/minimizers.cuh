@@ -1,5 +1,6 @@
-// The minimizer kernels K5 (L-BFGS) and K8 (BFGS), one block per system for
-// its whole minimization, templated on the force field: ``FF`` is a struct
+// The minimizer kernels K5 (L-BFGS), K23 (the lockstep L-BFGS) and K8
+// (BFGS), one block per system for its whole minimization, templated on the
+// force field: ``FF`` is a struct
 // with the number of coordinates per atom ``static constexpr int kDim`` (3,
 // or 4 for the distance-geometry force field) and a device function ``float
 // eval(int mol, const float* x, float* g, int n_dof, float* red) const``
@@ -7,11 +8,11 @@
 // (shared, kDim floats per atom) in every thread and overwrites the first
 // n_dof = kDim * atoms entries of ``g`` (shared) with its gradient (K4's
 // mmff_eval in mmff.cu, K6's uff_eval in uff.cu, K11's dg_eval in
-// dist_geom.cu). Each force field's file instantiates both, so the force
-// fields share one body of each minimizer; n_dof counts the coordinates of
+// dist_geom.cu, K13's in etk.cu). Each force field's file instantiates all
+// three, so the force fields share one body of each minimizer; n_dof counts the coordinates of
 // the real atoms, as the JAX minimizers' maxStep does.
 //
-// Both take the start's energy and gradient from one launch of the force
+// All take the start's energy and gradient from one launch of the force
 // field's energy kernel (as the JAX functions evaluate the start before
 // their loops) and call ``eval`` once per probe of the line search; a system
 // that is done ends its block at once. The line search is Numerical
@@ -23,6 +24,21 @@
 // a probe that is accepted runs the convergence tests and the history update
 // (6 deep, kept in shared memory: 17 x kDim A floats), and the next probe
 // starts the next line search. See mmff.cu for what bounds it.
+//
+// K23 replaces nvmolkit_tpu/ops/lbfgs.py _lbfgs_jit / _lbfgs_impl, the
+// lockstep L-BFGS. It is K5's body instantiated with Lockstep = true (one
+// template, lbfgs_kernel<FF, Lockstep>, so the two share every line of the
+// line search, the history and the two-loop recursion), which changes four
+// things: no test before the first line search (a zero-gradient start takes
+// one probe and converges on TOLX); no functional (TOLF) test; max_iters
+// bounds the line searches, and a line search that spends MAX_LS_ITERS probes
+// fails the system (no budget of probes); and an optional int32 ``done``
+// status per system, a system whose bit 1 is set copying its inputs out at
+// once, so that the driver's second phase (ops/lbfgs.py minimize_restarting,
+// the JAX package's restart at iteration 96) is one more launch over the
+// same systems. The JAX function evaluates the accepted point again for its
+// gradient (lbfgs.py:126); the probe's gradient is that of the same point,
+// so K23 evaluates nothing again. What bounds it is K5's: its evaluations.
 //
 // K8 replaces nvmolkit_tpu/ops/bfgs.py _minimize_impl and _line_search: per
 // outer iteration one whole line search, then, on acceptance, the TOLX,
@@ -117,7 +133,9 @@ __device__ bool start_tests(const float* x, const float* g, float e, int n_dof, 
 
 // the convergence tests on acceptance of the probe (xt, gt, et) from (x, e):
 // TOLX on |xt - x| / max(|xt|, 1), the scaled gradient against ``grad_tol``
-// and the functional test 2|e - et| <= TOLF (|e| + |et| + 1e-10)
+// and, with ``Tolf``, the functional test 2|e - et| <= TOLF (|e| + |et| +
+// 1e-10), which the lockstep L-BFGS does not make
+template <bool Tolf = true>
 __device__ bool accept_tests(const float* x, const float* xt, const float* gt, float e, float et,
                              int n_dof, const Policy& pol, float grad_tol, float* red) {
   float mx[2] = {0.0f, 0.0f};
@@ -129,20 +147,21 @@ __device__ bool accept_tests(const float* x, const float* xt, const float* gt, f
   block_reduce<2, false>(mx, red);
   const bool conv_x = mx[0] < pol.tolx;
   const bool conv_g = mx[1] / nmax(fabsf(et), 1.0f) < grad_tol;
-  const bool conv_f = 2.0f * fabsf(e - et) <= pol.tolf * (fabsf(e) + fabsf(et) + 1e-10f);
+  const bool conv_f = Tolf && 2.0f * fabsf(e - et) <= pol.tolf * (fabsf(e) + fabsf(et) + 1e-10f);
   return conv_x || conv_g || conv_f;
 }
 
-// ---- K5 ---------------------------------------------------------------------
+// ---- K5 and K23 ---------------------------------------------------------------
 
-template <class FF>
+template <class FF, bool Lockstep>
 __global__ void __launch_bounds__(THREADS)
 lbfgs_kernel(FF ff, const float* __restrict__ pos0, const float* __restrict__ e0,
-             const float* __restrict__ g0, int a_pad, const int* __restrict__ sys2mol,
-             const int* __restrict__ atom_count, Policy pol, int max_iters, float grad_tol,
-             int max_steps, float* __restrict__ pos_out, float* __restrict__ e_out,
-             int* __restrict__ status_out, int* __restrict__ steps_out,
-             int* __restrict__ accepted_out) {
+             const float* __restrict__ g0, const int* __restrict__ done, int a_pad,
+             const int* __restrict__ sys2mol, const int* __restrict__ atom_count, Policy pol,
+             int max_iters, float grad_tol, int max_steps, float* __restrict__ pos_out,
+             float* __restrict__ e_out, int* __restrict__ status_out,
+             int* __restrict__ steps_out, int* __restrict__ accepted_out,
+             int* __restrict__ iters_out) {
   extern __shared__ float smem[];
   const int row = FF::kDim * a_pad;
   float* x = smem;
@@ -159,6 +178,17 @@ lbfgs_kernel(FF ff, const float* __restrict__ pos0, const float* __restrict__ e0
   const int n_dof = FF::kDim * atom_count[sys];
   const float* px = pos0 + sys * row;
   const float* pg = g0 + sys * row;
+  float* po = pos_out + sys * row;
+  if (Lockstep && done != nullptr && (done[sys] & 1)) {
+    // converged in an earlier launch: its inputs out, no iteration
+    for (int i = threadIdx.x; i < row; i += THREADS) po[i] = px[i];
+    if (threadIdx.x == 0) {
+      e_out[sys] = e0[sys];
+      status_out[sys] = done[sys];
+      steps_out[sys] = accepted_out[sys] = iters_out[sys] = 0;
+    }
+    return;
+  }
   for (int i = threadIdx.x; i < n_dof; i += THREADS) {
     x[i] = px[i];
     g[i] = pg[i];
@@ -167,7 +197,9 @@ lbfgs_kernel(FF ff, const float* __restrict__ pos0, const float* __restrict__ e0
 
   float e = e0[sys];
   bool failed;
-  bool converged = start_tests(x, g, e, n_dof, grad_tol, red, failed);
+  const bool conv0 = start_tests(x, g, e, n_dof, grad_tol, red, failed);
+  // the lockstep minimizer tests nothing before its first line search (lbfgs.py:76)
+  bool converged = !Lockstep && conv0;
   bool capped = false;
 
   for (int i = threadIdx.x; i < n_dof; i += THREADS) d[i] = -g[i];
@@ -178,16 +210,17 @@ lbfgs_kernel(FF ff, const float* __restrict__ pos0, const float* __restrict__ e0
   float rho[HISTORY];  // newest first
 #pragma unroll
   for (int k = 0; k < HISTORY; ++k) rho[k] = 0.0f;
-  int head = 0, ls_it = 0, outer = 0, steps = 0;
+  // outer: accepted steps; iters: line searches ended (K23's iterations)
+  int head = 0, ls_it = 0, outer = 0, steps = 0, iters = 0;
 
-  while (!(converged || failed || capped) && steps < max_steps) {
+  while (!(converged || failed || capped) && (Lockstep ? iters < max_iters : steps < max_steps)) {
     for (int i = threadIdx.x; i < n_dof; i += THREADS) xt[i] = x[i] + lam * d[i];
     __syncthreads();
     const float et = ff.eval(mol, xt, gt, n_dof, red);
     ++steps;
     if (et - e <= pol.functol * lam * slope) {
       // accepted: convergence tests, history, next direction
-      const bool newly = accept_tests(x, xt, gt, e, et, n_dof, pol, grad_tol, red);
+      const bool newly = accept_tests<!Lockstep>(x, xt, gt, e, et, n_dof, pol, grad_tol, red);
       float sm[2] = {0.0f, 0.0f};
       for (int i = threadIdx.x; i < n_dof; i += THREADS) {
         const float xi = xt[i] - x[i], dg = gt[i] - g[i];
@@ -214,7 +247,8 @@ lbfgs_kernel(FF ff, const float* __restrict__ pos0, const float* __restrict__ e0
       tmp = g; g = gt; gt = tmp;
       e = et;
       ++outer;
-      capped = !newly && outer >= max_iters;
+      ++iters;
+      capped = !Lockstep && !newly && outer >= max_iters;
       converged = newly;
 
       // two-loop recursion, newest first: d = -H g
@@ -259,6 +293,7 @@ lbfgs_kernel(FF ff, const float* __restrict__ pos0, const float* __restrict__ e0
       const bool conv_ls = new_lam < lam_min;  // lambda underflow: converged (TOLX)
       failed = !conv_ls && ls_it + 1 >= pol.max_ls_iters;
       converged = conv_ls;
+      if (conv_ls || failed) ++iters;  // the line search ended without a step
       lam2 = lam;
       e2 = et;
       lam = new_lam;
@@ -266,34 +301,42 @@ lbfgs_kernel(FF ff, const float* __restrict__ pos0, const float* __restrict__ e0
     }
   }
 
-  float* po = pos_out + sys * row;
+  if (Lockstep) capped = !(converged || failed);
   for (int i = threadIdx.x; i < row; i += THREADS) po[i] = i < n_dof ? x[i] : px[i];
   if (threadIdx.x == 0) {
     e_out[sys] = e;
     status_out[sys] = (converged ? 1 : 0) | (failed ? 2 : 0) | (capped ? 4 : 0);
     steps_out[sys] = steps;
     accepted_out[sys] = outer;
+    if (Lockstep) iters_out[sys] = iters;
   }
 }
 
-// K5 over the systems at ``pos0``, whose energies ``e0`` and gradients
-// ``g0`` the force field's energy kernel computed; positions, energies,
-// status bits (1 converged, 2 failed, 4 capped), probe counts and accepted
-// steps out
-template <class FF>
-int launch_lbfgs(const FF& ff, const float* pos0, const float* e0, const float* g0, int n_sys,
-                 int a_pad, const int* sys2mol, const int* atom_count, const float* policy,
-                 int max_ls_iters, int max_iters, float grad_tol, int max_steps, float* pos_out,
-                 float* e_out, int* status, int* steps, int* accepted, void* stream) {
+// K5 (Lockstep false) or K23 (true) over the systems at ``pos0``, whose
+// energies ``e0`` and gradients ``g0`` the force field's energy kernel
+// computed; positions, energies, status bits (1 converged, 2 failed, 4
+// capped), probe counts and accepted steps out, and K23's line searches
+// (``iters``). K5 takes ``max_steps`` probes at most and caps at
+// ``max_iters`` accepted steps; K23 runs ``max_iters`` line searches at most,
+// skips the systems whose ``done`` (null, or int32 status) has bit 1 set and
+// ignores ``max_steps``; K5 takes ``done`` and ``iters`` null.
+template <bool Lockstep, class FF>
+int launch_lbfgs(const FF& ff, const float* pos0, const float* e0, const float* g0,
+                 const int* done, int n_sys, int a_pad, const int* sys2mol,
+                 const int* atom_count, const float* policy, int max_ls_iters, int max_iters,
+                 float grad_tol, int max_steps, float* pos_out, float* e_out, int* status,
+                 int* steps, int* accepted, int* iters, void* stream) {
   if (n_sys == 0) return 0;
+  if (Lockstep ? iters == nullptr : done != nullptr || iters != nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = ((5 + 2 * HISTORY) * FF::kDim * (size_t)a_pad + 2 * WARPS) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(lbfgs_kernel<FF>,
+  cudaError_t err = cudaFuncSetAttribute(lbfgs_kernel<FF, Lockstep>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  lbfgs_kernel<FF><<<n_sys, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      ff, pos0, e0, g0, a_pad, sys2mol, atom_count, make_policy(policy, max_ls_iters), max_iters,
-      grad_tol, max_steps, pos_out, e_out, status, steps, accepted);
+  lbfgs_kernel<FF, Lockstep><<<n_sys, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      ff, pos0, e0, g0, done, a_pad, sys2mol, atom_count, make_policy(policy, max_ls_iters),
+      max_iters, grad_tol, max_steps, pos_out, e_out, status, steps, accepted, iters);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,5 +1,6 @@
 // Kernel K4, MMFF94 energy and analytic gradient, and the minimizers K5
-// (L-BFGS) and K8 (BFGS) instantiated over it, for Hopper (sm_90a).
+// (L-BFGS), K23 (the lockstep L-BFGS) and K8 (BFGS) instantiated over it, for
+// Hopper (sm_90a).
 //
 // K4 replaces the XLA program nvmolkit_tpu/models/mmff/energy.py
 // mmff_energy_and_grad (bonded terms gathered by one-hot matmuls,
@@ -26,8 +27,10 @@
 // nvmolkit_tpu/ops/bfgs.py _minimize_impl; both call K4's device function
 // mmff_eval once per probe. The minimizer's constants (FUNCTOL ...
 // MAX_LS_ITERS) are arguments, passed from ops/bfgs.py, their one home.
-// maxIters is the total: nothing restarts stragglers with a second budget,
-// as the JAX package's driver does.
+// K5's maxIters is the total: nothing restarts stragglers with a second
+// budget, as the JAX package's driver does. K23 replaces
+// nvmolkit_tpu/ops/lbfgs.py _lbfgs_impl; its driver (ops/lbfgs.py
+// minimize_restarting) mirrors that restart with a second launch.
 //
 // What bounds them: K4 is FP32 work, ~60-100 instructions per term with a
 // square root and one to three divisions or inverse trigonometric calls
@@ -280,9 +283,27 @@ int nvmk_mmff_lbfgs(const float* pos0, const float* e0, const float* g0, int n_s
                     const float* policy, int max_ls_iters, int max_iters, float grad_tol,
                     int max_steps, float* pos_out, float* e_out, int* status, int* steps,
                     int* accepted, void* stream) {
-  return launch_lbfgs(make_mmff(off, n_mols, tables, diel_constant, diel_model), pos0, e0, g0,
-                      n_sys, a_pad, sys2mol, atom_count, policy, max_ls_iters, max_iters,
-                      grad_tol, max_steps, pos_out, e_out, status, steps, accepted, stream);
+  return launch_lbfgs<false>(make_mmff(off, n_mols, tables, diel_constant, diel_model), pos0, e0,
+                             g0, nullptr, n_sys, a_pad, sys2mol, atom_count, policy, max_ls_iters,
+                             max_iters, grad_tol, max_steps, pos_out, e_out, status, steps,
+                             accepted, nullptr, stream);
+}
+
+// K23 over MMFF (see launch_lbfgs): max_iters line searches at most;
+// ``done`` (null, or int32 status per system) skips the systems whose bit 1
+// is set. Out: positions, energies, status, line searches, probes and
+// accepted steps.
+int nvmk_mmff_lbfgs_lockstep(const float* pos0, const float* e0, const float* g0, const int* done,
+                             int n_sys, int a_pad, const int* sys2mol, const int* atom_count,
+                             const int* off, int n_mols, const void* const* tables,
+                             float diel_constant, int diel_model, const float* policy,
+                             int max_ls_iters, int max_iters, float grad_tol, float* pos_out,
+                             float* e_out, int* status, int* iters, int* probes, int* accepted,
+                             void* stream) {
+  return launch_lbfgs<true>(make_mmff(off, n_mols, tables, diel_constant, diel_model), pos0, e0, g0,
+                            done, n_sys, a_pad, sys2mol, atom_count, policy, max_ls_iters,
+                            max_iters, grad_tol, 0, pos_out, e_out, status, probes, accepted, iters,
+                            stream);
 }
 
 // K8 over MMFF, with K7's constraint tables ``ctables`` or null (see launch_bfgs)

@@ -1,5 +1,6 @@
 // Kernel K6, UFF energy and analytic gradient, and the minimizers K5
-// (L-BFGS) and K8 (BFGS) instantiated over it, for Hopper (sm_90a).
+// (L-BFGS), K23 (the lockstep L-BFGS) and K8 (BFGS) instantiated over it, for
+// Hopper (sm_90a).
 //
 // K6 replaces the XLA program nvmolkit_tpu/models/uff/energy.py
 // uff_energy_and_grad (bonded terms gathered by one-hot matmuls,
@@ -22,8 +23,8 @@
 // r^2 >= 1e-2 with a zero gradient below. There is no inverse trigonometric
 // call: the gradients go through the cosines.
 //
-// K5 and K8 (minimizers.cuh) call K6's device function uff_eval once per
-// probe. What bounds K6: FP32 work, ~25 instructions per vdW pair (one
+// K5, K23 and K8 (minimizers.cuh) call K6's device function uff_eval once
+// per probe. What bounds K6: FP32 work, ~25 instructions per vdW pair (one
 // division, no square root), ~60-120 per bonded term; pairs are ~85 % of the
 // terms at drug-like sizes. Its bytes are the tables (once per molecule) and
 // the positions and gradients. One block of 128 threads per system, each
@@ -209,9 +210,24 @@ int nvmk_uff_lbfgs(const float* pos0, const float* e0, const float* g0, int n_sy
                    const void* const* tables, const float* policy, int max_ls_iters,
                    int max_iters, float grad_tol, int max_steps, float* pos_out, float* e_out,
                    int* status, int* steps, int* accepted, void* stream) {
-  return launch_lbfgs(make_uff(off, n_mols, tables), pos0, e0, g0, n_sys, a_pad, sys2mol,
-                      atom_count, policy, max_ls_iters, max_iters, grad_tol, max_steps, pos_out,
-                      e_out, status, steps, accepted, stream);
+  return launch_lbfgs<false>(make_uff(off, n_mols, tables), pos0, e0, g0, nullptr, n_sys, a_pad,
+                             sys2mol, atom_count, policy, max_ls_iters, max_iters, grad_tol,
+                             max_steps, pos_out, e_out, status, steps, accepted, nullptr, stream);
+}
+
+// K23 over UFF (see launch_lbfgs): max_iters line searches at most;
+// ``done`` (null, or int32 status per system) skips the systems whose bit 1
+// is set. Out: positions, energies, status, line searches, probes and
+// accepted steps.
+int nvmk_uff_lbfgs_lockstep(const float* pos0, const float* e0, const float* g0, const int* done,
+                            int n_sys, int a_pad, const int* sys2mol, const int* atom_count,
+                            const int* off, int n_mols, const void* const* tables,
+                            const float* policy, int max_ls_iters, int max_iters, float grad_tol,
+                            float* pos_out, float* e_out, int* status, int* iters, int* probes,
+                            int* accepted, void* stream) {
+  return launch_lbfgs<true>(make_uff(off, n_mols, tables), pos0, e0, g0, done, n_sys, a_pad,
+                            sys2mol, atom_count, policy, max_ls_iters, max_iters, grad_tol, 0,
+                            pos_out, e_out, status, probes, accepted, iters, stream);
 }
 
 // K8 over UFF, with K7's constraint tables ``ctables`` or null (see launch_bfgs)

@@ -14,12 +14,13 @@ public names: :class:`EmbedParameters` (every field), the presets
      coordinates from random distance matrices (K10, uniforms from a
      ``torch.Generator`` seeded by ``randomSeed``), the first DG
      minimization in four dimensions and the fourth-dimension compression
-     (K5 under ``minimizerBackend="flat"``, K8 under ``"bfgs"``, over the DG
-     force field K11), then, with the ETK stage (``useBasicKnowledge`` or
-     ``useExpTorsionAnglePrefs``, as the default ``EmbedParameters()`` and
-     every preset have it), the ETK minimization in three dimensions on K5
-     or K8 over the ETK force field K13 (``etkMinimizeIters``, the bounds
-     at weight 1), then the six checks (K12); the passing systems'
+     (K5 under ``minimizerBackend="flat"``, K8 under ``"bfgs"``, K23 under
+     ``"lbfgs"``, over the DG force field K11), then, with the ETK stage
+     (``useBasicKnowledge`` or ``useExpTorsionAnglePrefs``, as the default
+     ``EmbedParameters()`` and every preset have it), the ETK minimization in
+     three dimensions on the same minimizer over the ETK force field K13
+     (``etkMinimizeIters``, the bounds at weight 1), then the six checks
+     (K12); the passing systems'
      positions are copied into the chunk's accepted buffer on the device.
 
 The ETK stage's terms are built on the host once per chunk, after the
@@ -34,7 +35,8 @@ as per-molecule tables (``models/etk.py``).
 Two departures of the JAX package from RDKit stand, as there (fault 7):
 ``numZeroFail`` defaults to 0, and ``forceTransAmides`` is an ETK torsion
 pin with its minimum at omega = 180 degrees (RDKit clamps the 1-4 bounds).
-``minimizerBackend="lbfgs"`` (the lockstep L-BFGS) is not ported.
+``minimizerBackend="lbfgs"`` runs the lockstep L-BFGS without the MMFF/UFF
+driver's restart, as the JAX package's embedding calls it.
 """
 from __future__ import annotations
 
@@ -50,6 +52,7 @@ from nvmolkit_tpu_torch.chem.mol import Mol
 from nvmolkit_tpu_torch.models import dist_geom, etk
 from nvmolkit_tpu_torch.ops import embed_checks as checks
 from nvmolkit_tpu_torch.ops.bfgs import bfgs_minimize
+from nvmolkit_tpu_torch.ops.lbfgs import lbfgs_lockstep
 from nvmolkit_tpu_torch.ops.lbfgs_flat import lbfgs
 from nvmolkit_tpu_torch.ops.triangle_smooth import triangle_smooth_bounds
 from nvmolkit_tpu_torch.types import CoordinateOutput, Dense3DResult, resolve_device
@@ -96,8 +99,7 @@ class EmbedParameters:
     etkMinimizeIters: int = 150
     pruneRmsThresh: float = -1.0      # <=0 disables RMS pruning
     ignoreSmoothingFailures: bool = False  # embed with relaxed unsmoothed bounds
-    # "flat" (L-BFGS, K5) or "bfgs" (K8); "lbfgs" (the lockstep L-BFGS) is
-    # not ported
+    # "flat" (L-BFGS, K5), "bfgs" (K8) or "lbfgs" (the lockstep L-BFGS, K23)
     minimizerBackend: str = "flat"
 
 
@@ -238,8 +240,7 @@ def EmbedMolecules(
     elif params.minimizerBackend == "bfgs":
         minimize = bfgs_minimize
     elif params.minimizerBackend == "lbfgs":
-        raise NotImplementedError("minimizerBackend='lbfgs' (the lockstep L-BFGS) is not "
-                                  "ported; use 'flat' or 'bfgs'")
+        minimize = lbfgs_lockstep
     else:
         raise ValueError(f"minimizerBackend must be 'bfgs', 'lbfgs' or 'flat', "
                          f"got {params.minimizerBackend!r}")

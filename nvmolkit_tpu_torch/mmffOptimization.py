@@ -4,9 +4,10 @@ Mirrors ``nvmolkit_tpu/mmffOptimization.py`` (and nvMolKit's
 ``nvmolkit/mmffOptimization.py:60-201``):
 ``MMFFOptimizeMoleculesConfs(molecules, maxIters, properties, ...)``
 minimizes every conformer under MMFF94. On CUDA each bucket chunk is one
-launch of kernel K5 (L-BFGS) or K8 (BFGS), which runs every system's whole
-minimization on the device, each probe an evaluation of kernel K4's device
-function (``csrc/mmff.cu``).
+launch of kernel K5 (L-BFGS) or K8 (BFGS), or two of K23 (the lockstep
+L-BFGS and its restart), which run every system's whole minimization on the
+device, each probe an evaluation of kernel K4's device function
+(``csrc/mmff.cu``).
 
 The work runs on ``device`` if given, else on ``hardwareOptions.deviceIds``
 or ``targetGpu``, else on the device of ``positionsFrom``, else on
@@ -30,6 +31,7 @@ from nvmolkit_tpu_torch.models.optimize import (
     optimize_molecules_confs,
 )
 from nvmolkit_tpu_torch.ops.bfgs import bfgs_minimize
+from nvmolkit_tpu_torch.ops.lbfgs import minimize_restarting
 from nvmolkit_tpu_torch.ops.lbfgs_flat import lbfgs
 from nvmolkit_tpu_torch.types import CoordinateOutput, Dense3DResult, input_device
 from nvmolkit_tpu_torch.utils.config import HardwareOptions
@@ -47,16 +49,15 @@ def _per_mol(value, i: int, n: int, name: str):
 
 def minimizer(ff: flat.ForceField, backend: str):
     """The chunk minimizer ``(pos0, batch, sys2mol, max_iters, grad_tol)`` of
-    ``backend``: ``"flat"`` L-BFGS (K5), ``"bfgs"`` BFGS (K8)."""
+    ``backend``: ``"flat"`` L-BFGS (K5), ``"bfgs"`` BFGS (K8), ``"lbfgs"``
+    the lockstep L-BFGS with the JAX driver's restart at iteration 96 (K23)."""
     if backend == "flat":
         return functools.partial(lbfgs, ff)
     if backend == "bfgs":
         return lambda pos, batch, s2m, max_iters, grad_tol: bfgs_minimize(
             ff, pos, batch, s2m, None, max_iters, grad_tol)
     if backend == "lbfgs":
-        raise NotImplementedError(
-            "backend='lbfgs' (the JAX package's lockstep L-BFGS) is not ported; use 'flat' or "
-            "'bfgs'")
+        return functools.partial(minimize_restarting, ff)
     raise ValueError(f"unknown backend {backend!r}")
 
 
@@ -95,9 +96,11 @@ def MMFFOptimizeMoleculesConfs(
     package, which does not apply it either.
 
     ``backend="flat"`` runs the L-BFGS minimizer (kernel K5 on CUDA),
-    ``"bfgs"`` the BFGS one (kernel K8); ``"lbfgs"`` (the JAX package's
-    lockstep L-BFGS) is not ported. ``maxIters`` is the total budget:
-    accepted steps for ``"flat"``, line searches for ``"bfgs"``.
+    ``"bfgs"`` the BFGS one (kernel K8), ``"lbfgs"`` the JAX package's
+    lockstep L-BFGS (kernel K23), which restarts the systems still running
+    after 96 iterations with a fresh history, as the JAX package's driver
+    does. ``maxIters`` is the total budget: accepted steps for ``"flat"``,
+    line searches for ``"bfgs"`` and ``"lbfgs"``.
 
     Raises nvMolKit's structured ``ValueError`` when inputs are invalid:
     ``e.args[1]`` is ``{"none": [...], "no_params": [...]}`` with the

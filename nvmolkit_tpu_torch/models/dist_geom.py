@@ -10,9 +10,9 @@ The port's counterpart of ``nvmolkit_tpu/models/dist_geom.py``:
   embedding stages use two weightings of one batch, :meth:`DGBatch.weighted`).
 * :func:`dg_energy_and_grad` launches K11 (``csrc/dist_geom.cu``) for CUDA
   tensors and runs :func:`dg_energy_and_grad_plain` (``dg_energy``'s terms
-  in torch, the gradient by ``torch.autograd.grad``) for CPU tensors. K5 and
-  K8 minimize over K11's device function (:data:`DG`, 4 coordinates per
-  atom).
+  in torch, the gradient by ``torch.autograd.grad``) for CPU tensors. K5,
+  K23 and K8 minimize over K11's device function (:data:`DG`, 4 coordinates
+  per atom).
 * :func:`random_distance_matrices` launches K10 (``csrc/coordgen.cu``) for
   CUDA tensors and runs :func:`random_distance_matrices_plain` for CPU
   tensors: distance matrices drawn within the bounds, double centering, the

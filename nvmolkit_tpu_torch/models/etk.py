@@ -17,7 +17,7 @@ The port's counterpart of ``nvmolkit_tpu/models/etk.py``:
 * :func:`etk_energy_and_grad` launches K13 (``csrc/etk.cu``) for CUDA
   tensors and runs :func:`etk_energy_and_grad_plain` (``etk_energy``'s
   terms in torch, the gradient by ``torch.autograd.grad``) for CPU
-  tensors. K5 and K8 minimize over K13's device function (:data:`ETK`, 3
+  tensors. K5, K23 and K8 minimize over K13's device function (:data:`ETK`, 3
   coordinates per atom).
 
 A build or launch failure raises. ``launch_counts`` counts K13's launches

@@ -25,9 +25,10 @@ import torch
 
 @dataclasses.dataclass(frozen=True)
 class ForceField:
-    """What the minimizers (``ops/lbfgs_flat.py``, ``ops/bfgs.py``) need of a
-    force field: its name (its library's C functions are ``nvmk_<name>_lbfgs``
-    and ``nvmk_<name>_bfgs``), its energy-and-gradient router
+    """What the minimizers (``ops/lbfgs_flat.py``, ``ops/lbfgs.py``,
+    ``ops/bfgs.py``) need of a force field: its name (its library's C
+    functions are ``nvmk_<name>_lbfgs``, ``nvmk_<name>_lbfgs_lockstep`` and
+    ``nvmk_<name>_bfgs``), its energy-and-gradient router
     ``(positions, batch, sys2mol) -> (e, g)`` (its kernel on CUDA), the plain
     ``(batch, sys2mol, a_pad) -> fn`` of the CPU path, its library, the C
     functions' arguments after the tables, from a batch. Its kernels'

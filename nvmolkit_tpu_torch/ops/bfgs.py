@@ -3,8 +3,8 @@ constants and result type.
 
 The port's counterpart of ``nvmolkit_tpu/ops/bfgs.py``: RDKit's BFGS
 semantics as nvMolKit ports them (``src/minimizer/bfgs_minimize.cu:33-34,
-275-295``). This module is the constants' one home: kernels K5 and K8 take
-them as arguments.
+275-295``). This module is the constants' one home: kernels K5, K23 and K8
+take them as arguments.
 
 * :func:`bfgs_plain` mirrors ``_minimize_impl`` and ``_line_search``
   (``bfgs.py:65-320``) over any ``energy_and_grad_fn``: per outer iteration
@@ -16,6 +16,8 @@ them as arguments.
   without converging as failed, and ``max_iters`` as capped. The gradient
   of an accepted point is the probe's: the JAX function evaluates the
   accepted point again (``bfgs.py:261``), which gives the same values.
+  Its line search, :func:`line_search_plain`, is also the lockstep
+  L-BFGS's (``ops/lbfgs.py``).
 * :func:`bfgs_minimize` minimizes the systems of a force-field batch
   (:class:`~nvmolkit_tpu_torch.models.flat.ForceField`), with optional
   constraints: on CUDA one launch of the force field's energy kernel (K4 or
@@ -78,6 +80,9 @@ class BfgsResult:
     n_iters: torch.Tensor     # [S] int32: energy evaluations (probes) of each system
     status: torch.Tensor      # [S] int32: CONVERGED | FAILED | CAPPED bits
     n_accepted: torch.Tensor  # [S] int32: accepted steps of each system
+    # [S] int32: line searches of each system (the lockstep L-BFGS's
+    # iterations, ops/lbfgs.py); None from the other minimizers
+    n_searches: torch.Tensor | None = None
 
 
 def policy():
@@ -88,6 +93,67 @@ def policy():
 def status_bits(converged, failed, capped) -> torch.Tensor:
     return (converged.to(torch.int32) * CONVERGED + failed.to(torch.int32) * FAILED
             + capped.to(torch.int32) * CAPPED)
+
+
+def line_search_plain(eg: Callable, pos, e, grad, direction, active, probes):
+    """One Numerical-Recipes line search (the JAX package's
+    ``ops/bfgs.py:65-141``) of every ``active`` system at once, from ``pos``
+    [S, N] (energy ``e``, gradient ``grad``) along ``direction``, with
+    ``eg(x) -> (e, g)``: the quadratic model on the first probe, the cubic
+    after, clamped to [0.1, 0.5] lambda; sufficient decrease FUNCTOL *
+    lambda * slope. Adds each system's probes to ``probes``; returns the
+    accepted point's (positions, energy, gradient) (the start's where none
+    was accepted), ``ls_ok`` and ``exhausted`` (still live after
+    MAX_LS_ITERS probes)."""
+    S = pos.shape[0]
+    dtype, dev = pos.dtype, pos.device
+    slope = (grad * direction).sum(dim=1)
+    rel = direction.abs() / torch.clamp_min(pos.abs(), 1.0)
+    lam_min = MOVETOL / torch.clamp_min(rel.amax(dim=1), 1e-30)
+    lam = torch.ones(S, dtype=dtype, device=dev)
+    lam2 = torch.zeros(S, dtype=dtype, device=dev)
+    e2, e_new, p_new, g_new = e, e, pos, grad
+    done = torch.zeros(S, dtype=torch.bool, device=dev)
+    ls_failed = ~active  # inactive systems are treated as already failed (no move)
+    for ls_it in range(MAX_LS_ITERS):
+        live = active & ~done & ~ls_failed
+        if not bool(live.any()):
+            break
+        trial = pos + lam[:, None] * direction
+        e_t, g_t = eg(trial)
+        probes += live.to(torch.int32)
+        accept = e_t - e <= FUNCTOL * lam * slope
+        rhs1 = e_t - e - lam * slope
+        rhs2 = e2 - e - lam2 * slope
+        denom = torch.where(lam != lam2, lam - lam2, 1.0)
+        lsq = torch.clamp_min(lam**2, 1e-30)
+        l2sq = torch.clamp_min(lam2**2, 1e-30)
+        a = (rhs1 / lsq - rhs2 / l2sq) / denom
+        b = (-lam2 * rhs1 / lsq + lam * rhs2 / l2sq) / denom
+        disc = b * b - 3.0 * a * slope
+        a_safe = torch.where(a.abs() < 1e-20, 1e-20, a)
+        b_safe = torch.where(b.abs() < 1e-20, 1e-20, b)
+        cubic = torch.where(
+            a.abs() < 1e-20, -slope / (2.0 * b_safe),
+            torch.where(disc < 0, 0.5 * lam,
+                        (-b + torch.sqrt(torch.clamp_min(disc, 0.0))) / (3.0 * a_safe)))
+        quad = -slope * lam * lam / (2.0 * torch.clamp_min(rhs1, 1e-30))
+        tmp = torch.minimum(quad if ls_it == 0 else cubic, 0.5 * lam)
+        new_lam = torch.maximum(tmp, 0.1 * lam)
+        done_now = live & accept
+        reject = live & ~accept
+        p_new = torch.where(done_now[:, None], trial, p_new)
+        g_new = torch.where(done_now[:, None], g_t, g_new)
+        e_new = torch.where(done_now, e_t, e_new)
+        e2 = torch.where(reject, e_t, e2)
+        lam2 = torch.where(reject, lam, lam2)
+        lam = torch.where(reject, new_lam, lam)
+        done = done | done_now
+        ls_failed = ls_failed | (reject & (new_lam < lam_min))
+    ls_ok = done & active
+    # systems still live at the probe cap (NaN-poisoned or pathological)
+    exhausted = active & ~done & ~ls_failed
+    return p_new, e_new, g_new, ls_ok, exhausted
 
 
 def bfgs_plain(
@@ -138,64 +204,18 @@ def bfgs_plain(
         scale = torch.where(step_norm > max_step, max_step / torch.clamp_min(step_norm, 1e-30), 1.0)
         direction = direction * scale[:, None]
 
-        # the line search (bfgs.py:65-141), every live system at once
-        slope = (grad * direction).sum(dim=1)
-        rel = direction.abs() / torch.clamp_min(pos.abs(), 1.0)
-        lam_min = MOVETOL / torch.clamp_min(rel.amax(dim=1), 1e-30)
-        lam = torch.ones(S, dtype=dtype, device=dev)
-        lam2 = torch.zeros(S, dtype=dtype, device=dev)
-        e2, e_new, p_new, g_new = e, e, pos, grad
-        done = torch.zeros(S, dtype=torch.bool, device=dev)
-        ls_failed = ~active  # inactive systems are treated as already failed (no move)
-        for ls_it in range(MAX_LS_ITERS):
-            live = active & ~done & ~ls_failed
-            if not bool(live.any()):
-                break
-            trial = pos + lam[:, None] * direction
-            e_t, g_t = eg(trial)
-            probes += live.to(torch.int32)
-            accept = e_t - e <= FUNCTOL * lam * slope
-            rhs1 = e_t - e - lam * slope
-            rhs2 = e2 - e - lam2 * slope
-            denom = torch.where(lam != lam2, lam - lam2, 1.0)
-            lsq = torch.clamp_min(lam**2, 1e-30)
-            l2sq = torch.clamp_min(lam2**2, 1e-30)
-            a = (rhs1 / lsq - rhs2 / l2sq) / denom
-            b = (-lam2 * rhs1 / lsq + lam * rhs2 / l2sq) / denom
-            disc = b * b - 3.0 * a * slope
-            a_safe = torch.where(a.abs() < 1e-20, 1e-20, a)
-            b_safe = torch.where(b.abs() < 1e-20, 1e-20, b)
-            cubic = torch.where(
-                a.abs() < 1e-20, -slope / (2.0 * b_safe),
-                torch.where(disc < 0, 0.5 * lam,
-                            (-b + torch.sqrt(torch.clamp_min(disc, 0.0))) / (3.0 * a_safe)))
-            quad = -slope * lam * lam / (2.0 * torch.clamp_min(rhs1, 1e-30))
-            tmp = torch.minimum(quad if ls_it == 0 else cubic, 0.5 * lam)
-            new_lam = torch.maximum(tmp, 0.1 * lam)
-            done_now = live & accept
-            reject = live & ~accept
-            p_new = torch.where(done_now[:, None], trial, p_new)
-            g_new = torch.where(done_now[:, None], g_t, g_new)
-            e_new = torch.where(done_now, e_t, e_new)
-            e2 = torch.where(reject, e_t, e2)
-            lam2 = torch.where(reject, lam, lam2)
-            lam = torch.where(reject, new_lam, lam)
-            done = done | done_now
-            ls_failed = ls_failed | (reject & (new_lam < lam_min))
-        ls_ok = done & active
-        # systems still live at the probe cap (NaN-poisoned or pathological)
-        exhausted = active & ~done & ~ls_failed
+        p_new, e_new, g_new, ls_ok, exhausted = line_search_plain(eg, pos, e, grad, direction,
+                                                                  active, probes)
         failed = failed | exhausted
         # NR lnsrch: lambda underflow means the position cannot improve ->
         # the TOLX test fires -> converged
         conv_ls = active & ~ls_ok & ~exhausted
-        new_e = torch.where(ls_ok, e_new, e)
 
         xi = p_new - pos
         conv_x = masked_max(xi.abs() / torch.clamp_min(p_new.abs(), 1.0)) < TOLX
         gscaled = g_new.abs() * torch.clamp_min(p_new.abs(), 1.0)
-        conv_g = masked_max(gscaled) / torch.clamp_min(new_e.abs(), 1.0) < tol
-        conv_f = 2.0 * (e - new_e).abs() <= TOLF * (e.abs() + new_e.abs() + 1e-10)
+        conv_g = masked_max(gscaled) / torch.clamp_min(e_new.abs(), 1.0) < tol
+        conv_f = 2.0 * (e - e_new).abs() <= TOLF * (e.abs() + e_new.abs() + 1e-10)
         newly_conv = (conv_ls | (ls_ok & (conv_x | conv_g | conv_f))) & active
 
         dgrad = g_new - grad
@@ -214,7 +234,7 @@ def bfgs_plain(
         hess = torch.where(do_update[:, None, None], hess + dh, hess)
 
         pos = torch.where(ls_ok[:, None], p_new, pos)
-        e = torch.where(ls_ok, new_e, e)
+        e = torch.where(ls_ok, e_new, e)
         grad = torch.where(ls_ok[:, None], g_new, grad)
         direction = -torch.einsum("sij,sj->si", hess, grad)
         accepted += ls_ok.to(torch.int32)

@@ -3,9 +3,10 @@
 Mirrors ``nvmolkit_tpu/uffOptimization.py`` (and nvMolKit's
 ``nvmolkit/uffOptimization.py``): ``UFFOptimizeMoleculesConfs(molecules,
 maxIters, vdwThreshold, ...)`` minimizes every conformer under UFF. On CUDA
-each bucket chunk is one launch of kernel K5 (L-BFGS) or K8 (BFGS), which
-runs every system's whole minimization on the device, each probe an
-evaluation of kernel K6's device function (``csrc/uff.cu``).
+each bucket chunk is one launch of kernel K5 (L-BFGS) or K8 (BFGS), or two
+of K23 (the lockstep L-BFGS and its restart), which run every system's whole
+minimization on the device, each probe an evaluation of kernel K6's device
+function (``csrc/uff.cu``).
 
 The work runs on ``device`` if given, else on ``hardwareOptions.deviceIds``
 or ``targetGpu``, else on the device of ``positionsFrom``, else on
@@ -64,8 +65,9 @@ def UFFOptimizeMoleculesConfs(
     fragments (the JAX package drops them whatever the flag).
     ``nonBondedThreshold`` is accepted and unused (UFF takes
     ``vdwThreshold``). ``backend="flat"`` runs the L-BFGS minimizer (K5 on
-    CUDA), ``"bfgs"`` the BFGS one (K8); ``"lbfgs"`` is not ported.
-    ``maxIters`` is the total budget.
+    CUDA), ``"bfgs"`` the BFGS one (K8), ``"lbfgs"`` the lockstep L-BFGS
+    (K23) with the JAX driver's restart at iteration 96. ``maxIters`` is the
+    total budget.
 
     Raises nvMolKit's structured ``ValueError`` on None entries:
     ``e.args[1]`` is ``{"none": [...], "no_params": []}``.

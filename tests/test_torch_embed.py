@@ -173,7 +173,7 @@ def _embed_both(backend: str):
     return pmols, dense, pf, np.asarray(jd.conf_mask), jf
 
 
-@pytest.mark.parametrize("backend", ["flat", "bfgs"])
+@pytest.mark.parametrize("backend", ["flat", "bfgs", "lbfgs"])
 def test_whole_slice_against_jax(backend):
     pmols, dense, pf, jmask, jf = _embed_both(backend)
     mask = dense.conf_mask.numpy()
@@ -193,7 +193,8 @@ def test_whole_slice_against_jax(backend):
 
 def test_presets_and_backends():
     """Every preset and the default EmbedParameters() run (the ETK stage with
-    each), with both ported backends; only the lockstep "lbfgs" raises."""
+    each), with "flat" and "bfgs"; the lockstep "lbfgs" runs too, with the
+    ETK stage and in plain DG."""
     for preset in (pem.ETKDG, pem.ETKDGv2, pem.ETKDGv3, pem.srETKDGv3, pem.KDG, pem.ETDG,
                    pem.EmbedParameters):
         for backend in ("flat", "bfgs"):
@@ -203,12 +204,13 @@ def test_presets_and_backends():
             assert out.conf_mask.all() and len(mols[0].conformers) == 1, (preset, backend)
             assert check_bounds_satisfied(mols[0], mols[0].conformers[0])
     mols = mols_from_smiles(SMILES[:1])
-    for preset in (pem.ETKDG, pem.KDG, pem.EmbedParameters):
-        with pytest.raises(NotImplementedError, match="lbfgs"):
-            pem.EmbedMolecules(mols, preset(minimizerBackend="lbfgs"), device="cpu")
-    with pytest.raises(NotImplementedError, match="lbfgs"):
-        pem.EmbedMolecules(mols, pem.EmbedParameters(**DG, minimizerBackend="lbfgs"),
-                           device="cpu")
+    for params in (pem.ETKDG(minimizerBackend="lbfgs"), pem.KDG(minimizerBackend="lbfgs"),
+                   pem.EmbedParameters(minimizerBackend="lbfgs"),
+                   pem.EmbedParameters(**DG, minimizerBackend="lbfgs")):
+        mols = mols_from_smiles(SMILES[:1])
+        out = pem.EmbedMolecules(mols, params, maxIterations=3, device="cpu")
+        assert out.conf_mask.all() and len(mols[0].conformers) == 1, params
+        assert check_bounds_satisfied(mols[0], mols[0].conformers[0])
     with pytest.raises(ValueError, match="minimizerBackend"):
         pem.EmbedMolecules(mols, pem.EmbedParameters(**DG, minimizerBackend="x"), device="cpu")
     with pytest.raises(ValueError, match="useRandomCoords"):
@@ -230,7 +232,7 @@ ETK_PRESETS = {"KDG": "KDG", "ETDG": "ETDG", "ETKDGv3": "ETKDGv3",
 
 @pytest.mark.parametrize("preset, backend", [("KDG", "flat"), ("ETDG", "flat"),
                                              ("ETKDGv3", "flat"), ("default", "flat"),
-                                             ("default", "bfgs")])
+                                             ("default", "bfgs"), ("default", "lbfgs")])
 def test_etk_presets_against_jax(preset, backend):
     """The public EmbedMolecules with the ETK stage on the CPU: the success
     share and every failure counter within 4 standard errors of the JAX

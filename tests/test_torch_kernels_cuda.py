@@ -1542,3 +1542,137 @@ def test_substruct_kernels_raise_on_failure(cuda, tmp_path, monkeypatch):
         with pytest.raises(RuntimeError, match="CUDA error 701"):
             call()
     assert sk.launch_counts == before
+
+
+# ---- K23, the lockstep L-BFGS --------------------------------------------------
+
+def _lockstep_inputs(cuda, ff):
+    """(force field, starts, batch, sys2mol) of 128 systems: the committed
+    MMFF starts with 0.1 Å of noise (MMFF, UFF), K10's starts (DG) and their
+    3-D part (ETK)."""
+    from nvmolkit_tpu_torch.models import dist_geom, etk
+    from nvmolkit_tpu_torch.models.mmff.energy import MMFF
+    from nvmolkit_tpu_torch.models.uff.energy import UFF
+
+    if ff in ("mmff", "uff"):
+        x, batch, s2m = _mmff_systems(cuda, list(range(32)), 0.1, 3, uff=ff == "uff")
+        return (MMFF if ff == "mmff" else UFF), x, batch, s2m
+    if ff == "dg":
+        _, _, chunk = _drug_like(32, cuda, confs=4, seed=3)
+        x0, _, _ = dist_geom.random_distance_matrices(chunk["batch"], chunk["s2m"],
+                                                      chunk["uniforms"])
+        return dist_geom.DG, x0, chunk["batch"].weighted(1.0, 0.1), chunk["s2m"]
+    _, batch, s2m, x0 = _etk_inputs(32, cuda, seed=7)
+    return etk.ETK, x0, batch, s2m
+
+
+@pytest.mark.parametrize("ff", ["mmff", "uff", "dg", "etk"])
+def test_lockstep_kernel_follows_plain_through_the_history(cuda, ff):
+    """K23 over each force field against the plain lockstep L-BFGS through
+    HISTORY + 2 line searches (one launch of the force field's kernel, one
+    of K23), under chip_smoke.py's trajectory contract: status bits, probes
+    and steps equal on >= TRAJ_EQUAL_SHARE of the systems, and there the
+    positions and energies within the bound."""
+    from nvmolkit_tpu_torch.ops import lbfgs
+
+    smoke = _load_by_path("chip_smoke.py")
+    force_field, x, batch, s2m = _lockstep_inputs(cuda, ff)
+    key = f"{force_field.name}_lbfgs_lockstep"
+    before = lbfgs.launch_counts[key]
+    out = smoke.k23_trajectory_check(x, batch, s2m, {}, "k23", force_field)
+    assert lbfgs.launch_counts[key] == before + 1
+    assert out["equal_status_and_steps"] >= smoke.TRAJ_EQUAL_SHARE, out
+    assert out["within_bound"] >= smoke.TRAJ_EQUAL_SHARE, out
+
+
+def test_lockstep_restart_follows_its_plain_twin(cuda):
+    """The MMFF/UFF driver on the card (two launches each of K4 and K23)
+    against its plain twin, phase 1 cut to 4 of 10 iterations."""
+    from nvmolkit_tpu_torch.models.mmff import energy as mmff_energy
+    from nvmolkit_tpu_torch.ops import lbfgs
+
+    smoke = _load_by_path("chip_smoke.py")
+    force_field, x, batch, s2m = _lockstep_inputs(cuda, "mmff")
+    before = lbfgs.launch_counts["mmff_lbfgs_lockstep"], mmff_energy.launch_counts[
+        "mmff_energy_grad"]
+    out = smoke.k23_trajectory_check(x, batch, s2m, {}, "k23", force_field, smoke.RESTART_ITERS)
+    assert (lbfgs.launch_counts["mmff_lbfgs_lockstep"],
+            mmff_energy.launch_counts["mmff_energy_grad"]) == (before[0] + 2, before[1] + 2)
+    assert out["equal_status_and_steps"] >= smoke.TRAJ_EQUAL_SHARE, out
+    assert out["within_bound"] >= smoke.TRAJ_EQUAL_SHARE, out
+
+
+def test_lockstep_kernel_done_and_bad_starts(cuda):
+    """``done``: a system whose status has the CONVERGED bit comes out as it
+    went in (positions, status, no iteration); a zero-gradient start
+    converges after one line search of one probe; a non-finite one fails at
+    once; the plain version agrees on each."""
+    from nvmolkit_tpu_torch.models import flat
+    from nvmolkit_tpu_torch.models.mmff import batch_mmff_terms, mmff_terms_from_arrays
+    from nvmolkit_tpu_torch.models.mmff.energy import MMFF
+    from nvmolkit_tpu_torch.ops import bfgs, lbfgs
+
+    bonds = (np.array([[0, 1]]), {"r0": [1.5], "kb": [4.0]})
+    batch = batch_mmff_terms([mmff_terms_from_arrays(2, bonds=bonds)], [2], 2, device=cuda)
+    pos = torch.tensor([[[0.0, 0, 0], [1.5, 0, 0]], [[0.0, 0, 0], [float("nan"), 0, 0]],
+                        [[0.0, 0, 0], [1.9, 0.1, 0]], [[0.0, 0, 0], [1.9, 0.1, 0]]], device=cuda)
+    s2m = torch.zeros(4, dtype=torch.int32, device=cuda)
+    done = torch.tensor([0, 0, 0, bfgs.CONVERGED], dtype=torch.int32, device=cuda)
+    got = lbfgs.lbfgs_lockstep(MMFF, pos, batch, s2m, 50, done=done)
+    want = lbfgs.lbfgs_lockstep_plain(MMFF.plain_energy_and_grad_fn(batch, s2m, 2), pos,
+                                      flat.atom_mask(batch, s2m, 2), 50, done=done)
+    assert got.status.tolist() == want.status.tolist() == [
+        bfgs.CONVERGED, bfgs.FAILED, bfgs.CONVERGED, bfgs.CONVERGED]
+    assert got.n_searches.tolist()[:2] == [1, 0] and got.n_iters.tolist()[:2] == [1, 0]
+    assert got.n_searches.tolist()[3] == got.n_iters.tolist()[3] == 0
+    # (the stretched bond's line searches may differ by one at the float32
+    # noise floor: 8 and 9 in one run on an H100)
+    assert got.n_searches.tolist()[2] > 1 and want.n_searches.tolist()[2] > 1
+    assert torch.equal(got.positions[0], pos[0]) and torch.equal(got.positions[3], pos[3])
+    assert abs(float((got.positions[2, 1] - got.positions[2, 0]).norm()) - 1.5) < 1e-3
+    with pytest.raises(ValueError, match="done"):
+        lbfgs.lbfgs_lockstep(MMFF, pos, batch, s2m, 50, done=done.long())
+
+
+def test_optimize_and_embed_with_lbfgs_on_cuda(cuda):
+    """backend="lbfgs" through MMFFOptimizeMoleculesConfs and
+    UFFOptimizeMoleculesConfs (two launches of the force field's kernel and
+    of K23 per bucket chunk, none of K5 or K8) and
+    minimizerBackend="lbfgs" through EmbedMolecules (K23 over DG and ETK):
+    finite results, and the accepted conformers within their bounds."""
+    from nvmolkit_tpu_torch.embedMolecules import EmbedMolecules, EmbedParameters
+    from nvmolkit_tpu_torch.mmffOptimization import MMFFOptimizeMoleculesConfs
+    from nvmolkit_tpu_torch.models.mmff import EmpiricalMMFFProvider
+    from nvmolkit_tpu_torch.ops import bfgs, lbfgs, lbfgs_flat
+    from nvmolkit_tpu_torch.testutils import check_bounds_satisfied
+    from nvmolkit_tpu_torch.uffOptimization import UFFOptimizeMoleculesConfs
+    from nvmolkit_tpu_torch.utils.config import HardwareOptions
+
+    smoke = _load_by_path("chip_smoke.py")
+    fx, starts = smoke.mmff_fixture()
+    mols = smoke.mmff_molecules({"smiles": fx["smiles"][:6]})
+    for m, s in zip(mols, starts[:6]):
+        for c in s:
+            m.add_conformer(c)
+    for name, call in (("mmff", lambda: MMFFOptimizeMoleculesConfs(
+            mols, backend="lbfgs", provider=EmpiricalMMFFProvider(), device=cuda)),
+                       ("uff", lambda: UFFOptimizeMoleculesConfs(mols, backend="lbfgs",
+                                                                 device=cuda))):
+        for ops in (lbfgs, lbfgs_flat, bfgs):
+            ops.reset_launch_counts()
+        results, dense = call()
+        n_chunks = len({next(b for b in HardwareOptions().atomBuckets if m.num_atoms <= b)
+                        for m in mols})
+        assert lbfgs.launch_counts[f"{name}_lbfgs_lockstep"] == 2 * n_chunks
+        assert sum(lbfgs_flat.launch_counts.values()) == sum(bfgs.launch_counts.values()) == 0
+        assert dense.positions.device.type == "cuda" and [len(r) for r in results] == [4] * 6
+        assert bool(torch.isfinite(dense.energies).all())
+    lbfgs.reset_launch_counts()
+    emols = smoke.mmff_molecules({"smiles": fx["smiles"][:4]})
+    out = EmbedMolecules(emols, EmbedParameters(minimizerBackend="lbfgs"), confsPerMolecule=4,
+                         device=cuda)
+    assert lbfgs.launch_counts["dg_lbfgs_lockstep"] >= 2
+    assert lbfgs.launch_counts["etk_lbfgs_lockstep"] >= 1
+    assert bool(out.conf_mask.any())
+    for m in emols:
+        assert all(check_bounds_satisfied(m, c) for c in m.conformers)

@@ -640,10 +640,10 @@ def test_structured_value_error_and_backends():
     with pytest.raises(ValueError) as info:
         MMFFOptimizeMoleculesConfs([pmols[0], None], device="cpu")
     assert info.value.args[1] == {"none": [1], "no_params": []}
-    with pytest.raises(NotImplementedError, match="lockstep"):
-        MMFFOptimizeMoleculesConfs(pmols, backend="lbfgs", device="cpu")
-    results, _ = MMFFOptimizeMoleculesConfs(pmols, backend="bfgs", maxIters=20, device="cpu")
-    assert [len(r) for r in results] == [len(m.conformers) for m in pmols]
+    for backend in ("lbfgs", "bfgs"):
+        results, _ = MMFFOptimizeMoleculesConfs(pmols, backend=backend, maxIters=20,
+                                                device="cpu")
+        assert [len(r) for r in results] == [len(m.conformers) for m in pmols]
     assert MMFFOptimizeMoleculesConfs([], device="cpu") == ([], None)
     with pytest.raises(ValueError):
         MMFFOptimizeMoleculesConfs([], output=CoordinateOutput.DEVICE, device="cpu")

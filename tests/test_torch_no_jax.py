@@ -102,7 +102,7 @@ from nvmolkit_tpu_torch.batchedForcefield import MMFFBatchedForcefield, UFFBatch
 from nvmolkit_tpu_torch.interop import constraints_from_reference  # noqa: F401
 from nvmolkit_tpu_torch.models import constraints
 from nvmolkit_tpu_torch.models.mmff import EmpiricalMMFFProvider
-from nvmolkit_tpu_torch.ops import bfgs, lbfgs_flat
+from nvmolkit_tpu_torch.ops import bfgs, lbfgs, lbfgs_flat
 from nvmolkit_tpu_torch.uffOptimization import UFFOptimizeMoleculesConfs
 spec = importlib.util.spec_from_file_location("_chip_smoke", {root!r} + "/chip_smoke.py")
 smoke = importlib.util.module_from_spec(spec)
@@ -116,7 +116,7 @@ def two_mols():
             m.add_conformer(c)
     return mols
 
-for backend in ("flat", "bfgs"):
+for backend in ("flat", "bfgs", "lbfgs"):
     results, dense = UFFOptimizeMoleculesConfs(two_mols(), maxIters=10, backend=backend,
                                                device="cpu")
     assert [len(r) for r in results] == [2, 2] and np.isfinite(dense.energies.numpy()).all()
@@ -132,7 +132,7 @@ for cls, kw in ((MMFFBatchedForcefield, {{"provider": EmpiricalMMFFProvider()}})
     assert e.shape == (4,) and g.shape == (4, ff.max_atoms, 3)
     assert np.isfinite(energies.numpy()).all() and converged.numpy().shape == (4,)
 assert all(v == 0 for v in (*lbfgs_flat.launch_counts.values(), *bfgs.launch_counts.values(),
-                            *constraints.launch_counts.values()))
+                            *lbfgs.launch_counts.values(), *constraints.launch_counts.values()))
 leaked = sorted(m for m in sys.modules if sys.modules[m] is not None
                 and m.split(".")[0] in ("jax", "jaxlib", "nvmolkit_tpu"))
 assert not leaked, leaked

@@ -414,8 +414,8 @@ def test_structured_value_error_and_backends(monkeypatch):
     with pytest.raises(ValueError) as info:
         UFFOptimizeMoleculesConfs([pmols[0], None], device="cpu")
     assert info.value.args[1] == {"none": [1], "no_params": []}
-    with pytest.raises(NotImplementedError):
-        UFFOptimizeMoleculesConfs(pmols, backend="lbfgs", device="cpu")
+    results, _ = UFFOptimizeMoleculesConfs(pmols, backend="lbfgs", maxIters=20, device="cpu")
+    assert [len(r) for r in results] == [len(m.conformers) for m in pmols]
     with pytest.raises(ValueError, match="backend"):
         UFFOptimizeMoleculesConfs(pmols, backend="newton", device="cpu")
     assert UFFOptimizeMoleculesConfs([], device="cpu") == ([], None)
