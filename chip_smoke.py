@@ -33,9 +33,10 @@ Phases, each reported as one JSON line with its seconds:
      K1 few-column launch) and the fingerprints' peak device memory;
   4. checks of what the main path produced, and each kernel against its
      plain version at the shapes the main path gave it: K14 on every chunk,
-     K1's 24.5k x 24.5k matrix, K15 on the 24.5k hit matrix and on an
-     asymmetric 8192 x 8192 one, K16 (ids, centroids and each cluster's
-     record: center, member count, free rows before) at 8,192 and at 100k
+     K1's 24.5k x 24.5k matrix, K15 on the 24.5k hit matrix, on an
+     asymmetric 8192 x 8192 one and on 8,192 items in clusters above and
+     below its LIST_CAP (both of its regimes), K16 (ids, centroids and each
+     cluster's record: center, member count, free rows before) at 8,192 and at 100k
      fingerprints, K2's 100k x 100k counts; fused equal to matrix Butina at
      8,192; K1's few-column launch and K2 at the free rows x 1 center
      columns and free rows x members decrements of the plain loop (watched
@@ -158,8 +159,10 @@ Phases, each reported as one JSON line with its seconds:
      chunk, over DG and ETK beside K5/K8), hot and with a cold L2, its bound
      from its evaluations; K14 over the main path's chunks, K15 at its 24.5k
      hit matrix and K16 at its 100k fingerprints from K2's counts, with bounds
-     that count INT32 operations or POPCs as well as bytes; K17 and K18 at
-     (c) and (b); K19-K22 at the substructure path's largest launches, with
+     that count INT32 operations or POPCs as well as bytes, then one more
+     launch of each with per-phase cycles (line butina_phases: the split of
+     each kernel's time, K15's clusters taken one by one and its rounds);
+     K17 and K18 at (c) and (b); K19-K22 at the substructure path's largest launches, with
      INT32 bounds from each launch's data (K19's: the bond-code rows its
      back edges read and the candidates each level's rows admit);
   8. trace, per phase of the paths: three warm untraced walls, then one run
@@ -593,6 +596,18 @@ def median_ms(fn, reps: int = 10, flush=None) -> float:
     return statistics.median(start.elapsed_time(stop) for start, stop in events)
 
 
+def phase_split(cycles, names, ms: float) -> dict:
+    """Per phase of a cooperative Butina launch (``cycles`` int64 [blocks,
+    phases], rows past its grid 0): the mean over the blocks of its cycles,
+    its share of their total, and that share of the launch's ``ms``."""
+    per_block = cycles[cycles.sum(dim=1) > 0].double()
+    mean = per_block.mean(dim=0)
+    total = float(mean.sum())
+    return {"blocks": per_block.shape[0], **{
+        name: {"cycles_mean": float(mean[i]), "share": float(mean[i]) / total,
+               "ms": ms * float(mean[i]) / total} for i, name in enumerate(names)}}
+
+
 def card_rates() -> dict:
     """The rates the bounds use: device memory (data sheet), POPC issue (16
     per SM per clock), FP32 FMA issue (128 per SM per clock) and INT32
@@ -919,6 +934,24 @@ def clustered_fingerprints(n: int, bits: int, n_centers: int = 2000, flip: float
     add = rng.random((n, bits)) < (64 * flip / bits)
     dense = (centers[assign] & ~drop) | add
     return pack_bits_np(dense.astype(np.uint8))
+
+
+def large_cluster_hits(n: int, device):
+    """An n x n hit matrix of clusters above and below K15's LIST_CAP (64),
+    from 2,000 items down to pairs and singletons, in a seeded permutation,
+    with one-way noise (0.05 %)."""
+    import torch
+
+    sizes = [2000, 800, 300, 150, 90, 66, 65, 64, 63, 40, 20]
+    rest = n - sum(sizes)
+    sizes += [8] * (rest // 16) + [2] * (rest // 4)
+    sizes += [1] * (n - sum(sizes))
+    gen = torch.Generator(device).manual_seed(5)
+    block = torch.repeat_interleave(torch.arange(len(sizes), device=device),
+                                    torch.tensor(sizes, device=device))
+    block = block[torch.randperm(n, device=device, generator=gen)]
+    noise = torch.rand((n, n), device=device, generator=gen) < 0.0005
+    return ((block[:, None] == block[None, :]) | noise).contiguous()
 
 
 def ids_from_clusters(clusters, n):
@@ -2171,6 +2204,16 @@ def main() -> int:
     check(got_a[2] == want_a[2] and torch.equal(got_a[0], want_a[0])
           and torch.equal(got_a[1], want_a[1]), "K15 differs from plain on an asymmetric matrix")
     del asym
+    # and on 8,192 items in clusters across K15's LIST_CAP, with one-way noise:
+    # clusters one by one, then rounds
+    big = large_cluster_hits(8192, cuda)
+    k15_big = butina_ops._launch_k15(big)
+    big_schedule = k15_big["schedule"].tolist()
+    got_b, want_b = butina_ops.butina_matrix(big), butina_ops.butina_matrix_plain(big)
+    check(got_b[2] == want_b[2] and torch.equal(got_b[0], want_b[0])
+          and torch.equal(got_b[1], want_b[1]), "K15 differs from plain on the large clusters")
+    check(min(big_schedule) > 0, f"the large clusters ran one regime of K15: {big_schedule}")
+    del big, k15_big
 
     cut = 0.4
     sub = fps.torch()[:8192]
@@ -3945,6 +3988,16 @@ def main() -> int:
                                                  "tanimoto", False), None, reps=3)
     k16_row.update(plain_ms=fused_plain_s * 1e3,
                    plain_shape="the plain loop (K2's first counts included), one run (phase checks)")
+    # where K15's and K16's time goes: per-phase cycles of one more launch each
+    k15_split = butina_ops._launch_k15(hits24, phase_cycles=True)
+    k16_split = butina_ops._launch_k16(fused_fps, counts0.clone(), fused_thr, "tanimoto", False,
+                                       phase_cycles=True)
+    k15_schedule = k15_split["schedule"].tolist()
+    emit(phase="butina_phases", k15_one_by_one=k15_schedule[0], k15_rounds=k15_schedule[1],
+         k15_large_clusters_schedule=big_schedule,
+         k15=phase_split(k15_split["phase_cycles"].cpu(), butina_ops.K15_PHASES, k15_row["ms"]),
+         k16=phase_split(k16_split["phase_cycles"].cpu(), butina_ops.K16_PHASES, k16_row["ms"]))
+    del k15_split, k16_split
     # K17 and K18 at (c) and (b), K18 on K17's angles
     tfd_rows = {}
     for label, coords, batch, sets, nc in (

@@ -464,9 +464,9 @@ def morgan_lib() -> ctypes.CDLL:
 def _declare_butina(lib: ctypes.CDLL) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.nvmk_butina_matrix.restype = ci
-    lib.nvmk_butina_matrix.argtypes = [vp, ci] + [vp] * 11
+    lib.nvmk_butina_matrix.argtypes = [vp, ci] + [vp] * 18
     lib.nvmk_fused_butina_loop.restype = ci
-    lib.nvmk_fused_butina_loop.argtypes = [vp, ci, ci, ctypes.c_float, ci] + [vp] * 12
+    lib.nvmk_fused_butina_loop.argtypes = [vp, ci, ci, ctypes.c_float, ci] + [vp] * 13
 
 
 def butina_lib() -> ctypes.CDLL:

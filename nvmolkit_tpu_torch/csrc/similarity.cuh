@@ -1,7 +1,7 @@
-// Similarity of packed fingerprints from their counts, and the tile loop
-// that computes the counts, shared by K1 and K2 (similarity.cu) and K16
-// (butina.cu), so that all three compute sim and its >= threshold test with
-// the same instructions.
+// Similarity of packed fingerprints from their counts, shared by K1 and K2
+// (similarity.cu) and K16 (butina.cu), so that all three compute sim and
+// its >= threshold test with the same instructions; and the tile loop that
+// computes the counts, K1's and K2's.
 //
 // Fingerprints are rows of W 32-bit words (W = fpSize / 32 <= 128). For two
 // rows a and b with c = popcount(a AND b), pa = popcount(a), pb = popcount(b):
@@ -54,10 +54,7 @@ struct Tile {
 
 // Copy words [k0, k0 + KC) of TILE rows into s, zero-filling rows >= n and
 // words >= w. Row r of the tile is x's row base + r, or idx[base + r] when
-// an index list is given. With COHERENT, the list is read past the L1
-// cache: a persistent kernel (K16) rewrites its lists between grid
-// barriers, and another SM's L1 may hold an older copy.
-template <bool COHERENT>
+// an index list is given.
 __device__ __forceinline__ void load_stage(uint32_t (*s)[KC + 1], const uint32_t* x,
                                            const int64_t* idx, int base, int n, int w,
                                            int k0) {
@@ -67,7 +64,7 @@ __device__ __forceinline__ void load_stage(uint32_t (*s)[KC + 1], const uint32_t
     uint32_t v = 0u;
     if (row < n && k < w) {
       int64_t src = (int64_t)row;
-      if (idx) src = COHERENT ? __ldcg(idx + row) : idx[row];
+      if (idx) src = idx[row];
       v = x[src * w + k];
     }
     s[r][kk] = v;
@@ -76,7 +73,6 @@ __device__ __forceinline__ void load_stage(uint32_t (*s)[KC + 1], const uint32_t
 
 // acc[i][j] = popcount(A row (row0 + ty + 16 i) AND B row (col0 + tx + 16 j)),
 // and t.pa / t.pb the tile rows' popcounts (rows out of range count 0).
-template <bool COHERENT = false>
 __device__ __forceinline__ void tile_counts(Tile& t, int acc[PER][PER], const uint32_t* a,
                                             const int64_t* a_idx, int n, int row0,
                                             const uint32_t* b, const int64_t* b_idx, int m,
@@ -88,8 +84,8 @@ __device__ __forceinline__ void tile_counts(Tile& t, int acc[PER][PER], const ui
     for (int j = 0; j < PER; ++j) acc[i][j] = 0;
   int pop = 0;  // threads 0..63 count A rows, 64..127 B rows
   for (int k0 = 0; k0 < w; k0 += KC) {
-    load_stage<COHERENT>(t.a, a, a_idx, row0, n, w, k0);
-    load_stage<COHERENT>(t.b, b, b_idx, col0, m, w, k0);
+    load_stage(t.a, a, a_idx, row0, n, w, k0);
+    load_stage(t.b, b, b_idx, col0, m, w, k0);
     __syncthreads();
     const int kmax = min(KC, w - k0);
     if (threadIdx.x < TILE) {

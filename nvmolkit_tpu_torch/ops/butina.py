@@ -9,7 +9,10 @@ by size, largest first, stable in formation order.
 
 * :func:`butina_matrix` runs over a dense boolean hit matrix: kernel K15
   (``csrc/butina.cu``) for a CUDA tensor, the whole loop in one cooperative
-  launch; :func:`butina_matrix_plain` for a CPU tensor.
+  launch (clusters one by one while the best count exceeds ``LIST_CAP``,
+  then in rounds); :func:`butina_matrix_plain` for a CPU tensor.
+  :func:`butina_matrix_rounds_plain` is K15's schedule in torch, for the
+  tests.
 * :func:`fused_butina` runs over packed fingerprints in O(N) memory: for
   CUDA tensors kernel K2 (``ops/similarity.neighbor_counts``) counts every
   row's neighbors and kernel K16 (``csrc/butina.cu``) runs every extraction
@@ -37,7 +40,15 @@ from nvmolkit_tpu_torch.ops.similarity import (
     neighbor_counts_plain,
 )
 
-_KEYS = 4096  # the kernels' per-block keys buffer (MAX_GRID in csrc/butina.cu)
+LIST_CAP = 64  # K15 forms clusters in rounds once the best count is <= this (csrc/butina.cu)
+_MAX_BLOCKS = 4096  # rows of a per-phase cycles buffer, more than either grid has
+# the per-phase cycles K15 and K16 keep with ``phase_cycles=True`` (csrc/butina.cu
+# P15_*, P16_*): each phase's work, then its wait at the grid barrier after it
+K15_PHASES = ("prelude", "prelude_wait", "one_members", "one_members_wait", "one_counts",
+              "one_counts_wait", "lists", "lists_wait", "round_keys", "round_keys_wait",
+              "round_centers", "round_centers_wait", "order", "order_wait")
+K16_PHASES = ("prelude", "prelude_wait", "center", "center_wait", "decrements",
+              "decrements_wait")
 
 launch_counts = {"butina_matrix": 0, "fused_butina_loop": 0}
 
@@ -90,9 +101,18 @@ def _loop_outputs(n: int, dev: torch.device) -> dict[str, torch.Tensor]:
         "free": torch.ones(n, dtype=torch.bool, device=dev),
         "cluster_raw": torch.full((n,), -1, dtype=torch.int64, device=dev),
         "centroids": torch.empty(n, dtype=torch.int64, device=dev),
-        "keys": torch.empty(_KEYS, dtype=torch.int64, device=dev),
+        "keys": torch.zeros(2, dtype=torch.int64, device=dev),
         "n_clusters": torch.zeros(1, dtype=torch.int32, device=dev),
     }
+
+
+def _cycles(phases: tuple, on: bool, dev: torch.device) -> torch.Tensor | None:
+    """A zeroed per-phase cycles buffer (a row per block) when ``on``."""
+    return torch.zeros((_MAX_BLOCKS, len(phases)), dtype=torch.int64, device=dev) if on else None
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
 
 
 def butina_matrix_plain(hits: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, int]:
@@ -120,10 +140,79 @@ def butina_matrix_plain(hits: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor,
     return _finish(cluster_raw, free, torch.tensor(centroids, dtype=torch.int64, device=dev))
 
 
-def _launch_k15(hits: torch.Tensor) -> dict[str, torch.Tensor]:
+def butina_matrix_rounds_plain(
+    hits: torch.Tensor, list_cap: int = LIST_CAP, stats: dict | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """K15's schedule as a torch loop, for the tests and
+    ``tools/butina_phase_split.py`` (the main path never calls it): the
+    outputs of :func:`butina_matrix_plain`, reached in rounds.
+
+    While the best count exceeds ``list_cap`` it takes one center per
+    iteration, as the sequential loop does. Then, in each round, every free
+    row i with count >= 2 whose key (count, then index) is the largest among
+    the free rows that share a free column with it is a center, and its free
+    columns its members. No row that shares a column with i can be taken
+    before i (keys only fall), so i's cluster is the one the sequential loop
+    gives it; a round's centers share no column, so their members are
+    disjoint. The sequential loop takes keys in falling order, so the round
+    centers are numbered by their key, largest first. With ``stats`` (a
+    dict) it records ``"sequential"``, the clusters taken one by one, and
+    ``"rounds"``, each round's (centers, free mask at its start)."""
+    n = hits.shape[0]
+    dev = hits.device
+    hits = hits.clone()
+    hits.fill_diagonal_(True)
+    counts = hits.sum(dim=1, dtype=torch.int64)
+    free = torch.ones(n, dtype=torch.bool, device=dev)
+    cluster_raw = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    rows = torch.arange(n, device=dev)
+    centroids: list[int] = []
+    while n:
+        best, center = _best(torch.where(free, counts, 0), rows, n)
+        if best <= max(1, list_cap):
+            break
+        members = torch.nonzero(hits[center] & free).squeeze(1)
+        _take(cluster_raw, free, members, len(centroids))
+        centroids.append(center)
+        counts -= hits[:, members].sum(dim=1, dtype=torch.int64)
+    rounds, taken_keys = [], []
+    while True:
+        active = free & (counts >= 2)
+        if not bool(active.any()):
+            break
+        key = torch.where(active, counts * n + rows, -1)
+        live = hits & free[None, :]  # each row's free columns
+        top = torch.where(live & active[:, None], key[:, None], -1).amax(dim=0)
+        row_top = torch.where(live, top[None, :], -1).amax(dim=1)
+        chosen = torch.nonzero(active & (row_top == key)).squeeze(1)
+        rounds.append((chosen, free.clone()))
+        owned = live[chosen]  # [centers, n], one center per column at most
+        taken = owned.any(dim=0)
+        owner = chosen[owned.to(torch.uint8).argmax(dim=0)]
+        cluster_raw[taken] = -2 - owner[taken]  # the center, numbered below
+        free &= ~taken
+        counts -= hits[:, taken].sum(dim=1, dtype=torch.int64)
+        taken_keys.append(key[chosen])
+    if stats is not None:
+        stats.update(sequential=len(centroids), rounds=rounds)
+    cent = torch.tensor(centroids, dtype=torch.int64, device=dev)
+    if rounds:
+        keys = torch.cat(taken_keys)
+        order = torch.cat([c for c, _ in rounds])[torch.argsort(keys, descending=True)]
+        cluster_of = torch.empty(n, dtype=torch.int64, device=dev)
+        cluster_of[order] = len(centroids) + torch.arange(order.shape[0], device=dev)
+        by_round = cluster_raw <= -2
+        cluster_raw[by_round] = cluster_of[-2 - cluster_raw[by_round]]
+        cent = torch.cat([cent, order])
+    return _finish(cluster_raw, free, cent)
+
+
+def _launch_k15(hits: torch.Tensor, phase_cycles: bool = False) -> dict[str, torch.Tensor]:
     """K15 over a checked contiguous CUDA bool matrix [n, n], n >= 2: the
     loop's outputs before the singletons, ``n_clusters`` still on the
-    device."""
+    device, and ``schedule`` (int32 [2]: the clusters taken one by one, the
+    rounds). With ``phase_cycles``, ``phase_cycles`` [blocks, 14] too
+    (:data:`K15_PHASES`; rows past the grid stay 0)."""
     n = hits.shape[0]
     dev = hits.device
     nw = (n + 31) // 32
@@ -132,15 +221,27 @@ def _launch_k15(hits: torch.Tensor) -> dict[str, torch.Tensor]:
     counts = torch.zeros(n, dtype=torch.int32, device=dev)
     freebits = torch.empty(nw, dtype=torch.int32, device=dev)
     members = torch.empty(n, dtype=torch.int32, device=dev)
-    n_members = torch.zeros(2, dtype=torch.int32, device=dev)
+    lists = torch.empty((n, LIST_CAP), dtype=torch.int32, device=dev)
+    lens = torch.zeros(n, dtype=torch.int32, device=dev)
+    top = torch.zeros((2, n), dtype=torch.int64, device=dev)
+    scalars = torch.zeros(8, dtype=torch.int32, device=dev)
+    round_centers = torch.empty(n, dtype=torch.int32, device=dev)
+    round_keys = torch.empty(n, dtype=torch.int64, device=dev)
+    cluster_of = torch.empty(n, dtype=torch.int32, device=dev)
+    cycles = _cycles(K15_PHASES, phase_cycles, dev)
     with torch.cuda.device(dev):
         rc = butina_lib().nvmk_butina_matrix(
             hits.data_ptr(), n, colbits.data_ptr(), counts.data_ptr(), freebits.data_ptr(),
             out["free"].data_ptr(), out["cluster_raw"].data_ptr(), out["centroids"].data_ptr(),
-            members.data_ptr(), n_members.data_ptr(), out["keys"].data_ptr(),
-            out["n_clusters"].data_ptr(), torch.cuda.current_stream().cuda_stream)
+            members.data_ptr(), lists.data_ptr(), lens.data_ptr(), top.data_ptr(),
+            out["keys"].data_ptr(), scalars.data_ptr(), round_centers.data_ptr(),
+            round_keys.data_ptr(), cluster_of.data_ptr(), out["n_clusters"].data_ptr(),
+            _ptr(cycles), torch.cuda.current_stream().cuda_stream)
     _raise_on(rc, "butina_matrix")
     launch_counts["butina_matrix"] += 1
+    out["schedule"] = scalars[5:7]
+    if phase_cycles:
+        out["phase_cycles"] = cycles
     return out
 
 
@@ -210,31 +311,34 @@ def fused_butina_plain(
 
 def _launch_k16(
     fps: torch.Tensor, counts: torch.Tensor, threshold: float, metric: str, record: bool,
+    phase_cycles: bool = False,
 ) -> dict[str, torch.Tensor]:
     """K16 over checked CUDA fingerprints [n, W], n >= 2, from K2's counts
     (decremented in place): the loop's outputs before the singletons, and
     with ``record`` each cluster's (center, member count, free rows before)
-    in ``record`` [n, 3]."""
+    in ``record`` [n, 3]. With ``phase_cycles``, ``phase_cycles`` [blocks, 6]
+    too (:data:`K16_PHASES`; rows past the grid stay 0)."""
     n, w = fps.shape
     dev = fps.device
     out = _loop_outputs(n, dev)
-    free_rows = torch.empty((2, n), dtype=torch.int64, device=dev)
-    free_rows[0] = torch.arange(n, device=dev)
-    n_free = torch.tensor([n, 0], dtype=torch.int32, device=dev)
-    members = torch.empty(n, dtype=torch.int64, device=dev)
-    n_members = torch.zeros(1, dtype=torch.int32, device=dev)
+    pop = torch.empty(n, dtype=torch.int32, device=dev)
+    free_rows = torch.empty((2, n), dtype=torch.int32, device=dev)
+    members = torch.empty(n, dtype=torch.int32, device=dev)
+    n_members = torch.zeros(2, dtype=torch.int32, device=dev)
+    cycles = _cycles(K16_PHASES, phase_cycles, dev)
     if record:
         out["record"] = torch.empty((n, 3), dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
         rc = butina_lib().nvmk_fused_butina_loop(
             fps.data_ptr(), n, w, float(np.float32(threshold)), METRICS[metric],
-            counts.data_ptr(), free_rows.data_ptr(), n_free.data_ptr(), members.data_ptr(),
+            counts.data_ptr(), pop.data_ptr(), free_rows.data_ptr(), members.data_ptr(),
             n_members.data_ptr(), out["free"].data_ptr(), out["cluster_raw"].data_ptr(),
-            out["centroids"].data_ptr(), out["record"].data_ptr() if record else None,
-            out["keys"].data_ptr(), out["n_clusters"].data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+            out["centroids"].data_ptr(), _ptr(out.get("record")), out["keys"].data_ptr(),
+            out["n_clusters"].data_ptr(), _ptr(cycles), torch.cuda.current_stream().cuda_stream)
     _raise_on(rc, "fused_butina_loop")
     launch_counts["fused_butina_loop"] += 1
+    if phase_cycles:
+        out["phase_cycles"] = cycles
     return out
 
 

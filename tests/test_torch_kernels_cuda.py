@@ -1183,12 +1183,22 @@ def _hit_matrices(kind):
             block = rng.permutation(np.arange(n) // size)
             out.append(block[:, None] == block[None, :])
         return out
+    if kind == "large_clusters":  # above and below K15's LIST_CAP (64): one by one, then rounds
+        sizes = [300, 150, 90, 66, 65, 64, 63, 40, 20] + [8] * 60 + [2] * 100
+        out = []
+        for symmetric in (True, False):
+            block = rng.permutation(np.repeat(np.arange(len(sizes)), sizes))
+            hits = block[:, None] == block[None, :]
+            noise = rng.random(hits.shape) < 0.002
+            out.append(hits | noise | noise.T if symmetric else hits | noise)
+        return out
     return [np.ones((9, 9), bool), np.zeros((300, 300), bool), np.zeros((1, 1), bool),
             np.array([[False, True], [False, False]]), np.ones((2, 2), bool),
             np.zeros((0, 0), bool)]
 
 
-@pytest.mark.parametrize("kind", ["random", "asymmetric", "tie_heavy", "degenerate"])
+@pytest.mark.parametrize("kind", ["random", "asymmetric", "tie_heavy", "large_clusters",
+                                  "degenerate"])
 def test_butina_matrix_kernel_matches_plain(cuda, kind):
     from nvmolkit_tpu_torch.ops import butina as butina_ops
 
@@ -1228,6 +1238,10 @@ def _fused_inputs(kind, words):
         noise = rng.integers(0, 2**32, (64, words), dtype=np.uint64).astype(np.uint32)
         x = np.concatenate([np.repeat(centers, 16, axis=0), noise])
         return x[rng.permutation(len(x))]
+    if kind == "one_big":  # a cluster past one of K16's shared-memory chunks of members
+        x = np.concatenate([np.repeat(_fps(rng, 1, words).numpy().view(np.uint32), 3000, axis=0),
+                            _fps(rng, 500, words).numpy().view(np.uint32)])
+        return x[rng.permutation(len(x))]
     if kind == "zero":
         x = _fps(rng, 300, words).numpy().view(np.uint32)
         x[rng.random(300) < 0.3] = 0
@@ -1237,7 +1251,7 @@ def _fused_inputs(kind, words):
 
 
 @pytest.mark.parametrize("metric", ["tanimoto", "cosine"])
-@pytest.mark.parametrize("kind", ["clustered", "tie_heavy", "zero", "single"])
+@pytest.mark.parametrize("kind", ["clustered", "tie_heavy", "one_big", "zero", "single"])
 def test_fused_butina_loop_kernel_matches_plain(cuda, kind, metric):
     """K16 after K2 against the plain loop on the same CUDA tensor: ids,
     centroids and each formed cluster's (center, member count, free rows
