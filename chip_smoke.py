@@ -151,7 +151,11 @@ Phases, each reported as one JSON line with its seconds:
      counts of the M_SKINNY sweep, one torch.bmm of K3's Gram alone, K4,
      K5, K6, K5 over UFF and K7 at the MMFF phase's largest bucket chunk,
      and K8 (both force fields) at the batched forcefields' 8,192 systems
-     beside one torch.bmm/baddbmm step over their inverse Hessians; K9 to
+     beside one torch.bmm/baddbmm step over their inverse Hessians, each K8
+     row (here and over DG and ETK) with its accepted steps, the inverse
+     Hessian's bytes per accepted step (this design's and the first
+     design's) and their HBM time, its peak device memory and the split of
+     one more run by phase (phase_cycles); K9 to
      K12 and K5/K8 over DG at the embedding's largest chunk (K9 and K10 at
      each bucket too), K10 beside one torch.linalg.eigh of 512 of its
      metric matrices; K13 and K5/K8 over ETK at that chunk from the DG
@@ -1596,6 +1600,52 @@ def k23_trajectory_check(x, batch, sys2mol, errs: dict, key: str, ff,
         errs, key, f"K23 {ff.name} restarting after {p1} of {n}", moved)
 
 
+def k8_extras(run, n_dof, a_pad_dofs: int, rates: dict) -> dict:
+    """K8's row beside its bound: ``run(phase_cycles)`` runs it once for its
+    accepted steps and the device memory it adds at its peak to what was
+    allocated before, then once with its phase clock. The inverse Hessian's
+    bytes per accepted step of this design (one read and one write of the
+    packed triangle, ``bfgs.hessian_pass_bytes``) and of the first design
+    (three reads and one write of n^2 floats), and this design's bytes over
+    the memory rate; the buffer of packed triangles, beside the first
+    design's (one (D a_pad)^2 slab a system; ``a_pad_dofs`` = D a_pad), each
+    within HESSIAN_BYTES; the phases' cycles, shares and times
+    (``phase_split``)."""
+    import numpy as np
+    import torch
+
+    from nvmolkit_tpu_torch.ops import bfgs
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    res = run(False)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    acc = res.n_accepted.cpu().numpy().astype(np.int64)
+    n = np.asarray(n_dof, np.int64)
+    h_bytes = int((bfgs.hessian_pass_bytes(n) * acc).sum())
+    off, slices = bfgs.hessian_slices(n)
+    ends = off + n * (n + 1) // 2
+    buffer = 4 * max(int(ends[b - 1] - off[a]) for a, b in slices)
+    slab = 4 * a_pad_dofs ** 2
+    first_buffer = slab * min(len(n), max(1, bfgs.HESSIAN_BYTES // slab))
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    res_c = run(True)
+    stop.record()
+    torch.cuda.synchronize()
+    return {"accepted": int(acc.sum()),
+            "hessian_bytes_per_accepted": h_bytes / max(int(acc.sum()), 1),
+            "first_design_hessian_bytes_per_accepted": float((16 * n * n * acc).sum())
+            / max(int(acc.sum()), 1),
+            "hessian_hbm_ms": h_bytes / rates["hbm_bytes_per_s"] * 1e3,
+            "phase_split": phase_split(res_c.phase_cycles.cpu(), bfgs.K8_PHASES,
+                                       start.elapsed_time(stop)),
+            "peak_memory_bytes": peak, "peak_over_allocated_before_bytes": peak - before,
+            "hessian_buffer_bytes": buffer, "first_design_hessian_buffer_bytes": first_buffer}
+
+
 def k8_trajectory_check(x, batch, sys2mol, constraints, errs: dict, key: str, ff) -> dict:
     """K8 over force field ``ff`` (with ``constraints`` or None) against the
     plain BFGS through K8_TRAJ_ITERS outer iterations."""
@@ -2886,7 +2936,8 @@ def main() -> int:
     x_ff0 = ffm.positions.clone()
     a_ff = ffm.max_atoms
     n_ff = int(x_ff0.shape[0])
-    k8_slices = -(-n_ff // max(1, bfgs.HESSIAN_BYTES // (4 * (3 * a_ff) ** 2)))
+    k8_n_dof = 3 * ffm._batch.n_atoms[ffm._sys2mol.long()].cpu().numpy()
+    k8_slices = len(bfgs.hessian_slices(k8_n_dof)[1])
 
     def ff_minimize(ff, x0):
         ff.set_positions(x0)
@@ -3843,6 +3894,11 @@ def main() -> int:
         k8_rows[key].update(evaluations=int(evals.sum()),
                             accepted_mean=float(res.n_accepted.double().mean()),
                             accepted_max=int(res.n_accepted.max()))
+        del res
+        k8_rows[key].update(k8_extras(
+            lambda on, ff=ff, bff=bff, cb=cb: bfgs.bfgs_minimize(
+                ff, x_ff0, bff._batch, bff._sys2mol, cb, MMFF_MAX_ITERS, phase_cycles=on),
+            k8_n_dof, 3 * a_ff, rates))
     for key, plain_s, phase in ((K8M, k8_plain_s, "batched_ff_mmff"),
                                 (K8U, k8u_plain_s, "batched_ff_uff")):
         k8_rows[key].update(plain_ms=plain_s * 1e3,
@@ -3928,6 +3984,10 @@ def main() -> int:
             res.n_accepted.double().mean()), plain_ms=(time.perf_counter() - t0) * 1e3,
             plain_shape=f"{EMBED_PLAIN} systems x {big_e} atoms, one run",
             converged=float(res.converged.double().mean()))
+        if key == K8D:
+            entry.update(k8_extras(lambda on: bfgs.bfgs_minimize(
+                dist_geom.DG, eb["x0"], dg_first, eb["s2m"], max_iters=first_iters,
+                phase_cycles=on), 4 * e_sys_n, 4 * big_e, rates))
         dg_rows[key] = entry
     pos3_t = pos3[: eb["s2m"].shape[0]]
     k12_args_t = (pos3_t, eb["batch"].upper, eb["batch"].lower, eb["s2m"],
@@ -3964,6 +4024,10 @@ def main() -> int:
             res.n_accepted.double().mean()), plain_ms=(time.perf_counter() - t0) * 1e3,
             plain_shape=f"{EMBED_PLAIN} systems x {big_e} atoms, one run",
             converged=float(res.converged.double().mean()))
+        if key == K8E:
+            entry.update(k8_extras(lambda on: bfgs.bfgs_minimize(
+                etk.ETK, x_etk, big_etk, eb["s2m"], max_iters=etk_iters, phase_cycles=on),
+                3 * e_sys_n, 3 * big_e, rates))
         etk_rows[key] = entry
     # K14 over every chunk of the main path, back to back; K15 alone at the
     # main path's matrix; K16 alone at 100k from K2's counts (a fresh copy
@@ -3977,6 +4041,8 @@ def main() -> int:
                   k14_work(morgan_chunks, 3, 2048, rates),
                   lambda: k14_all(morgan_ops.morgan_kernel),
                   lambda: k14_all(morgan_ops.morgan_kernel_plain), cold=True)
+    k14_row["layouts"] = [f"{a[0].shape[1]} atoms: " + morgan_ops.kernel_layout(
+        a[0].shape[1], a[4].shape[2], 3, 2048) for a in k14_inputs]
     k15_formed = int(butina_ops._launch_k15(hits24)["n_clusters"])
     k15_row = row(K15, f"{n}x{n}, cutoff 0.4 ({k15_formed} clusters formed)",
                   k15_work(n, k15_formed, rates), lambda: butina_ops._launch_k15(hits24),
@@ -4191,7 +4257,8 @@ def main() -> int:
              "constraint_eval also runs inside K8, once per probe)",
              "nvmolkit_tpu/models/constraints.py:145", "nvmolkit_tpu_torch/csrc/constraints.cu"),
         K8M: ("mmff_bfgs (K8 over MMFF with constraints: bfgs_kernel<Mmff>, one block per "
-              "system)", bfgs_at, mmff_cu),
+              "system, one pass over its packed inverse Hessian per accepted step)", bfgs_at,
+              mmff_cu),
         K8U: ("uff_bfgs (K8 over UFF: bfgs_kernel<Uff>)", bfgs_at, uff_cu),
         K9: ("triangle_smooth (K9: one block per molecule, every pivot)",
              "nvmolkit_tpu/ops/triangle_smooth.py:28",
@@ -4221,7 +4288,8 @@ def main() -> int:
                "true>)", lockstep_at, dist_geom_cu),
         K23E: ("etk_lbfgs_lockstep (K23 over ETK: lbfgs_kernel<Etk, true>)", lockstep_at,
                etk_cu),
-        K14: ("morgan_kernel (K14: one block per molecule, bitsets in shared memory)",
+        K14: ("morgan_kernel (K14: half a warp per molecule up to 16 atoms, a warp up to 32, "
+              "8 warps a block, a block per molecule past them; bitsets in shared memory)",
               "nvmolkit_tpu/ops/morgan.py:112", "nvmolkit_tpu_torch/csrc/morgan.cu"),
         K15: ("butina_matrix_kernel (K15: the dense Butina loop in one cooperative launch)",
               "nvmolkit_tpu/ops/butina.py:41", butina_cu),
@@ -4255,7 +4323,12 @@ def main() -> int:
             "library_ms": None,
             **{k: entry[k] for k in ("device_fn_calls_in_k5", "linalg_hessian_step_ms",
                                      "linalg_eigh_ms", "linalg_eigh_shape", "by_bucket",
-                                     "at_ensemble")
+                                     "at_ensemble", "accepted", "hessian_bytes_per_accepted",
+                                     "first_design_hessian_bytes_per_accepted",
+                                     "hessian_hbm_ms", "phase_split", "peak_memory_bytes",
+                                     "peak_over_allocated_before_bytes",
+                                     "hessian_buffer_bytes",
+                                     "first_design_hessian_buffer_bytes", "layouts")
                if k in entry}})
     print(json.dumps({"kernels": lines}))
     print(smi_line)

@@ -191,7 +191,7 @@ def _declare_ff(lib: ctypes.CDLL, ff: str, extra: list) -> None:
     lockstep.argtypes = [vp, vp, vp, vp, ci, ci, vp, vp, vp, ci, tables, *extra, fp, ci, ci, cf,
                          vp, vp, vp, vp, vp, vp, vp]
     bfgs.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp, vp, vp, ci, tables, *extra, tables, fp, ci,
-                     ci, cf, vp, vp, vp, vp, vp, vp, vp, vp, vp]
+                     ci, cf, vp, vp, vp, vp, ctypes.c_longlong, vp, vp, vp, vp, vp, vp, vp]
 
 
 def _declare_uff(lib: ctypes.CDLL) -> None:
@@ -447,6 +447,8 @@ def _declare_morgan(lib: ctypes.CDLL) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.nvmk_morgan_scratch_words.restype = ctypes.c_longlong
     lib.nvmk_morgan_scratch_words.argtypes = [ci, ci, ci, ci]
+    lib.nvmk_morgan_warp_layout.restype = ci
+    lib.nvmk_morgan_warp_layout.argtypes = [ci, ci, ci, ci]
     lib.nvmk_morgan.restype = ci
     lib.nvmk_morgan.argtypes = [vp, vp, ci, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp, vp, vp]
 

@@ -46,16 +46,26 @@
 // H += xi xi^T / fac - (H dg)(H dg)^T / fae + fae u u^T (when fac >
 // sqrt(EPS |dg|^2 |xi|^2)), and the direction -H g. The probe's energy and
 // gradient are those of the point it accepts, so nothing is evaluated again
-// (the JAX function re-evaluates the accepted point, bfgs.py:261). H is
-// n_dof x n_dof floats of global memory per system (331 KB at 96 atoms, more
-// than a block's shared memory); the padded dofs, decoupled in JAX's H, are
-// dropped. What bounds K8: its evaluations, as K5's, plus per accepted step
-// three passes over H (H dg, the rank-2 update, H g), 4 n_dof^2 FP32
-// operations and 3 n_dof^2 floats read (one written) from the L2, where one
-// system's slab stays while its block runs; each pass is a warp per row,
-// its 32 lanes on neighbouring columns. A later version keeps H in tiles of
-// shared memory (nvMolKit's bfgs_hessian.cu). With constraints (K7's tables)
-// every probe adds constraint_eval after the force field.
+// (the JAX function re-evaluates the accepted point, bfgs.py:261). The math
+// is the JAX function's; the order of work is K8's own (its torch model is
+// ops/bfgs.py bfgs_onepass_plain): H is the packed upper triangle of the
+// symmetric inverse Hessian (the update, products of commuting factors,
+// keeps it exactly symmetric from H0 = I), n_dof (n_dof + 1) / 2 floats of
+// global memory per system at its own offset (the padded dofs, decoupled
+// in JAX's H, are dropped), and each accepted step makes one pass over it
+// (hessian_pass): each entry read once, the update the previous step left
+// pending added and the entry written back, and y = H g summed from it
+// (its row, and its column off the diagonal). Then H dg = y + d0, d0 the
+// direction before the cap, and the next direction -(y + the update times
+// g) comes from two dot products: one pass and one block barrier where the
+// first design made three passes (H dg, the update, H g) and four. What
+// bounds K8: its evaluations, as K5's, plus per accepted step 4 n_dof
+// (n_dof + 1) bytes of H from device memory; the first design's three
+// passes (16 n_dof^2 bytes) streamed at 1.4-2.3 TB/s and took 42 % of K8
+// over MMFF and 92 % over DG (tools/bfgs_phase_split.py, on an H100: a
+// system's H does not stay in the L2 with 4-16 blocks an SM resident). With
+// constraints (K7's tables) every probe adds constraint_eval after the
+// force field.
 #pragma once
 
 #include "constraints.cuh"
@@ -65,8 +75,10 @@ namespace nvmk {
 
 constexpr int HISTORY = 6;
 
-// ||d|| capped at maxStep = MAXSTEP_FACTOR * max(||x||, n_dof) (ops/bfgs.py:241-246)
-__device__ void cap_step(const float* x, float* d, int n_dof, float maxstep_factor, float* red) {
+// out = d with ||d|| capped at maxStep = MAXSTEP_FACTOR * max(||x||, n_dof)
+// (ops/bfgs.py:241-246); ``out`` may be ``d``
+__device__ void cap_step(const float* x, const float* d, float* out, int n_dof,
+                         float maxstep_factor, float* red) {
   float v[2] = {0.0f, 0.0f};
   for (int i = threadIdx.x; i < n_dof; i += THREADS) {
     v[0] += d[i] * d[i];
@@ -77,7 +89,9 @@ __device__ void cap_step(const float* x, float* d, int n_dof, float maxstep_fact
   const float max_step = maxstep_factor * nmax(sqrtf(v[1]), (float)n_dof);
   if (step_norm > max_step) {
     const float scale = max_step / nmax(step_norm, 1e-30f);
-    for (int i = threadIdx.x; i < n_dof; i += THREADS) d[i] *= scale;
+    for (int i = threadIdx.x; i < n_dof; i += THREADS) out[i] = d[i] * scale;
+  } else if (out != d) {
+    for (int i = threadIdx.x; i < n_dof; i += THREADS) out[i] = d[i];
   }
 }
 
@@ -203,7 +217,7 @@ lbfgs_kernel(FF ff, const float* __restrict__ pos0, const float* __restrict__ e0
   bool capped = false;
 
   for (int i = threadIdx.x; i < n_dof; i += THREADS) d[i] = -g[i];
-  cap_step(x, d, n_dof, pol.maxstep_factor, red);
+  cap_step(x, d, d, n_dof, pol.maxstep_factor, red);
   float slope, lam_min;
   slope_and_lam_min(x, g, d, n_dof, pol.movetol, red, slope, lam_min);
   float lam = 1.0f, lam2 = 0.0f, e2 = e, gamma = 1.0f;
@@ -281,7 +295,7 @@ lbfgs_kernel(FF ff, const float* __restrict__ pos0, const float* __restrict__ e0
         }
       }
       for (int i = threadIdx.x; i < n_dof; i += THREADS) d[i] = -d[i];
-      cap_step(x, d, n_dof, pol.maxstep_factor, red);
+      cap_step(x, d, d, n_dof, pol.maxstep_factor, red);
       slope_and_lam_min(x, g, d, n_dof, pol.movetol, red, slope, lam_min);
       lam2 = 0.0f;
       e2 = e;
@@ -342,56 +356,156 @@ int launch_lbfgs(const FF& ff, const float* pos0, const float* e0, const float* 
 
 // ---- K8 ---------------------------------------------------------------------
 
-// out = sign * H (a - b), b optional; H n x n row-major (global). A warp per
-// row, its lanes on neighbouring columns; the warps' rows are disjoint
-__device__ void hess_apply(const float* H, int n, const float* a, const float* b, float sign,
-                           float* out) {
+// the entries of H a lane loads at once in the pass, and the blocks an SM
+// that K8's register budget is set for (48 registers, some spilled). On an
+// H100, with the force field's evaluation inlined K8 took 125 registers
+// (4 blocks an SM): at 10 blocks it ran MMFF with constraints in 503 ms
+// in place of 805, DG in 255 in place of 527 (the evaluations and the pass
+// both gain from the warps in flight; 8 and 12 blocks within 6 %; two
+// entries at once made the pass 14-19 % slower, one entry 40-62 %;
+// tools/bfgs_phase_split.py)
+constexpr int PASS_UNROLL = 4;
+constexpr int K8_MIN_BLOCKS = 10;
+
+// K8's phases, as ops/bfgs.K8_PHASES names them: the cycles thread 0 of each
+// block spends in each, when the launch is given a ``cycles`` buffer
+constexpr int K8_PHASES = 6;  // init, eval, search, h_pass, h_wait, update
+
+// thread 0's phase clock, kept in shared memory (it costs the other threads
+// no registers, and nothing but a uniform test when off)
+struct PhaseClock {
+  long long* acc;  // shared: [K8_PHASES + 1], the last slot the lap's start
+  bool on;
+  __device__ void start() {
+    if (on && threadIdx.x == 0) {
+      for (int p = 0; p < K8_PHASES; ++p) acc[p] = 0;
+      acc[K8_PHASES] = clock64();
+    }
+  }
+  __device__ void lap(int p) {
+    if (on && threadIdx.x == 0) {
+      const long long now = clock64();
+      acc[p] += now - acc[K8_PHASES];
+      acc[K8_PHASES] = now;
+    }
+  }
+};
+
+// the update of the inverse Hessian that an accepted step left pending:
+// H += fac_i xi xi^T - fad_i hdg hdg^T + fae u u^T, u = fac_i xi - fad_i hdg
+struct Pending {
+  const float* xi;
+  const float* hdg;
+  float fac_i, fad_i, fae;
+  bool on;
+};
+
+// The one pass over H per accepted step. H is the upper triangle of the
+// symmetric n x n inverse Hessian, packed by rows (row r, columns r..n-1,
+// from r n - r (r - 1) / 2); ``fresh``: never written, read as the identity.
+// A warp per row, its lanes on the row's columns: each entry read once,
+// the pending update added and the entry written back (when ``pend.on``),
+// and y = H g summed: the row sums by warp shuffles, the column sums of the
+// off-diagonal entries by each warp in its own row of ``colacc`` [WARPS, n]
+// (lane l owns the columns l mod 32: no atomics), added in a fixed order
+// after one block barrier. A fresh H with nothing pending is I: y = g.
+__device__ void hessian_pass(float* H, int n, bool fresh, const Pending& pend, const float* g,
+                             float* y, float* colacc, PhaseClock& clk) {
+  if (fresh && !pend.on) {
+    for (int c = threadIdx.x; c < n; c += THREADS) y[c] = g[c];
+    __syncthreads();
+    return;
+  }
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  float* col = colacc + w * n;
+  for (int c = lane; c < n; c += 32) col[c] = 0.0f;  // this lane's own entries
   for (int r = w; r < n; r += WARPS) {
-    const float* hr = H + (size_t)r * n;
+    float* hr = H + ((long long)r * n - (long long)r * (r - 1) / 2 - r);  // hr[c], c >= r
+    const float gr = g[r];
+    float xr = 0.0f, dr = 0.0f, ur = 0.0f;
+    if (pend.on) {
+      xr = pend.xi[r];
+      dr = pend.hdg[r];
+      ur = pend.fac_i * xr - pend.fad_i * dr;
+    }
     float acc = 0.0f;
-    for (int c = lane; c < n; c += 32) acc += hr[c] * (b != nullptr ? a[c] - b[c] : a[c]);
+    // PASS_UNROLL of the lane's entries loaded before any is used
+    for (int c0 = (r & ~31) + lane; c0 < n; c0 += 32 * PASS_UNROLL) {
+      float h[PASS_UNROLL];
+#pragma unroll
+      for (int k = 0; k < PASS_UNROLL; ++k) {
+        const int c = c0 + 32 * k;
+        h[k] = c < r || c >= n ? 0.0f : fresh ? (c == r ? 1.0f : 0.0f) : hr[c];
+      }
+#pragma unroll
+      for (int k = 0; k < PASS_UNROLL; ++k) {
+        const int c = c0 + 32 * k;
+        if (c < r || c >= n) continue;
+        if (pend.on) {
+          const float uc = pend.fac_i * pend.xi[c] - pend.fad_i * pend.hdg[c];
+          h[k] += pend.fac_i * (xr * pend.xi[c]) - pend.fad_i * (dr * pend.hdg[c]) +
+                  pend.fae * (ur * uc);
+          hr[c] = h[k];
+        }
+        acc += h[k] * g[c];
+        if (c > r) col[c] += h[k] * gr;
+      }
+    }
     acc = warp_sum(acc);
-    if (lane == 0) out[r] = sign * acc;
+    if (lane == 0) y[r] = acc;
+  }
+  clk.lap(3);
+  __syncthreads();
+  clk.lap(4);
+  for (int c = threadIdx.x; c < n; c += THREADS) {
+    float s = y[c];
+#pragma unroll
+    for (int k = 0; k < WARPS; ++k) s += colacc[k * n + c];
+    y[c] = s;
   }
   __syncthreads();
 }
 
 template <class FF>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, K8_MIN_BLOCKS)
 bfgs_kernel(FF ff, CTables ct, int sys_base, const float* __restrict__ pos0,
             const float* __restrict__ e0, const float* __restrict__ g0, int a_pad,
             const int* __restrict__ sys2mol, const int* __restrict__ atom_count, Policy pol,
             int max_iters, float grad_tol, const int* __restrict__ iter_caps,
             const float* __restrict__ grad_tols, float* __restrict__ hess,
-            float* __restrict__ pos_out, float* __restrict__ e_out, int* __restrict__ status_out,
-            int* __restrict__ steps_out, int* __restrict__ accepted_out) {
+            const long long* __restrict__ hoff, long long hbase, float* __restrict__ pos_out,
+            float* __restrict__ e_out, int* __restrict__ status_out, int* __restrict__ steps_out,
+            int* __restrict__ accepted_out, long long* __restrict__ cycles) {
   extern __shared__ float smem[];
+  __shared__ long long clock_acc[K8_PHASES + 1];
+  PhaseClock clk{clock_acc, cycles != nullptr};
+  clk.start();
   const int row = FF::kDim * a_pad;
   float* x = smem;
   float* xt = x + row;
   float* g = xt + row;
   float* gt = g + row;
-  float* d = gt + row;
-  float* xi = d + row;
-  float* hdg = xi + row;
-  float* red = hdg + row;
+  float* d = gt + row;     // the direction, capped; after an acceptance y = H g
+  float* d0 = d + row;     // the direction before the cap, -H g
+  float* pxi = d0 + row;   // the pending update's xi and H dg
+  float* phdg = pxi + row;
+  float* colacc = phdg + row;  // WARPS rows
+  float* red = colacc + WARPS * row;
+  float* y = d;
 
   const size_t sys = sys_base + (size_t)blockIdx.x;
   const int mol = sys2mol[sys];
   const int n_dof = FF::kDim * atom_count[sys];
   const float tol = grad_tols != nullptr ? grad_tols[sys] : grad_tol;
   const int cap = iter_caps != nullptr ? iter_caps[sys] : max_iters;
-  float* H = hess + (size_t)blockIdx.x * row * row;
+  float* H = hess + (hoff[sys] - hbase);
   const float* px = pos0 + sys * row;
   const float* pg = g0 + sys * row;
   for (int i = threadIdx.x; i < n_dof; i += THREADS) {
     x[i] = px[i];
     g[i] = pg[i];
-    d[i] = -pg[i];
+    d0[i] = -pg[i];
   }
-  for (int r = threadIdx.x >> 5; r < n_dof; r += WARPS)
-    for (int c = threadIdx.x & 31; c < n_dof; c += 32) H[(size_t)r * n_dof + c] = r == c ? 1.0f : 0.0f;
   __syncthreads();
 
   auto energy = [&](const float* at_x, float* at_g) {
@@ -403,9 +517,12 @@ bfgs_kernel(FF ff, CTables ct, int sys_base, const float* __restrict__ pos0,
   bool failed;
   bool converged = start_tests(x, g, e, n_dof, tol, red, failed);
   int it = 0, steps = 0, accepted = 0;
+  bool fresh = true;  // H is still the identity, never written
+  Pending pend{pxi, phdg, 0.0f, 0.0f, 0.0f, false};
+  clk.lap(0);
 
   while (!(converged || failed) && it < max_iters) {
-    cap_step(x, d, n_dof, pol.maxstep_factor, red);
+    cap_step(x, d0, d, n_dof, pol.maxstep_factor, red);
     float slope, lam_min;
     slope_and_lam_min(x, g, d, n_dof, pol.movetol, red, slope, lam_min);
     // the line search: probes until one is accepted, lambda underflows or
@@ -415,7 +532,9 @@ bfgs_kernel(FF ff, CTables ct, int sys_base, const float* __restrict__ pos0,
     for (int ls_it = 0; ls_it < pol.max_ls_iters; ++ls_it) {
       for (int i = threadIdx.x; i < n_dof; i += THREADS) xt[i] = x[i] + lam * d[i];
       __syncthreads();
+      clk.lap(2);
       et = energy(xt, gt);
+      clk.lap(1);
       ++steps;
       if (et - e <= pol.functol * lam * slope) {
         ls_ok = true;
@@ -436,38 +555,50 @@ bfgs_kernel(FF ff, CTables ct, int sys_base, const float* __restrict__ pos0,
     if (ls_ok) {
       ++accepted;
       newly = accept_tests(x, xt, gt, e, et, n_dof, pol, tol, red);
-      // xi, H dg and the update's four sums
-      for (int i = threadIdx.x; i < n_dof; i += THREADS) xi[i] = xt[i] - x[i];
-      __syncthreads();
-      hess_apply(H, n_dof, gt, g, 1.0f, hdg);
-      float sm[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      for (int i = threadIdx.x; i < n_dof; i += THREADS) {
-        const float dg = gt[i] - g[i];
-        sm[0] += dg * xi[i];
-        sm[1] += dg * hdg[i];
-        sm[2] += dg * dg;
-        sm[3] += xi[i] * xi[i];
-      }
-      block_reduce<4, true>(sm, red);
-      const float fac = sm[0], fae = sm[1];
-      if (fac > sqrtf(pol.eps * sm[2] * sm[3])) {
-        const float fac_i = 1.0f / nmax(fac, 1e-30f), fad_i = 1.0f / nmax(fae, 1e-30f);
-        const int lane = threadIdx.x & 31;
-        for (int r = threadIdx.x >> 5; r < n_dof; r += WARPS) {
-          float* hr = H + (size_t)r * n_dof;
-          const float ur = fac_i * xi[r] - fad_i * hdg[r];
-          for (int c = lane; c < n_dof; c += 32) {
-            const float uc = fac_i * xi[c] - fad_i * hdg[c];
-            hr[c] += fac_i * (xi[r] * xi[c]) - fad_i * (hdg[r] * hdg[c]) + fae * (ur * uc);
-          }
+      clk.lap(2);
+      // the loop ends here: no direction is needed (H is scratch)
+      const bool last = newly || it >= max_iters || (iter_caps != nullptr && it >= cap);
+      if (!last) {
+        // one pass: H_k = H + the pending update, y = H_k g_{k+1}
+        hessian_pass(H, n_dof, fresh, pend, gt, y, colacc, clk);
+        fresh = fresh && !pend.on;
+        // H_k dg = H_k g_{k+1} + d0 (d0 = -H_k g_k, before the cap); then
+        // the update's sums and the dot products of the new direction
+        float sm[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+        for (int i = threadIdx.x; i < n_dof; i += THREADS) {
+          const float xi = xt[i] - x[i], dg = gt[i] - g[i], hdg = y[i] + d0[i];
+          pxi[i] = xi;
+          phdg[i] = hdg;
+          sm[0] += dg * xi;
+          sm[1] += dg * hdg;
+          sm[2] += dg * dg;
+          sm[3] += xi * xi;
+          sm[4] += xi * gt[i];
+          sm[5] += hdg * gt[i];
         }
-        __syncthreads();
+        block_reduce<6, true>(sm, red);
+        const float fac = sm[0], fae = sm[1];
+        pend.on = fac > sqrtf(pol.eps * sm[2] * sm[3]);
+        // the next direction, -H_{k+1} g_{k+1}: -(y + the update times g)
+        if (pend.on) {
+          pend.fac_i = 1.0f / nmax(fac, 1e-30f);
+          pend.fad_i = 1.0f / nmax(fae, 1e-30f);
+          pend.fae = fae;
+          const float xg = sm[4], hg = sm[5];
+          const float ug = pend.fac_i * xg - pend.fad_i * hg;
+          for (int i = threadIdx.x; i < n_dof; i += THREADS) {
+            const float u = pend.fac_i * pxi[i] - pend.fad_i * phdg[i];
+            d0[i] = -(y[i] + pend.fac_i * pxi[i] * xg - pend.fad_i * phdg[i] * hg + fae * u * ug);
+          }
+        } else {
+          for (int i = threadIdx.x; i < n_dof; i += THREADS) d0[i] = -y[i];
+        }
       }
-      // the probe becomes the position; the next direction is -H g
+      // the probe becomes the position
       float* tmp = x; x = xt; xt = tmp;
       tmp = g; g = gt; gt = tmp;
       e = et;
-      hess_apply(H, n_dof, g, nullptr, -1.0f, d);
+      clk.lap(5);
     }
     converged = newly;
     // a per-system budget spent without converging fails (bfgs.py:299-301)
@@ -483,29 +614,35 @@ bfgs_kernel(FF ff, CTables ct, int sys_base, const float* __restrict__ pos0,
     steps_out[sys] = steps;
     accepted_out[sys] = accepted;
   }
+  clk.lap(0);
+  if (cycles != nullptr && threadIdx.x == 0)
+    for (int p = 0; p < K8_PHASES; ++p) cycles[(size_t)blockIdx.x * K8_PHASES + p] = clock_acc[p];
 }
 
-// K8 over systems [sys_base, sys_base + n_launch) of the arrays (``hess``
-// holds n_launch slabs of (kDim a_pad)^2 floats); ``iter_caps``, ``grad_tols``
-// and ``ctables`` (K7's: offsets, four atom columns, four parameter rows)
-// may be null; outputs as K5's, with accepted steps
+// K8 over systems [sys_base, sys_base + n_launch) of the arrays. ``hess``
+// holds their packed inverse Hessians, system s's at hoff[s] - hbase
+// (n_dof (n_dof + 1) / 2 floats each, n_dof = kDim * its atoms);
+// ``iter_caps``, ``grad_tols`` and ``ctables`` (K7's: offsets, four atom
+// columns, four parameter rows) may be null; outputs as K5's, with accepted
+// steps; ``cycles`` null, or int64 [n_launch, K8_PHASES] for the phase clock
 template <class FF>
 int launch_bfgs(const FF& ff, const void* const* ctables, int n_sys, int sys_base, int n_launch,
                 const float* pos0, const float* e0, const float* g0, int a_pad,
                 const int* sys2mol, const int* atom_count, const float* policy, int max_ls_iters,
                 int max_iters, float grad_tol, const int* iter_caps, const float* grad_tols,
-                float* hess, float* pos_out, float* e_out, int* status, int* steps, int* accepted,
+                float* hess, const long long* hoff, long long hbase, float* pos_out,
+                float* e_out, int* status, int* steps, int* accepted, long long* cycles,
                 void* stream) {
   if (n_launch == 0) return 0;
-  const size_t smem = (7 * FF::kDim * (size_t)a_pad + 4 * WARPS) * sizeof(float);
+  const size_t smem = ((8 + WARPS) * FF::kDim * (size_t)a_pad + 6 * WARPS) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(bfgs_kernel<FF>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   bfgs_kernel<FF><<<n_launch, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       ff, make_ctables(ctables, n_sys), sys_base, pos0, e0, g0, a_pad, sys2mol, atom_count,
-      make_policy(policy, max_ls_iters), max_iters, grad_tol, iter_caps, grad_tols, hess, pos_out,
-      e_out, status, steps, accepted);
+      make_policy(policy, max_ls_iters), max_iters, grad_tol, iter_caps, grad_tols, hess, hoff,
+      hbase, pos_out, e_out, status, steps, accepted, cycles);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -312,12 +312,13 @@ int nvmk_mmff_bfgs(const float* pos0, const float* e0, const float* g0, int n_sy
                    const int* off, int n_mols, const void* const* tables, float diel_constant,
                    int diel_model, const void* const* ctables, const float* policy,
                    int max_ls_iters, int max_iters, float grad_tol, const int* iter_caps,
-                   const float* grad_tols, float* hess, float* pos_out, float* e_out,
-                   int* status, int* steps, int* accepted, void* stream) {
+                   const float* grad_tols, float* hess, const long long* hoff, long long hbase,
+                   float* pos_out, float* e_out, int* status, int* steps, int* accepted,
+                   long long* cycles, void* stream) {
   return launch_bfgs(make_mmff(off, n_mols, tables, diel_constant, diel_model), ctables, n_sys,
                      sys_base, n_launch, pos0, e0, g0, a_pad, sys2mol, atom_count, policy,
-                     max_ls_iters, max_iters, grad_tol, iter_caps, grad_tols, hess, pos_out,
-                     e_out, status, steps, accepted, stream);
+                     max_ls_iters, max_iters, grad_tol, iter_caps, grad_tols, hess, hoff, hbase,
+                     pos_out, e_out, status, steps, accepted, cycles, stream);
 }
 
 }  // extern "C"

@@ -59,7 +59,8 @@ from nvmolkit_tpu_torch.types import CoordinateOutput, Dense3DResult, resolve_de
 from nvmolkit_tpu_torch.utils.config import HardwareOptions
 
 # the device memory one chunk of systems may take (the uniforms of the
-# distance matrices, 4 A^2 bytes a system, dominate; K8's inverse Hessians
+# distance matrices, 4 A^2 bytes a system, dominate; K8's packed inverse
+# Hessians, 2 n (n + 1) bytes a system of n = 4 x its atoms coordinates,
 # are sliced by ops/bfgs.HESSIAN_BYTES on their own)
 CHUNK_BYTES = 4 << 30
 # the ETK tables of a molecule, per atom: up to ~4 torsion rows (64 bytes

@@ -18,6 +18,12 @@ take them as arguments.
   accepted point again (``bfgs.py:261``), which gives the same values.
   Its line search, :func:`line_search_plain`, is also the lockstep
   L-BFGS's (``ops/lbfgs.py``).
+* :func:`bfgs_onepass_plain` is K8's order of work in plain torch, the
+  same math as :func:`bfgs_plain`: the inverse Hessian kept as its packed
+  upper triangle (:func:`pack_upper`), each accepted step's rank-2 update
+  left pending and added in the next step's one pass over H, which also
+  gives H g (:func:`onepass_plain`); H dg from it and the direction before
+  the cap, and the next direction from dot products with g.
 * :func:`bfgs_minimize` minimizes the systems of a force-field batch
   (:class:`~nvmolkit_tpu_torch.models.flat.ForceField`), with optional
   constraints: on CUDA one launch of the force field's energy kernel (K4 or
@@ -25,7 +31,7 @@ take them as arguments.
   via ``minimizers.cuh``), one block per system for its whole minimization;
   on the CPU the plain version. A build or launch failure raises.
 
-Both return each system's status bits, probes and accepted steps.
+All return each system's status bits, probes and accepted steps.
 ``launch_counts`` counts K8's launches per force field, under
 ``<name>_bfgs`` (0 for one not launched since the last reset).
 """
@@ -36,6 +42,7 @@ import ctypes
 import dataclasses
 from typing import Callable
 
+import numpy as np
 import torch
 
 from nvmolkit_tpu_torch.models import flat
@@ -60,10 +67,15 @@ MAX_LS_ITERS = 64
 # the status bits of BfgsResult.status
 CONVERGED, FAILED, CAPPED = 1, 2, 4
 
-# K8 keeps one (D a_pad)^2 float32 inverse Hessian per system in device
-# memory; a call over more systems than fit in this many bytes runs K8 once
-# per slice of that size, one after another on the stream
+# K8 keeps each system's inverse Hessian in device memory as its packed
+# upper triangle, n (n + 1) / 2 float32 for n = D * its atoms; a call whose
+# triangles take more than this many bytes runs K8 once per slice of that
+# size (hessian_slices), one after another on the stream
 HESSIAN_BYTES = 4 << 30
+
+# the phases of K8's cycle split (bfgs_minimize(..., phase_cycles=True);
+# csrc/minimizers.cuh K8_PHASES)
+K8_PHASES = ["init", "eval", "search", "h_pass", "h_wait", "update"]
 
 launch_counts: collections.Counter = collections.Counter()
 
@@ -83,6 +95,9 @@ class BfgsResult:
     # [S] int32: line searches of each system (the lockstep L-BFGS's
     # iterations, ops/lbfgs.py); None from the other minimizers
     n_searches: torch.Tensor | None = None
+    # int64 [S, len(K8_PHASES)]: K8's cycles per phase and system (thread 0
+    # of its block), from bfgs_minimize(..., phase_cycles=True)
+    phase_cycles: torch.Tensor | None = None
 
 
 def policy():
@@ -249,6 +264,180 @@ def bfgs_plain(
                       n_accepted=accepted)
 
 
+def pack_upper(h: torch.Tensor) -> torch.Tensor:
+    """[S, N, N] -> [S, N (N + 1) / 2]: the upper triangle by rows (row r,
+    columns r..N-1), K8's layout of a system's inverse Hessian."""
+    r, c = torch.triu_indices(h.shape[-1], h.shape[-1], device=h.device)
+    return h[:, r, c]
+
+
+def unpack_upper(p: torch.Tensor, n: int) -> torch.Tensor:
+    """[S, n (n + 1) / 2] -> the symmetric [S, n, n] whose upper triangle
+    :func:`pack_upper` packed."""
+    r, c = torch.triu_indices(n, n, device=p.device)
+    h = p.new_zeros((p.shape[0], n, n))
+    h[:, c, r] = p
+    h[:, r, c] = p
+    return h
+
+
+def onepass_plain(hp: torch.Tensor, n: int, pending: torch.Tensor, xi, hdg, fac_i, fad_i, fae,
+                  g: torch.Tensor):
+    """K8's one pass over the packed inverse Hessians ``hp`` [S, n (n + 1) /
+    2]: where ``pending`` [S], add the update fac_i xi xi^T - fad_i hdg
+    hdg^T + fae u u^T (u = fac_i xi - fad_i hdg) entry by entry, as the
+    kernel writes it; returns (the new hp, H g [S, n]), every stored entry
+    read once: it feeds its row's sum and, off the diagonal, its column's."""
+    r, c = torch.triu_indices(n, n, device=hp.device)
+    u = fac_i[:, None] * xi - fad_i[:, None] * hdg
+    upd = (fac_i[:, None] * (xi[:, r] * xi[:, c]) - fad_i[:, None] * (hdg[:, r] * hdg[:, c])
+           + fae[:, None] * (u[:, r] * u[:, c]))
+    hp = torch.where(pending[:, None], hp + upd, hp)
+    y = torch.zeros_like(g).index_add_(1, r, hp * g[:, c])
+    off = r != c
+    y.index_add_(1, c[off], hp[:, off] * g[:, r[off]])
+    return hp, y
+
+
+def bfgs_onepass_plain(
+    energy_and_grad_fn: Callable,
+    positions: torch.Tensor,   # [S, A, D]
+    atom_mask: torch.Tensor,   # [S, A] bool
+    max_iters: int = 200,
+    grad_tol: float = 1e-4,
+    iter_caps: torch.Tensor | None = None,   # [S] int32
+    grad_tols: torch.Tensor | None = None,   # [S] float32
+    stats: dict | None = None,
+) -> BfgsResult:
+    """:func:`bfgs_plain`'s minimization in K8's order of work. Per accepted
+    step k, one pass (:func:`onepass_plain`) adds the update that step k - 1
+    left pending to the packed H and gives y = H_k g_{k+1}; then H_k dg = y
+    + d_k, with d_k = -H_k g_k the direction before the cap; the update's
+    sums and the dot products xi.g and hdg.g in one reduction; and the next
+    direction -H_{k+1} g_{k+1} = -(y + fac_i xi (xi.g) - fad_i hdg (hdg.g) +
+    fae u (u.g)), u.g = fac_i xi.g - fad_i hdg.g. An update that fails the
+    skip test leaves nothing pending. With ``stats``, it records per
+    iteration which systems leave an update pending (``pending``) and the
+    final packed H (``hessian``)."""
+    S, A, D = positions.shape
+    N = D * A
+    dev, dtype = positions.device, positions.dtype
+    dmask = atom_mask.to(dev).repeat_interleave(D, dim=1).reshape(S, N)
+    n_dof = dmask.sum(dim=1).to(dtype)
+    tol = grad_tol if grad_tols is None else grad_tols.to(dev, dtype)
+
+    def eg(p):
+        e, g = energy_and_grad_fn(p.reshape(S, A, D))
+        return e, g.reshape(S, N)
+
+    def masked_max(x):
+        return torch.where(dmask, x, 0.0).amax(dim=1)
+
+    pos = positions.reshape(S, N)
+    e, grad = eg(pos)
+    hp = pack_upper(torch.eye(N, dtype=dtype, device=dev).expand(1, N, N)).expand(S, -1).clone()
+    zeros = torch.zeros(S, dtype=dtype, device=dev)
+    pending = torch.zeros(S, dtype=torch.bool, device=dev)
+    pxi, phdg = torch.zeros_like(grad), torch.zeros_like(grad)
+    pfac_i, pfad_i, pfae = zeros, zeros, zeros
+    d0 = -grad  # the direction before the cap
+    failed = ~(torch.isfinite(e) & torch.isfinite(grad).all(dim=1))
+    gs0 = grad.abs() * torch.clamp_min(pos.abs(), 1.0)
+    converged = (masked_max(gs0) / torch.clamp_min(e.abs(), 1.0) < tol) & ~failed
+    probes = torch.zeros(S, dtype=torch.int32, device=dev)
+    accepted = torch.zeros(S, dtype=torch.int32, device=dev)
+    if stats is not None:
+        stats["pending"] = []
+
+    for it in range(max_iters):
+        active = ~(converged | failed)
+        if not bool(active.any()):
+            break
+        step_norm = torch.sqrt((d0 * d0).sum(dim=1))
+        max_step = MAXSTEP_FACTOR * torch.maximum(torch.sqrt((pos * pos * dmask).sum(dim=1)), n_dof)
+        scale = torch.where(step_norm > max_step, max_step / torch.clamp_min(step_norm, 1e-30), 1.0)
+        direction = d0 * scale[:, None]
+
+        p_new, e_new, g_new, ls_ok, exhausted = line_search_plain(eg, pos, e, grad, direction,
+                                                                  active, probes)
+        failed = failed | exhausted
+        conv_ls = active & ~ls_ok & ~exhausted
+        xi = p_new - pos
+        conv_x = masked_max(xi.abs() / torch.clamp_min(p_new.abs(), 1.0)) < TOLX
+        gscaled = g_new.abs() * torch.clamp_min(p_new.abs(), 1.0)
+        conv_g = masked_max(gscaled) / torch.clamp_min(e_new.abs(), 1.0) < tol
+        conv_f = 2.0 * (e - e_new).abs() <= TOLF * (e.abs() + e_new.abs() + 1e-10)
+        newly_conv = (conv_ls | (ls_ok & (conv_x | conv_g | conv_f))) & active
+
+        # the one pass: the pending update into H where a step was accepted, y = H_k g_{k+1}
+        hp, y = onepass_plain(hp, N, pending & ls_ok, pxi, phdg, pfac_i, pfad_i, pfae, g_new)
+        dgrad = g_new - grad
+        hdg = y + d0
+        fac = (dgrad * xi).sum(dim=1)
+        fae = (dgrad * hdg).sum(dim=1)
+        sumdg = (dgrad * dgrad).sum(dim=1)
+        sumxi = (xi * xi).sum(dim=1)
+        xg = (xi * g_new).sum(dim=1)
+        hg = (hdg * g_new).sum(dim=1)
+        do_update = (fac > torch.sqrt(EPS * sumdg * sumxi)) & ls_ok
+        fac_i = 1.0 / torch.clamp_min(fac, 1e-30)
+        fad_i = 1.0 / torch.clamp_min(fae, 1e-30)
+        ug = fac_i * xg - fad_i * hg
+        u = fac_i[:, None] * xi - fad_i[:, None] * hdg
+        rank2_g = (fac_i[:, None] * xi * xg[:, None] - fad_i[:, None] * hdg * hg[:, None]
+                   + fae[:, None] * u * ug[:, None])
+        d_new = -(y + torch.where(do_update[:, None], rank2_g, 0.0))
+
+        keep = ls_ok[:, None]
+        pending = torch.where(ls_ok, do_update, pending)
+        pxi, phdg = torch.where(keep, xi, pxi), torch.where(keep, hdg, phdg)
+        pfac_i = torch.where(ls_ok, fac_i, pfac_i)
+        pfad_i = torch.where(ls_ok, fad_i, pfad_i)
+        pfae = torch.where(ls_ok, fae, pfae)
+        if stats is not None:
+            stats["pending"].append(pending.clone())
+        pos = torch.where(keep, p_new, pos)
+        e = torch.where(ls_ok, e_new, e)
+        grad = torch.where(keep, g_new, grad)
+        d0 = torch.where(keep, d_new, d0)
+        accepted += ls_ok.to(torch.int32)
+        converged = converged | newly_conv
+        if iter_caps is not None:
+            failed = failed | (active & ~newly_conv & (it + 1 >= iter_caps.to(dev)))
+
+    if stats is not None:
+        stats["hessian"] = hp
+    capped = ~(converged | failed)
+    return BfgsResult(positions=pos.reshape(S, A, D), energies=e, converged=converged,
+                      n_iters=probes, status=status_bits(converged, failed, capped),
+                      n_accepted=accepted)
+
+
+def hessian_pass_bytes(n) -> np.ndarray:
+    """K8's inverse-Hessian bytes per accepted step for systems of ``n``
+    degrees of freedom: one read and one write of the packed triangle (a
+    step after a skipped update only reads it)."""
+    n = np.asarray(n, np.int64)
+    return 4 * n * (n + 1)
+
+
+def hessian_slices(n_dof) -> tuple[np.ndarray, list[tuple[int, int]]]:
+    """Each system's offset (in floats) into the packed inverse Hessians of
+    systems with ``n_dof`` degrees of freedom, and the slices [start, end)
+    of systems that K8 runs one launch each, their triangles within
+    HESSIAN_BYTES (a system larger than that alone)."""
+    n = np.asarray(n_dof, np.int64)
+    ends = np.cumsum(n * (n + 1) // 2)
+    off = ends - n * (n + 1) // 2
+    slices, start = [], 0
+    while start < len(n):
+        end = int(np.searchsorted(ends, off[start] + HESSIAN_BYTES // 4, side="right"))
+        end = max(end, start + 1)
+        slices.append((start, end))
+        start = end
+    return off, slices
+
+
 def with_constraints(fn: Callable, constraints: ConstraintBatch | None) -> Callable:
     """``fn`` (positions -> (e, g)) plus the constraints' plain penalties."""
     if constraints is None:
@@ -272,12 +461,15 @@ def bfgs_minimize(
     grad_tol: float = 1e-4,
     iter_caps: torch.Tensor | None = None,
     grad_tols: torch.Tensor | None = None,
+    phase_cycles: bool = False,
 ) -> BfgsResult:
     """Minimize the systems ``positions`` [S, A, D] of force field ``ff``,
     system s being molecule ``sys2mol[s]`` (int32) of ``batch``, with the
     penalties of ``constraints`` (its systems the same S) if given. For CUDA
-    tensors the force field's kernel (and K7) on the starts, then K8; for
-    CPU tensors :func:`bfgs_plain`."""
+    tensors the force field's kernel (and K7) on the starts, then K8, each
+    system's packed inverse Hessian at its own offset (one host copy of the
+    atom counts sizes them); for CPU tensors :func:`bfgs_plain`. With
+    ``phase_cycles`` (CUDA), the result holds K8's cycles per phase."""
     n_sys, a_pad = positions.shape[:2]
     if constraints is not None and constraints.n_systems != n_sys:
         raise ValueError(f"constraints for {constraints.n_systems} systems, positions hold {n_sys}")
@@ -303,27 +495,37 @@ def bfgs_minimize(
     status = torch.empty(n_sys, dtype=torch.int32, device=dev)
     steps = torch.empty(n_sys, dtype=torch.int32, device=dev)
     accepted = torch.empty(n_sys, dtype=torch.int32, device=dev)
-    slab = (dim * a_pad) ** 2
-    piece = max(1, min(n_sys, HESSIAN_BYTES // (4 * slab)))
-    hess = torch.empty((piece, slab), dtype=torch.float32, device=dev)
+    # each system's packed triangle at its own offset, sized by its atoms:
+    # the slices on the host (one copy of the counts), the offsets on the card
+    n_dof = dim * count.cpu().numpy().astype(np.int64)
+    off, slices = hessian_slices(n_dof)
+    ends = off + n_dof * (n_dof + 1) // 2
+    n_dev = dim * count.to(torch.int64)
+    sizes = n_dev * (n_dev + 1) // 2
+    hoff = torch.cumsum(sizes, 0) - sizes
+    hess = torch.empty(max((int(ends[b - 1] - off[a]) for a, b in slices), default=0),
+                       dtype=torch.float32, device=dev)
+    cycles = (torch.zeros((n_sys, len(K8_PHASES)), dtype=torch.int64, device=dev)
+              if phase_cycles else None)
     fn = getattr(ff.lib(), f"nvmk_{ff.name}_bfgs")
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     with torch.cuda.device(dev):
-        for base in range(0, n_sys, piece):
+        for start, end in slices:
             rc = fn(
-                positions.data_ptr(), e0.data_ptr(), g0.data_ptr(), n_sys, base,
-                min(piece, n_sys - base), a_pad, sys2mol.data_ptr(), count.data_ptr(),
-                batch.offsets.data_ptr(), batch.n_mols, flat.table_pointers(batch),
-                *ff.extra_args(batch), None if constraints is None else constraints.pointers(),
-                policy(), MAX_LS_ITERS, int(max_iters), float(grad_tol), ptr(iter_caps),
-                ptr(grad_tols), hess.data_ptr(), pos_out.data_ptr(), energies.data_ptr(),
+                positions.data_ptr(), e0.data_ptr(), g0.data_ptr(), n_sys, start, end - start,
+                a_pad, sys2mol.data_ptr(), count.data_ptr(), batch.offsets.data_ptr(),
+                batch.n_mols, flat.table_pointers(batch), *ff.extra_args(batch),
+                None if constraints is None else constraints.pointers(), policy(), MAX_LS_ITERS,
+                int(max_iters), float(grad_tol), ptr(iter_caps), ptr(grad_tols), hess.data_ptr(),
+                hoff.data_ptr(), int(off[start]), pos_out.data_ptr(), energies.data_ptr(),
                 status.data_ptr(), steps.data_ptr(), accepted.data_ptr(),
+                None if cycles is None else cycles[start:].data_ptr(),
                 torch.cuda.current_stream().cuda_stream)
             if rc != 0:
                 raise RuntimeError(f"{ff.name}_bfgs kernel launch failed with CUDA error {rc}")
             launch_counts[f"{ff.name}_bfgs"] += 1
     return BfgsResult(positions=pos_out, energies=energies, converged=(status & CONVERGED) != 0,
-                      n_iters=steps, status=status, n_accepted=accepted)
+                      n_iters=steps, status=status, n_accepted=accepted, phase_cycles=cycles)

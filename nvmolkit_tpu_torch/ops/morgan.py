@@ -17,8 +17,10 @@ Differences from the JAX program, none of which changes a bit:
   * the [B, A, A] duplicate tests loop over bitset words instead of
     materializing [B, A, A, W].
 
-Two versions with the same bits: kernel K14 (``csrc/morgan.cu``: one block
-per molecule, bitsets in shared memory), launched by :func:`morgan_kernel`
+Two versions with the same bits: kernel K14 (``csrc/morgan.cu``: half a
+warp per molecule up to 16 atoms, a warp up to 32, a block per molecule
+past them, bitsets in shared memory; :func:`kernel_layout` says which),
+launched by :func:`morgan_kernel`
 for CUDA tensors on the current stream (a build or launch failure raises,
 there is no fallback), and :func:`morgan_kernel_plain`, many small torch
 operations, used for CPU tensors and by the tests and ``chip_smoke.py`` as
@@ -199,6 +201,13 @@ def morgan_kernel_plain(
         nbr = nbr_new
 
     return pack_bits(bits[:, :fp_size])
+
+
+def kernel_layout(A: int, W: int, radius: int, fp_size: int) -> str:
+    """``"warp"`` when K14 takes molecules of ``A`` atoms (``W`` bitset
+    words) half a warp (up to 16 atoms) or a warp each, several a block;
+    ``"block"`` when a block each. Needs the built kernel (CUDA)."""
+    return "warp" if morgan_lib().nvmk_morgan_warp_layout(A, W, radius, fp_size) else "block"
 
 
 # K14's input dtypes: (name, dtypes it takes)

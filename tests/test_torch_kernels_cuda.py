@@ -605,6 +605,27 @@ def test_bfgs_kernel_follows_plain(cuda, kind):
     assert out["within_bound"] >= smoke.TRAJ_EQUAL_SHARE
 
 
+def test_bfgs_kernel_across_hessian_slices(cuda, monkeypatch):
+    """Systems of mixed sizes in one bucket (38-77 atoms padded to the
+    largest), their packed inverse Hessians cut into several launches by a
+    small HESSIAN_BYTES: K8 launched once per slice, each system following
+    the plain BFGS as chip_smoke.py's trajectory contract holds it."""
+    from nvmolkit_tpu_torch.models.uff.energy import UFF
+    from nvmolkit_tpu_torch.ops import bfgs
+
+    smoke = _load_by_path("chip_smoke.py")
+    x, batch, s2m = _mmff_systems(cuda, list(range(48)), 0.1, 5, uff=True)
+    n_dof = 3 * batch.n_atoms[s2m.long()].cpu().numpy()
+    monkeypatch.setattr(bfgs, "HESSIAN_BYTES", int(2 * n_dof[:7] @ (n_dof[:7] + 1)))
+    _, slices = bfgs.hessian_slices(n_dof)
+    assert len(slices) >= 8 and len(set(n_dof[: slices[0][1]].tolist())) > 1
+    before = bfgs.launch_counts["uff_bfgs"]
+    out = smoke.k8_trajectory_check(x, batch, s2m, None, {}, "k8", UFF)
+    assert bfgs.launch_counts["uff_bfgs"] == before + len(slices)
+    assert out["equal_status_and_steps"] >= smoke.TRAJ_EQUAL_SHARE, out
+    assert out["within_bound"] >= smoke.TRAJ_EQUAL_SHARE, out
+
+
 def test_bfgs_kernel_caps_tolerances_and_bad_starts(cuda):
     """Per-system caps and tolerances, a zero-gradient start and a
     non-finite one: the same status bits and counts as the plain BFGS."""
@@ -1138,17 +1159,26 @@ def _morgan_batches(cuda, chirality):
 
 @pytest.mark.parametrize("radius", range(7))
 def test_morgan_kernel_matches_plain(cuda, radius):
+    """Bit for bit at every bucket: those of <= 32 atoms a warp per molecule,
+    the larger a block per molecule (the 1,024-atom chain's bitsets in
+    global scratch)."""
     from nvmolkit_tpu_torch.ops import morgan
 
+    layouts = set()
     for chirality in (False, True):
         for args in _morgan_batches(cuda, chirality):
             for fp_size in (128, 256, 512, 1024, 2048, 4096):
+                A, W = args[0].shape[1], args[4].shape[2]
+                layout = morgan.kernel_layout(A, W, radius, fp_size)
+                assert layout == ("warp" if A <= 32 else "block"), (A, W, radius, fp_size)
+                layouts.add(layout)
                 before = morgan.launch_counts["morgan"]
                 got = morgan.morgan_kernel(*args, radius=radius, fp_size=fp_size)
                 torch.cuda.synchronize()
                 assert morgan.launch_counts["morgan"] == before + 1
                 want = morgan.morgan_kernel_plain(*args, radius=radius, fp_size=fp_size)
                 assert got.is_cuda and torch.equal(got, want), (args[0].shape, fp_size, chirality)
+    assert layouts == {"warp", "block"}
 
 
 def test_morgan_kernel_refuses_what_it_does_not_take(cuda):
