@@ -1114,8 +1114,8 @@ def add_rule_constraints(ff, mols) -> None:
 def mmff_work(batch, sys2mol, a_pad: int, rates: dict, evals=None) -> dict:
     """K4 (``evals`` None: one evaluation of every system) or K5 (``evals``
     [S]: each system's evaluations) on ``batch``'s systems ``sys2mol``, with
-    K4_OPS per term (K5's L-BFGS vector work, ~30 reductions of 3n per
-    accepted step, is not counted): see :func:`ff_work`."""
+    K4_OPS per term (K5's L-BFGS vector work, ~40 dot products of 3n and two
+    reductions per accepted step, is not counted): see :func:`ff_work`."""
     return ff_work(batch, sys2mol, a_pad, rates, K4_OPS, evals)
 
 
@@ -1539,8 +1539,12 @@ def trajectory_check(run_kernel, run_plain, x, energy_scale, n_steps: int, errs:
         return [float(v) for v in torch.quantile(t[same].double(), torch.tensor(
             [0.5, 0.99, 1.0], dtype=torch.float64, device=t.device))]
 
+    p32_p64_same = (p32.status == p64.status) & (p32.n_iters == p64.n_iters) & (
+        p32.n_accepted == p64.n_accepted)
     return {"systems": int(x.shape[0]), "max_iters": n_steps,
             "accepted_min": int(got.n_accepted.min()), "full_share": float(full.double().mean()),
+            "plain64_full_share": float((p64.n_accepted == n_steps).double().mean()),
+            "plain32_plain64_equal_status_and_steps": float(p32_p64_same.double().mean()),
             "probes_max": int(got.n_iters.max()), "equal_status_and_steps": same_share,
             "within_bound": within, "within_bound_same_starts_spread": within_same,
             "moved_second_run_a": moved, "x_ratio_max": float(x_ratio[same].max()),
@@ -1553,10 +1557,18 @@ def trajectory_check(run_kernel, run_plain, x, energy_scale, n_steps: int, errs:
             "de_kernel_plain32_max": errs[key], "kernel_s": kernel_s}
 
 
-def k5_trajectory_check(x, batch, sys2mol, errs: dict, key: str, ff=None) -> dict:
+def default_moved(ff) -> float:
+    """The trajectory contract's moved second run for force field ``ff``:
+    TRAJ_DG_MOVED for DG and ETK (random starts), none for MMFF and UFF."""
+    return TRAJ_DG_MOVED if ff.name in ("dg", "etk") else 0.0
+
+
+def k5_trajectory_check(x, batch, sys2mol, errs: dict, key: str, ff=None,
+                        checker=check, moved: float | None = None) -> dict:
     """K5 over force field ``ff`` (MMFF by default) against the plain
     L-BFGS through HISTORY + 2 accepted steps (the history fills and its
-    ring wraps)."""
+    ring wraps); ``checker`` and ``moved`` as :func:`trajectory_check`'s
+    (``moved`` by default TRAJ_DG_MOVED for DG and ETK, 0 for MMFF and UFF)."""
     from nvmolkit_tpu_torch.models import flat
     from nvmolkit_tpu_torch.models.mmff.energy import MMFF
     from nvmolkit_tpu_torch.ops import lbfgs_flat
@@ -1569,35 +1581,36 @@ def k5_trajectory_check(x, batch, sys2mol, errs: dict, key: str, ff=None) -> dic
         lambda p: lbfgs_flat.lbfgs(ff, p, batch, sys2mol, n_steps),
         lambda p: lbfgs_flat.lbfgs_flat_plain(fn, p, mask, n_steps), x,
         lambda p: ff_term_magnitude(ff, p, batch, sys2mol), n_steps, errs, key, f"K5 {ff.name}",
-        TRAJ_DG_MOVED if ff.name in ("dg", "etk") else 0.0)
+        default_moved(ff) if moved is None else moved, checker)
 
 
 def k23_trajectory_check(x, batch, sys2mol, errs: dict, key: str, ff,
-                         iters: tuple[int, int] | None = None) -> dict:
+                         iters: tuple[int, int] | None = None, checker=check,
+                         moved: float | None = None) -> dict:
     """K23 (the lockstep L-BFGS) over force field ``ff`` against its plain
     version through HISTORY + 2 line searches (the history fills and its
     ring wraps); with ``iters`` (phase 1, total), the MMFF/UFF driver's
     restart (two launches of the force field's kernel and K23) against its
     plain twin through ``iters[1]`` line searches, phase 1 cut to
-    ``iters[0]``."""
+    ``iters[0]``; ``checker`` and ``moved`` as :func:`k5_trajectory_check`'s."""
     from nvmolkit_tpu_torch.models import flat
     from nvmolkit_tpu_torch.ops import lbfgs
 
     mask = flat.atom_mask(batch, sys2mol, x.shape[1])
     fn = ff.plain_energy_and_grad_fn(batch, sys2mol, x.shape[1])
-    moved = TRAJ_DG_MOVED if ff.name in ("dg", "etk") else 0.0
+    moved = default_moved(ff) if moved is None else moved
     scale = lambda p: ff_term_magnitude(ff, p, batch, sys2mol)  # noqa: E731
     if iters is None:
         n = lbfgs.HISTORY + 2
         return trajectory_check(
             lambda p: lbfgs.lbfgs_lockstep(ff, p, batch, sys2mol, n),
             lambda p: lbfgs.lbfgs_lockstep_plain(fn, p, mask, n), x, scale, n, errs, key,
-            f"K23 {ff.name}", moved)
+            f"K23 {ff.name}", moved, checker)
     p1, n = iters
     return trajectory_check(
         lambda p: lbfgs.minimize_restarting(ff, p, batch, sys2mol, n, phase1_iters=p1),
         lambda p: lbfgs.minimize_restarting_plain(fn, p, mask, n, phase1_iters=p1), x, scale, n,
-        errs, key, f"K23 {ff.name} restarting after {p1} of {n}", moved)
+        errs, key, f"K23 {ff.name} restarting after {p1} of {n}", moved, checker)
 
 
 def k8_extras(run, n_dof, a_pad_dofs: int, rates: dict) -> dict:
@@ -1644,6 +1657,48 @@ def k8_extras(run, n_dof, a_pad_dofs: int, rates: dict) -> dict:
                                        start.elapsed_time(stop)),
             "peak_memory_bytes": peak, "peak_over_allocated_before_bytes": peak - before,
             "hessian_buffer_bytes": buffer, "first_design_hessian_buffer_bytes": first_buffer}
+
+
+def lbfgs_split(steps, cycles, ms: float, info: dict, rates: dict) -> dict:
+    """What one run of K5 or K23 with its phase clock shows: the probes per
+    system ``steps`` (mean, 99th percentile, maximum), its phases' cycles,
+    shares and times in the run's ``ms`` (:func:`phase_split`), and the tail:
+    ``ms`` less the block cycles summed over the launch, divided by the SMs
+    x the resident blocks an SM (``info``, ``lbfgs_flat.kernel_info``) x
+    the SM clock, with the longest block's own time."""
+    import numpy as np
+
+    from nvmolkit_tpu_torch.ops import lbfgs_flat
+
+    steps = np.asarray(steps, np.int64)
+    per_block = cycles.sum(dim=1).double()
+    clock_hz = rates["max_sm_clock_mhz"] * 1e6
+    packed_ms = float(per_block.sum()) / (rates["sms"] * info["blocks_per_sm"]) / clock_hz * 1e3
+    return {"probes_mean": float(steps.mean()), "probes_p99": float(np.percentile(steps, 99)),
+            "probes_max": int(steps.max()),
+            "phase_split": phase_split(cycles, lbfgs_flat.K5_PHASES, ms),
+            "tail_ms": ms - packed_ms, "tail_share": (ms - packed_ms) / ms,
+            "longest_block_ms": float(per_block.max()) / clock_hz * 1e3}
+
+
+def lbfgs_extras(run, ff, a_pad: int, lockstep: bool, rates: dict) -> dict:
+    """K5's or K23's row beside its bound: the instantiation's registers,
+    spilled bytes, resident blocks an SM, shared bytes and bounds staging
+    (``lbfgs_flat.kernel_info``), and :func:`lbfgs_split` of one more run
+    ``run(phase_cycles=True)``."""
+    import torch
+
+    from nvmolkit_tpu_torch.ops import lbfgs_flat
+
+    info = lbfgs_flat.kernel_info(ff, a_pad, lockstep)
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    res = run(True)
+    stop.record()
+    torch.cuda.synchronize()
+    return {**info, **lbfgs_split(res.n_iters.cpu().numpy(), res.phase_cycles.cpu(),
+                                  start.elapsed_time(stop), info, rates)}
 
 
 def k8_trajectory_check(x, batch, sys2mol, constraints, errs: dict, key: str, ff) -> dict:
@@ -3571,6 +3626,18 @@ def main() -> int:
     emit(phase="lbfgs", max_iters=MMFF_MAX_ITERS, phase1_iters=lockstep_ops.PHASE1_ITERS,
          runs=lockstep_runs, etkdg=lb_run, k23_trajectories=lock_traj,
          seconds=time.perf_counter() - t_phase)
+    # every instantiation of K5 and K23 the atom buckets up to 256 take: its
+    # registers, spilled bytes, resident blocks an SM, shared bytes and
+    # whether it stages the bounds (DG and ETK: both routes, the staged one
+    # always up to lbfgs_flat.STAGE_MAX_ATOMS, past it for a launch that fits
+    # in one wave of staged blocks; 0 blocks an SM where its shared memory
+    # does not fit)
+    emit(phase="lbfgs_instantiations", stage_max_atoms=lbfgs_flat.STAGE_MAX_ATOMS,
+         rows=[{"force_field": ff.name, "kernel": "K23" if lock else "K5", "a_pad": a,
+                **lbfgs_flat.kernel_info(ff, a, lock, staged)}
+               for ff in (mmff_energy.MMFF, uff_energy.UFF, dist_geom.DG, etk.ETK)
+               for a in HardwareOptions().atomBuckets for lock in (False, True)
+               for staged in ((True, False) if ff.name in ("dg", "etk") else (False,))])
 
     # 6f. substructure search: bench.py's configuration (make_druglike_smiles
     # (8192) x benchmarks/substruct_bench.py's 8 queries, and x its 6 recursive
@@ -3826,6 +3893,9 @@ def main() -> int:
                  mmff_work(chunk_batch, chunk_s2m, int(big_b), rates, chunk_evals),
                  lambda: lbfgs_flat.mmff_lbfgs(x_k, chunk_batch, chunk_s2m, MMFF_MAX_ITERS),
                  None, reps=3)
+    k5_row.update(lbfgs_extras(lambda on: lbfgs_flat.lbfgs(
+        mmff_energy.MMFF, x_k, chunk_batch, chunk_s2m, MMFF_MAX_ITERS, phase_cycles=on),
+        mmff_energy.MMFF, int(big_b), False, rates))
     k5_row.update(evaluations=int(chunk_evals.sum()), evaluations_max=int(chunk_evals.max()),
                   plain_ms=plain_minimize_s * 1e3,
                   plain_shape=f"{sub_x.shape[0]} systems x {a_sub} atoms (phase mmff), one run",
@@ -3849,6 +3919,9 @@ def main() -> int:
                   uff_work(uchunk_batch, chunk_s2m, int(big_b), rates, uchunk_evals),
                   lambda: lbfgs_flat.uff_lbfgs(x_k, uchunk_batch, chunk_s2m, MMFF_MAX_ITERS),
                   None, reps=3)
+    k5u_row.update(lbfgs_extras(lambda on: lbfgs_flat.lbfgs(
+        uff_energy.UFF, x_k, uchunk_batch, chunk_s2m, MMFF_MAX_ITERS, phase_cycles=on),
+        uff_energy.UFF, int(big_b), False, rates))
     k5u_row.update(evaluations=int(uchunk_evals.sum()), plain_ms=uff_plain_minimize_s * 1e3,
                    plain_shape=f"{usub_x.shape[0]} systems x {a_sub} atoms (phase uff), one run")
     # K23 over MMFF and UFF at the same chunk: the restart driver's whole
@@ -3870,6 +3943,8 @@ def main() -> int:
         lockstep_ops.minimize_restarting_plain(ff.plain_energy_and_grad_fn(b_sub, s_sub, a_sub),
                                                x_sub, sub_mask, MMFF_MAX_ITERS)
         torch.cuda.synchronize()
+        entry.update(lbfgs_extras(lambda on, ff=ff, b=b_chunk: lockstep_ops.minimize_restarting(
+            ff, x_k, b, chunk_s2m, MMFF_MAX_ITERS, phase_cycles=on), ff, int(big_b), True, rates))
         entry.update(evaluations=int(evals.sum()), evaluations_max=int(evals.max()),
                      searches_mean=float(res.n_searches.double().mean()),
                      converged=float(res.converged.double().mean()),
@@ -3988,6 +4063,10 @@ def main() -> int:
             entry.update(k8_extras(lambda on: bfgs.bfgs_minimize(
                 dist_geom.DG, eb["x0"], dg_first, eb["s2m"], max_iters=first_iters,
                 phase_cycles=on), 4 * e_sys_n, 4 * big_e, rates))
+        else:
+            entry.update(lbfgs_extras(lambda on, m=minimize: m(
+                dist_geom.DG, eb["x0"], dg_first, eb["s2m"], max_iters=first_iters,
+                phase_cycles=on), dist_geom.DG, big_e, key == K23D, rates))
         dg_rows[key] = entry
     pos3_t = pos3[: eb["s2m"].shape[0]]
     k12_args_t = (pos3_t, eb["batch"].upper, eb["batch"].lower, eb["s2m"],
@@ -4028,6 +4107,10 @@ def main() -> int:
             entry.update(k8_extras(lambda on: bfgs.bfgs_minimize(
                 etk.ETK, x_etk, big_etk, eb["s2m"], max_iters=etk_iters, phase_cycles=on),
                 3 * e_sys_n, 3 * big_e, rates))
+        else:
+            entry.update(lbfgs_extras(lambda on, m=minimize: m(
+                etk.ETK, x_etk, big_etk, eb["s2m"], max_iters=etk_iters, phase_cycles=on),
+                etk.ETK, big_e, key == K23E, rates))
         etk_rows[key] = entry
     # K14 over every chunk of the main path, back to back; K15 alone at the
     # main path's matrix; K16 alone at 100k from K2's counts (a fresh copy

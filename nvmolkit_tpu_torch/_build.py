@@ -179,17 +179,21 @@ def _declare_mmff(lib: ctypes.CDLL) -> None:
 
 
 def _declare_ff(lib: ctypes.CDLL, ff: str, extra: list) -> None:
-    """K5, K23 and K8 of one force field; ``extra`` are the force field's own
-    arguments after its tables (MMFF's dielectric constant and model)."""
+    """K5, K23 (and their attributes) and K8 of one force field; ``extra``
+    are the force field's own arguments after its tables (MMFF's dielectric
+    constant and model)."""
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     tables, fp = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(cf)
     lbfgs, bfgs = getattr(lib, f"nvmk_{ff}_lbfgs"), getattr(lib, f"nvmk_{ff}_bfgs")
     lockstep = getattr(lib, f"nvmk_{ff}_lbfgs_lockstep")
     lbfgs.restype = bfgs.restype = lockstep.restype = ci
     lbfgs.argtypes = [vp, vp, vp, ci, ci, vp, vp, vp, ci, tables, *extra, fp, ci, ci, cf, ci,
-                      vp, vp, vp, vp, vp, vp]
+                      vp, vp, vp, vp, vp, ci, vp, vp]
     lockstep.argtypes = [vp, vp, vp, vp, ci, ci, vp, vp, vp, ci, tables, *extra, fp, ci, ci, cf,
-                         vp, vp, vp, vp, vp, vp, vp]
+                         vp, vp, vp, vp, vp, vp, ci, vp, vp]
+    info = getattr(lib, f"nvmk_{ff}_lbfgs_info")
+    info.restype = ci
+    info.argtypes = [ci, ci, ci, ctypes.POINTER(ci)]
     bfgs.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp, vp, vp, ci, tables, *extra, tables, fp, ci,
                      ci, cf, vp, vp, vp, vp, ctypes.c_longlong, vp, vp, vp, vp, vp, vp, vp]
 

@@ -18,8 +18,9 @@
 // with the JAX function's guards: no derivative of the 1e-8 floor where it
 // binds. The weights are launch arguments ((1.0, 0.1) in the first
 // embedding stage, (0.2, 1.0) in the second). The bounds are each
-// molecule's smoothed [a_pad, a_pad] matrices, read from global memory
-// (the L2 holds them: the conformers of a molecule share them).
+// molecule's smoothed [a_pad, a_pad] matrices in global memory, which K11
+// and K8 read there (the conformers of a molecule share them in the L2);
+// K5 and K23 stage each system's pairs in shared memory once (dg_pairs.cuh).
 //
 // One block of 128 threads per system. The pair terms go by rows
 // (dg_pairs.cuh, shared with K13 at 3 coordinates): a group of 1..32 lanes
@@ -48,16 +49,22 @@ struct DgTables {
   float w_chiral, w_fourth;
 };
 
+// the molecule's bounds matrices in device memory
+__device__ __forceinline__ SquareBounds dg_bounds(const DgTables& t, int mol) {
+  const size_t mat = (size_t)mol * t.a_pad * t.a_pad;
+  return SquareBounds{t.ub + mat, t.lb + mat, t.a_pad};
+}
+
 // K11's device function: the energy of one system of molecule ``mol`` at
 // positions ``x`` (shared, 4 floats per atom) and its gradient into ``g``
-// (shared; its first n_dof entries are overwritten). Returns the energy in
-// every thread; ``g`` is complete on return.
-__device__ float dg_eval(const DgTables& t, int mol, const float* x, float* g, int n_dof,
-                         float* red) {
-  const size_t mat = (size_t)mol * t.a_pad * t.a_pad;
+// (shared; its first n_dof entries are overwritten), the pair bounds read
+// through ``bounds`` (dg_pairs.cuh). Returns the energy in every thread;
+// ``g`` is complete on return.
+template <class Bounds>
+__device__ float dg_eval(const DgTables& t, int mol, const Bounds& bounds, const float* x,
+                         float* g, int n_dof, float* red) {
   const float w4 = t.w_fourth;
-  float e = distance_pairs<4>(t.ub + mat, t.lb + mat, t.a_pad, x, n_dof / 4,
-                              [&](int i, const float (&gi)[4], float ei) {
+  float e = distance_pairs<4>(bounds, x, n_dof / 4, [&](int i, const float (&gi)[4], float ei) {
     const float x4 = x[4 * i + 3];
     g[4 * i] = gi[0];
     g[4 * i + 1] = gi[1];
@@ -99,12 +106,23 @@ __device__ float dg_eval(const DgTables& t, int mol, const float* x, float* g, i
   return block_sum(e, red);
 }
 
-// the force field the minimizers take
+// the force field the minimizers take; K5 and K23 stage its pair bounds in
+// shared memory (``stage``, then ``eval_staged``)
 struct Dg {
   static constexpr int kDim = 4;
+  static constexpr bool kStaged = true;
+  static constexpr int kLbfgsBlocks = 8;  // K5/K23: blocks an SM (minimizers.cuh)
+  static constexpr int kLbfgsStagedBlocks = 6;
   DgTables t;
   __device__ float eval(int mol, const float* x, float* g, int n_dof, float* red) const {
-    return dg_eval(t, mol, x, g, n_dof, red);
+    return dg_eval(t, mol, dg_bounds(t, mol), x, g, n_dof, red);
+  }
+  __device__ void stage(int mol, int n, float2* ul) const {
+    stage_bounds(dg_bounds(t, mol), n, ul);
+  }
+  __device__ float eval_staged(int mol, const float* x, float* g, int n_dof, float* red,
+                               const float2* ul) const {
+    return dg_eval(t, mol, PackedBounds{ul, n_dof / 4}, x, g, n_dof, red);
   }
 };
 
@@ -124,7 +142,8 @@ energy_grad_kernel(const float* __restrict__ pos, int a_pad, const int* __restri
   const float* px = pos + s * row;
   for (int i = threadIdx.x; i < n_dof; i += THREADS) x[i] = px[i];
   __syncthreads();
-  const float e = dg_eval(t, sys2mol[s], x, g, n_dof, red);
+  const int mol = sys2mol[s];
+  const float e = dg_eval(t, mol, dg_bounds(t, mol), x, g, n_dof, red);
   if (threadIdx.x == 0) energy[s] = e;
   float* pg = grad + s * row;
   for (int i = threadIdx.x; i < row; i += THREADS) pg[i] = i < n_dof ? g[i] : 0.0f;
@@ -154,6 +173,12 @@ extern "C" {
 // wrappers size rows and Hessian slabs by it)
 int nvmk_dg_dim() { return Dg::kDim; }
 
+// K5's (``lockstep`` 0) or K23's registers, spilled bytes, blocks an SM,
+// shared bytes and bounds staging at ``a_pad`` and ``stage`` (see lbfgs_info)
+int nvmk_dg_lbfgs_info(int lockstep, int a_pad, int stage, int* out) {
+  return lbfgs_info<Dg>(lockstep, a_pad, stage, out);
+}
+
 // K11: energy [n_sys] and gradient [n_sys, a_pad, 4] of the systems at ``pos``
 // [n_sys, a_pad, 4]. ``tables`` holds 4 device pointers: the int32 chiral
 // quartets [C, 4], their float32 windows [C, 2], and the float32 smoothed
@@ -175,11 +200,12 @@ int nvmk_dg_lbfgs(const float* pos0, const float* e0, const float* g0, int n_sys
                   const int* sys2mol, const int* atom_count, const int* off, int n_mols,
                   const void* const* tables, float w_chiral, float w_fourth, const float* policy,
                   int max_ls_iters, int max_iters, float grad_tol, int max_steps, float* pos_out,
-                  float* e_out, int* status, int* steps, int* accepted, void* stream) {
+                  float* e_out, int* status, int* steps, int* accepted, int stage,
+                  long long* cycles, void* stream) {
   return launch_lbfgs<false>(make_dg(off, tables, a_pad, w_chiral, w_fourth), pos0, e0, g0, nullptr,
                              n_sys, a_pad, sys2mol, atom_count, policy, max_ls_iters, max_iters,
                              grad_tol, max_steps, pos_out, e_out, status, steps, accepted, nullptr,
-                             stream);
+                             stage, cycles, stream);
 }
 
 // K23 over the DG force field (see launch_lbfgs): max_iters line searches at most;
@@ -191,10 +217,11 @@ int nvmk_dg_lbfgs_lockstep(const float* pos0, const float* e0, const float* g0, 
                            const int* off, int n_mols, const void* const* tables, float w_chiral,
                            float w_fourth, const float* policy, int max_ls_iters, int max_iters,
                            float grad_tol, float* pos_out, float* e_out, int* status, int* iters,
-                           int* probes, int* accepted, void* stream) {
+                           int* probes, int* accepted, int stage, long long* cycles, void* stream) {
   return launch_lbfgs<true>(make_dg(off, tables, a_pad, w_chiral, w_fourth), pos0, e0, g0, done,
                             n_sys, a_pad, sys2mol, atom_count, policy, max_ls_iters, max_iters,
-                            grad_tol, 0, pos_out, e_out, status, probes, accepted, iters, stream);
+                            grad_tol, 0, pos_out, e_out, status, probes, accepted, iters,
+                            stage, cycles, stream);
 }
 
 // K8 over the DG force field (see launch_bfgs); the DG stages take no

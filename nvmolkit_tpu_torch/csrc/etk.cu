@@ -104,16 +104,22 @@ __device__ __forceinline__ float torsion_term(const int* a, const float* p, cons
   return e;
 }
 
+// the molecule's bounds matrices in device memory
+__device__ __forceinline__ SquareBounds etk_bounds(const EtkTables& t, int mol) {
+  const size_t mat = (size_t)mol * t.a_pad * t.a_pad;
+  return SquareBounds{t.ub + mat, t.lb + mat, t.a_pad};
+}
+
 // K13's device function: the energy of one system of molecule ``mol`` at
 // positions ``x`` (shared, 3 floats per atom) and its gradient into ``g``
-// (shared; its first n_dof entries are overwritten). Returns the energy in
-// every thread; ``g`` is complete on return.
-__device__ float etk_eval(const EtkTables& t, int mol, const float* x, float* g, int n_dof,
-                          float* red) {
-  const size_t mat = (size_t)mol * t.a_pad * t.a_pad;
+// (shared; its first n_dof entries are overwritten), the pair bounds read
+// through ``bounds`` (dg_pairs.cuh). Returns the energy in every thread;
+// ``g`` is complete on return.
+template <class Bounds>
+__device__ float etk_eval(const EtkTables& t, int mol, const Bounds& bounds, const float* x,
+                          float* g, int n_dof, float* red) {
   const float w = t.w_bounds;
-  float e = distance_pairs<3>(t.ub + mat, t.lb + mat, t.a_pad, x, n_dof / 3,
-                              [&](int i, const float (&gi)[3], float ei) {
+  float e = distance_pairs<3>(bounds, x, n_dof / 3, [&](int i, const float (&gi)[3], float ei) {
     g[3 * i] = w * gi[0];
     g[3 * i + 1] = w * gi[1];
     g[3 * i + 2] = w * gi[2];
@@ -134,12 +140,23 @@ __device__ float etk_eval(const EtkTables& t, int mol, const float* x, float* g,
   return block_sum(e, red);
 }
 
-// the force field the minimizers take
+// the force field the minimizers take; K5 and K23 stage its pair bounds in
+// shared memory (``stage``, then ``eval_staged``)
 struct Etk {
   static constexpr int kDim = 3;
+  static constexpr bool kStaged = true;
+  static constexpr int kLbfgsBlocks = 8;  // K5/K23: blocks an SM (minimizers.cuh)
+  static constexpr int kLbfgsStagedBlocks = 7;
   EtkTables t;
   __device__ float eval(int mol, const float* x, float* g, int n_dof, float* red) const {
-    return etk_eval(t, mol, x, g, n_dof, red);
+    return etk_eval(t, mol, etk_bounds(t, mol), x, g, n_dof, red);
+  }
+  __device__ void stage(int mol, int n, float2* ul) const {
+    stage_bounds(etk_bounds(t, mol), n, ul);
+  }
+  __device__ float eval_staged(int mol, const float* x, float* g, int n_dof, float* red,
+                               const float2* ul) const {
+    return etk_eval(t, mol, PackedBounds{ul, n_dof / 3}, x, g, n_dof, red);
   }
 };
 
@@ -159,7 +176,8 @@ energy_grad_kernel(const float* __restrict__ pos, int a_pad, const int* __restri
   const float* px = pos + s * row;
   for (int i = threadIdx.x; i < n_dof; i += THREADS) x[i] = px[i];
   __syncthreads();
-  const float e = etk_eval(t, sys2mol[s], x, g, n_dof, red);
+  const int mol = sys2mol[s];
+  const float e = etk_eval(t, mol, etk_bounds(t, mol), x, g, n_dof, red);
   if (threadIdx.x == 0) energy[s] = e;
   float* pg = grad + s * row;
   for (int i = threadIdx.x; i < row; i += THREADS) pg[i] = i < n_dof ? g[i] : 0.0f;
@@ -190,6 +208,12 @@ extern "C" {
 // wrappers size rows and Hessian slabs by it)
 int nvmk_etk_dim() { return Etk::kDim; }
 
+// K5's (``lockstep`` 0) or K23's registers, spilled bytes, blocks an SM,
+// shared bytes and bounds staging at ``a_pad`` and ``stage`` (see lbfgs_info)
+int nvmk_etk_lbfgs_info(int lockstep, int a_pad, int stage, int* out) {
+  return lbfgs_info<Etk>(lockstep, a_pad, stage, out);
+}
+
 // K13: energy [n_sys] and gradient [n_sys, a_pad, 3] of the systems at ``pos``
 // [n_sys, a_pad, 3]. ``tables`` holds 6 device pointers: the int32 improper
 // and torsion quartets [I, 4] and [T, 4], their float32 rows [I, 1] and
@@ -212,11 +236,12 @@ int nvmk_etk_lbfgs(const float* pos0, const float* e0, const float* g0, int n_sy
                    const int* sys2mol, const int* atom_count, const int* off, int n_mols,
                    const void* const* tables, float w_bounds, const float* policy,
                    int max_ls_iters, int max_iters, float grad_tol, int max_steps, float* pos_out,
-                   float* e_out, int* status, int* steps, int* accepted, void* stream) {
+                   float* e_out, int* status, int* steps, int* accepted, int stage,
+                   long long* cycles, void* stream) {
   return launch_lbfgs<false>(make_etk(off, n_mols, tables, a_pad, w_bounds), pos0, e0, g0, nullptr,
                              n_sys, a_pad, sys2mol, atom_count, policy, max_ls_iters, max_iters,
                              grad_tol, max_steps, pos_out, e_out, status, steps, accepted, nullptr,
-                             stream);
+                             stage, cycles, stream);
 }
 
 // K23 over the ETK force field (see launch_lbfgs): max_iters line searches at most;
@@ -228,10 +253,11 @@ int nvmk_etk_lbfgs_lockstep(const float* pos0, const float* e0, const float* g0,
                             const int* off, int n_mols, const void* const* tables, float w_bounds,
                             const float* policy, int max_ls_iters, int max_iters, float grad_tol,
                             float* pos_out, float* e_out, int* status, int* iters, int* probes,
-                            int* accepted, void* stream) {
+                            int* accepted, int stage, long long* cycles, void* stream) {
   return launch_lbfgs<true>(make_etk(off, n_mols, tables, a_pad, w_bounds), pos0, e0, g0, done,
                             n_sys, a_pad, sys2mol, atom_count, policy, max_ls_iters, max_iters,
-                            grad_tol, 0, pos_out, e_out, status, probes, accepted, iters, stream);
+                            grad_tol, 0, pos_out, e_out, status, probes, accepted, iters,
+                            stage, cycles, stream);
 }
 
 // K8 over the ETK force field (see launch_bfgs); the ETK stage takes no

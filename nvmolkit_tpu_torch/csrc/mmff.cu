@@ -36,10 +36,12 @@
 // square root and one to three divisions or inverse trigonometric calls
 // each; nonbonded pairs are ~85 % of the terms at drug-like sizes. Its bytes
 // are the tables (once per molecule, however many conformers) and the
-// positions and gradients. K5 is K4 once per probe plus ~30 block
-// reductions per accepted step; it moves no bytes between probes. One block
-// of 128 threads per system keeps a system's work on one SM, with many
-// systems resident per SM to hide the reductions' latency. IEEE division and
+// positions and gradients. K5 is K4 once per probe plus two block
+// reductions per accepted step (minimizers.cuh); it moves no bytes between
+// probes, and over MMFF its evaluations are ~90 % of it
+// (tools/lbfgs_phase_split.py). One block of 128 threads per system keeps a
+// system's work on one SM, 10 systems resident per SM (launch bounds) to
+// hide the evaluations' latency. IEEE division and
 // square root (no fast math); float32 throughout, as the JAX package's
 // default working dtype.
 
@@ -210,6 +212,8 @@ __device__ float mmff_eval(const Tables& t, int mol, const float* x, float* g, i
 // the force field the minimizers take
 struct Mmff {
   static constexpr int kDim = 3;
+  static constexpr bool kStaged = false;  // no pair bounds to stage
+  static constexpr int kLbfgsBlocks = 10;  // K5/K23: blocks an SM (minimizers.cuh)
   Tables t;
   __device__ float eval(int mol, const float* x, float* g, int n_dof, float* red) const {
     return mmff_eval(t, mol, x, g, n_dof, red);
@@ -260,6 +264,12 @@ extern "C" {
 // wrappers size rows and Hessian slabs by it)
 int nvmk_mmff_dim() { return Mmff::kDim; }
 
+// K5's (``lockstep`` 0) or K23's registers, spilled bytes, blocks an SM,
+// shared bytes and bounds staging at ``a_pad`` and ``stage`` (see lbfgs_info)
+int nvmk_mmff_lbfgs_info(int lockstep, int a_pad, int stage, int* out) {
+  return lbfgs_info<Mmff>(lockstep, a_pad, stage, out);
+}
+
 // K4: energy [n_sys] and gradient [n_sys, a_pad, 3] of the systems at ``pos``
 // [n_sys, a_pad, 3]. ``tables`` holds 12 device pointers: the int32 atom
 // columns of the six kinds, then their float32 parameter rows.
@@ -282,11 +292,11 @@ int nvmk_mmff_lbfgs(const float* pos0, const float* e0, const float* g0, int n_s
                     const void* const* tables, float diel_constant, int diel_model,
                     const float* policy, int max_ls_iters, int max_iters, float grad_tol,
                     int max_steps, float* pos_out, float* e_out, int* status, int* steps,
-                    int* accepted, void* stream) {
+                    int* accepted, int stage, long long* cycles, void* stream) {
   return launch_lbfgs<false>(make_mmff(off, n_mols, tables, diel_constant, diel_model), pos0, e0,
                              g0, nullptr, n_sys, a_pad, sys2mol, atom_count, policy, max_ls_iters,
                              max_iters, grad_tol, max_steps, pos_out, e_out, status, steps,
-                             accepted, nullptr, stream);
+                             accepted, nullptr, stage, cycles, stream);
 }
 
 // K23 over MMFF (see launch_lbfgs): max_iters line searches at most;
@@ -299,11 +309,11 @@ int nvmk_mmff_lbfgs_lockstep(const float* pos0, const float* e0, const float* g0
                              float diel_constant, int diel_model, const float* policy,
                              int max_ls_iters, int max_iters, float grad_tol, float* pos_out,
                              float* e_out, int* status, int* iters, int* probes, int* accepted,
-                             void* stream) {
+                             int stage, long long* cycles, void* stream) {
   return launch_lbfgs<true>(make_mmff(off, n_mols, tables, diel_constant, diel_model), pos0, e0, g0,
                             done, n_sys, a_pad, sys2mol, atom_count, policy, max_ls_iters,
                             max_iters, grad_tol, 0, pos_out, e_out, status, probes, accepted, iters,
-                            stream);
+                            stage, cycles, stream);
 }
 
 // K8 over MMFF, with K7's constraint tables ``ctables`` or null (see launch_bfgs)

@@ -144,6 +144,8 @@ __device__ float uff_eval(const Tables& t, int mol, const float* x, float* g, in
 // the force field the minimizers take
 struct Uff {
   static constexpr int kDim = 3;
+  static constexpr bool kStaged = false;  // no pair bounds to stage
+  static constexpr int kLbfgsBlocks = 10;  // K5/K23: blocks an SM (minimizers.cuh)
   Tables t;
   __device__ float eval(int mol, const float* x, float* g, int n_dof, float* red) const {
     return uff_eval(t, mol, x, g, n_dof, red);
@@ -191,6 +193,12 @@ extern "C" {
 // wrappers size rows and Hessian slabs by it)
 int nvmk_uff_dim() { return Uff::kDim; }
 
+// K5's (``lockstep`` 0) or K23's registers, spilled bytes, blocks an SM,
+// shared bytes and bounds staging at ``a_pad`` and ``stage`` (see lbfgs_info)
+int nvmk_uff_lbfgs_info(int lockstep, int a_pad, int stage, int* out) {
+  return lbfgs_info<Uff>(lockstep, a_pad, stage, out);
+}
+
 // K6: energy [n_sys] and gradient [n_sys, a_pad, 3] of the systems at ``pos``
 // [n_sys, a_pad, 3]. ``tables`` holds 10 device pointers: the int32 atom
 // columns of the five kinds, then their float32 parameter rows.
@@ -209,10 +217,12 @@ int nvmk_uff_lbfgs(const float* pos0, const float* e0, const float* g0, int n_sy
                    const int* sys2mol, const int* atom_count, const int* off, int n_mols,
                    const void* const* tables, const float* policy, int max_ls_iters,
                    int max_iters, float grad_tol, int max_steps, float* pos_out, float* e_out,
-                   int* status, int* steps, int* accepted, void* stream) {
+                   int* status, int* steps, int* accepted, int stage, long long* cycles,
+                   void* stream) {
   return launch_lbfgs<false>(make_uff(off, n_mols, tables), pos0, e0, g0, nullptr, n_sys, a_pad,
                              sys2mol, atom_count, policy, max_ls_iters, max_iters, grad_tol,
-                             max_steps, pos_out, e_out, status, steps, accepted, nullptr, stream);
+                             max_steps, pos_out, e_out, status, steps, accepted, nullptr,
+                             stage, cycles, stream);
 }
 
 // K23 over UFF (see launch_lbfgs): max_iters line searches at most;
@@ -224,10 +234,10 @@ int nvmk_uff_lbfgs_lockstep(const float* pos0, const float* e0, const float* g0,
                             const int* off, int n_mols, const void* const* tables,
                             const float* policy, int max_ls_iters, int max_iters, float grad_tol,
                             float* pos_out, float* e_out, int* status, int* iters, int* probes,
-                            int* accepted, void* stream) {
+                            int* accepted, int stage, long long* cycles, void* stream) {
   return launch_lbfgs<true>(make_uff(off, n_mols, tables), pos0, e0, g0, done, n_sys, a_pad,
                             sys2mol, atom_count, policy, max_ls_iters, max_iters, grad_tol, 0,
-                            pos_out, e_out, status, probes, accepted, iters, stream);
+                            pos_out, e_out, status, probes, accepted, iters, stage, cycles, stream);
 }
 
 // K8 over UFF, with K7's constraint tables ``ctables`` or null (see launch_bfgs)

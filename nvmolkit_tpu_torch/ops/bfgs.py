@@ -95,8 +95,9 @@ class BfgsResult:
     # [S] int32: line searches of each system (the lockstep L-BFGS's
     # iterations, ops/lbfgs.py); None from the other minimizers
     n_searches: torch.Tensor | None = None
-    # int64 [S, len(K8_PHASES)]: K8's cycles per phase and system (thread 0
-    # of its block), from bfgs_minimize(..., phase_cycles=True)
+    # int64 [S, phases]: the kernel's cycles per phase and system (thread 0
+    # of its block), from phase_cycles=True: K8's (K8_PHASES) or K5's and
+    # K23's (ops/lbfgs_flat.K5_PHASES)
     phase_cycles: torch.Tensor | None = None
 
 
@@ -110,7 +111,8 @@ def status_bits(converged, failed, capped) -> torch.Tensor:
             + capped.to(torch.int32) * CAPPED)
 
 
-def line_search_plain(eg: Callable, pos, e, grad, direction, active, probes):
+def line_search_plain(eg: Callable, pos, e, grad, direction, active, probes, slope=None,
+                      lam_min=None):
     """One Numerical-Recipes line search (the JAX package's
     ``ops/bfgs.py:65-141``) of every ``active`` system at once, from ``pos``
     [S, N] (energy ``e``, gradient ``grad``) along ``direction``, with
@@ -119,12 +121,15 @@ def line_search_plain(eg: Callable, pos, e, grad, direction, active, probes):
     lambda * slope. Adds each system's probes to ``probes``; returns the
     accepted point's (positions, energy, gradient) (the start's where none
     was accepted), ``ls_ok`` and ``exhausted`` (still live after
-    MAX_LS_ITERS probes)."""
+    MAX_LS_ITERS probes). ``slope`` and ``lam_min``, when given, replace
+    those summed over ``direction``."""
     S = pos.shape[0]
     dtype, dev = pos.dtype, pos.device
-    slope = (grad * direction).sum(dim=1)
-    rel = direction.abs() / torch.clamp_min(pos.abs(), 1.0)
-    lam_min = MOVETOL / torch.clamp_min(rel.amax(dim=1), 1e-30)
+    if slope is None:
+        slope = (grad * direction).sum(dim=1)
+    if lam_min is None:
+        rel = direction.abs() / torch.clamp_min(pos.abs(), 1.0)
+        lam_min = MOVETOL / torch.clamp_min(rel.amax(dim=1), 1e-30)
     lam = torch.ones(S, dtype=dtype, device=dev)
     lam2 = torch.zeros(S, dtype=dtype, device=dev)
     e2, e_new, p_new, g_new = e, e, pos, grad

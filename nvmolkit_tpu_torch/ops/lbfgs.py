@@ -28,12 +28,15 @@ in four places, each kept:
 * :func:`lbfgs_lockstep_plain` is the plain version, the whole batch in
   lockstep as the JAX function is, over any ``energy_and_grad_fn``, in the
   positions' dtype; :func:`minimize_restarting_plain` the driver over it.
+  With ``fused=True`` it is the torch model of K23's order (K5's:
+  ``ops/lbfgs_flat.compact_direction`` and ``fused_cap``).
 * :func:`lbfgs_lockstep` minimizes the systems of a force-field batch: on
   CUDA it launches the force field's energy kernel (K4, K6, K11 or K13) on
   the starts, then K23 (``csrc/minimizers.cuh``, K5's body instantiated
   with ``Lockstep``) once, one block per system for its whole
   minimization; on the CPU the plain version. A build or launch failure
-  raises.
+  raises. ``phase_cycles=True`` returns K23's cycles per phase, summed over
+  the restart's two launches.
 
 Both take an optional int32 ``done`` status per system: a system whose
 CONVERGED bit is set keeps its inputs and status and runs nothing, which is
@@ -52,6 +55,7 @@ from typing import Callable
 import torch
 
 from nvmolkit_tpu_torch.models import flat
+from nvmolkit_tpu_torch.ops import lbfgs_flat
 from nvmolkit_tpu_torch.ops.bfgs import (
     CONVERGED,
     EPS,
@@ -81,11 +85,13 @@ def lbfgs_lockstep_plain(
     max_iters: int = 200,
     grad_tol: float = 1e-4,
     done: torch.Tensor | None = None,   # [S] int32 status
+    fused: bool = False,
 ) -> BfgsResult:
     """Minimize every system of ``positions`` under ``energy_and_grad_fn``
     (positions -> (energy [S], gradient [S, A, D])), as the JAX package's
     ``batched_lbfgs_minimize`` does; ``max_iters`` bounds the line searches.
-    Systems whose ``done`` has the CONVERGED bit keep their inputs."""
+    Systems whose ``done`` has the CONVERGED bit keep their inputs.
+    ``fused``: K23's order (``lbfgs_flat.compact_direction``, ``fused_cap``)."""
     S, A, D = positions.shape
     N = D * A
     m = HISTORY
@@ -131,16 +137,22 @@ def lbfgs_lockstep_plain(
         active = ~(converged | failed | skip)
         if not bool(active.any()):
             break
-        direction = two_loop(grad, s_hist, y_hist, rho, gamma)
-        step_norm = torch.sqrt((direction * direction).sum(dim=1))
-        max_step = MAXSTEP_FACTOR * torch.maximum(torch.sqrt((pos * pos * dmask).sum(dim=1)),
-                                                  n_dof)
-        scale = torch.where(step_norm > max_step, max_step / torch.clamp_min(step_norm, 1e-30),
-                            1.0)
-        direction = direction * scale[:, None]
+        slope = lam_min = None
+        if fused:
+            direction, slope, lam_min = lbfgs_flat.fused_cap(
+                pos, lbfgs_flat.compact_direction(grad, s_hist, y_hist, rho, gamma), grad, dmask,
+                n_dof)
+        else:
+            direction = two_loop(grad, s_hist, y_hist, rho, gamma)
+            step_norm = torch.sqrt((direction * direction).sum(dim=1))
+            max_step = MAXSTEP_FACTOR * torch.maximum(
+                torch.sqrt((pos * pos * dmask).sum(dim=1)), n_dof)
+            scale = torch.where(step_norm > max_step,
+                                max_step / torch.clamp_min(step_norm, 1e-30), 1.0)
+            direction = direction * scale[:, None]
 
-        p_new, e_new, g_new, ls_ok, exhausted = line_search_plain(eg, pos, e, grad, direction,
-                                                                  active, probes)
+        p_new, e_new, g_new, ls_ok, exhausted = line_search_plain(
+            eg, pos, e, grad, direction, active, probes, slope, lam_min)
         failed = failed | exhausted
         # lambda underflow: the position cannot improve -> converged (TOLX)
         conv_ls = active & ~ls_ok & ~exhausted
@@ -185,12 +197,14 @@ def lbfgs_lockstep(
     max_iters: int = 200,
     grad_tol: float = 1e-4,
     done: torch.Tensor | None = None,
+    phase_cycles: bool = False,
 ) -> BfgsResult:
     """Minimize the systems ``positions`` [S, A, D] of force field ``ff``,
     system s being molecule ``sys2mol[s]`` (int32) of ``batch``, skipping
     those whose ``done`` status (int32 [S], or None) is converged. For CUDA
     tensors the force field's kernel on the starts, then K23 (one launch
-    each); :func:`lbfgs_lockstep_plain` for CPU tensors."""
+    each); :func:`lbfgs_lockstep_plain` for CPU tensors. With
+    ``phase_cycles`` (CUDA), the result holds K23's cycles per phase."""
     n_sys, a_pad = positions.shape[:2]
     if not positions.is_cuda:
         return lbfgs_lockstep_plain(ff.plain_energy_and_grad_fn(batch, sys2mol, a_pad), positions,
@@ -206,6 +220,7 @@ def lbfgs_lockstep(
     energies = torch.empty(n_sys, dtype=torch.float32, device=dev)
     status, searches, probes, accepted = torch.empty((4, n_sys), dtype=torch.int32, device=dev)
     count = flat.system_atoms(batch, sys2mol)
+    cycles = lbfgs_flat.cycles_buffer(n_sys, phase_cycles, dev)
     with torch.cuda.device(dev):
         rc = getattr(ff.lib(), f"nvmk_{ff.name}_lbfgs_lockstep")(
             positions.data_ptr(), e0.data_ptr(), g0.data_ptr(),
@@ -213,12 +228,15 @@ def lbfgs_lockstep(
             count.data_ptr(), batch.offsets.data_ptr(), batch.n_mols, flat.table_pointers(batch),
             *ff.extra_args(batch), policy(), MAX_LS_ITERS, int(max_iters), float(grad_tol),
             pos_out.data_ptr(), energies.data_ptr(), status.data_ptr(), searches.data_ptr(),
-            probes.data_ptr(), accepted.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            probes.data_ptr(), accepted.data_ptr(), lbfgs_flat.stages(ff, a_pad, n_sys, True, dev),
+            None if cycles is None else cycles.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{ff.name}_lbfgs_lockstep kernel launch failed with CUDA error {rc}")
     launch_counts[f"{ff.name}_lbfgs_lockstep"] += 1
     return BfgsResult(positions=pos_out, energies=energies, converged=(status & CONVERGED) != 0,
-                      n_iters=probes, status=status, n_accepted=accepted, n_searches=searches)
+                      n_iters=probes, status=status, n_accepted=accepted, n_searches=searches,
+                      phase_cycles=cycles)
 
 
 def _two_phases(run, positions, max_iters: int, phase1_iters: int) -> BfgsResult:
@@ -235,7 +253,8 @@ def _two_phases(run, positions, max_iters: int, phase1_iters: int) -> BfgsResult
     return dataclasses.replace(
         r2, energies=torch.where(r1.converged, r1.energies, r2.energies),
         n_iters=r1.n_iters + r2.n_iters, n_accepted=r1.n_accepted + r2.n_accepted,
-        n_searches=r1.n_searches + r2.n_searches)
+        n_searches=r1.n_searches + r2.n_searches,
+        phase_cycles=None if r1.phase_cycles is None else r1.phase_cycles + r2.phase_cycles)
 
 
 def minimize_restarting(
@@ -246,6 +265,7 @@ def minimize_restarting(
     max_iters: int = 200,
     grad_tol: float = 1e-4,
     phase1_iters: int = PHASE1_ITERS,
+    phase_cycles: bool = False,
 ) -> BfgsResult:
     """The JAX package's MMFF/UFF driver over :func:`lbfgs_lockstep`:
     ``min(phase1_iters, max_iters)`` iterations, then every system not
@@ -253,7 +273,8 @@ def minimize_restarting(
     ``max_iters``. On CUDA two launches of the force field's kernel and of
     K23, with no host sync between them."""
     return _two_phases(
-        lambda x, n, done: lbfgs_lockstep(ff, x, batch, sys2mol, n, grad_tol, done),
+        lambda x, n, done: lbfgs_lockstep(ff, x, batch, sys2mol, n, grad_tol, done,
+                                          phase_cycles),
         positions, max_iters, phase1_iters)
 
 

@@ -1629,6 +1629,150 @@ def test_lockstep_kernel_follows_plain_through_the_history(cuda, ff):
     assert out["within_bound"] >= smoke.TRAJ_EQUAL_SHARE, out
 
 
+LBFGS_BUCKETS = (16, 24, 32, 48, 64, 96, 128)
+
+
+def _bucket_inputs(cuda, ff, a_pad):
+    """(force field, starts, batch, sys2mol) of 8 systems each of up to 16
+    molecules padded to ``a_pad`` (~128 systems, so that the contract's 1 %
+    can be one system): those of the fixture's drug-like
+    molecules and tests/data/smiles.py's (hydrogens as atoms) with more
+    atoms than the bucket below (the largest ones at 128, which none
+    reaches). DG: K10's starts; ETK: their 3-D part; MMFF and UFF: the
+    port's embedding of the molecules, moved 0.3 Å by seeded noise."""
+    from nvmolkit_tpu_torch import embedMolecules as pem
+    from nvmolkit_tpu_torch.chem.native import mols_from_smiles
+    from nvmolkit_tpu_torch.models import dist_geom, etk
+    from nvmolkit_tpu_torch.models.etkdg_torsions import default_torsion_provider
+    from nvmolkit_tpu_torch.models.mmff import EmpiricalMMFFProvider, make_batched_mmff
+    from nvmolkit_tpu_torch.models.mmff.energy import MMFF
+    from nvmolkit_tpu_torch.models.uff.energy import UFF, make_batched_uff
+
+    smoke = _load_by_path("chip_smoke.py")
+    fx, _ = smoke.mmff_fixture()
+    pool = [smoke.with_hydrogens(m) for m in mols_from_smiles(
+        _load_by_path("tests/data/smiles.py").SMILES_100)]
+    pool += smoke.mmff_molecules({"smiles": fx["smiles"][:64]})
+    below = max([b for b in LBFGS_BUCKETS if b < a_pad], default=0)
+    mols = [m for m in pool if below < m.num_atoms <= a_pad][:16]
+    if not mols:
+        mols = sorted(pool, key=lambda m: -m.num_atoms)[:16]
+    chunk = smoke.dg_chunk(mols, a_pad, 8, cuda, seed=a_pad)
+    x0 = dist_geom.random_distance_matrices(chunk["batch"], chunk["s2m"], chunk["uniforms"])[0]
+    if ff == "dg":
+        return dist_geom.DG, x0, chunk["batch"].weighted(1.0, 0.1), chunk["s2m"]
+    if ff == "etk":
+        prov = default_torsion_provider()
+        prov.precompute(mols)
+        batch = etk.make_etk_batch(chunk["batch"], etk.build_etk_terms_batch(mols, prov, True))
+        return etk.ETK, x0[..., :3].contiguous(), batch, chunk["s2m"]
+    for m in mols:
+        m.conformers = []
+    pem.EmbedMolecules(mols, confsPerMolecule=8, device=cuda)
+    mols = [m for m in mols if m.conformers]
+    rng = np.random.default_rng(a_pad)
+    pos = np.zeros((sum(len(m.conformers) for m in mols), a_pad, 3), np.float32)
+    s2m = np.repeat(np.arange(len(mols)), [len(m.conformers) for m in mols]).astype(np.int32)
+    for k, c in enumerate(c for m in mols for c in m.conformers):
+        pos[k, :len(c)] = c + rng.normal(size=c.shape) * 0.3
+    if ff == "uff":
+        force_field, batch = UFF, make_batched_uff(mols, a_pad, device=cuda)
+    else:
+        force_field = MMFF
+        batch = make_batched_mmff(mols, a_pad, None, provider=EmpiricalMMFFProvider(),
+                                  device=cuda)
+    return force_field, torch.from_numpy(pos).to(cuda), batch, torch.from_numpy(s2m).to(cuda)
+
+
+@pytest.mark.parametrize("lockstep", [False, True], ids=["k5", "k23"])
+@pytest.mark.parametrize("ff,staged", [("mmff", False), ("uff", False), ("dg", True),
+                                       ("dg", False), ("etk", True), ("etk", False)])
+@pytest.mark.parametrize("a_pad", LBFGS_BUCKETS)
+def test_lbfgs_kernels_follow_plain_at_every_bucket(cuda, monkeypatch, a_pad, ff, staged,
+                                                    lockstep):
+    """K5 and K23 over each force field at each atom bucket from 16 to 128
+    (DG and ETK by both routes, their bounds read from shared memory, staged
+    once per system, and from device memory; lbfgs_flat.stages chooses
+    between them by the bucket and the launch's size) against the plain
+    versions through HISTORY + 2 steps, under chip_smoke.py's trajectory
+    contract, its shares of ~128
+    systems each at least TRAJ_EQUAL_SHARE or, where the plain float32 run
+    itself falls short of that against the float64 run, its own share less
+    one system: on molecules of 9-16 atoms the plain float32 run's status
+    and steps equal the float64 run's on 97.7 % of UFF's systems, and 2 % of
+    ETK's converge before 8 steps in every run (CPU, the same inputs). The
+    trajectory within its bound on TRAJ_EQUAL_SHARE of them, as stated, the
+    spread measured with the contract's moved second run (TRAJ_DG_MOVED)
+    for every force field: the MMFF/UFF starts moved 0.3 Å hold systems
+    whose atoms overlap (2.7e9 kcal/mol at the start, 96-atom UFF), where
+    the plain float32 run from starts moved 1e-6 Å lands 16 Å from the
+    float64 run (H100)."""
+    from nvmolkit_tpu_torch.ops import lbfgs, lbfgs_flat
+
+    smoke = _load_by_path("chip_smoke.py")
+    force_field, x, batch, s2m = _bucket_inputs(cuda, ff, a_pad)
+    info = lbfgs_flat.kernel_info(force_field, a_pad, lockstep, staged)
+    assert info["staged"] == staged and info["blocks_per_sm"] >= 1
+    monkeypatch.setattr(lbfgs_flat, "stages", lambda *args: int(staged))
+    key = f"{force_field.name}_lbfgs" + ("_lockstep" if lockstep else "")
+    counts = lbfgs.launch_counts if lockstep else lbfgs_flat.launch_counts
+    before = counts[key]
+    check = smoke.k23_trajectory_check if lockstep else smoke.k5_trajectory_check
+    misses = []
+    out = check(x, batch, s2m, {}, key, force_field,
+                checker=lambda ok, what: ok or misses.append(what), moved=smoke.TRAJ_DG_MOVED)
+    assert counts[key] == before + 1
+    one = 1.0 / x.shape[0]
+    assert not [m for m in misses if "stopped short" in m], misses
+    assert out["full_share"] >= min(smoke.TRAJ_EQUAL_SHARE, out["plain64_full_share"] - one), out
+    assert out["equal_status_and_steps"] >= min(
+        smoke.TRAJ_EQUAL_SHARE, out["plain32_plain64_equal_status_and_steps"] - one), out
+    assert out["within_bound"] >= smoke.TRAJ_EQUAL_SHARE, out
+
+
+def test_lbfgs_staging_rule(cuda):
+    """DG and ETK stage their bounds at up to STAGE_MAX_ATOMS atoms whatever
+    the launch's size, and past it only for a launch that fits in one wave
+    of staged blocks (none where the staged shared memory does not fit a
+    block); MMFF and UFF have nothing to stage."""
+    from nvmolkit_tpu_torch.models import dist_geom, etk
+    from nvmolkit_tpu_torch.models.mmff.energy import MMFF
+    from nvmolkit_tpu_torch.ops import lbfgs_flat
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for ff in (dist_geom.DG, etk.ETK):
+        for lock in (False, True):
+            assert lbfgs_flat.stages(ff, lbfgs_flat.STAGE_MAX_ATOMS, 10**6, lock, cuda) == 1
+            slots = sms * lbfgs_flat.kernel_info(ff, 96, lock, True)["blocks_per_sm"]
+            assert 0 < slots < 5856
+            assert lbfgs_flat.stages(ff, 96, slots, lock, cuda) == 1
+            assert lbfgs_flat.stages(ff, 96, slots + 1, lock, cuda) == 0
+            assert lbfgs_flat.kernel_info(ff, 256, lock, True)["blocks_per_sm"] == 0
+            assert lbfgs_flat.stages(ff, 256, 1, lock, cuda) == 0
+    assert not lbfgs_flat.kernel_info(MMFF, 32, False, True)["staged"]
+
+
+def test_lbfgs_phase_cycles(cuda):
+    """K5's and K23's phase clock: with ``phase_cycles`` every system's
+    cycles come back per phase (an eval phase in each), the results equal
+    the run without it, and the restart adds its two launches' cycles."""
+    from nvmolkit_tpu_torch.ops import lbfgs, lbfgs_flat
+
+    force_field, x, batch, s2m = _lockstep_inputs(cuda, "dg")
+    plain = lbfgs_flat.lbfgs(force_field, x, batch, s2m, 20)
+    timed = lbfgs_flat.lbfgs(force_field, x, batch, s2m, 20, phase_cycles=True)
+    assert plain.phase_cycles is None
+    assert timed.phase_cycles.shape == (x.shape[0], len(lbfgs_flat.K5_PHASES))
+    assert bool((timed.phase_cycles[:, lbfgs_flat.K5_PHASES.index("eval")] > 0).all())
+    assert torch.equal(timed.positions, plain.positions)
+    assert torch.equal(timed.status, plain.status)
+    force_field, x, batch, s2m = _lockstep_inputs(cuda, "mmff")
+    r = lbfgs.minimize_restarting(force_field, x, batch, s2m, 10, phase1_iters=4,
+                                  phase_cycles=True)
+    assert r.phase_cycles.shape == (x.shape[0], len(lbfgs_flat.K5_PHASES))
+    assert bool((r.phase_cycles.sum(dim=1) > 0).all())
+
+
 def test_lockstep_restart_follows_its_plain_twin(cuda):
     """The MMFF/UFF driver on the card (two launches each of K4 and K23)
     against its plain twin, phase 1 cut to 4 of 10 iterations."""

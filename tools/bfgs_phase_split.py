@@ -132,16 +132,10 @@ def cases(smoke, cuda):
     of the four measured minimizations, made as chip_smoke.py makes them."""
     import numpy as np
 
-    from nvmolkit_tpu_torch import embedMolecules as embed_api
     from nvmolkit_tpu_torch.batchedForcefield import MMFFBatchedForcefield, UFFBatchedForcefield
-    from nvmolkit_tpu_torch.chem.native import mols_from_smiles
-    from nvmolkit_tpu_torch.models import dist_geom, etk
-    from nvmolkit_tpu_torch.models.etkdg_torsions import default_torsion_provider
     from nvmolkit_tpu_torch.models.mmff import EmpiricalMMFFProvider
     from nvmolkit_tpu_torch.models.mmff import energy as mmff_energy
     from nvmolkit_tpu_torch.models.uff import energy as uff_energy
-    from nvmolkit_tpu_torch.ops import lbfgs_flat
-    from nvmolkit_tpu_torch.utils.config import HardwareOptions
 
     fx, starts = smoke.mmff_fixture()
     mols = smoke.mmff_molecules(fx)
@@ -153,10 +147,26 @@ def cases(smoke, cuda):
     ffm = MMFFBatchedForcefield(mols, provider=EmpiricalMMFFProvider(), device=cuda)
     smoke.add_rule_constraints(ffm, mols)
     ffu = UFFBatchedForcefield(mols, device=cuda)
-    out = [("mmff_constraints", mmff_energy.MMFF, ffm.positions.clone(), ffm._batch,
-            ffm._sys2mol, ffm._constraints_now(), smoke.MMFF_MAX_ITERS),
-           ("uff", uff_energy.UFF, ffu.positions.clone(), ffu._batch, ffu._sys2mol, None,
-            smoke.MMFF_MAX_ITERS)]
+    return [("mmff_constraints", mmff_energy.MMFF, ffm.positions.clone(), ffm._batch,
+             ffm._sys2mol, ffm._constraints_now(), smoke.MMFF_MAX_ITERS),
+            ("uff", uff_energy.UFF, ffu.positions.clone(), ffu._batch, ffu._sys2mol, None,
+             smoke.MMFF_MAX_ITERS)] + [
+        (name, ff, x, batch, s2m, None, iters)
+        for name, ff, x, batch, s2m, iters in embedding_cases(smoke, cuda)]
+
+
+def embedding_cases(smoke, cuda, bucket=None):
+    """(name, force field, positions, batch, sys2mol, maxIters) of the
+    embedding's two minimizations at one bucket chunk of set (c)'s drug-like
+    molecules x 8 conformers (by default the chunk with the most molecules),
+    made as chip_smoke.py makes them: DG's first minimization from K10's
+    starts, and ETK's from the DG stages' output (K5 over DG)."""
+    from nvmolkit_tpu_torch import embedMolecules as embed_api
+    from nvmolkit_tpu_torch.chem.native import mols_from_smiles
+    from nvmolkit_tpu_torch.models import dist_geom, etk
+    from nvmolkit_tpu_torch.models.etkdg_torsions import default_torsion_provider
+    from nvmolkit_tpu_torch.ops import lbfgs_flat
+    from nvmolkit_tpu_torch.utils.config import HardwareOptions
 
     smiles = smoke.random_smiles_batch(seed=11, n=smoke.EMBED_MOLS, min_heavy=smoke.DRUG_HEAVY[0],
                                        max_heavy=smoke.DRUG_HEAVY[1])
@@ -165,7 +175,7 @@ def cases(smoke, cuda):
     for i, m in enumerate(emols):
         buckets.setdefault(next(b for b in HardwareOptions().atomBuckets if m.num_atoms <= b),
                            []).append(i)
-    big = max(buckets, key=lambda b: len(buckets[b]))
+    big = max(buckets, key=lambda b: len(buckets[b])) if bucket is None else bucket
     mols_b = [emols[i] for i in buckets[big]]
     ch = smoke.dg_chunk(mols_b, big, smoke.EMBED_CONFS, cuda, seed=big)
     s2m = ch["s2m"]
@@ -173,7 +183,7 @@ def cases(smoke, cuda):
     params = embed_api.EmbedParameters()
     dg_first = ch["batch"].weighted(smoke.EMBED_W[0], smoke.EMBED_W[1])
     dg_second = ch["batch"].weighted(smoke.EMBED_W[2], smoke.EMBED_W[3])
-    out.append(("dg", dist_geom.DG, x0, dg_first, s2m, None, params.firstMinimizeIters))
+    out = [("dg", dist_geom.DG, x0, dg_first, s2m, params.firstMinimizeIters)]
     provider = default_torsion_provider()
     provider.precompute(mols_b)
     big_etk = etk.make_etk_batch(ch["batch"], etk.build_etk_terms_batch(
@@ -182,8 +192,7 @@ def cases(smoke, cuda):
                                max_iters=params.firstMinimizeIters)
     x_etk = lbfgs_flat.lbfgs(dist_geom.DG, r_first.positions, dg_second, s2m,
                              max_iters=params.fourthDimMinimizeIters).positions[..., :3]
-    out.append(("etk", etk.ETK, x_etk.contiguous(), big_etk, s2m, None,
-                params.etkMinimizeIters))
+    out.append(("etk", etk.ETK, x_etk.contiguous(), big_etk, s2m, params.etkMinimizeIters))
     return out
 
 
