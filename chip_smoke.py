@@ -327,6 +327,10 @@ EMBED_PLAIN = 256  # systems the plain DG minimizers are timed on
 ETKDG_FIXTURE = "tests/data/torch_etkdg_embed.npz"
 ETK_FAULT_SYSTEMS = 512
 EMBED_EIGH = 512   # metric matrices of torch.linalg.eigh's yardstick beside K10
+# K10's extra cases: molecules of 1-4 atoms without hydrogens, and chains of
+# 182-242 atoms with hydrogens padded to 256 atoms
+K10_SMALL_SMILES = ["C", "CC", "CCO", "CC(C)C", "N#N", "OCO"]
+K10_LARGE_SMILES = ["C" * 70, "C" * 64 + "O", "C" * 80, "CCOC" * 18]
 # FP32 instructions, counted as K4_OPS are: K9 per pivot update (an add and
 # a min for the upper bound, two subtracts and two max for the lower); the
 # distance-bounds pair loop of K11 and K13 (dg_pairs.cuh) per pair i < j at
@@ -770,7 +774,7 @@ def k19_work(args, counts, rates: dict) -> dict:
 
     from nvmolkit_tpu_torch.ops import substruct_kernels as sk
 
-    words, adj, rows, back_slot, back_mask, P = args
+    words, adj, rows, back_slot, back_mask, P = args[:6]
     B, nq, W, T = rows.shape[0], words.shape[1], words.shape[2], adj.shape[1]
     labels = sk._label_bits(words, rows, T)                             # [B, nq, T]
     rows_l, slots = rows.long(), back_slot.tolist()
@@ -1769,25 +1773,54 @@ def dg_chunk(mols, a_pad: int, confs: int, device, seed: int = 0) -> dict:
             "tables": embed_checks.build_check_tables(mols, sets, device)}
 
 
+def k10_plain64(batch, sys2mol, uniforms, rand_neg: bool, num_zero_fail: int):
+    """K10's plain version in float64 (the bounds and uniforms widened),
+    cast back to float32. At rank < 4 (systems of 1-4 atoms) the float32
+    power iteration's rounding noise in a dependent column passes the
+    Gram-Schmidt guard (1e-6 in norm) and becomes a spurious direction that
+    the Ritz step can count twice; float64 noise stays under the guard, as
+    exact arithmetic would. K10 takes a second projection where
+    cancellation shrank a column (csrc/coordgen.cu, warp_mgs)."""
+    from nvmolkit_tpu_torch.models import dist_geom
+
+    s2m = sys2mol.long()
+    mask = dist_geom.flat.atom_mask(batch, sys2mol, batch.max_atoms)
+    g = dist_geom.metric_matrices_plain(batch.upper[s2m].double(), batch.lower[s2m].double(),
+                                        mask, uniforms.pairs.double())
+    uni = dist_geom.Uniforms(pairs=uniforms.pairs, q0=uniforms.q0.double(),
+                             neg=uniforms.neg.double())
+    coords, ok, vals = dist_geom.project_plain(g, mask, uni, 2.0, rand_neg, num_zero_fail)
+    return coords.float(), ok, vals.float()
+
+
 def k10_compare(got, want) -> dict:
     """K10's (coords, eig_ok, eigenvalues) against the plain version's on the
     same uniforms, under the bound stated at K10_TOL: the eigenvalues, and
-    the 4-D Gram matrix of the coordinates (blind to the eigenvectors' signs
-    and rotations) over the systems whose eigenvalues sit on the same side
-    of the randNegEig cut (1e-6) in both; the others are counted."""
+    the Gram matrix of the coordinates (blind to the eigenvectors' signs and
+    rotations) of every system. Where a system's eigenvalues sit on the same
+    side of the randNegEig cut (1e-6) in both, over all 4 components; where
+    they do not (an eigenvalue that is rounding, as past n - 1 at rank < 4),
+    over the leading components above the cut in both, whose span the
+    rounding does not touch. Those systems are counted apart."""
     import torch
 
     coords, ok, vals = got
     coords_p, ok_p, vals_p = want
     scale = vals_p[:, :1].abs().double().clamp_min(1e-6)
-    same_side = ((vals > 1e-6) == (vals_p > 1e-6)).all(dim=1)
-    gram = torch.bmm(coords.double(), coords.double().transpose(1, 2))
-    gram_p = torch.bmm(coords_p.double(), coords_p.double().transpose(1, 2))
+    above, above_p = vals > 1e-6, vals_p > 1e-6
+    same_side = (above == above_p).all(dim=1)
+    # the components kept: all where the sides agree, else the common prefix
+    # above the cut (the eigenvalues are sorted, so ``above`` is a prefix)
+    keep = torch.where(same_side[:, None], torch.ones_like(above), above & above_p)
+    c, c_p = coords.double() * keep[:, None], coords_p.double() * keep[:, None]
+    gram = torch.bmm(c, c.transpose(1, 2))
+    gram_p = torch.bmm(c_p, c_p.transpose(1, 2))
     val_ratio = (vals.double() - vals_p.double()).abs() / (K10_TOL * scale)
     gram_ratio = (gram - gram_p).abs().amax(dim=(1, 2)) / (K10_TOL * scale[:, 0])
     return {"eig_ratio_max": float(val_ratio.max()),
-            "gram_ratio_max": float(gram_ratio[same_side].max()) if same_side.any() else 0.0,
+            "gram_ratio_max": float(gram_ratio.max()),
             "other_side_of_cut": int((~same_side).sum()),
+            "compared_in_full": int(same_side.sum()),
             "eig_ok_equal": bool(torch.equal(ok, ok_p)), "systems": int(coords.shape[0])}
 
 
@@ -1894,6 +1927,7 @@ def main() -> int:
     from nvmolkit_tpu_torch.tfd import GetTFDMatrices, GetTFDMatrix
     from nvmolkit_tpu_torch.ops import tfd as tfd_ops
     from nvmolkit_tpu_torch import substructure as sub_api
+    from nvmolkit_tpu_torch.ops import substruct_device as sd
     from nvmolkit_tpu_torch.ops import substruct_kernels as sk
 
     cuda = torch.device("cuda", 0)
@@ -3173,6 +3207,31 @@ def main() -> int:
             errs[K10] = max(errs[K10], float((got[2] - want[2]).abs().max()))
             k10_out[f"{b}_randneg{int(rand_neg)}_nzf{nzf}"] = out
             ch.setdefault("x0", got[0])  # the main path's parameters come first
+    # K10 where the Gram-Schmidt guard decides (systems of 1-4 atoms, rank <
+    # 4), against the plain version in float64 (k10_plain64: the float32 one's
+    # rounding noise passes the guard there; its distance from the float64 one
+    # is reported), the eigenvalues past n - 1 being rounding in both, so a
+    # system whose rounding falls on the other side of the randNegEig cut is
+    # compared over its leading components above the cut in both
+    # (k10_compare) and counted; and past 192 atoms (a block per system, G in
+    # global memory), against the float32 plain version as every bucket
+    for label, smi, a_pad, hyd in (("rank_below_4", K10_SMALL_SMILES, 16, False),
+                                   ("past_192", K10_LARGE_SMILES, 256, True)):
+        k_mols = mols_from_smiles(smi)
+        k_mols = [with_hydrogens(m) for m in k_mols] if hyd else k_mols
+        k_ch = dg_chunk(k_mols, a_pad, EMBED_CONFS, cuda, seed=a_pad)
+        small = label == "rank_below_4"
+        for rand_neg, nzf in ((True, 0), (False, 1)):
+            args = (k_ch["batch"], k_ch["s2m"], k_ch["uniforms"], 2.0, rand_neg, nzf)
+            plain = dist_geom.random_distance_matrices_plain(*args)
+            want = k10_plain64(*args[:3], rand_neg, nzf) if small else plain
+            out = k10_compare(dist_geom.random_distance_matrices(*args), want)
+            check(out["eig_ratio_max"] <= 1 and out["gram_ratio_max"] <= 1 and out["eig_ok_equal"]
+                  and (small or out["other_side_of_cut"] <= max(1, out["systems"] // 100)),
+                  f"K10 {label}: {out}")
+            if small:
+                out["plain_float32_vs_float64"] = k10_compare(plain, want)
+            k10_out[f"{label}_randneg{int(rand_neg)}_nzf{nzf}"] = out
     # K11 at K10's starts, both weightings, under K4's bounds
     k11_ratios = {}
     for b, ch in chunks.items():
@@ -3718,7 +3777,7 @@ def main() -> int:
     # K19-K22 against their plain versions on the card, launch by launch
     for idx, (name, args, out) in enumerate(recorded):
         if name == K19:
-            pf, pc, po = sk.gsi_join_plain(*args)
+            pf, pc, po = sk.gsi_join_plain(*args[:6])
             f, c, o = out
             valid = torch.arange(f.shape[1], device=cuda)[None, :] < c[:, None]
             check(torch.equal(o, po) and torch.equal(c, pc) and torch.equal(f[valid], pf[valid]),
@@ -3764,13 +3823,67 @@ def main() -> int:
                                                             == (counts_dev > 0).sum()),
           "uniquify changed which pairs match")
     # warm walls, the library's labels on the card
-    for key, fn in (("counts", lambda: sub_api.countSubstructMatches(sub_lib, sub_queries,
-                                                                      sub_cfg)),
-                    ("matches", lambda: sub_api.getSubstructMatches(sub_lib, sub_queries,
-                                                                     sub_cfg)),
-                    ("recursive_counts", lambda: sub_api.countSubstructMatches(
-                        rec_lib, SUB_REC_QUERIES, sub_cfg))):
+    warm = {"counts": lambda: sub_api.countSubstructMatches(sub_lib, sub_queries, sub_cfg),
+            "matches": lambda: sub_api.getSubstructMatches(sub_lib, sub_queries, sub_cfg),
+            "recursive_counts": lambda: sub_api.countSubstructMatches(rec_lib, SUB_REC_QUERIES,
+                                                                      sub_cfg)}
+    for key, fn in warm.items():
         sub_walls[f"{key}_warm_s"] = [sub_timed(fn)[1] for _ in range(3)]
+
+    @contextlib.contextmanager
+    def engine_clock(rec: dict):
+        """The device engine's host clock, read from outside for one search
+        (after the warm walls, which run without it): queue_s, from the
+        engine's call to its last join (K19) queued; overlap_s, its
+        overlap_fn (the native drain), after which the engine makes its one
+        copy of the counts; device_done_at_copy, whether a CUDA event
+        recorded after the last join had completed when overlap_fn
+        returned; wait_s, how long that event then took to complete (the
+        time the copy waits on the joins); after_overlap_s, from
+        overlap_fn's return to the engine's (the copy and the host's
+        assembly of the results)."""
+        join, engine = sk.gsi_join, sd.device_substruct_matches
+
+        def joined(*args):
+            out = join(*args)
+            rec["queue_s"] = time.perf_counter() - rec["t0"]
+            rec["event"] = torch.cuda.Event()
+            rec["event"].record()
+            return out
+
+        def engine_call(*args, overlap_fn=None, **kwargs):
+            def overlap():
+                t = time.perf_counter()
+                if overlap_fn is not None:
+                    overlap_fn()
+                rec["t_overlapped"] = time.perf_counter()
+                rec["overlap_s"] = rec["t_overlapped"] - t
+                ev = rec.pop("event", None)
+                rec["device_done_at_copy"] = None if ev is None else ev.query()
+                if ev is not None:
+                    ev.synchronize()
+                rec["wait_s"] = time.perf_counter() - rec["t_overlapped"]
+
+            rec["t0"] = time.perf_counter()
+            out = engine(*args, overlap_fn=overlap, **kwargs)
+            rec["after_overlap_s"] = time.perf_counter() - rec.pop("t_overlapped")
+            del rec["t0"]
+            return out
+
+        sk.gsi_join, sd.device_substruct_matches = joined, engine_call
+        try:
+            yield
+        finally:
+            sk.gsi_join, sd.device_substruct_matches = join, engine
+
+    # whether the copy of the counts waits on the queued joins (K19)
+    sync_waits = {}
+    for key in ("counts", "matches"):
+        for _ in range(3):
+            rec: dict = {}
+            with engine_clock(rec):
+                sub_timed(warm[key])
+            sync_waits.setdefault(key, []).append(rec)
     # the recursive screen on a new library (its root masks made again on the card)
     sub_walls["recursive_counts_new_library_s"] = [sub_timed(
         lambda: sub_api.countSubstructMatches(sub_api.SubstructLibrary(sub_mols),
@@ -3805,7 +3918,8 @@ def main() -> int:
          per_search=per_search,
          overflowed={"matches": len(res_dev.overflowed), "cap8": len(cap8.overflowed)},
          atom_buckets=sorted(sub_lib.device_library(sub_lib.features(False), cuda)._by_T),
-         recorded_launches=len(recorded), seconds=time.perf_counter() - t_phase)
+         recorded_launches=len(recorded), search_host_clock=sync_waits,
+         seconds=time.perf_counter() - t_phase)
 
     # 7. timings at the main path's shapes ------------------------------------------
     t_phase = time.perf_counter()
@@ -4172,7 +4286,7 @@ def main() -> int:
     _, a19, o19, _ = sub_launch[K19]
     sub_rows[K19] = row(K19, f"{a19[2].shape[0]} pairs x {a19[0].shape[1]} slots, T {a19[1].shape[1]}"
                         f", P {a19[5]} (counts screen)", k19_work(a19, o19[1], rates),
-                        lambda: sk.gsi_join(*a19), lambda: sk.gsi_join_plain(*a19), cold=True)
+                        lambda: sk.gsi_join(*a19), lambda: sk.gsi_join_plain(*a19[:6]), cold=True)
     _, a20, o20, _ = sub_launch[K20]
     sub_rows[K20] = row(K20, f"{a20[0].shape[0]} pairs x {int(a20[1].sum())} rows of "
                         f"{a20[0].shape[2]} slots (uniquify search)",
@@ -4255,7 +4369,8 @@ def main() -> int:
     for name, fn in phases.items():
         # the bfgs ETKDG run retries half its systems for every attempt: one
         # warm wall before its traced run
-        traces[name] = trace(fn, reps=1 if name == "etkdg_bfgs" else 3)
+        traces[name] = trace(fn, reps=1 if name == "etkdg_bfgs" else 3,
+                             top=40 if name.startswith(("embed", "etkdg", "substruct")) else 10)
         emit(phase=f"trace_{name}", **traces[name])
     # the Butina loops run on the card: a handful of host syncs per call, none
     # per cluster
@@ -4347,7 +4462,8 @@ def main() -> int:
              "nvmolkit_tpu/ops/triangle_smooth.py:28",
              "nvmolkit_tpu_torch/csrc/triangle_smooth.cu"),
         K10: ("coordgen (K10: distance matrices, double centering, block power iteration "
-              "with a Rayleigh-Ritz finish, one block per system)",
+              "with a Rayleigh-Ritz finish, a warp per system up to 192 atoms, a block "
+              "per system above)",
               "nvmolkit_tpu/models/dist_geom.py:193", "nvmolkit_tpu_torch/csrc/coordgen.cu"),
         K11: ("dg_energy_grad (K11: energy_grad_kernel; its device function dg_eval also "
               "runs inside K5 and K8, once per probe)", "nvmolkit_tpu/models/dist_geom.py:95",
@@ -4382,8 +4498,8 @@ def main() -> int:
               "nvmolkit_tpu/ops/tfd.py:334", "nvmolkit_tpu_torch/csrc/tfd.cu"),
         K18: ("tfd_kernel (K18: one thread per conformer pair, each torsion its type's work)",
               "nvmolkit_tpu/ops/tfd.py:367", "nvmolkit_tpu_torch/csrc/tfd.cu"),
-        K19: ("gsi_join_kernel (K19: the GSI join, one block per pair, an order-keeping "
-              "block scan per chunk of cells)", "nvmolkit_tpu/ops/substruct_device.py:316",
+        K19: ("gsi_join_kernel (K19: the GSI join, a warp per pair, each row's candidates "
+              "from a back-edge atom's neighbour list, a warp scan per chunk of 32 rows)", "nvmolkit_tpu/ops/substruct_device.py:316",
               substruct_cu),
         K20: ("dedup_kernel (K20: uniquify, one block per pair)",
               "nvmolkit_tpu/ops/substruct_device.py:463", substruct_cu),

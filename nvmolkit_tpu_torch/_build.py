@@ -349,7 +349,9 @@ def _declare_coordgen(lib: ctypes.CDLL) -> None:
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.nvmk_coordgen.restype = ci
     lib.nvmk_coordgen.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, vp, vp, ci, cf, ci, ci, vp, vp,
-                                  vp, vp, vp]
+                                  vp, vp, vp, vp]
+    lib.nvmk_coordgen_info.restype = ci
+    lib.nvmk_coordgen_info.argtypes = [ci, ctypes.POINTER(ci)]
 
 
 def coordgen_lib() -> ctypes.CDLL:
@@ -506,7 +508,9 @@ def tfd_lib() -> ctypes.CDLL:
 def _declare_substruct_gpu(lib: ctypes.CDLL) -> None:
     vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.nvmk_gsi_join.restype = ci
-    lib.nvmk_gsi_join.argtypes = [vp] * 5 + [ci] * 6 + [vp] * 5
+    lib.nvmk_gsi_join.argtypes = [vp] * 7 + [ci] * 7 + [vp] * 6
+    lib.nvmk_gsi_info.restype = ci
+    lib.nvmk_gsi_info.argtypes = [ctypes.POINTER(ci)]
     lib.nvmk_dedup.restype = ci
     lib.nvmk_dedup.argtypes = [vp, vp, ci, ci, ci, ci, vp, vp, vp, vp]
     lib.nvmk_extract.restype = ci

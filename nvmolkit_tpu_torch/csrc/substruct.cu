@@ -6,25 +6,38 @@
 //
 // K19 gsi_join_kernel replaces nvmolkit_tpu/ops/substruct_device.py
 // _device_gsi_join (a dense [B, P, T] candidate mask per level, one-hot
-// MXU einsums for the gathers and rank arithmetic for the compaction). One
-// block per (target, query) pair runs the breadth-first join over the
-// query's traversal slots (the reference's GSI join,
-// substruct_algos.cuh:255-430):
-//   level 0 lists slot 0's candidates in ascending target atom t;
-//   level i tests every (partial row p, candidate t) cell for the label bit
-//   of slot i, for t not used by row p, and for each back edge e
-//   (back_mask[i][e] >> adj[row][frontier[p][back_slot[i][e]]][t]) & 1.
-// The surviving cells keep the row-major (p, t) order of the JAX program:
-// an atomic append would give the same set in another order, and the
-// order is part of the result (which rows uniquify and maxMatches keep).
-// So each chunk of blockDim cells goes through a block-wide exclusive scan
-// (__ballot_sync + __popc per warp, then the warps' counts) with a running
-// base, into the other half of a double-buffered frontier in device memory
-// (a caller may raise the frontier cap P past what shared memory holds).
-// A pair overflows when slot 0 has more than P candidates or a level more
-// than P surviving cells, as in the JAX program; its rows are never read
-// (the pair drains to a host engine), so the block stops there and writes
-// count 0. The last level lands in `out`.
+// MXU einsums for the gathers and rank arithmetic for the compaction). It
+// runs the breadth-first join over the query's traversal slots (the
+// reference's GSI join, substruct_algos.cuh:255-430), a warp per (target,
+// query) pair and several pairs a block, with no block barrier:
+//   level 0 lists slot 0's candidates in ascending target atom t, by a
+//   ballot per 32-bit label word;
+//   level i takes the rows p in chunks of 32, a row a lane. A cell (p, t)
+//   passes when t has slot i's label bit, t is not used by row p, and for
+//   each back edge e (back_mask[i][e] >> adj[row][frontier[p][back_slot[i][e]]][t]) & 1.
+//   No mask accepts code 0 ("no bond": _bond_code_mask, and the wrapper
+//   refuses a mask that does), and every slot i >= 1 has a back edge (the
+//   compiled queries are connected), so a passing t is a bonded neighbour
+//   of every back-edge atom: each lane walks only the neighbour list
+//   (ascending t) of its row's back-edge atom with the fewest neighbours.
+//   A warp exclusive scan of the lanes' counts (shuffles), with a running
+//   base over the chunks, places each survivor.
+// Rows in order, each row's survivors in ascending t: the surviving cells
+// keep the row-major (p, t) order of the JAX program, which is part of the
+// result (which rows uniquify and maxMatches keep). The frontier is double
+// buffered in device memory (a caller may raise the frontier cap P past
+// what shared memory holds); __syncwarp orders a level's rows before the
+// next level reads them. A pair overflows when slot 0 has more than P
+// candidates or a level more than P surviving cells, as in the JAX program;
+// its rows are never read (the pair drains to a host engine), so the warp
+// stops there and writes count 0. The last level lands in `out`. The bucket's
+// neighbour lists ([N, T, D] int16 and the degrees [N, T]) are built once per
+// bucket on the card from the bond codes and kept beside them; the query's
+// back edges ride in the kernel's parameters. The first design (a block of 256 threads per pair testing
+// every (row, atom) cell, two block barriers a chunk of 256 cells) is kept
+// in tools/gsi_first_design.cu. With ``cycles`` (int64 [B, 4]) lane 0 of
+// each pair adds the clock64() cycles of its phases (level 0, tests, scan,
+// writes).
 //
 // K20 dedup_kernel replaces _dedup_frontier (uniquify=True): one block per
 // pair; each valid row's set of target atoms as a T-bit mask (4 x uint64
@@ -46,14 +59,12 @@
 //
 // What bounds them: integer work. K19 does ~5-12 INT32 operations per tested
 // cell (the label bit, then only for label survivors the injectivity
-// compares and a byte of bond code per back edge) and two block barriers per
-// chunk of cells; it reads the pair's label words and the bond codes of the
+// compares and a byte of bond code per back edge), a few cells per row; it
+// reads the pair's label words, the neighbour lists and bond codes of the
 // atoms it extends from (L1/L2) and writes P x nq int16 per level at most.
 // K20 compares each pair of valid rows' masks (count^2 / 2 x 4 words); K21
-// and K22 move bytes. The design is the simple one that keeps the
-// reference's order: no shared-memory staging of the bond codes, one pair
-// per block (idle lanes when a level has few cells). Making them fast is
-// later work (ROADMAP §2).
+// and K22 move bytes. K20-K22 keep their first design: one pair per block
+// for K20, a thread per output for K21 and K22.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -64,6 +75,7 @@ constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int MAX_EDGES = 4;     // EDGE_BUCKETS' largest entry
 constexpr int MAX_MASK_WORDS = 4;  // 64-bit words of a row's atom mask, T <= 256
+constexpr unsigned FULL_MASK = 0xffffffffu;
 
 // Exclusive prefix of `flag` over the block's threads in thread order; the
 // block's count in *total. Every thread of the block must call it.
@@ -83,77 +95,151 @@ __device__ __forceinline__ int block_scan(bool flag, int* warp_counts, int* tota
   return base + __popc(ballot & ((1u << lane) - 1u));
 }
 
-__global__ void __launch_bounds__(THREADS) gsi_join_kernel(
+constexpr int MAX_NQ = 64;         // QUERY_BUCKETS' largest
+constexpr int JOIN_WARPS = 4;      // K19's pairs a block
+constexpr int JOIN_PHASES = 4;
+enum { J_LEVEL0, J_TESTS, J_SCAN, J_WRITES };
+
+// a query's back edges, passed by value: slot (or -1) and the 16-bit mask of
+// accepted bond codes of each slot's E edges
+struct QueryEdges {
+  int8_t slot[MAX_NQ * MAX_EDGES];
+  uint16_t mask[MAX_NQ * MAX_EDGES];
+};
+
+// lane 0's phase clock of one pair, in registers
+template <bool ON>
+struct JoinClock {
+  long long acc[JOIN_PHASES];
+  long long t;
+  bool mine;
+  __device__ explicit JoinClock(bool mine_) : mine(mine_) {
+    if (ON && mine) {
+#pragma unroll
+      for (int p = 0; p < JOIN_PHASES; ++p) acc[p] = 0;
+      t = clock64();
+    }
+  }
+  __device__ __forceinline__ void lap(int p) {
+    if (ON && mine) {
+      const long long now = clock64();
+      acc[p] += now - t;
+      t = now;
+    }
+  }
+};
+
+template <bool CYC>
+__global__ void __launch_bounds__(32 * JOIN_WARPS) gsi_join_kernel(
     const int32_t* __restrict__ words, const uint8_t* __restrict__ adj,
-    const int32_t* __restrict__ rows, const int32_t* __restrict__ back_slot,
-    const int32_t* __restrict__ back_mask, int nq, int T, int W, int E, int P,
-    int16_t* __restrict__ out, int16_t* __restrict__ scratch, int32_t* __restrict__ counts,
-    uint8_t* __restrict__ overflow) {
-  __shared__ int warp_counts[WARPS];
-  const int b = blockIdx.x;
+    const int16_t* __restrict__ nbr, const uint8_t* __restrict__ deg,
+    const int32_t* __restrict__ rows, const __grid_constant__ QueryEdges q, int B, int nq, int T,
+    int W, int E, int D, int P, int16_t* __restrict__ out, int16_t* __restrict__ scratch,
+    int32_t* __restrict__ counts, uint8_t* __restrict__ overflow, long long* __restrict__ cycles) {
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * JOIN_WARPS + (threadIdx.x >> 5);
+  if (b >= B) return;  // a whole warp: no block barrier follows
+  JoinClock<CYC> clk(lane == 0);
+  const unsigned below = (1u << lane) - 1u;
   const int row = rows[b];
   const int32_t* lab = words + (size_t)row * nq * W;
   const uint8_t* A = adj + (size_t)row * T * T;
+  const int16_t* nb = nbr + (size_t)row * T * D;
+  const uint8_t* dg = deg + (size_t)row * T;
   const size_t pair = (size_t)b * P * nq;
   // level L writes `out` when nq - 1 - L is even, so the last level lands there
   auto level_buf = [&](int level) { return (((nq - 1 - level) & 1) == 0 ? out : scratch) + pair; };
 
-  int n = 0;  // rows of the current level, the same in every thread
+  int n = 0;  // rows of the current level, the same in every lane
   {
     int16_t* dst = level_buf(0);
-    for (int t0 = 0; t0 < T; t0 += THREADS) {
-      const int t = t0 + threadIdx.x;
-      const bool ok = t < T && ((lab[t >> 5] >> (t & 31)) & 1);
-      int total;
-      const int k = n + block_scan(ok, warp_counts, &total);
+    for (int w = 0; w < W; ++w) {
+      const int t = 32 * w + lane;
+      const bool ok = t < T && ((lab[w] >> lane) & 1);
+      const unsigned ballot = __ballot_sync(FULL_MASK, ok);
+      const int k = n + __popc(ballot & below);
       if (ok && k < P) dst[(size_t)k * nq] = (int16_t)t;
-      n += total;
+      n += __popc(ballot);
     }
   }
   bool over = n > P;
-  __syncthreads();
+  __syncwarp();
+  clk.lap(J_LEVEL0);
   for (int i = 1; i < nq && !over && n > 0; ++i) {
     const int16_t* src = level_buf(i - 1);
     int16_t* dst = level_buf(i);
     const int32_t* li = lab + (size_t)i * W;
     int bs[MAX_EDGES], bm[MAX_EDGES];
+#pragma unroll
     for (int e = 0; e < MAX_EDGES; ++e) {
-      bs[e] = e < E ? back_slot[i * E + e] : -1;
-      bm[e] = e < E ? back_mask[i * E + e] : 0;
+      bs[e] = e < E ? q.slot[i * E + e] : -1;
+      bm[e] = e < E ? q.mask[i * E + e] : 0;
     }
-    const int cells = n * T;
     int m = 0;
-    for (int c0 = 0; c0 < cells; c0 += THREADS) {
-      const int c = c0 + threadIdx.x;
-      bool ok = false;
-      int p = 0, t = 0;
-      if (c < cells) {
-        p = c / T;
-        t = c - p * T;
-        ok = (li[t >> 5] >> (t & 31)) & 1;
-        const int16_t* r = src + (size_t)p * nq;
-        for (int s = 0; ok && s < i; ++s) ok = r[s] != t;
-        for (int e = 0; ok && e < MAX_EDGES; ++e)
-          if (bs[e] >= 0) ok = (bm[e] >> A[(size_t)r[bs[e]] * T + t]) & 1;
+    for (int p0 = 0; p0 < n; p0 += 32) {
+      const int p = p0 + lane;
+      const int16_t* r = src + (size_t)p * nq;
+      const int16_t* list = nb;
+      unsigned long long pass = 0;
+      int cnt = 0;
+      if (p < n) {
+        int at[MAX_EDGES], walk = 0, fewest = 1 << 30;
+#pragma unroll
+        for (int e = 0; e < MAX_EDGES; ++e) {
+          at[e] = bs[e] >= 0 ? r[bs[e]] : 0;
+          const int d = bs[e] >= 0 ? dg[at[e]] : 1 << 30;
+          if (d < fewest) {
+            fewest = d;
+            walk = e;
+          }
+        }
+        if (fewest > D) fewest = 0;  // no back edge (the wrapper refuses such a query)
+#pragma unroll
+        for (int e = 0; e < MAX_EDGES; ++e)
+          if (e == walk) list = nb + (size_t)at[e] * D;
+        for (int k = 0; k < fewest; ++k) {
+          const int t = list[k];
+          bool ok = (li[t >> 5] >> (t & 31)) & 1;
+          for (int s = 0; ok && s < i; ++s) ok = r[s] != t;
+#pragma unroll
+          for (int e = 0; e < MAX_EDGES; ++e)
+            if (ok && bs[e] >= 0) ok = (bm[e] >> A[(size_t)at[e] * T + t]) & 1;
+          if (ok) {
+            pass |= 1ull << k;
+            ++cnt;
+          }
+        }
       }
-      int total;
-      const int k = m + block_scan(ok, warp_counts, &total);
-      if (ok && k < P) {
-        const int16_t* r = src + (size_t)p * nq;
+      clk.lap(J_TESTS);
+      int incl = cnt;  // the warp's inclusive scan of the lanes' counts
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int v = __shfl_up_sync(FULL_MASK, incl, o);
+        if (lane >= o) incl += v;
+      }
+      const int total = __shfl_sync(FULL_MASK, incl, 31);
+      clk.lap(J_SCAN);
+      for (int k = m + incl - cnt; pass != 0 && k < P; ++k) {
+        const int c = __ffsll((long long)pass) - 1;
+        pass &= pass - 1;
         int16_t* d = dst + (size_t)k * nq;
         for (int s = 0; s < i; ++s) d[s] = r[s];
-        d[i] = (int16_t)t;
+        d[i] = list[c];
       }
+      clk.lap(J_WRITES);
       m += total;
       if (m > P) break;  // overflowed: the pair drains to the host
     }
     over = m > P;
     n = m;
-    __syncthreads();  // this level's rows are the next level's input
+    __syncwarp();  // this level's rows are the next level's input
+    clk.lap(J_SCAN);
   }
-  if (threadIdx.x == 0) {
+  if (lane == 0) {
     counts[b] = over ? 0 : n;
     overflow[b] = over ? 1 : 0;
+    if (CYC)
+      for (int p = 0; p < JOIN_PHASES; ++p) cycles[(size_t)b * JOIN_PHASES + p] = clk.acc[p];
   }
 }
 
@@ -233,14 +319,50 @@ __global__ void __launch_bounds__(THREADS) root_mask_kernel(
 
 extern "C" {
 
-int nvmk_gsi_join(const void* words, const void* adj, const void* rows, const void* back_slot,
-                  const void* back_mask, int B, int nq, int T, int W, int E, int P, void* out,
-                  void* scratch, void* counts, void* overflow, void* stream) {
-  gsi_join_kernel<<<B, THREADS, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)words, (const uint8_t*)adj, (const int32_t*)rows,
-      (const int32_t*)back_slot, (const int32_t*)back_mask, nq, T, W, E, P, (int16_t*)out,
-      (int16_t*)scratch, (int32_t*)counts, (uint8_t*)overflow);
+// K19 over B pairs: ``back_slot`` and ``back_mask`` are the query's [nq, E]
+// int32 tables in host memory (copied into the launch's parameters; nq <=
+// 64); ``nbr`` int16 [N, T, D] and ``deg`` uint8 [N, T] the bucket's
+// neighbour lists (D <= 64). ``cycles``: int64 [B, 4] phase cycles, or null.
+int nvmk_gsi_join(const void* words, const void* adj, const void* nbr, const void* deg,
+                  const void* rows, const int32_t* back_slot, const int32_t* back_mask, int B,
+                  int nq, int T, int W, int E, int D, int P, void* out, void* scratch,
+                  void* counts, void* overflow, void* cycles, void* stream) {
+  if (nq > MAX_NQ || E > MAX_EDGES || D > 64) return (int)cudaErrorInvalidValue;
+  QueryEdges q{};
+  for (int k = 0; k < nq * E; ++k) {
+    q.slot[k] = (int8_t)back_slot[k];
+    q.mask[k] = (uint16_t)back_mask[k];
+  }
+  const unsigned blocks = (unsigned)((B + JOIN_WARPS - 1) / JOIN_WARPS);
+  if (cycles != nullptr)
+    gsi_join_kernel<true><<<blocks, 32 * JOIN_WARPS, 0, (cudaStream_t)stream>>>(
+        (const int32_t*)words, (const uint8_t*)adj, (const int16_t*)nbr, (const uint8_t*)deg,
+        (const int32_t*)rows, q, B, nq, T, W, E, D, P, (int16_t*)out, (int16_t*)scratch,
+        (int32_t*)counts, (uint8_t*)overflow, (long long*)cycles);
+  else
+    gsi_join_kernel<false><<<blocks, 32 * JOIN_WARPS, 0, (cudaStream_t)stream>>>(
+        (const int32_t*)words, (const uint8_t*)adj, (const int16_t*)nbr, (const uint8_t*)deg,
+        (const int32_t*)rows, q, B, nq, T, W, E, D, P, (int16_t*)out, (int16_t*)scratch,
+        (int32_t*)counts, (uint8_t*)overflow, nullptr);
   return (int)cudaGetLastError();
+}
+
+// out: registers a thread, local bytes a thread, resident blocks an SM,
+// static shared bytes a block, pairs a block
+int nvmk_gsi_info(int* out) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, gsi_join_kernel<false>);
+  if (err != cudaSuccess) return (int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, gsi_join_kernel<false>,
+                                                      32 * JOIN_WARPS, 0);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = blocks;
+  out[3] = (int)attr.sharedSizeBytes;
+  out[4] = JOIN_WARPS;
+  return 0;
 }
 
 int nvmk_dedup(const void* in, const void* counts_in, int B, int nq, int P, int W64, void* keys,

@@ -37,6 +37,8 @@ from nvmolkit_tpu_torch.models import flat
 
 POWER_ITERS = 40
 N_DIMS = 4
+# the phases of K10's per-system clock (``_launch_k10(..., phase_cycles=True)``)
+K10_PHASES = ("sample", "gq", "gram_schmidt", "wait", "ritz", "output")
 
 launch_counts = {"dg_energy_grad": 0, "coordgen": 0}
 
@@ -361,8 +363,28 @@ def random_distance_matrices_plain(batch: DGBatch, sys2mol: torch.Tensor, unifor
     return project_plain(g, mask, uniforms, box_size_mult, rand_neg_eig, num_zero_fail, iters)
 
 
+def coordgen_info(a_pad: int) -> dict:
+    """K10's instantiation at ``a_pad`` (``csrc/coordgen.cu``: a warp per
+    system up to 192 atoms, with G in registers at the buckets of 64 atoms
+    and under, a block of 128 threads per system above): registers and
+    spilled bytes a thread, resident blocks an SM, shared bytes a block,
+    systems a block and an SM, and the layout."""
+    out = (ctypes.c_int * 6)()
+    rc = coordgen_lib().nvmk_coordgen_info(a_pad, out)
+    if rc != 0:
+        raise RuntimeError(f"nvmk_coordgen_info failed with CUDA error {rc}")
+    return {"registers": out[0], "local_bytes": out[1], "blocks_per_sm": out[2],
+            "shared_bytes": out[3], "systems_per_block": out[4],
+            "systems_per_sm": out[2] * out[4],
+            "layout": ("block per system", "warp per system, G in shared memory",
+                       "warp per system, G in registers")[out[5]]}
+
+
 def _launch_k10(batch_or_none, g_in, n_atoms_sys, sys2mol, uniforms: Uniforms, a_pad: int,
-                box_size_mult, rand_neg_eig, num_zero_fail, iters):
+                box_size_mult, rand_neg_eig, num_zero_fail, iters, phase_cycles: bool = False):
+    """One K10 launch: (coords, eig_ok, eigenvalues), and with
+    ``phase_cycles`` also int64 [S, 6] cycles of :data:`K10_PHASES` per
+    system."""
     dev = uniforms.q0.device
     n_sys = uniforms.q0.shape[0]
     coords = torch.empty((n_sys, a_pad, N_DIMS), dtype=torch.float32, device=dev)
@@ -370,6 +392,8 @@ def _launch_k10(batch_or_none, g_in, n_atoms_sys, sys2mol, uniforms: Uniforms, a
     ok = torch.empty(n_sys, dtype=torch.uint8, device=dev)
     gbuf = (torch.empty(n_sys * a_pad * (a_pad + 1), dtype=torch.float32, device=dev)
             if a_pad > 192 else None)
+    cycles = (torch.zeros((n_sys, len(K10_PHASES)), dtype=torch.int64, device=dev)
+              if phase_cycles else None)
     tensors = [uniforms.q0, uniforms.neg, n_atoms_sys] + (
         [g_in] if g_in is not None else [uniforms.pairs, batch_or_none.upper,
                                          batch_or_none.lower, sys2mol])
@@ -387,11 +411,13 @@ def _launch_k10(batch_or_none, g_in, n_atoms_sys, sys2mol, uniforms: Uniforms, a
             ptr(None if g_in is not None else uniforms.pairs), uniforms.q0.data_ptr(),
             uniforms.neg.data_ptr(), n_sys, a_pad, ptr(sys2mol), n_atoms_sys.data_ptr(),
             int(iters), float(box_size_mult), int(bool(rand_neg_eig)), int(num_zero_fail),
-            coords.data_ptr(), vals.data_ptr(), ok.data_ptr(), ptr(gbuf),
+            coords.data_ptr(), vals.data_ptr(), ok.data_ptr(), ptr(gbuf), ptr(cycles),
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"coordgen kernel launch failed with CUDA error {rc}")
     launch_counts["coordgen"] += 1
+    if phase_cycles:
+        return coords, ok.bool(), vals, cycles
     return coords, ok.bool(), vals
 
 

@@ -227,6 +227,10 @@ class _DeviceBucket:
             code = tf.adj_kind.astype(np.uint8) + (tf.adj_ring.astype(np.uint8) << 3)
             adj[b, :na, :na] = code * (tf.adj_kind != 0)
         self.adj = torch.from_numpy(adj).to(device)
+        # each atom's bonded atoms in ascending order and their counts, the
+        # candidates K19 walks (the codes stay for the bond tests), made on
+        # the card from the codes; the plain join on the CPU reads none
+        self.neighbors = sk.neighbor_lists(self.adj) if self.adj.is_cuda else None
         self._queries: dict[tuple, _BucketQuery] = {}
 
     def query(self, q: QueryMol, cq: CompiledQuery) -> _BucketQuery:
@@ -255,7 +259,8 @@ class DeviceTargetLibrary:
 
     Build once, search many times — the reference's compiled-target
     reuse (RDKit's ``SubstructLibrary`` is the canonical API shape). Also
-    holds each query's back-edge tables on the device.
+    holds each query's back-edge tables (on the host: K19 takes them into
+    its launch's parameters) and its atom order on the device.
     """
 
     def __init__(self, tfs: list[TargetFeatures], t_buckets=(32, 64, 128, 256), device="cpu"):
@@ -282,12 +287,14 @@ class DeviceTargetLibrary:
         return b
 
     def tables(self, q: QueryMol, cq: CompiledQuery) -> tuple:
-        """(back slots, back masks, perm) of ``q`` as int32 device tensors."""
+        """(back slots, back masks, perm) of ``q`` as int32 tensors: the back
+        edges in host memory, perm on the device."""
         key = (_query_key(q), cq.nq)
         got = self._tables.get(key)
         if got is None:
-            got = tuple(torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(self.device)
-                        for a in (cq.back_slot, cq.back_mask, cq.perm))
+            slots, masks, perm = (torch.from_numpy(np.ascontiguousarray(a, np.int32))
+                                  for a in (cq.back_slot, cq.back_mask, cq.perm))
+            got = (slots, masks, perm.to(self.device))
             self._tables[key] = got
         return got
 
@@ -329,7 +336,7 @@ def _ensure_recursive_masks(
         elif len(live_rows):
             back_slot, back_mask, _perm = library.tables(sp, scq)
             frontier, counts, over = sk.gsi_join(bq.words, bucket.adj, bq.rows, back_slot,
-                                                 back_mask, P)
+                                                 back_mask, P, bucket.neighbors)
             m = sk.root_mask(frontier, counts, int(scq.perm[0]), T)
             mask[live_rows] = m.cpu().numpy()
             for r in live_rows[np.nonzero(over.cpu().numpy())[0]]:
@@ -439,7 +446,7 @@ def device_substruct_matches(
                 continue
             back_slot, back_mask, perm = library.tables(qmols[qi], cq)
             frontier, counts, over = sk.gsi_join(bq.words, bucket.adj, bq.rows, back_slot,
-                                                 back_mask, P)
+                                                 back_mask, P, bucket.neighbors)
             if uniquify:
                 # dedup by matched-atom set on the device (single-atom
                 # queries are unique by construction)

@@ -11,7 +11,9 @@ One call covers one query against the live targets of one atom bucket
   back edge's bond-code mask, in row-major (p, t) order, the first P of
   them. A pair overflows when slot 0 has more than P candidates or a level
   more than P cells; its count is then 0 and its rows are not written (it
-  drains to a host engine).
+  drains to a host engine). K19 draws each row's candidates from the
+  neighbour list of one back-edge atom (:func:`neighbor_lists`): no mask
+  accepts bond code 0, so every other cell fails.
 * :func:`dedup` — K20, else :func:`dedup_plain`: ``uniquify``, the JAX
   ``_dedup_frontier``: the first row of each set of matched atoms, the
   survivors recompacted to a prefix in order.
@@ -26,13 +28,17 @@ Layouts: label bits as int32 words ``[N, nq, W]`` (bit t of slot s in word
 t // 32, :func:`pack_label_words`), the bucket's bond codes ``kind +
 8*in_ring`` as uint8 ``[N, T, T]``, each pair's bucket row as int32 ``[B]``,
 the query's back edges as int32 ``[nq, E]`` tables (slot, or -1, and the
-16-bit mask of accepted codes), the frontier as int16 ``[B, P, nq]`` with
+16-bit mask of accepted codes; K19 copies them into its launch's parameters,
+so they may stay in host memory), the bucket's neighbour lists as int16
+``[N, T, D]`` and uint8 degrees ``[N, T]``, the frontier as int16 ``[B, P, nq]`` with
 each pair's valid rows a prefix (atom ids are below 256). A kernel launches
 on the current stream and allocates nothing; its wrapper checks devices,
 dtypes and shapes, allocates the outputs and raises on a failed build or
 launch (no fallback). ``launch_counts`` counts the launches.
 """
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -42,6 +48,10 @@ from nvmolkit_tpu_torch._build import substruct_gpu_lib
 launch_counts = {"gsi_join": 0, "dedup": 0, "extract": 0, "root_mask": 0}
 MAX_T = 256      # the largest atom bucket: ids fit int16, a row's atom mask 4 words
 MAX_EDGES = 4    # EDGE_BUCKETS' largest
+MAX_NQ = 64      # QUERY_BUCKETS' largest: K19's back edges ride in its parameters
+MAX_DEGREE = 64  # K19 keeps a row's survivors among its walked neighbours in 64 bits
+# the phases of K19's per-pair clock (``_launch_gsi(..., phase_cycles=True)``)
+K19_PHASES = ("level0", "tests", "scan", "writes")
 
 
 def reset_launch_counts() -> None:
@@ -63,6 +73,28 @@ def _label_bits(words: torch.Tensor, rows: torch.Tensor, T: int) -> torch.Tensor
     """bool [B, nq, T] from the label words of the pairs' rows."""
     t = torch.arange(T, device=words.device)
     return ((words[rows.long()][:, :, t >> 5] >> (t & 31)) & 1).bool()
+
+
+def neighbor_lists(adj: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The neighbour lists of bond codes ``adj`` uint8 ``[N, T, T]``, on its
+    device: int16 ``[N, T, D]``, each atom's bonded atoms (nonzero codes) in
+    ascending order padded with -1, and uint8 ``[N, T]`` their counts; D is
+    the largest count (at least 1). Reading D and the bonded cells' count
+    are two copies to the host."""
+    N, T = adj.shape[:2]
+    bonded = adj != 0
+    deg = bonded.sum(dim=2)
+    D = max(1, int(deg.max())) if deg.numel() else 1
+    # the bonded cells in row-major order, so each atom's in ascending t; a
+    # cell's place in its atom's list is its rank less the atom's first
+    n, i, t = bonded.nonzero(as_tuple=True)
+    flat_deg = deg.flatten()
+    first = torch.cumsum(flat_deg, 0) - flat_deg
+    row = n * T + i
+    place = torch.arange(row.numel(), device=adj.device) - first[row]
+    nbr = torch.full((N, T, D), -1, dtype=torch.int16, device=adj.device)
+    nbr[n, i, place] = t.to(torch.int16)
+    return nbr, deg.to(torch.uint8)
 
 
 def _compact(ok: torch.Tensor, P: int):
@@ -114,43 +146,96 @@ def _check(name, t, dtype, dim, device):
                          f"{t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def gsi_join(words, adj, rows, back_slot, back_mask, frontier_cap: int):
+def gsi_join(words, adj, rows, back_slot, back_mask, frontier_cap: int, neighbors):
     """(frontier int16 [B, P, nq], counts int32 [B], overflow bool [B]) of
     one query over the pairs whose bucket rows are ``rows``: K19 for CUDA
-    tensors (one launch), the plain version for CPU tensors."""
+    tensors (one launch), the plain version for CPU tensors. ``neighbors``
+    is the bucket's ``(lists, degrees)`` (:func:`neighbor_lists` of
+    ``adj``), which K19 walks; the plain version reads no lists (it may be
+    None on the CPU)."""
     if not words.is_cuda:
+        _edge_tables(back_slot, back_mask)
         return gsi_join_plain(words, adj, rows, back_slot, back_mask, frontier_cap)
+    return _launch_gsi(words, adj, rows, back_slot, back_mask, frontier_cap, neighbors)
+
+
+def _edge_tables(back_slot, back_mask) -> tuple[np.ndarray, np.ndarray]:
+    """The back-edge tables as int32 host arrays (no copy from host tensors),
+    refused when a mask accepts bond code 0 ("no bond") or a slot past the
+    first has no back edge: the join's candidates are then not all bonded
+    neighbours of a back-edge atom."""
+    slots = np.ascontiguousarray(back_slot.cpu().numpy(), np.int32)
+    masks = np.ascontiguousarray(back_mask.cpu().numpy(), np.int32)
+    if ((masks & 1) != 0).any():
+        raise ValueError("gsi_join walks neighbour lists: no back-edge mask may accept bond "
+                         "code 0")
+    if slots.ndim == 2 and len(slots) > 1 and not (slots[1:] >= 0).any(axis=1).all():
+        raise ValueError("gsi_join needs a back edge at every traversal slot past the first "
+                         "(a connected query)")
+    return slots, masks
+
+
+def _launch_gsi(words, adj, rows, back_slot, back_mask, frontier_cap: int, neighbors,
+                phase_cycles: bool = False):
+    """One K19 launch; with ``phase_cycles`` also int64 [B, 4] cycles of
+    :data:`K19_PHASES` per pair."""
     dev = words.device
     _check("label words", words, torch.int32, 3, dev)
     _check("bond codes", adj, torch.uint8, 3, dev)
-    for name, t in (("rows", rows), ("back slots", back_slot), ("back masks", back_mask)):
-        _check(name, t, torch.int32, 1 if name == "rows" else 2, dev)
+    _check("rows", rows, torch.int32, 1, dev)
+    slots, masks = _edge_tables(back_slot, back_mask)
     N, nq, W = words.shape
     T = adj.shape[1]
-    E = back_slot.shape[1]
+    E = slots.shape[1] if slots.ndim == 2 else 0
     if (adj.shape != (N, T, T) or T > MAX_T or W != -(-T // 32) or not 1 <= E <= MAX_EDGES
-            or back_slot.shape != (nq, E) or back_mask.shape != (nq, E) or frontier_cap < 1):
-        raise ValueError(f"K19 takes T <= {MAX_T}, [N, nq, ceil(T/32)] words, [N, T, T] codes "
-                         f"and [nq, E <= {MAX_EDGES}] back edges; got words {tuple(words.shape)}, "
-                         f"codes {tuple(adj.shape)}, back edges {tuple(back_slot.shape)}, "
-                         f"P {frontier_cap}")
+            or nq > MAX_NQ or slots.shape != (nq, E) or masks.shape != (nq, E)
+            or frontier_cap < 1):
+        raise ValueError(f"K19 takes T <= {MAX_T}, [N, nq <= {MAX_NQ}, ceil(T/32)] words, "
+                         f"[N, T, T] codes and [nq, E <= {MAX_EDGES}] back edges; got words "
+                         f"{tuple(words.shape)}, codes {tuple(adj.shape)}, back edges "
+                         f"{slots.shape}, P {frontier_cap}")
+    if neighbors is None:
+        raise ValueError("K19 walks the bucket's neighbour lists: pass neighbor_lists(adj)")
+    nbr, deg = neighbors
+    _check("neighbour lists", nbr, torch.int16, 3, dev)
+    _check("degrees", deg, torch.uint8, 2, dev)
+    D = nbr.shape[2]
+    if nbr.shape[:2] != (N, T) or deg.shape != (N, T) or D > MAX_DEGREE:
+        raise ValueError(f"K19 takes [N, T, D <= {MAX_DEGREE}] neighbour lists and [N, T] "
+                         f"degrees of the [N, T, T] codes {tuple(adj.shape)}; got "
+                         f"{tuple(nbr.shape)} and {tuple(deg.shape)}")
     B, P = rows.shape[0], frontier_cap
     out = torch.empty((B, P, nq), dtype=torch.int16, device=dev)
     counts = torch.empty(B, dtype=torch.int32, device=dev)
     overflow = torch.empty(B, dtype=torch.bool, device=dev)
+    cycles = (torch.zeros((B, len(K19_PHASES)), dtype=torch.int64, device=dev)
+              if phase_cycles else None)
     if B == 0:
-        return out, counts, overflow
+        return (out, counts, overflow, cycles) if phase_cycles else (out, counts, overflow)
     scratch = torch.empty_like(out)
     lib = substruct_gpu_lib()
     with torch.cuda.device(dev):
         rc = lib.nvmk_gsi_join(
-            words.data_ptr(), adj.data_ptr(), rows.data_ptr(), back_slot.data_ptr(),
-            back_mask.data_ptr(), B, nq, T, W, E, P, out.data_ptr(), scratch.data_ptr(),
-            counts.data_ptr(), overflow.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            words.data_ptr(), adj.data_ptr(), nbr.data_ptr(), deg.data_ptr(), rows.data_ptr(),
+            slots.ctypes.data, masks.ctypes.data, B, nq, T, W, E, D, P, out.data_ptr(),
+            scratch.data_ptr(), counts.data_ptr(), overflow.data_ptr(),
+            None if cycles is None else cycles.data_ptr(), torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"gsi_join kernel launch failed with CUDA error {rc}")
     launch_counts["gsi_join"] += 1
-    return out, counts, overflow
+    return (out, counts, overflow, cycles) if phase_cycles else (out, counts, overflow)
+
+
+def gsi_info() -> dict:
+    """K19's instantiation: registers and spilled bytes a thread, resident
+    blocks an SM, shared bytes a block, pairs a block and an SM."""
+    out = (ctypes.c_int * 5)()
+    rc = substruct_gpu_lib().nvmk_gsi_info(out)
+    if rc != 0:
+        raise RuntimeError(f"nvmk_gsi_info failed with CUDA error {rc}")
+    return {"registers": out[0], "local_bytes": out[1], "blocks_per_sm": out[2],
+            "shared_bytes": out[3], "pairs_per_block": out[4], "pairs_per_sm": out[2] * out[4],
+            "layout": "warp per pair"}
 
 
 def dedup_plain(frontier, counts, T: int):

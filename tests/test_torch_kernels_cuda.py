@@ -806,11 +806,15 @@ def test_coordgen_kernel_matches_plain(cuda):
     assert dist_geom.launch_counts["coordgen"] == before + 2
 
 
-@pytest.mark.parametrize("a_pad", [24, 200])
+@pytest.mark.parametrize("a_pad", [24, 64, 96, 200])
 def test_coordgen_kernel_projects_fixed_matrices(cuda, a_pad):
-    """The projection alone on metric matrices of seeded points (and a
-    tetrahedron's, with a repeated eigenvalue), G in shared memory (24) and
-    in global memory (200)."""
+    """The projection alone (the ``g_in`` path) on metric matrices of seeded
+    points (and a tetrahedron's, with a repeated eigenvalue, and systems of
+    1-3 atoms, of rank < 4), a warp per system with G in registers (24, 64)
+    and in shared memory (96), a block with G in global memory (200),
+    against the plain version in float64
+    (chip_smoke.k10_plain64: at rank < 4 the float32 one's rounding noise
+    passes the Gram-Schmidt guard)."""
     from nvmolkit_tpu_torch.models import dist_geom
 
     smoke = _load_by_path("chip_smoke.py")
@@ -818,6 +822,7 @@ def test_coordgen_kernel_projects_fixed_matrices(cuda, a_pad):
     s = 12
     n = rng.integers(4, a_pad + 1, size=s).astype(np.int32)
     n[0] = 4
+    n[1:4] = (1, 2, 3)
     g = np.zeros((s, a_pad, a_pad), np.float32)
     for k in range(s):
         p = rng.normal(size=(n[k], 4)) * np.array([3.0, 2.0, 1.2, 0.5])
@@ -832,9 +837,41 @@ def test_coordgen_kernel_projects_fixed_matrices(cuda, a_pad):
     g_t, n_t = torch.from_numpy(g).to(cuda), torch.from_numpy(n).to(cuda)
     got = dist_geom.project(g_t, n_t, uni)
     mask = torch.arange(a_pad, device=cuda)[None] < n_t[:, None]
-    want = dist_geom.project_plain(g_t, mask, uni, 2.0, True, 0)
+    uni64 = dist_geom.Uniforms(pairs=uni.pairs, q0=uni.q0.double(), neg=uni.neg.double())
+    want = [w.float() if w.is_floating_point() else w
+            for w in dist_geom.project_plain(g_t.double(), mask, uni64, 2.0, True, 0)]
     out = smoke.k10_compare(got, want)
     assert out["eig_ratio_max"] <= 1 and out["gram_ratio_max"] <= 1, out
+
+
+@pytest.mark.parametrize("a_pad", [16, 24, 32, 40, 48, 64, 96, 128, 192, 256])
+def test_coordgen_kernel_every_bucket(cuda, a_pad):
+    """K10 against its plain version in float64 (chip_smoke.k10_plain64) on
+    random consistent bounds at every atom bucket (K10_TOL), a system of 3
+    atoms (rank < 4) among them, with randNegEig on and the rank flag on.
+    Each layout by its buckets: a warp per system with G in registers (16-64),
+    in shared memory (96-192, and a caller's bucket of 40), a block per
+    system with G in global memory (256)."""
+    from nvmolkit_tpu_torch.chem.mol import mols_from_smiles
+    from nvmolkit_tpu_torch.models import dist_geom
+
+    smoke = _load_by_path("chip_smoke.py")
+    rng = np.random.default_rng(a_pad + 1)
+    up, lo, n = _random_bounds(rng, 8, a_pad, False)
+    n[:2] = (min(3, a_pad), a_pad)
+    sets = [dist_geom.build_chiral_sets(mols_from_smiles(["C"])[0])] * len(n)
+    batch = dist_geom.make_dg_batch(torch.from_numpy(up).to(cuda), torch.from_numpy(lo).to(cuda),
+                                    torch.from_numpy(n).to(cuda), sets)
+    s2m = torch.arange(len(n), dtype=torch.int32, device=cuda).repeat_interleave(4)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(a_pad)
+    uni = dist_geom.draw_uniforms(gen, s2m.shape[0], a_pad, cuda)
+    for rand_neg, nzf in ((True, 0), (False, 1)):
+        args = (batch, s2m, uni, 2.0, rand_neg, nzf)
+        out = smoke.k10_compare(dist_geom.random_distance_matrices(*args),
+                                smoke.k10_plain64(batch, s2m, uni, rand_neg, nzf))
+        assert out["eig_ratio_max"] <= 1 and out["gram_ratio_max"] <= 1, (rand_neg, out)
+        assert out["eig_ok_equal"], (rand_neg, out)
 
 
 def test_dg_energy_grad_kernel_matches_plain(cuda):
@@ -848,7 +885,11 @@ def test_dg_energy_grad_kernel_matches_plain(cuda):
     b, s2m = chunk["batch"], chunk["s2m"]
     x0, _, _ = dist_geom.random_distance_matrices(b, s2m, chunk["uniforms"])
     x1 = lbfgs(dist_geom.DG, x0, b, s2m, max_iters=20).positions
-    x1 = x1 + 0.3 * torch.randn(x1.shape, device=cuda) * (x1 != 0)
+    # the noise from its own seeded generator: the card's global RNG state
+    # depends on the tests that ran before
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    x1 = x1 + 0.3 * torch.randn(x1.shape, device=cuda, generator=gen) * (x1 != 0)
     for x in (x0, x1):
         for w in ((1.0, 0.1), (0.2, 1.0)):
             bw = b.weighted(*w)
@@ -970,7 +1011,11 @@ def test_etk_energy_grad_kernel_matches_plain(cuda):
     smoke, b, s2m, x0 = _etk_inputs(32, cuda, seed=6)
     assert int(b.offsets[1, -1]) > 0 and int(b.offsets[0, -1]) > 0
     x1 = lbfgs(etk.ETK, x0, b, s2m, max_iters=20).positions
-    x1 = x1 + 0.3 * torch.randn(x1.shape, device=cuda) * (x1 != 0)
+    # the noise from its own seeded generator: the card's global RNG state
+    # depends on the tests that ran before
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    x1 = x1 + 0.3 * torch.randn(x1.shape, device=cuda, generator=gen) * (x1 != 0)
     for x in (x0, x1):
         before = etk.launch_counts["etk_energy_grad"]
         e, g = etk.etk_energy_and_grad(x, b, s2m)
@@ -1464,7 +1509,7 @@ def _check_substruct_kernels(cuda, labels, adj, cq, P, rows=None):
     args += [torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(cuda)
              for a in (cq.back_slot, cq.back_mask)]
     before = dict(sk.launch_counts)
-    f, c, o = sk.gsi_join(*args, P)
+    f, c, o = sk.gsi_join(*args, P, sk.neighbor_lists(args[1]))
     pf, pc, po = sk.gsi_join_plain(*args, P)
     assert torch.equal(o, po) and torch.equal(c, pc)
     valid = torch.arange(P, device=cuda)[None, :] < c[:, None]
@@ -1499,6 +1544,38 @@ def test_substruct_kernels_match_plain(cuda, T):
                                                    rows=rng.permutation(len(labels))[:80]).sum()
         assert overflowed > 0, smarts
     assert cq.n_edges == 4
+
+
+@pytest.mark.parametrize("nq", [2, 3, 5, 8, 12, 16])
+def test_substruct_join_query_sizes(cuda, nq):
+    """K19 equals its plain version on chains and rings of 2-16 query atoms
+    over dense labels (frontiers that grow over many levels), at P = 128 and
+    P = 8, over the bucket's neighbour lists."""
+    from nvmolkit_tpu_torch.chem.smarts import parse_smarts
+    from nvmolkit_tpu_torch.ops import substruct_device as psd
+    from nvmolkit_tpu_torch.ops import substruct_kernels as sk
+
+    rng = np.random.default_rng(nq)
+    T = 64
+    codes = np.array([1, 2, 4, 9, 12], np.uint8)
+    adj = np.where(rng.random((64, T, T)) < 3.0 / T, codes[rng.integers(0, 5, (64, T, T))], 0)
+    adj = np.triu(adj, 1)
+    adj = (adj + adj.transpose(0, 2, 1)).astype(np.uint8)
+    for smarts in ("~".join(["*"] * nq), "*1" + "~*" * (nq - 1) + "~1" if nq > 2 else "*~*"):
+        cq = psd.compile_query(parse_smarts(smarts))
+        labels = rng.random((64, cq.nq, T)) < 0.7
+        words = torch.from_numpy(sk.pack_label_words(labels)).to(cuda)
+        codes_t = torch.from_numpy(adj).to(cuda)
+        rows = torch.from_numpy(rng.permutation(64)[:48].astype(np.int32)).to(cuda)
+        tables = [torch.from_numpy(np.ascontiguousarray(a, np.int32))
+                  for a in (cq.back_slot, cq.back_mask)]
+        lists = sk.neighbor_lists(codes_t)
+        for P in (128, 8):
+            want = sk.gsi_join_plain(words, codes_t, rows, *tables, P)
+            valid = torch.arange(P, device=cuda)[None, :] < want[1][:, None]
+            f, c, o = sk.gsi_join(words, codes_t, rows, *tables, P, lists)
+            assert torch.equal(o, want[2]) and torch.equal(c, want[1]), (smarts, P)
+            assert torch.equal(f[valid], want[0][valid]), (smarts, P)
 
 
 def test_substruct_overflow_exactly_at_the_cap(cuda):
@@ -1559,9 +1636,12 @@ def test_substruct_kernels_raise_on_failure(cuda, tmp_path, monkeypatch):
     rows = torch.arange(len(labels), dtype=torch.int32, device=cuda)
     tables = [torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(cuda)
               for a in (cq.back_slot, cq.back_mask)]
+    lists = sk.neighbor_lists(codes)
     with pytest.raises(ValueError):
-        sk.gsi_join(words, codes.long(), rows, *tables, 128)
-    f, c, _ = sk.gsi_join(words, codes, rows, *tables, 128)
+        sk.gsi_join(words, codes.long(), rows, *tables, 128, lists)
+    with pytest.raises(ValueError, match="neighbour lists"):
+        sk.gsi_join(words, codes, rows, *tables, 128, None)
+    f, c, _ = sk.gsi_join(words, codes, rows, *tables, 128, lists)
     with pytest.raises(ValueError):
         sk.dedup(f.int(), c, 32)
     with monkeypatch.context() as m:
@@ -1580,7 +1660,7 @@ def test_substruct_kernels_raise_on_failure(cuda, tmp_path, monkeypatch):
     before = dict(sk.launch_counts)
     monkeypatch.setattr(sk, "substruct_gpu_lib", Refusing)
     perm = torch.zeros(3, dtype=torch.int32, device=cuda)
-    for call in (lambda: sk.gsi_join(words, codes, rows, *tables, 128),
+    for call in (lambda: sk.gsi_join(words, codes, rows, *tables, 128, lists),
                  lambda: sk.dedup(f, c, 32), lambda: sk.extract(f, c + 1, perm, 5),
                  lambda: sk.root_mask(f, c, 0, 32)):
         with pytest.raises(RuntimeError, match="CUDA error 701"):

@@ -133,7 +133,7 @@ def _port_join(labels, adj, rows, cq, P):
     tables = [torch.from_numpy(np.ascontiguousarray(a, np.int32))
               for a in (cq.back_slot, cq.back_mask)]
     return sk.gsi_join(torch.from_numpy(sk.pack_label_words(labels)), torch.from_numpy(adj),
-                       torch.from_numpy(np.asarray(rows, np.int32)), *tables, P)
+                       torch.from_numpy(np.asarray(rows, np.int32)), *tables, P, None)
 
 
 def _check_kernels(labels, adj, rows, cq, P, what):
