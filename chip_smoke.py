@@ -325,6 +325,10 @@ EMBED_PLAIN = 256  # systems the plain DG minimizers are timed on
 # the same first 128 molecules x EMBED_CONFS (tests/test_torch_etkdg_fixture.py);
 # the systems of the largest chunk that the planted-fault check runs on
 ETKDG_FIXTURE = "tests/data/torch_etkdg_embed.npz"
+# fault 20's recorded geometry: system 73 (molecule 18) of the K13 card
+# test's inputs (the first 32 fixture molecules in the 96-atom bucket) at
+# noise seed 155, an improper there at sin w 0.99987
+FAULT20_FIXTURE = "tests/data/torch_k13_fault20.npz"
 ETK_FAULT_SYSTEMS = 512
 EMBED_EIGH = 512   # metric matrices of torch.linalg.eigh's yardstick beside K10
 # K10's extra cases: molecules of 1-4 atoms without hydrogens, and chains of
@@ -334,12 +338,11 @@ K10_LARGE_SMILES = ["C" * 70, "C" * 64 + "O", "C" * 80, "CCOC" * 18]
 # FP32 instructions, counted as K4_OPS are: K9 per pivot update (an add and
 # a min for the upper bound, two subtracts and two max for the lower); the
 # distance-bounds pair loop of K11 and K13 (dg_pairs.cuh) per pair i < j at
-# D coordinates an atom, evaluated once for both gradient rows (K11 and K13
-# evaluate each pair twice and so spend about this per ordered pair): per
-# coordinate a subtract, the FMA of d^2 and the FMA of the gradient row (3
-# D), then the two squared bounds and their compares (4), the branch that
-# binds with its max, divisions and sums (up to 10), the factor 4 v dv (2),
-# the energy and the j > i test (2); K11 per chiral quartet (a cross
+# D coordinates an atom, evaluated once for both gradient rows (as K11 and
+# K13 do): per coordinate a subtract, the FMA of d^2 and the FMAs of the two
+# gradient rows (4 D), then the two squared bounds and their compares (4),
+# the branch that binds with its max, reciprocals and sums (up to 10), the
+# factor 4 v dv (2) and the energy (1); K11 per chiral quartet (a cross
 # product, the window, three cross products of the gradient: 48); K12 per
 # pair (the distance, a square root, two divisions, two max) and per check
 # term (a volume or two cross products and a square root). Shared-memory
@@ -349,20 +352,20 @@ K9_OPS = 6
 
 def dg_pair_ops(dim: int) -> int:
     """FP32 instructions of the distance-bounds pair loop per pair i < j at
-    ``dim`` coordinates an atom (30 at K11's 4, 27 at K13's 3)."""
-    return 3 * dim + 18
+    ``dim`` coordinates an atom (33 at K11's 4, 29 at K13's 3)."""
+    return 4 * dim + 17
 
 
 DG_CHIRAL_OPS = 48
 # K13 per improper (three differences, a cross product, two norms, the sine
 # and its two clips, the square root, the gradient through both norms and
 # two cross products: ~78) and per torsion (three differences, three cross
-# products, a norm and the unit vector, two dots, atan2 once, per harmonic
-# an FMA for the angle, sincos once and two FMAs for the energy and its
-# derivative (6 x 6), atan2's derivative, the gradient through n1, n2 and
-# the unit vector (five cross products and their sums): ~158); its pairs at
-# dg_pair_ops(3)
-ETK_IMPROPER_OPS, ETK_TORSION_OPS = 78, 158
+# products, a norm and the unit vector, two dots, cos phi and sin phi by a
+# reciprocal square root, per harmonic cos and sin of k phi - phi0 from the
+# table, the energy and its derivative and the angle-addition step (6 x ~11),
+# atan2's derivative, the gradient through n1, n2 and the unit vector (five
+# cross products and their sums): ~196); its pairs at dg_pair_ops(3)
+ETK_IMPROPER_OPS, ETK_TORSION_OPS = 78, 196
 K12_PAIR_OPS, K12_TERM_OPS = 14, 40
 # FP32 instructions of csrc/mmff.cu's K4 per term, value and gradient,
 # counted as K3's are (a multiply feeding an add once; a division, square
@@ -1191,11 +1194,12 @@ def k10_work(n_atoms_sys, n_mols: int, a_pad: int, rates: dict, iters: int = 40)
 def pair_tables_bytes(batch) -> int:
     """The bytes of ``batch``'s tables that a kernel over the distance-bounds
     pair loop reads once per molecule: its term tables whole, and of the two
-    smoothed bounds matrices [M, a_pad, a_pad] only the entries it reads,
-    (min(i, j), max(i, j)) over each molecule's real atoms i != j."""
+    smoothed bounds matrices [M, a_pad, a_pad] (or their layout by
+    diagonals) only the entries it reads, (min(i, j), max(i, j)) over each
+    molecule's real atoms i != j."""
     import numpy as np
 
-    bounds = (batch.upper, batch.lower)
+    bounds = (batch.upper, batch.lower, batch.diag)
     tables = sum(t.numel() * t.element_size() for t in (batch.offsets,) + batch.atoms
                  + batch.params if all(t is not b for b in bounds))
     n = batch.n_atoms.cpu().numpy().astype(np.int64)
@@ -1283,7 +1287,8 @@ def constraint_work(positions, cb, rates: dict) -> dict:
     return bound(n_bytes, int(n_terms @ np.asarray(CONSTRAINT_OPS, np.int64)), rates, "fp32")
 
 
-def energy_grad_ratios(e, g, e_p, g_p, scale, g_scale, want64=None) -> tuple[float, float, float]:
+def energy_grad_ratios(e, g, e_p, g_p, scale, g_scale, want64=None,
+                       g_cond=None) -> tuple[float, float, float]:
     """A kernel's energies and gradients against the plain version's, under
     the bounds stated at check_k4 in main: (max |dE| / bound, max |dg| /
     bound, max |dE|). ``scale`` is each system's sum of |E_term|,
@@ -1293,11 +1298,16 @@ def energy_grad_ratios(e, g, e_p, g_p, scale, g_scale, want64=None) -> tuple[flo
     at a nearly linear angle or a torsion over nearly collinear atoms
     float32 itself is off by far more than G suggests, and a sum over
     clashing pairs of 1e6-1e9 kcal/mol rounds past 1e-5 of it (see
-    check_kernel)."""
+    check_kernel). ``g_cond`` (per component, K13's) adds the float32
+    rounding that an ill-conditioned term brings into the gradient beyond
+    G's scale: the impropers near w = 90 degrees
+    (``etk.improper_rounding_bound_plain``), zero at every other atom."""
     de = (e.double() - e_p.double()).abs()
     e_bound = 1e-5 * scale + 1e-4
     g_bound = 1e-4 * g_p.abs().amax(dim=(1, 2)).double().clamp_min(1.0)[:, None, None] + (
         2e-4 * g_scale)
+    if g_cond is not None:
+        g_bound = g_bound + g_cond
     if want64 is not None:
         e_bound = e_bound + TRAJ_FACTOR * (e_p.double() - want64[0]).abs()
         g_bound = g_bound + TRAJ_FACTOR * (g_p.double() - want64[1]).abs()
@@ -3461,7 +3471,9 @@ def main() -> int:
                   "impropers": int(sum(len(t.improper_idx) for t in fresh_terms))}
     del fresh, fresh_terms
     # K13 at each chunk's 3-D starts, then at the largest chunk's DG stages'
-    # output (the ETK stage's own input)
+    # output (the ETK stage's own input), then at fault 20's recorded
+    # geometry; the gradient bound adds each improper's derived float32
+    # rounding at its four atoms (etk.improper_rounding_bound_plain)
     etk_batches, k13_ratios = {}, {}
     for b, ch in chunks.items():
         mols_b = [emols[i] for i in e_buckets[b]]
@@ -3475,15 +3487,24 @@ def main() -> int:
                              max_iters=etkdg.fourthDimMinimizeIters).positions[..., :3].contiguous()
     del r_first
     big_etk = etk_batches[big_e]
+    fx20, _ = mmff_fixture()
+    mols20 = mmff_molecules({"smiles": fx20["smiles"][:32]})
+    provider.precompute(mols20)
+    etk20 = etk.make_etk_batch(dg_chunk(mols20, 96, 4, cuda, seed=6)["batch"],
+                               etk.build_etk_terms_batch(mols20, provider, True))
+    with np.load(ROOT / FAULT20_FIXTURE) as f:
+        x20 = torch.from_numpy(f["x"])[None].to(cuda)
+        s20 = torch.tensor([int(f["molecule"])], dtype=torch.int32, device=cuda)
     starts = [(f"{b}_k10", ch["x0"][..., :3].contiguous(), etk_batches[b], ch["s2m"])
               for b, ch in chunks.items()] + [(f"{big_e}_dg_stages", x_etk, big_etk,
-                                                big_ch["s2m"])]
+                                                big_ch["s2m"]), ("fault20", x20, etk20, s20)]
     for label, x, eb_, s2m_ in starts:
         e, g = etk.etk_energy_and_grad(x, eb_, s2m_)
         e_p, g_p = etk.etk_energy_and_grad_plain(x, eb_, s2m_)
-        e_r, g_r, de = energy_grad_ratios(e, g, e_p, g_p,
-                                          etk.etk_term_magnitude_plain(x, eb_, s2m_),
-                                          etk.etk_grad_magnitude_plain(x, eb_, s2m_))
+        e_r, g_r, de = energy_grad_ratios(
+            e, g, e_p, g_p, etk.etk_term_magnitude_plain(x, eb_, s2m_),
+            etk.etk_grad_magnitude_plain(x, eb_, s2m_),
+            g_cond=etk.improper_rounding_bound_plain(x, eb_, s2m_))
         check(e_r <= 1 and g_r <= 1, f"K13 at {label}: {e_r}, {g_r}")
         check(bool(torch.isfinite(e).all()), f"K13 at {label}: finite energies")
         errs[K13] = max(errs[K13], de)
@@ -4465,16 +4486,18 @@ def main() -> int:
               "with a Rayleigh-Ritz finish, a warp per system up to 192 atoms, a block "
               "per system above)",
               "nvmolkit_tpu/models/dist_geom.py:193", "nvmolkit_tpu_torch/csrc/coordgen.cu"),
-        K11: ("dg_energy_grad (K11: energy_grad_kernel; its device function dg_eval also "
-              "runs inside K5 and K8, once per probe)", "nvmolkit_tpu/models/dist_geom.py:95",
+        K11: ("dg_energy_grad (K11: energy_grad_kernel, each pair once over tiles of 32 "
+              "atoms, the bounds read by diagonals; its device function dg_eval also runs "
+              "inside K5, K23 and K8, once per probe)", "nvmolkit_tpu/models/dist_geom.py:95",
               dist_geom_cu),
         K5D: ("dg_lbfgs (K5 over DG, 4 coordinates per atom: lbfgs_kernel<Dg>)",
               "nvmolkit_tpu/ops/lbfgs_flat.py:160", dist_geom_cu),
         K8D: ("dg_bfgs (K8 over DG: bfgs_kernel<Dg>)", bfgs_at, dist_geom_cu),
         K12: ("embed_checks (K12: the six checks, one block per system)",
               "nvmolkit_tpu/embedMolecules.py:1077", "nvmolkit_tpu_torch/csrc/embed_checks.cu"),
-        K13: ("etk_energy_grad (K13: energy_grad_kernel; its device function etk_eval also "
-              "runs inside K5 and K8, once per probe)", "nvmolkit_tpu/models/etk.py:517",
+        K13: ("etk_energy_grad (K13: energy_grad_kernel, each pair once as K11, the "
+              "torsions' harmonics by angle addition; its device function etk_eval also runs "
+              "inside K5, K23 and K8, once per probe)", "nvmolkit_tpu/models/etk.py:517",
               etk_cu),
         K5E: ("etk_lbfgs (K5 over ETK: lbfgs_kernel<Etk>)", "nvmolkit_tpu/ops/lbfgs_flat.py:160",
               etk_cu),

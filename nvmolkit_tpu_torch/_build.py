@@ -369,6 +369,9 @@ def _declare_dist_geom(lib: ctypes.CDLL) -> None:
     tables = ctypes.POINTER(ctypes.c_void_p)
     lib.nvmk_dg_energy_grad.restype = ci
     lib.nvmk_dg_energy_grad.argtypes = [vp, ci, ci, vp, vp, vp, ci, tables, cf, cf, vp, vp, vp]
+    lib.nvmk_dg_energy_grad_cycles.restype = ci
+    lib.nvmk_dg_energy_grad_cycles.argtypes = [vp, ci, ci, vp, vp, vp, ci, tables, cf, cf, vp,
+                                               vp, vp, vp]
     _declare_ff(lib, "dg", [cf, cf])
 
 
@@ -436,6 +439,9 @@ def _declare_etk(lib: ctypes.CDLL) -> None:
     tables = ctypes.POINTER(ctypes.c_void_p)
     lib.nvmk_etk_energy_grad.restype = ci
     lib.nvmk_etk_energy_grad.argtypes = [vp, ci, ci, vp, vp, vp, ci, tables, cf, vp, vp, vp]
+    lib.nvmk_etk_energy_grad_cycles.restype = ci
+    lib.nvmk_etk_energy_grad_cycles.argtypes = [vp, ci, ci, vp, vp, vp, ci, tables, cf, vp, vp,
+                                                vp, vp]
     _declare_ff(lib, "etk", [cf])
 
 

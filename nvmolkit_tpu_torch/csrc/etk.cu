@@ -20,17 +20,28 @@
 // with the JAX function's guards: every norm is sqrt(|d|^2 + 1e-10), and no
 // derivative passes a clip where it binds. The torsion gradient follows
 // atan2's, (x dy - y dx) / (x^2 + y^2), as autodiff does: at a collinear
-// b1, b2 or b2, b3 both are 0/0.
+// b1, b2 or b2, b3 both are 0/0. The improper keeps the reference's cos w
+// from sin w, and so its float32 rounding, which near w = 90 degrees loses
+// digits (chip_smoke.py's bounds add that share: etk.py
+// improper_rounding_bound_plain). A torsion takes cos phi and sin phi from
+// (x, y) / |(x, y)| (atan2's own value where both are 0), then cos k phi and
+// sin k phi by the angle-addition recurrence and cos(k phi - phi0_k) from the
+// table of cos phi0_k and sin phi0_k that etk.py make_etk_batch builds: no
+// atan2 and no sine of an angle, where the first design
+// (tools/dg_etk_first_design.cu) took atan2 and six sincosf.
 //
-// One block of 128 threads per system. The pair terms go by rows as K11's
-// do; the impropers and torsions (tens per molecule, from per-molecule CSR
-// tables) are split into contiguous runs per thread and push their
-// gradients by shared atomics after the rows are written. What bounds K13:
-// its FP32 work, ~27 instructions per pair i < j of the bounds term (most
-// of them at drug-like sizes), ~78 per improper and ~158 per torsion (three
-// cross products, atan2, six sines and cosines), ahead of its bytes (the
-// upper triangle of each molecule's two bounds matrices, the tables, the
-// positions and gradients once).
+// One block of 128 threads per system, one evaluation (etk_eval): the
+// gradient zeroed, one barrier; each warp takes a quarter of the pairs
+// (dg_pairs.cuh, each pair once), then a quarter of the impropers and of the
+// torsions (from per-molecule CSR tables), all added into the gradient by
+// shared atomics; one barrier ends them with the energy's sum. The first
+// design wrote the pair rows, then ran the terms in contiguous runs on the
+// first threads behind a barrier: four barriers. What bounds K13: its FP32
+// work, ~29 instructions per pair i < j of the bounds term (most of them at
+// drug-like sizes), ~78 per improper and ~196 per torsion (three cross
+// products, a reciprocal square root, the six harmonics by the recurrence),
+// ahead of its bytes (the upper triangle of each molecule's two bounds
+// matrices, the tables, the positions and gradients once).
 
 #include "dg_pairs.cuh"
 #include "ff_common.cuh"
@@ -48,8 +59,10 @@ struct EtkTables {
   const int* torsion;    // [T, 4] int32
   const float* k_imp;    // [I, 1] float32
   const float* tor_par;  // [T, 12] float32: F_1..F_6, phi0_1..phi0_6 (radians)
+  const float* tor_trig; // [T, 12] float32: cos phi0_1..6, sin phi0_1..6
   const float* ub;       // [n_mols, a_pad, a_pad] float32 smoothed upper bounds
   const float* lb;       // [n_mols, a_pad, a_pad] float32 smoothed lower bounds
+  const float2* diag;    // [n_mols, a_pad, a_pad] (u, l) by diagonals (DiagBounds)
   int a_pad, n_mols;
   float w_bounds;
 };
@@ -65,8 +78,9 @@ __device__ __forceinline__ float improper_term(const int* a, float k, const floa
   return k * (1.0f - cw);
 }
 
-__device__ __forceinline__ float torsion_term(const int* a, const float* p, const float* x,
-                                              float* g) {
+// ``p``: the torsion's F_1..F_6; ``trig``: cos phi0_1..6, sin phi0_1..6
+__device__ __forceinline__ float torsion_term(const int* a, const float* p, const float* trig,
+                                              const float* x, float* g) {
   const V3 pj = at(x, a[1]), pk = at(x, a[2]);
   const V3 b1 = sub(pj, at(x, a[0]));
   const V3 b2 = sub(pk, pj);
@@ -76,18 +90,34 @@ __device__ __forceinline__ float torsion_term(const int* a, const float* p, cons
   const V3 u = mul(b2, 1.0f / s);
   const V3 m1 = cross(n1, u);
   const float yy = dot(m1, n2), xx = dot(n1, n2);
-  const float phi = atan2f(yy, xx);
-  float e = 0.0f, dphi = 0.0f;
+  const float r2 = xx * xx + yy * yy;
+  // cos phi and sin phi of phi = atan2(yy, xx); where both are 0, atan2's
+  // value: 0, or pi for xx = -0 (a NaN stays in sin phi)
+  float c1, s1;
+  if (r2 > 0.0f) {
+    const float inv = rsqrtf(r2);
+    c1 = xx * inv;
+    s1 = yy * inv;
+  } else {
+    c1 = copysignf(1.0f, xx);
+    s1 = yy;
+  }
+  // cos k phi, sin k phi by angle addition; cos(k phi - phi0) and
+  // sin(k phi - phi0) from the table's cos phi0, sin phi0
+  float ck = c1, sk = s1, e = 0.0f, dphi = 0.0f;
 #pragma unroll
   for (int k = 1; k <= N_HARMONICS; ++k) {
-    float sn, cs;
-    sincosf(k * phi - p[N_HARMONICS + k - 1], &sn, &cs);
-    e += p[k - 1] * (1.0f + cs);
-    dphi -= p[k - 1] * k * sn;
+    const float cp = trig[k - 1], sp = trig[N_HARMONICS + k - 1];
+    e += p[k - 1] * (1.0f + (ck * cp + sk * sp));
+    dphi -= p[k - 1] * k * (sk * cp - ck * sp);
+    if (k < N_HARMONICS) {
+      const float cn = ck * c1 - sk * s1;
+      sk = sk * c1 + ck * s1;
+      ck = cn;
+    }
   }
   // atan2's derivative, then y = m1 . n2 = n1 . (u x n2) = u . (n2 x n1)
   // and x = n1 . n2 back to n1, n2 and u
-  const float r2 = xx * xx + yy * yy;
   const float gy = dphi * xx / r2, gx = -dphi * yy / r2;
   const V3 g_n1 = add(mul(n2, gx), mul(cross(u, n2), gy));
   const V3 g_n2 = add(mul(n1, gx), mul(m1, gy));
@@ -104,40 +134,41 @@ __device__ __forceinline__ float torsion_term(const int* a, const float* p, cons
   return e;
 }
 
-// the molecule's bounds matrices in device memory
+// the molecule's bounds matrices in device memory, and its (u, l) by
+// diagonals
 __device__ __forceinline__ SquareBounds etk_bounds(const EtkTables& t, int mol) {
   const size_t mat = (size_t)mol * t.a_pad * t.a_pad;
   return SquareBounds{t.ub + mat, t.lb + mat, t.a_pad};
+}
+__device__ __forceinline__ DiagBounds etk_diag(const EtkTables& t, int mol) {
+  return DiagBounds{t.diag + (size_t)mol * t.a_pad * t.a_pad, t.a_pad};
 }
 
 // K13's device function: the energy of one system of molecule ``mol`` at
 // positions ``x`` (shared, 3 floats per atom) and its gradient into ``g``
 // (shared; its first n_dof entries are overwritten), the pair bounds read
 // through ``bounds`` (dg_pairs.cuh). Returns the energy in every thread;
-// ``g`` is complete on return.
-template <class Bounds>
+// ``g`` is complete on return. Two barriers.
+template <class Bounds, class Clock>
 __device__ float etk_eval(const EtkTables& t, int mol, const Bounds& bounds, const float* x,
-                          float* g, int n_dof, float* red) {
-  const float w = t.w_bounds;
-  float e = distance_pairs<3>(bounds, x, n_dof / 3, [&](int i, const float (&gi)[3], float ei) {
-    g[3 * i] = w * gi[0];
-    g[3 * i + 1] = w * gi[1];
-    g[3 * i + 2] = w * gi[2];
-    return w * ei;
-  });
-  __syncthreads();  // every gradient row is written before the terms' atomics
+                          float* g, int n_dof, float* red, Clock& clk) {
+  for (int i = threadIdx.x; i < n_dof; i += THREADS) g[i] = 0.0f;
+  __syncthreads();  // g zeroed before any term adds to it
+  clk.lap(E_WAIT);
+  float e = distance_pairs<3>(bounds, x, n_dof / 3, t.w_bounds, g, clk);
   const int stride = t.n_mols + 1;
-  int first, last;
-  my_run(t.off[mol], t.off[mol + 1], first, last);
-  for (int c = first; c < last; ++c) {
+  for (int c = t.off[mol] + term_slot(); c < t.off[mol + 1]; c += THREADS) {
     e += improper_term(t.improper + 4 * (size_t)c, t.k_imp[c], x, g);
   }
-  my_run(t.off[stride + mol], t.off[stride + mol + 1], first, last);
-  for (int c = first; c < last; ++c) {
-    e += torsion_term(t.torsion + 4 * (size_t)c, t.tor_par + 2 * N_HARMONICS * (size_t)c, x, g);
+  clk.lap(E_TERMS_A);
+  for (int c = t.off[stride + mol] + term_slot(); c < t.off[stride + mol + 1]; c += THREADS) {
+    e += torsion_term(t.torsion + 4 * (size_t)c, t.tor_par + 2 * N_HARMONICS * (size_t)c,
+                      t.tor_trig + 2 * N_HARMONICS * (size_t)c, x, g);
   }
-  __syncthreads();  // the terms' atomics into g are done
-  return block_sum(e, red);
+  clk.lap(E_TERMS_B);
+  const float total = block_total(e, red);  // its barrier ends every atomic into g
+  clk.lap(E_SUM);
+  return total;
 }
 
 // the force field the minimizers take; K5 and K23 stage its pair bounds in
@@ -149,24 +180,37 @@ struct Etk {
   static constexpr int kLbfgsStagedBlocks = 7;
   EtkTables t;
   __device__ float eval(int mol, const float* x, float* g, int n_dof, float* red) const {
-    return etk_eval(t, mol, etk_bounds(t, mol), x, g, n_dof, red);
+    NoClock clk;
+    return etk_eval(t, mol, etk_diag(t, mol), x, g, n_dof, red, clk);
   }
   __device__ void stage(int mol, int n, float2* ul) const {
     stage_bounds(etk_bounds(t, mol), n, ul);
   }
   __device__ float eval_staged(int mol, const float* x, float* g, int n_dof, float* red,
                                const float2* ul) const {
-    return etk_eval(t, mol, PackedBounds{ul, n_dof / 3}, x, g, n_dof, red);
+    NoClock clk;
+    return etk_eval(t, mol, PackedBounds{ul, n_dof / 3}, x, g, n_dof, red, clk);
   }
 };
 
 // ---- K13 --------------------------------------------------------------------
 
+// K13's shared floats at a_pad atoms: x, g, the reduction buffer
+__host__ __device__ __forceinline__ size_t k13_floats(int a_pad) {
+  return 6 * (size_t)a_pad + 2 * WARPS;
+}
+
+// with ``cycles`` (int64 [n_sys, WARPS, EVAL_PHASES]), each warp's phase
+// cycles (Clocked)
+template <bool Clocked>
 __global__ void __launch_bounds__(THREADS)
 energy_grad_kernel(const float* __restrict__ pos, int a_pad, const int* __restrict__ sys2mol,
                    const int* __restrict__ atom_count, EtkTables t, float* __restrict__ energy,
-                   float* __restrict__ grad) {
+                   float* __restrict__ grad, long long* __restrict__ cycles) {
   extern __shared__ float smem[];
+  __shared__ long long clock_acc[Clocked ? WARPS * (EVAL_PHASES + 1) : 1];
+  typename std::conditional<Clocked, WarpClock, NoClock>::type clk(clock_acc);
+  clk.start();
   const int row = 3 * a_pad;
   float* x = smem;
   float* g = x + row;
@@ -175,16 +219,36 @@ energy_grad_kernel(const float* __restrict__ pos, int a_pad, const int* __restri
   const int n_dof = 3 * atom_count[s];
   const float* px = pos + s * row;
   for (int i = threadIdx.x; i < n_dof; i += THREADS) x[i] = px[i];
-  __syncthreads();
   const int mol = sys2mol[s];
-  const float e = etk_eval(t, mol, etk_bounds(t, mol), x, g, n_dof, red);
+  __syncthreads();
+  clk.lap(E_LOAD);
+  const float e = etk_eval(t, mol, etk_diag(t, mol), x, g, n_dof, red, clk);
   if (threadIdx.x == 0) energy[s] = e;
   float* pg = grad + s * row;
   for (int i = threadIdx.x; i < row; i += THREADS) pg[i] = i < n_dof ? g[i] : 0.0f;
+  clk.lap(E_WRITE);
+  if constexpr (Clocked) {
+    if ((threadIdx.x & 31) == 0) {
+      const int w = threadIdx.x >> 5;
+      for (int p = 0; p < EVAL_PHASES; ++p)
+        cycles[(s * WARPS + w) * EVAL_PHASES + p] = clock_acc[w * (EVAL_PHASES + 1) + p];
+    }
+  }
+}
+
+template <bool Clocked>
+int launch_k13(const float* pos, int n_sys, int a_pad, const int* sys2mol, const int* atom_count,
+               const EtkTables& t, float* energy, float* grad, long long* cycles, void* stream) {
+  if (n_sys == 0) return 0;
+  const size_t smem = k13_floats(a_pad) * sizeof(float);
+  energy_grad_kernel<Clocked><<<n_sys, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      pos, a_pad, sys2mol, atom_count, t, energy, grad, cycles);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ``tables``: the improper and torsion atom columns, their parameter rows,
-// then the upper and lower bounds matrices
+// the upper and lower bounds matrices, the torsions' cos/sin phi0 rows, then
+// the bounds' (u, l) by diagonals
 Etk make_etk(const int* off, int n_mols, const void* const* tables, int a_pad, float w_bounds) {
   EtkTables t;
   t.off = off;
@@ -194,6 +258,8 @@ Etk make_etk(const int* off, int n_mols, const void* const* tables, int a_pad, f
   t.tor_par = static_cast<const float*>(tables[3]);
   t.ub = static_cast<const float*>(tables[4]);
   t.lb = static_cast<const float*>(tables[5]);
+  t.tor_trig = static_cast<const float*>(tables[6]);
+  t.diag = static_cast<const float2*>(tables[7]);
   t.a_pad = a_pad;
   t.n_mols = n_mols;
   t.w_bounds = w_bounds;
@@ -215,20 +281,29 @@ int nvmk_etk_lbfgs_info(int lockstep, int a_pad, int stage, int* out) {
 }
 
 // K13: energy [n_sys] and gradient [n_sys, a_pad, 3] of the systems at ``pos``
-// [n_sys, a_pad, 3]. ``tables`` holds 6 device pointers: the int32 improper
+// [n_sys, a_pad, 3]. ``tables`` holds 8 device pointers: the int32 improper
 // and torsion quartets [I, 4] and [T, 4], their float32 rows [I, 1] and
-// [T, 12], and the float32 smoothed upper and lower bounds [n_mols, a_pad,
-// a_pad].
+// [T, 12], the float32 smoothed upper and lower bounds [n_mols, a_pad,
+// a_pad], the torsions' float32 cos phi0 and sin phi0 [T, 12], and the
+// bounds' (u, l) by diagonals [n_mols, a_pad, a_pad, 2] (EtkBatch.diag).
 int nvmk_etk_energy_grad(const float* pos, int n_sys, int a_pad, const int* sys2mol,
                          const int* atom_count, const int* off, int n_mols,
                          const void* const* tables, float w_bounds, float* energy, float* grad,
                          void* stream) {
-  if (n_sys == 0) return 0;
-  const size_t smem = (6 * (size_t)a_pad + 2 * WARPS) * sizeof(float);
-  energy_grad_kernel<<<n_sys, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      pos, a_pad, sys2mol, atom_count, make_etk(off, n_mols, tables, a_pad, w_bounds).t, energy,
-      grad);
-  return static_cast<int>(cudaGetLastError());
+  return launch_k13<false>(pos, n_sys, a_pad, sys2mol, atom_count,
+                           make_etk(off, n_mols, tables, a_pad, w_bounds).t, energy, grad, nullptr,
+                           stream);
+}
+
+// K13 as nvmk_etk_energy_grad, each warp's phase cycles into ``cycles``
+// (int64 [n_sys, WARPS, 9]: dg_pairs.cuh EvalPhase)
+int nvmk_etk_energy_grad_cycles(const float* pos, int n_sys, int a_pad, const int* sys2mol,
+                                const int* atom_count, const int* off, int n_mols,
+                                const void* const* tables, float w_bounds, float* energy,
+                                float* grad, long long* cycles, void* stream) {
+  return launch_k13<true>(pos, n_sys, a_pad, sys2mol, atom_count,
+                          make_etk(off, n_mols, tables, a_pad, w_bounds).t, energy, grad, cycles,
+                          stream);
 }
 
 // K5 over the ETK force field (see launch_lbfgs)

@@ -296,7 +296,7 @@ __device__ __forceinline__ void finish_direction(const float (&v)[4], float* d, 
 // (HISTORY rows each); the force field's reduction buffer (2 WARPS), the
 // Reducer's, the history's Gram entries s_k . y_j and y_k . y_j (by slot);
 // then, where the bounds are staged, a_pad (a_pad - 1) / 2 float2 pairs at
-// an even offset and a_pad row offsets (dg_pairs.cuh PackedBounds)
+// an even offset (dg_pairs.cuh PackedBounds)
 template <class FF>
 __host__ __device__ __forceinline__ size_t lbfgs_floats(int a_pad) {
   return ((5 + 2 * HISTORY) * FF::kDim * (size_t)a_pad + 2 * WARPS + 2 * RED_SLOTS * WARPS +
@@ -305,7 +305,7 @@ __host__ __device__ __forceinline__ size_t lbfgs_floats(int a_pad) {
 
 template <class FF>
 size_t lbfgs_smem(int a_pad, bool staged) {
-  return (lbfgs_floats<FF>(a_pad) + (staged ? (size_t)a_pad * (a_pad - 1) + a_pad : 0)) *
+  return (lbfgs_floats<FF>(a_pad) + (staged ? (size_t)a_pad * (a_pad - 1) : 0)) *
          sizeof(float);
 }
 

@@ -63,10 +63,10 @@ from nvmolkit_tpu_torch.utils.config import HardwareOptions
 # Hessians, 2 n (n + 1) bytes a system of n = 4 x its atoms coordinates,
 # are sliced by ops/bfgs.HESSIAN_BYTES on their own)
 CHUNK_BYTES = 4 << 30
-# the ETK tables of a molecule, per atom: up to ~4 torsion rows (64 bytes
-# each: 4 atoms, 6 F and 6 phi0) per bond and ~1.1 bonds per atom, an
-# improper (20 bytes) per third of the atoms
-ETK_BYTES_PER_ATOM = 320
+# the ETK tables of a molecule, per atom: up to ~4 torsion rows (112 bytes
+# each: 4 atoms, 6 F and 6 phi0, and K13's 6 cos phi0 and 6 sin phi0) per
+# bond and ~1.1 bonds per atom, an improper (20 bytes) per third of the atoms
+ETK_BYTES_PER_ATOM = 512
 
 
 @dataclasses.dataclass
@@ -184,8 +184,9 @@ def _chunk_cap(bucket: int, confs: int, use_etk: bool = False) -> int:
     """Systems per chunk of atom bucket ``bucket``: CHUNK_BYTES over a
     system's device bytes (the [A, A] uniforms, the positions, gradients and
     checks at ~160 bytes an atom, and its share of the molecule's two
-    smoothed [A, A] bounds and, with the ETK stage, of its ETK tables)."""
-    per_mol = 8.0 * bucket * bucket + (ETK_BYTES_PER_ATOM * bucket if use_etk else 0.0)
+    smoothed [A, A] bounds, their (u, l) by diagonals and, with the ETK
+    stage, its ETK tables)."""
+    per_mol = 16.0 * bucket * bucket + (ETK_BYTES_PER_ATOM * bucket if use_etk else 0.0)
     per_system = 4.0 * bucket * bucket + 160.0 * bucket + per_mol / max(1, confs)
     return max(8, int(CHUNK_BYTES / per_system))
 

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -55,7 +56,9 @@ class DGBatch:
     ``offsets`` int32 [1, M + 1] indexes ``atoms[0]`` (the chiral quartets,
     int32 [C, 4]) and ``params[0]`` (their windows (lb, ub), float32 [C,
     2]); ``params[1]`` and ``params[2]`` are the smoothed upper and lower
-    bounds, float32 [M, A, A]."""
+    bounds, float32 [M, A, A]; ``params[3]`` their (u, l) by diagonals
+    (:func:`diagonal_bounds`), which K11, K13 and K8 read (a batch whose
+    bounds are replaced needs it made again)."""
 
     n_atoms: torch.Tensor
     offsets: torch.Tensor
@@ -77,6 +80,10 @@ class DGBatch:
     def lower(self) -> torch.Tensor:
         return self.params[2]
 
+    @property
+    def diag(self) -> torch.Tensor:
+        return self.params[3]
+
     def weighted(self, chiral_weight: float, fourth_dim_weight: float) -> "DGBatch":
         return dataclasses.replace(self, chiral_weight=float(chiral_weight),
                                    fourth_dim_weight=float(fourth_dim_weight))
@@ -96,9 +103,25 @@ def make_dg_batch(upper: torch.Tensor, lower: torch.Tensor, n_atoms: torch.Tenso
                     np.concatenate([c[2] for c in chiral_sets])], axis=1).astype(np.float32)
     return DGBatch(
         n_atoms=n_atoms.to(dev, torch.int32).contiguous(), offsets=torch.from_numpy(off).to(dev),
-        atoms=(torch.from_numpy(idx).to(dev),), params=(torch.from_numpy(win).to(dev),
-                                                         upper.contiguous(), lower.contiguous()),
+        atoms=(torch.from_numpy(idx).to(dev),),
+        params=(torch.from_numpy(win).to(dev), upper.contiguous(), lower.contiguous(),
+                diagonal_bounds(upper, lower)),
         max_atoms=int(upper.shape[1]))
+
+
+def diagonal_bounds(upper: torch.Tensor, lower: torch.Tensor) -> torch.Tensor:
+    """The smoothed bounds [M, A, A] as (u, l) pairs laid out by diagonals,
+    float32 [M, A, A, 2]: the pair a < b at [b - a, a], zero past the
+    triangle (``csrc/dg_pairs.cuh`` DiagBounds: a step of the pair walk
+    reads at most two runs of consecutive entries)."""
+    M, A, _ = upper.shape
+    d = torch.arange(A, device=upper.device)[:, None]
+    a = torch.arange(A, device=upper.device)[None, :]
+    inside = a + d < A
+    at = (a * A + torch.clamp(a + d, max=A - 1)).reshape(-1)
+    pair = torch.stack([upper.reshape(M, -1)[:, at], lower.reshape(M, -1)[:, at]], dim=-1)
+    return torch.where(inside.reshape(1, -1, 1), pair, 0.0).reshape(M, A, A, 2).to(
+        torch.float32).contiguous()
 
 
 def _chiral_terms(batch: DGBatch, sys2mol: torch.Tensor, a_pad: int):
@@ -220,12 +243,328 @@ def dg_grad_magnitude_plain(positions: torch.Tensor, batch: DGBatch,
     return torch.where(mask[..., None], out, 0.0)
 
 
-def dg_energy_and_grad(positions: torch.Tensor, batch: DGBatch, sys2mol: torch.Tensor):
+# ---------------------------------------------------------------------------
+# a torch model of K11's and K13's arithmetic (csrc/dg_pairs.cuh)
+# ---------------------------------------------------------------------------
+
+THREADS, WARPS = 128, 4
+# the phases of K11's and K13's per-warp clock (``phase_cycles=True``;
+# csrc/dg_pairs.cuh EvalPhase)
+EVAL_PHASES = ("load", "pairs", "adds", "pairs_b", "wait", "terms_a", "terms_b", "sum",
+               "write")
+DG_ONCE_MAX_ATOMS = 96
+
+
+@functools.lru_cache(maxsize=None)
+def pair_schedule(n: int) -> tuple:
+    """The walk of K11 and K13 over the pairs of n atoms (``dg_pairs.cuh``
+    PairTiles): its units in order, each (I, J, k, steps), a run of steps of
+    tile (I, J) from its k, unit u taken by warp u mod WARPS. At step k of
+    tile (I, J) lane l takes the pair (32 I + l, 32 J + (l + k) mod 32)
+    (:func:`step_pairs`)."""
+    if n < 2:
+        return ()
+    nb = (n + 31) // 32
+    last = min(16, n - 32 * (nb - 1) - 1)
+    n_diag = 16 * (nb - 1) + last
+    unit = max(1, -(-n_diag // WARPS)) if nb == 1 else (8 if nb % 2 else 16)
+    out = []
+    for I in range(nb):
+        length = last if I == nb - 1 else 16
+        out += [(I, I, first + 1, min(unit, length - first)) for first in range(0, length, unit)]
+    for I in range(nb):
+        for J in range(I + 1, nb):
+            out += [(I, J, k, unit) for k in range(0, 32, unit)]
+    return tuple(out)
+
+
+def step_pairs(I: int, J: int, k: int, n: int):
+    """Lane l's pair (i, j) at step k of tile (I, J) and whether it is one of
+    the n atoms' pairs: three int64/bool [32] arrays."""
+    lanes = np.arange(32)
+    i, j = 32 * I + lanes, 32 * J + (lanes + k) % 32
+    return i, j, (i < n) & (j < n) & ((I != J) | (k < 16) | (lanes < 16))
+
+
+def _pair_step(x, u2, l2, i, j, valid):
+    """One step's pair terms at ``x`` [S, A, D] under the squared bounds
+    [S, A, A], as dg_pairs.cuh pair_term: (+dE/dx_i [S, 32, D], E [S, 32]),
+    zero off ``valid`` and where nothing is violated; each division a
+    reciprocal and a multiply."""
+    A = x.shape[1]
+    ic, jc = torch.as_tensor(np.minimum(i, A - 1)), torch.as_tensor(np.minimum(j, A - 1))
+    lo_i, hi_i = torch.minimum(ic, jc), torch.maximum(ic, jc)
+    d = x[:, ic] - x[:, jc]
+    d2 = d[..., 0] * d[..., 0]
+    for q in range(1, x.shape[2]):
+        d2 = d2 + d[..., q] * d[..., q]
+    U2, L2 = u2[:, lo_i, hi_i], l2[:, lo_i, hi_i]
+    up, low = d2 > U2, d2 < L2
+    r_u = torch.reciprocal(torch.clamp_min(U2, 1e-8))
+    v = torch.where(up, d2 * r_u - 1.0, 0.0)
+    dv = torch.where(up, r_u, 0.0)
+    s = L2 + d2
+    r_s = torch.reciprocal(torch.clamp_min(s, 1e-8))
+    q = 2.0 * L2 * r_s
+    v = v + torch.where(low, q - 1.0, 0.0)
+    dv = dv - torch.where(low & (s > 1e-8), q * r_s, 0.0)
+    on = torch.as_tensor(valid)[None] & (up | low)
+    c = 4.0 * v * dv
+    return torch.where(on[..., None], c[..., None] * d, 0.0), torch.where(on, v * v, 0.0)
+
+
+def distance_terms_model(x: torch.Tensor, upper: torch.Tensor, lower: torch.Tensor,
+                         n: int, w: float, g: torch.Tensor, e_thread: torch.Tensor) -> None:
+    """K13's pair terms of systems of n atoms at ``x`` [S, A, D] under their
+    bounds [S, A, A], in the kernel's order: each dealt unit
+    (:func:`pair_schedule`) with row i's and column j's gradient summed over
+    the unit's steps in step order, each reciprocal taken and multiplied;
+    the unit's rows and columns times ``w`` added into ``g`` [S, A, D] in
+    unit order (K13's atomics add in an order of their own), and each
+    lane's pair energies, summed in its units' order and times ``w``, into
+    ``e_thread`` [S, THREADS]."""
+    u2, l2 = upper * upper, lower * lower
+    S, _, D = x.shape
+    lanes = np.arange(32)
+    e_lane = torch.zeros((S, WARPS, 32), dtype=x.dtype)
+    for u, (I, J, k0, steps) in enumerate(pair_schedule(n)):
+        gi = torch.zeros((S, 32, D), dtype=x.dtype)
+        gj = torch.zeros((S, 32, D), dtype=x.dtype)  # by column lane
+        for k in range(k0, k0 + steps):
+            i, j, valid = step_pairs(I, J, k, n)
+            f, ev = _pair_step(x, u2, l2, i, j, valid)
+            gi = gi + f
+            gj[:, (lanes + k) % 32] = gj[:, (lanes + k) % 32] - f
+            e_lane[:, u % WARPS] = e_lane[:, u % WARPS] + ev
+        rows, cols = 32 * I + lanes, 32 * J + lanes
+        if I == J:
+            g[:, rows[rows < n]] += (w * (gi + gj))[:, rows < n]
+        else:
+            g[:, rows[rows < n]] += (w * gi)[:, rows < n]
+            g[:, cols[cols < n]] += (w * gj)[:, cols < n]
+    e_thread += w * e_lane.reshape(S, THREADS)
+
+
+def block_total_model(e_thread: torch.Tensor) -> torch.Tensor:
+    """dg_pairs.cuh block_total on [S, THREADS] per-thread energies: each
+    warp's butterfly sum (shuffles at 16, 8, 4, 2, 1), then the warps' sums
+    in order."""
+    lanes = torch.arange(32)
+    warps = e_thread.reshape(e_thread.shape[0], WARPS, 32)
+    for o in (16, 8, 4, 2, 1):
+        warps = warps + warps[:, :, lanes ^ o]
+    total = warps[:, 0, 0]
+    for k in range(1, WARPS):
+        total = total + warps[:, k, 0]
+    return total
+
+
+def term_threads(count: int) -> np.ndarray:
+    """The thread of each of a molecule's ``count`` terms of one kind in
+    K13 (dg_pairs.cuh term_slot): term c on warp c mod 4, lane c / 4 mod 32."""
+    c = np.arange(count)
+    return (c % WARPS) * 32 + (c // WARPS) % 32
+
+
+def _systems_by_atoms(batch, sys2mol: torch.Tensor) -> dict:
+    counts = flat.system_atoms(batch, sys2mol).cpu().numpy()
+    return {int(v): torch.from_numpy(np.nonzero(counts == v)[0]) for v in np.unique(counts)}
+
+
+def dg_schedule(n: int) -> tuple:
+    """K11's schedule of the pairs of n <= DG_ONCE_MAX_ATOMS atoms
+    (``dg_pairs.cuh`` DgSchedule): per warp (its unit before the first
+    barrier, its rows' and its columns' write (0 stored before the first
+    barrier, 1 added between the two, -1 none; a diagonal tile's both with
+    its rows), the blocks it owns, each with its diagonal tile added after
+    the second barrier); a unit is (I, J, k, steps) or None. Each atom's
+    row has one writer at a time."""
+    nb = (n + 31) // 32
+    last = min(16, n - 32 * (nb - 1) - 1) if n > 1 else 0
+    n_diag = 16 * (nb - 1) + last if n > 1 else 0
+    if nb <= 1:
+        third = (n_diag + 2) // 3
+        return ((None, -1, -1, (0,)),
+                *(((0, 0, w * third + 1, max(0, min(third, n_diag - w * third))), w - 1, -1, ())
+                  for w in (1, 2)),
+                (None, -1, -1, ()))
+    if nb == 2:
+        return ((None, -1, -1, (0,)), (None, -1, -1, (1,)),
+                ((0, 1, 0, 16), 0, 0, ()), ((0, 1, 16, 16), 1, 1, ()))
+    return (((0, 1, 0, 32), 0, 0, (1,)), ((0, 2, 0, 32), 1, 0, ()),
+            ((1, 2, 0, 32), 1, 1, ()), (None, -1, -1, (0, 2)))
+
+
+def owned_tile(n: int, block: int) -> tuple:
+    """The diagonal tile that the owner of ``block`` adds (``dg_schedule``;
+    at one block, its first third) as (I, J, k, steps)."""
+    nb = (n + 31) // 32
+    last = min(16, n - 32 * (nb - 1) - 1) if n > 1 else 0
+    if nb <= 1:
+        return (0, 0, 1, min((last + 2) // 3, last))
+    return (block, block, 1, last if block == nb - 1 else 16)
+
+
+def _unit_model(x, u2, l2, n, unit, g_rows, g_cols, e_lane):
+    """One unit's pair terms (I, J, k, steps) at ``x`` [S, A, D]: its rows'
+    and columns' sums [S, 32, D] (by column lane) in step order, each lane's
+    energies added into ``e_lane`` [S, 32] in step order."""
+    lanes = np.arange(32)
+    I, J, k0, steps = unit
+    for k in range(k0, k0 + steps):
+        i, j, valid = step_pairs(I, J, k, n)
+        f, ev = _pair_step(x, u2, l2, i, j, valid)
+        g_rows += f
+        g_cols[:, (lanes + k) % 32] -= f
+        e_lane += ev
+
+
+def _rows_model(xs, u2, l2, n, w4, g_n, e_n) -> None:
+    """K11's rows past DG_ONCE_MAX_ATOMS (one thread an atom there): each
+    row summed over the other atoms in order, with the fourth dimension's
+    term, written into ``g_n`` [S, A, 4]; the row's pairs j > i and that
+    term's energy on its thread of ``e_n`` [S, THREADS]."""
+    for i in range(n):
+        gi = torch.zeros((xs.shape[0], xs.shape[2]), dtype=xs.dtype)
+        ei = torch.zeros(xs.shape[0], dtype=xs.dtype)
+        for j in range(n):
+            if j != i:
+                f, ev = _pair_step(xs, u2, l2, np.array([i]), np.array([j]), np.array([True]))
+                gi += f[:, 0]
+                if j > i:
+                    ei += ev[:, 0]
+        gi[:, 3] += 2.0 * w4 * xs[:, i, 3]
+        g_n[:, i] = gi
+        e_n[:, i % THREADS] += ei + w4 * (xs[:, i, 3] * xs[:, i, 3])
+
+
+def _schedule_model(xs, u2, l2, n, w4, g_n, e_n, add_chiral) -> None:
+    """K11's :func:`dg_schedule` at ``xs`` [S, A, 4]: the units' two sums
+    into each atom's row (zero first, in warp order: in either order the
+    same bits), then ``add_chiral(g_n, e_n, warp)`` (the chiral terms, their
+    energy on ``warp``, which writes block 0 second), then each owned block's
+    diagonal tile (rows and columns summed, then the fourth dimension's
+    term); the lanes' energies into ``e_n`` [S, THREADS]."""
+    lanes = np.arange(32)
+    S_n, _, D = xs.shape
+    e_w = e_n.reshape(S_n, WARPS, 32)
+    plan = dg_schedule(n)
+    held = {}
+    chiral_warp = 0
+    for w, (ua, rows, cols, owns) in enumerate(plan):
+        if ua is not None:
+            ga, gc = torch.zeros((S_n, 32, D), dtype=xs.dtype), torch.zeros((S_n, 32, D),
+                                                                            dtype=xs.dtype)
+            _unit_model(xs, u2, l2, n, ua, ga, gc, e_w[:, w])
+            r, c = 32 * ua[0] + lanes, 32 * ua[1] + lanes
+            if ua[0] == ua[1]:
+                g_n[:, r[r < n]] += (ga + gc)[:, r < n]
+            else:
+                g_n[:, r[r < n]] += ga[:, r < n]
+                g_n[:, c[c < n]] += gc[:, c < n]
+            if (rows == 1 and ua[0] == 0) or (cols == 1 and ua[1] == 0):
+                chiral_warp = w
+        for block in owns:
+            ga, gc = torch.zeros((S_n, 32, D), dtype=xs.dtype), torch.zeros((S_n, 32, D),
+                                                                            dtype=xs.dtype)
+            _unit_model(xs, u2, l2, n, owned_tile(n, block), ga, gc, e_w[:, w])
+            held[w, block] = ga + gc
+    add_chiral(g_n, e_n, chiral_warp)
+    for w, (*_, owns) in enumerate(plan):
+        for block in owns:
+            r = 32 * block + lanes
+            r = r[r < n]
+            v = held[w, block]
+            v[:, :len(r), 3] += 2.0 * w4 * xs[:, r, 3]
+            e_w[:, w, :len(r)] += w4 * (xs[:, r, 3] * xs[:, r, 3])
+            g_n[:, r] += v[:, :len(r)]
+
+
+def dg_energy_and_grad_model(positions: torch.Tensor, batch: DGBatch, sys2mol: torch.Tensor):
+    """(energy [S], gradient [S, A, 4]) of ``positions`` [S, A, 4] by K11's
+    arithmetic and order (csrc/dist_geom.cu dg_eval), on the CPU. Up to
+    DG_ONCE_MAX_ATOMS atoms (:func:`dg_schedule`): the units' two sums into
+    each atom's row, then the chiral quartets (the plain version's terms, in
+    term order; their energy a quartet a lane on the warp that writes block
+    0 second), then each owned block's diagonal tile with the fourth
+    dimension's term; past it the first design's rows (each pair twice, a
+    row summed in atom order) with the fourth dimension, then the chiral
+    quartets on consecutive threads. The energy by
+    :func:`block_total_model`. Where it departs from
+    :func:`dg_energy_and_grad_plain`: the order of the sums and the pairs'
+    reciprocals."""
+    x = positions.detach()
+    S, A, D = x.shape
+    s2m = sys2mol.to(torch.int64)
+    w4 = batch.fourth_dim_weight
+    mask = flat.atom_mask(batch, sys2mol, A)
+    g = torch.zeros_like(x)
+    e_thread = torch.zeros((S, THREADS), dtype=x.dtype)
+    u2 = batch.upper.to(x.dtype)[s2m] ** 2
+    l2 = batch.lower.to(x.dtype)[s2m] ** 2
+    sys_of, atoms, win = _chiral_terms(batch, s2m, A)
+    e_c = torch.zeros(0, dtype=x.dtype)
+    grads = [torch.zeros((0, 3), dtype=x.dtype)] * 4
+    if atoms.shape[0]:
+        with torch.enable_grad():
+            p = [x.reshape(-1, D)[atoms[:, q], :3].requires_grad_(True) for q in range(4)]
+            vol = ((p[0] - p[3]) * torch.linalg.cross(p[1] - p[3], p[2] - p[3])).sum(-1)
+            lo, hi = win[:, 0].to(x.dtype), win[:, 1].to(x.dtype)
+            viol = torch.where(vol < lo, lo - vol, torch.where(vol > hi, vol - hi, 0.0))
+            e_c = batch.chiral_weight * (viol * viol)
+            grads = torch.autograd.grad(e_c.sum(), p)
+        e_c = e_c.detach()
+    count = torch.bincount(sys_of, minlength=S)
+    local = torch.arange(sys_of.shape[0]) - (torch.cumsum(count, 0) - count)[sys_of]
+    for n, rows in _systems_by_atoms(batch, sys2mol).items():
+        g_n, e_n = g[rows], e_thread[rows]
+        terms = torch.isin(sys_of, rows)
+        t_sys = torch.searchsorted(rows, sys_of[terms])
+        t_atoms = atoms[terms] - (sys_of[terms] * A)[:, None]
+        t_local = local[terms]
+
+        def add_chiral(g_n, e_n, warp, terms=terms, t_sys=t_sys, t_atoms=t_atoms,
+                       t_local=t_local):
+            thread = t_local % THREADS if warp is None else warp * 32 + t_local % 32
+            e_n.index_put_((t_sys, thread), e_c[terms], accumulate=True)
+            flat_g = g_n.reshape(-1, D)
+            for q in range(4):
+                flat_g[:, :3].index_add_(0, t_sys * A + t_atoms[:, q], grads[q][terms])
+
+        if n > DG_ONCE_MAX_ATOMS:
+            _rows_model(x[rows], u2[rows], l2[rows], n, w4, g_n, e_n)
+            add_chiral(g_n, e_n, None)
+        else:
+            _schedule_model(x[rows], u2[rows], l2[rows], n, w4, g_n, e_n, add_chiral)
+        g[rows], e_thread[rows] = g_n, e_n
+    return block_total_model(e_thread), torch.where(mask[..., None], g, 0.0)
+
+
+def add_terms_model(e_thread, g, sys_of, atoms, energies, grads, S: int) -> None:
+    """K13's terms of one kind into the per-thread energies [S, THREADS]
+    (each term on its thread, :func:`term_threads`) and their gradients (one
+    per atom slot, [T, 3]) into ``g`` [S, A, D]'s first three coordinates,
+    in term order."""
+    count = torch.bincount(sys_of, minlength=S)
+    local = torch.arange(sys_of.shape[0]) - (torch.cumsum(count, 0) - count)[sys_of]
+    thread = torch.from_numpy(term_threads(int(local.max()) + 1))[local]
+    e_thread.index_put_((sys_of, thread), energies, accumulate=True)
+    flat_g = g.reshape(-1, g.shape[2])
+    for q, grad in enumerate(grads):
+        flat_g[:, :3].index_add_(0, atoms[:, q], grad)
+
+
+def dg_energy_and_grad(positions: torch.Tensor, batch: DGBatch, sys2mol: torch.Tensor,
+                       phase_cycles: bool = False):
     """(energy [S], gradient [S, A, 4]) of ``positions`` [S, A, 4], system s
     being molecule ``sys2mol[s]`` (int32) of ``batch``; the gradient is zero
     outside each system's atoms. K11 for CUDA tensors, the plain version for
-    CPU tensors."""
+    CPU tensors. With ``phase_cycles`` (CUDA only), K11's instrumented
+    instantiation, and also each warp's cycles per phase (int64 [S, 4,
+    len(EVAL_PHASES)])."""
     if not positions.is_cuda:
+        if phase_cycles:
+            raise ValueError("phase_cycles needs CUDA tensors")
         return dg_energy_and_grad_plain(positions, batch, sys2mol)
     flat.check_kernel_inputs(positions, batch, sys2mol, "K11",
                              flat.kernel_dim(dist_geom_lib(), "dg"))
@@ -236,16 +575,20 @@ def dg_energy_and_grad(positions: torch.Tensor, batch: DGBatch, sys2mol: torch.T
     energy = torch.empty(n_sys, dtype=torch.float32, device=dev)
     grad = torch.empty_like(positions)
     count = flat.system_atoms(batch, sys2mol)
-    with torch.cuda.device(dev):
-        rc = dist_geom_lib().nvmk_dg_energy_grad(
-            positions.data_ptr(), n_sys, a_pad, sys2mol.data_ptr(), count.data_ptr(),
+    lib = dist_geom_lib()
+    args = (positions.data_ptr(), n_sys, a_pad, sys2mol.data_ptr(), count.data_ptr(),
             batch.offsets.data_ptr(), batch.n_mols, flat.table_pointers(batch),
-            batch.chiral_weight, batch.fourth_dim_weight, energy.data_ptr(), grad.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+            batch.chiral_weight, batch.fourth_dim_weight, energy.data_ptr(), grad.data_ptr())
+    cycles = (torch.zeros((n_sys, WARPS, len(EVAL_PHASES)), dtype=torch.int64, device=dev)
+              if phase_cycles else None)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = (lib.nvmk_dg_energy_grad_cycles(*args, cycles.data_ptr(), stream) if phase_cycles
+              else lib.nvmk_dg_energy_grad(*args, stream))
     if rc != 0:
         raise RuntimeError(f"dg_energy_grad kernel launch failed with CUDA error {rc}")
     launch_counts["dg_energy_grad"] += 1
-    return energy, grad
+    return (energy, grad, cycles) if phase_cycles else (energy, grad)
 
 
 def _weights(batch: DGBatch):

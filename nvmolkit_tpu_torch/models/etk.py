@@ -33,7 +33,7 @@ import torch
 
 from nvmolkit_tpu_torch._build import etk_ff_lib
 from nvmolkit_tpu_torch.chem.mol import Mol
-from nvmolkit_tpu_torch.models import flat
+from nvmolkit_tpu_torch.models import dist_geom, flat
 from nvmolkit_tpu_torch.models.dist_geom import (
     DGBatch,
     distance_energy_plain,
@@ -445,7 +445,12 @@ class EtkBatch:
     F_1..F_6, then phi0_1..phi0_6 in radians); ``params[2]`` and
     ``params[3]`` are the molecules' smoothed upper and lower bounds float32
     [M, A, A] (the chunk's :class:`DGBatch`'s own tensors), under the
-    distance term of weight ``bounds_weight``."""
+    distance term of weight ``bounds_weight``; ``params[4]`` float32 [T,
+    12] holds cos phi0_1..6 and sin phi0_1..6 of the torsions
+    (:func:`phase_trig`), which K13 reads in place of phi0 (a batch whose
+    phases are replaced keeps the table of the old ones: the plain version
+    reads the phases); ``params[5]`` is the bounds' (u, l) by diagonals
+    (the DG batch's ``diag``), which K13 and K8 read."""
 
     n_atoms: torch.Tensor
     offsets: torch.Tensor
@@ -465,6 +470,10 @@ class EtkBatch:
     @property
     def lower(self) -> torch.Tensor:
         return self.params[3]
+
+    @property
+    def diag(self) -> torch.Tensor:
+        return self.params[5]
 
 
 def make_etk_batch(dg: DGBatch, terms: list[ETKTermsHost],
@@ -486,9 +495,17 @@ def make_etk_batch(dg: DGBatch, terms: list[ETKTermsHost],
     def put(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
+    trig = phase_trig(torch.from_numpy(tor_par[:, N_HARMONICS:]))
     return EtkBatch(n_atoms=dg.n_atoms, offsets=put(off), atoms=(put(imp), put(tor)),
-                    params=(put(k_imp), put(tor_par), dg.upper, dg.lower),
+                    params=(put(k_imp), put(tor_par), dg.upper, dg.lower, trig.to(dev), dg.diag),
                     max_atoms=dg.max_atoms, bounds_weight=float(bounds_weight))
+
+
+def phase_trig(phase: torch.Tensor) -> torch.Tensor:
+    """cos phi0 and sin phi0 of the torsions' float32 phases [T, 6] (taken
+    in float64, rounded once), as float32 [T, 12]: K13's table."""
+    ph = phase.double()
+    return torch.cat([torch.cos(ph), torch.sin(ph)], dim=1).float().contiguous()
 
 
 def _norm1(d: torch.Tensor) -> torch.Tensor:
@@ -612,12 +629,129 @@ def etk_grad_magnitude_plain(positions: torch.Tensor, batch: EtkBatch,
     return torch.where(mask[..., None], out, 0.0)
 
 
-def etk_energy_and_grad(positions: torch.Tensor, batch: EtkBatch, sys2mol: torch.Tensor):
+def improper_rounding_bound_plain(positions: torch.Tensor, batch: EtkBatch,
+                                  sys2mol: torch.Tensor) -> torch.Tensor:
+    """Per gradient component, the float32 rounding that the impropers'
+    conditioning adds to the gradient [S, A, 3] (float64), at each
+    improper's four atoms and nowhere else.
+
+    An improper takes cos w = sqrt(1 - sin^2 w) (``improper_energies``, the
+    JAX function's formula). Near w = 90 degrees that cancels: an error of
+    one float32 ulp in sin w (eps = 2^-23 relative) moves 1 - sin^2 w by
+    about 2 eps sin^2 w, so cos w by eps sin^2 w / cos w, a relative error
+    of eps sin^2 w / cos^2 w, which dE/dsin = k sin w / cos w carries into
+    the gradient k sin w / cos w * dsin/dx. Its share per component is
+    therefore k |sin w| eps / cos^3 w * |dsin w / dx| (sin^2 w <= 1 taken
+    as 1), zero where a clip binds and the improper passes no gradient.
+    The gradient bound of ``chip_smoke.energy_grad_ratios`` adds it
+    (``g_cond``)."""
+    x = positions.detach().double()
+    S, A, _ = x.shape
+    out = torch.zeros_like(x)
+    sys_of, atoms, par = flat.expand(batch, sys2mol, A)[0]
+    if atoms.shape[0] == 0:
+        return out
+    with torch.enable_grad():
+        p = [x.reshape(-1, 3)[atoms[:, q]].requires_grad_(True) for q in range(4)]
+        n = torch.linalg.cross(p[0] - p[1], p[2] - p[1])
+        rjl = p[3] - p[1]
+        s_raw = (n * rjl).sum(dim=-1) / (_norm1(n) * _norm1(rjl))
+        grads = torch.autograd.grad(s_raw.sum(), p)
+    s_raw = s_raw.detach()
+    s = s_raw.clamp(-1.0, 1.0)
+    c2 = 1.0 - s * s
+    passes = (s_raw.abs() <= 1.0) & (c2 >= 1e-10) & (c2 <= 1.0)
+    eps = float(torch.finfo(torch.float32).eps)
+    coef = torch.where(passes, par[:, 0].double().abs() * s.abs() * eps
+                       / c2.clamp_min(1e-10) ** 1.5, 0.0)
+    flat_out = out.reshape(-1, 3)
+    for q in range(4):
+        flat_out.index_add_(0, atoms[:, q], coef[:, None] * grads[q].abs())
+    return out
+
+
+def torsion_harmonics_model(p: list, par: torch.Tensor):
+    """K13's torsion at the positions ``p`` of its four atoms, ``par`` [T,
+    12] its F and phi0: (energy [T], dE/dphi [T], phi [T] for autograd).
+    cos phi and sin phi are (x, y) / |(x, y)| by a reciprocal square root
+    (atan2's own value where both are 0), cos k phi and sin k phi by the
+    angle-addition recurrence, cos(k phi - phi0_k) and sin(k phi - phi0_k)
+    from :func:`phase_trig`'s table: where K13's torsion departs from
+    :func:`torsion_energies`'s."""
+    b1, b2, b3 = p[1] - p[0], p[2] - p[1], p[3] - p[2]
+    n1 = torch.linalg.cross(b1, b2)
+    n2 = torch.linalg.cross(b2, b3)
+    m1 = torch.linalg.cross(n1, b2 / _norm1(b2)[:, None])
+    y, x = (m1 * n2).sum(dim=-1), (n1 * n2).sum(dim=-1)
+    phi = _Atan2.apply(y, x)
+    y, x = y.detach(), x.detach()
+    r2 = x * x + y * y
+    inv = torch.rsqrt(torch.where(r2 > 0, r2, 1.0))
+    c1 = torch.where(r2 > 0, x * inv, torch.copysign(torch.ones_like(x), x))
+    s1 = torch.where(r2 > 0, y * inv, y)
+    par = par.to(x.dtype)
+    trig = phase_trig(par[:, N_HARMONICS:]).to(x.dtype)
+    ck, sk = c1, s1
+    e = torch.zeros_like(x)
+    dphi = torch.zeros_like(x)
+    for k in range(1, N_HARMONICS + 1):
+        cp, sp = trig[:, k - 1], trig[:, N_HARMONICS + k - 1]
+        e = e + par[:, k - 1] * (1.0 + (ck * cp + sk * sp))
+        dphi = dphi - par[:, k - 1] * k * (sk * cp - ck * sp)
+        if k < N_HARMONICS:
+            ck, sk = ck * c1 - sk * s1, sk * c1 + ck * s1
+    return e, dphi, phi
+
+
+def etk_energy_and_grad_model(positions: torch.Tensor, batch: EtkBatch, sys2mol: torch.Tensor):
+    """(energy [S], gradient [S, A, 3]) of ``positions`` [S, A, 3] by K13's
+    arithmetic and order (csrc/etk.cu etk_eval), on the CPU: the pairs
+    (``dist_geom.distance_terms_model``, times ``bounds_weight``), then the
+    impropers (the plain version's), then the torsions
+    (:func:`torsion_harmonics_model`, the gradient dE/dphi times atan2's
+    derivative), each term on its thread and its gradient added in term
+    order, the energy by ``dist_geom.block_total_model``. Where it departs
+    from :func:`etk_energy_and_grad_plain`: the order of the sums, the
+    pairs' reciprocals and the torsions' harmonics."""
+    x = positions.detach()
+    S, A, _ = x.shape
+    s2m = sys2mol.to(torch.int64)
+    g = torch.zeros_like(x)
+    e_thread = torch.zeros((S, dist_geom.THREADS), dtype=x.dtype)
+    upper = batch.upper.to(x.dtype)[s2m]
+    lower = batch.lower.to(x.dtype)[s2m]
+    for n, rows in dist_geom._systems_by_atoms(batch, sys2mol).items():
+        g_n, e_n = g[rows], e_thread[rows]
+        dist_geom.distance_terms_model(x[rows], upper[rows], lower[rows], n,
+                                       batch.bounds_weight, g_n, e_n)
+        g[rows], e_thread[rows] = g_n, e_n
+    for k, (sys_of, atoms, par) in enumerate(flat.expand(batch, sys2mol, A)):
+        if atoms.shape[0] == 0:
+            continue
+        with torch.enable_grad():
+            p = [x.reshape(-1, 3)[atoms[:, q]].requires_grad_(True) for q in range(4)]
+            if k == 0:
+                e_t = improper_energies(p, par)
+                grads = torch.autograd.grad(e_t.sum(), p)
+            else:
+                e_t, dphi, phi = torsion_harmonics_model(p, par)
+                grads = torch.autograd.grad(phi, p, grad_outputs=dphi)
+        dist_geom.add_terms_model(e_thread, g, sys_of, atoms, e_t.detach(), grads, S)
+    mask = flat.atom_mask(batch, sys2mol, A)
+    return dist_geom.block_total_model(e_thread), torch.where(mask[..., None], g, 0.0)
+
+
+def etk_energy_and_grad(positions: torch.Tensor, batch: EtkBatch, sys2mol: torch.Tensor,
+                        phase_cycles: bool = False):
     """(energy [S], gradient [S, A, 3]) of ``positions`` [S, A, 3], system s
     being molecule ``sys2mol[s]`` (int32) of ``batch``; the gradient is zero
     outside each system's atoms. K13 for CUDA tensors, the plain version for
-    CPU tensors."""
+    CPU tensors. With ``phase_cycles`` (CUDA only), K13's instrumented
+    instantiation, and also each warp's cycles per phase (int64 [S, 4,
+    len(dist_geom.EVAL_PHASES)])."""
     if not positions.is_cuda:
+        if phase_cycles:
+            raise ValueError("phase_cycles needs CUDA tensors")
         return etk_energy_and_grad_plain(positions, batch, sys2mol)
     flat.check_kernel_inputs(positions, batch, sys2mol, "K13", flat.kernel_dim(etk_ff_lib(), "etk"))
     n_sys, a_pad = positions.shape[:2]
@@ -627,16 +761,20 @@ def etk_energy_and_grad(positions: torch.Tensor, batch: EtkBatch, sys2mol: torch
     energy = torch.empty(n_sys, dtype=torch.float32, device=dev)
     grad = torch.empty_like(positions)
     count = flat.system_atoms(batch, sys2mol)
-    with torch.cuda.device(dev):
-        rc = etk_ff_lib().nvmk_etk_energy_grad(
-            positions.data_ptr(), n_sys, a_pad, sys2mol.data_ptr(), count.data_ptr(),
+    lib = etk_ff_lib()
+    args = (positions.data_ptr(), n_sys, a_pad, sys2mol.data_ptr(), count.data_ptr(),
             batch.offsets.data_ptr(), batch.n_mols, flat.table_pointers(batch),
-            batch.bounds_weight, energy.data_ptr(), grad.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+            batch.bounds_weight, energy.data_ptr(), grad.data_ptr())
+    cycles = (torch.zeros((n_sys, dist_geom.WARPS, len(dist_geom.EVAL_PHASES)),
+                          dtype=torch.int64, device=dev) if phase_cycles else None)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = (lib.nvmk_etk_energy_grad_cycles(*args, cycles.data_ptr(), stream) if phase_cycles
+              else lib.nvmk_etk_energy_grad(*args, stream))
     if rc != 0:
         raise RuntimeError(f"etk_energy_grad kernel launch failed with CUDA error {rc}")
     launch_counts["etk_energy_grad"] += 1
-    return energy, grad
+    return (energy, grad, cycles) if phase_cycles else (energy, grad)
 
 
 ETK = flat.ForceField("etk", etk_energy_and_grad, plain_energy_and_grad_fn, etk_ff_lib,

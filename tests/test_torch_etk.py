@@ -383,6 +383,42 @@ def test_etk_degenerate_geometries(dtype):
             assert np.all(got[0, 4:8] == 0.0) or np.abs(got[0, 4:8]).max() < 1e-6
 
 
+def test_improper_rounding_bound_at_fault20_geometry():
+    """Fault 20's recorded geometry (``tests/data/torch_k13_fault20.npz``:
+    one improper at sin w 0.99987): the plain version in float32 against
+    itself in float64 fails the card tests' gradient bound (1e-4 max(1,
+    max|g|) + 2e-4 G; ratio 1.38), because cos w = sqrt(1 - sin^2 w)
+    cancels there, and passes it once the improper's derived share
+    (``etk.improper_rounding_bound_plain``: k |sin w| eps / cos^3 w |dsin
+    w/dx| at its four atoms) is added; the share is zero at every atom that
+    no passing improper names. The energy bound is unchanged."""
+    smoke = _smoke()
+    fx, _ = smoke.mmff_fixture()
+    mols = smoke.mmff_molecules({"smiles": fx["smiles"][:32]})
+    ch = smoke.dg_chunk(mols, 96, 4, "cpu", seed=6)
+    prov = ptors.default_torsion_provider()
+    prov.precompute(mols)
+    batch = petk.make_etk_batch(ch["batch"], petk.build_etk_terms_batch(mols, prov, True))
+    with np.load(ROOT / "tests" / "data" / "torch_k13_fault20.npz") as f:
+        x = torch.from_numpy(f["x"])[None]
+        s2m = torch.tensor([int(f["molecule"])], dtype=torch.int32)
+    e32, g32 = petk.etk_energy_and_grad_plain(x, batch, s2m)
+    e64, g64 = petk.etk_energy_and_grad_plain(x.double(), batch, s2m)
+    scale = petk.etk_term_magnitude_plain(x, batch, s2m)
+    G = petk.etk_grad_magnitude_plain(x, batch, s2m)
+    cond = petk.improper_rounding_bound_plain(x, batch, s2m)
+    e_old, g_old, _ = smoke.energy_grad_ratios(e32, g32, e64, g64, scale, G)
+    e_new, g_new, _ = smoke.energy_grad_ratios(e32, g32, e64, g64, scale, G, g_cond=cond)
+    assert e_old <= 1.0 and e_new == e_old
+    assert g_old > 1.0, g_old
+    assert g_new <= 1.0, g_new
+    off, imp = batch.offsets[0].long(), batch.atoms[0].long()
+    m = int(s2m[0])
+    named = torch.zeros(x.shape[1], dtype=torch.bool)
+    named[imp[off[m]:off[m + 1]].flatten()] = True
+    assert not cond[0, ~named].any() and cond[0, named].any()
+
+
 # ---------------------------------------------------------------- minimizers
 
 def _jax_minimize(minimize, x, args, n_iters):
@@ -530,7 +566,7 @@ def test_etk_batch_tables_and_chunk_bytes():
     prov = ptors.default_torsion_provider()
     prov.precompute(mols)
     dg, batch, _, terms = _chunk(mols, 1, prov)
-    assert batch.upper is dg.upper and batch.lower is dg.lower
+    assert batch.upper is dg.upper and batch.lower is dg.lower and batch.diag is dg.diag
     off = batch.offsets.numpy()
     assert off.shape == (2, len(mols) + 1) and off.dtype == np.int32
     for k, t in enumerate(terms):
@@ -541,7 +577,7 @@ def test_etk_batch_tables_and_chunk_bytes():
         assert np.array_equal(rows[:, :6], t.torsion_coeffs)
         assert np.array_equal(rows[:, 6:], t.torsion_phase)
     n_atoms = sum(m.num_atoms for m in mols)
-    tables = (batch.offsets,) + batch.atoms + batch.params[:2]
+    tables = (batch.offsets,) + batch.atoms + batch.params[:2] + batch.params[4:5]
     assert sum(t.numel() * t.element_size() for t in tables) <= pem.ETK_BYTES_PER_ATOM * n_atoms
     for bucket in (32, 64, 128):
         assert pem._chunk_cap(bucket, 8, True) < pem._chunk_cap(bucket, 8)

@@ -1002,9 +1002,13 @@ def _etk_inputs(n, cuda, confs=4, seed=0):
 
 
 def test_etk_energy_grad_kernel_matches_plain(cuda):
-    """K13 against its plain version at K10's 3-D starts and at 0.3 Å from a
-    partly minimized geometry, under K4's bounds: |dE| <= 1e-5 sum|E_term| +
-    1e-4, each gradient component within 1e-4 max(1, max|g|) + 2e-4 G."""
+    """K13 against its plain version at K10's 3-D starts, at 0.3 Å from a
+    partly minimized geometry and at fault 20's recorded geometry
+    (``tests/data/torch_k13_fault20.npz``: an improper at sin w 0.99987),
+    under K4's bounds: |dE| <= 1e-5 sum|E_term| + 1e-4, each gradient
+    component within 1e-4 max(1, max|g|) + 2e-4 G plus, at an improper's
+    four atoms, its derived float32 rounding
+    (``etk.improper_rounding_bound_plain``)."""
     from nvmolkit_tpu_torch.models import etk
     from nvmolkit_tpu_torch.ops.lbfgs_flat import lbfgs
 
@@ -1016,14 +1020,18 @@ def test_etk_energy_grad_kernel_matches_plain(cuda):
     gen = torch.Generator(device=cuda)
     gen.manual_seed(0)
     x1 = x1 + 0.3 * torch.randn(x1.shape, device=cuda, generator=gen) * (x1 != 0)
-    for x in (x0, x1):
+    with np.load(pathlib.Path(__file__).parent / "data" / "torch_k13_fault20.npz") as f:
+        x2 = torch.from_numpy(f["x"])[None].to(cuda)
+        s2 = torch.tensor([int(f["molecule"])], dtype=torch.int32, device=cuda)
+    for x, s in ((x0, s2m), (x1, s2m), (x2, s2)):
         before = etk.launch_counts["etk_energy_grad"]
-        e, g = etk.etk_energy_and_grad(x, b, s2m)
+        e, g = etk.etk_energy_and_grad(x, b, s)
         assert etk.launch_counts["etk_energy_grad"] == before + 1
-        e_p, g_p = etk.etk_energy_and_grad_plain(x, b, s2m)
+        e_p, g_p = etk.etk_energy_and_grad_plain(x, b, s)
         e_r, g_r, _ = smoke.energy_grad_ratios(e, g, e_p, g_p,
-                                               etk.etk_term_magnitude_plain(x, b, s2m),
-                                               etk.etk_grad_magnitude_plain(x, b, s2m))
+                                               etk.etk_term_magnitude_plain(x, b, s),
+                                               etk.etk_grad_magnitude_plain(x, b, s),
+                                               g_cond=etk.improper_rounding_bound_plain(x, b, s))
         assert e_r <= 1 and g_r <= 1, (e_r, g_r)
 
 
@@ -1076,6 +1084,83 @@ def test_etk_energy_grad_kernel_at_degenerate_geometry(cuda):
     scale = g_p[ok].abs().max().clamp_min(1.0)
     assert float((g[ok] - g_p[ok]).abs().max()) <= 2e-5 * float(scale)
     assert bool(((e - e_p).abs() <= 1e-5 * e_p.abs().clamp_min(1.0)).all())
+
+
+def _every_bucket_inputs(cuda, a_pad):
+    """Random consistent bounds at ``a_pad`` for 8 molecules of 1, 2, 4 and
+    a_pad atoms and random counts, 4 systems each; a chiral quartet, up to 6
+    impropers and 12 torsions (phases 0, pi or random) per molecule of 4
+    atoms or more; positions at 0.8 (n)^(1/3) Å of noise (both bounds
+    violated)."""
+    from nvmolkit_tpu_torch.models import dist_geom, etk
+
+    rng = np.random.default_rng(a_pad + 7)
+    up, lo, n = _random_bounds(rng, 8, a_pad, False)
+    n[:4] = (1, min(2, a_pad), min(4, a_pad), a_pad)
+    sets, hosts = [], []
+    for m in n:
+        quads = [rng.permutation(m)[:4] for _ in range(18)] if m >= 4 else []
+        idx = np.array(quads[:1], np.int32).reshape(-1, 4)
+        sets.append((idx, np.full(len(idx), -1.0, np.float32),
+                     np.full(len(idx), 1.0, np.float32)))
+        tor = np.array(quads[6:], np.int32).reshape(-1, 4)
+        phase = rng.choice([0.0, np.pi, 1.0], size=(len(tor), 6)) * (
+            rng.uniform(0.5, 1.5, size=(len(tor), 6)) ** (rng.random((len(tor), 6)) < 0.3))
+        hosts.append(etk.ETKTermsHost(
+            improper_idx=np.array(quads[:6], np.int32).reshape(-1, 4),
+            improper_k=np.full(min(6, len(quads)), 10.0, np.float32),
+            torsion_idx=tor, torsion_coeffs=rng.uniform(0.0, 3.0, (len(tor), 6)).astype(np.float32),
+            torsion_phase=phase.astype(np.float32)))
+    dg = dist_geom.make_dg_batch(torch.from_numpy(up).to(cuda), torch.from_numpy(lo).to(cuda),
+                                 torch.from_numpy(n).to(cuda), sets)
+    s2m = torch.arange(len(n), dtype=torch.int32, device=cuda).repeat_interleave(4)
+    am = np.arange(a_pad)[None] < n[s2m.cpu().numpy()][:, None]
+    scale = 0.8 * np.cbrt(n[s2m.cpu().numpy()])[:, None, None]
+    x = rng.normal(size=(len(s2m), a_pad, 4)) * scale * am[..., None]
+    return dg, etk.make_etk_batch(dg, hosts), s2m, torch.from_numpy(x.astype(np.float32)).to(cuda)
+
+
+@pytest.mark.parametrize("a_pad", [16, 24, 32, 40, 48, 64, 96, 128, 192, 256])
+def test_dg_etk_kernels_every_bucket(cuda, a_pad):
+    """K11 and K13 (each pair once, K11 by rows past 96 atoms; the bounds
+    read by diagonals in device memory) against their plain versions and
+    their first design (``tools/dg_etk_first_design.cu``, its bounds from
+    the square matrices) at every atom bucket, systems of 1, 2 and 4 atoms
+    among them, under K4's bounds (K13's plus its impropers' derived
+    rounding); both weightings of K11; each kernel launched once a call;
+    K11 equal bit for bit from call to call (its units add to the gradient
+    in a fixed order)."""
+    from nvmolkit_tpu_torch.models import dist_geom, etk
+
+    smoke = _load_by_path("chip_smoke.py")
+    split = _load_by_path("tools/dg_etk_phase_split.py")
+    first = split.first_lib()
+    dg, eb, s2m, x4 = _every_bucket_inputs(cuda, a_pad)
+    x3 = x4[..., :3].contiguous()
+    for w in ((1.0, 0.1), (0.2, 1.0)):
+        bw = dg.weighted(*w)
+        before = dist_geom.launch_counts["dg_energy_grad"]
+        got = dist_geom.dg_energy_and_grad(x4, bw, s2m)
+        assert dist_geom.launch_counts["dg_energy_grad"] == before + 1
+        again = dist_geom.dg_energy_and_grad(x4, bw, s2m)
+        assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+        scale = smoke.ff_term_magnitude(dist_geom.DG, x4, bw, s2m)
+        G = dist_geom.dg_grad_magnitude_plain(x4, bw, s2m)
+        for want in (dist_geom.dg_energy_and_grad_plain(x4, bw, s2m),
+                     split.first_call(first, "dg", 0, x4, bw, s2m, False)[:2]):
+            e_r, g_r, _ = smoke.energy_grad_ratios(*got, *want, scale, G)
+            assert e_r <= 1 and g_r <= 1, (w, e_r, g_r)
+    before = etk.launch_counts["etk_energy_grad"]
+    got = etk.etk_energy_and_grad(x3, eb, s2m)
+    assert etk.launch_counts["etk_energy_grad"] == before + 1
+    assert bool(torch.isfinite(got[0]).all() and torch.isfinite(got[1]).all())
+    scale = etk.etk_term_magnitude_plain(x3, eb, s2m)
+    G = etk.etk_grad_magnitude_plain(x3, eb, s2m)
+    cond = etk.improper_rounding_bound_plain(x3, eb, s2m)
+    for want in (etk.etk_energy_and_grad_plain(x3, eb, s2m),
+                 split.first_call(first, "etk", 0, x3, eb, s2m, False)[:2]):
+        e_r, g_r, _ = smoke.energy_grad_ratios(*got, *want, scale, G, g_cond=cond)
+        assert e_r <= 1 and g_r <= 1, (e_r, g_r)
 
 
 @pytest.mark.parametrize("backend", ["flat", "bfgs"])

@@ -15,7 +15,8 @@ shared-memory atomics sum in another order each run, so x1's base may move)
 and, for each base, draws the noise from ``torch.Generator(device="cuda")``
 seeded 0 .. N-1. At each point it takes the tests' ratios
 (``chip_smoke.energy_grad_ratios``: the energy and gradient errors over
-1e-5 sum|E_term| + 1e-4 and 1e-4 max(1, max|g|) + 2e-4 G). A point above 1
+1e-5 sum|E_term| + 1e-4 and 1e-4 max(1, max|g|) + 2e-4 G, with K13's
+impropers' derived rounding added at their atoms). A point above 1
 is written to ``DIR/<kernel>_base<b>_seed<s>_check<k>.npz``: the point, the
 system, atom and coordinate of the largest gradient ratio, and there the
 kernel's, the plain version's float32 and float64 gradients, the float32
@@ -30,7 +31,9 @@ prints, at the gradient component farthest from the float64 plain value
 relative to the bound: K13's gradient and its ratio against the card's
 float32 plain version (on the card), the float32 plain version's on the
 CPU and the card and the float64 one, each float32 value's ratio against
-float64 under the same bound, and the component's share of every term
+float64 under the same bound (and the CPU's under the bound with the
+impropers' derived rounding, ``etk.improper_rounding_bound_plain``, which
+the K13 tests and the sweep add), and the component's share of every term
 (the distance term, each improper and torsion through the atom) in float32
 and float64 on the CPU (with each improper's sin w). With ``--cpu`` (or
 without a card) only the CPU readings.
@@ -60,15 +63,17 @@ def load_tests():
     return mod
 
 
-def gradient_bound(g_p, G):
-    """The tests' gradient bound, 1e-4 max(1, max|g|) + 2e-4 G, per component."""
-    return 1e-4 * g_p.abs().amax(dim=(1, 2)).double().clamp_min(1.0)[:, None, None] + 2e-4 * G
+def gradient_bound(g_p, G, g_cond=None):
+    """The tests' gradient bound, 1e-4 max(1, max|g|) + 2e-4 G per component,
+    plus K13's impropers' derived rounding ``g_cond`` where given."""
+    out = 1e-4 * g_p.abs().amax(dim=(1, 2)).double().clamp_min(1.0)[:, None, None] + 2e-4 * G
+    return out if g_cond is None else out + g_cond
 
 
-def worst(e, g, e_p, g_p, scale, G, want64, smoke) -> dict:
+def worst(e, g, e_p, g_p, scale, G, want64, smoke, g_cond=None) -> dict:
     """The tests' ratios, and where the gradient's is largest."""
-    e_r, g_r, _ = smoke.energy_grad_ratios(e, g, e_p, g_p, scale, G)
-    bound = gradient_bound(g_p, G)
+    e_r, g_r, _ = smoke.energy_grad_ratios(e, g, e_p, g_p, scale, G, g_cond=g_cond)
+    bound = gradient_bound(g_p, G, g_cond)
     ratio = (g.double() - g_p.double()).abs() / bound
     s, a, c = (int(v) for v in divmod_all(int(ratio.argmax()), ratio.shape))
     return {"e_ratio": e_r, "g_ratio": g_r, "system": s, "atom": a, "coord": c,
@@ -128,12 +133,17 @@ def replay(on_card: bool) -> int:
     _, g32 = etk.etk_energy_and_grad_plain(x, b, s2m)
     _, g64 = etk.etk_energy_and_grad_plain(x.double(), b, s2m)
     bound = gradient_bound(g32, etk.etk_grad_magnitude_plain(x, b, s2m))
+    derived = gradient_bound(g32, etk.etk_grad_magnitude_plain(x, b, s2m),
+                             etk.improper_rounding_bound_plain(x, b, s2m))
     ratio = (g32.double() - g64).abs() / bound
     _, a, c = (int(v) for v in divmod_all(int(ratio.argmax()), ratio.shape))
     out = {"molecule": int(fault["molecule"]), "noise_seed": int(fault["noise_seed"]),
            "atom": a, "coord": c, "bound": float(bound[0, a, c]),
            "g_plain_cpu": float(g32[0, a, c]), "g_plain64": float(g64[0, a, c]),
            "plain_cpu_vs_float64_ratio": float(ratio[0, a, c]),
+           "derived_bound": float(derived[0, a, c]),
+           "plain_cpu_vs_float64_ratio_derived": float(((g32.double() - g64).abs()
+                                                        / derived).max()),
            "terms_float32_cpu": term_shares(x, b, s2m, a, c),
            "terms_float64_cpu": term_shares(x.double(), b, s2m, a, c)}
     if on_card:
@@ -195,7 +205,8 @@ def main() -> int:
             e_p, g_p = etk.etk_energy_and_grad_plain(x, b, s2m)
             return worst(e, g, e_p, g_p, etk.etk_term_magnitude_plain(x, b, s2m),
                          etk.etk_grad_magnitude_plain(x, b, s2m),
-                         etk.etk_energy_and_grad_plain(x.double(), b, s2m), smoke)
+                         etk.etk_energy_and_grad_plain(x.double(), b, s2m), smoke,
+                         etk.improper_rounding_bound_plain(x, b, s2m))
 
         def plain_cpu(x):  # the same inputs built on the CPU (made once, when needed)
             if not on_cpu:
