@@ -24,8 +24,9 @@ Phases, each reported as one JSON line with its seconds:
      with exact rigid copies below the near-zero bound; K4 (MMFF energy and
      gradient) against its plain version (autograd for the gradient) on the
      committed starts (tests/data/torch_mmff_starts.npz) with 0.3 Å of
-     noise under every term toggle and dielModel 2, on the golden
-     regression molecules and on geometries where the clips bind;
+     noise under every term toggle and dielModel 2, and at the 96-atom
+     bucket (both dielectric models), on the golden regression molecules
+     and on geometries where the clips bind;
   3. main path: ~24.5k SMILES -> Morgan (r=3, 2048 bits; K14 per chunk) ->
      Tanimoto matrix (K1) -> Butina (cutoff 0.4; K15), then fused Butina
      over 100k clustered fingerprints (cutoff 0.6; K2, then K16), with the
@@ -75,9 +76,10 @@ Phases, each reported as one JSON line with its seconds:
      through positionsFrom in two groups, and RMSD -> Butina on one
      minimized ensemble;
   6c. UFF and constraints: K6 (UFF energy and gradient) against its plain
-     version on the noisy fixture starts, the clip geometries and the MMFF
-     phase's 64-atom chunk, K7 (constraints of every kind, relative windows,
-     a torsion window across +-180 degrees) on that chunk; the same 8,192
+     version on the noisy fixture starts (also at the 96-atom bucket), the
+     clip geometries and the MMFF phase's 64-atom chunk, K7 (constraints of
+     every kind, relative windows, a torsion window across +-180 degrees) on
+     that chunk; the same 8,192
      systems through UFFOptimizeMoleculesConfs (K6 + K5 per bucket) against
      JAX's UFF minima (tests/data/torch_ff_minima.npz), the plain minimizer
      and, step for step, the plain L-BFGS; MMFFBatchedForcefield over them
@@ -2180,10 +2182,11 @@ def main() -> int:
     k4_worst: dict[str, dict] = {}
     errs[K4] = 0.0
 
-    def check_k4(what, mols_, geoms, props):
+    def check_k4(what, mols_, geoms, props, a_pad=None):
         """K4 against the plain version on the systems ``geoms`` (per
-        molecule, [C, n, 3]) of ``mols_``."""
-        a_pad = max(m.num_atoms for m in mols_)
+        molecule, [C, n, 3]) of ``mols_``, padded to ``a_pad`` atoms (the
+        largest molecule's by default)."""
+        a_pad = a_pad or max(m.num_atoms for m in mols_)
         s2m_np = np.repeat(np.arange(len(mols_)), [len(g) for g in geoms])
         pos = np.zeros((len(s2m_np), a_pad, 3), np.float32)
         k = 0
@@ -2217,6 +2220,8 @@ def main() -> int:
         "eleTerm")})
     for name, kw in variants.items():
         check_k4(f"fixture {name}", mmff_mols, noisy, MMFFProperties(**kw))
+    for name in ("all", "dielModel2"):
+        check_k4(f"bucket96 {name}", mmff_mols, noisy, MMFFProperties(**variants[name]), 96)
     golden_ff = json.loads((ROOT / "tests/golden/regression_ff_energies.json").read_text())
     golden_rng = np.random.default_rng(golden_ff["seed"])
     from nvmolkit_tpu_torch.chem import mol_from_smiles
@@ -2938,10 +2943,11 @@ def main() -> int:
         check_kernel(K7, what, got, lambda p: cons.constraint_energy_and_grad_plain(p, cb), x,
                      *cons.constraint_magnitudes_plain(x, cb))
 
-    def stacked(mols_, geoms):
+    def stacked(mols_, geoms, a_pad=None):
         """The systems ``geoms`` (per molecule [C, n, 3]) of ``mols_``, padded
-        to the largest molecule, with UFF tables."""
-        a_pad = max(m.num_atoms for m in mols_)
+        to ``a_pad`` atoms (the largest molecule's by default), with UFF
+        tables."""
+        a_pad = a_pad or max(m.num_atoms for m in mols_)
         s2m_np = np.repeat(np.arange(len(mols_)), [len(g) for g in geoms])
         pos = np.zeros((len(s2m_np), a_pad, 3), np.float32)
         k = 0
@@ -2952,6 +2958,7 @@ def main() -> int:
                 torch.from_numpy(s2m_np.astype(np.int32)).to(cuda))
 
     check_k6("fixture", *stacked(mmff_mols, noisy))
+    check_k6("bucket96", *stacked(mmff_mols, noisy, 96))
     check_k6("clip", *stacked([m for m, _ in clip_cases], [x[None] for _, x in clip_cases]))
     uchunk_batch = uff_batch(chunk_mols, int(big_b))
     check_k6("chunk", x_k, uchunk_batch, chunk_s2m)

@@ -175,6 +175,9 @@ def _declare_mmff(lib: ctypes.CDLL) -> None:
     tables = ctypes.POINTER(ctypes.c_void_p)
     lib.nvmk_mmff_energy_grad.restype = ci
     lib.nvmk_mmff_energy_grad.argtypes = [vp, ci, ci, vp, vp, vp, ci, tables, cf, ci, vp, vp, vp]
+    lib.nvmk_mmff_energy_grad_cycles.restype = ci
+    lib.nvmk_mmff_energy_grad_cycles.argtypes = [vp, ci, ci, vp, vp, vp, ci, tables, cf, ci, vp,
+                                                 vp, vp, vp]
     _declare_ff(lib, "mmff", [cf, ci])
 
 
@@ -203,6 +206,9 @@ def _declare_uff(lib: ctypes.CDLL) -> None:
     lib.nvmk_uff_energy_grad.restype = ci
     lib.nvmk_uff_energy_grad.argtypes = [vp, ci, ci, vp, vp, vp, ci,
                                          ctypes.POINTER(ctypes.c_void_p), vp, vp, vp]
+    lib.nvmk_uff_energy_grad_cycles.restype = ci
+    lib.nvmk_uff_energy_grad_cycles.argtypes = [vp, ci, ci, vp, vp, vp, ci,
+                                                ctypes.POINTER(ctypes.c_void_p), vp, vp, vp, vp]
     _declare_ff(lib, "uff", [])
 
 

@@ -1,6 +1,8 @@
 // The distance-bounds pair terms of the distance-geometry force field, shared
 // by K11 (dist_geom.cu, 4 coordinates per atom) and K13 (etk.cu, 3), templated
-// on the coordinates per atom D. For the real pairs i < j of one system, with
+// on the coordinates per atom D; their walk over the pairs also carries the
+// nonbonded terms of K4 and K6 (mmff.cu, uff.cu: dealt_pairs with a pair term
+// of their own, on a table by diagonals, DiagTable). For the real pairs i < j of one system, with
 // d2 = |x_i - x_j|^2 over the D coordinates and the molecule's smoothed bounds
 // (u, l) at (min(i, j), max(i, j)):
 //   v = d2 / max(u^2, 1e-8) - 1               where d2 > u^2
@@ -201,7 +203,7 @@ struct PackedBounds {
   const float2* ul;
   int n;
   struct Cursor {
-    static constexpr bool kAhead = false;
+    static constexpr bool kAhead = false, kParamsAhead = false;
     const float2* ul;
     int base;
     __device__ __forceinline__ void unit(const PairTiles& pt, const PairUnit& p) {
@@ -227,7 +229,7 @@ struct DiagBounds {
     return squares(ul[(b - a) * a_pad + a]);
   }
   struct Cursor {
-    static constexpr bool kAhead = true;  // device memory: load a step ahead
+    static constexpr bool kAhead = true, kParamsAhead = false;  // a step ahead
     const float2* ul;
     int a_pad;
     __device__ __forceinline__ void unit(const PairTiles&, const PairUnit&) {}
@@ -237,6 +239,29 @@ struct DiagBounds {
     }
   };
   __device__ __forceinline__ Cursor cursor() const { return Cursor{ul, a_pad}; }
+};
+
+// a molecule's pair parameters (MMFF's and UFF's rows) laid out by
+// diagonals and packed to its n atoms: the pair a < b at [(b - a - 1) (2 n -
+// b + a) / 2 + a] (models/flat.py diagonal_pairs), so that a step's lanes
+// read at most two runs of consecutive entries, each step's a step ahead
+// (K4, K6 and the minimizers over them), from the L2 (__ldcg: read once an
+// evaluation, they would push the bonded terms' rows out of the L1)
+template <class P>
+struct DiagTable {
+  const P* tab;
+  int n;
+  struct Cursor {
+    static constexpr bool kAhead = false, kParamsAhead = true;
+    const P* tab;
+    int n;
+    __device__ __forceinline__ void unit(const PairTiles&, const PairUnit&) {}
+    __device__ __forceinline__ P next(int, int i, int j, bool valid) {
+      const int a = min(i, j), d = max(i, j) - a;
+      return valid ? __ldcg(tab + (d - 1) * (2 * n - d) / 2 + a) : P{};
+    }
+  };
+  __device__ __forceinline__ Cursor cursor() const { return Cursor{tab, n}; }
 };
 
 // the pair of lane ``lane`` at step k of tile (I, J), and whether it is one
@@ -322,16 +347,29 @@ __device__ __forceinline__ void pair_term(const float (&xi)[D], const float (&xj
   }
 }
 
-// One unit's pairs at ``x`` (shared, D floats per atom): the rows' sums into
-// gi and the columns' into gj, each on its own lane at the end (for a
-// diagonal tile both are the same atoms'); the energies into e. Where the
-// bounds are in device memory (Cursor::kAhead), each step's bounds and x_j
-// are loaded while the step before it computes; from shared memory (K5,
-// K23) they are not, which would cost the minimizer registers.
-template <int D, class Cursor>
+// the distance-bounds pair term as the walk takes it (unit_pairs' default
+// term): the parameters a pair's squared bounds
+template <int D>
+struct BoundsTerm {
+  __device__ __forceinline__ void operator()(const float (&xi)[D], const float (&xj)[D], float2 b,
+                                             float (&gi)[D], float (&gj)[D], float& e) const {
+    pair_term<D>(xi, xj, b, gi, gj, e);
+  }
+};
+
+// One unit's pairs at ``x`` (shared, D floats per atom) by ``term`` (the
+// distance-bounds term by default) on the parameters ``cur`` reads: the
+// rows' sums into gi and the columns' into gj, each on its own lane at the
+// end (for a diagonal tile both are the same atoms'); the energies into e.
+// Where the bounds are in device memory (Cursor::kAhead), each step's bounds
+// and x_j are loaded while the step before it computes; from shared memory
+// (K5, K23) they are not, which would cost the minimizer registers. MMFF's
+// and UFF's tables (Cursor::kParamsAhead) load each step's parameters a
+// step ahead and x_j in the step (K5's and K23's register budget).
+template <int D, class Cursor, class Term = BoundsTerm<D>>
 __device__ __forceinline__ void unit_pairs(const PairTiles& pt, const PairUnit& p, Cursor& cur,
                                            const float* x, float (&gi)[D], float (&gj)[D],
-                                           float& e) {
+                                           float& e, const Term& term = Term{}) {
   const int lane = threadIdx.x & 31;
   const int i = 32 * p.I + lane;
   float xi[D], xj[D];
@@ -343,11 +381,11 @@ __device__ __forceinline__ void unit_pairs(const PairTiles& pt, const PairUnit& 
   if constexpr (Cursor::kAhead) {
     if (i < pt.n) load_atom<D>(x, i, xi);
     bool valid = tile_pair(p.I, p.J, k, lane, pt.n, ii, j);
-    float2 b = cur.next(p.s, ii, j, valid);
+    auto b = cur.next(p.s, ii, j, valid);
     if (valid) load_atom<D>(x, j, xj);
     for (int q = 1; q <= p.steps; ++q, ++k) {
       bool valid_next = false;
-      float2 b_next = make_float2(0.0f, 0.0f);
+      decltype(b) b_next{};
       float xj_next[D];
 #pragma unroll
       for (int c = 0; c < D; ++c) xj_next[c] = 0.0f;
@@ -356,7 +394,7 @@ __device__ __forceinline__ void unit_pairs(const PairTiles& pt, const PairUnit& 
         b_next = cur.next(p.s + q, ii, j, valid_next);
         if (valid_next) load_atom<D>(x, j, xj_next);
       }
-      if (valid) pair_term<D>(xi, xj, b, gi, gj, e);
+      if (valid) term(xi, xj, b, gi, gj, e);
       // the column sums move one lane down: lane l's next pair has the
       // column that lane l + 1's had
 #pragma unroll
@@ -367,6 +405,25 @@ __device__ __forceinline__ void unit_pairs(const PairTiles& pt, const PairUnit& 
       valid = valid_next;
       b = b_next;
     }
+  } else if constexpr (Cursor::kParamsAhead) {
+    bool valid = tile_pair(p.I, p.J, k, lane, pt.n, ii, j);
+    auto b = cur.next(p.s, ii, j, valid);
+    for (int q = 1; q <= p.steps; ++q, ++k) {
+      const bool now = valid;
+      const int jn = j;
+      const auto bn = b;
+      if (q < p.steps) {  // the same in every lane
+        valid = tile_pair(p.I, p.J, k + 1, lane, pt.n, ii, j);
+        b = cur.next(p.s + q, ii, j, valid);
+      }
+      if (now) {
+        load_atom<D>(x, i, xi);
+        load_atom<D>(x, jn, xj);
+        term(xi, xj, bn, gi, gj, e);
+      }
+#pragma unroll
+      for (int c = 0; c < D; ++c) gj[c] = __shfl_sync(FULL, gj[c], (lane + 1) & 31);
+    }
   } else {
     for (int s = p.s; s < p.s + p.steps; ++s, ++k) {
       const bool valid = tile_pair(p.I, p.J, k, lane, pt.n, ii, j);
@@ -374,7 +431,7 @@ __device__ __forceinline__ void unit_pairs(const PairTiles& pt, const PairUnit& 
       if (valid) {
         load_atom<D>(x, i, xi);  // again each step: four fewer registers held
         load_atom<D>(x, j, xj);
-        pair_term<D>(xi, xj, b, gi, gj, e);
+        term(xi, xj, b, gi, gj, e);
       }
 #pragma unroll
       for (int c = 0; c < D; ++c) gj[c] = __shfl_sync(FULL, gj[c], (lane + 1) & 31);
@@ -471,27 +528,35 @@ struct WarpClock {
   }
 };
 
-// Each warp's units, dealt in turn (ETK): the pair terms of the n atoms at
-// ``x`` under ``bounds`` (an accessor above), their gradient times ``w`` added
-// into ``g`` (shared) by atomics as each unit ends. The caller has
-// initialized g's first D n entries and made them visible (a barrier), and
-// makes the sums visible with its next barrier. Returns w times this
-// thread's share of the energy. ``clk`` laps E_PAIRS and E_ADDS.
-template <int D, class Bounds, class Clock>
-__device__ float distance_pairs(const Bounds& bounds, const float* x, int n, float w, float* g,
-                                Clock& clk) {
+// Each warp's units, dealt in turn (ETK, MMFF, UFF): the pair terms
+// ``term`` of the n atoms at ``x`` on the parameters of ``params`` (an
+// accessor above), their gradient times ``w`` added into ``g`` (shared) by
+// atomics as each unit ends. The caller has initialized g's first D n
+// entries and made them visible (a barrier), and makes the sums visible
+// with its next barrier. Returns w times this thread's share of the
+// energy. ``clk`` laps E_PAIRS and E_ADDS.
+template <int D, class Params, class Term, class Clock>
+__device__ float dealt_pairs(const Params& params, const Term& term, const float* x, int n,
+                             float w, float* g, Clock& clk) {
   const PairTiles pt(n);
-  auto cur = bounds.cursor();
+  auto cur = params.cursor();
   float e = 0.0f;
   for (int u = (int)(threadIdx.x >> 5); u < pt.units; u += WARPS) {
     const PairUnit p = pt.dealt(u);
     float gi[D], gj[D];
-    unit_pairs<D>(pt, p, cur, x, gi, gj, e);
+    unit_pairs<D>(pt, p, cur, x, gi, gj, e, term);
     clk.lap(E_PAIRS);
     add_unit<D>(pt, p, w, gi, gj, g);
     clk.lap(E_ADDS);
   }
   return w * e;
+}
+
+// the distance-bounds terms under ``bounds`` (K13)
+template <int D, class Bounds, class Clock>
+__device__ float distance_pairs(const Bounds& bounds, const float* x, int n, float w, float* g,
+                                Clock& clk) {
+  return dealt_pairs<D>(bounds, BoundsTerm<D>{}, x, n, w, g, clk);
 }
 
 // The first design's walk (DG past DG_ONCE_MAX_ATOMS): a group of 1..32 lanes
@@ -540,6 +605,22 @@ __device__ float rows_pairs(const Bounds& bounds, const float* x, int n, Row row
 // them and runs a kind's code once for up to 4 x 32 terms
 __device__ __forceinline__ int term_slot() {
   return (threadIdx.x & 31) * WARPS + (threadIdx.x >> 5);
+}
+
+// The terms [lo, hi) of one kind on the block (K4, K6), 128 a round: a
+// round of n terms goes to the first W = ceil(n / 32) warps, term lo + 128 r
+// + W lane + warp, so that a warp with no term in it skips the round (its
+// issue slots go to the SM's other blocks) and a round's terms sit W apart
+// (their shared atomics collide less: a molecule's consecutive terms share
+// atoms). Each thread's terms in order: ``f(c)``.
+template <class F>
+__device__ __forceinline__ void packed_terms(int lo, int hi, F f) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int base = lo; base < hi; base += THREADS) {
+    const int w = (min(THREADS, hi - base) + 31) >> 5;
+    const int c = base + lane * w + warp;
+    if (warp < w && c < hi) f(c);
+  }
 }
 
 // The block's sum of ``v`` (every thread gets it), through one barrier, which

@@ -6,10 +6,15 @@
 // uff_energy_and_grad (bonded terms gathered by one-hot matmuls,
 // models/terms.py select_slots; the vdW sum over the dense A x A square,
 // _vdw_energy_dense; the gradient by autodiff). As K4 does for MMFF, every
-// term is evaluated once from flat per-molecule tables with CSR offsets, the
-// vdW terms from a pair list (exactly the nonzero entries of the JAX
-// package's dense square, models/uff/energy.py:98-128), and the gradient is
-// written by hand (Rappe et al., JACS 114 (1992) 10024):
+// bonded term is evaluated once from flat per-molecule tables with CSR
+// offsets, and the vdW terms walk the triangle of pairs i < j (dg_pairs.cuh,
+// each pair once) on a per-molecule table laid out by diagonals that holds
+// (x2, D) where the JAX package's dense square is nonzero, each bond's
+// (-r0, k) on its pair, zero elsewhere (UFFBatch.pair_table, made once per
+// batch from the pair list, which holds exactly the square's nonzero
+// entries, models/uff/energy.py pair_table, and the bonds): the bonds are
+// taken in the walk too. The gradient is written by hand
+// (Rappe et al., JACS 114 (1992) 10024):
 //   bond       E = k/2 (r - r0)^2
 //   angle      E = k (a0 + a1 c + a2 c^2 + a3 c^3 + a4 c^4), c = cos theta
 //   torsion    E = b0 + b1 c + ... + b6 c^6, c = cos phi between n1 = b1 x b2
@@ -21,17 +26,26 @@
 // derivative is zero where a clip is active (as autodiff through a clip
 // gives: an exactly perpendicular out-of-plane bond, or a rounding past 1);
 // r^2 >= 1e-2 with a zero gradient below. There is no inverse trigonometric
-// call: the gradients go through the cosines.
+// call: the gradients go through the cosines. A pair whose x2 and D are
+// both zero (off the square) is skipped, as the list skipped it; the vdW
+// term's one division is a reciprocal (MUFU.RCP) and multiplies, where the
+// first design (tools/mmff_uff_first_design.cu) took two IEEE divisions,
+// ran a contiguous run of the pair list on each thread and pushed six
+// shared float atomics a pair.
 //
 // K5, K23 and K8 (minimizers.cuh) call K6's device function uff_eval once
-// per probe. What bounds K6: FP32 work, ~25 instructions per vdW pair (one
-// division, no square root), ~60-120 per bonded term; pairs are ~85 % of the
-// terms at drug-like sizes. Its bytes are the tables (once per molecule) and
-// the positions and gradients. One block of 128 threads per system, each
-// thread a contiguous run of each kind's terms, the gradient in shared
-// memory by atomics; IEEE division and square root, float32 throughout.
+// per probe. What bounds K6: FP32 work, ~27 instructions per vdW pair, ~25-120
+// per bonded term; pairs are ~85 % of the terms at drug-like sizes. Its
+// bytes are the tables (once per molecule) and the positions and
+// gradients. One block of 128 threads per system, one evaluation: the
+// gradient zeroed, a barrier; the pair walk's units dealt to the warps,
+// then the other bonded kinds in turn, consecutive terms on consecutive
+// warps (term_slot; K4's packed rounds made UFF no faster), pushed by
+// shared atomics; one barrier ends them with the energy's sum. float32
+// throughout.
 
 #include "constraints.cuh"
+#include "dg_pairs.cuh"
 #include "ff_common.cuh"
 #include "minimizers.cuh"
 
@@ -40,26 +54,18 @@ namespace {
 using namespace nvmk;
 
 constexpr int N_KINDS = 5;  // bonds, angles, torsions, inversions, vdW pairs
+constexpr int N_BONDED = 4;
 
 struct Tables {
   const int* off;  // [N_KINDS, n_mols + 1]
   int n_mols;
-  const int* atoms[N_KINDS];
-  const float* params[N_KINDS];
+  const int* atoms[N_BONDED];
+  const float* params[N_BONDED];
+  const int* pair_off;     // [n_mols + 1]: each molecule's pair table
+  const float2* pair_tab;  // (x2, D) or a bond's (-r0, k) by diagonals (DiagTable)
 };
 
 // ---- the terms: each returns its energy and pushes its gradient ----------
-
-__device__ float bond_term(const int* a, const float* p, const float* x, float* g) {
-  const float r0 = p[0], k = p[1];
-  const V3 d = sub(at(x, a[0]), at(x, a[1]));
-  const float r = norm(d);
-  const float dr = r - r0;
-  const V3 gd = mul(d, k * dr / r);
-  push(g, a[0], gd);
-  push(g, a[1], mul(gd, -1.0f));
-  return 0.5f * k * dr * dr;
-}
 
 __device__ float angle_term(const int* a, const float* p, const float* x, float* g) {
   const float k = p[0], a0 = p[1], a1 = p[2], a2 = p[3], a3 = p[4], a4 = p[5];
@@ -93,52 +99,79 @@ __device__ float inversion_term(const int* a, const float* p, const float* x, fl
   return k * (1.0f - cos_w);
 }
 
-__device__ float pair_term(const int* a, const float* p, const float* x, float* g) {
-  const float x2 = p[0], depth = p[1];
-  const V3 d = sub(at(x, a[0]), at(x, a[1]));
-  const float r2raw = dot(d, d);
-  const float r2 = nmax(r2raw, 1e-2f);
-  const float t = x2 / r2;
-  const float r6 = t * t * t;
-  if (r2raw >= 1e-2f) {
-    // dE/d(r^2) = -6 D r6 (r6 - 1) / r^2; d(r^2)/dd = 2 d
-    const V3 gd = mul(d, -12.0f * depth * r6 * (r6 - 1.0f) / r2);
-    push(g, a[0], gd);
-    push(g, a[1], mul(gd, -1.0f));
+// the pair term as the walk takes it (dg_pairs.cuh unit_pairs): x_i and x_j
+// and the table's row of the pair, (x2, D) for a vdW pair, (-r0, k) for a
+// bond (x2 = x_i x_j > 0 on a listed pair: a negative first column marks a
+// bond), zeros for neither; its energy into e, +dE/dx_i into gi and
+// -dE/dx_i into gj. The bond (r = sqrt(|d|^2 + 1e-10), an IEEE square root
+// and division as the list's bond term took) adds in registers with the
+// pairs.
+struct PairTerm {
+  __device__ __forceinline__ void operator()(const float (&xi)[3], const float (&xj)[3], float2 p,
+                                             float (&gi)[3], float (&gj)[3], float& e) const {
+    if (p.x == 0.0f && p.y == 0.0f) return;  // neither a listed pair nor a bond
+    const float d[3] = {xi[0] - xj[0], xi[1] - xj[1], xi[2] - xj[2]};
+    const float r2raw = d[0] * d[0] + d[1] * d[1] + d[2] * d[2];
+    float c;
+    if (p.x < 0.0f) {
+      const float r = sqrtf(r2raw + NORM_EPS);
+      const float dr = r + p.x;
+      e += 0.5f * p.y * dr * dr;
+      c = p.y * dr / r;
+    } else {
+      const float inv = __fdividef(1.0f, nmax(r2raw, 1e-2f));
+      const float t = p.x * inv;
+      const float r6 = t * t * t;
+      e += p.y * (r6 * r6 - 2.0f * r6);
+      if (r2raw < 1e-2f) return;  // no gradient below the floor
+      // dE/d(r^2) = -6 D r6 (r6 - 1) / r^2; d(r^2)/dd = 2 d
+      c = -12.0f * p.y * r6 * (r6 - 1.0f) * inv;
+    }
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {
+      gi[q] += c * d[q];
+      gj[q] -= c * d[q];
+    }
   }
-  return depth * (r6 * r6 - 2.0f * r6);
-}
+};
 
 // K6's device function: the energy of one system of molecule ``mol`` at
 // positions ``x`` (shared, 3 floats per atom) and its gradient into ``g``
 // (shared; its first n_dof entries are overwritten). Returns the energy in
-// every thread; ``g`` is complete on return.
+// every thread; ``g`` is complete on return. Two barriers. ``clk`` laps as
+// mmff_eval's: the pairs and bonds and their adds, the angles
+// (E_TERMS_A), the torsions and inversions (E_TERMS_B), the energy's sum.
+template <class Clock>
 __device__ float uff_eval(const Tables& t, int mol, const float* x, float* g, int n_dof,
-                          float* red) {
+                          float* red, Clock& clk) {
   for (int i = threadIdx.x; i < n_dof; i += THREADS) g[i] = 0.0f;
-  __syncthreads();
-  float e = 0.0f;
   const int stride = t.n_mols + 1;
+  const int* off = t.off;
+  __syncthreads();  // g zeroed before any term adds to it
+  clk.lap(E_WAIT);
+  const int n = n_dof / 3;
+  float e = dealt_pairs<3>(DiagTable<float2>{t.pair_tab + t.pair_off[mol], n}, PairTerm{}, x, n,
+                           1.0f, g, clk);
 #pragma unroll
-  for (int kind = 0; kind < N_KINDS; ++kind) {
-    constexpr int arity[N_KINDS] = {2, 3, 4, 4, 2};
-    constexpr int n_par[N_KINDS] = {2, 6, 7, 1, 2};
-    int first, last;
-    my_run(t.off[kind * stride + mol], t.off[kind * stride + mol + 1], first, last);
-    for (int k = first; k < last; ++k) {
-      const int* a = t.atoms[kind] + (size_t)k * arity[kind];
-      const float* p = t.params[kind] + (size_t)k * n_par[kind];
+  for (int kind = 1; kind < N_BONDED; ++kind) {  // the bonds are in the walk
+    constexpr int arity[N_BONDED] = {2, 3, 4, 4};
+    constexpr int n_par[N_BONDED] = {2, 6, 7, 1};
+    for (int c = off[kind * stride + mol] + term_slot(); c < off[kind * stride + mol + 1];
+         c += THREADS) {
+      const int* a = t.atoms[kind] + (size_t)c * arity[kind];
+      const float* p = t.params[kind] + (size_t)c * n_par[kind];
       switch (kind) {
-        case 0: e += bond_term(a, p, x, g); break;
         case 1: e += angle_term(a, p, x, g); break;
         case 2: e += torsion_term(a, p, x, g); break;
-        case 3: e += inversion_term(a, p, x, g); break;
-        default: e += pair_term(a, p, x, g); break;
+        default: e += inversion_term(a, p, x, g); break;
       }
     }
+    if (kind == 1) clk.lap(E_TERMS_A);
   }
-  __syncthreads();  // every term's atomics into g are done
-  return block_sum(e, red);
+  clk.lap(E_TERMS_B);
+  const float total = block_total(e, red);  // its barrier ends every atomic into g
+  clk.lap(E_SUM);
+  return total;
 }
 
 // the force field the minimizers take
@@ -148,17 +181,24 @@ struct Uff {
   static constexpr int kLbfgsBlocks = 10;  // K5/K23: blocks an SM (minimizers.cuh)
   Tables t;
   __device__ float eval(int mol, const float* x, float* g, int n_dof, float* red) const {
-    return uff_eval(t, mol, x, g, n_dof, red);
+    NoClock clk;
+    return uff_eval(t, mol, x, g, n_dof, red, clk);
   }
 };
 
 // ---- K6 ---------------------------------------------------------------------
 
+// with ``cycles`` (int64 [n_sys, WARPS, EVAL_PHASES]), each warp's phase
+// cycles (Clocked)
+template <bool Clocked>
 __global__ void __launch_bounds__(THREADS)
 energy_grad_kernel(const float* __restrict__ pos, int a_pad, const int* __restrict__ sys2mol,
                    const int* __restrict__ atom_count, Tables t, float* __restrict__ energy,
-                   float* __restrict__ grad) {
+                   float* __restrict__ grad, long long* __restrict__ cycles) {
   extern __shared__ float smem[];
+  __shared__ long long clock_acc[Clocked ? WARPS * (EVAL_PHASES + 1) : 1];
+  typename std::conditional<Clocked, WarpClock, NoClock>::type clk(clock_acc);
+  clk.start();
   const int row = 3 * a_pad;
   float* x = smem;
   float* g = x + row;
@@ -168,20 +208,45 @@ energy_grad_kernel(const float* __restrict__ pos, int a_pad, const int* __restri
   const float* px = pos + s * row;
   for (int i = threadIdx.x; i < n_dof; i += THREADS) x[i] = px[i];
   __syncthreads();
-  const float e = uff_eval(t, sys2mol[s], x, g, n_dof, red);
+  clk.lap(E_LOAD);
+  const float e = uff_eval(t, sys2mol[s], x, g, n_dof, red, clk);
   if (threadIdx.x == 0) energy[s] = e;
   float* pg = grad + s * row;
   for (int i = threadIdx.x; i < row; i += THREADS) pg[i] = i < n_dof ? g[i] : 0.0f;
+  clk.lap(E_WRITE);
+  if constexpr (Clocked) {
+    if ((threadIdx.x & 31) == 0) {
+      const int w = threadIdx.x >> 5;
+      for (int p = 0; p < EVAL_PHASES; ++p)
+        cycles[(s * WARPS + w) * EVAL_PHASES + p] = clock_acc[w * (EVAL_PHASES + 1) + p];
+    }
+  }
 }
 
+template <bool Clocked>
+int launch_k6(const float* pos, int n_sys, int a_pad, const int* sys2mol, const int* atom_count,
+              const Tables& t, float* energy, float* grad, long long* cycles, void* stream) {
+  if (n_sys == 0) return 0;
+  const size_t smem = (6 * (size_t)a_pad + 2 * WARPS) * sizeof(float);
+  energy_grad_kernel<Clocked><<<n_sys, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      pos, a_pad, sys2mol, atom_count, t, energy, grad, cycles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ``tables``: the int32 atom columns of the five kinds, their float32
+// parameter rows, then UFFBatch.derived_tables: the pair table's int32
+// offsets [n_mols + 1] and its float32 rows [P, 2]; the pair list's and the
+// bonds' tables are not read
 Uff make_uff(const int* off, int n_mols, const void* const* tables) {
   Tables t;
   t.off = off;
   t.n_mols = n_mols;
-  for (int k = 0; k < N_KINDS; ++k) {
+  for (int k = 0; k < N_BONDED; ++k) {
     t.atoms[k] = static_cast<const int*>(tables[k]);
     t.params[k] = static_cast<const float*>(tables[N_KINDS + k]);
   }
+  t.pair_off = static_cast<const int*>(tables[2 * N_KINDS]);
+  t.pair_tab = static_cast<const float2*>(tables[2 * N_KINDS + 1]);
   return Uff{t};
 }
 
@@ -200,16 +265,25 @@ int nvmk_uff_lbfgs_info(int lockstep, int a_pad, int stage, int* out) {
 }
 
 // K6: energy [n_sys] and gradient [n_sys, a_pad, 3] of the systems at ``pos``
-// [n_sys, a_pad, 3]. ``tables`` holds 10 device pointers: the int32 atom
-// columns of the five kinds, then their float32 parameter rows.
+// [n_sys, a_pad, 3]. ``tables`` holds 12 device pointers: the int32 atom
+// columns of the five kinds, their float32 parameter rows, then the pair
+// table's int32 offsets and its float32 rows by diagonals
+// (UFFBatch.derived_tables: (x2, D) or a bond's (-r0, k)).
 int nvmk_uff_energy_grad(const float* pos, int n_sys, int a_pad, const int* sys2mol,
                          const int* atom_count, const int* off, int n_mols,
                          const void* const* tables, float* energy, float* grad, void* stream) {
-  if (n_sys == 0) return 0;
-  const size_t smem = (6 * (size_t)a_pad + 2 * WARPS) * sizeof(float);
-  energy_grad_kernel<<<n_sys, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      pos, a_pad, sys2mol, atom_count, make_uff(off, n_mols, tables).t, energy, grad);
-  return static_cast<int>(cudaGetLastError());
+  return launch_k6<false>(pos, n_sys, a_pad, sys2mol, atom_count, make_uff(off, n_mols, tables).t,
+                          energy, grad, nullptr, stream);
+}
+
+// K6 as nvmk_uff_energy_grad, each warp's phase cycles into ``cycles``
+// (int64 [n_sys, WARPS, 9]: dg_pairs.cuh EvalPhase)
+int nvmk_uff_energy_grad_cycles(const float* pos, int n_sys, int a_pad, const int* sys2mol,
+                                const int* atom_count, const int* off, int n_mols,
+                                const void* const* tables, float* energy, float* grad,
+                                long long* cycles, void* stream) {
+  return launch_k6<true>(pos, n_sys, a_pad, sys2mol, atom_count, make_uff(off, n_mols, tables).t,
+                         energy, grad, cycles, stream);
 }
 
 // K5 over UFF (see launch_lbfgs)

@@ -313,26 +313,23 @@ def _pair_step(x, u2, l2, i, j, valid):
     return torch.where(on[..., None], c[..., None] * d, 0.0), torch.where(on, v * v, 0.0)
 
 
-def distance_terms_model(x: torch.Tensor, upper: torch.Tensor, lower: torch.Tensor,
-                         n: int, w: float, g: torch.Tensor, e_thread: torch.Tensor) -> None:
-    """K13's pair terms of systems of n atoms at ``x`` [S, A, D] under their
-    bounds [S, A, A], in the kernel's order: each dealt unit
-    (:func:`pair_schedule`) with row i's and column j's gradient summed over
-    the unit's steps in step order, each reciprocal taken and multiplied;
-    the unit's rows and columns times ``w`` added into ``g`` [S, A, D] in
-    unit order (K13's atomics add in an order of their own), and each
+def dealt_pairs_model(step, n: int, w: float, g: torch.Tensor, e_thread: torch.Tensor) -> None:
+    """dg_pairs.cuh dealt_pairs on the CPU, for systems of n atoms: each dealt
+    unit (:func:`pair_schedule`) with row i's and column j's gradient summed
+    over the unit's steps in step order, ``step(i, j, valid)`` giving one
+    step's +dE/dx_i [S, 32, D] and energies [S, 32] (zero off ``valid``); the
+    unit's rows and columns times ``w`` added into ``g`` [S, A, D] in unit
+    order (the kernels' atomics add in an order of their own), and each
     lane's pair energies, summed in its units' order and times ``w``, into
     ``e_thread`` [S, THREADS]."""
-    u2, l2 = upper * upper, lower * lower
-    S, _, D = x.shape
+    S, _, D = g.shape
     lanes = np.arange(32)
-    e_lane = torch.zeros((S, WARPS, 32), dtype=x.dtype)
+    e_lane = torch.zeros((S, WARPS, 32), dtype=g.dtype)
     for u, (I, J, k0, steps) in enumerate(pair_schedule(n)):
-        gi = torch.zeros((S, 32, D), dtype=x.dtype)
-        gj = torch.zeros((S, 32, D), dtype=x.dtype)  # by column lane
+        gi = torch.zeros((S, 32, D), dtype=g.dtype)
+        gj = torch.zeros((S, 32, D), dtype=g.dtype)  # by column lane
         for k in range(k0, k0 + steps):
-            i, j, valid = step_pairs(I, J, k, n)
-            f, ev = _pair_step(x, u2, l2, i, j, valid)
+            f, ev = step(*step_pairs(I, J, k, n))
             gi = gi + f
             gj[:, (lanes + k) % 32] = gj[:, (lanes + k) % 32] - f
             e_lane[:, u % WARPS] = e_lane[:, u % WARPS] + ev
@@ -343,6 +340,15 @@ def distance_terms_model(x: torch.Tensor, upper: torch.Tensor, lower: torch.Tens
             g[:, rows[rows < n]] += (w * gi)[:, rows < n]
             g[:, cols[cols < n]] += (w * gj)[:, cols < n]
     e_thread += w * e_lane.reshape(S, THREADS)
+
+
+def distance_terms_model(x: torch.Tensor, upper: torch.Tensor, lower: torch.Tensor,
+                         n: int, w: float, g: torch.Tensor, e_thread: torch.Tensor) -> None:
+    """K13's pair terms of systems of n atoms at ``x`` [S, A, D] under their
+    bounds [S, A, A], in the kernel's order (:func:`dealt_pairs_model`), each
+    reciprocal taken and multiplied."""
+    u2, l2 = upper * upper, lower * lower
+    dealt_pairs_model(lambda i, j, valid: _pair_step(x, u2, l2, i, j, valid), n, w, g, e_thread)
 
 
 def block_total_model(e_thread: torch.Tensor) -> torch.Tensor:
@@ -540,14 +546,20 @@ def dg_energy_and_grad_model(positions: torch.Tensor, batch: DGBatch, sys2mol: t
     return block_total_model(e_thread), torch.where(mask[..., None], g, 0.0)
 
 
-def add_terms_model(e_thread, g, sys_of, atoms, energies, grads, S: int) -> None:
-    """K13's terms of one kind into the per-thread energies [S, THREADS]
-    (each term on its thread, :func:`term_threads`) and their gradients (one
-    per atom slot, [T, 3]) into ``g`` [S, A, D]'s first three coordinates,
-    in term order."""
+def system_local(sys_of: torch.Tensor, S: int) -> torch.Tensor:
+    """Each term's index among its system's terms (``sys_of`` sorted)."""
     count = torch.bincount(sys_of, minlength=S)
-    local = torch.arange(sys_of.shape[0]) - (torch.cumsum(count, 0) - count)[sys_of]
-    thread = torch.from_numpy(term_threads(int(local.max()) + 1))[local]
+    return torch.arange(sys_of.shape[0]) - (torch.cumsum(count, 0) - count)[sys_of]
+
+
+def add_terms_model(e_thread, g, sys_of, atoms, energies, grads, S: int, thread=None) -> None:
+    """K13's terms of one kind into the per-thread energies [S, THREADS]
+    (each term on ``thread``, by default K13's, :func:`term_threads` of its
+    index among its system's terms) and their gradients (one per atom slot,
+    [T, 3]) into ``g`` [S, A, D]'s first three coordinates, in term order."""
+    if thread is None:
+        local = system_local(sys_of, S)
+        thread = torch.from_numpy(term_threads(int(local.max()) + 1))[local]
     e_thread.index_put_((sys_of, thread), energies, accumulate=True)
     flat_g = g.reshape(-1, g.shape[2])
     for q, grad in enumerate(grads):

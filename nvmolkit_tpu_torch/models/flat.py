@@ -73,7 +73,7 @@ def check_kernel_inputs(positions: torch.Tensor, batch, sys2mol: torch.Tensor,
         raise ValueError(f"{what} takes float32 positions, got {positions.dtype}")
     if sys2mol.dtype != torch.int32:
         raise ValueError(f"{what} takes int32 sys2mol, got {sys2mol.dtype}")
-    tensors = (positions, sys2mol, batch.n_atoms, batch.offsets) + batch.atoms + batch.params
+    tensors = (positions, sys2mol, batch.n_atoms, batch.offsets) + kernel_tables(batch)
     for t in tensors:
         if t.device != positions.device or not t.is_contiguous():
             raise ValueError(f"{what}'s inputs must be contiguous and on one device")
@@ -93,11 +93,61 @@ def atom_mask(batch, sys2mol: torch.Tensor, a_pad: int) -> torch.Tensor:
     return torch.arange(a_pad, device=count.device)[None] < count[:, None]
 
 
+def kernel_tables(batch) -> tuple:
+    """The tables a force field's kernels take: the atom columns of its
+    kinds, their parameter rows, then (MMFF, UFF) the tables made from them
+    when the batch is (``derived_tables``: the pair walk's,
+    :func:`diagonal_pairs`)."""
+    return batch.atoms + batch.params + tuple(getattr(batch, "derived_tables", ()))
+
+
 def table_pointers(batch):
-    """The device pointers a force field's kernels take: the atom columns of
-    its kinds, then their parameter rows."""
-    tables = batch.atoms + batch.params
+    """The device pointers of :func:`kernel_tables`."""
+    tables = kernel_tables(batch)
     return (ctypes.c_void_p * len(tables))(*[t.data_ptr() for t in tables])
+
+
+def pair_slot(i, j, n):
+    """Where the pair (i, j), i != j, of a molecule of n atoms lies in its
+    table by diagonals (``csrc/dg_pairs.cuh`` DiagTable): d = |i - j|, at
+    (d - 1) (2 n - d) / 2 + min(i, j), the diagonals d = 1 .. n - 1 one
+    after another, each n - d entries long (ints, numpy or torch)."""
+    d = abs(i - j)
+    return (d - 1) * (2 * n - d) // 2 + (i + j - d) // 2
+
+
+def diagonal_pairs(n_atoms: torch.Tensor, layers, width: int):
+    """The pair walk's table of a batch (``csrc/dg_pairs.cuh`` DiagTable):
+    each molecule's n (n - 1) / 2 pairs laid out by diagonals
+    (:func:`pair_slot`), zero where no row is listed. Each of ``layers``
+    (offsets [U + 1], atoms int32 [T, 2], params [T, P], columns, ordered)
+    puts each of its rows into ``columns`` of its pair's entry: the
+    nonbonded list (``ordered``: its pairs i < j, checked) and the bonds
+    (either order). A pair outside its molecule, or listed twice, raises.
+    Returns (int32 [U + 1] each molecule's first entry, [sum n (n - 1) / 2,
+    width] of the params' dtype), on the tables' device."""
+    dev = n_atoms.device
+    n = n_atoms.to(torch.int64)
+    first = torch.zeros(n.shape[0] + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(n * (n - 1) // 2, 0, out=first[1:])
+    if int(first[-1]) >= 2**31:
+        raise ValueError("more than 2^31 pairs in a batch's pair table")
+    table = torch.zeros((int(first[-1]), width), dtype=layers[0][2].dtype, device=dev)
+    taken = torch.zeros(int(first[-1]), dtype=torch.int64, device=dev)
+    for offsets, atoms, params, columns, ordered in layers:
+        off = offsets.to(dev, torch.int64)
+        mol = torch.repeat_interleave(torch.arange(n.shape[0], device=dev), off[1:] - off[:-1])
+        i, j = atoms[:, 0].to(dev, torch.int64), atoms[:, 1].to(dev, torch.int64)
+        if ordered and bool((i >= j).any()):
+            raise ValueError("a pair list holds a pair (i, j) that is not i < j")
+        if bool(((i == j) | (torch.maximum(i, j) >= n[mol])).any()):
+            raise ValueError("a pair (i, j) outside its molecule's atoms")
+        slot = first[mol] + pair_slot(i, j, n[mol])
+        taken.index_add_(0, slot, torch.ones_like(slot))
+        table[slot[:, None], torch.as_tensor(columns, device=dev)[None]] = params.to(dev)
+    if bool((taken > 1).any()):
+        raise ValueError("a pair listed twice (a bonded pair among the nonbonded ones?)")
+    return first.to(torch.int32), table
 
 
 def expand(batch, sys2mol: torch.Tensor, a_pad: int):

@@ -19,11 +19,18 @@ The functional forms and guards are those of
   does not copy.
 * ``vdw_threshold`` is validated and keys the caches, and drops nothing, as
   in the JAX package (whose dense square keeps every pair).
+* K6 reads the pairs from ``pair_table``: each molecule's triangle of pairs
+  i < j laid out by diagonals, ``(x2, d)`` where the list has the pair,
+  ``(-r0, k)`` where a bond joins it (x2 > 0 on a listed pair), zero
+  elsewhere (``flat.diagonal_pairs``, made when the batch is): K6 takes the
+  bonds in its pair walk.
 
 :func:`uff_energy_and_grad` launches K6 (``csrc/uff.cu``) for CUDA tensors
 and runs :func:`uff_energy_and_grad_plain` (the energy in torch, the
 gradient by ``torch.autograd.grad``) for CPU tensors; a build or launch
 failure raises. ``launch_counts`` counts K6's launches.
+:func:`uff_energy_and_grad_model` computes K6's order and arithmetic on the
+CPU, as ``mmff_energy_and_grad_model`` does K4's.
 """
 from __future__ import annotations
 
@@ -35,7 +42,8 @@ import torch
 
 from nvmolkit_tpu_torch._build import uff_lib
 from nvmolkit_tpu_torch.chem.mol import Mol, fragment_ids
-from nvmolkit_tpu_torch.models import flat
+from nvmolkit_tpu_torch.models import dist_geom, flat
+from nvmolkit_tpu_torch.models.mmff.energy import bonded_terms_model, walk_pairs_model
 from nvmolkit_tpu_torch.models.terms import BoundedBatchCache
 from nvmolkit_tpu_torch.models.uff.builder import UFFTerms, build_uff_terms
 from nvmolkit_tpu_torch.models.uff.params import uff_atom_type
@@ -51,6 +59,12 @@ PARAMS = (
     ("b0", "b1", "b2", "b3", "b4", "b5", "b6"),
     ("k",),
 )
+
+# the phases of K6's per-warp clock (``phase_cycles=True``; csrc/dg_pairs.cuh
+# EvalPhase): "terms_a" the bonds and angles, "terms_b" the torsions and
+# inversions, "wait" the zeroing's barrier; "pairs_b" is not used
+EVAL_PHASES = dist_geom.EVAL_PHASES
+PAIR_WIDTH = 2  # the pair table's columns: x2, d (a bond's -r0, k)
 
 launch_counts = {"uff_energy_grad": 0}
 
@@ -69,6 +83,26 @@ class UFFBatch:
     offsets: torch.Tensor             # int32 [5, U + 1]
     atoms: tuple[torch.Tensor, ...]   # per kind int32 [T, arity]
     params: tuple[torch.Tensor, ...]  # per kind float32 [T, P]
+    # K6's pair walk: each molecule's first entry, int32 [U + 1], and the
+    # pairs by diagonals [sum n (n - 1) / 2, 2] (made from the pair list and
+    # the bonds if None)
+    pair_offsets: torch.Tensor | None = None
+    pair_table: torch.Tensor | None = None
+
+    def __post_init__(self):
+        if self.pair_table is None:
+            bonds = self.params[0] * torch.tensor([-1.0, 1.0], dtype=self.params[0].dtype,
+                                                  device=self.params[0].device)
+            if bool((bonds[:, 0] >= 0).any()):
+                raise ValueError("a bond with r0 <= 0")
+            self.pair_offsets, self.pair_table = flat.diagonal_pairs(self.n_atoms, (
+                (self.offsets[4], self.atoms[4], self.params[4], (0, 1), True),
+                (self.offsets[0], self.atoms[0], bonds, (0, 1), False)), PAIR_WIDTH)
+
+    @property
+    def derived_tables(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """What K6 reads beside the lists (``flat.kernel_tables``)."""
+        return self.pair_offsets, self.pair_table
 
     @property
     def n_mols(self) -> int:
@@ -84,7 +118,8 @@ class UFFBatch:
 
         return dataclasses.replace(
             self, n_atoms=put(self.n_atoms), offsets=put(self.offsets),
-            atoms=tuple(put(a) for a in self.atoms), params=tuple(put(p) for p in self.params))
+            atoms=tuple(put(a) for a in self.atoms), params=tuple(put(p) for p in self.params),
+            pair_offsets=put(self.pair_offsets), pair_table=put(self.pair_table))
 
 
 def _excluded(mol: Mol) -> set[tuple[int, int]]:
@@ -302,14 +337,57 @@ def uff_energy(positions: torch.Tensor, batch: UFFBatch, sys2mol: torch.Tensor) 
     return uff_energy_plain(positions, batch, sys2mol)
 
 
+# ---- a torch model of K6's order and arithmetic ---------------------------------
+
+def _walk_pair(d, p):
+    """csrc/uff.cu PairTerm on one step's lanes: the separations d [S, 32, 3]
+    and the table's rows p [S, 32, 2]; (dE/dr / r [S, 32], E [S, 32]). A
+    vdW row: the division a reciprocal and multiplies; a bond's row (-r0, k):
+    the bond term; zero elsewhere."""
+    r2raw = (d * d).sum(-1)
+    inv = torch.reciprocal(torch.clamp_min(r2raw, 1e-2))
+    t = p[..., 0] * inv
+    r6 = t * t * t
+    e = p[..., 1] * (r6 * r6 - 2.0 * r6)
+    c = -12.0 * p[..., 1] * r6 * (r6 - 1.0) * inv
+    r_b = torch.sqrt(r2raw + _EPS)
+    dr = r_b + p[..., 0]
+    bond = p[..., 0] < 0
+    on = ~bond & ((p[..., 0] != 0) | (p[..., 1] != 0))
+    c = torch.where(bond, p[..., 1] * dr / r_b, torch.where(on & (r2raw >= 1e-2), c, 0.0))
+    return c, torch.where(bond, 0.5 * p[..., 1] * dr * dr, torch.where(on, e, 0.0))
+
+
+def uff_energy_and_grad_model(positions: torch.Tensor, batch: UFFBatch, sys2mol: torch.Tensor):
+    """(energy [S], gradient [S, A, 3]) of ``positions`` by K6's order and
+    arithmetic (csrc/uff.cu uff_eval), on the CPU: the pair walk over
+    ``pair_table`` (``mmff.energy.walk_pairs_model``, the vdW term with its
+    reciprocal, and the bonds), then the other bonded kinds in turn, the
+    energy by
+    ``dist_geom.block_total_model``."""
+    flat.check_inputs(positions, batch, sys2mol, 3)
+    x = positions.detach()
+    g = torch.zeros_like(x)
+    e_thread = torch.zeros((x.shape[0], dist_geom.THREADS), dtype=x.dtype)
+    walk_pairs_model(x, batch, sys2mol, _walk_pair, g, e_thread)
+    bonded_terms_model(x, batch, sys2mol, _kind_energies, g, e_thread, packed=False)
+    mask = flat.atom_mask(batch, sys2mol, x.shape[1])
+    return dist_geom.block_total_model(e_thread), torch.where(mask[..., None], g, 0.0)
+
+
 # ---- kernel K6 ------------------------------------------------------------------
 
-def uff_energy_and_grad(positions: torch.Tensor, batch: UFFBatch, sys2mol: torch.Tensor):
+def uff_energy_and_grad(positions: torch.Tensor, batch: UFFBatch, sys2mol: torch.Tensor,
+                        phase_cycles: bool = False):
     """(energy [S], gradient [S, A, 3]) of ``positions`` [S, A, 3], system s
     being molecule ``sys2mol[s]`` (int32) of ``batch``; the gradient is zero
     outside each system's atoms. K6 for CUDA tensors, the plain version for
-    CPU tensors."""
+    CPU tensors. With ``phase_cycles`` (CUDA only), K6's instrumented
+    instantiation, and also each warp's cycles per phase (int64 [S, 4,
+    len(EVAL_PHASES)])."""
     if not positions.is_cuda:
+        if phase_cycles:
+            raise ValueError("phase_cycles needs CUDA tensors")
         return uff_energy_and_grad_plain(positions, batch, sys2mol)
     lib = uff_lib()
     flat.check_kernel_inputs(positions, batch, sys2mol, "K6", flat.kernel_dim(lib, "uff"))
@@ -318,15 +396,19 @@ def uff_energy_and_grad(positions: torch.Tensor, batch: UFFBatch, sys2mol: torch
     energy = torch.empty(n_sys, dtype=torch.float32, device=dev)
     grad = torch.empty_like(positions)
     count = flat.system_atoms(batch, sys2mol)
-    with torch.cuda.device(dev):
-        rc = lib.nvmk_uff_energy_grad(
-            positions.data_ptr(), n_sys, a_pad, sys2mol.data_ptr(), count.data_ptr(),
+    args = (positions.data_ptr(), n_sys, a_pad, sys2mol.data_ptr(), count.data_ptr(),
             batch.offsets.data_ptr(), batch.n_mols, flat.table_pointers(batch),
-            energy.data_ptr(), grad.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            energy.data_ptr(), grad.data_ptr())
+    cycles = (torch.zeros((n_sys, dist_geom.WARPS, len(EVAL_PHASES)), dtype=torch.int64,
+                          device=dev) if phase_cycles else None)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = (lib.nvmk_uff_energy_grad_cycles(*args, cycles.data_ptr(), stream) if phase_cycles
+              else lib.nvmk_uff_energy_grad(*args, stream))
     if rc != 0:
         raise RuntimeError(f"uff_energy_grad kernel launch failed with CUDA error {rc}")
     launch_counts["uff_energy_grad"] += 1
-    return energy, grad
+    return (energy, grad, cycles) if phase_cycles else (energy, grad)
 
 
 UFF = flat.ForceField("uff", uff_energy_and_grad, plain_energy_and_grad_fn, uff_lib)

@@ -541,6 +541,69 @@ def test_uff_energy_grad_kernel_matches_plain(cuda):
                              U.uff_grad_magnitude_plain(x, batch, s2m))
 
 
+def _chain_smiles(a_pad):
+    """An amide-alcohol chain CC(=O)N(C)_kO whose 3 k + 10 atoms with
+    hydrogens fill ``a_pad`` (vdW, electrostatics, out-of-plane terms)."""
+    return "CC(=O)N" + "C" * ((a_pad - 10) // 3) + "O"
+
+
+def _grid_geometry(rng, n):
+    """n atoms 1.6 Å apart on a cubic grid, each moved up to 0.2 Å."""
+    side = int(np.ceil(n ** (1 / 3)))
+    grid = np.array([(x, y, z) for x in range(side) for y in range(side)
+                     for z in range(side)], float)[:n]
+    return grid * 1.6 + (rng.random((n, 3)) - 0.5) * 0.4
+
+
+@pytest.mark.parametrize("a_pad", [16, 24, 32, 40, 48, 64, 96, 128, 192, 256])
+def test_mmff_uff_kernels_every_bucket(cuda, a_pad):
+    """K4 and K6 (the nonbonded pairs walked once over each molecule's table
+    by diagonals, the bonded terms on consecutive warps) against their
+    plain versions and their first design (``tools/mmff_uff_first_design.cu``,
+    the pair list) at every atom bucket: molecules of 1, 2, 3 and 4 atoms
+    without hydrogens, and chains with hydrogens of about a_pad and a_pad / 2
+    atoms on a noisy grid, 4 systems each; each kernel launched once a call,
+    under chip_smoke.py's bounds widened by the plain version's own float32
+    distance from float64 (check_kernel's). K4 also under the distance-
+    dependent dielectric."""
+    from nvmolkit_tpu_torch.chem import mol_from_smiles
+    from nvmolkit_tpu_torch.models.mmff import EmpiricalMMFFProvider, MMFFProperties
+    from nvmolkit_tpu_torch.models.mmff import energy as M
+    from nvmolkit_tpu_torch.models.uff import energy as U
+
+    smoke = _load_by_path("chip_smoke.py")
+    split = _load_by_path("tools/mmff_uff_phase_split.py")
+    first = split.first_libs()["ieee"]
+    rng = np.random.default_rng(a_pad)
+    mols = [mol_from_smiles(s) for s in ("C", "CC", "CC=O", "CCCC")]
+    mols += [smoke.with_hydrogens(mol_from_smiles(_chain_smiles(b)))
+             for b in sorted({a_pad, max(16, a_pad // 2)})]
+    assert all(m.num_atoms <= a_pad for m in mols) and mols[-1].num_atoms > a_pad - 3
+    s2m = np.repeat(np.arange(len(mols)), 4).astype(np.int32)
+    pos = np.zeros((len(s2m), a_pad, 3), np.float32)
+    for k, m in enumerate(s2m):
+        pos[k, : mols[m].num_atoms] = _grid_geometry(rng, mols[m].num_atoms)
+    x, s = torch.from_numpy(pos).to(cuda), torch.from_numpy(s2m).to(cuda)
+    cases = [("mmff", M, M.make_batched_mmff(mols, a_pad, MMFFProperties(**kw),
+                                             provider=EmpiricalMMFFProvider(), device=cuda))
+             for kw in ({}, {"dielModel": 2})]
+    cases.append(("uff", U, U.make_batched_uff(mols, a_pad, device=cuda)))
+    for ff, mod, batch in cases:
+        key = f"{ff}_energy_grad"
+        before = mod.launch_counts[key]
+        got = getattr(mod, key.replace("_grad", "_and_grad"))(x, batch, s)
+        torch.cuda.synchronize()
+        assert mod.launch_counts[key] == before + 1
+        assert bool(torch.isfinite(got[0]).all() and torch.isfinite(got[1]).all())
+        plain = getattr(mod, f"{ff}_energy_and_grad_plain")
+        scale = getattr(mod, f"{ff}_term_magnitude_plain")(x, batch, s)
+        G = getattr(mod, f"{ff}_grad_magnitude_plain")(x, batch, s)
+        want64 = plain(x.double(), batch, s)
+        for want in (plain(x, batch, s), split.first_call(first, ff, 0, x, batch, s, False)[:2]):
+            e_r, g_r, _ = smoke.energy_grad_ratios(*got, *want, scale, G, want64)
+            assert e_r <= 1 and g_r <= 1, (ff, e_r, g_r)
+
+
 def _constraint_systems(cuda, picks, sigma, seed):
     """Every kind of constraint (chip_smoke.constraint_set) on the systems
     of ``picks``, resolved at the starts, and positions moved ``sigma`` Å."""
