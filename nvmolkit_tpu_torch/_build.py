@@ -197,6 +197,9 @@ def _declare_ff(lib: ctypes.CDLL, ff: str, extra: list) -> None:
     info = getattr(lib, f"nvmk_{ff}_lbfgs_info")
     info.restype = ci
     info.argtypes = [ci, ci, ci, ctypes.POINTER(ci)]
+    bfgs_info = getattr(lib, f"nvmk_{ff}_bfgs_info")
+    bfgs_info.restype = ci
+    bfgs_info.argtypes = [ci, ci, ctypes.POINTER(ci)]
     bfgs.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp, vp, vp, ci, tables, *extra, tables, fp, ci,
                      ci, cf, vp, vp, vp, vp, ctypes.c_longlong, vp, vp, vp, vp, vp, vp, vp]
 

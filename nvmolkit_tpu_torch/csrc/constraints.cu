@@ -1,10 +1,19 @@
 // Kernel K7: the constraint penalties of every system and their gradient,
-// for Hopper (sm_90a), one block per system around constraints.cuh's device
-// function constraint_eval (which K8 also calls after the force field on
-// every probe). It serves the batched forcefields' compute_energy and
-// compute_gradients, and the start of a constrained minimization. What bounds
-// it: a handful of terms per system (atan2, arccos, square roots), so its
-// time is the launch and the positions read and gradients written.
+// for Hopper (sm_90a), around constraints.cuh's terms (which K8 also
+// evaluates inside the force field on every probe). It serves the batched
+// forcefields' compute_energy and compute_gradients, and the start of a
+// constrained minimization. What bounds it: its bytes, the gradient rows
+// written (and the positions the terms name); a handful of terms a system
+// (atan2, arccos, square roots) is a latency chain. A warp per system,
+// WARPS systems a block: the system's offsets read by lanes 0-7, its terms
+// dealt over the lanes as one list (TermList), reading only the atoms they
+// name from device memory; the pushes go into the warp's slice of shared
+// memory, zeroed first, and the row leaves coalesced, its zeros with it; the
+// energy is a warp_sum. No block barrier. The first design
+// (tools/constraints_checks_first_design.cu) ran a block of 128 threads
+// per system: all 3n positions copied into shared memory, each kind's terms
+// in a run a thread (one thread ran a system's few terms one after
+// another), three barriers.
 
 #include "constraints.cuh"
 #include "ff_common.cuh"
@@ -13,27 +22,68 @@ namespace {
 
 using namespace nvmk;
 
+// the phases of the per-warp clock (constraints.K7_PHASES): the slice zeroed
+// and the offsets read, the terms with their pushes, the energy's sum, the
+// row written
+constexpr int K7_PHASES = 4;
+
+template <bool Clocked>
 __global__ void __launch_bounds__(THREADS)
 constraint_kernel(const float* __restrict__ pos, int a_pad, const int* __restrict__ atom_count,
-                  CTables c, float* __restrict__ energy, float* __restrict__ grad) {
+                  const __grid_constant__ CTables c, float* __restrict__ energy,
+                  float* __restrict__ grad, long long* __restrict__ cycles) {
   extern __shared__ float smem[];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const size_t s = (size_t)blockIdx.x * WARPS + w;
+  if (s >= (size_t)c.n_sys) return;  // a whole warp: no barrier below
+  long long acc[K7_PHASES] = {0, 0, 0, 0};
+  long long last = Clocked ? clock64() : 0;
+  auto lap = [&](int p) {
+    if (Clocked) {
+      const long long now = clock64();
+      acc[p] += now - last;
+      last = now;
+    }
+  };
   const int row = 3 * a_pad;
-  float* x = smem;
-  float* g = x + row;
-  float* red = g + row;
-  const size_t s = blockIdx.x;
-  const int n_dof = 3 * atom_count[s];
+  float* g = smem + w * row;
+  for (int i = lane; i < row; i += 32) g[i] = 0.0f;
+  const TermList l = warp_term_list(c, s);
+  __syncwarp();
+  lap(0);
   const float* px = pos + s * row;
-  for (int i = threadIdx.x; i < n_dof; i += THREADS) {
-    x[i] = px[i];
-    g[i] = 0.0f;
+  float e = 0.0f;
+  for (int t = lane; t < l.start[C_KINDS]; t += 32) {
+    int a[4];
+    float p[5];
+    const int kind = l.load(c, t, a, p);
+    e += constraint_term(kind, a, p, px, g);
   }
-  __syncthreads();
-  const float e = constraint_eval(c, (int)s, x, g, red);
-  __syncthreads();
-  if (threadIdx.x == 0) energy[s] = e;
+  lap(1);
+  e = warp_sum(e);
+  __syncwarp();  // every push into g is done
+  lap(2);
+  if (lane == 0) energy[s] = e;
+  const int n_dof = 3 * atom_count[s];
   float* pg = grad + s * row;
-  for (int i = threadIdx.x; i < row; i += THREADS) pg[i] = i < n_dof ? g[i] : 0.0f;
+  for (int i = lane; i < row; i += 32) pg[i] = i < n_dof ? g[i] : 0.0f;
+  lap(3);
+  if (Clocked && lane == 0) {
+#pragma unroll
+    for (int p = 0; p < K7_PHASES; ++p) cycles[s * K7_PHASES + p] = acc[p];
+  }
+}
+
+template <bool Clocked>
+int launch_k7(const float* pos, int n_sys, int a_pad, const int* atom_count,
+              const void* const* ctables, float* energy, float* grad, long long* cycles,
+              void* stream) {
+  if (n_sys == 0) return 0;
+  const size_t smem = (size_t)WARPS * 3 * a_pad * sizeof(float);
+  constraint_kernel<Clocked><<<(n_sys + WARPS - 1) / WARPS, THREADS, smem,
+                               static_cast<cudaStream_t>(stream)>>>(
+      pos, a_pad, atom_count, make_ctables(ctables, n_sys), energy, grad, cycles);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -47,11 +97,16 @@ extern "C" {
 int nvmk_constraint_energy_grad(const float* pos, int n_sys, int a_pad, const int* atom_count,
                                 const void* const* ctables, float* energy, float* grad,
                                 void* stream) {
-  if (n_sys == 0) return 0;
-  const size_t smem = (6 * (size_t)a_pad + WARPS) * sizeof(float);
-  constraint_kernel<<<n_sys, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      pos, a_pad, atom_count, make_ctables(ctables, n_sys), energy, grad);
-  return static_cast<int>(cudaGetLastError());
+  return launch_k7<false>(pos, n_sys, a_pad, atom_count, ctables, energy, grad, nullptr, stream);
+}
+
+// K7 as nvmk_constraint_energy_grad, each system's warp's phase cycles into
+// ``cycles`` (int64 [n_sys, K7_PHASES])
+int nvmk_constraint_energy_grad_cycles(const float* pos, int n_sys, int a_pad,
+                                       const int* atom_count, const void* const* ctables,
+                                       float* energy, float* grad, long long* cycles,
+                                       void* stream) {
+  return launch_k7<true>(pos, n_sys, a_pad, atom_count, ctables, energy, grad, cycles, stream);
 }
 
 }  // extern "C"

@@ -219,6 +219,7 @@ __device__ float dg_eval(const DgTables& t, int mol, const Bounds& bounds, const
 struct Dg {
   static constexpr int kDim = 4;
   static constexpr bool kStaged = true;
+  static constexpr bool kTerms = false;  // no constraint terms (minimizers.cuh)
   static constexpr int kLbfgsBlocks = 8;  // K5/K23: blocks an SM (minimizers.cuh)
   static constexpr int kLbfgsStagedBlocks = 6;
   DgTables t;
@@ -322,6 +323,12 @@ int nvmk_dg_dim() { return Dg::kDim; }
 // shared bytes and bounds staging at ``a_pad`` and ``stage`` (see lbfgs_info)
 int nvmk_dg_lbfgs_info(int lockstep, int a_pad, int stage, int* out) {
   return lbfgs_info<Dg>(lockstep, a_pad, stage, out);
+}
+
+// K8's registers, spilled bytes, blocks an SM, shared bytes and staged
+// constraint terms at ``a_pad``, with constraint tables or without
+int nvmk_dg_bfgs_info(int a_pad, int constrained, int* out) {
+  return bfgs_info<Dg>(a_pad, constrained, out);
 }
 
 // K11: energy [n_sys] and gradient [n_sys, a_pad, 4] of the systems at ``pos``

@@ -176,6 +176,7 @@ __device__ float etk_eval(const EtkTables& t, int mol, const Bounds& bounds, con
 struct Etk {
   static constexpr int kDim = 3;
   static constexpr bool kStaged = true;
+  static constexpr bool kTerms = false;  // no constraint terms (minimizers.cuh)
   static constexpr int kLbfgsBlocks = 8;  // K5/K23: blocks an SM (minimizers.cuh)
   static constexpr int kLbfgsStagedBlocks = 7;
   EtkTables t;
@@ -278,6 +279,12 @@ int nvmk_etk_dim() { return Etk::kDim; }
 // shared bytes and bounds staging at ``a_pad`` and ``stage`` (see lbfgs_info)
 int nvmk_etk_lbfgs_info(int lockstep, int a_pad, int stage, int* out) {
   return lbfgs_info<Etk>(lockstep, a_pad, stage, out);
+}
+
+// K8's registers, spilled bytes, blocks an SM, shared bytes and staged
+// constraint terms at ``a_pad``, with constraint tables or without
+int nvmk_etk_bfgs_info(int a_pad, int constrained, int* out) {
+  return bfgs_info<Etk>(a_pad, constrained, out);
 }
 
 // K13: energy [n_sys] and gradient [n_sys, a_pad, 3] of the systems at ``pos``

@@ -8,7 +8,10 @@
 // (shared, kDim floats per atom) in every thread and overwrites the first
 // n_dof = kDim * atoms entries of ``g`` (shared) with its gradient (K4's
 // mmff_eval in mmff.cu, K6's uff_eval in uff.cu, K11's dg_eval in
-// dist_geom.cu, K13's in etk.cu). For K5 and K23 it also names the blocks
+// dist_geom.cu, K13's in etk.cu); ``kTerms`` says whether it also takes
+// K8's constraint terms, through an overload of ``eval`` with a hook
+// (constraints.cuh StagedTerms) that adds them before its closing
+// reduction (MMFF and UFF). For K5 and K23 it also names the blocks
 // an SM their register budget is set for (``kLbfgsBlocks``) and whether it
 // has pair bounds to stage in shared memory (``kStaged``: DG and ETK, with
 // ``stage`` and ``eval_staged`` and ``kLbfgsStagedBlocks``). Each force
@@ -77,9 +80,13 @@
 // passes (16 n_dof^2 bytes) streamed at 1.4-2.3 TB/s and took 42 % of K8
 // over MMFF and 92 % over DG (tools/bfgs_phase_split.py, on an H100: a
 // system's H does not stay in the L2 with 4-16 blocks an SM resident). With
-// constraints (K7's tables) every probe adds constraint_eval after the
-// force field.
+// constraints (K7's tables) K8 stages each system's terms once in shared
+// memory (constraints.cuh stage_terms) and the force field evaluates them on
+// every probe before its closing reduction; the first design ran K7's
+// constraint_eval after the force field, three more barriers a probe.
 #pragma once
+
+#include <algorithm>
 
 #include "constraints.cuh"
 #include "ff_common.cuh"
@@ -728,10 +735,18 @@ int lbfgs_info(int lockstep, int a_pad, int stage, int* out) {
 // tools/bfgs_phase_split.py)
 constexpr int PASS_UNROLL = 4;
 constexpr int K8_MIN_BLOCKS = 10;
+// the shared memory a block of K8 may take and keep K8_MIN_BLOCKS blocks an
+// SM on Hopper (228 KB an SM, 1 KB of it reserved a block; its phase clock's
+// static 64 bytes): the constraint terms are staged up to it
+constexpr size_t K8_SMEM_BUDGET = 233472 / K8_MIN_BLOCKS - 1024 - 64;
+// the ints before the staged terms (constraints.cuh C_HEADER, rounded up to
+// keep the slab 16-byte aligned)
+constexpr int K8_HEADER_INTS = 12;
 
 // K8's phases, as ops/bfgs.K8_PHASES names them: the cycles thread 0 of each
-// block spends in each, when the launch is given a ``cycles`` buffer
-constexpr int K8_PHASES = 6;  // init, eval, search, h_pass, h_wait, update
+// block spends in each, when the launch is given a ``cycles`` buffer; eval
+// is the force field's evaluation, constraints the constraint terms after it
+constexpr int K8_PHASES = 7;  // init, eval, search, h_pass, h_wait, update, constraints
 
 // the update of the inverse Hessian that an accepted step left pending:
 // H += fac_i xi xi^T - fad_i hdg hdg^T + fae u u^T, u = fac_i xi - fad_i hdg
@@ -810,7 +825,8 @@ __device__ void hessian_pass(float* H, int n, bool fresh, const Pending& pend, c
 
 template <class FF>
 __global__ void __launch_bounds__(THREADS, K8_MIN_BLOCKS)
-bfgs_kernel(FF ff, CTables ct, int sys_base, const float* __restrict__ pos0,
+bfgs_kernel(FF ff, const __grid_constant__ CTables ct, int stage_cap, int sys_base,
+            const float* __restrict__ pos0,
             const float* __restrict__ e0, const float* __restrict__ g0, int a_pad,
             const int* __restrict__ sys2mol, const int* __restrict__ atom_count, Policy pol,
             int max_iters, float grad_tol, const int* __restrict__ iter_caps,
@@ -833,6 +849,9 @@ bfgs_kernel(FF ff, CTables ct, int sys_base, const float* __restrict__ pos0,
   float* phdg = pxi + row;
   float* colacc = phdg + row;  // WARPS rows
   float* red = colacc + WARPS * row;
+  // the constraint terms staged once (FF::kTerms; constraints.cuh)
+  int* hdr = reinterpret_cast<int*>(red + 6 * WARPS);
+  float* slab = reinterpret_cast<float*>(hdr + K8_HEADER_INTS);
   float* y = d;
 
   const size_t sys = sys_base + (size_t)blockIdx.x;
@@ -848,11 +867,20 @@ bfgs_kernel(FF ff, CTables ct, int sys_base, const float* __restrict__ pos0,
     g[i] = pg[i];
     d0[i] = -pg[i];
   }
+  clk.lap(0);
+  if constexpr (FF::kTerms) stage_terms(ct, sys, stage_cap, hdr, slab);
+  clk.lap(6);
   __syncthreads();
 
+  // the force field's evaluation with the constraint terms folded in
   auto energy = [&](const float* at_x, float* at_g) {
-    const float e_ff = ff.eval(mol, at_x, at_g, n_dof, red);
-    return e_ff + constraint_eval(ct, (int)sys, at_x, at_g, red);
+    float e;
+    if constexpr (FF::kTerms)
+      e = ff.eval(mol, at_x, at_g, n_dof, red, StagedTerms{hdr, slab, stage_cap, &ct});
+    else
+      e = ff.eval(mol, at_x, at_g, n_dof, red);
+    clk.lap(1);
+    return e;
   };
 
   float e = e0[sys];
@@ -876,7 +904,6 @@ bfgs_kernel(FF ff, CTables ct, int sys_base, const float* __restrict__ pos0,
       __syncthreads();
       clk.lap(2);
       et = energy(xt, gt);
-      clk.lap(1);
       ++steps;
       if (et - e <= pol.functol * lam * slope) {
         ls_ok = true;
@@ -967,6 +994,27 @@ bfgs_kernel(FF ff, CTables ct, int sys_base, const float* __restrict__ pos0,
 // ``iter_caps``, ``grad_tols`` and ``ctables`` (K7's: offsets, four atom
 // columns, four parameter rows) may be null; outputs as K5's, with accepted
 // steps; ``cycles`` null, or int64 [n_launch, K8_PHASES] for the phase clock
+// K8's dynamic shared memory at ``a_pad`` before the staged terms
+template <class FF>
+size_t bfgs_base_smem(int a_pad) {
+  return ((8 + WARPS) * FF::kDim * (size_t)a_pad + 6 * WARPS) * sizeof(float) +
+         (FF::kTerms ? K8_HEADER_INTS * sizeof(int) : 0);
+}
+
+// the constraint terms K8 stages a system at ``a_pad``: as many as keep its
+// blocks an SM (K8_SMEM_BUDGET), at most C_STAGE_MAX; none without tables
+template <class FF>
+int bfgs_stage_cap(int a_pad, bool constrained) {
+  const size_t base = bfgs_base_smem<FF>(a_pad);
+  if (!FF::kTerms || !constrained || base >= K8_SMEM_BUDGET) return 0;
+  return static_cast<int>(std::min<size_t>(C_STAGE_MAX, (K8_SMEM_BUDGET - base) / C_TERM_BYTES));
+}
+
+template <class FF>
+size_t bfgs_smem(int a_pad, int stage_cap) {
+  return bfgs_base_smem<FF>(a_pad) + stage_bytes(stage_cap);
+}
+
 template <class FF>
 int launch_bfgs(const FF& ff, const void* const* ctables, int n_sys, int sys_base, int n_launch,
                 const float* pos0, const float* e0, const float* g0, int a_pad,
@@ -976,16 +1024,42 @@ int launch_bfgs(const FF& ff, const void* const* ctables, int n_sys, int sys_bas
                 float* e_out, int* status, int* steps, int* accepted, long long* cycles,
                 void* stream) {
   if (n_launch == 0) return 0;
-  const size_t smem = ((8 + WARPS) * FF::kDim * (size_t)a_pad + 6 * WARPS) * sizeof(float);
+  const int cap = bfgs_stage_cap<FF>(a_pad, ctables != nullptr);
+  const size_t smem = bfgs_smem<FF>(a_pad, cap);
   cudaError_t err = cudaFuncSetAttribute(bfgs_kernel<FF>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   bfgs_kernel<FF><<<n_launch, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      ff, make_ctables(ctables, n_sys), sys_base, pos0, e0, g0, a_pad, sys2mol, atom_count,
+      ff, make_ctables(ctables, n_sys), cap, sys_base, pos0, e0, g0, a_pad, sys2mol, atom_count,
       make_policy(policy, max_ls_iters), max_iters, grad_tol, iter_caps, grad_tols, hess, hoff,
       hbase, pos_out, e_out, status, steps, accepted, cycles);
   return static_cast<int>(cudaGetLastError());
+}
+
+// K8's instantiation over FF at ``a_pad`` with constraint tables or without
+// (``constrained``): its registers, spilled bytes, blocks an SM, shared
+// bytes and the constraint terms it stages a system into ``out`` [5]
+template <class FF>
+int bfgs_info(int a_pad, int constrained, int* out) {
+  const auto kernel = bfgs_kernel<FF>;
+  const int cap = bfgs_stage_cap<FF>(a_pad, constrained != 0);
+  const size_t smem = bfgs_smem<FF>(a_pad, cap);
+  cudaFuncAttributes attr;
+  int blocks = 0;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, THREADS, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.localSizeBytes);
+  out[2] = blocks;
+  out[3] = static_cast<int>(smem + attr.sharedSizeBytes);
+  out[4] = cap;
+  return 0;
 }
 
 }  // namespace nvmk

@@ -141,9 +141,10 @@ struct PairTerm {
 // every thread; ``g`` is complete on return. Two barriers. ``clk`` laps as
 // mmff_eval's: the pairs and bonds and their adds, the angles
 // (E_TERMS_A), the torsions and inversions (E_TERMS_B), the energy's sum.
-template <class Clock>
+template <class Clock, class Terms = NoTerms>
 __device__ float uff_eval(const Tables& t, int mol, const float* x, float* g, int n_dof,
-                          float* red, Clock& clk) {
+                          float* red, Clock& clk,
+                          const Terms& terms = Terms{}) {
   for (int i = threadIdx.x; i < n_dof; i += THREADS) g[i] = 0.0f;
   const int stride = t.n_mols + 1;
   const int* off = t.off;
@@ -169,6 +170,8 @@ __device__ float uff_eval(const Tables& t, int mol, const float* x, float* g, in
     if (kind == 1) clk.lap(E_TERMS_A);
   }
   clk.lap(E_TERMS_B);
+  // K8's constraint terms (constraints.cuh StagedTerms), in the same sum
+  if constexpr (!std::is_same<Terms, NoTerms>::value) e += terms(x, g);
   const float total = block_total(e, red);  // its barrier ends every atomic into g
   clk.lap(E_SUM);
   return total;
@@ -178,11 +181,18 @@ __device__ float uff_eval(const Tables& t, int mol, const float* x, float* g, in
 struct Uff {
   static constexpr int kDim = 3;
   static constexpr bool kStaged = false;  // no pair bounds to stage
+  static constexpr bool kTerms = true;    // K8's constraint terms (minimizers.cuh)
   static constexpr int kLbfgsBlocks = 10;  // K5/K23: blocks an SM (minimizers.cuh)
   Tables t;
   __device__ float eval(int mol, const float* x, float* g, int n_dof, float* red) const {
     NoClock clk;
     return uff_eval(t, mol, x, g, n_dof, red, clk);
+  }
+  template <class Terms>
+  __device__ float eval(int mol, const float* x, float* g, int n_dof, float* red,
+                        const Terms& terms) const {
+    NoClock clk;
+    return uff_eval(t, mol, x, g, n_dof, red, clk, terms);
   }
 };
 
@@ -262,6 +272,12 @@ int nvmk_uff_dim() { return Uff::kDim; }
 // shared bytes and bounds staging at ``a_pad`` and ``stage`` (see lbfgs_info)
 int nvmk_uff_lbfgs_info(int lockstep, int a_pad, int stage, int* out) {
   return lbfgs_info<Uff>(lockstep, a_pad, stage, out);
+}
+
+// K8's registers, spilled bytes, blocks an SM, shared bytes and staged
+// constraint terms at ``a_pad``, with constraint tables or without
+int nvmk_uff_bfgs_info(int a_pad, int constrained, int* out) {
+  return bfgs_info<Uff>(a_pad, constrained, out);
 }
 
 // K6: energy [n_sys] and gradient [n_sys, a_pad, 3] of the systems at ``pos``

@@ -74,8 +74,9 @@ CONVERGED, FAILED, CAPPED = 1, 2, 4
 HESSIAN_BYTES = 4 << 30
 
 # the phases of K8's cycle split (bfgs_minimize(..., phase_cycles=True);
-# csrc/minimizers.cuh K8_PHASES)
-K8_PHASES = ["init", "eval", "search", "h_pass", "h_wait", "update"]
+# csrc/minimizers.cuh K8_PHASES): "eval" is the force field's evaluation,
+# "constraints" the constraint terms' own time after it
+K8_PHASES = ["init", "eval", "search", "h_pass", "h_wait", "update", "constraints"]
 
 launch_counts: collections.Counter = collections.Counter()
 
@@ -424,6 +425,21 @@ def hessian_pass_bytes(n) -> np.ndarray:
     step after a skipped update only reads it)."""
     n = np.asarray(n, np.int64)
     return 4 * n * (n + 1)
+
+
+def kernel_info(ff: flat.ForceField, a_pad: int, constrained: bool = False) -> dict:
+    """What the card makes of K8 over ``ff`` at ``a_pad``, launched with
+    constraint tables (``constrained``) or without: its registers, spilled
+    (local) bytes per thread, resident blocks per SM, shared bytes per
+    block, and the constraint terms it stages per system in shared memory
+    (``csrc/minimizers.cuh`` bfgs_stage_cap; a system's terms past them are
+    read from device memory on every probe)."""
+    out = (ctypes.c_int * 5)()
+    rc = getattr(ff.lib(), f"nvmk_{ff.name}_bfgs_info")(a_pad, int(constrained), out)
+    if rc != 0:
+        raise RuntimeError(f"{ff.name}_bfgs_info failed with CUDA error {rc}")
+    return {"registers": out[0], "local_bytes": out[1], "blocks_per_sm": out[2],
+            "shared_bytes": out[3], "staged_terms": out[4]}
 
 
 def hessian_slices(n_dof) -> tuple[np.ndarray, list[tuple[int, int]]]:
