@@ -3348,7 +3348,7 @@ def main() -> int:
                 big_ch["n_atoms"][s2m_k12.long()].contiguous(), big_ch["tables"],
                 embed_api.EmbedParameters().maxViolationRatio,
                 embed_api.EmbedParameters().minTetrahedralVolume)
-    got = embed_checks.embed_checks(*k12_args)
+    got = embed_checks.embed_checks(*k12_args, diag=big_ch["batch"].diag)
     want = embed_checks.embed_checks_plain(*k12_args)
     near = embed_checks.near_threshold_plain(*k12_args)
     k12_mismatch = int((got != want).sum())
@@ -4215,7 +4215,7 @@ def main() -> int:
                   eb["n_atoms"][s2m_l].contiguous(), eb["tables"], k12_args[6], k12_args[7])
     k12_row = row(K12, e_shape + " (the flat run's positions)",
                   k12_work(e_sys_n, eb["batch"], eb["tables"], rates),
-                  lambda: embed_checks.embed_checks(*k12_args_t),
+                  lambda: embed_checks.embed_checks(*k12_args_t, diag=eb["batch"].diag),
                   lambda: embed_checks.embed_checks_plain(*k12_args_t), cold=True)
     # K13 and K5/K8 over ETK at the largest chunk from the DG stages' output
     # (their plain versions timed once on EMBED_PLAIN systems)
@@ -4479,8 +4479,9 @@ def main() -> int:
              "nvmolkit_tpu/models/uff/energy.py:319", uff_cu),
         K5U: ("uff_lbfgs (K5 over UFF: lbfgs_kernel<Uff>)", "nvmolkit_tpu/ops/lbfgs_flat.py:160",
               uff_cu),
-        K7: ("constraint_energy_grad (K7: constraint_kernel; its device function "
-             "constraint_eval also runs inside K8, once per probe)",
+        K7: ("constraint_energy_grad (K7: constraint_kernel, a warp per system, its terms "
+             "one list dealt over the lanes; inside K8 the same terms staged once in shared "
+             "memory and evaluated in the force field's evaluation, once per probe)",
              "nvmolkit_tpu/models/constraints.py:145", "nvmolkit_tpu_torch/csrc/constraints.cu"),
         K8M: ("mmff_bfgs (K8 over MMFF with constraints: bfgs_kernel<Mmff>, one block per "
               "system, one pass over its packed inverse Hessian per accepted step)", bfgs_at,
@@ -4500,7 +4501,9 @@ def main() -> int:
         K5D: ("dg_lbfgs (K5 over DG, 4 coordinates per atom: lbfgs_kernel<Dg>)",
               "nvmolkit_tpu/ops/lbfgs_flat.py:160", dist_geom_cu),
         K8D: ("dg_bfgs (K8 over DG: bfgs_kernel<Dg>)", bfgs_at, dist_geom_cu),
-        K12: ("embed_checks (K12: the six checks, one block per system)",
+        K12: ("embed_checks (K12: the six checks, a warp per system to 64 atoms and a block "
+              "past them, the pairs over tiles of 32 atoms on the bounds by diagonals, the "
+              "flags by warp votes)",
               "nvmolkit_tpu/embedMolecules.py:1077", "nvmolkit_tpu_torch/csrc/embed_checks.cu"),
         K13: ("etk_energy_grad (K13: energy_grad_kernel, each pair once as K11, the "
               "torsions' harmonics by angle addition; its device function etk_eval also runs "

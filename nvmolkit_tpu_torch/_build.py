@@ -220,6 +220,9 @@ def _declare_constraints(lib: ctypes.CDLL) -> None:
     lib.nvmk_constraint_energy_grad.restype = ci
     lib.nvmk_constraint_energy_grad.argtypes = [vp, ci, ci, vp, ctypes.POINTER(ctypes.c_void_p),
                                                 vp, vp, vp]
+    lib.nvmk_constraint_energy_grad_cycles.restype = ci
+    lib.nvmk_constraint_energy_grad_cycles.argtypes = [
+        vp, ci, ci, vp, ctypes.POINTER(ctypes.c_void_p), vp, vp, vp, vp]
 
 
 def _declare_graph(lib: ctypes.CDLL) -> None:
@@ -397,8 +400,9 @@ def dist_geom_lib() -> ctypes.CDLL:
 def _declare_embed_checks(lib: ctypes.CDLL) -> None:
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.nvmk_embed_checks.restype = ci
-    lib.nvmk_embed_checks.argtypes = [vp, ci, ci, vp, vp, vp, vp, ci,
-                                      ctypes.POINTER(ctypes.c_void_p), cf, cf, vp, vp, vp]
+    lib.nvmk_embed_checks.argtypes = [vp, ci, ci, vp, vp, vp, ci,
+                                      ctypes.POINTER(ctypes.c_void_p), cf, cf, vp, ci, vp, vp,
+                                      vp]
 
 
 def embed_checks_lib() -> ctypes.CDLL:

@@ -206,7 +206,7 @@ __device__ __forceinline__ TermList warp_term_list(const CTables& c, size_t s) {
 // int4 atoms and six words (five parameters and the kind)
 constexpr int C_HEADER = 2 * C_KINDS + 2;
 
-__device__ __forceinline__ size_t stage_bytes(int cap) {
+constexpr size_t stage_bytes(int cap) {
   return (size_t)cap * C_TERM_BYTES;
 }
 

@@ -1,11 +1,14 @@
 // Kernel K12, the six acceptance checks of an embedding, for Hopper (sm_90a).
 //
 // Replaces the XLA program nvmolkit_tpu/embedMolecules.py _check_embeddings
-// (the reference's stereochemistry check stages). One block of 128 threads
-// per system computes, on its 3-D positions:
+// (the reference's stereochemistry check stages). On each system's 3-D
+// positions:
 //   bounds     over the real pairs i < j, d = sqrt(|p_i - p_j|^2 + 1e-12):
 //              max(0, d / max(ub, 1e-6) - 1, lb / max(d, 1e-6) - 1) must be
-//              below maxViolationRatio (NaN fails);
+//              below maxViolationRatio r (NaN fails). Tested as d < (1 + r)
+//              max(ub, 1e-6) and lb < (1 + r) max(d, 1e-6) for every pair,
+//              with r > 0: the same outcome away from the threshold
+//              (ops/embed_checks.py near_threshold_plain), no division;
 //   chiral     each chiral quartet's signed volume V = (p0 - p3) . ((p1 -
 //              p3) x (p2 - p3)) within its window [lb, ub];
 //   tetrahedral |V| of each sp3 centre's four neighbours above
@@ -20,10 +23,25 @@
 //   chiral distances  each pair of atoms of the chiral sets within its
 //              smoothed bounds up to a slack of 0.1 ub.
 // The quartets, triples and pairs are per-molecule tables with CSR offsets;
-// the bounds are the molecule's smoothed matrices. What bounds K12: its
-// bytes, the positions and the bounds (n^2 / 2 pairs of two floats); ~12
-// FP32 instructions per pair, a square root and two divisions among them.
+// the bounds are each molecule's smoothed (u, l) laid out by diagonals, the
+// table DG's kernels read (dist_geom.py diagonal_bounds; dg_pairs.cuh
+// DiagBounds). What bounds K12: its bytes, the positions and the bounds'
+// triangle (n^2 / 2 pairs of two floats).
+//
+// Up to WARP_MAX_ATOMS (ops/embed_checks.py, the launch's ``layout``) a warp
+// per system, WARPS systems a block; past it a block per system, its warps
+// dealt the pair walk's units and the terms in turn. The system's positions
+// go into its slice of shared memory; the pairs i < j are walked by
+// dg_pairs.cuh's 32 x 32 tiles (each pair once, a step's lanes reading at
+// most two runs of the diagonal table); the five term tables are one list
+// over the kinds, a term a lane; the six flags are warp votes (and, for a
+// block, an OR of its warps' in shared memory). The first design
+// (tools/constraints_checks_first_design.cu) ran a block per system over
+// idx < n^2 with idx / n and idx % n (half skipped), both positions and the
+// dense bounds from device memory, two IEEE divisions a pair, five loops
+// over the tables and a float block_reduce for the flags.
 
+#include "dg_pairs.cuh"
 #include "ff_common.cuh"
 
 namespace {
@@ -32,6 +50,10 @@ using namespace nvmk;
 
 constexpr int N_TABLES = 5;  // chiral quartets, tetrahedral quartets, double-bond
                              // ends, stereo double bonds, chiral-distance pairs
+constexpr int N_CHECKS = 6;
+// the phases of the per-warp clock (embed_checks.K12_PHASES): the positions
+// into shared memory, the pairs, the terms, the votes, the flags written
+constexpr int K12_PHASES = 5;
 
 struct CheckTables {
   const int* off;  // [N_TABLES, n_mols + 1]
@@ -50,70 +72,152 @@ __device__ __forceinline__ float volume(const float* x, const int* a) {
   return dot(sub(pos3(x, a[0]), p3), cross(sub(pos3(x, a[1]), p3), sub(pos3(x, a[2]), p3)));
 }
 
+// kind ``kind``'s atoms and arity, picked by constant indices
+__device__ __forceinline__ const int* table_atoms(const CheckTables& t, int kind) {
+  return kind == 0 ? t.atoms[0] : kind == 1 ? t.atoms[1] : kind == 2 ? t.atoms[2]
+         : kind == 3 ? t.atoms[3] : t.atoms[4];
+}
+__device__ __forceinline__ int table_arity(int kind) {
+  return kind == 2 ? 3 : kind == 4 ? 2 : 4;
+}
+
+// whether term ``k`` (row of its table) of kind ``kind`` passes
+__device__ __forceinline__ bool term_passes(const CheckTables& t, int kind, int k, const float* x,
+                                            const float2* ul, int a_pad, float min_tetra_volume) {
+  const int* a = table_atoms(t, kind) + (size_t)k * table_arity(kind);
+  if (kind == 0) {
+    const float vol = volume(x, a);
+    return vol >= t.windows[2 * (size_t)k] && vol <= t.windows[2 * (size_t)k + 1];
+  }
+  if (kind == 1) return fabsf(volume(x, a)) > min_tetra_volume;
+  if (kind == 2) {
+    const V3 pj = pos3(x, a[1]);
+    const V3 u1 = sub(pj, pos3(x, a[0])), u2 = sub(pj, pos3(x, a[2]));
+    const float n1 = sqrtf(dot(u1, u1) + 1e-12f), n2 = sqrtf(dot(u2, u2) + 1e-12f);
+    return dot(u1, u2) / (n1 * n2) + 1.0f >= 1e-3f;
+  }
+  if (kind == 3) {
+    const V3 pj = pos3(x, a[1]), pk = pos3(x, a[2]);
+    const V3 axis = sub(pk, pj);
+    const V3 c1 = cross(sub(pos3(x, a[0]), pj), axis);
+    const V3 c2 = cross(sub(pos3(x, a[3]), pk), axis);
+    const float cosang = dot(c1, c2) / sqrtf(dot(c1, c1) * dot(c2, c2) + 1e-12f);
+    return t.signs[k] * cosang <= 0.0f;
+  }
+  const V3 dd = sub(pos3(x, a[0]), pos3(x, a[1]));
+  const float dist = sqrtf(dot(dd, dd) + 1e-12f);
+  const int lo = min(a[0], a[1]), hi = max(a[0], a[1]);
+  const float2 b = ul[(hi - lo) * a_pad + lo];
+  const float u = b.x, l = b.y, slack = 0.1f * u;
+  return !((dist < l && l - dist > slack) || (dist > u && dist - u > slack));
+}
+
+// ``Wps`` warps per system (1: WARPS systems a block; WARPS: one)
+template <int Wps, bool Clocked>
 __global__ void __launch_bounds__(THREADS)
 checks_kernel(const float* __restrict__ pos, int a_pad, const int* __restrict__ sys2mol,
-              const int* __restrict__ atom_count, const float* __restrict__ ub,
-              const float* __restrict__ lb, CheckTables t, float max_violation_ratio,
-              float min_tetra_volume, uint8_t* __restrict__ ok, int n_sys) {
-  const size_t s = blockIdx.x;
+              const int* __restrict__ atom_count, const float2* __restrict__ diag,
+              const __grid_constant__ CheckTables t, float max_violation_ratio,
+              float min_tetra_volume, uint8_t* __restrict__ ok, int n_sys,
+              long long* __restrict__ cycles) {
+  extern __shared__ float smem[];
+  __shared__ unsigned votes[WARPS];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int part = w % Wps;  // this warp's part of its system
+  const size_t s = (size_t)blockIdx.x * (WARPS / Wps) + w / Wps;
+  if (Wps == 1 && s >= (size_t)n_sys) return;  // a whole warp; Wps > 1 fills its grid
+  long long acc[K12_PHASES] = {0, 0, 0, 0, 0};
+  long long last = Clocked ? clock64() : 0;
+  auto lap = [&](int p) {
+    if (Clocked) {
+      const long long now = clock64();
+      acc[p] += now - last;
+      last = now;
+    }
+  };
   const int mol = sys2mol[s];
   const int n = atom_count[s];
-  const float* x = pos + s * 3 * (size_t)a_pad;
-  const size_t mat = (size_t)mol * a_pad * a_pad;
-  const int stride = t.n_mols + 1;
-  // per check: the worst bounds ratio (v[0]), then 1 where a term fails
-  float v[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  for (int idx = threadIdx.x; idx < n * n; idx += THREADS) {
-    const int i = idx / n, j = idx % n;
-    if (j <= i) continue;
-    const V3 d3 = sub(pos3(x, i), pos3(x, j));
-    const float d = sqrtf(dot(d3, d3) + 1e-12f);
-    const float hi = d / nmax(ub[mat + (size_t)i * a_pad + j], 1e-6f) - 1.0f;
-    const float lo = lb[mat + (size_t)i * a_pad + j] / nmax(d, 1e-6f) - 1.0f;
-    v[0] = nmax(v[0], nmax(hi, lo));
-  }
-  for (int kind = 0; kind < N_TABLES; ++kind) {
-    const int first = t.off[kind * stride + mol], last = t.off[kind * stride + mol + 1];
-    for (int k = first + threadIdx.x; k < last; k += THREADS) {
-      bool pass = true;
-      if (kind == 0) {
-        const float vol = volume(x, t.atoms[0] + 4 * (size_t)k);
-        pass = vol >= t.windows[2 * (size_t)k] && vol <= t.windows[2 * (size_t)k + 1];
-      } else if (kind == 1) {
-        pass = fabsf(volume(x, t.atoms[1] + 4 * (size_t)k)) > min_tetra_volume;
-      } else if (kind == 2) {
-        const int* a = t.atoms[2] + 3 * (size_t)k;
-        const V3 pj = pos3(x, a[1]);
-        const V3 u1 = sub(pj, pos3(x, a[0])), u2 = sub(pj, pos3(x, a[2]));
-        const float n1 = sqrtf(dot(u1, u1) + 1e-12f), n2 = sqrtf(dot(u2, u2) + 1e-12f);
-        pass = dot(u1, u2) / (n1 * n2) + 1.0f >= 1e-3f;
-      } else if (kind == 3) {
-        const int* a = t.atoms[3] + 4 * (size_t)k;
-        const V3 pj = pos3(x, a[1]), pk = pos3(x, a[2]);
-        const V3 axis = sub(pk, pj);
-        const V3 c1 = cross(sub(pos3(x, a[0]), pj), axis);
-        const V3 c2 = cross(sub(pos3(x, a[3]), pk), axis);
-        const float cosang = dot(c1, c2) / sqrtf(dot(c1, c1) * dot(c2, c2) + 1e-12f);
-        pass = t.signs[k] * cosang <= 0.0f;
-      } else {
-        const int* a = t.atoms[4] + 2 * (size_t)k;
-        const V3 dd = sub(pos3(x, a[0]), pos3(x, a[1]));
-        const float dist = sqrtf(dot(dd, dd) + 1e-12f);
-        const size_t at = mat + (size_t)a[0] * a_pad + a[1];
-        const float u = ub[at], l = lb[at], slack = 0.1f * u;
-        const bool bad = (dist < l && l - dist > slack) || (dist > u && dist - u > slack);
-        pass = !bad;
+  float* x = smem + (w / Wps) * 3 * a_pad;
+  const float* px = pos + s * 3 * (size_t)a_pad;
+  for (int i = part * 32 + lane; i < 3 * n; i += Wps * 32) x[i] = px[i];
+  if (Wps == 1)
+    __syncwarp();
+  else
+    __syncthreads();
+  lap(0);
+  const float2* ul = diag + (size_t)mol * a_pad * a_pad;
+  unsigned bad = 0;  // bit q: check q fails
+  // the pairs: each lane's row atom once a unit, its columns from shared
+  // memory, each pair's (u, l) from the diagonal table
+  const float r1 = 1.0f + max_violation_ratio;
+  const PairTiles pt(n);
+  for (int u = part; u < pt.units; u += Wps) {
+    const PairUnit p = pt.dealt(u);
+    const int i = 32 * p.I + lane;
+    const V3 xi = i < n ? pos3(x, i) : V3{0.0f, 0.0f, 0.0f};
+#pragma unroll 4
+    for (int q = 0; q < p.steps; ++q) {
+      int ii, j;
+      if (tile_pair(p.I, p.J, p.k + q, lane, n, ii, j)) {
+        const int lo = min(i, j), hi = max(i, j);
+        const float2 b = ul[(hi - lo) * a_pad + lo];
+        const V3 d3 = sub(xi, pos3(x, j));
+        const float d = sqrtf(dot(d3, d3) + 1e-12f);
+        // NaN fails: neither comparison holds
+        if (!(d < r1 * nmax(b.x, 1e-6f)) || !(b.y < r1 * nmax(d, 1e-6f))) bad |= 1u;
       }
-      if (!pass) v[kind + 1] = 1.0f;
     }
   }
-  __shared__ float red[6 * WARPS];
-  block_reduce<6, false>(v, red);
-  if (threadIdx.x == 0) {
-    ok[s] = v[0] < max_violation_ratio;  // false for NaN
+  if (!(max_violation_ratio > 0.0f)) bad |= 1u;  // the worst ratio is at least 0
+  lap(1);
+  // the five tables as one list, a term a lane
+  const int stride = t.n_mols + 1;
+  const int o = lane < 2 * N_TABLES ? t.off[(lane >> 1) * stride + mol + (lane & 1)] : 0;
+  int first[N_TABLES], start[N_TABLES + 1];
+  start[0] = 0;
 #pragma unroll
-    for (int q = 1; q < 6; ++q) ok[(size_t)q * n_sys + s] = v[q] == 0.0f;
+  for (int k = 0; k < N_TABLES; ++k) {
+    first[k] = __shfl_sync(FULL, o, 2 * k);
+    start[k + 1] = start[k] + __shfl_sync(FULL, o, 2 * k + 1) - first[k];
   }
+  for (int e = part * 32 + lane; e < start[N_TABLES]; e += Wps * 32) {
+    const int kind = (e >= start[1]) + (e >= start[2]) + (e >= start[3]) + (e >= start[4]);
+    int k = first[0] + e;
+#pragma unroll
+    for (int q = 1; q < N_TABLES; ++q)
+      if (kind == q) k = first[q] + e - start[q];
+    if (!term_passes(t, kind, k, x, ul, a_pad, min_tetra_volume)) bad |= 2u << kind;
+  }
+  lap(2);
+  unsigned flags = 0;
+#pragma unroll
+  for (int q = 0; q < N_CHECKS; ++q) flags |= __any_sync(FULL, (bad >> q) & 1u) ? 1u << q : 0u;
+  if (Wps > 1) {
+    if (lane == 0) votes[w] = flags;
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < WARPS; ++k) flags |= votes[k];
+  }
+  lap(3);
+  if (part == 0 && lane < N_CHECKS) ok[(size_t)lane * n_sys + s] = ((flags >> lane) & 1u) == 0;
+  lap(4);
+  if (Clocked && lane == 0) {
+#pragma unroll
+    for (int p = 0; p < K12_PHASES; ++p) cycles[(s * Wps + part) * K12_PHASES + p] = acc[p];
+  }
+}
+
+template <int Wps, bool Clocked>
+int launch(const float* pos, int n_sys, int a_pad, const int* sys2mol, const int* atom_count,
+           const float* diag, const CheckTables& t, float mvr, float mtv, uint8_t* ok,
+           long long* cycles, void* stream) {
+  const int per_block = WARPS / Wps;
+  const size_t smem = (size_t)per_block * 3 * a_pad * sizeof(float);
+  checks_kernel<Wps, Clocked><<<(n_sys + per_block - 1) / per_block, THREADS, smem,
+                                static_cast<cudaStream_t>(stream)>>>(
+      pos, a_pad, sys2mol, atom_count, reinterpret_cast<const float2*>(diag), t, mvr, mtv, ok,
+      n_sys, cycles);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -122,15 +226,19 @@ extern "C" {
 
 // K12 over n_sys systems at ``pos`` [n_sys, a_pad, 3] (``atom_count`` int32
 // real atoms first), system s being molecule ``sys2mol[s]`` of the smoothed
-// ``ub``/``lb`` [n_mols, a_pad, a_pad]. ``off`` int32 [5, n_mols + 1] and
-// ``tables`` (7 device pointers: the five atom tables, the chiral windows
-// [T, 2] and the stereo signs [T]) hold the checks' terms. Out: ``ok`` uint8
-// [6, n_sys], in the order bounds, chiral, tetrahedral, double-bond
-// linearity, double-bond stereo, chiral distances.
+// bounds by diagonals ``diag`` [n_mols, a_pad, a_pad, 2] (the pair a < b's
+// (u, l) at [b - a, a]). ``off`` int32 [5, n_mols + 1] and ``tables`` (7
+// device pointers: the five atom tables, the chiral windows [T, 2] and the
+// stereo signs [T]) hold the checks' terms. ``layout`` 0: a warp per
+// system, 1: a block per system. Out: ``ok`` uint8 [6, n_sys], in the order
+// bounds, chiral, tetrahedral, double-bond linearity, double-bond stereo,
+// chiral distances; with ``cycles`` (int64 [n_sys, warps per system,
+// K12_PHASES]) each warp's phase cycles.
 int nvmk_embed_checks(const float* pos, int n_sys, int a_pad, const int* sys2mol,
-                      const int* atom_count, const float* ub, const float* lb, int n_mols,
+                      const int* atom_count, const float* diag, int n_mols,
                       const void* const* tables, float max_violation_ratio,
-                      float min_tetra_volume, const int* off, uint8_t* ok, void* stream) {
+                      float min_tetra_volume, const int* off, int layout, uint8_t* ok,
+                      long long* cycles, void* stream) {
   if (n_sys == 0) return 0;
   CheckTables t;
   t.off = off;
@@ -138,10 +246,12 @@ int nvmk_embed_checks(const float* pos, int n_sys, int a_pad, const int* sys2mol
   for (int k = 0; k < N_TABLES; ++k) t.atoms[k] = static_cast<const int*>(tables[k]);
   t.windows = static_cast<const float*>(tables[N_TABLES]);
   t.signs = static_cast<const float*>(tables[N_TABLES + 1]);
-  checks_kernel<<<n_sys, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      pos, a_pad, sys2mol, atom_count, ub, lb, t, max_violation_ratio, min_tetra_volume, ok,
-      n_sys);
-  return static_cast<int>(cudaGetLastError());
+#define K12_ARGS pos, n_sys, a_pad, sys2mol, atom_count, diag, t, max_violation_ratio, \
+                 min_tetra_volume, ok, cycles, stream
+  if (cycles != nullptr)
+    return layout == 0 ? launch<1, true>(K12_ARGS) : launch<WARPS, true>(K12_ARGS);
+  return layout == 0 ? launch<1, false>(K12_ARGS) : launch<WARPS, false>(K12_ARGS);
+#undef K12_ARGS
 }
 
 }  // extern "C"

@@ -435,7 +435,8 @@ def _embed_chunk(molecules, mol_ids, bucket, confs, max_iterations, params, gen,
         with stage("stereo_checks"):
             oks = checks.embed_checks(pos3, ub, lb, rows_mol,
                                       n_t[rows_mol.to(torch.int64)].contiguous(), tables,
-                                      params.maxViolationRatio, params.minTetrahedralVolume)
+                                      params.maxViolationRatio, params.minTetrahedralVolume,
+                                      diag=batch.diag)
             flags = torch.cat([eig_ok[None], oks]).cpu().numpy()  # one fetch per attempt
         ok = np.ones(len(row_to_sys), bool)
         for name, flag in zip(_COUNTERS, flags):

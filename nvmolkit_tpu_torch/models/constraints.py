@@ -16,10 +16,14 @@ hi, k]``, position ``[i | x0, y0, z0, maxd, k]``, angle ``[i, j, k | lo, hi,
 kf]`` and torsion ``[i, j, k, l | lo, hi, kf]``. It replaces the JAX
 package's padded rows with their ``sys`` and ``mask`` columns.
 
-:func:`constraint_energy_and_grad` launches K7 (``csrc/constraints.cu``)
-for CUDA tensors and runs :func:`constraint_energy_and_grad_plain` (the
-energy in torch, the gradient by ``torch.autograd.grad``) for CPU tensors;
-K8 calls K7's device function itself. One departure from the JAX function:
+:func:`constraint_energy_and_grad` launches K7 (``csrc/constraints.cu``, a
+warp per system, its terms dealt over the lanes as one list) for CUDA
+tensors and runs :func:`constraint_energy_and_grad_plain` (the energy in
+torch, the gradient by ``torch.autograd.grad``) for CPU tensors;
+:func:`launch_clocked` is K7 with each system's phase cycles
+(:data:`K7_PHASES`). K8 stages each system's terms in shared memory once
+and evaluates them inside the force field's evaluation
+(``csrc/constraints.cuh``). One departure from the JAX function:
 where a constrained angle is exactly linear (cos = +-1), JAX's gradient is
 NaN, inside the window or out (autodiff meets arccos's infinite derivative
 there); the plain version and K7 take that derivative as 0.
@@ -39,6 +43,11 @@ KINDS = ("distance", "position", "angle", "torsion")
 ARITY = (2, 1, 3, 4)
 N_PARAMS = (3, 5, 3, 3)
 _DEG = 180.0 / np.pi
+
+# the phases of K7's per-warp clock (launch_clocked; csrc/constraints.cu):
+# the gradient slice zeroed and the offsets read, the terms with their
+# pushes, the energy's sum, the row written
+K7_PHASES = ("zero", "terms", "sum", "write")
 
 launch_counts = {"constraint_energy_grad": 0}
 
@@ -253,6 +262,77 @@ def constraint_magnitudes_plain(positions: torch.Tensor, batch: ConstraintBatch)
     return total, g_abs.reshape(positions.shape)
 
 
+# ---- the kernels' order of work, in torch -----------------------------------------
+
+# csrc/constraints.cuh: the terms K8 stages a system at most (C_STAGE_MAX),
+# and the block K7 and K8 run on
+STAGE_MAX = 32
+WARPS, THREADS = 4, 128
+
+
+def term_schedule(offsets, cap: int = STAGE_MAX) -> dict[str, np.ndarray]:
+    """How the kernels take each system's terms (``csrc/constraints.cuh``):
+    one list a system over the four kinds in order (``TermList``), entry t
+    of K8's probe on thread ``term_first_slot`` (warp WARPS - 1 - t mod
+    WARPS, lane (t mod THREADS) / WARPS, round t / THREADS), staged in
+    shared memory when t < ``cap``; K7 alone takes entry t on lane t mod 32
+    of its system's warp. Per entry (every row of every kind once): its
+    ``system``, ``kind``, table ``row``, list index ``entry``, K8's
+    ``thread`` and ``round``, ``staged``, and K7's ``lane``."""
+    off = np.asarray(offsets, np.int64)
+    counts = off[:, 1:] - off[:, :-1]
+    start = np.zeros((len(KINDS) + 1, counts.shape[1]), np.int64)
+    np.cumsum(counts, axis=0, out=start[1:])
+    parts = []
+    for k in range(len(KINDS)):
+        sys_of = np.repeat(np.arange(counts.shape[1]), counts[k])
+        rows = np.arange(off[k, 0], off[k, -1])
+        parts.append((sys_of, np.full(len(rows), k), rows, start[k, sys_of] + rows - off[k, sys_of]))
+    system, kind, row, entry = (np.concatenate(c) for c in zip(*parts))
+    slot = entry % THREADS
+    return {"system": system, "kind": kind, "row": row, "entry": entry,
+            "thread": (WARPS - 1 - slot % WARPS) * 32 + slot // WARPS,
+            "round": entry // THREADS, "staged": entry < cap, "lane": entry % 32}
+
+
+def constraint_energy_and_grad_model(positions: torch.Tensor, batch: ConstraintBatch,
+                                     cap: int = STAGE_MAX):
+    """K8's constraint terms as a probe evaluates them, on the CPU: every
+    entry of :func:`term_schedule` (staged or, past ``cap``, read from the
+    tables), each thread's energies summed in round order, then each warp's
+    threads, then the warps in order (the force field's closing sum, into
+    which K8 folds them); the gradient by autograd through each entry.
+    Returns (energy [S], gradient [S, A, 3], the schedule)."""
+    sched = term_schedule(batch.offsets.cpu().numpy(), cap)
+    S, A, _ = positions.shape
+    with torch.enable_grad():
+        x = positions.detach().requires_grad_(True)
+        flat = x.reshape(-1, 3)
+        e_entry = torch.zeros(len(sched["entry"]), dtype=positions.dtype)
+        for k in range(len(KINDS)):
+            sel = np.nonzero(sched["kind"] == k)[0]
+            if len(sel) == 0:
+                continue
+            # the slab holds copies of the staged rows: either source reads
+            # the same atoms and parameters
+            rows = torch.from_numpy(sched["row"][sel])
+            atoms, params = batch.atoms[k][rows].long(), batch.params[k][rows]
+            idx = atoms + torch.from_numpy(sched["system"][sel] * A)[:, None]
+            e_entry = e_entry.index_put((torch.from_numpy(sel),), _TERMS[k](
+                [flat[idx[:, q]] for q in range(ARITY[k])], params.to(positions.dtype)))
+        (g,) = torch.autograd.grad(e_entry.sum(), x) if len(e_entry) else (torch.zeros_like(x),)
+    e_thread = torch.zeros((S, THREADS), dtype=positions.dtype)
+    for r in range(int(sched["round"].max()) + 1 if len(e_entry) else 0):
+        sel = torch.from_numpy(np.nonzero(sched["round"] == r)[0])
+        e_thread.index_put_((torch.from_numpy(sched["system"])[sel],
+                             torch.from_numpy(sched["thread"])[sel]), e_entry.detach()[sel],
+                            accumulate=True)
+    energy = torch.zeros(S, dtype=positions.dtype)
+    for w in range(WARPS):
+        energy = energy + e_thread[:, 32 * w:32 * (w + 1)].sum(dim=1)
+    return energy, g, sched
+
+
 # ---- kernel K7 ------------------------------------------------------------------
 
 def constraint_energy_and_grad(positions: torch.Tensor, batch: ConstraintBatch,
@@ -265,6 +345,16 @@ def constraint_energy_and_grad(positions: torch.Tensor, batch: ConstraintBatch,
         e, g = constraint_energy_and_grad_plain(positions, batch)
         mask = torch.arange(positions.shape[1])[None] < atom_count.to(torch.int64)[:, None]
         return e, torch.where(mask[..., None], g, 0.0)
+    return _launch(positions, batch, atom_count, False)[:2]
+
+
+def launch_clocked(positions: torch.Tensor, batch: ConstraintBatch, atom_count: torch.Tensor):
+    """K7 (CUDA tensors) with each system's warp's cycles per phase:
+    (energy [S], gradient [S, A, 3], int64 [S, 1, len(K7_PHASES)])."""
+    return _launch(positions, batch, atom_count, True)
+
+
+def _launch(positions, batch, atom_count, clocked: bool):
     _check(positions, batch)
     if positions.dtype != torch.float32 or atom_count.dtype != torch.int32:
         raise ValueError("K7 takes float32 positions and int32 atom counts")
@@ -276,11 +366,19 @@ def constraint_energy_and_grad(positions: torch.Tensor, batch: ConstraintBatch,
     energy = torch.empty(n_sys, dtype=torch.float32, device=dev)
     grad = torch.empty_like(positions)
     lib = constraints_lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        rc = lib.nvmk_constraint_energy_grad(
-            positions.data_ptr(), n_sys, a_pad, atom_count.data_ptr(), batch.pointers(),
-            energy.data_ptr(), grad.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        if clocked:
+            cycles = torch.zeros((n_sys, 1, len(K7_PHASES)), dtype=torch.int64, device=dev)
+            rc = lib.nvmk_constraint_energy_grad_cycles(
+                positions.data_ptr(), n_sys, a_pad, atom_count.data_ptr(), batch.pointers(),
+                energy.data_ptr(), grad.data_ptr(), cycles.data_ptr(), stream)
+        else:
+            cycles = None
+            rc = lib.nvmk_constraint_energy_grad(
+                positions.data_ptr(), n_sys, a_pad, atom_count.data_ptr(), batch.pointers(),
+                energy.data_ptr(), grad.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"constraint_energy_grad kernel launch failed with CUDA error {rc}")
     launch_counts["constraint_energy_grad"] += 1
-    return energy, grad
+    return energy, grad, cycles

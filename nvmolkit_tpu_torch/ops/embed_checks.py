@@ -10,9 +10,13 @@ with CSR offsets (:class:`CheckTables`, from :func:`build_check_tables`);
 the bounds are each molecule's smoothed matrices.
 
 * :func:`embed_checks_plain` is the JAX function's arithmetic in torch.
-* :func:`embed_checks` launches K12 (``csrc/embed_checks.cu``, one block per
-  system) for CUDA tensors and runs the plain version for CPU tensors. A
-  build or launch failure raises.
+* :func:`embed_checks` launches K12 (``csrc/embed_checks.cu``: a warp per
+  system up to :data:`WARP_MAX_ATOMS` atoms, a block per system past them;
+  the pairs walked over the bounds laid out by diagonals, the table DG's
+  kernels read, ``models/dist_geom.diagonal_bounds``) for CUDA tensors and
+  runs the plain version for CPU tensors. A build or launch failure raises.
+  :func:`launch_clocked` is K12 with each warp's phase cycles
+  (:data:`K12_PHASES`).
 * :func:`near_threshold_plain` flags, per check and system, a term whose
   quantity lies within float32 rounding of its threshold: there the kernel
   and the plain version (or the JAX function) may rightly disagree.
@@ -35,6 +39,11 @@ ARITY = (4, 4, 3, 4, 2)  # chiral, tetrahedral, double-bond ends, stereo bonds, 
 # the relative distance from a threshold within which float32 rounding may
 # flip a check (a few float32 ulps of the quantities the checks compare)
 NEAR = 1e-5
+# K12 runs a warp per system at buckets up to this many atoms (several
+# systems a block), a block of 4 warps per system past it
+WARP_MAX_ATOMS = 64
+# the phases of K12's per-warp clock (launch_clocked; csrc/embed_checks.cu)
+K12_PHASES = ("load", "pairs", "terms", "votes", "write")
 
 launch_counts = {"embed_checks": 0}
 
@@ -226,14 +235,133 @@ def near_threshold_plain(pos3, ub, lb, sys2mol, n_atoms_sys, tables: CheckTables
     return torch.stack(near)
 
 
+def check_list(tables: CheckTables, sys2mol) -> dict[str, np.ndarray]:
+    """K12's terms as one list a system over the five tables in order
+    (``csrc/embed_checks.cu``): per entry (every term of every system once)
+    its ``system``, ``kind``, table ``row`` and list index ``entry`` (a warp
+    per system: lane entry mod 32)."""
+    off = tables.offsets.cpu().numpy().astype(np.int64)
+    s2m = np.asarray(sys2mol.cpu() if torch.is_tensor(sys2mol) else sys2mol, np.int64)
+    counts = (off[:, 1:] - off[:, :-1])[:, s2m]
+    start = np.zeros((len(ARITY) + 1, len(s2m)), np.int64)
+    np.cumsum(counts, axis=0, out=start[1:])
+    parts = []
+    for k in range(len(ARITY)):
+        sys_of = np.repeat(np.arange(len(s2m)), counts[k])
+        first = np.cumsum(counts[k]) - counts[k]
+        within = np.arange(len(sys_of)) - first[sys_of]
+        parts.append((sys_of, np.full(len(sys_of), k), off[k, s2m[sys_of]] + within,
+                      start[k, sys_of] + within))
+    system, kind, row, entry = (np.concatenate(c) for c in zip(*parts))
+    return {"system": system, "kind": kind, "row": row, "entry": entry}
+
+
+def embed_checks_model(pos3, diag, sys2mol, n_atoms_sys, tables: CheckTables,
+                       max_violation_ratio: float, min_tetra_volume: float) -> torch.Tensor:
+    """bool [6, S]: K12's order of work on the CPU, in float32. Per system of
+    n atoms the pairs i < j as ``dg_pairs.cuh``'s tiles walk them
+    (``models/dist_geom.pair_schedule``, ``step_pairs``), each pair's (u, l)
+    read from ``diag`` [M, A, A, 2] (the bounds by diagonals) at [j - i, i],
+    the ratio tests as comparisons against products, d < (1 + r) max(u,
+    1e-6) and l < (1 + r) max(d, 1e-6), with r > 0 (NaN fails); the five
+    tables as one list (:func:`check_list`), each term's test as the plain
+    version's, the chiral distances' bounds from ``diag``; each check's
+    flag the OR of its failures (the warp votes)."""
+    from nvmolkit_tpu_torch.models.dist_geom import pair_schedule, step_pairs
+
+    S, A, _ = pos3.shape
+    x = pos3.to(torch.float32)
+    s2m = sys2mol.to(torch.int64).cpu()
+    n_sys = n_atoms_sys.to(torch.int64).cpu()
+    ul = diag.to(torch.float32)
+    r1 = torch.tensor(1.0 + max_violation_ratio, dtype=torch.float32)
+    bad = torch.zeros((6, S), dtype=torch.bool)
+    for n in torch.unique(n_sys).tolist():
+        rows = torch.nonzero(n_sys == n)[:, 0]
+        xs, mols = x[rows], s2m[rows]
+        for I, J, k0, steps in pair_schedule(n):
+            for k in range(k0, k0 + steps):
+                i, j, valid = (torch.from_numpy(a) for a in step_pairs(I, J, k, n))
+                if not bool(valid.any()):
+                    continue
+                i, j = i[valid], j[valid]
+                lo, hi = torch.minimum(i, j), torch.maximum(i, j)
+                b = ul[mols[:, None], (hi - lo)[None], lo[None]]  # [R, P, 2]
+                d3 = xs[:, i] - xs[:, j]
+                d = torch.sqrt((d3 * d3).sum(-1) + 1e-12)
+                fail = ~(d < r1 * torch.clamp_min(b[..., 0], 1e-6)) | ~(
+                    b[..., 1] < r1 * torch.clamp_min(d, 1e-6))
+                bad[0, rows] |= fail.any(dim=1)
+    if not max_violation_ratio > 0.0:
+        bad[0] = True
+    lst = check_list(tables, s2m)
+    flat = x.reshape(-1, 3)
+    for k in range(len(ARITY)):
+        sel = lst["kind"] == k
+        if not sel.any():
+            continue
+        system = torch.from_numpy(lst["system"][sel])
+        row = torch.from_numpy(lst["row"][sel])
+        a = tables.atoms[k].cpu().to(torch.int64)[row]
+        p = [flat[a[:, q] + system * A] for q in range(ARITY[k])]
+        if k in (0, 1):
+            v1, v2, v3 = p[0] - p[3], p[1] - p[3], p[2] - p[3]
+            vol = (v1 * torch.linalg.cross(v2, v3)).sum(-1)
+            if k == 0:
+                win = tables.windows.cpu()[row]
+                ok = (vol >= win[:, 0]) & (vol <= win[:, 1])
+            else:
+                ok = vol.abs() > min_tetra_volume
+        elif k == 2:
+            u1, u2 = p[1] - p[0], p[1] - p[2]
+            n1 = torch.sqrt((u1 * u1).sum(-1) + 1e-12)
+            n2 = torch.sqrt((u2 * u2).sum(-1) + 1e-12)
+            ok = (u1 * u2).sum(-1) / (n1 * n2) + 1.0 >= 1e-3
+        elif k == 3:
+            axis = p[2] - p[1]
+            c1 = torch.linalg.cross(p[0] - p[1], axis)
+            c2 = torch.linalg.cross(p[3] - p[2], axis)
+            cosang = (c1 * c2).sum(-1) / torch.sqrt((c1 * c1).sum(-1) * (c2 * c2).sum(-1) + 1e-12)
+            ok = tables.signs.cpu()[row] * cosang <= 0.0
+        else:
+            dd = p[0] - p[1]
+            dist = torch.sqrt((dd * dd).sum(-1) + 1e-12)
+            lo, hi = torch.minimum(a[:, 0], a[:, 1]), torch.maximum(a[:, 0], a[:, 1])
+            b = ul[s2m[system], hi - lo, lo]
+            u, l = b[:, 0], b[:, 1]
+            ok = ~(((dist < l) & (l - dist > 0.1 * u)) | ((dist > u) & (dist - u > 0.1 * u)))
+        bad[k + 1] |= torch.zeros(S, dtype=torch.int32).index_add_(0, system, (~ok).int()) > 0
+    return ~bad
+
+
 def embed_checks(pos3, ub, lb, sys2mol, n_atoms_sys, tables: CheckTables,
-                 max_violation_ratio: float, min_tetra_volume: float) -> torch.Tensor:
+                 max_violation_ratio: float, min_tetra_volume: float, *,
+                 diag: torch.Tensor | None = None) -> torch.Tensor:
     """bool [6, S]: K12 for CUDA tensors, the plain version for CPU
-    tensors (arguments as :func:`embed_checks_plain`'s)."""
+    tensors (arguments as :func:`embed_checks_plain`'s). K12 reads the
+    bounds as (u, l) by diagonals: ``diag`` [M, A, A, 2]
+    (``models/dist_geom.diagonal_bounds(ub, lb)``, which a DG batch holds
+    as ``DGBatch.diag``), made here when not given."""
     if not pos3.is_cuda:
         return embed_checks_plain(pos3, ub, lb, sys2mol, n_atoms_sys, tables,
                                   max_violation_ratio, min_tetra_volume)
+    return _launch(pos3, ub, lb, sys2mol, n_atoms_sys, tables, max_violation_ratio,
+                   min_tetra_volume, diag, False)[0]
+
+
+def launch_clocked(pos3, ub, lb, sys2mol, n_atoms_sys, tables: CheckTables,
+                   max_violation_ratio: float, min_tetra_volume: float, *,
+                   diag: torch.Tensor | None = None):
+    """K12 (CUDA tensors) with each warp's cycles per phase: (bool [6, S],
+    int64 [S, warps per system, len(K12_PHASES)])."""
+    return _launch(pos3, ub, lb, sys2mol, n_atoms_sys, tables, max_violation_ratio,
+                   min_tetra_volume, diag, True)
+
+
+def _launch(pos3, ub, lb, sys2mol, n_atoms_sys, tables, max_violation_ratio, min_tetra_volume,
+            diag, clocked: bool):
     from nvmolkit_tpu_torch._build import embed_checks_lib
+    from nvmolkit_tpu_torch.models.dist_geom import diagonal_bounds
 
     S, A = pos3.shape[:2]
     if pos3.shape[2] != 3 or pos3.dtype != torch.float32 or ub.shape[1:] != (A, A):
@@ -241,21 +369,29 @@ def embed_checks(pos3, ub, lb, sys2mol, n_atoms_sys, tables: CheckTables,
                          f"{tuple(pos3.shape)} {pos3.dtype} and {tuple(ub.shape)}")
     if sys2mol.dtype != torch.int32 or n_atoms_sys.dtype != torch.int32:
         raise ValueError("K12 takes int32 sys2mol and atom counts")
-    tensors = (pos3, ub, lb, sys2mol, n_atoms_sys, tables.offsets, tables.windows,
+    if diag is None:
+        diag = diagonal_bounds(ub, lb)
+    if diag.shape != (ub.shape[0], A, A, 2) or diag.dtype != torch.float32:
+        raise ValueError(f"K12 takes the bounds by diagonals float32 [M, A, A, 2], got "
+                         f"{tuple(diag.shape)} {diag.dtype}")
+    tensors = (pos3, diag, sys2mol, n_atoms_sys, tables.offsets, tables.windows,
                tables.signs) + tables.atoms
     for t in tensors:
         if t.device != pos3.device or not t.is_contiguous():
             raise ValueError("K12's inputs must be contiguous and on one device")
     ok = torch.empty((len(CHECKS), S), dtype=torch.uint8, device=pos3.device)
+    block = A > WARP_MAX_ATOMS
+    cycles = (torch.zeros((S, 4 if block else 1, len(K12_PHASES)), dtype=torch.int64,
+                          device=pos3.device) if clocked else None)
     ptrs = tables.atoms + (tables.windows, tables.signs)
     table_ptrs = (ctypes.c_void_p * len(ptrs))(*[t.data_ptr() for t in ptrs])
     with torch.cuda.device(pos3.device):
         rc = embed_checks_lib().nvmk_embed_checks(
-            pos3.data_ptr(), S, A, sys2mol.data_ptr(), n_atoms_sys.data_ptr(), ub.data_ptr(),
-            lb.data_ptr(), tables.offsets.shape[1] - 1, table_ptrs, float(max_violation_ratio),
-            float(min_tetra_volume), tables.offsets.data_ptr(), ok.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+            pos3.data_ptr(), S, A, sys2mol.data_ptr(), n_atoms_sys.data_ptr(), diag.data_ptr(),
+            tables.offsets.shape[1] - 1, table_ptrs, float(max_violation_ratio),
+            float(min_tetra_volume), tables.offsets.data_ptr(), int(block), ok.data_ptr(),
+            None if cycles is None else cycles.data_ptr(), torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"embed_checks kernel launch failed with CUDA error {rc}")
     launch_counts["embed_checks"] += 1
-    return ok.bool()
+    return ok.bool(), cycles

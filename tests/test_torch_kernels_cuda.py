@@ -604,16 +604,27 @@ def test_mmff_uff_kernels_every_bucket(cuda, a_pad):
             assert e_r <= 1 and g_r <= 1, (ff, e_r, g_r)
 
 
-def _constraint_systems(cuda, picks, sigma, seed):
+def _constraint_systems(cuda, picks, sigma, seed, uff=False, copies=1, empty_every=0):
     """Every kind of constraint (chip_smoke.constraint_set) on the systems
-    of ``picks``, resolved at the starts, and positions moved ``sigma`` Å."""
-    from nvmolkit_tpu_torch.models.constraints import build_constraint_batch
+    of ``picks``, resolved at the starts, and positions moved ``sigma`` Å;
+    each system's set ``copies`` times over (past K8's staging cap and a
+    warp's lanes at 6), and none on every ``empty_every``-th system."""
+    from nvmolkit_tpu_torch.models.constraints import (
+        KINDS,
+        PerSystemConstraints,
+        build_constraint_batch,
+    )
 
     smoke = _load_by_path("chip_smoke.py")
-    x, batch, s2m = _mmff_systems(cuda, picks, 0.0, seed)
+    x, batch, s2m = _mmff_systems(cuda, picks, 0.0, seed, uff=uff)
     fx, _ = smoke.mmff_fixture()
     mols = smoke.mmff_molecules({"smiles": fx["smiles"][picks]})
-    cons = [smoke.constraint_set(mols[u]) for u in s2m.tolist()]
+    cons = []
+    for k, u in enumerate(s2m.tolist()):
+        one = smoke.constraint_set(mols[u])
+        if empty_every and k % empty_every == 0:
+            one = PerSystemConstraints()
+        cons.append(PerSystemConstraints(**{kind: getattr(one, kind) * copies for kind in KINDS}))
     cb = build_constraint_batch(cons, x.cpu().numpy(), device=cuda)
     moved = x + torch.randn(x.shape, generator=torch.Generator().manual_seed(seed)).to(cuda) * sigma
     mask = torch.arange(x.shape[1], device=cuda)[None] < batch.n_atoms[s2m.long()][:, None]
@@ -621,18 +632,49 @@ def _constraint_systems(cuda, picks, sigma, seed):
 
 
 def test_constraint_kernel_matches_plain(cuda):
+    """K7 against the plain version: every kind on each system; then six
+    copies of each system's set (42 terms: past K8's staging cap of 32 and
+    a warp's 32 lanes) with every third system unconstrained in the same
+    launch (its energy and gradient exactly 0)."""
     from nvmolkit_tpu_torch.models import constraints as C
 
-    x, batch, s2m, cb = _constraint_systems(cuda, [0, 1, 2, 3, 4, 5], 0.4, 5)
-    count = batch.n_atoms[s2m.long()].contiguous()
-    before = C.launch_counts["constraint_energy_grad"]
-    e, g = C.constraint_energy_and_grad(x, cb, count)
-    torch.cuda.synchronize()
-    assert C.launch_counts["constraint_energy_grad"] == before + 1
-    e_p, g_p = C.constraint_energy_and_grad_plain(x, cb)
-    scale, G = C.constraint_magnitudes_plain(x, cb)
-    assert bool((e_p > 0).all())
-    _check_energy_kernel(e, g, e_p, g_p, scale, G)
+    for copies, empty_every in ((1, 0), (6, 3)):
+        x, batch, s2m, cb = _constraint_systems(cuda, [0, 1, 2, 3, 4, 5], 0.4, 5,
+                                                copies=copies, empty_every=empty_every)
+        count = batch.n_atoms[s2m.long()].contiguous()
+        before = C.launch_counts["constraint_energy_grad"]
+        e, g = C.constraint_energy_and_grad(x, cb, count)
+        torch.cuda.synchronize()
+        assert C.launch_counts["constraint_energy_grad"] == before + 1
+        e_p, g_p = C.constraint_energy_and_grad_plain(x, cb)
+        scale, G = C.constraint_magnitudes_plain(x, cb)
+        terms = sum(cb.offsets[k, 1:] - cb.offsets[k, :-1] for k in range(len(C.KINDS)))
+        assert bool((e_p[terms > 0] > 0).all())
+        if empty_every:
+            assert int(terms.max()) > 32 and bool((terms[::empty_every] == 0).all())
+            assert bool((e[::empty_every] == 0).all()) and bool((g[::empty_every] == 0).all())
+        _check_energy_kernel(e, g, e_p, g_p, scale, G)
+
+
+def test_bfgs_kernel_stages_constraints_past_the_cap(cuda):
+    """K8 over MMFF with six copies of every kind of constraint a system
+    (42 terms: 32 staged in shared memory, the rest read from device memory
+    on every probe; ops/bfgs.kernel_info's staged_terms) and every third
+    system unconstrained, against the plain BFGS through 8 outer iterations
+    under chip_smoke.py's trajectory contract."""
+    from nvmolkit_tpu_torch.models.mmff.energy import MMFF
+    from nvmolkit_tpu_torch.ops import bfgs
+
+    smoke = _load_by_path("chip_smoke.py")
+    x, batch, s2m, cb = _constraint_systems(cuda, list(range(64)), 0.1, 4, copies=6,
+                                            empty_every=3)
+    info = bfgs.kernel_info(MMFF, x.shape[1], constrained=True)
+    assert 0 < info["staged_terms"] < 42 and info["blocks_per_sm"] >= 10
+    before = bfgs.launch_counts["mmff_bfgs"]
+    out = smoke.k8_trajectory_check(x, batch, s2m, cb, {}, "k8", MMFF)
+    assert bfgs.launch_counts["mmff_bfgs"] == before + 1
+    assert out["equal_status_and_steps"] >= smoke.TRAJ_EQUAL_SHARE, out
+    assert out["within_bound"] >= smoke.TRAJ_EQUAL_SHARE, out
 
 
 def test_uff_lbfgs_kernel_follows_plain_through_the_history(cuda):
@@ -645,12 +687,13 @@ def test_uff_lbfgs_kernel_follows_plain_through_the_history(cuda):
     assert out["within_bound"] >= smoke.TRAJ_EQUAL_SHARE
 
 
-@pytest.mark.parametrize("kind", ["mmff_constraints", "uff"])
+@pytest.mark.parametrize("kind", ["mmff_constraints", "uff", "uff_constraints"])
 def test_bfgs_kernel_follows_plain(cuda, kind):
-    """K8 against the plain BFGS through 8 outer iterations, MMFF with every
-    kind of constraint, and UFF without, on 256 systems: chip_smoke.py's
-    shares (TRAJ_EQUAL_SHARE) then let 2 systems take the other branch of a
-    float32 bistability, as one of 64 did in one run on an H100."""
+    """K8 against the plain BFGS through 8 outer iterations, MMFF and UFF
+    with every kind of constraint, and UFF without, on 256 systems:
+    chip_smoke.py's shares (TRAJ_EQUAL_SHARE) then let 2 systems take the
+    other branch of a float32 bistability, as one of 64 did in one run on an
+    H100."""
     from nvmolkit_tpu_torch.models.mmff.energy import MMFF
     from nvmolkit_tpu_torch.models.uff.energy import UFF
     from nvmolkit_tpu_torch.ops import bfgs
@@ -659,8 +702,9 @@ def test_bfgs_kernel_follows_plain(cuda, kind):
     if kind == "uff":
         (x, batch, s2m), cb, ff = _mmff_systems(cuda, list(range(64)), 0.1, 4, uff=True), None, UFF
     else:
-        x, batch, s2m, cb = _constraint_systems(cuda, list(range(64)), 0.1, 4)
-        ff = MMFF
+        uff = kind == "uff_constraints"
+        x, batch, s2m, cb = _constraint_systems(cuda, list(range(64)), 0.1, 4, uff=uff)
+        ff = UFF if uff else MMFF
     before = bfgs.launch_counts[f"{ff.name}_bfgs"]
     out = smoke.k8_trajectory_check(x, batch, s2m, cb, {}, "k8", ff)
     assert bfgs.launch_counts[f"{ff.name}_bfgs"] == before + 1
@@ -985,9 +1029,10 @@ def test_dg_minimizers_follow_plain(cuda, backend):
 def test_embed_checks_kernel_matches_plain(cuda):
     """K12 against its plain version on embedded, moved, mirrored, flattened
     and linearized positions: equal booleans except where a quantity lies
-    within float32 rounding of its threshold."""
+    within float32 rounding of its threshold. At 96 atoms (a block per
+    system) with NaN positions, at 64 (a warp per system), and on molecules
+    of 1-4 atoms that lack kinds of terms, at a ratio of 0.35, 0 and NaN."""
     from nvmolkit_tpu_torch.embedMolecules import EmbedMolecules, EmbedParameters
-    from nvmolkit_tpu_torch.ops import embed_checks
     from nvmolkit_tpu_torch.types import CoordinateOutput
 
     smoke, mols, chunk = _drug_like(16, cuda, confs=4, seed=4)
@@ -997,15 +1042,49 @@ def test_embed_checks_kernel_matches_plain(cuda):
     pos3 = torch.zeros((dense.positions.shape[0] * 4, 96, 3), device=cuda)
     pos3[:, :a] = dense.positions.reshape(-1, a, 3)
     pos, s2m = smoke.embed_check_cases(pos3, mols, chunk["s2m"], 5)
+    # NaN positions: a system with one NaN atom fails every check that
+    # reads it, in both versions
+    nan_rows = torch.arange(0, pos.shape[0], 97, device=cuda)
+    pos[nan_rows, 1] = float("nan")
+    got = _k12_agrees(pos, chunk, s2m, 0.35, 0.5)
+    assert not bool(got[0, nan_rows].any())
+    has_terms = [True] + [int(chunk["tables"].offsets[k, -1]) > 0 for k in range(5)]
+    assert all(bool((~got[k]).any()) for k in range(4) if has_terms[k])
+    # a 64-atom chunk (a warp per system) of the molecules that fit
+    keep = [m for m, mol in enumerate(mols) if mol.num_atoms <= 64]
+    chunk64 = smoke.dg_chunk([mols[m] for m in keep], 64, 4, cuda, 6)
+    w = min(a, 64)
+    pos64 = torch.zeros((len(keep) * 4, 64, 3), device=cuda)
+    pos64[:, :w] = dense.positions[torch.tensor(keep, device=cuda)][:, :, :w].reshape(-1, w, 3)
+    pos64, s2m64 = smoke.embed_check_cases(pos64, [mols[m] for m in keep], chunk64["s2m"], 7)
+    _k12_agrees(pos64, chunk64, s2m64, 0.35, 0.5)
+    # molecules of 1-4 atoms, most without one kind of term or another, at
+    # seeded positions; and ratios at the threshold itself
+    from nvmolkit_tpu_torch.chem.native import mols_from_smiles
+
+    tiny = mols_from_smiles(["C", "CC", "C=O", "OC=O", "C/C=C/C", "CC(C)C", "C#N", "FC(F)F"])
+    chunk16 = smoke.dg_chunk(tiny, 16, 8, cuda, 8)
+    n16 = chunk16["n_atoms"][chunk16["s2m"].long()]
+    pos16 = torch.randn((n16.shape[0], 16, 3), generator=torch.Generator().manual_seed(9))
+    pos16 = torch.where(torch.arange(16)[None, :, None] < n16.cpu()[:, None, None], pos16, 0.0)
+    for ratio in (0.35, 0.0, float("nan")):
+        _k12_agrees(pos16.to(cuda).contiguous(), chunk16, chunk16["s2m"], ratio, 0.5)
+
+
+def _k12_agrees(pos, chunk, s2m, ratio, volume):
+    """K12 (on the chunk's bounds by diagonals) equals the plain version
+    wherever no quantity lies within float32 rounding of its threshold."""
+    from nvmolkit_tpu_torch.ops import embed_checks
+
     b = chunk["batch"]
     args = (pos, b.upper, b.lower, s2m, chunk["n_atoms"][s2m.long()].contiguous(),
-            chunk["tables"], 0.35, 0.5)
-    got = embed_checks.embed_checks(*args)
+            chunk["tables"], ratio, volume)
+    got = embed_checks.embed_checks(*args, diag=b.diag)
     want = embed_checks.embed_checks_plain(*args)
     near = embed_checks.near_threshold_plain(*args)
     assert bool(((got == want) | near).all())
-    has_terms = [True] + [int(chunk["tables"].offsets[k, -1]) > 0 for k in range(5)]
-    assert all(bool((~got[k]).any()) for k in range(4) if has_terms[k])
+    assert bool(torch.equal(got, embed_checks.embed_checks(*args)))  # diag made in the wrapper
+    return got
 
 
 @pytest.mark.parametrize("backend", ["flat", "bfgs"])

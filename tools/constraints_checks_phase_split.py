@@ -22,8 +22,10 @@ Makes the inputs as ``chip_smoke.py`` makes them:
 * ``k12``: set (c)'s drug-like molecules x 8 conformers at the embedding's
   largest chunk (64 atoms) and at 96 atoms, and seeded small molecules of
   17-32 atoms x 8 at 32, each embedded by the port's distance geometry (K10's
-  starts, then K5 over DG in both weightings), then moved, mirrored,
-  flattened and pulled linear (``chip_smoke.embed_check_cases``).
+  starts, then K5 over DG in both weightings): those positions alone
+  (``dg_output``: at 64 atoms the shape of ``chip_smoke.py``'s K12 row), and
+  with six moved, mirrored, flattened and linear copies
+  (``check_cases``: ``chip_smoke.embed_check_cases``).
 
 Then per input, in turns (first, package, package, first), each a median of
 CUDA-event times over ``--reps`` launches, hot (back to back) and cold
@@ -88,7 +90,7 @@ def first_lib():
     tables = ctypes.POINTER(ctypes.c_void_p)
     package = (_build.constraints_lib, _build.embed_checks_lib, _build.mmff_lib, _build.uff_lib,
                _build.bounds_lib, _build.triangle_smooth_lib, _build.coordgen_lib,
-               _build.dist_geom_lib)
+               _build.dist_geom_lib, _build.etk_ff_lib)
     with ThreadPoolExecutor(len(package) + 1) as pool:
         built = [pool.submit(f) for f in package]
         path = pool.submit(_build._build, "libconstraints_checks_first", src,
@@ -310,7 +312,9 @@ def k8_results(smoke, cuda, ffm, mols):
              cycles_per_probe=per_probe,
              constraint_terms=None if cb is None else dict(zip(cons.KINDS,
                                                                cb.offsets[:, -1].tolist())),
-             instantiation=bfgs.kernel_info(ff, int(x.shape[1])))
+             instantiation=bfgs.kernel_info(ff, int(x.shape[1]), **(
+                 {"constrained": cb is not None}
+                 if "constrained" in inspect.signature(bfgs.kernel_info).parameters else {})))
         del res, res_c
         torch.cuda.empty_cache()
 
@@ -349,10 +353,11 @@ def k12_inputs(smoke, cuda, buckets):
                                 ch["batch"].weighted(*smoke.EMBED_W[2:]), s2m,
                                 max_iters=params.fourthDimMinimizeIters).positions[..., :3]
         pos_k, s2m_k = smoke.embed_check_cases(pos3.contiguous(), mols, s2m, b)
-        args = (pos_k, ch["batch"].upper, ch["batch"].lower, s2m_k,
-                ch["n_atoms"][s2m_k.long()].contiguous(), ch["tables"], params.maxViolationRatio,
-                params.minTetrahedralVolume)
-        out[b] = (args, ch["batch"], len(mols))
+        for name, n in (("dg_output", int(s2m.shape[0])), ("check_cases", int(s2m_k.shape[0]))):
+            args = (pos_k[:n].contiguous(), ch["batch"].upper, ch["batch"].lower,
+                    s2m_k[:n].contiguous(), ch["n_atoms"][s2m_k[:n].long()].contiguous(),
+                    ch["tables"], params.maxViolationRatio, params.minTetrahedralVolume)
+            out[(b, name)] = (args, ch["batch"], len(mols))
     return out
 
 
@@ -362,10 +367,11 @@ def k12_results(smoke, lib, cuda, rates, reps, flush, first_only, package_only, 
     from nvmolkit_tpu_torch.ops import embed_checks
 
     takes_diag = "diag" in inspect.signature(embed_checks.embed_checks).parameters
-    for b, (args, batch, n_mols) in k12_inputs(smoke, cuda, buckets).items():
+    for (b, name), (args, batch, n_mols) in k12_inputs(smoke, cuda, buckets).items():
         pos3, tables, diag = args[0], args[5], batch.params[3]
         work = smoke.k12_work(args[4].cpu().numpy().astype(np.int64), batch, tables, rates)
-        row = {"kernel": "K12", "bucket": b, "systems": int(pos3.shape[0]), "molecules": n_mols,
+        row = {"kernel": "K12", "bucket": b, "input": name, "systems": int(pos3.shape[0]),
+               "molecules": n_mols,
                "terms": dict(zip(embed_checks.CHECKS[1:], tables.offsets[:, -1].tolist())),
                "bound_ms": work["bound_ms"], "bound_by": work["bound_by"]}
         want = embed_checks.embed_checks_plain(*args)
@@ -411,11 +417,14 @@ def cuobjdump() -> str:
 
 
 def kernel_tag(name: str) -> str:
-    for key, tag in (("first_k7", "first_K7"), ("first_k12", "first_K12"),
-                     ("constraint", "K7"), ("checks", "K12"), ("energy_grad_kernel", "K4_or_K6"),
+    for key, tag in (("first_k12_kernel", "first_K12"), ("first_k7_kernel", "first_K7"),
+                     ("constraint_kernel", "K7"), ("checks_kernel", "K12"),
+                     ("energy_grad_kernel", "K4_or_K6"), ("lbfgs_kernel", None),
                      ("bfgs_kernel", "K8")):
-        if key in name:
+        if key in name and tag is not None:
             return tag
+        if key in name:
+            break
     m = re.search(r"lbfgs_kernel.*?Lb(\d)ELb(\d)E", name)
     if m:
         return ("K23" if m.group(1) == "1" else "K5") + ("_staged" if m.group(2) == "1" else "")
@@ -503,11 +512,20 @@ def main() -> int:
     if "k12" in only:
         k12_results(smoke, lib, cuda, rates, reps, flush, first_only, package_only,
                     [int(b) for b in option("--buckets", "64,96,32").split(",")])
-    for ff in (mmff_energy.MMFF, uff_energy.UFF):
-        emit(result="minimizer_instantiations", force_field=ff.name, **{
-            f"{k}_{b}": (bfgs.kernel_info(ff, b) if k == "K8"
-                         else lbfgs_flat.kernel_info(ff, b, k == "K23", False))
-            for k in ("K5", "K23", "K8") for b in (64, 96)})
+    from nvmolkit_tpu_torch.models import dist_geom, etk
+
+    constrained = "constrained" in inspect.signature(bfgs.kernel_info).parameters
+    for ff in (mmff_energy.MMFF, uff_energy.UFF, dist_geom.DG, etk.ETK):
+        out = {}
+        for b in (64, 96):
+            out[f"K8_{b}"] = bfgs.kernel_info(ff, b)
+            if constrained and ff.name in ("mmff", "uff"):
+                out[f"K8_constrained_{b}"] = bfgs.kernel_info(ff, b, constrained=True)
+            for k in ("K5", "K23"):
+                for staged in ((False, True) if ff.name in ("dg", "etk") else (False,)):
+                    out[f"{k}{'_staged' if staged else ''}_{b}"] = lbfgs_flat.kernel_info(
+                        ff, b, k == "K23", staged)
+        emit(result="minimizer_instantiations", force_field=ff.name, **out)
     for name, src in (("libnvmk_constraints", _build.CONSTRAINTS_SRC),
                       ("libnvmk_embed_checks", _build.EMBED_CHECKS_SRC),
                       ("libnvmk_mmff", _build.MMFF_SRC), ("libnvmk_uff", _build.UFF_SRC)):
