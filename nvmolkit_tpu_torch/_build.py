@@ -218,11 +218,10 @@ def _declare_uff(lib: ctypes.CDLL) -> None:
 def _declare_constraints(lib: ctypes.CDLL) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.nvmk_constraint_energy_grad.restype = ci
-    lib.nvmk_constraint_energy_grad.argtypes = [vp, ci, ci, vp, ctypes.POINTER(ctypes.c_void_p),
-                                                vp, vp, vp]
+    tables = ctypes.POINTER(ctypes.c_void_p)
+    lib.nvmk_constraint_energy_grad.argtypes = [vp, ci, ci, tables, vp, vp, vp]
     lib.nvmk_constraint_energy_grad_cycles.restype = ci
-    lib.nvmk_constraint_energy_grad_cycles.argtypes = [
-        vp, ci, ci, vp, ctypes.POINTER(ctypes.c_void_p), vp, vp, vp, vp]
+    lib.nvmk_constraint_energy_grad_cycles.argtypes = [vp, ci, ci, tables, vp, vp, vp, vp]
 
 
 def _declare_graph(lib: ctypes.CDLL) -> None:

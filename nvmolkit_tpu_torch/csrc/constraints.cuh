@@ -243,11 +243,13 @@ __device__ __forceinline__ void stage_terms(const CTables& c, size_t s, int cap,
   }
 }
 
-// the thread of a probe that takes list entry t: entry t on warp WARPS - 1 -
-// (t mod WARPS), lane t / WARPS (mod 32); the first design's bonded rounds
-// fill the warps from warp 0 (dg_pairs.cuh packed_terms), so a system's few
-// terms go to the other end, one warp each
-__device__ __forceinline__ int term_first_slot() {
+// the slot of a probe's thread among the terms: a system of T terms gives
+// its list entry T - 1 - slot to it, then the entry THREADS before that, and
+// so on; so the last entries (the torsions, then the angles: the longest
+// terms) go to warps 3, 2, 1, 0 in turn, lane 0 first. The force fields'
+// bonded rounds fill the warps from warp 0 (dg_pairs.cuh packed_terms), so
+// a system's few terms take a warp each at the other end.
+__device__ __forceinline__ int term_slot_of_thread() {
   return (WARPS - 1 - (int)(threadIdx.x >> 5)) + WARPS * (int)(threadIdx.x & 31);
 }
 
@@ -263,7 +265,8 @@ struct StagedTerms {
   __device__ __forceinline__ float operator()(const float* x, float* g) const {
     const int total = hdr[C_KINDS + C_KINDS];
     float e = 0.0f;
-    for (int t = term_first_slot(); t < total; t += THREADS) {
+    for (int r = term_slot_of_thread(); r < total; r += THREADS) {
+      const int t = total - 1 - r;
       int a[4];
       float p[5];
       int kind;
@@ -291,6 +294,12 @@ struct StagedTerms {
 // the force fields' hook where there are no terms (K4, K6, K5, K23)
 struct NoTerms {
   __device__ __forceinline__ float operator()(const float*, float*) const { return 0.0f; }
+};
+
+// each term's system, per kind (models/constraints.py ConstraintBatch.systems;
+// K7 reads them)
+struct TermRuns {
+  const int* system[C_KINDS];
 };
 
 inline CTables make_ctables(const void* const* c, int n_sys) {

@@ -5,10 +5,11 @@
 // positions:
 //   bounds     over the real pairs i < j, d = sqrt(|p_i - p_j|^2 + 1e-12):
 //              max(0, d / max(ub, 1e-6) - 1, lb / max(d, 1e-6) - 1) must be
-//              below maxViolationRatio r (NaN fails). Tested as d < (1 + r)
-//              max(ub, 1e-6) and lb < (1 + r) max(d, 1e-6) for every pair,
-//              with r > 0: the same outcome away from the threshold
-//              (ops/embed_checks.py near_threshold_plain), no division;
+//              below maxViolationRatio r (NaN fails). Tested as d^2 <
+//              ((1 + r) max(ub, 1e-6))^2 and, where lb > 0, lb^2 < (1 + r)^2
+//              max(d^2, 1e-12) for every pair, with r > 0: the same outcome
+//              away from the threshold (ops/embed_checks.py
+//              near_threshold_plain), no square root and no division;
 //   chiral     each chiral quartet's signed volume V = (p0 - p3) . ((p1 -
 //              p3) x (p2 - p3)) within its window [lb, ub];
 //   tetrahedral |V| of each sp3 centre's four neighbours above
@@ -30,18 +31,23 @@
 //
 // Up to WARP_MAX_ATOMS (ops/embed_checks.py, the launch's ``layout``) a warp
 // per system, WARPS systems a block; past it a block per system, its warps
-// dealt the pair walk's units and the terms in turn. The system's positions
-// go into its slice of shared memory; the pairs i < j are walked by
-// dg_pairs.cuh's 32 x 32 tiles (each pair once, a step's lanes reading at
-// most two runs of the diagonal table); the five term tables are one list
-// over the kinds, a term a lane; the six flags are warp votes (and, for a
-// block, an OR of its warps' in shared memory). The first design
+// taking the pairs and the terms in turn. The system's positions go into
+// its slice of shared memory (a float4 an atom); the pairs i < j go by
+// rounds of two diagonals of the table (see checks_kernel): every lane has
+// a pair at every step, a step's loads are a few runs of consecutive
+// entries, and the index arithmetic a compare and a subtraction; the five term
+// tables are one list over the kinds, a term a lane; the six flags are warp
+// votes (and, for a block, an OR of its warps' in shared memory). The pair
+// loop is issue-bound (~30 instructions a pair). The first design
 // (tools/constraints_checks_first_design.cu) ran a block per system over
 // idx < n^2 with idx / n and idx % n (half skipped), both positions and the
 // dense bounds from device memory, two IEEE divisions a pair, five loops
-// over the tables and a float block_reduce for the flags.
+// over the tables and a float block_reduce for the flags; dg_pairs.cuh's
+// 32 x 32 tiles (tried first) paid ~40 instructions a pair for their
+// validity and index arithmetic and a square root (PERF.md §6).
 
-#include "dg_pairs.cuh"
+#include <float.h>
+
 #include "ff_common.cuh"
 
 namespace {
@@ -54,6 +60,11 @@ constexpr int N_CHECKS = 6;
 // the phases of the per-warp clock (embed_checks.K12_PHASES): the positions
 // into shared memory, the pairs, the terms, the votes, the flags written
 constexpr int K12_PHASES = 5;
+// the pair walk's steps whose table entries a lane loads at once
+constexpr int PAIR_BATCH = 2;
+// blocks an SM of the warp-per-system layout (40 registers): the main
+// path's 64-atom chunk (5,856 systems, 1,464 blocks) in one wave of 132 SMs
+constexpr int WARP_LAYOUT_BLOCKS = 12;
 
 struct CheckTables {
   const int* off;  // [N_TABLES, n_mols + 1]
@@ -63,8 +74,9 @@ struct CheckTables {
   const float* signs;          // [stereo T] float32
 };
 
+// atom a's position in the system's shared slice (4 floats an atom)
 __device__ __forceinline__ V3 pos3(const float* x, int a) {
-  return {x[3 * a], x[3 * a + 1], x[3 * a + 2]};
+  return {x[4 * a], x[4 * a + 1], x[4 * a + 2]};
 }
 
 __device__ __forceinline__ float volume(const float* x, const int* a) {
@@ -114,13 +126,13 @@ __device__ __forceinline__ bool term_passes(const CheckTables& t, int kind, int 
 
 // ``Wps`` warps per system (1: WARPS systems a block; WARPS: one)
 template <int Wps, bool Clocked>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, Wps == 1 ? WARP_LAYOUT_BLOCKS : 1)
 checks_kernel(const float* __restrict__ pos, int a_pad, const int* __restrict__ sys2mol,
               const int* __restrict__ atom_count, const float2* __restrict__ diag,
               const __grid_constant__ CheckTables t, float max_violation_ratio,
               float min_tetra_volume, uint8_t* __restrict__ ok, int n_sys,
               long long* __restrict__ cycles) {
-  extern __shared__ float smem[];
+  extern __shared__ float4 xs[];  // per system its atoms, 16 bytes each
   __shared__ unsigned votes[WARPS];
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int part = w % Wps;  // this warp's part of its system
@@ -137,35 +149,62 @@ checks_kernel(const float* __restrict__ pos, int a_pad, const int* __restrict__ 
   };
   const int mol = sys2mol[s];
   const int n = atom_count[s];
-  float* x = smem + (w / Wps) * 3 * a_pad;
+  float4* x4 = xs + (w / Wps) * a_pad;
   const float* px = pos + s * 3 * (size_t)a_pad;
-  for (int i = part * 32 + lane; i < 3 * n; i += Wps * 32) x[i] = px[i];
+  for (int i = part * 32 + lane; i < n; i += Wps * 32)
+    x4[i] = make_float4(px[3 * i], px[3 * i + 1], px[3 * i + 2], 0.0f);
   if (Wps == 1)
     __syncwarp();
   else
     __syncthreads();
   lap(0);
+  const float* x = reinterpret_cast<const float*>(x4);  // the terms read x[4 a + c]
   const float2* ul = diag + (size_t)mol * a_pad * a_pad;
   unsigned bad = 0;  // bit q: check q fails
-  // the pairs: each lane's row atom once a unit, its columns from shared
-  // memory, each pair's (u, l) from the diagonal table
-  const float r1 = 1.0f + max_violation_ratio;
-  const PairTiles pt(n);
-  for (int u = part; u < pt.units; u += Wps) {
-    const PairUnit p = pt.dealt(u);
-    const int i = 32 * p.I + lane;
-    const V3 xi = i < n ? pos3(x, i) : V3{0.0f, 0.0f, 0.0f};
-#pragma unroll 4
-    for (int q = 0; q < p.steps; ++q) {
-      int ii, j;
-      if (tile_pair(p.I, p.J, p.k + q, lane, n, ii, j)) {
-        const int lo = min(i, j), hi = max(i, j);
-        const float2 b = ul[(hi - lo) * a_pad + lo];
-        const V3 d3 = sub(xi, pos3(x, j));
-        const float d = sqrtf(dot(d3, d3) + 1e-12f);
-        // NaN fails: neither comparison holds
-        if (!(d < r1 * nmax(b.x, 1e-6f)) || !(b.y < r1 * nmax(d, 1e-6f))) bad |= 1u;
+  // The pairs by diagonals: round d (1 <= d <= n / 2) takes diagonal d's n -
+  // d pairs (a, a + d) and then diagonal n - d's d pairs (a, a + n - d): n
+  // pairs a round (the last, at even n, only diagonal n / 2's n / 2), every
+  // pair i < j once. The rounds laid end to end, entry t is pair t mod n of
+  // round 1 + t / n; each lane steps by the warps' width, its round and
+  // place kept by subtraction. From 32 atoms up a step's lanes read at most
+  // three runs of consecutive entries of the table, and no lane idles.
+  const float r1 = 1.0f + max_violation_ratio, r1sq = r1 * r1;
+  const int n_pairs = n * (n - 1) / 2;
+  const int step = Wps * 32, first_t = part * 32 + lane;
+  // the round and place of entry first_t, and a step's worth of each
+  const int nn = max(n, 1);
+  int d = 1 + first_t / nn, at = first_t % nn;
+  const int d_step = step / nn, at_step = step % nn;
+  // PAIR_BATCH steps' table entries loaded before any is tested: a warp
+  // keeps that many loads in flight, not one
+  for (int t0 = first_t; t0 < n_pairs; t0 += PAIR_BATCH * step) {
+    float2 b[PAIR_BATCH];
+    int pa[PAIR_BATCH], pb[PAIR_BATCH];
+#pragma unroll
+    for (int q = 0; q < PAIR_BATCH; ++q) {
+      const bool near = at < n - d;  // on diagonal d, else on diagonal n - d
+      const int e = near ? d : n - d;
+      const int a = near ? at : at - (n - d);
+      // past the last pair: atom 0 with itself under bounds it passes
+      const bool valid = t0 + q * step < n_pairs;
+      b[q] = valid ? __ldg(ul + (e * a_pad + a)) : make_float2(FLT_MAX, 0.0f);
+      pa[q] = valid ? a : 0;
+      pb[q] = valid ? a + e : 0;
+      at += at_step;
+      d += d_step;
+      if (at >= n) {
+        at -= n;
+        ++d;
       }
+    }
+#pragma unroll
+    for (int q = 0; q < PAIR_BATCH; ++q) {
+      const float4 xa = x4[pa[q]], xb = x4[pb[q]];
+      const float dx = xa.x - xb.x, dy = xa.y - xb.y, dz = xa.z - xb.z;
+      const float d2 = dx * dx + dy * dy + dz * dz + 1e-12f;  // d^2
+      const float hu = r1 * fmaxf(b[q].x, 1e-6f);
+      // d < hu and lb < r1 max(d, 1e-6), squared; NaN fails the first
+      if (!(d2 < hu * hu) || !(b[q].y * fabsf(b[q].y) < r1sq * fmaxf(d2, 1e-12f))) bad |= 1u;
     }
   }
   if (!(max_violation_ratio > 0.0f)) bad |= 1u;  // the worst ratio is at least 0
@@ -212,7 +251,7 @@ int launch(const float* pos, int n_sys, int a_pad, const int* sys2mol, const int
            const float* diag, const CheckTables& t, float mvr, float mtv, uint8_t* ok,
            long long* cycles, void* stream) {
   const int per_block = WARPS / Wps;
-  const size_t smem = (size_t)per_block * 3 * a_pad * sizeof(float);
+  const size_t smem = (size_t)per_block * a_pad * sizeof(float4);
   checks_kernel<Wps, Clocked><<<(n_sys + per_block - 1) / per_block, THREADS, smem,
                                 static_cast<cudaStream_t>(stream)>>>(
       pos, a_pad, sys2mol, atom_count, reinterpret_cast<const float2*>(diag), t, mvr, mtv, ok,

@@ -230,8 +230,9 @@ struct PairTerm {
 // K4's device function: the energy of one system of molecule ``mol`` at
 // positions ``x`` (shared, 3 floats per atom) and its gradient into ``g``
 // (shared; its first n_dof entries are overwritten). Returns the energy in
-// every thread; ``g`` is complete on return. Two barriers. ``clk`` laps the
-// phases of dg_pairs.cuh's EvalPhase: the zeroing's barrier (E_WAIT), the
+// every thread; ``g`` is complete on return. Two barriers. ``terms`` (K8's
+// constraint terms; none by default) are taken right after the first.
+// ``clk`` laps the phases of dg_pairs.cuh's EvalPhase: the zeroing's barrier (E_WAIT), the
 // pairs and bonds and their adds, the angles and stretch-bends
 // (E_TERMS_A), the out-of-plane terms and torsions (E_TERMS_B), the
 // energy's sum.
@@ -257,6 +258,12 @@ __device__ float mmff_eval(const Tables& t, int mol, const float* x, float* g, i
   __syncthreads();  // g zeroed before any term adds to it
   clk.lap(E_WAIT);
   const int n = n_dof / 3;
+  // K8's constraint terms (constraints.cuh StagedTerms) first, their sum
+  // added to the energy's: on MMFF their latency hides behind the other
+  // warps' pairs (after the bonded terms, as uff_eval takes them, K8 over
+  // MMFF ran 3 % slower on an H100; PERF.md §6)
+  float e_terms = 0.0f;
+  if constexpr (!std::is_same<Terms, NoTerms>::value) e_terms = terms(x, g);
   float e = dealt_pairs<3>(DiagTable<float4>{t.pair_tab + t.pair_off[mol], n},
                            PairTerm{t.k_ele, t.diel_model}, x, n, 1.0f, g, clk);
   packed_terms(off[stride + mol], off[stride + mol + 1], [&](int c) {
@@ -275,8 +282,7 @@ __device__ float mmff_eval(const Tables& t, int mol, const float* x, float* g, i
     e += torsion_term(t.atoms[4] + 4 * (size_t)c, t.params[4] + 3 * (size_t)c, x, g);
   });
   clk.lap(E_TERMS_B);
-  // K8's constraint terms (constraints.cuh StagedTerms), in the same sum
-  if constexpr (!std::is_same<Terms, NoTerms>::value) e += terms(x, g);
+  if constexpr (!std::is_same<Terms, NoTerms>::value) e += e_terms;
   const float total = block_total(e, red);  // its barrier ends every atomic into g
   clk.lap(E_SUM);
   return total;

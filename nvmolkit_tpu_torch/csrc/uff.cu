@@ -138,7 +138,8 @@ struct PairTerm {
 // K6's device function: the energy of one system of molecule ``mol`` at
 // positions ``x`` (shared, 3 floats per atom) and its gradient into ``g``
 // (shared; its first n_dof entries are overwritten). Returns the energy in
-// every thread; ``g`` is complete on return. Two barriers. ``clk`` laps as
+// every thread; ``g`` is complete on return. Two barriers; ``terms`` (K8's
+// constraint terms; none by default) before the second. ``clk`` laps as
 // mmff_eval's: the pairs and bonds and their adds, the angles
 // (E_TERMS_A), the torsions and inversions (E_TERMS_B), the energy's sum.
 template <class Clock, class Terms = NoTerms>
@@ -170,7 +171,9 @@ __device__ float uff_eval(const Tables& t, int mol, const float* x, float* g, in
     if (kind == 1) clk.lap(E_TERMS_A);
   }
   clk.lap(E_TERMS_B);
-  // K8's constraint terms (constraints.cuh StagedTerms), in the same sum
+  // K8's constraint terms (constraints.cuh StagedTerms), in the same sum:
+  // last, on UFF (first, as mmff_eval takes them, K8 over UFF ran 1.5 %
+  // slower on an H100; PERF.md §6)
   if constexpr (!std::is_same<Terms, NoTerms>::value) e += terms(x, g);
   const float total = block_total(e, red);  // its barrier ends every atomic into g
   clk.lap(E_SUM);

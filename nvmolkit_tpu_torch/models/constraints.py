@@ -17,8 +17,8 @@ kf]`` and torsion ``[i, j, k, l | lo, hi, kf]``. It replaces the JAX
 package's padded rows with their ``sys`` and ``mask`` columns.
 
 :func:`constraint_energy_and_grad` launches K7 (``csrc/constraints.cu``, a
-warp per system, its terms dealt over the lanes as one list) for CUDA
-tensors and runs :func:`constraint_energy_and_grad_plain` (the energy in
+block per :data:`SYSTEMS_PER_BLOCK` systems, a thread per term, each kind's
+terms on whole warps) for CUDA tensors and runs :func:`constraint_energy_and_grad_plain` (the energy in
 torch, the gradient by ``torch.autograd.grad``) for CPU tensors;
 :func:`launch_clocked` is K7 with each system's phase cycles
 (:data:`K7_PHASES`). K8 stages each system's terms in shared memory once
@@ -45,9 +45,11 @@ N_PARAMS = (3, 5, 3, 3)
 _DEG = 180.0 / np.pi
 
 # the phases of K7's per-warp clock (launch_clocked; csrc/constraints.cu):
-# the gradient slice zeroed and the offsets read, the terms with their
-# pushes, the energy's sum, the row written
-K7_PHASES = ("zero", "terms", "sum", "write")
+# the rows zeroed and the range's offsets read, the terms' rows and
+# systems, the terms with their gradient adds, the energies written; and
+# the systems a block of K7 takes
+K7_PHASES = ("zero", "row", "term", "energy")
+SYSTEMS_PER_BLOCK = 8
 
 launch_counts = {"constraint_energy_grad": 0}
 
@@ -81,6 +83,7 @@ class ConstraintBatch:
     offsets: torch.Tensor             # int32 [4, S + 1]
     atoms: tuple[torch.Tensor, ...]   # per kind int32 [T, arity]
     params: tuple[torch.Tensor, ...]  # per kind float32 [T, P]
+    systems: tuple[torch.Tensor, ...]  # per kind int32 [T]: each term's system
 
     @property
     def n_systems(self) -> int:
@@ -91,9 +94,10 @@ class ConstraintBatch:
         return self.offsets.device
 
     def pointers(self):
-        """The 9 device pointers K7 and K8 take: the offsets, the atom
-        columns of the four kinds, then their parameter rows."""
-        tensors = (self.offsets,) + self.atoms + self.params
+        """The 13 device pointers K7 and K8 take: the offsets, the atom
+        columns of the four kinds, their parameter rows (K8 reads these 9),
+        then each kind's systems (K7)."""
+        tensors = (self.offsets,) + self.atoms + self.params + self.systems
         return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
 
 
@@ -150,12 +154,15 @@ def build_constraint_batch(constraints: list[PerSystemConstraints], ref_position
             counts[k, s] = len(getattr(cs, kind))
     offsets = np.zeros((len(KINDS), len(constraints) + 1), np.int64)
     np.cumsum(counts, axis=1, out=offsets[:, 1:])
+    systems = np.arange(len(constraints), dtype=np.int32)
     return ConstraintBatch(
         offsets=torch.from_numpy(offsets.astype(np.int32)).to(device),
         atoms=tuple(torch.from_numpy(np.asarray(a, np.int32).reshape(-1, ARITY[k])).to(device)
                     for k, a in enumerate(atoms)),
         params=tuple(torch.from_numpy(np.asarray(p, np.float32).reshape(-1, N_PARAMS[k])).to(device)
-                     for k, p in enumerate(params)))
+                     for k, p in enumerate(params)),
+        systems=tuple(torch.from_numpy(np.repeat(systems, counts[k])).to(device)
+                      for k in range(len(KINDS))))
 
 
 # ---- the plain version --------------------------------------------------------
@@ -272,13 +279,17 @@ WARPS, THREADS = 4, 128
 
 def term_schedule(offsets, cap: int = STAGE_MAX) -> dict[str, np.ndarray]:
     """How the kernels take each system's terms (``csrc/constraints.cuh``):
-    one list a system over the four kinds in order (``TermList``), entry t
-    of K8's probe on thread ``term_first_slot`` (warp WARPS - 1 - t mod
-    WARPS, lane (t mod THREADS) / WARPS, round t / THREADS), staged in
-    shared memory when t < ``cap``; K7 alone takes entry t on lane t mod 32
-    of its system's warp. Per entry (every row of every kind once): its
-    ``system``, ``kind``, table ``row``, list index ``entry``, K8's
-    ``thread`` and ``round``, ``staged``, and K7's ``lane``."""
+    one list a system over the four kinds in order (``TermList``); in K8's
+    probe entry t of a system of T terms goes to slot r = T - 1 - t
+    (``term_slot_of_thread``: warp WARPS - 1 - r mod WARPS, lane (r mod
+    THREADS) / WARPS, round r / THREADS: the last entries, the longest
+    terms, to warps 3, 2, 1, 0 first), staged in shared memory when t <
+    ``cap``. K7 (``csrc/constraints.cu``) gives block b the systems
+    [b S, b S + S) (S = SYSTEMS_PER_BLOCK) and their terms a slot each,
+    kind by kind, each kind's run of slots from a multiple of 32. Per entry
+    (every row of every kind once): its ``system``, ``kind``, table
+    ``row``, list index ``entry``, K8's ``thread`` and ``round``,
+    ``staged``, and K7's ``block`` and ``slot``."""
     off = np.asarray(offsets, np.int64)
     counts = off[:, 1:] - off[:, :-1]
     start = np.zeros((len(KINDS) + 1, counts.shape[1]), np.int64)
@@ -289,10 +300,19 @@ def term_schedule(offsets, cap: int = STAGE_MAX) -> dict[str, np.ndarray]:
         rows = np.arange(off[k, 0], off[k, -1])
         parts.append((sys_of, np.full(len(rows), k), rows, start[k, sys_of] + rows - off[k, sys_of]))
     system, kind, row, entry = (np.concatenate(c) for c in zip(*parts))
-    slot = entry % THREADS
+    rev = start[len(KINDS), system] - 1 - entry
+    slot = rev % THREADS
+    # K7: block b's range of each kind's rows, runs padded to 32 slots
+    n_blocks = -(-counts.shape[1] // SYSTEMS_PER_BLOCK)
+    edge = np.minimum(np.arange(n_blocks + 1) * SYSTEMS_PER_BLOCK, counts.shape[1])
+    lo, hi = off[:, edge[:-1]], off[:, edge[1:]]  # [4, blocks]
+    run = np.zeros((len(KINDS) + 1, n_blocks), np.int64)
+    np.cumsum((hi - lo + 31) // 32 * 32, axis=0, out=run[1:])
+    block = system // SYSTEMS_PER_BLOCK
     return {"system": system, "kind": kind, "row": row, "entry": entry,
             "thread": (WARPS - 1 - slot % WARPS) * 32 + slot // WARPS,
-            "round": entry // THREADS, "staged": entry < cap, "lane": entry % 32}
+            "round": rev // THREADS, "staged": entry < cap, "block": block,
+            "slot": run[kind, block] + row - lo[kind, block]}
 
 
 def constraint_energy_and_grad_model(positions: torch.Tensor, batch: ConstraintBatch,
@@ -349,8 +369,9 @@ def constraint_energy_and_grad(positions: torch.Tensor, batch: ConstraintBatch,
 
 
 def launch_clocked(positions: torch.Tensor, batch: ConstraintBatch, atom_count: torch.Tensor):
-    """K7 (CUDA tensors) with each system's warp's cycles per phase:
-    (energy [S], gradient [S, A, 3], int64 [S, 1, len(K7_PHASES)])."""
+    """K7 (CUDA tensors) with each warp's cycles per phase: (energy [S],
+    gradient [S, A, 3], int64 [blocks, 4, len(K7_PHASES)]; a block takes
+    SYSTEMS_PER_BLOCK systems)."""
     return _launch(positions, batch, atom_count, True)
 
 
@@ -358,7 +379,7 @@ def _launch(positions, batch, atom_count, clocked: bool):
     _check(positions, batch)
     if positions.dtype != torch.float32 or atom_count.dtype != torch.int32:
         raise ValueError("K7 takes float32 positions and int32 atom counts")
-    tensors = (positions, atom_count, batch.offsets) + batch.atoms + batch.params
+    tensors = (positions, atom_count, batch.offsets) + batch.atoms + batch.params + batch.systems
     if any(t.device != positions.device or not t.is_contiguous() for t in tensors):
         raise ValueError("K7's inputs must be contiguous and on one device")
     n_sys, a_pad = positions.shape[:2]
@@ -369,15 +390,16 @@ def _launch(positions, batch, atom_count, clocked: bool):
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         if clocked:
-            cycles = torch.zeros((n_sys, 1, len(K7_PHASES)), dtype=torch.int64, device=dev)
+            blocks = -(-n_sys // SYSTEMS_PER_BLOCK)
+            cycles = torch.zeros((blocks, WARPS, len(K7_PHASES)), dtype=torch.int64, device=dev)
             rc = lib.nvmk_constraint_energy_grad_cycles(
-                positions.data_ptr(), n_sys, a_pad, atom_count.data_ptr(), batch.pointers(),
-                energy.data_ptr(), grad.data_ptr(), cycles.data_ptr(), stream)
+                positions.data_ptr(), n_sys, a_pad, batch.pointers(), energy.data_ptr(),
+                grad.data_ptr(), cycles.data_ptr(), stream)
         else:
             cycles = None
             rc = lib.nvmk_constraint_energy_grad(
-                positions.data_ptr(), n_sys, a_pad, atom_count.data_ptr(), batch.pointers(),
-                energy.data_ptr(), grad.data_ptr(), stream)
+                positions.data_ptr(), n_sys, a_pad, batch.pointers(), energy.data_ptr(),
+                grad.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"constraint_energy_grad kernel launch failed with CUDA error {rc}")
     launch_counts["constraint_energy_grad"] += 1

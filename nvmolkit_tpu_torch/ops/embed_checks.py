@@ -256,19 +256,31 @@ def check_list(tables: CheckTables, sys2mol) -> dict[str, np.ndarray]:
     return {"system": system, "kind": kind, "row": row, "entry": entry}
 
 
+def diagonal_walk(n: int) -> tuple[np.ndarray, np.ndarray]:
+    """K12's walk over the pairs i < j of n atoms (``csrc/embed_checks.cu``):
+    round d (1 <= d <= n / 2) takes diagonal d's pairs (a, a + d), a < n -
+    d, then diagonal n - d's (a, a + n - d), a < d (at even n the last round
+    only the first part); entry t of the rounds laid end to end is pair t
+    mod n of round 1 + t / n, lane l of a warp taking entries l, l + 32, ...
+    Returns the entries' (a, diagonal) in order, int64 [n (n - 1) / 2]."""
+    t = np.arange(n * (n - 1) // 2, dtype=np.int64)
+    d, at = 1 + t // max(n, 1), t % max(n, 1)
+    near = at < n - d
+    return np.where(near, at, at - (n - d)), np.where(near, d, n - d)
+
+
 def embed_checks_model(pos3, diag, sys2mol, n_atoms_sys, tables: CheckTables,
                        max_violation_ratio: float, min_tetra_volume: float) -> torch.Tensor:
     """bool [6, S]: K12's order of work on the CPU, in float32. Per system of
-    n atoms the pairs i < j as ``dg_pairs.cuh``'s tiles walk them
-    (``models/dist_geom.pair_schedule``, ``step_pairs``), each pair's (u, l)
-    read from ``diag`` [M, A, A, 2] (the bounds by diagonals) at [j - i, i],
-    the ratio tests as comparisons against products, d < (1 + r) max(u,
-    1e-6) and l < (1 + r) max(d, 1e-6), with r > 0 (NaN fails); the five
+    n atoms the pairs i < j as :func:`diagonal_walk` takes them, a warp's
+    step at a time, each pair's (u, l) read from ``diag`` [M, A, A, 2] (the
+    bounds by diagonals) at [j - i, i],
+    the ratio tests as comparisons against products of squares, d^2 < ((1 +
+    r) max(u, 1e-6))^2 and l |l| < (1 + r)^2 max(d^2, 1e-12), with r > 0
+    (NaN fails); the five
     tables as one list (:func:`check_list`), each term's test as the plain
     version's, the chiral distances' bounds from ``diag``; each check's
     flag the OR of its failures (the warp votes)."""
-    from nvmolkit_tpu_torch.models.dist_geom import pair_schedule, step_pairs
-
     S, A, _ = pos3.shape
     x = pos3.to(torch.float32)
     s2m = sys2mol.to(torch.int64).cpu()
@@ -279,19 +291,16 @@ def embed_checks_model(pos3, diag, sys2mol, n_atoms_sys, tables: CheckTables,
     for n in torch.unique(n_sys).tolist():
         rows = torch.nonzero(n_sys == n)[:, 0]
         xs, mols = x[rows], s2m[rows]
-        for I, J, k0, steps in pair_schedule(n):
-            for k in range(k0, k0 + steps):
-                i, j, valid = (torch.from_numpy(a) for a in step_pairs(I, J, k, n))
-                if not bool(valid.any()):
-                    continue
-                i, j = i[valid], j[valid]
-                lo, hi = torch.minimum(i, j), torch.maximum(i, j)
-                b = ul[mols[:, None], (hi - lo)[None], lo[None]]  # [R, P, 2]
-                d3 = xs[:, i] - xs[:, j]
-                d = torch.sqrt((d3 * d3).sum(-1) + 1e-12)
-                fail = ~(d < r1 * torch.clamp_min(b[..., 0], 1e-6)) | ~(
-                    b[..., 1] < r1 * torch.clamp_min(d, 1e-6))
-                bad[0, rows] |= fail.any(dim=1)
+        walk_a, walk_e = (torch.from_numpy(v) for v in diagonal_walk(n))
+        for t0 in range(0, len(walk_a), 32):  # a warp's step
+            a, e = walk_a[t0:t0 + 32], walk_e[t0:t0 + 32]
+            b = ul[mols[:, None], e[None], a[None]]  # [R, P, 2]
+            d3 = xs[:, a] - xs[:, a + e]
+            d2 = (d3 * d3).sum(-1) + 1e-12
+            hu = r1 * torch.clamp_min(b[..., 0], 1e-6)
+            low = b[..., 1]
+            fail = ~(d2 < hu * hu) | ~(low * low.abs() < r1 * r1 * torch.clamp_min(d2, 1e-12))
+            bad[0, rows] |= fail.any(dim=1)
     if not max_violation_ratio > 0.0:
         bad[0] = True
     lst = check_list(tables, s2m)

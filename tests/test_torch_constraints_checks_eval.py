@@ -2,15 +2,17 @@
 torch models, against the JAX package on the CPU.
 
 * ``models/constraints.term_schedule``: each system's terms as one list over
-  the four kinds, dealt to K8's threads (warps 3, 2, 1, 0 in turn) and
+  the four kinds, dealt to K8's threads (from the list's end, warps 3, 2,
+  1, 0 in turn) and
   staged up to a cap, covers every term of every kind once, past the cap
-  and past a warp's lanes too; ``constraint_energy_and_grad_model`` (the
+  too, and K7's blocks give each kind's terms whole warps; ``constraint_energy_and_grad_model`` (the
   terms summed as K8's closing sum folds them) gives
   ``nvmolkit_tpu.models.constraints.constraint_energy`` and its
   ``jax.grad`` within ``tests/test_torch_constraints.py``'s bounds.
-* ``ops/embed_checks.embed_checks_model``: the pairs walked by
-  ``dg_pairs.cuh``'s tiles over the bounds by diagonals, the ratio tests
-  as comparisons against products, the five tables as one list, gives the
+* ``ops/embed_checks.embed_checks_model``: the pairs walked by rounds of two
+  diagonals of the bounds laid out by diagonals (``diagonal_walk``: every
+  pair once), the ratio tests as comparisons against products, the five
+  tables as one list, gives the
   flags of ``embedMolecules._check_embeddings`` (JAX) and of
   ``embed_checks_plain`` away from a threshold (``near_threshold_plain``),
   with NaN positions and molecules that lack kinds of terms; a scan across
@@ -90,15 +92,24 @@ def test_term_schedule_covers_every_term_once(cap):
         order = np.argsort(sched["entry"][mine])
         assert np.all(np.diff(sched["kind"][mine][order]) >= 0)
         assert np.all(np.diff(sched["row"][mine][order][sched["kind"][mine][order] == 0]) == 1)
-        # K8: a round's entries on distinct threads, the first four on warps 3, 2, 1, 0
+        # K8: a round's entries on distinct threads, the last four (the
+        # longest kinds) on warps 3, 2, 1, 0
         for r in np.unique(sched["round"][mine]):
             threads = sched["thread"][mine & (sched["round"] == r)]
             assert len(set(threads.tolist())) == len(threads)
-        first = sched["thread"][mine][order][:4] // 32
-        assert first.tolist() == [3, 2, 1, 0][: len(first)]
+        last = sched["thread"][mine][order][::-1][:4] // 32
+        assert last.tolist() == [3, 2, 1, 0][: len(last)]
         assert np.array_equal(sched["staged"][mine], sched["entry"][mine] < cap)
     assert (~sched["staged"]).any() == (cap < max(sum(c) for c in COUNTS))
-    assert sched["lane"].max() == 31  # past a warp's lanes: a second round of lanes
+    assert np.bincount(sched["round"]).tolist() == [sum(map(sum, COUNTS))]  # 40 < 128 threads
+    # K7: distinct slots a block, each kind's run from a multiple of 32
+    key = sched["block"] * 10**6 + sched["slot"]
+    assert len(np.unique(key)) == len(key)
+    for b in np.unique(sched["block"]):
+        for k in range(len(pcons.KINDS)):
+            slots = sched["slot"][(sched["block"] == b) & (sched["kind"] == k)]
+            if len(slots):
+                assert slots.min() % 32 == 0 and slots.max() - slots.min() == len(slots) - 1
 
 
 @pytest.mark.parametrize("sigma", [0.0, 0.6])
@@ -122,6 +133,19 @@ def test_constraint_model_matches_jax(sigma):
     e_p, g_p = pcons.constraint_energy_and_grad_plain(torch.from_numpy(x), pb)
     torch.testing.assert_close(e, e_p, rtol=1e-5, atol=1e-4)
     torch.testing.assert_close(g, g_p, rtol=1e-5, atol=1e-4)
+
+
+def test_diagonal_walk_takes_every_pair_once():
+    """K12's walk: every pair i < j of n atoms once for n 0-130; from 32
+    atoms up each warp step's table reads are at most three runs of
+    consecutive entries (a step spans at most two rounds)."""
+    for n in range(131):
+        a, e = pchk.diagonal_walk(n)
+        assert sorted(zip(a.tolist(), (a + e).tolist())) == [
+            (i, j) for i in range(n) for j in range(i + 1, n)]
+        for t0 in range(0, len(a) if n >= 32 else 0, 32):
+            at = e[t0:t0 + 32] * 1000 + a[t0:t0 + 32]  # the table's entry
+            assert int((np.diff(at) != 1).sum()) <= 2
 
 
 # the checks: small molecules with stereocentres, E/Z bonds, sp3 centres, and

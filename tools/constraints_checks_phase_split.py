@@ -3,7 +3,7 @@
 the embedding's acceptance checks (K12) on one NVIDIA GPU.
 
     python3 tools/constraints_checks_phase_split.py [--first-only | --package-only]
-        [--only k7,k8,k12] [--reps N] [--sass DIR]
+        [--only k7,k8,k12] [--buckets 64,96,32] [--reps N] [--sass DIR]
 
 Makes the inputs as ``chip_smoke.py`` makes them:
 
@@ -49,7 +49,12 @@ package's constraint, check, MMFF and UFF libraries and of the first design
 (``cuobjdump -sass`` and ``-res-usage``, whole under ``--sass``, default
 ``constraints_checks_sass_out/``): per kernel the count of each opcode and
 the instructions around its first shared atomic, reciprocal and integer
-division. One JSON line per result; the card's name and power limit first.
+division, and every kernel's registers and frame in the MMFF, UFF, DG and
+ETK libraries (K5, K23 and K8 among them). ``--only none`` prints the
+instantiations and the SASS alone (run from a copy of an earlier tree,
+with this file and the first design beside it, it reads that tree's
+kernels). One JSON line per result; the card's name and power limit
+first.
 Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -514,11 +519,13 @@ def main() -> int:
                     [int(b) for b in option("--buckets", "64,96,32").split(",")])
     from nvmolkit_tpu_torch.models import dist_geom, etk
 
-    constrained = "constrained" in inspect.signature(bfgs.kernel_info).parameters
+    has_k8_info = hasattr(bfgs, "kernel_info")  # a tree before this tool's K8 entry has none
+    constrained = has_k8_info and "constrained" in inspect.signature(bfgs.kernel_info).parameters
     for ff in (mmff_energy.MMFF, uff_energy.UFF, dist_geom.DG, etk.ETK):
         out = {}
         for b in (64, 96):
-            out[f"K8_{b}"] = bfgs.kernel_info(ff, b)
+            if has_k8_info:
+                out[f"K8_{b}"] = bfgs.kernel_info(ff, b)
             if constrained and ff.name in ("mmff", "uff"):
                 out[f"K8_constrained_{b}"] = bfgs.kernel_info(ff, b, constrained=True)
             for k in ("K5", "K23"):
@@ -528,9 +535,10 @@ def main() -> int:
         emit(result="minimizer_instantiations", force_field=ff.name, **out)
     for name, src in (("libnvmk_constraints", _build.CONSTRAINTS_SRC),
                       ("libnvmk_embed_checks", _build.EMBED_CHECKS_SRC),
-                      ("libnvmk_mmff", _build.MMFF_SRC), ("libnvmk_uff", _build.UFF_SRC)):
+                      ("libnvmk_mmff", _build.MMFF_SRC), ("libnvmk_uff", _build.UFF_SRC),
+                      ("libnvmk_dist_geom", _build.DIST_GEOM_SRC), ("libnvmk_etk", _build.ETK_SRC)):
         summary = sass_summary(_build._build(name, src, _build._nvcc_cmd(src)), name, sass_dir)
-        if name in ("libnvmk_mmff", "libnvmk_uff"):  # their registers only: K4-K8 are long
+        if name not in ("libnvmk_constraints", "libnvmk_embed_checks"):  # registers only
             summary = {"library": name, "res_usage": summary["res_usage"]}
         emit(result="sass", **summary)
     emit(result="sass", **sass_summary(first_path, "first_design", sass_dir))
