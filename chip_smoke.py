@@ -4479,9 +4479,9 @@ def main() -> int:
              "nvmolkit_tpu/models/uff/energy.py:319", uff_cu),
         K5U: ("uff_lbfgs (K5 over UFF: lbfgs_kernel<Uff>)", "nvmolkit_tpu/ops/lbfgs_flat.py:160",
               uff_cu),
-        K7: ("constraint_energy_grad (K7: constraint_kernel, a warp per system, its terms "
-             "one list dealt over the lanes; inside K8 the same terms staged once in shared "
-             "memory and evaluated in the force field's evaluation, once per probe)",
+        K7: ("constraint_energy_grad (K7: constraint_kernel, a block per 8 systems, a "
+             "thread a term, each kind on whole warps; inside K8 the same terms staged once "
+             "in shared memory and evaluated in the force field's evaluation, once per probe)",
              "nvmolkit_tpu/models/constraints.py:145", "nvmolkit_tpu_torch/csrc/constraints.cu"),
         K8M: ("mmff_bfgs (K8 over MMFF with constraints: bfgs_kernel<Mmff>, one block per "
               "system, one pass over its packed inverse Hessian per accepted step)", bfgs_at,
@@ -4502,8 +4502,8 @@ def main() -> int:
               "nvmolkit_tpu/ops/lbfgs_flat.py:160", dist_geom_cu),
         K8D: ("dg_bfgs (K8 over DG: bfgs_kernel<Dg>)", bfgs_at, dist_geom_cu),
         K12: ("embed_checks (K12: the six checks, a warp per system to 64 atoms and a block "
-              "past them, the pairs over tiles of 32 atoms on the bounds by diagonals, the "
-              "flags by warp votes)",
+              "past them, the pairs by rounds of two diagonals of the bounds laid out by "
+              "diagonals, the flags by warp votes)",
               "nvmolkit_tpu/embedMolecules.py:1077", "nvmolkit_tpu_torch/csrc/embed_checks.cu"),
         K13: ("etk_energy_grad (K13: energy_grad_kernel, each pair once as K11, the "
               "torsions' harmonics by angle addition; its device function etk_eval also runs "

@@ -74,8 +74,7 @@ __device__ __forceinline__ float window(float x, float lo, float hi, float k, fl
   return 0.5f * k * v * v;
 }
 
-__device__ __forceinline__ float c_distance(const int* a, const float* p, const float* x,
-                                            float* g) {
+__device__ float c_distance(const int* a, const float* p, const float* x, float* g) {
   const V3 d = sub(at(x, a[0]), at(x, a[1]));
   const float r = sqrtf(dot(d, d) + C_EPS);
   float dedr;
@@ -88,8 +87,7 @@ __device__ __forceinline__ float c_distance(const int* a, const float* p, const 
   return e;
 }
 
-__device__ __forceinline__ float c_position(const int* a, const float* p, const float* x,
-                                            float* g) {
+__device__ float c_position(const int* a, const float* p, const float* x, float* g) {
   const V3 d = sub(at(x, a[0]), V3{p[0], p[1], p[2]});
   const float r = sqrtf(dot(d, d) + C_EPS);
   float dedr;
@@ -98,7 +96,7 @@ __device__ __forceinline__ float c_position(const int* a, const float* p, const 
   return e;
 }
 
-__device__ __forceinline__ float c_angle(const int* a, const float* p, const float* x, float* g) {
+__device__ float c_angle(const int* a, const float* p, const float* x, float* g) {
   const Angle ang(x, a[0], a[1], a[2], 1.0f, C_EPS);
   float dede;
   const float e = window(acosf(ang.c) * DEG, p[0], p[1], p[2], dede);
@@ -107,8 +105,7 @@ __device__ __forceinline__ float c_angle(const int* a, const float* p, const flo
   return e;
 }
 
-__device__ __forceinline__ float c_torsion(const int* a, const float* p, const float* x,
-                                           float* g) {
+__device__ float c_torsion(const int* a, const float* p, const float* x, float* g) {
   const int i = a[0], j = a[1], k = a[2], l = a[3];
   const V3 pj = at(x, j), pk = at(x, k);
   const V3 b1 = sub(pj, at(x, i)), b2 = sub(pk, pj), b3 = sub(at(x, l), pk);
@@ -159,6 +156,42 @@ __device__ __forceinline__ float constraint_term(int kind, const int (&a)[4], co
     case 2: return c_angle(a, p, x, g);
     default: return c_torsion(a, p, x, g);
   }
+}
+
+// The first design's K8 path: the penalties of system ``s`` at positions
+// ``x`` (shared), their gradient added into ``g`` (shared, complete on
+// entry), after a force field that does not fold the terms (DG, ETK: their
+// K8 is never given tables, so it returns at once; minimizers.cuh says why
+// it stays). Returns their energy in every thread; ``g`` is complete on
+// return. A system without constraints returns 0 at once (the test is the
+// same in every thread of the block).
+__device__ float constraint_eval(const CTables& c, int s, const float* x, float* g, float* red) {
+  if (c.off == nullptr) return 0.0f;
+  const int stride = c.n_sys + 1;
+  int total = 0;
+#pragma unroll
+  for (int kind = 0; kind < C_KINDS; ++kind) total += c.off[kind * stride + s + 1] - c.off[kind * stride + s];
+  if (total == 0) return 0.0f;
+  float e = 0.0f;
+#pragma unroll
+  for (int kind = 0; kind < C_KINDS; ++kind) {
+    constexpr int arity[C_KINDS] = {2, 1, 3, 4};
+    constexpr int n_par[C_KINDS] = {3, 5, 3, 3};
+    int first, last;
+    my_run(c.off[kind * stride + s], c.off[kind * stride + s + 1], first, last);
+    for (int t = first; t < last; ++t) {
+      const int* a = c.atoms[kind] + (size_t)t * arity[kind];
+      const float* p = c.params[kind] + (size_t)t * n_par[kind];
+      switch (kind) {
+        case 0: e += c_distance(a, p, x, g); break;
+        case 1: e += c_position(a, p, x, g); break;
+        case 2: e += c_angle(a, p, x, g); break;
+        default: e += c_torsion(a, p, x, g); break;
+      }
+    }
+  }
+  __syncthreads();  // every term's atomics into g are done
+  return block_sum(e, red);
 }
 
 // One system's terms as one list: entry t < start[1] is distance term

@@ -10,8 +10,12 @@
 // mmff_eval in mmff.cu, K6's uff_eval in uff.cu, K11's dg_eval in
 // dist_geom.cu, K13's in etk.cu); ``kTerms`` says whether it also takes
 // K8's constraint terms, through an overload of ``eval`` with a hook
-// (constraints.cuh StagedTerms) that adds them before its closing
-// reduction (MMFF and UFF). For K5 and K23 it also names the blocks
+// (constraints.cuh StagedTerms) that adds them into its own reduction (MMFF
+// and UFF). K8 over the others (DG, ETK, never given constraint tables)
+// keeps the first design's constraint_eval after the evaluation, which
+// returns at once: without it nvcc compiled K8 over DG 1.8x slower on an
+// H100 (452 against 251 ms; PERF.md §6), for no reason found in its
+// registers, frame or blocks an SM. For K5 and K23 it also names the blocks
 // an SM their register budget is set for (``kLbfgsBlocks``) and whether it
 // has pair bounds to stage in shared memory (``kStaged``: DG and ETK, with
 // ``stage`` and ``eval_staged`` and ``kLbfgsStagedBlocks``). Each force
@@ -877,8 +881,8 @@ bfgs_kernel(FF ff, const __grid_constant__ CTables ct, int stage_cap, int sys_ba
     float e;
     if constexpr (FF::kTerms)
       e = ff.eval(mol, at_x, at_g, n_dof, red, StagedTerms{hdr, slab, stage_cap, &ct});
-    else
-      e = ff.eval(mol, at_x, at_g, n_dof, red);
+    else  // the first design's path, returning at once (see kTerms above)
+      e = ff.eval(mol, at_x, at_g, n_dof, red) + constraint_eval(ct, (int)sys, at_x, at_g, red);
     clk.lap(1);
     return e;
   };

@@ -317,9 +317,9 @@ def k8_results(smoke, cuda, ffm, mols):
              cycles_per_probe=per_probe,
              constraint_terms=None if cb is None else dict(zip(cons.KINDS,
                                                                cb.offsets[:, -1].tolist())),
-             instantiation=bfgs.kernel_info(ff, int(x.shape[1]), **(
-                 {"constrained": cb is not None}
-                 if "constrained" in inspect.signature(bfgs.kernel_info).parameters else {})))
+             instantiation=None if not hasattr(bfgs, "kernel_info") else bfgs.kernel_info(
+                 ff, int(x.shape[1]), **({"constrained": cb is not None} if "constrained" in
+                                         inspect.signature(bfgs.kernel_info).parameters else {})))
         del res, res_c
         torch.cuda.empty_cache()
 
