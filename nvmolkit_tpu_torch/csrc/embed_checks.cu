@@ -38,7 +38,7 @@
 // entries, and the index arithmetic a compare and a subtraction; the five term
 // tables are one list over the kinds, a term a lane; the six flags are warp
 // votes (and, for a block, an OR of its warps' in shared memory). The pair
-// loop is issue-bound (~30 instructions a pair). The first design
+// loop is bound by its instructions (~30 a pair). The first design
 // (tools/constraints_checks_first_design.cu) ran a block per system over
 // idx < n^2 with idx / n and idx % n (half skipped), both positions and the
 // dense bounds from device memory, two IEEE divisions a pair, five loops

@@ -37,7 +37,7 @@
 // int64 [n_sys, WARPS, K12_PHASES]):
 //   K7   0 load (the positions copied and g zeroed, with the barrier),
 //        1 offsets (the system's 8 offsets), 2 tables (each term's atoms and
-//        parameters issued), 3 terms (their arithmetic, and the loads'
+//        parameters asked for), 3 terms (their arithmetic, and the loads'
 //        latency), 4 pushes (the shared atomics), 5 wait (the barrier after
 //        the terms), 6 sum (block_sum), 7 write
 //   K12  0 pairs (the pair loop), 1 tables (the five term loops), 2 reduce
