@@ -1959,7 +1959,12 @@ def main() -> int:
         return time.perf_counter() - t
 
     t0 = time.perf_counter()
+    # K9's and K3's first designs (tools/k9_k3_first_design.cu), timed beside
+    # the package's kernels in the kernels line
+    split_tool = load_by_path("tools/k9_k3_phase_split.py")
+    first_k9_k3 = {}
     libs = {"nvcc_s": _build.similarity_lib, "nvcc_rmsd_s": _build.rmsd_lib,
+            "nvcc_k9_k3_first_s": lambda: first_k9_k3.setdefault("lib", split_tool.first_lib()),
             "nvcc_mmff_s": _build.mmff_lib, "nvcc_uff_s": _build.uff_lib,
             "nvcc_constraints_s": _build.constraints_lib,
             "nvcc_triangle_smooth_s": _build.triangle_smooth_lib,
@@ -2068,9 +2073,9 @@ def main() -> int:
         want = kabsch.conformer_rmsd_condensed_plain(x, mask, n_confs, rows, prealigned)
         check(got.shape == want.shape and bool(torch.isfinite(got).all()),
               f"K3 {what}: shape {tuple(got.shape)} or non-finite values")
-        e0, n_used = kabsch.condensed_scales(x, mask, n_confs, rows, prealigned)
+        e0, n_used, shift = kabsch.condensed_scales(x, mask, n_confs, rows, prealigned)
         err = (got.double() - want.double()).abs()
-        ratio = err / kabsch.rmsd_tolerance(want.double(), e0, n_used)
+        ratio = err / kabsch.rmsd_tolerance(want.double(), e0, n_used, shift)
         check(float(ratio.max()) <= 1.0, f"K3 {what}: |err| / tolerance {float(ratio.max())}")
         near = want < 0.1
         for key, sel in (("near_zero", near), ("far", ~near)):
@@ -2079,7 +2084,7 @@ def main() -> int:
         k3_err["err_over_tolerance"] = max(k3_err["err_over_tolerance"], float(ratio.max()))
         if rigid is not None and len(rigid) and not prealigned:
             idx = torch.from_numpy(rigid).to(x.device)
-            zero = kabsch.rmsd_tolerance(torch.zeros_like(e0), e0, n_used)[idx]
+            zero = kabsch.rmsd_tolerance(torch.zeros_like(e0), e0, n_used, shift)[idx]
             r = got[idx].double()
             check(bool((r <= zero).all()), f"K3 {what}: a rigid copy at {float(r.max())} Å")
             k3_err["rigid"] = max(k3_err["rigid"], float(r.max()))
@@ -2144,10 +2149,10 @@ def main() -> int:
             sel = np.nonzero(cmask[m])[0]
             heavy = torch.tensor([[a.atomic_num > 1 for a in h_mols[m].atoms]
                                   + [False] * (a_max - h_mols[m].num_atoms)])
-            e0, n_used = kabsch.condensed_scales(torch.from_numpy(pos[m, sel]), heavy,
+            e0, n_used, shift = kabsch.condensed_scales(torch.from_numpy(pos[m, sel]), heavy,
                                                  [len(sel)], prealigned=prealigned)
             err = (g.torch().cpu().double() - w.torch().double()).abs()
-            tol = kabsch.rmsd_tolerance(w.torch().double(), e0, n_used)
+            tol = kabsch.rmsd_tolerance(w.torch().double(), e0, n_used, shift)
             check(g.shape == w.shape == (len(sel) * (len(sel) - 1) // 2,),
                   f"positionsFrom molecule {m} prealigned={prealigned}: shapes {g.shape} "
                   f"(K3) and {w.shape} (plain) for {len(sel)} conformers")
@@ -2557,12 +2562,13 @@ def main() -> int:
         check(len({r.torch().untyped_storage().data_ptr() for r in out}) == 1,
               f"{what}: the per-molecule vectors are not views of one buffer")
         want = kabsch.conformer_rmsd_condensed_plain(x, mask, nc)
-        e0, n_used = kabsch.condensed_scales(x, mask, nc)
+        e0, n_used, shift = kabsch.condensed_scales(x, mask, nc)
         err = (flat.double() - want.double()).abs()
         check(bool(torch.isfinite(flat).all())
-              and bool((err <= kabsch.rmsd_tolerance(want.double(), e0, n_used)).all()),
+              and bool((err <= kabsch.rmsd_tolerance(want.double(), e0, n_used, shift)).all()),
               f"{what}: RMSD differs from the plain version")
-        zero = kabsch.rmsd_tolerance(torch.zeros_like(e0[rigid]), e0[rigid], n_used[rigid])
+        zero = kabsch.rmsd_tolerance(torch.zeros_like(e0[rigid]), e0[rigid], n_used[rigid],
+                                     shift[rigid])
         check(bool((flat[rigid].double() <= zero).all()), f"{what}: a rigid copy is not ~0")
         errs[K3] = max(errs[K3], float(err.max()))
         return x, mask, nc, n_used, flat
@@ -2579,9 +2585,9 @@ def main() -> int:
     x_b = torch.from_numpy(families.astype(np.float32)).to(cuda)
     mask_b = torch.ones((1, big.num_atoms), dtype=torch.bool, device=cuda)
     want_b = kabsch.conformer_rmsd_condensed_plain(x_b, mask_b, [n_ens])
-    e0_b, n_b = kabsch.condensed_scales(x_b, mask_b, [n_ens])
+    e0_b, n_b, shift_b = kabsch.condensed_scales(x_b, mask_b, [n_ens])
     err_b = (ens_cond.double() - want_b.double()).abs()
-    check(bool((err_b <= kabsch.rmsd_tolerance(want_b.double(), e0_b, n_b)).all()),
+    check(bool((err_b <= kabsch.rmsd_tolerance(want_b.double(), e0_b, n_b, shift_b)).all()),
           "ensemble RMSD differs from the plain version")
     errs[K3] = max(errs[K3], float(err_b.max()))
     plain_sq = square_from_condensed(want_b, n_ens)
@@ -4018,6 +4024,19 @@ def main() -> int:
                     cold=True)
         entry["gram_bmm_ms"] = median_ms(lambda g=gram_in: torch.bmm(g, g.transpose(1, 2)))
         entry["gram_bmm_is"] = "one torch.bmm of the centered stack: the Gram alone, a yardstick"
+        off1 = split_tool.first_offsets(nc)
+        off1_dev = torch.from_numpy(off1).to(cuda)
+        first_fn = (lambda x=x, m=mask_, c=nc, o=off1_dev, oh=off1: split_tool.first_k3(
+            first_k9_k3["lib"], x, m, c, False, o, oh))
+        entry["first_design"] = {"ms": median_ms(first_fn),
+                                 "cold_l2_ms": median_ms(first_fn, flush=flush),
+                                 "ms_again": None}
+        entry["ms_again"] = median_ms(lambda x=x, m=mask_, c=nc: kabsch.conformer_rmsd_condensed(
+            x, m, c))
+        entry["first_design"]["ms_again"] = median_ms(first_fn)
+        # the same sums and steps as the first design: the same bits, by design
+        entry["equal_to_first_design"] = bool(torch.equal(
+            first_fn()[0], kabsch.conformer_rmsd_condensed(x, mask_, nc)))
         k3_rows[label] = entry
         del gram_in
     # K4 and K5 at the MMFF phase's largest bucket chunk, from its starts
@@ -4148,6 +4167,17 @@ def main() -> int:
                                                                 eb["n_atoms"]),
                  lambda: triangle_smooth.triangle_smooth_bounds_plain(eb["upper"], eb["lower"],
                                                                       eb["n_atoms"]), cold=True)
+
+    def k9_first(ch):
+        return lambda: split_tool.first_k9(first_k9_k3["lib"], ch["upper"], ch["lower"],
+                                           ch["n_atoms"], False)
+
+    # the first design in turns with the package's kernel (first, K9, K9, first)
+    k9_row["first_design"] = {"ms": median_ms(k9_first(eb)),
+                              "cold_l2_ms": median_ms(k9_first(eb), flush=flush)}
+    k9_row["ms_again"] = median_ms(lambda: triangle_smooth.triangle_smooth_bounds(
+        eb["upper"], eb["lower"], eb["n_atoms"]))
+    k9_row["first_design"]["ms_again"] = median_ms(k9_first(eb))
     k10_row = row(K10, e_shape, k10_work(e_sys_n, len(e_n), big_e, rates),
                   lambda: dist_geom.random_distance_matrices(eb["batch"], eb["s2m"],
                                                              eb["uniforms"]),
@@ -4158,6 +4188,7 @@ def main() -> int:
         k9_row.setdefault("by_bucket", {})[b] = {
             "ms": median_ms(lambda ch=ch: triangle_smooth.triangle_smooth_bounds(
                 ch["upper"], ch["lower"], ch["n_atoms"])),
+            "first_design_ms": median_ms(k9_first(ch)),
             "bound_ms": k9_work(ch_n, b, rates)["bound_ms"], "molecules": len(ch_n)}
         k10_row.setdefault("by_bucket", {})[b] = {
             "ms": median_ms(lambda ch=ch: dist_geom.random_distance_matrices(
@@ -4412,6 +4443,10 @@ def main() -> int:
     # beside their bounds at the HBM rate; K3's launches are the RMSD path's
     # K3's line: the batch (a), cold if its bound is bytes, else hot
     k3_key = "cold_l2_ms" if k3_rows["batch"]["bound_by"] == "bytes" else "ms"
+    k3_rows["batch"]["by_shape"] = {
+        label: {k: e[k] for k in ("shape", "ms", "cold_l2_ms", "ms_again", "plain_ms", "bound_ms",
+                                  "first_design", "equal_to_first_design", "gram_bmm_ms")}
+        for label, e in k3_rows.items()}
     k4_key = "cold_l2_ms" if k4_row["bound_by"] == "bytes" else "ms"
     k6_key = "cold_l2_ms" if k6_row["bound_by"] == "bytes" else "ms"
     k7_key = "cold_l2_ms" if k7_row["bound_by"] == "bytes" else "ms"
@@ -4467,7 +4502,9 @@ def main() -> int:
         K1F: ("few_columns_kernel (K1, few columns)",
               "nvmolkit_tpu/ops/pallas_similarity.py:68", similarity_cu),
         K2: ("neighbor_counts_kernel (K2)", "nvmolkit_tpu/ops/butina.py:155", similarity_cu),
-        K3: ("conformer_rmsd (K3: center_kernel + pair_kernel)",
+        K3: ("conformer_rmsd (K3: molecule_kernel, a block per molecule, its conformers "
+             "centered into shared memory, 2 x 2 pairs a thread; center_kernel + tile_kernel "
+             "for molecules past its shared memory)",
              "nvmolkit_tpu/ops/kabsch.py:108", "nvmolkit_tpu_torch/csrc/rmsd.cu"),
         K4: ("mmff_energy_grad (K4: energy_grad_kernel on each chunk's starts; its device "
              "function mmff_eval also runs inside K5, once per probe)",
@@ -4487,7 +4524,9 @@ def main() -> int:
               "system, one pass over its packed inverse Hessian per accepted step)", bfgs_at,
               mmff_cu),
         K8U: ("uff_bfgs (K8 over UFF: bfgs_kernel<Uff>)", bfgs_at, uff_cu),
-        K9: ("triangle_smooth (K9: one block per molecule, every pivot)",
+        K9: ("triangle_smooth (K9: each thread a fixed tile of entries for every pivot, a "
+             "warp per molecule to 32 atoms, a block past them, row and column k + 1 published "
+             "into a two-buffer stage, one barrier a pivot)",
              "nvmolkit_tpu/ops/triangle_smooth.py:28",
              "nvmolkit_tpu_torch/csrc/triangle_smooth.cu"),
         K10: ("coordgen (K10: distance matrices, double centering, block power iteration "
@@ -4560,7 +4599,9 @@ def main() -> int:
                                      "hessian_hbm_ms", "phase_split", "peak_memory_bytes",
                                      "peak_over_allocated_before_bytes",
                                      "hessian_buffer_bytes",
-                                     "first_design_hessian_buffer_bytes", "layouts")
+                                     "first_design_hessian_buffer_bytes", "layouts",
+                                     "first_design", "ms_again", "equal_to_first_design",
+                                     "by_shape")
                if k in entry}})
     print(json.dumps({"kernels": lines}))
     print(smi_line)

@@ -166,7 +166,7 @@ def _declare_rmsd(lib: ctypes.CDLL) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.nvmk_conformer_rmsd.restype = ci
     lib.nvmk_conformer_rmsd.argtypes = [
-        vp, vp, ci, ci, vp, vp, ci, ctypes.c_longlong, ci, vp, ci, vp, vp, vp, vp,
+        vp, vp, ci, ci, vp, vp, ci, ctypes.c_longlong, ci, ci, ci, vp, ci, vp, vp, vp, vp,
     ]
 
 

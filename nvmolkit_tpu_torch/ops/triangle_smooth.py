@@ -91,3 +91,69 @@ def triangle_smooth_bounds(upper: torch.Tensor, lower: torch.Tensor, n_atoms: to
         raise RuntimeError(f"triangle_smooth kernel launch failed with CUDA error {rc}")
     launch_counts["triangle_smooth"] += 1
     return ub, lb, ok.bool()
+
+
+WARP_MAX_ATOMS, REGISTER_MAX_ATOMS, SHARED_MAX_ATOMS = 32, 96, 160
+
+
+def kernel_layout(a_pad: int) -> dict:
+    """K9's layout at bucket ``a_pad`` (``csrc/triangle_smooth.cu``): a warp
+    per molecule (lanes 4 x 8) up to 32 atoms, a block of 16 x 16 threads
+    past them; each thread's tile of ri x rj entries in registers up to 96
+    atoms, past them the entries (ti + 16 r, tj + 16 c) in shared memory
+    (to 160 atoms) or global memory. ``span``: the stage's length (rows and
+    columns the layout covers)."""
+    if a_pad <= WARP_MAX_ATOMS:
+        a = 16 if a_pad <= 16 else 32
+        return {"kind": "warp", "ti": 4, "tj": 8, "ri": a // 4, "rj": a // 8, "span": a}
+    if a_pad <= REGISTER_MAX_ATOMS:
+        r = next(r for r in (3, 4, 5, 6) if a_pad <= 16 * r)
+        return {"kind": "registers", "ti": 16, "tj": 16, "ri": r, "rj": r, "span": 16 * r}
+    span = -(-a_pad // 16) * 16
+    return {"kind": "shared" if a_pad <= SHARED_MAX_ATOMS else "global", "ti": 16, "tj": 16,
+            "ri": span // 16, "rj": span // 16, "span": span}
+
+
+def triangle_smooth_model(upper: torch.Tensor, lower: torch.Tensor, n_atoms: torch.Tensor):
+    """K9's order of work, in torch: (ub, lb, consistent) as
+    :func:`triangle_smooth_bounds` returns them.
+
+    Each molecule's span x span work matrices (:func:`kernel_layout`) hold
+    its real entries and, past its n atoms, 1e6 upper and 0 lower. Before
+    pivot 0 the owners publish row 0 and column 0 into buffer 0 of a
+    two-buffer stage; pivot k updates every entry from buffer k % 2 alone,
+    then the owners of row and column k + 1 publish them, as they stand
+    after pivot k, into the other buffer. Only the first n pivots run. The
+    flag reads the real entries; the outputs are the padded matrices with a
+    zero diagonal. (Which thread owns an entry changes no arithmetic: every
+    entry is written by its owner only.)"""
+    M, A = upper.shape[:2]
+    span = kernel_layout(A)["span"]
+    idx = torch.arange(span)
+    n = n_atoms.to(torch.int64)
+    real = (idx[None, :, None] < n[:, None, None]) & (idx[None, None, :] < n[:, None, None])
+    pad = (0, span - A, 0, span - A)
+    u = torch.where(real, torch.nn.functional.pad(upper, pad), _BIG)
+    l = torch.where(real, torch.nn.functional.pad(lower, pad), 0.0)
+    stage = torch.zeros((M, 2, 4, span), dtype=upper.dtype)
+
+    def publish(k: int, buf: int, who: torch.Tensor):
+        stage[who, buf, 0], stage[who, buf, 1] = u[who, k, :], l[who, k, :]
+        stage[who, buf, 2], stage[who, buf, 3] = u[who, :, k], l[who, :, k]
+
+    publish(0, 0, n > 0)
+    for k in range(int(n.max()) if M else 0):
+        live = k < n
+        ru, rl, cu, cl = (stage[:, k % 2, q] for q in range(4))
+        nu = torch.minimum(u, cu[:, :, None] + ru[:, None, :])
+        nl = torch.maximum(l, torch.maximum(cl[:, :, None] - ru[:, None, :],
+                                            rl[:, None, :] - cu[:, :, None]))
+        u = torch.where(live[:, None, None], nu, u)
+        l = torch.where(live[:, None, None], nl, l)
+        if k + 1 < span:
+            publish(k + 1, (k + 1) % 2, k + 1 < n)
+    consistent = ~((l > u + 1e-5) & real).any(dim=(1, 2))
+    u, l = u[:, :A, :A], l[:, :A, :A]
+    real, eye = real[:, :A, :A], torch.eye(A, dtype=torch.bool)
+    return (torch.where(eye, 0.0, torch.where(real, u, _BIG)),
+            torch.where(eye, 0.0, torch.where(real, l, 0.0)), consistent)

@@ -45,10 +45,10 @@ def _ensemble(rng, n_atoms, n_confs):
     return np.stack(out)
 
 
-def _assert_close(got, want, e0, n):
+def _assert_close(got, want, scales):
     got, want = torch.as_tensor(got), torch.as_tensor(want)
     assert got.shape == want.shape
-    tol = kabsch.rmsd_tolerance(want.double(), e0, n)
+    tol = kabsch.rmsd_tolerance(want.double(), *scales)
     err = (got.double() - want.double()).abs()
     assert bool((err <= tol).all()), f"max err/tol {float((err / tol).max())}"
 
@@ -69,9 +69,9 @@ def test_plain_matrices_match_jax(prealigned):
         torch.from_numpy(confs), torch.from_numpy(mask), prealigned)
     # held on the condensed entries of the real conformers
     x = torch.from_numpy(np.concatenate([confs[m, :c] for m, c in enumerate(n_confs)]))
-    e0, n = kabsch.condensed_scales(x, torch.from_numpy(mask), n_confs, prealigned=prealigned)
+    scales = kabsch.condensed_scales(x, torch.from_numpy(mask), n_confs, prealigned=prealigned)
     mol, i, j = kabsch._pair_index(np.asarray(n_confs))
-    _assert_close(got[mol, i, j], want[mol, i, j], e0, n)
+    _assert_close(got[mol, i, j], want[mol, i, j], scales)
     flat = kabsch.conformer_rmsd_condensed(x, torch.from_numpy(mask), n_confs,
                                            prealigned=prealigned)
     assert torch.equal(flat, got[mol, i, j])
@@ -92,6 +92,95 @@ def test_qcp_matches_jax():
     s = np.linalg.svd(h.astype(np.float64), compute_uv=False)
     s[:, 2] *= np.sign(np.linalg.det(h.astype(np.float64)))
     np.testing.assert_allclose(got, s.sum(1), rtol=1e-4)
+
+
+def _small_sets(atoms: int, trials: int, confs: int = 30):
+    """``tools/k3_degenerate_probe.py``'s seeded sets: ``trials`` molecules
+    of ``atoms`` atoms, ``confs`` noisy copies of a random geometry each."""
+    rng = np.random.default_rng(0)
+    out = []
+    for _ in range(trials):
+        base = rng.normal(size=(atoms, 3)) * 1.2
+        out.append(np.stack([base + rng.normal(size=(atoms, 3)) * 0.6 for _ in range(confs)]))
+    return np.concatenate(out).astype(np.float32), [confs] * trials
+
+
+@pytest.mark.parametrize("atoms", [3, 5])
+def test_float32_within_derived_tolerance_of_float64(atoms):
+    """Fault 22: the float32 plain version against the same arithmetic in
+    float64 on seeded sets of three atoms (always coplanar: the QCP root can
+    sit near another, where rounding moves it by ~sqrt(eps) e0) and five,
+    within rmsd_tolerance with each pair's root shift (condensed_scales).
+    Without it, 20 of the three-atom pairs of the probe's 200 sets lay over
+    the tolerance (worst 7.8x)."""
+    x, n_confs = _small_sets(atoms, 120)
+    mask = torch.ones((len(n_confs), atoms), dtype=torch.bool)
+    x = torch.from_numpy(x)
+    got = kabsch.conformer_rmsd_condensed_plain(x, mask, n_confs)
+    dense = x.double().view(len(n_confs), n_confs[0], atoms, 3)
+    mol, i, j = kabsch._pair_index(np.asarray(n_confs))
+    want = kabsch.conformer_rms_matrices_plain(dense, mask)[mol, i, j]
+    scales = kabsch.condensed_scales(x, mask, n_confs)
+    err = (got.double() - want).abs()
+    assert bool((err <= kabsch.rmsd_tolerance(want, *scales)).all())
+    # the root shift prices what the gap-free bound missed
+    over_old = err > kabsch.rmsd_tolerance(want, *scales[:2])
+    if atoms == 3:
+        assert int(over_old.sum()) > 0
+
+
+def test_jax_within_derived_tolerance_at_three_atoms():
+    """The JAX package's float32 RMSD and the port's plain version on the
+    seeded three-atom sets: within the derived tolerance of each other."""
+    x, n_confs = _small_sets(3, 60)
+    mask = np.ones((len(n_confs), 3), bool)
+    want = np.asarray(conformer_rms_matrices(
+        jnp.asarray(x.reshape(len(n_confs), n_confs[0], 3, 3)), jnp.asarray(mask), False))
+    mol, i, j = kabsch._pair_index(np.asarray(n_confs))
+    got = kabsch.conformer_rmsd_condensed_plain(torch.from_numpy(x), torch.from_numpy(mask),
+                                                n_confs)
+    scales = kabsch.condensed_scales(torch.from_numpy(x), torch.from_numpy(mask), n_confs)
+    _assert_close(got, want[mol, i, j], scales)
+
+
+def test_root_shift_is_the_key_matrix_sensitivity():
+    """The key matrix's largest float64 eigenvalue is the QCP root (Newton's
+    12 steps agree where the gap is wide); a collinear (two-atom) pair has a
+    double root, priced by sqrt(dP / a_2); on an ensemble of 20 atoms
+    (noisy copies of one geometry: wide gaps) the derived term lies under the
+    old bound for nearly every pair, so the tolerance is the old one there."""
+    rng = np.random.default_rng(4)
+    a = rng.normal(size=(256, 20, 3))
+    b = a @ np.stack([_rot(rng) for _ in range(256)]) + rng.normal(size=(256, 20, 3)) * 0.4
+    h = torch.from_numpy(np.einsum("pni,pnj->pij", a, b))
+    e0 = torch.from_numpy(0.5 * ((a ** 2).sum((1, 2)) + (b ** 2).sum((1, 2))))
+    lam = torch.linalg.eigvalsh(kabsch.qcp_key_matrix(h))
+    assert torch.allclose(lam[:, 3], kabsch.qcp_max_eig_plain(h, e0), rtol=1e-12, atol=0)
+    # the shift's derivatives are the key matrix's eigenvalue gaps
+    d = lam[:, 3:] - lam[:, :3]
+    a = (d.prod(dim=1), (d[:, 0] * d[:, 1] + d[:, 0] * d[:, 2] + d[:, 1] * d[:, 2]),
+         d.sum(dim=1))
+    dp = kabsch.QCP_ROUNDING * kabsch.EPS32 * e0 ** 4
+    want = torch.minimum(dp ** 0.25, torch.stack([(dp / a[m]) ** (1.0 / (m + 1))
+                                                   for m in range(3)]).amin(dim=0))
+    want = want + (kabsch.qcp_max_eig_plain(h, e0) - lam[:, 3]).abs()
+    assert torch.allclose(kabsch.qcp_root_shift(h, e0), want, rtol=1e-6, atol=0)
+    # collinear: eigenvalues +-s, each twice; the shift is sqrt(dP / (4 s^2))
+    u, v = rng.normal(size=3), rng.normal(size=3)
+    h1 = torch.from_numpy(np.outer(u, v))[None]
+    s = float(np.linalg.norm(u) * np.linalg.norm(v))
+    e1 = torch.tensor([s * 1.1], dtype=torch.float64)
+    dp = kabsch.QCP_ROUNDING * kabsch.EPS32 * float(e1) ** 4
+    newton = float((kabsch.qcp_max_eig_plain(h1, e1) - s).abs())
+    # (float64 finds a double root to ~sqrt(eps64) e0 only)
+    assert math.isclose(float(kabsch.qcp_root_shift(h1, e1)), (dp / (4 * s * s)) ** 0.5 + newton,
+                        rel_tol=1e-4)
+    x = torch.from_numpy(_ensemble(rng, 20, 32).astype(np.float32))
+    mask = torch.ones((1, 20), dtype=torch.bool)
+    want = kabsch.conformer_rmsd_condensed_plain(x, mask, [32]).double()
+    scales = kabsch.condensed_scales(x, mask, [32])
+    same = kabsch.rmsd_tolerance(want, *scales) == kabsch.rmsd_tolerance(want, *scales[:2])
+    assert float(same.double().mean()) >= 0.99
 
 
 def _mols_with_confs(rng, smiles, n_confs, jax=False):
@@ -116,9 +205,9 @@ def test_batch_matches_jax(prealigned, heavy):
     for m, g, w in zip(mols, got, want):
         x = torch.from_numpy(np.stack(m.conformers).astype(np.float32))
         mask = torch.tensor([[a.atomic_num > 1 or not heavy for a in m.atoms]])
-        e0, n = kabsch.condensed_scales(x, mask, [len(m.conformers)], prealigned=prealigned)
+        scales = kabsch.condensed_scales(x, mask, [len(m.conformers)], prealigned=prealigned)
         assert g.torch().dtype == torch.float32 and g.device == torch.device("cpu")
-        _assert_close(g.torch(), w.numpy(), e0, n)
+        _assert_close(g.torch(), w.numpy(), scales)
 
 
 def test_positions_from_matches_jax():
@@ -144,8 +233,8 @@ def test_positions_from_matches_jax():
             slots = np.nonzero(cmask[s])[0]
             x = torch.from_numpy(pos[s, slots])
             mask = torch.from_numpy(amask[s:s + 1])
-            e0, n = kabsch.condensed_scales(x, mask, [len(slots)], prealigned=prealigned)
-            _assert_close(g.torch(), w.numpy(), e0, n)
+            scales = kabsch.condensed_scales(x, mask, [len(slots)], prealigned=prealigned)
+            _assert_close(g.torch(), w.numpy(), scales)
 
 
 def test_dense3d_views_match_jax():

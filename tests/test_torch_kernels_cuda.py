@@ -229,15 +229,15 @@ def test_conformer_rmsd_kernel_matches_plain(cuda, n_confs, n_atoms, heavy, prea
     torch.cuda.synchronize()
     assert kabsch.launch_counts["conformer_rmsd"] == before + 1
     want = kabsch.conformer_rmsd_condensed_plain(x, mask, n_confs, prealigned=prealigned)
-    e0, n = kabsch.condensed_scales(x, mask, n_confs, prealigned=prealigned)
-    tol = kabsch.rmsd_tolerance(want.double(), e0, n)
+    e0, n, shift = kabsch.condensed_scales(x, mask, n_confs, prealigned=prealigned)
+    tol = kabsch.rmsd_tolerance(want.double(), e0, n, shift)
     ratio = (got.double() - want.double()).abs() / tol
     k = int(ratio.argmax())
     assert float(ratio[k]) <= 1.0, (
         f"entry {k}: K3 {float(got[k])}, plain {float(want[k])}, tolerance {float(tol[k])}, "
         f"e0 {float(e0[k])}, n {float(n[k])}")
     if not prealigned:  # exact rigid copies: below the near-zero bound
-        zero = kabsch.rmsd_tolerance(torch.zeros_like(e0), e0, n)
+        zero = kabsch.rmsd_tolerance(torch.zeros_like(e0), e0, n, shift)
         assert bool((got[rigid].double() <= zero[rigid]).all())
 
 
@@ -279,9 +279,9 @@ def test_conformer_rmsd_api_on_cuda_matches_cpu(cuda):
             x = torch.from_numpy(np.stack(m.conformers).astype(np.float32))
             heavy = torch.tensor([[a.atomic_num > 1 for a in m.atoms]])
             assert not bool(heavy.all())
-            e0, n = kabsch.condensed_scales(x, heavy, [len(m.conformers)],
+            e0, n, shift = kabsch.condensed_scales(x, heavy, [len(m.conformers)],
                                             prealigned=prealigned)
-            tol = kabsch.rmsd_tolerance(w.torch().double(), e0, n)
+            tol = kabsch.rmsd_tolerance(w.torch().double(), e0, n, shift)
             assert bool(((g.torch().cpu().double() - w.torch().double()).abs() <= tol).all())
 
 
@@ -323,9 +323,9 @@ def test_conformer_rmsd_positions_from_repeats_bit_for_bit(cuda):
             sel = np.nonzero(cmask[m])[0]
             heavy = torch.from_numpy(np.array([[a.atomic_num > 1 for a in mols[m].atoms]
                                                + [False] * (a_max - mols[m].num_atoms)]))
-            e0, n = kabsch.condensed_scales(torch.from_numpy(pos[m, sel]), heavy, [len(sel)],
+            e0, n, shift = kabsch.condensed_scales(torch.from_numpy(pos[m, sel]), heavy, [len(sel)],
                                             prealigned=prealigned)
-            tol = kabsch.rmsd_tolerance(w.torch().double(), e0, n)
+            tol = kabsch.rmsd_tolerance(w.torch().double(), e0, n, shift)
             assert g.shape == w.shape == (len(sel) * (len(sel) - 1) // 2,)
             assert bool(((g.double() - w.torch().double()).abs() <= tol).all()), m
 

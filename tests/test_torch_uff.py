@@ -24,7 +24,9 @@ from nvmolkit_tpu_torch.chem import mol_from_smiles
 from nvmolkit_tpu_torch.models.uff import energy as puff
 from nvmolkit_tpu_torch.models.uff.builder import UFFBuildError, build_uff_terms
 from nvmolkit_tpu_torch.ops.bfgs import CAPPED
+from nvmolkit_tpu_torch.models.uff.energy import UFF
 from nvmolkit_tpu_torch.ops.lbfgs_flat import HISTORY, uff_lbfgs
+from nvmolkit_tpu_torch.testutils import end_energy_bound, term_magnitude
 from nvmolkit_tpu_torch.types import CoordinateOutput, Dense3DResult
 from nvmolkit_tpu_torch.uffOptimization import UFFOptimizeMoleculesConfs
 from tests.data.smiles import SMILES_100
@@ -340,8 +342,16 @@ def test_lbfgs_follows_jax_through_the_history():
     assert res.n_accepted.tolist() == [HISTORY + 2] * len(pos)
     assert res.status.tolist() == [CAPPED] * len(pos) and not np.asarray(r.converged).any()
     assert np.abs(res.positions.numpy() - np.asarray(r.positions)).max() <= 1e-4
+    # the energies at JAX's end within the energy's own bound, and the end
+    # energies within what the ends' distance moves them by
+    # (testutils.end_energy_bound)
     je = np.asarray(r.energies)
-    assert np.all(np.abs(res.energies.numpy() - je) <= 1e-5 * np.abs(je) + 1e-3)
+    jpos, s2m_t = torch.from_numpy(np.asarray(r.positions)), torch.from_numpy(s2m.astype(np.int32))
+    at_jax, _ = puff.uff_energy_and_grad(jpos, pb, s2m_t)
+    assert np.all(np.abs(at_jax.numpy() - je)
+                  <= 1e-5 * term_magnitude(UFF, jpos, pb, s2m_t).numpy() + 1e-4)
+    bound, _ = end_energy_bound(UFF, pb, s2m_t, jpos, res.positions)
+    assert np.all(np.abs(res.energies.numpy() - je) <= bound.numpy())
 
 
 @pytest.mark.parametrize("backend", ["flat", "bfgs"])

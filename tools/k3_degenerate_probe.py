@@ -6,12 +6,12 @@ against the same arithmetic in float64 on seeded random 3-atom conformers.
 
 Three atoms are always coplanar, so the QCP quartic's largest root can sit
 close to another one (a superposition near a reflection), where a float32
-evaluation moves the root by ~sqrt(eps) rather than eps, while
-``ops/kabsch.rmsd_tolerance`` prices such a double root only for two atoms
-or fewer. Prints the worst |float32 - float64| over the tolerance and the
-count of pairs over it (``chip_smoke.py``'s positionsFrom check holds K3
-against the float32 plain version on a 3-heavy-atom molecule). Imports
-nothing of JAX.
+evaluation moves the root by ~sqrt(eps) rather than eps.
+``ops/kabsch.rmsd_tolerance`` prices that from each pair's own key matrix
+(``condensed_scales``' root shift). Prints the worst |float32 - float64|
+over the tolerance and the count of pairs over it (``chip_smoke.py``'s
+positionsFrom check holds K3 against the float32 plain version on a
+3-heavy-atom molecule). Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -44,8 +44,8 @@ def main() -> int:
         r64 = kabsch.conformer_rms_matrices_plain(x[None].double(), mask)[0]
         iu = torch.triu_indices(confs, confs, 1)
         got, want = r32[iu[0], iu[1]].double(), r64[iu[0], iu[1]]
-        e0, n = kabsch.condensed_scales(x, mask, [confs], prealigned=False)
-        ratio = (got - want).abs() / kabsch.rmsd_tolerance(want, e0, n)
+        scales = kabsch.condensed_scales(x, mask, [confs], prealigned=False)
+        ratio = (got - want).abs() / kabsch.rmsd_tolerance(want, *scales)
         worst = max(worst, float(ratio.max()))
         over += int((ratio > 1).sum())
         pairs += len(got)
