@@ -37,9 +37,9 @@ _GRAM_BUDGET = 1 << 28  # f32 elements of the plain version's Gram blocks per ch
 EPS32 = 2.0 ** -23
 # k of the float32 rounding dP = k eps e0^4 of the QCP quartic near its
 # largest root (qcp_root_shift): the float32 plain version against float64
-# on seeded three-atom sets needs about 3 (k = 1: 13 of 87,000 pairs over,
-# worst 2.4x; k = 4: worst 0.80x; k = 16: 0.23x), held by
-# tests/test_torch_conformer_rmsd.py
+# on tools/k3_degenerate_probe.py's seeded three-atom sets needs about 3
+# (k = 1: 13 of 87,000 pairs over, worst 2.4x; k = 4: worst 0.80x; k = 16:
+# 0.23x), held by tests/test_torch_conformer_rmsd.py
 QCP_ROUNDING = 16.0
 
 launch_counts = {"conformer_rmsd": 0}
@@ -50,27 +50,18 @@ def reset_launch_counts() -> None:
         launch_counts[k] = 0
 
 
-def qcp_max_eig_plain(h: torch.Tensor, e0: torch.Tensor, early_exit: bool = False
-                      ) -> torch.Tensor:
-    """Largest eigenvalue of the QCP 4x4 key matrix for cross-covariance
-    blocks ``h`` [..., 3, 3], i.e. max_R tr(R h); 12 Newton steps from the
-    upper bound ``e0``, with ``_qcp_max_eig``'s coefficients and guard.
-    ``early_exit`` models K3, whose Newton stops where a step leaves lambda
-    unchanged (every later step would give the same bits)."""
+def _qcp_coefficients(h: torch.Tensor):
+    """(c2, c1, c0) of the QCP quartic x^4 + c2 x^2 + c1 x + c0 of ``h``
+    [..., 3, 3], with ``_qcp_max_eig``'s expressions."""
     sxx, sxy, sxz = h[..., 0, 0], h[..., 0, 1], h[..., 0, 2]
     syx, syy, syz = h[..., 1, 0], h[..., 1, 1], h[..., 1, 2]
     szx, szy, szz = h[..., 2, 0], h[..., 2, 1], h[..., 2, 2]
-
     sxx2, sxy2, sxz2 = sxx * sxx, sxy * sxy, sxz * sxz
     syx2, syy2, syz2 = syx * syx, syy * syy, syz * syz
     szx2, szy2, szz2 = szx * szx, szy * szy, szz * szz
-
     c2 = -2.0 * (sxx2 + sxy2 + sxz2 + syx2 + syy2 + syz2 + szx2 + szy2 + szz2)
-    c1 = 8.0 * (
-        sxx * syz * szy + syy * szx * sxz + szz * sxy * syx
-        - sxx * syy * szz - syz * szx * sxy - szy * syx * sxz
-    )
-
+    c1 = 8.0 * (sxx * syz * szy + syy * szx * sxz + szz * sxy * syx
+                - sxx * syy * szz - syz * szx * sxy - szy * syx * sxz)
     sxz_p_szx, sxz_m_szx = sxz + szx, sxz - szx
     syz_p_szy, syz_m_szy = syz + szy, syz - szy
     sxy_p_syx, sxy_m_syx = sxy + syx, sxy - syx
@@ -90,21 +81,22 @@ def qcp_max_eig_plain(h: torch.Tensor, e0: torch.Tensor, early_exit: bool = Fals
         + (sxy_p_syx * syz_m_szy + sxz_m_szx * (sxx_m_syy - szz))
         * (-(sxy_m_syx) * syz_p_szy + sxz_m_szx * (sxx_p_syy - szz))
     )
+    return c2, c1, c0
 
+
+def qcp_max_eig_plain(h: torch.Tensor, e0: torch.Tensor) -> torch.Tensor:
+    """Largest eigenvalue of the QCP 4x4 key matrix for cross-covariance
+    blocks ``h`` [..., 3, 3], i.e. max_R tr(R h); 12 Newton steps from the
+    upper bound ``e0``, with ``_qcp_max_eig``'s coefficients and guard."""
+    c2, c1, c0 = _qcp_coefficients(h)
     lam = e0
-    running = torch.ones_like(lam, dtype=torch.bool)
     for _ in range(12):
         x2 = lam * lam
         b = (x2 + c2) * lam
         a = b + c1
         dp = 2.0 * x2 * lam + b + a  # P'(lam)
         safe = torch.where(dp.abs() > 0.0, dp, 1.0)
-        nxt = lam - (a * lam + c0) / safe
-        if early_exit:  # K3's rule: an element stops when a step leaves it unchanged
-            running = running & (nxt != lam)
-            lam = torch.where(running, nxt, lam)
-        else:
-            lam = nxt
+        lam = lam - (a * lam + c0) / safe
     return lam
 
 
@@ -134,16 +126,18 @@ def conformer_rms_matrices_plain(
     return torch.sqrt((2.0 * (e0 - trace)).clamp_min(0.0) / n[:, None, None])
 
 
-def plane_stride(c: int) -> int:
-    """molecule_kernel's plane row length for ``c`` conformers
-    (``csrc/rmsd.cu`` ``plane_stride``)."""
-    s = (c + 1) // 2 * 2 + 2
-    return s + 2 if s % 4 == 0 else s
+def plane_stride(c):
+    """molecule_kernel's plane row length for ``c`` conformers (an int or
+    an int array; ``csrc/rmsd.cu`` ``plane_stride``)."""
+    s = (np.asarray(c, np.int64) + 1) // 2 * 2 + 2
+    s = np.where(s % 4 == 0, s + 2, s)
+    return int(s) if s.ndim == 0 else s
 
 
-def molecule_smem_bytes(c: int, a_in: int) -> int:
-    """molecule_kernel's shared memory for a molecule of ``c`` conformers
-    of ``a_in`` atoms: x, y, z planes [a_in][stride], g and the slots."""
+def molecule_smem_bytes(c, a_in: int):
+    """molecule_kernel's shared memory for molecules of ``c`` conformers
+    (an int or an int array) of ``a_in`` atoms: x, y, z planes [a_in]
+    [stride], g and the slots."""
     stride = plane_stride(c)
     return 4 * (3 * a_in * stride + stride) + 4 * a_in
 
@@ -156,7 +150,7 @@ def kernel_plan(n_confs, a_in: int):
     three prefix sums); the others take TILE x TILE tiles of tile_kernel.
     The prefix sums are of conformers, of tiles and of condensed pairs."""
     c = np.asarray(n_confs, np.int64)
-    smem = np.array([molecule_smem_bytes(int(k), a_in) for k in c], np.int64)
+    smem = np.asarray(molecule_smem_bytes(c, a_in), np.int64)
     fits = (c >= 2) & (smem <= MOLECULE_SMEM_BYTES)
     t = (c + TILE - 1) // TILE
     tiles = np.where((c >= 2) & ~fits, t * (t + 1) // 2, 0)
@@ -227,54 +221,6 @@ def _pair_index(n_confs: np.ndarray):
     return mol, i, k - i * (i - 1) // 2
 
 
-def qcp_key_matrix(h: torch.Tensor) -> torch.Tensor:
-    """The QCP key matrix [..., 4, 4] of cross-covariances ``h`` [..., 3, 3]
-    (Theobald 2005): symmetric, its characteristic polynomial the quartic
-    whose largest root :func:`qcp_max_eig_plain` finds."""
-    sxx, sxy, sxz = h[..., 0, 0], h[..., 0, 1], h[..., 0, 2]
-    syx, syy, syz = h[..., 1, 0], h[..., 1, 1], h[..., 1, 2]
-    szx, szy, szz = h[..., 2, 0], h[..., 2, 1], h[..., 2, 2]
-    rows = [[sxx + syy + szz, syz - szy, szx - sxz, sxy - syx],
-            [syz - szy, sxx - syy - szz, sxy + syx, szx + sxz],
-            [szx - sxz, sxy + syx, -sxx + syy - szz, syz + szy],
-            [sxy - syx, szx + sxz, syz + szy, -sxx - syy + szz]]
-    return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
-
-
-def _qcp_coefficients(h: torch.Tensor):
-    """(c2, c1, c0) of the QCP quartic x^4 + c2 x^2 + c1 x + c0 of ``h``
-    [..., 3, 3], with ``_qcp_max_eig``'s expressions."""
-    sxx, sxy, sxz = h[..., 0, 0], h[..., 0, 1], h[..., 0, 2]
-    syx, syy, syz = h[..., 1, 0], h[..., 1, 1], h[..., 1, 2]
-    szx, szy, szz = h[..., 2, 0], h[..., 2, 1], h[..., 2, 2]
-    sxx2, sxy2, sxz2 = sxx * sxx, sxy * sxy, sxz * sxz
-    syx2, syy2, syz2 = syx * syx, syy * syy, syz * syz
-    szx2, szy2, szz2 = szx * szx, szy * szy, szz * szz
-    c2 = -2.0 * (sxx2 + sxy2 + sxz2 + syx2 + syy2 + syz2 + szx2 + szy2 + szz2)
-    c1 = 8.0 * (sxx * syz * szy + syy * szx * sxz + szz * sxy * syx
-                - sxx * syy * szz - syz * szx * sxy - szy * syx * sxz)
-    sxz_p_szx, sxz_m_szx = sxz + szx, sxz - szx
-    syz_p_szy, syz_m_szy = syz + szy, syz - szy
-    sxy_p_syx, sxy_m_syx = sxy + syx, sxy - syx
-    sxx_p_syy, sxx_m_syy = sxx + syy, sxx - syy
-    d1 = syy2 + szz2 - sxx2 + syz2 + szy2
-    d2 = 2.0 * (syz * szy - syy * szz)
-    t0 = sxy2 + sxz2 - syx2 - szx2
-    c0 = (
-        t0 * t0
-        + (d1 + d2) * (d1 - d2)
-        + (-(sxz_p_szx) * syz_m_szy + sxy_m_syx * (sxx_m_syy - szz))
-        * (-(sxz_m_szx) * syz_p_szy + sxy_m_syx * (sxx_m_syy + szz))
-        + (-(sxz_p_szx) * syz_p_szy - sxy_p_syx * (sxx_p_syy - szz))
-        * (-(sxz_m_szx) * syz_m_szy - sxy_p_syx * (sxx_p_syy + szz))
-        + (sxy_p_syx * syz_p_szy + sxz_p_szx * (sxx_m_syy + szz))
-        * (-(sxy_m_syx) * syz_m_szy + sxz_p_szx * (sxx_p_syy + szz))
-        + (sxy_p_syx * syz_m_szy + sxz_m_szx * (sxx_m_syy - szz))
-        * (-(sxy_m_syx) * syz_p_szy + sxz_m_szx * (sxx_p_syy - szz))
-    )
-    return c2, c1, c0
-
-
 def qcp_root_shift(h: torch.Tensor, e0: torch.Tensor) -> torch.Tensor:
     """How far a float32 evaluation of the QCP root may move it (float64,
     the shape of ``e0``), from the float64 cross-covariances ``h`` [..., 3, 3].
@@ -294,7 +240,8 @@ def qcp_root_shift(h: torch.Tensor, e0: torch.Tensor) -> torch.Tensor:
     from e0 can stop short of l_1, and a float32 run whose rounding split the
     root converges past where the float64 run stopped: the float64 run's own
     distance from l_1 after its 12 steps is added. (The gaps are those of
-    the key matrix's eigenvalues, :func:`qcp_key_matrix`.)"""
+    the eigenvalues of Theobald's 4 x 4 key matrix, whose characteristic
+    polynomial P is.)"""
     h, e0 = h.double(), e0.double()
     c2, c1, c0 = _qcp_coefficients(h)
     lam = e0

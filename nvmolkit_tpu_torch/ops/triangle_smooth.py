@@ -98,20 +98,40 @@ WARP_MAX_ATOMS, REGISTER_MAX_ATOMS, SHARED_MAX_ATOMS = 32, 96, 160
 
 def kernel_layout(a_pad: int) -> dict:
     """K9's layout at bucket ``a_pad`` (``csrc/triangle_smooth.cu``): a warp
-    per molecule (lanes 4 x 8) up to 32 atoms, a block of 16 x 16 threads
-    past them; each thread's tile of ri x rj entries in registers up to 96
-    atoms, past them the entries (ti + 16 r, tj + 16 c) in shared memory
-    (to 160 atoms) or global memory. ``span``: the stage's length (rows and
-    columns the layout covers)."""
+    per molecule (lanes 4 x 8) up to 32 atoms, each a tile of ri x rj
+    entries in registers; to 64 atoms a block of 8 x 16 threads, tiles of 2R
+    x R, to 96 16 x 16 threads, R x R; past 96 a block of 16 x 16 threads
+    owning the entries (ti + 16 r, tj + 16 c) in shared memory (to 160
+    atoms) or global memory. ``span``: the stage's length (rows and columns
+    the layout covers)."""
     if a_pad <= WARP_MAX_ATOMS:
         a = 16 if a_pad <= 16 else 32
         return {"kind": "warp", "ti": 4, "tj": 8, "ri": a // 4, "rj": a // 8, "span": a}
     if a_pad <= REGISTER_MAX_ATOMS:
         r = next(r for r in (3, 4, 5, 6) if a_pad <= 16 * r)
-        return {"kind": "registers", "ti": 16, "tj": 16, "ri": r, "rj": r, "span": 16 * r}
+        ti = 8 if r <= 4 else 16
+        return {"kind": "registers", "ti": ti, "tj": 16, "ri": 16 * r // ti, "rj": r,
+                "span": 16 * r}
     span = -(-a_pad // 16) * 16
     return {"kind": "shared" if a_pad <= SHARED_MAX_ATOMS else "global", "ti": 16, "tj": 16,
             "ri": span // 16, "rj": span // 16, "span": span}
+
+
+def symmetric_inputs(upper: torch.Tensor, lower: torch.Tensor, n_atoms: torch.Tensor):
+    """bool [M]: K9's test for its symmetric pivot loop. Each molecule's
+    real block of both inputs equals its transpose bit for bit, and every
+    real entry is finite, not -0 and under 1e30 in magnitude (so no pivot
+    makes a -0, a NaN or an inf)."""
+    A = upper.shape[1]
+    real = atom_mask_of(n_atoms, A)
+    real = real[:, :, None] & real[:, None, :]
+    ok = torch.ones(upper.shape[0], dtype=torch.bool, device=upper.device)
+    for t in (upper, lower):
+        bits = t.contiguous().view(torch.int32)
+        same = bits == bits.transpose(1, 2)
+        plain = (t.abs() < 1e30) & (bits != torch.iinfo(torch.int32).min)
+        ok &= ((same & plain) | ~real).all(dim=(1, 2))
+    return ok
 
 
 def triangle_smooth_model(upper: torch.Tensor, lower: torch.Tensor, n_atoms: torch.Tensor):
@@ -123,7 +143,9 @@ def triangle_smooth_model(upper: torch.Tensor, lower: torch.Tensor, n_atoms: tor
     pivot 0 the owners publish row 0 and column 0 into buffer 0 of a
     two-buffer stage; pivot k updates every entry from buffer k % 2 alone,
     then the owners of row and column k + 1 publish them, as they stand
-    after pivot k, into the other buffer. Only the first n pivots run. The
+    after pivot k, into the other buffer; a molecule whose inputs pass
+    :func:`symmetric_inputs` reads column k from row k's stage (K9 publishes
+    only the row there). Only the first n pivots run. The
     flag reads the real entries; the outputs are the padded matrices with a
     zero diagonal. (Which thread owns an entry changes no arithmetic: every
     entry is written by its owner only.)"""
@@ -141,10 +163,13 @@ def triangle_smooth_model(upper: torch.Tensor, lower: torch.Tensor, n_atoms: tor
         stage[who, buf, 0], stage[who, buf, 1] = u[who, k, :], l[who, k, :]
         stage[who, buf, 2], stage[who, buf, 3] = u[who, :, k], l[who, :, k]
 
+    sym = symmetric_inputs(upper, lower, n_atoms)[:, None]
     publish(0, 0, n > 0)
     for k in range(int(n.max()) if M else 0):
         live = k < n
         ru, rl, cu, cl = (stage[:, k % 2, q] for q in range(4))
+        # a symmetric molecule's threads read column k from row k's stage
+        cu, cl = torch.where(sym, ru, cu), torch.where(sym, rl, cl)
         nu = torch.minimum(u, cu[:, :, None] + ru[:, None, :])
         nl = torch.maximum(l, torch.maximum(cl[:, :, None] - ru[:, None, :],
                                             rl[:, None, :] - cu[:, :, None]))

@@ -54,43 +54,3 @@ def check_chirality_preserved(mol: Mol, positions: np.ndarray) -> bool:
         if not (clb[k] <= v <= cub[k]):
             return False
     return True
-
-
-def term_magnitude(ff, positions: torch.Tensor, batch, sys2mol: torch.Tensor) -> torch.Tensor:
-    """Per-system sum of |E_term| of force field ``ff`` (float64 [S]): the
-    scale of float32 rounding in its energy (the DG terms are all >= 0, so
-    their sum is the float64 energy)."""
-    import dataclasses
-
-    from nvmolkit_tpu_torch.models import dist_geom, etk
-    from nvmolkit_tpu_torch.models.mmff import energy as mmff_energy
-    from nvmolkit_tpu_torch.models.uff import energy as uff_energy
-
-    if ff.name == "dg":
-        b64 = dataclasses.replace(batch, params=tuple(t.double() for t in batch.params))
-        return dist_geom.dg_energy_plain(positions.double(), b64, sys2mol)
-    fn = {"etk": etk.etk_term_magnitude_plain, "mmff": mmff_energy.mmff_term_magnitude_plain,
-          "uff": uff_energy.uff_term_magnitude_plain}[ff.name]
-    return fn(positions, batch, sys2mol)
-
-
-def end_energy_bound(ff, batch, sys2mol: torch.Tensor, x_ref: torch.Tensor,
-                     x_other: torch.Tensor):
-    """How far apart two minimizers' end energies may lie when they ended at
-    ``x_ref`` and ``x_other`` [S, A, D] (float32) on force field ``ff``:
-    (bound [S] float64, its terms).
-
-    E(x_other) - E(x_ref) is the gradient integrated along the step dx, so
-    |dE| <= |g(x_ref)|_1 max|dx| + |g(x_other) - g(x_ref)|_1 max|dx| (the
-    second term bounds the curvature's share, twice what a linear change of
-    the gradient gives); each end energy is a float32 sum of terms, good to
-    1e-5 sum|E_term| + 1e-4 (the energy kernels' bound), counted twice."""
-    fn = ff.plain_energy_and_grad_fn(batch, sys2mol, x_ref.shape[1])
-    _, g_ref = fn(x_ref)
-    _, g_other = fn(x_other)
-    dx = (x_other.double() - x_ref.double()).abs().flatten(1).amax(dim=1)
-    first = g_ref.double().abs().flatten(1).sum(dim=1) * dx
-    second = (g_other.double() - g_ref.double()).abs().flatten(1).sum(dim=1) * dx
-    rounding = 2.0 * (1e-5 * term_magnitude(ff, x_ref, batch, sys2mol) + 1e-4)
-    terms = {"first_order": first, "second_order": second, "rounding": rounding, "max_dx": dx}
-    return first + second + rounding, terms

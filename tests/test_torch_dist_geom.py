@@ -46,7 +46,7 @@ from nvmolkit_tpu_torch.chem.bounds import topological_bounds_batch
 from nvmolkit_tpu_torch.chem.mol import mols_from_smiles
 from nvmolkit_tpu_torch.models import dist_geom as pdg
 from nvmolkit_tpu_torch.ops.triangle_smooth import triangle_smooth_bounds
-from nvmolkit_tpu_torch.testutils import end_energy_bound
+from tests.test_torch_trajectory_float64 import end_energy_bound
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -316,7 +316,7 @@ def test_dg_trajectories_follow_jax(backend):
     assert np.abs(res.positions.numpy() - jpos).max() <= 1e-4
     # the energies where each package ended agree within the energy bound
     # at the JAX package's positions, and the end energies within what the
-    # ends' distance moves them by (testutils.end_energy_bound: a 1e-4 Å move
+    # ends' distance moves them by (test_torch_trajectory_float64.end_energy_bound: a 1e-4 Å move
     # costs up to ~1e-2 at the gradients of these starts)
     at_jax, _ = pdg.dg_energy_and_grad(torch.tensor(jpos), b, s2m)
     assert np.all(np.abs(at_jax.numpy() - je) <= 1e-5 * np.abs(je) + 1e-4)

@@ -241,6 +241,62 @@ def test_conformer_rmsd_kernel_matches_plain(cuda, n_confs, n_atoms, heavy, prea
         assert bool((got[rigid].double() <= zero[rigid]).all())
 
 
+def _past_limit(a_in):
+    """(the most conformers whose planes fit molecule_kernel's shared memory
+    at a_in atoms, the fewest that do not)."""
+    from nvmolkit_tpu_torch.ops import kabsch
+
+    c = 2
+    while kabsch.molecule_smem_bytes(c + 1, a_in) <= kabsch.MOLECULE_SMEM_BYTES:
+        c += 1
+    return c, c + 1
+
+
+@pytest.mark.parametrize("prealigned", [False, True])
+@pytest.mark.parametrize("case", ["2", "16", "17", "64", "limit", "past_limit", "2000"])
+def test_conformer_rmsd_kernel_layout_edges(cuda, case, prealigned):
+    """K3 at its layouts' edges: 2, 16, 17 and 64 conformers (a block of
+    molecule_kernel each), the most that fit its shared memory at 77 atoms
+    and the fewest that do not, and (b)'s 2,000 conformers of 30 atoms
+    (center_kernel and tile_kernel), beside a molecule of 5; from a flat
+    stack and through a row list of a padded stack with holes (the same
+    bits), within the derived tolerance of the plain version, exact rigid
+    copies ~0, one launch a call."""
+    from nvmolkit_tpu_torch.ops import kabsch
+
+    a_in = 30 if case == "2000" else 77
+    c = {"limit": _past_limit(77)[0], "past_limit": _past_limit(77)[1]}.get(case)
+    c = int(case) if c is None else c
+    n_confs, n_atoms = [c, 5], [a_in, 9]
+    _, n_tiles, n_fit, _ = kabsch.kernel_plan(n_confs, a_in)
+    assert (n_tiles > 0) == (case in ("past_limit", "2000")) and n_fit == 2 - (n_tiles > 0)
+    rng = np.random.default_rng(c + prealigned)
+    x, mask, rigid = _rmsd_batch(rng, n_confs, n_atoms, heavy=c % 2 == 1)
+    x, mask = torch.from_numpy(x).to(cuda), torch.from_numpy(mask).to(cuda)
+    before = kabsch.launch_counts["conformer_rmsd"]
+    got = kabsch.conformer_rmsd_condensed(x, mask, n_confs, prealigned=prealigned)
+    torch.cuda.synchronize()
+    assert kabsch.launch_counts["conformer_rmsd"] == before + 1
+    slots = c + 9
+    keep = np.zeros((2, slots), bool)
+    keep[0, np.sort(rng.choice(slots, c, replace=False))] = True
+    keep[1, :5] = True
+    dense = torch.zeros((2, slots, a_in, 3), device=cuda)
+    dense[torch.from_numpy(keep).to(cuda)] = x
+    rows = torch.nonzero(torch.from_numpy(keep).to(cuda).reshape(-1)).squeeze(1)
+    listed = kabsch.conformer_rmsd_condensed(dense.view(-1, a_in, 3), mask, n_confs, rows,
+                                             prealigned)
+    assert torch.equal(got, listed)
+    want = kabsch.conformer_rmsd_condensed_plain(x, mask, n_confs, prealigned=prealigned)
+    scales = kabsch.condensed_scales(x, mask, n_confs, prealigned=prealigned)
+    assert bool(torch.isfinite(got).all()) and got.shape == want.shape
+    ratio = (got.double() - want.double()).abs() / kabsch.rmsd_tolerance(want.double(), *scales)
+    assert float(ratio.max()) <= 1.0, float(ratio.max())
+    if not prealigned and len(rigid):
+        zero = kabsch.rmsd_tolerance(torch.zeros_like(scales[0]), *scales)
+        assert bool((got[rigid].double() <= zero[rigid]).all())
+
+
 def test_conformer_rmsd_kernel_reads_rows_in_place(cuda):
     """Rows through an int64 list (a padded Dense3DResult with holes):
     the same numbers as the gathered stack."""
@@ -882,6 +938,45 @@ def test_triangle_smooth_kernel_equals_plain(cuda, a_pad, inconsistent):
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert bool(got[2].all()) != inconsistent
+
+
+@pytest.mark.parametrize("symmetric", [False, True])
+@pytest.mark.parametrize("inconsistent", [False, True])
+@pytest.mark.parametrize("a_pad", [1, 2, 31, 32, 33, 64, 65, 160, 161])
+def test_triangle_smooth_kernel_layout_edges(cuda, a_pad, inconsistent, symmetric):
+    """K9 at its layouts' edges (a warp per molecule to 32 atoms, register
+    tiles to 96, shared memory to 160, global memory past it): 24 molecules,
+    the first with every atom real, the rest 1 to a_pad, windows scaled
+    apart entry by entry (symmetric, K9's symmetric loop, or not), an
+    inconsistent lower bound on every other molecule of 3 atoms or more:
+    equal to the plain version bit for bit, flags included."""
+    from nvmolkit_tpu_torch.ops import triangle_smooth as ts
+
+    rng = np.random.default_rng(1000 + a_pad + inconsistent + 2 * symmetric)
+    m = 24
+    p = rng.normal(size=(m, a_pad, 3)) * 2.0
+    d = np.linalg.norm(p[:, :, None] - p[:, None], axis=-1)
+    wu, wl = rng.uniform(1.0, 1.3, size=d.shape), rng.uniform(0.7, 1.0, size=d.shape)
+    if symmetric:
+        wu, wl = np.minimum(wu, wu.transpose(0, 2, 1)), np.minimum(wl, wl.transpose(0, 2, 1))
+    up = (d * 1.1 * wu).astype(np.float32)
+    lo = (d * 0.9 * wl).astype(np.float32)
+    n = rng.integers(1, a_pad + 1, size=m).astype(np.int32)
+    n[0] = a_pad
+    bad = np.zeros(m, bool)
+    if inconsistent and a_pad >= 3:
+        bad = (np.arange(m) % 2 == 0) & (n >= 3)
+        lo[bad, 0, 2] = lo[bad, 2, 0] = up[bad, 0, 1] + up[bad, 1, 2] + 1.0
+    args = [torch.from_numpy(a).to(cuda) for a in (up, lo, n)]
+    assert bool(ts.symmetric_inputs(*args)[0]) == (symmetric or a_pad == 1)
+    before = ts.launch_counts["triangle_smooth"]
+    got = ts.triangle_smooth_bounds(*args)
+    torch.cuda.synchronize()
+    assert ts.launch_counts["triangle_smooth"] == before + 1
+    want = ts.triangle_smooth_bounds_plain(*args)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert not bool(got[2][torch.from_numpy(bad).to(cuda)].any())
 
 
 def test_triangle_smooth_kernel_on_molecules(cuda):

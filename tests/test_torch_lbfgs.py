@@ -40,7 +40,7 @@ from nvmolkit_tpu_torch.ops.lbfgs import (
     minimize_restarting_plain,
 )
 from nvmolkit_tpu_torch.ops.lbfgs_flat import lbfgs, lbfgs_flat_plain
-from nvmolkit_tpu_torch.testutils import end_energy_bound, term_magnitude
+from tests.test_torch_trajectory_float64 import end_energy_bound, term_magnitude
 from nvmolkit_tpu_torch.types import CoordinateOutput
 from nvmolkit_tpu_torch.uffOptimization import UFFOptimizeMoleculesConfs
 from tests.test_torch_mmff import SAME_BASIN_KCAL, SAME_BASIN_SHARE, _fixture_systems, _grid_mols
@@ -151,7 +151,7 @@ def test_lockstep_follows_jax_through_the_history(ff):
         assert np.all(np.abs(res.energies.numpy() - je) <= 1e-10 * np.abs(je) + 1e-10)
     else:
         # at JAX's end within the energy's own bound; the end energies within
-        # what the ends' distance moves them by (testutils.end_energy_bound)
+        # what the ends' distance moves them by (test_torch_trajectory_float64.end_energy_bound)
         jpos = torch.from_numpy(np.asarray(r.positions))
         at_jax, _ = pff.energy_and_grad(jpos, batch, s2m)
         assert np.all(np.abs(at_jax.numpy() - je)

@@ -5,14 +5,13 @@ entries for all the pivots and passes row and column k + 1 through a
 double-buffered stage that their owners fill after pivot k
 (``ops/triangle_smooth.triangle_smooth_model``); the model must equal the
 plain version bit for bit on the port's real bounds (``chem/bounds.py``)
-at each layout's atom counts and on random non-symmetric windows, and the
-plain version the JAX function. K3 (``csrc/rmsd.cu``) takes 2 x 2 blocks of
+at each layout's atom counts, on random non-symmetric windows and on
+symmetric ones (K9's symmetric loop), and the plain version the JAX
+function. K3 (``csrc/rmsd.cu``) takes 2 x 2 blocks of
 pairs (``ops/kabsch.molecule_kernel_pairs``, ``tile_kernel_pairs``): every
-condensed pair once, for every conformer count the card tests use; its
-Newton stops when a step leaves lambda unchanged, which must give the
-12-step bits; and the RMSD computed over its plan with that rule agrees
-with the JAX package within the derived tolerance. Inputs are made with
-numpy from seeds.
+condensed pair once, for every conformer count the card tests use, and the
+RMSD computed over its plan agrees with the JAX package within the derived
+tolerance. Inputs are made with numpy from seeds.
 """
 import functools
 import importlib.util
@@ -74,6 +73,7 @@ def test_k9_model_equals_plain_on_real_bounds(bucket):
     assert mols and ts.kernel_layout(bucket)["span"] >= bucket
     up, lo = topological_bounds_batch(mols, bucket)
     n = torch.tensor([m.num_atoms for m in mols], dtype=torch.int32)
+    assert bool(ts.symmetric_inputs(torch.from_numpy(up), torch.from_numpy(lo), n).all())
     ub, lb, ok = _smooth_all(torch.from_numpy(up), torch.from_numpy(lo), n)
     assert bool(ok.all())
     if bucket <= 32:
@@ -101,6 +101,8 @@ def test_k9_model_equals_plain_on_random_windows(a_pad):
         lo[::2, 0, 2] = up[::2, 0, 1] + up[::2, 1, 2] + 1.0
     n = rng.integers(max(1, a_pad // 2), a_pad + 1, size=m).astype(np.int32)
     n[0] = a_pad
+    if a_pad >= 2:
+        assert not bool(ts.symmetric_inputs(*(torch.from_numpy(a) for a in (up, lo, n)))[0])
     ub, lb, ok = _smooth_all(torch.from_numpy(up), torch.from_numpy(lo), torch.from_numpy(n))
     if a_pad >= 3:
         assert not bool(ok[0])
@@ -112,14 +114,39 @@ def test_k9_model_equals_plain_on_random_windows(a_pad):
         assert np.array_equal(ok.numpy(), np.asarray(jok))
 
 
+@pytest.mark.parametrize("a_pad", [16, 64, 97])
+def test_k9_model_symmetric_loop_on_symmetric_windows(a_pad):
+    """Symmetric random windows (some -0 lower bounds and one molecule past
+    1e30 take the general loop): the model, reading column k from row k
+    where symmetric_inputs allows it, equals the plain version bit for bit,
+    and the outputs stay symmetric."""
+    rng = np.random.default_rng(50 + a_pad)
+    m = 8
+    p = rng.normal(size=(m, a_pad, 3)) * 2.0
+    d = np.linalg.norm(p[:, :, None] - p[:, None], axis=-1)
+    w = rng.uniform(1.0, 1.3, size=d.shape)
+    w = np.minimum(w, w.transpose(0, 2, 1))
+    up = (d * 1.1 * w).astype(np.float32)
+    lo = (d * 0.9 / w).astype(np.float32)
+    lo[1, 0, 1] = lo[1, 1, 0] = -0.0
+    up[2, 0, 1] = up[2, 1, 0] = 3e30
+    n = np.full(m, a_pad, np.int32)
+    args = [torch.from_numpy(a) for a in (up, lo, n)]
+    sym = ts.symmetric_inputs(*args)
+    assert sym.tolist() == [True, False, False] + [True] * (m - 3)
+    ub, lb, _ = _smooth_all(*args)
+    assert torch.equal(ub, ub.transpose(1, 2)) and torch.equal(lb[3:], lb[3:].transpose(1, 2))
+
+
 def test_k9_layouts():
-    """A warp per molecule to 32 atoms, register tiles of 16 x 16 threads to
-    96, shared memory to 160, global memory past it; every layout covers
-    its bucket with 16 x 16 (or 4 x 8) threads."""
+    """A warp per molecule to 32 atoms, register tiles of 8 x 16 threads to
+    64 and of 16 x 16 to 96, shared memory to 160, global memory past it;
+    every layout covers its bucket."""
     for a_pad in range(1, 300):
         lay = ts.kernel_layout(a_pad)
         assert lay["ti"] * lay["ri"] == lay["tj"] * lay["rj"] == lay["span"] >= a_pad
-        assert lay["ti"] * lay["tj"] in (32, 256)
+        want_threads = 32 if a_pad <= 32 else 128 if a_pad <= 64 else 256
+        assert lay["ti"] * lay["tj"] == want_threads
         want = ("warp" if a_pad <= 32 else "registers" if a_pad <= 96
                 else "shared" if a_pad <= 160 else "global")
         assert lay["kind"] == want
@@ -162,30 +189,9 @@ def test_k3_plan_offsets():
     assert smem == kabsch.molecule_smem_bytes(64, 77) <= kabsch.MOLECULE_SMEM_BYTES
 
 
-def test_newton_stopping_rule_gives_the_twelve_step_bits():
-    """Seeded float32 H (noisy rotations, near-reflections, collinear and
-    zero blocks): stopping where a step leaves lambda unchanged gives
-    exactly the 12-step result."""
-    rng = np.random.default_rng(8)
-    a = rng.normal(size=(4096, 12, 3)).astype(np.float32)
-    rot = np.linalg.qr(rng.normal(size=(4096, 3, 3)))[0].astype(np.float32)
-    b = a @ rot + rng.normal(size=a.shape).astype(np.float32) * rng.uniform(
-        0.0, 1.0, size=(4096, 1, 1)).astype(np.float32)
-    b[:512, :2] = a[:512, :2] @ rot[:512]  # two-atom blocks below
-    h = np.einsum("pni,pnj->pij", a, b).astype(np.float32)
-    h[:256] = np.einsum("pi,pj->pij", a[:256, 0], b[:256, 0])  # collinear (rank 1)
-    h[256:264] = 0.0
-    e0 = (0.5 * ((a ** 2).sum((1, 2)) + (b ** 2).sum((1, 2)))).astype(np.float32)
-    e0[:256] = 0.5 * ((a[:256, 0] ** 2).sum(1) + (b[:256, 0] ** 2).sum(1))
-    ht, et = torch.from_numpy(h), torch.from_numpy(e0)
-    full = kabsch.qcp_max_eig_plain(ht, et)
-    early = kabsch.qcp_max_eig_plain(ht, et, early_exit=True)
-    assert torch.equal(full, early)
-
-
 def _plan_rmsd(x, mask, n_confs):
     """The condensed RMSDs of molecules over K3's plan: each pair's sums in
-    float32, Newton with K3's stopping rule."""
+    float32, then 12 Newton steps."""
     out, first, start = [], 0, 0
     for m, c in enumerate(n_confs):
         w = mask[m].float()[None, :, None]
@@ -199,7 +205,7 @@ def _plan_rmsd(x, mask, n_confs):
         j = torch.from_numpy(plan[:, -1]).long()
         h = torch.einsum("pax,pay->pxy", xc[i], xc[j])
         e0 = 0.5 * (g[i] + g[j])
-        lam = kabsch.qcp_max_eig_plain(h, e0, early_exit=True)
+        lam = kabsch.qcp_max_eig_plain(h, e0)
         r = torch.empty(c * (c - 1) // 2)
         r[i * (i - 1) // 2 + j] = torch.sqrt((2.0 * (e0 - lam)).clamp_min(0.0) / n)
         out.append(r)

@@ -13,14 +13,18 @@ rounding's distance, the fixed energy bound was. The tests hold each end
 within float32 rounding's reach of float64 (positions: both within the
 1e-4 Å the trajectory tests allow; the port's no farther than twice the JAX
 package's plus 2e-5 Å), and the derived end-energy bound
-(``testutils.end_energy_bound``) on every case.
+(:func:`end_energy_bound`, which the three trajectory tests use) on every
+case.
 
     JAX_PLATFORMS=cpu python -m tests.test_torch_trajectory_float64
 
 prints the figures, one JSON line a case.
 """
 import dataclasses
+import functools
+import importlib.util
 import json
+import pathlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -36,9 +40,45 @@ from nvmolkit_tpu_torch.models.uff.energy import UFF
 from nvmolkit_tpu_torch.ops.bfgs import bfgs_minimize
 from nvmolkit_tpu_torch.ops.lbfgs import lbfgs_lockstep
 from nvmolkit_tpu_torch.ops.lbfgs_flat import HISTORY, lbfgs
-from nvmolkit_tpu_torch.testutils import end_energy_bound
 
 N_STEPS = HISTORY + 2
+
+
+@functools.lru_cache(maxsize=None)
+def _smoke():
+    root = pathlib.Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location("_trajectory_smoke", root / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def term_magnitude(ff, positions: torch.Tensor, batch, sys2mol: torch.Tensor) -> torch.Tensor:
+    """Per-system sum of |E_term| of force field ``ff`` (float64 [S]), the
+    scale of float32 rounding in its energy (``chip_smoke.ff_term_magnitude``)."""
+    return _smoke().ff_term_magnitude(ff, positions, batch, sys2mol)
+
+
+def end_energy_bound(ff, batch, sys2mol: torch.Tensor, x_ref: torch.Tensor,
+                     x_other: torch.Tensor):
+    """How far apart two minimizers' end energies may lie when they ended at
+    ``x_ref`` and ``x_other`` [S, A, D] (float32) on force field ``ff``:
+    (bound [S] float64, its terms).
+
+    E(x_other) - E(x_ref) is the gradient integrated along the step dx, so
+    |dE| <= |g(x_ref)|_1 max|dx| + |g(x_other) - g(x_ref)|_1 max|dx| (the
+    second term bounds the curvature's share, twice what a linear change of
+    the gradient gives); each end energy is a float32 sum of terms, good to
+    1e-5 sum|E_term| + 1e-4 (the energy kernels' bound), counted twice."""
+    fn = ff.plain_energy_and_grad_fn(batch, sys2mol, x_ref.shape[1])
+    _, g_ref = fn(x_ref)
+    _, g_other = fn(x_other)
+    dx = (x_other.double() - x_ref.double()).abs().flatten(1).amax(dim=1)
+    first = g_ref.double().abs().flatten(1).sum(dim=1) * dx
+    second = (g_other.double() - g_ref.double()).abs().flatten(1).sum(dim=1) * dx
+    rounding = 2.0 * (1e-5 * term_magnitude(ff, x_ref, batch, sys2mol) + 1e-4)
+    terms = {"first_order": first, "second_order": second, "rounding": rounding, "max_dx": dx}
+    return first + second + rounding, terms
 
 
 def _double(batch):

@@ -26,7 +26,7 @@ from nvmolkit_tpu_torch.models.uff.builder import UFFBuildError, build_uff_terms
 from nvmolkit_tpu_torch.ops.bfgs import CAPPED
 from nvmolkit_tpu_torch.models.uff.energy import UFF
 from nvmolkit_tpu_torch.ops.lbfgs_flat import HISTORY, uff_lbfgs
-from nvmolkit_tpu_torch.testutils import end_energy_bound, term_magnitude
+from tests.test_torch_trajectory_float64 import end_energy_bound, term_magnitude
 from nvmolkit_tpu_torch.types import CoordinateOutput, Dense3DResult
 from nvmolkit_tpu_torch.uffOptimization import UFFOptimizeMoleculesConfs
 from tests.data.smiles import SMILES_100
@@ -344,7 +344,7 @@ def test_lbfgs_follows_jax_through_the_history():
     assert np.abs(res.positions.numpy() - np.asarray(r.positions)).max() <= 1e-4
     # the energies at JAX's end within the energy's own bound, and the end
     # energies within what the ends' distance moves them by
-    # (testutils.end_energy_bound)
+    # (test_torch_trajectory_float64.end_energy_bound)
     je = np.asarray(r.energies)
     jpos, s2m_t = torch.from_numpy(np.asarray(r.positions)), torch.from_numpy(s2m.astype(np.int32))
     at_jax, _ = puff.uff_energy_and_grad(jpos, pb, s2m_t)

@@ -3,7 +3,7 @@
 one NVIDIA GPU, beside their first designs.
 
     python3 tools/k9_k3_phase_split.py [--first-only | --package-only]
-        [--only k9,k3] [--reps N]
+        [--only k9,k3] [--reps N] [--variants] [--sass DIR]
 
 Makes the inputs as ``chip_smoke.py`` makes them:
 
@@ -35,7 +35,13 @@ each first-design kernel (``cudaFuncGetAttributes`` and the occupancy
 API), and ``cuobjdump -res-usage`` of the package's two libraries. Every
 output is held against the first design's and the plain version's: K9
 bit for bit, K3 within ``kabsch.rmsd_tolerance``. One JSON line per
-result, the card's name and power limit first. Imports nothing of JAX.
+result, the card's name and power limit first. ``--variants`` runs instead
+the variants of ``tools/k9_k3_variants.cu`` (K9 at the 48-, 64- and
+96-atom chunks: without min and max, without the barrier, with split
+arrive and wait; K3's molecule_kernel at (a) and (c) with its phase clocks
+and with Newton's 12 steps), in turns with the package's kernels. Imports
+nothing of JAX. ``--sass DIR`` writes the package libraries' SASS there
+(``k9_k3_sass_out/`` is gitignored) and prints each kernel's opcode counts.
 """
 from __future__ import annotations
 
@@ -339,6 +345,92 @@ def k3_results(smoke, lib, cuda, rates, reps, flush, first_only, package_only):
         torch.cuda.empty_cache()
 
 
+K9_VARIANTS = ("redesign", "no_minmax", "no_barrier", "split_arrive", "split_arrive_int",
+               "select_publish", "threads_128", "symmetric_128", "symmetric_64")
+K3_VARIANTS = (("redesign", 8), ("newton_12", 8), ("two_staging", 8), ("threads_512", 16),
+               ("four_staging", 8), ("roots_side_by_side", 8), ("eight_staging", 8))
+
+
+def variants_lib():
+    """tools/k9_k3_variants.cu, built here with nvcc."""
+    from nvmolkit_tpu_torch import _build
+
+    src = ROOT / "tools" / "k9_k3_variants.cu"
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib = ctypes.CDLL(str(_build._build("libk9_k3_variants", src, _build._nvcc_cmd(src))))
+    lib.variant_k9.restype = lib.variant_k3.restype = ci
+    lib.variant_k9.argtypes = [ci, vp, vp, vp, ci, ci, vp, vp, vp, vp]
+    lib.variant_k3.argtypes = [ci, vp, ci, vp, vp, ci, ci, vp, vp, vp]
+    return lib
+
+
+def variant_results(smoke, cuda, rates, reps, flush) -> None:
+    """K9's variants at the 33-96-atom chunks and K3's molecule_kernel with
+    its phase clocks and without Newton's stopping rule at (a) and (c),
+    each in turns with the package's kernel."""
+    import torch
+
+    from nvmolkit_tpu_torch.ops import kabsch, triangle_smooth
+
+    lib = variants_lib()
+    emit(result="res_usage", **res_usage("libk9_k3_variants", ROOT / "tools" / "k9_k3_variants.cu"))
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    for label, up, lo, n in k9_inputs(smoke, cuda):
+        a_pad = int(up.shape[1])
+        if not 32 < a_pad <= 96:
+            continue
+        want = triangle_smooth.triangle_smooth_bounds_plain(up, lo, n)
+
+        def run(mode):
+            ub, lb = torch.empty_like(up), torch.empty_like(lo)
+            ok = torch.empty(up.shape[0], dtype=torch.uint8, device=cuda)
+            rc = lib.variant_k9(mode, up.data_ptr(), lo.data_ptr(), n.data_ptr(), up.shape[0],
+                                a_pad, ub.data_ptr(), lb.data_ptr(), ok.data_ptr(), stream())
+            if rc != 0:
+                raise RuntimeError(f"variant_k9 {mode} failed with CUDA error {rc}")
+            return ub, lb, ok.bool()
+
+        fns = {name: (lambda m=m: run(m)) for m, name in enumerate(K9_VARIANTS)
+               if name not in ("threads_128", "symmetric_64") or a_pad <= 64}
+        fns["kernel"] = lambda: triangle_smooth.triangle_smooth_bounds(up, lo, n)
+        order = list(fns) + list(fns)[::-1]
+        times = timed_runs(smoke, fns, order, reps, flush)
+        emit(result="k9_variants", input=label, a_pad=a_pad,
+             bound_ms=smoke.k9_work(n.cpu().numpy(), a_pad, rates)["bound_ms"],
+             **{k: {"ms": v["ms"], "ms_runs": v["ms_runs"], "cold_ms": v["cold_ms"],
+                    "equal_to_plain": all(torch.equal(g, w) for g, w in zip(fns[k](), want))}
+                for k, v in times.items()})
+    for label, x, mask, nc in k3_inputs(smoke, cuda)[:2]:
+        plan, _, n_fit, smem = kabsch.kernel_plan(nc, x.shape[1])
+        assert n_fit == len(nc)
+        off = torch.from_numpy(plan[:3 * (len(nc) + 1)].copy()).to(cuda)
+        total = int(plan[2 * (len(nc) + 1) + len(nc)])
+
+        def run(mode, cycles=None):
+            out = torch.empty(total, dtype=torch.float32, device=cuda)
+            rc = lib.variant_k3(mode, x.data_ptr(), x.shape[1], mask.data_ptr(), off.data_ptr(),
+                                len(nc), smem, out.data_ptr(),
+                                None if cycles is None else cycles.data_ptr(), stream())
+            if rc != 0:
+                raise RuntimeError(f"variant_k3 {mode} failed with CUDA error {rc}")
+            return out
+
+        fns = {name: (lambda m=m: run(m)) for m, (name, _) in enumerate(K3_VARIANTS)}
+        fns["kernel"] = lambda: kabsch.conformer_rmsd_condensed(x, mask, nc)
+        times = timed_runs(smoke, fns, list(fns) + list(fns)[::-1], reps, flush)
+        got = kabsch.conformer_rmsd_condensed(x, mask, nc)
+        splits = {}
+        for m, (name, warps) in enumerate(K3_VARIANTS):
+            cyc = torch.zeros((len(nc), warps, 3), dtype=torch.int64, device=cuda)
+            ms_c, _ = clocked(lambda: run(m, cyc))
+            splits[name] = {"instrumented_ms": ms_c, "phase_split": smoke.phase_split(
+                cyc.cpu().reshape(-1, 3), ("stage", "pairs", "qcp"), ms_c)}
+        emit(result="k3_variants", input=label,
+             **{k: {"ms": v["ms"], "ms_runs": v["ms_runs"], "cold_ms": v["cold_ms"],
+                    "equal_to_kernel": bool(torch.equal(fns[k](), got)), **splits.get(k, {})}
+                for k, v in times.items()})
+
+
 def res_usage(name: str, src) -> dict:
     """``cuobjdump -res-usage`` of a package library: each kernel's line."""
     from nvmolkit_tpu_torch import _build
@@ -349,6 +441,32 @@ def res_usage(name: str, src) -> dict:
                           timeout=120)
     lines = [ln.strip() for ln in proc.stdout.splitlines() if ln.strip()]
     return {"library": name, "res_usage": lines}
+
+
+def sass_dump(name: str, src, out_dir: pathlib.Path) -> dict:
+    """``cuobjdump -sass`` of a package library into ``out_dir``; per kernel
+    its instruction count and opcode histogram."""
+    import re
+
+    from nvmolkit_tpu_torch import _build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    path = _build._build(name, src, _build._nvcc_cmd(src))
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True,
+                          timeout=300).stdout
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / f"{name}.sass").write_text(sass)
+    kernels = {}
+    for block in re.split(r"\n\s*Function : ", sass)[1:]:
+        fname, _, body = block.partition("\n")
+        ops = {}
+        for line in body.splitlines():
+            m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+            if m:
+                ops[m.group(2)] = ops.get(m.group(2), 0) + 1
+        kernels[fname.strip()] = {"instructions": sum(ops.values()),
+                                  "opcodes": dict(sorted(ops.items(), key=lambda kv: -kv[1]))}
+    return {"library": name, "kernels": kernels}
 
 
 def main() -> int:
@@ -366,7 +484,7 @@ def main() -> int:
         return args[args.index(name) + 1] if name in args else default
 
     first_only, package_only = "--first-only" in args, "--package-only" in args
-    only = option("--only", "k9,k3").split(",")
+    only = [] if "--variants" in args else option("--only", "k9,k3").split(",")
     reps = int(option("--reps", 20))
     cuda = torch.device("cuda", 0)
     rates = smoke.card_rates()
@@ -379,9 +497,13 @@ def main() -> int:
         k9_results(smoke, lib, cuda, rates, reps, flush, first_only, package_only)
     if "k3" in only:
         k3_results(smoke, lib, cuda, rates, reps, flush, first_only, package_only)
+    if "--variants" in args:
+        variant_results(smoke, cuda, rates, reps, flush)
     for name, src in (("libnvmk_triangle_smooth", _build.TRIANGLE_SMOOTH_SRC),
                       ("libnvmk_rmsd", _build.RMSD_SRC)):
         emit(result="res_usage", **res_usage(name, src))
+        if "--sass" in args:
+            emit(result="sass", **sass_dump(name, src, pathlib.Path(option("--sass", ""))))
     return 0
 
 
