@@ -240,11 +240,12 @@ SUB_CAP8_TARGETS = 1024  # targets of the deviceFrontierCap=8 search (its draine
 # label survivor, at levels >= 1 also bonded to the row's back-edge atoms):
 # its row and atom (a division, a multiply-subtract), the label word's
 # index, shift and test, its share of the ballot: 6; one compare per earlier
-# slot; per back edge the code's index, the shift and the test: 3. K20 per row an OR per slot into its mask, per pair of
-# rows one compare per mask word. K21 per output element 2 per step of the
-# binary search and 4 for the row's index. K22 per frontier row the bound
-# test (2), per valid row the store's index (3).
-SUB_CELL_OPS, SUB_EDGE_OPS, SUB_EXTRACT_OPS = 6, 3, 4
+# slot; per back edge the code's index, the shift and the test: 3. K20 per row
+# an OR per slot into its mask, per pair of rows one compare per mask word
+# (the JAX function's own definition of a duplicate). K21 per output element
+# its source's and its destination's index, whatever finds them. K22 per
+# frontier row the bound test (2), per valid row the store's index (3).
+SUB_CELL_OPS, SUB_EDGE_OPS, SUB_EXTRACT_OPS = 6, 3, 2
 RMSD_MOLS, RMSD_CONFS = 1024, 64                   # RMSD batches (a) and (c)
 DRUG_HEAVY = (25, 32)                              # heavy atoms drawn for (c)
 FAMILIES, COPIES, FAMILY_SIGMA = 50, 40, 0.2       # ensemble (b)
@@ -805,8 +806,11 @@ def k19_work(args, counts, rates: dict) -> dict:
 
 def k20_work(frontier, counts, new_counts, T: int, rates: dict) -> dict:
     """K20: each valid row read, each kept row written (2 bytes a slot), the
-    counts in and out; per row an OR per slot, per pair of rows a compare
-    per mask word."""
+    counts in and out; per row an OR per slot, per pair of valid rows a
+    compare per mask word. The all-pairs compare is the JAX function's own
+    definition (``_dedup_frontier``: a row is a duplicate when any earlier
+    valid row has its atom set), not a design's: the count stays whatever
+    finds the duplicates."""
     B, _P, nq = frontier.shape
     n = counts.double()
     n_bytes = 2 * nq * float(n.sum() + new_counts.double().sum()) + 8 * B
@@ -814,14 +818,17 @@ def k20_work(frontier, counts, new_counts, T: int, rates: dict) -> dict:
     return bound(n_bytes, n_ops, rates, "int32")
 
 
-def k21_work(n_rows: int, nq: int, B: int, rates: dict) -> dict:
-    """K21: each kept slot read (2 bytes) and written (4), the offsets and
-    the perm; per element the binary search over B + 1 offsets and the
-    row's index."""
-    n_el = n_rows * nq
-    n_bytes = 6 * n_el + 8 * (B + 1) + 4 * nq
-    n_ops = n_el * (2 * max(1, math.ceil(math.log2(B + 1))) + SUB_EXTRACT_OPS)
-    return bound(n_bytes, n_ops, rates, "int32")
+def k21_work(counts, nq: int, max_matches: int, rates: dict) -> dict:
+    """K21, counted from its function and not from a design: each kept
+    slot read (2 bytes) and written (4), each pair's count read and its
+    offset (4 + 8 bytes), the perm (4 bytes a query atom); per output
+    element ``SUB_EXTRACT_OPS`` for its source's and destination's index.
+    Nothing for finding an element's pair: a design that searches for it
+    pays that itself."""
+    B = counts.shape[0]
+    n_el = float(counts.long().clamp(max=max_matches).sum()) * nq
+    n_bytes = 6 * n_el + 12 * B + 4 * nq
+    return bound(n_bytes, n_el * SUB_EXTRACT_OPS, rates, "int32")
 
 
 def k22_work(frontier, counts, T: int, rates: dict) -> dict:
@@ -1964,8 +1971,14 @@ def main() -> int:
     # the package's kernels in the kernels line
     split_tool = load_by_path("tools/k9_k3_phase_split.py")
     first_k9_k3 = {}
+    # K20's and K21's first designs (tools/k20_k21_first_design.cu): every K20
+    # and K21 launch of the substructure path is held against them too
+    k20_k21_tool = load_by_path("tools/k20_k21_phase_split.py")
+    first_k20_k21 = {}
     libs = {"nvcc_s": _build.similarity_lib, "nvcc_rmsd_s": _build.rmsd_lib,
             "nvcc_k9_k3_first_s": lambda: first_k9_k3.setdefault("lib", split_tool.first_lib()),
+            "nvcc_k20_k21_first_s": lambda: first_k20_k21.setdefault(
+                "lib", k20_k21_tool.first_lib()),
             "nvcc_mmff_s": _build.mmff_lib, "nvcc_uff_s": _build.uff_lib,
             "nvcc_constraints_s": _build.constraints_lib,
             "nvcc_triangle_smooth_s": _build.triangle_smooth_lib,
@@ -3844,9 +3857,16 @@ def main() -> int:
             valid = torch.arange(f.shape[1], device=cuda)[None, :] < dc[:, None]
             check(torch.equal(dc, pdc) and torch.equal(df[valid], pdf[valid]),
                   f"K20 differs from its plain version at launch {idx}")
+            fdf, fdc, _ = k20_k21_tool.first_dedup(first_k20_k21["lib"], f, c, T)
+            check(torch.equal(dc, fdc) and torch.equal(df[valid], fdf[valid]),
+                  f"K20 differs from its first design at launch {idx}")
         elif name == K21:
-            check(torch.equal(out, sk.extract_plain(*args[:4])),
+            f, c, perm, mm = args[:4]
+            check(torch.equal(out, sk.extract_plain(f, c, perm, mm)),
                   f"K21 differs from its plain version at launch {idx}")
+            first_out, _ = k20_k21_tool.first_extract(
+                first_k20_k21["lib"], f, k20_k21_tool.first_offsets(c, mm), perm, out.shape[0])
+            check(torch.equal(out, first_out), f"K21 differs from its first design at launch {idx}")
         else:
             check(torch.equal(out, sk.root_mask_plain(*args)),
                   f"K22 differs from its plain version at launch {idx}")
@@ -4362,7 +4382,9 @@ def main() -> int:
                                                       "bound_ms", "bound_by")}
     # K19-K22 at the substructure path's largest launches (K19 and K22 in the
     # counts screens, K20 in the uniquify search, K21 in getSubstructMatches);
-    # K21 by its raw launch, its offsets' cumsum made once before
+    # K21 by its raw launch, its offsets' cumsum made once before (the whole
+    # call, the cumsum included, as call_ms); K20 and K21 beside their first
+    # designs, in turns (kernel, first, kernel, first)
     sub_rows = {}
     _, a19, o19, _ = sub_launch[K19]
     sub_rows[K19] = row(K19, f"{a19[2].shape[0]} pairs x {a19[0].shape[1]} slots, T {a19[1].shape[1]}"
@@ -4374,19 +4396,34 @@ def main() -> int:
                         k20_work(a20[0], a20[1], o20[1], a20[2], rates),
                         lambda: sk.dedup(*a20), lambda: sk.dedup_plain(*a20), cold=True)
     _, a21, o21, _ = sub_launch[K21]
-    offs21, out21 = sk.kept_offsets(a21[1], a21[3]), torch.empty_like(o21)
-    lib21 = _build.substruct_gpu_lib()
     B21, P21, nq21 = a21[0].shape
+    ends21 = sk.kept_offsets(a21[1], a21[3], P21)
 
     def k21_launch():
-        rc = lib21.nvmk_extract(a21[0].data_ptr(), offs21.data_ptr(), a21[2].data_ptr(), B21, nq21,
-                                P21, o21.numel(), out21.data_ptr(),
-                                torch.cuda.current_stream().cuda_stream)
-        check(rc == 0, f"K21 launch returned {rc}")
+        return sk._launch_extract(*a21[:4], ends21, o21.shape[0])
 
     sub_rows[K21] = row(K21, f"{B21} pairs, {o21.shape[0]} rows of {nq21} atoms (matches search)",
-                        k21_work(o21.shape[0], nq21, B21, rates), k21_launch,
+                        k21_work(a21[1], nq21, a21[3], rates), k21_launch,
                         lambda: sk.extract_plain(*a21[:4]), cold=True)
+    sub_rows[K21]["call_ms"] = median_ms(lambda: sk.extract(*a21[:4], o21.shape[0]))
+    first_lib20 = first_k20_k21["lib"]
+    offs21_first = k20_k21_tool.first_offsets(a21[1], a21[3])
+    firsts = {K20: (lambda: k20_k21_tool.first_dedup(first_lib20, *a20), lambda: sk.dedup(*a20)),
+              K21: (lambda: k20_k21_tool.first_extract(first_lib20, a21[0], offs21_first, a21[2],
+                                                       o21.shape[0]), k21_launch)}
+    for key, (first_fn, kernel_fn) in firsts.items():
+        first_ms = (median_ms(first_fn), median_ms(first_fn, flush=flush))
+        sub_rows[key]["ms_again"] = median_ms(kernel_fn)
+        sub_rows[key]["first_design"] = {"ms": first_ms[0], "cold_l2_ms": first_ms[1],
+                                         "ms_again": median_ms(first_fn)}
+    fdf, fdc, _ = firsts[K20][0]()
+    df, dc = sk.dedup(*a20)
+    valid = torch.arange(a20[0].shape[1], device=cuda)[None, :] < dc[:, None]
+    sub_rows[K20]["equal_to_first_design"] = bool(torch.equal(dc, fdc)
+                                                  and torch.equal(df[valid], fdf[valid]))
+    sub_rows[K21]["equal_to_first_design"] = bool(torch.equal(k21_launch(), firsts[K21][0]()[0]))
+    check(sub_rows[K20]["equal_to_first_design"] and sub_rows[K21]["equal_to_first_design"],
+          "K20 or K21 differs from its first design at the timed launch")
     _, a22, o22, _ = sub_launch[K22]
     sub_rows[K22] = row(K22, f"{a22[0].shape[0]} pairs, {int(a22[1].sum())} rows, T {a22[3]} "
                         f"(a recursive sub-pattern)", k22_work(a22[0], a22[1], a22[3], rates),
@@ -4595,10 +4632,12 @@ def main() -> int:
         K19: ("gsi_join_kernel (K19: the GSI join, a warp per pair, each row's candidates "
               "from a back-edge atom's neighbour list, a warp scan per chunk of 32 rows)", "nvmolkit_tpu/ops/substruct_device.py:316",
               substruct_cu),
-        K20: ("dedup_kernel (K20: uniquify, one block per pair)",
+        K20: ("dedup_kernel (K20: uniquify, a warp per pair, row masks in registers, "
+              "duplicates by match_any and the survivors' masks in shared memory)",
               "nvmolkit_tpu/ops/substruct_device.py:463", substruct_cu),
-        K21: ("extract_kernel (K21: match rows into query-atom order at CSR offsets, one "
-              "thread per slot)", "nvmolkit_tpu/ops/substruct_device.py:514", substruct_cu),
+        K21: ("extract_kernel (K21: match rows into query-atom order at CSR offsets, a warp "
+              "per pair, each pair's outputs one coalesced run)",
+              "nvmolkit_tpu/ops/substruct_device.py:514", substruct_cu),
         K22: ("root_mask_kernel (K22: recursive SMARTS root masks, one thread per row)",
               "nvmolkit_tpu/ops/substruct_device.py:557", substruct_cu),
     }
@@ -4623,6 +4662,7 @@ def main() -> int:
                                      "hessian_buffer_bytes",
                                      "first_design_hessian_buffer_bytes", "layouts",
                                      "first_design", "ms_again", "equal_to_first_design",
+                                     "call_ms",
                                      "by_shape")
                if k in entry}})
     print(json.dumps({"kernels": lines}))

@@ -524,7 +524,7 @@ def tfd_lib() -> ctypes.CDLL:
 
 
 def _declare_substruct_gpu(lib: ctypes.CDLL) -> None:
-    vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.nvmk_gsi_join.restype = ci
     lib.nvmk_gsi_join.argtypes = [vp] * 7 + [ci] * 7 + [vp] * 6
     lib.nvmk_gsi_info.restype = ci
@@ -532,7 +532,9 @@ def _declare_substruct_gpu(lib: ctypes.CDLL) -> None:
     lib.nvmk_dedup.restype = ci
     lib.nvmk_dedup.argtypes = [vp, vp, ci, ci, ci, ci, vp, vp, vp, vp]
     lib.nvmk_extract.restype = ci
-    lib.nvmk_extract.argtypes = [vp, vp, vp, ci, ci, ci, cll, vp, vp]
+    lib.nvmk_extract.argtypes = [vp] * 4 + [ci] * 4 + [vp, vp]
+    lib.nvmk_dedup_extract_info.restype = ci
+    lib.nvmk_dedup_extract_info.argtypes = [ci, ctypes.POINTER(ci)]
     lib.nvmk_root_mask.restype = ci
     lib.nvmk_root_mask.argtypes = [vp, vp, ci, ci, ci, ci, ci, vp, vp]
 

@@ -39,19 +39,37 @@
 // each pair adds the clock64() cycles of its phases (level 0, tests, scan,
 // writes).
 //
-// K20 dedup_kernel replaces _dedup_frontier (uniquify=True): one block per
-// pair; each valid row's set of target atoms as a T-bit mask (4 x uint64
-// for T <= 256) in device scratch; a row is a duplicate when an earlier row
-// has the same mask (equal exactly when the JAX package's sorted-key
-// packing is equal); the survivors are recompacted to a prefix by the same
-// order-keeping scan.
+// K20 dedup_kernel replaces _dedup_frontier (uniquify=True): a warp per
+// pair, DEDUP_WARPS pairs a block, the grid sized to the card (each warp
+// steps over the pairs; at most 32 registers, so one pass at the path's
+// launches), no device scratch and no block barrier. The rows go in chunks of
+// 32, a row a lane, its slots read two at a time as 32-bit words where nq is
+// even; each row's set of target atoms is a T-bit mask in registers (W = 1-4
+// uint64 for T <= 256, a template argument); a row is a duplicate when an
+// earlier valid row has the same mask (equal exactly when the JAX package's
+// sorted-key packing is equal): within its chunk by
+// __match_any_sync on each mask word, against earlier chunks by the masks of
+// the survivors so far (a duplicate's first occurrence survived), kept in
+// shared memory for a pair's first DEDUP_SHARED_ROWS survivors and past them
+// (a caller's P > DEDUP_SHARED_ROWS) in a device scratch the wrapper makes
+// only then. Survivors are placed in order by a ballot and popc on a running
+// base and copied to a prefix of the pair's rows. Rows past a pair's new
+// count are left unwritten: only K21 and K22 read the frontier, and they read
+// only valid rows. The first design (a block of 256 threads per pair, the
+// masks through device scratch, a two-barrier block scan per chunk of 256
+// rows) is kept in tools/k20_k21_first_design.cu.
 //
 // K21 extract_kernel replaces _extract_flat / _extract and the host decode
-// flat[:, perm]: one thread per (match row, query atom) of the launch's
-// kept rows (min(count, maxMatches), 0 for an overflowed pair), writing
-// int32 target-atom ids in query-atom order at the pair's offset of the
-// launch's flat block (offsets: an exclusive cumsum over the pairs; the
-// pair found by binary search).
+// flat[:, perm]: a warp per pair, EXTRACT_WARPS pairs a block, the grid sized
+// to the card. A pair reads its count and its end in the launch's rows once
+// (``ends``: the inclusive cumsum of the kept rows min(count, maxMatches), a
+// torch cumsum in the wrapper; 0 for an overflowed pair) and writes its kept
+// x nq int32 target-atom ids, in query-atom order (perm, staged in shared
+// memory), as one contiguous run at its offset of the launch's flat block:
+// lane l on elements 32 i + l, coalesced, the element's row and slot stepped
+// without a division. The first design (a thread per output element, a
+// 64-bit division and a binary search over the pairs' offsets for each) is
+// kept in tools/k20_k21_first_design.cu.
 //
 // K22 root_mask_kernel replaces _root_mask_kernel: one thread per (pair,
 // frontier row); a valid row stores 1 at [pair, frontier[row][slot0]], the
@@ -62,38 +80,26 @@
 // compares and a byte of bond code per back edge), a few cells per row; it
 // reads the pair's label words, the neighbour lists and bond codes of the
 // atoms it extends from (L1/L2) and writes P x nq int16 per level at most.
-// K20 compares each pair of valid rows' masks (count^2 / 2 x 4 words); K21
-// and K22 move bytes. K20-K22 keep their first design: one pair per block
-// for K20, a thread per output for K21 and K22.
+// K20 compares each pair of valid rows' masks (count^2 / 2 x W words); K21
+// and K22 move bytes (K21 2 bytes read and 4 written an element). At the
+// path's launches (12.5 rows a pair) K20 and K21 move about a megabyte or
+// three, a microsecond at the HBM rate, so what bounds them is the launch and
+// each warp's chain of dependent loads: a warp per pair keeps the chain to
+// the pair's count, its rows and the stores, one wave of warps on the card.
+// K22 keeps its first design: a thread per frontier row.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
+constexpr int THREADS = 256;      // K22's block
 constexpr int MAX_EDGES = 4;     // EDGE_BUCKETS' largest entry
 constexpr int MAX_MASK_WORDS = 4;  // 64-bit words of a row's atom mask, T <= 256
 constexpr unsigned FULL_MASK = 0xffffffffu;
-
-// Exclusive prefix of `flag` over the block's threads in thread order; the
-// block's count in *total. Every thread of the block must call it.
-__device__ __forceinline__ int block_scan(bool flag, int* warp_counts, int* total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const unsigned ballot = __ballot_sync(0xffffffffu, flag);
-  if (lane == 0) warp_counts[warp] = __popc(ballot);
-  __syncthreads();
-  int base = 0, sum = 0;
-  for (int w = 0; w < WARPS; ++w) {
-    const int c = warp_counts[w];
-    base += w < warp ? c : 0;
-    sum += c;
-  }
-  __syncthreads();  // the next call rewrites warp_counts
-  *total = sum;
-  return base + __popc(ballot & ((1u << lane) - 1u));
-}
+constexpr int DEDUP_WARPS = 8;          // K20's pairs a block
+constexpr int DEDUP_SHARED_ROWS = 128;  // survivors' masks a pair keeps in shared memory
+constexpr int EXTRACT_WARPS = 4;        // K21's pairs a block
 
 constexpr int MAX_NQ = 64;         // QUERY_BUCKETS' largest
 constexpr int JOIN_WARPS = 4;      // K19's pairs a block
@@ -243,65 +249,142 @@ __global__ void __launch_bounds__(32 * JOIN_WARPS) gsi_join_kernel(
   }
 }
 
-__global__ void __launch_bounds__(THREADS) dedup_kernel(
-    const int16_t* __restrict__ in, const int32_t* __restrict__ counts_in, int nq, int P, int W64,
-    uint64_t* __restrict__ keys, int16_t* __restrict__ out, int32_t* __restrict__ counts_out) {
-  __shared__ int warp_counts[WARPS];
-  const int b = blockIdx.x;
-  const int n = counts_in[b];
-  const int16_t* f = in + (size_t)b * P * nq;
-  uint64_t* key = keys + (size_t)b * P * W64;
-  for (int r = threadIdx.x; r < n; r += THREADS) {
-    uint64_t k[MAX_MASK_WORDS] = {0, 0, 0, 0};
-    for (int s = 0; s < nq; ++s) {
-      const int a = f[(size_t)r * nq + s];
-      k[a >> 6] |= 1ull << (a & 63);
-    }
-    for (int w = 0; w < W64; ++w) key[(size_t)r * W64 + w] = k[w];
+// A row's atom a (0 <= a < 64 W) into its mask.
+template <int W>
+__device__ __forceinline__ void add_atom(uint64_t (&key)[W], int a) {
+  const uint64_t bit = 1ull << (a & 63);
+  if (W == 1) {
+    key[0] |= bit;
+  } else {
+#pragma unroll
+    for (int w = 0; w < W; ++w) key[w] |= (a >> 6) == w ? bit : 0ull;
   }
+}
+
+// K20: a warp per pair (a row a lane), DEDUP_WARPS pairs a block, the grid
+// sized to the card (each warp steps over the pairs); at most 32 registers,
+// so the card holds 64 warps an SM (the path's largest launch in one pass).
+// W: 64-bit words of a row's atom mask; WORDS: a row's slots read and copied
+// two at a time as 32-bit words (nq even, the frontiers 4-byte aligned).
+template <int W, bool WORDS>
+__global__ void __launch_bounds__(32 * DEDUP_WARPS, 64 / DEDUP_WARPS) dedup_kernel(
+    const int16_t* __restrict__ in, const int32_t* __restrict__ counts_in, int B, int nq, int P,
+    uint64_t* __restrict__ spill, int16_t* __restrict__ out, int32_t* __restrict__ counts_out) {
+  // the masks of each pair's first DEDUP_SHARED_ROWS survivors; past them
+  // (P > DEDUP_SHARED_ROWS) the pair's survivors' masks go to `spill`
+  __shared__ uint64_t kept_keys[DEDUP_WARPS][DEDUP_SHARED_ROWS][W];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  uint64_t(*shared_keys)[W] = kept_keys[warp];
+  for (int b = blockIdx.x * DEDUP_WARPS + warp; b < B; b += gridDim.x * DEDUP_WARPS) {
+    const int n = counts_in[b];
+    const int16_t* f = in + (size_t)b * P * nq;
+    int16_t* o = out + (size_t)b * P * nq;
+    uint64_t* spilled = spill + (size_t)b * P * W;
+    int m = 0;  // survivors so far, the same in every lane
+    for (int r0 = 0; r0 < n; r0 += 32) {
+      const int r = r0 + lane;
+      const bool valid = r < n;
+      uint64_t key[W];
+#pragma unroll
+      for (int w = 0; w < W; ++w) key[w] = 0;
+      if (valid) {
+        if (WORDS) {
+          const uint32_t* row = reinterpret_cast<const uint32_t*>(f + (size_t)r * nq);
+          for (int s = 0; s < nq / 2; ++s) {
+            const uint32_t x = row[s];
+            add_atom(key, (int)(x & 0xffffu));
+            add_atom(key, (int)(x >> 16));
+          }
+        } else {
+          const int16_t* row = f + (size_t)r * nq;
+          for (int s = 0; s < nq; ++s) add_atom(key, row[s]);
+        }
+      }
+      // an earlier valid row of this chunk with the same mask
+      unsigned same = __ballot_sync(FULL_MASK, valid);
+#pragma unroll
+      for (int w = 0; w < W; ++w) same &= __match_any_sync(FULL_MASK, key[w]);
+      bool dup = (same & below) != 0;
+      // an earlier chunk's survivor with the same mask: a duplicate of any
+      // earlier row is one of the first row of its set, which survived
+      const int held = m < DEDUP_SHARED_ROWS ? m : DEDUP_SHARED_ROWS;
+      for (int j = 0; j < held; ++j) {
+        bool eq = true;
+#pragma unroll
+        for (int w = 0; w < W; ++w) eq &= shared_keys[j][w] == key[w];
+        dup |= eq;
+      }
+      for (int j = DEDUP_SHARED_ROWS; j < m; ++j) {
+        bool eq = true;
+#pragma unroll
+        for (int w = 0; w < W; ++w) eq &= spilled[(size_t)j * W + w] == key[w];
+        dup |= eq;
+      }
+      const bool keep = valid && !dup;
+      const unsigned kept = __ballot_sync(FULL_MASK, keep);
+      if (keep) {
+        const int k = m + __popc(kept & below);
+        if (WORDS) {
+          const uint32_t* src = reinterpret_cast<const uint32_t*>(f + (size_t)r * nq);
+          uint32_t* dst = reinterpret_cast<uint32_t*>(o + (size_t)k * nq);
+          for (int s = 0; s < nq / 2; ++s) dst[s] = src[s];
+        } else {
+          const int16_t* src = f + (size_t)r * nq;
+          int16_t* dst = o + (size_t)k * nq;
+          for (int s = 0; s < nq; ++s) dst[s] = src[s];
+        }
+#pragma unroll
+        for (int w = 0; w < W; ++w) {
+          if (k < DEDUP_SHARED_ROWS) shared_keys[k][w] = key[w];
+          else spilled[(size_t)k * W + w] = key[w];
+        }
+      }
+      m += __popc(kept);
+      __syncwarp();  // the survivors' masks are read by the next chunk
+    }
+    if (lane == 0) counts_out[b] = m;
+  }
+}
+
+// K21: a warp per pair, EXTRACT_WARPS pairs a block, the grid sized to the
+// card. `ends`: the inclusive cumsum of the kept rows, so a pair's rows start
+// at ends[b] - kept; the pair's kept x nq outputs are one contiguous run,
+// written 32 at a time, lane l on element 32 i + l (row and slot stepped,
+// no division).
+__global__ void __launch_bounds__(32 * EXTRACT_WARPS) extract_kernel(
+    const int16_t* __restrict__ frontier, const int32_t* __restrict__ counts,
+    const int64_t* __restrict__ ends, const int32_t* __restrict__ perm, int B, int nq, int P,
+    int max_matches, int32_t* __restrict__ out) {
+  __shared__ int slot_of[MAX_NQ];
+  const int lane = threadIdx.x & 31, stride = gridDim.x * EXTRACT_WARPS;
+  int b = blockIdx.x * EXTRACT_WARPS + (threadIdx.x >> 5);
+  // the first pair's count and end load while perm is staged
+  int c = b < B ? counts[b] : 0;
+  long long end = b < B ? ends[b] : 0;
+  for (int q = threadIdx.x; q < nq; q += blockDim.x) slot_of[q] = perm[q];
   __syncthreads();
-  int m = 0;
-  for (int r0 = 0; r0 < n; r0 += THREADS) {
-    const int r = r0 + threadIdx.x;
-    bool keep = r < n;
-    for (int q = 0; keep && q < r; ++q) {
-      bool same = true;
-      for (int w = 0; w < W64; ++w) same &= key[(size_t)q * W64 + w] == key[(size_t)r * W64 + w];
-      keep = !same;
+  const int r_step = 32 / nq, q_step = 32 % nq, r_lane = lane / nq, q_lane = lane % nq;
+  for (; b < B; b += stride) {
+    const int kept = c < max_matches ? c : max_matches;
+    const int n = kept * nq;
+    int32_t* dst = out + (end - kept) * nq;
+    const int16_t* src = frontier + (size_t)b * P * nq;
+    if (b + stride < B) {  // the next pair's, ahead of this pair's gathers
+      c = counts[b + stride];
+      end = ends[b + stride];
     }
-    int total;
-    const int k = m + block_scan(keep, warp_counts, &total);
-    if (keep) {
-      const int16_t* src = f + (size_t)r * nq;
-      int16_t* dst = out + ((size_t)b * P + k) * nq;
-      for (int s = 0; s < nq; ++s) dst[s] = src[s];
+    int r = r_lane, q = q_lane;
+    for (int e = lane; e < n; e += 32) {
+      dst[e] = src[r * nq + slot_of[q]];
+      r += r_step;
+      q += q_step;
+      if (q >= nq) {
+        q -= nq;
+        ++r;
+      }
     }
-    m += total;
   }
-  if (threadIdx.x == 0) counts_out[b] = m;
-}
-
-// The largest k in [0, n) with off[k] <= x (off non-decreasing, off[0] = 0).
-__device__ __forceinline__ int find_segment(const int64_t* off, int n, int64_t x) {
-  int lo = 0, hi = n - 1;
-  while (lo < hi) {
-    const int mid = (lo + hi + 1) >> 1;
-    if (off[mid] <= x) lo = mid; else hi = mid - 1;
-  }
-  return lo;
-}
-
-__global__ void __launch_bounds__(THREADS) extract_kernel(
-    const int16_t* __restrict__ frontier, const int64_t* __restrict__ offsets,
-    const int32_t* __restrict__ perm, int B, int nq, int P, long long n_out,
-    int32_t* __restrict__ out) {
-  const long long g = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (g >= n_out) return;
-  const long long match = g / nq;
-  const int q = (int)(g - match * nq);
-  const int b = find_segment(offsets, B, match);
-  const long long r = match - offsets[b];
-  out[g] = frontier[((size_t)b * P + r) * nq + perm[q]];
 }
 
 __global__ void __launch_bounds__(THREADS) root_mask_kernel(
@@ -313,6 +396,60 @@ __global__ void __launch_bounds__(THREADS) root_mask_kernel(
   const int r = (int)(g - (long long)b * P);
   if (r >= counts[b]) return;
   mask[(size_t)b * T + frontier[((size_t)b * P + r) * nq + slot0]] = 1;
+}
+
+// The blocks a launch takes: `needed`, or as many as the card holds at once
+// (resident blocks an SM x SMs, read once per kernel and device), whichever
+// is fewer; the kernels step over what is left.
+template <typename K>
+unsigned card_grid(K kernel, int threads, long long needed) {
+  constexpr int MAX_DEVICES = 64;
+  static int held[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int cap = dev < MAX_DEVICES ? held[dev] : 0;
+  if (cap == 0) {
+    int sms = 0, per_sm = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+    cap = (sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
+    if (dev < MAX_DEVICES) held[dev] = cap;
+  }
+  return (unsigned)(needed < cap ? (needed > 0 ? needed : 1) : cap);
+}
+
+template <int W>
+int launch_dedup(const void* in, const void* counts_in, int B, int nq, int P, void* spill,
+                 void* out, void* counts_out, void* stream) {
+  const bool words = nq % 2 == 0 && (uintptr_t)in % 4 == 0 && (uintptr_t)out % 4 == 0;
+  const long long needed = (B + DEDUP_WARPS - 1) / DEDUP_WARPS;
+  if (words)
+    dedup_kernel<W, true><<<card_grid(dedup_kernel<W, true>, 32 * DEDUP_WARPS, needed),
+                            32 * DEDUP_WARPS, 0, (cudaStream_t)stream>>>(
+        (const int16_t*)in, (const int32_t*)counts_in, B, nq, P, (uint64_t*)spill, (int16_t*)out,
+        (int32_t*)counts_out);
+  else
+    dedup_kernel<W, false><<<card_grid(dedup_kernel<W, false>, 32 * DEDUP_WARPS, needed),
+                             32 * DEDUP_WARPS, 0, (cudaStream_t)stream>>>(
+        (const int16_t*)in, (const int32_t*)counts_in, B, nq, P, (uint64_t*)spill, (int16_t*)out,
+        (int32_t*)counts_out);
+  return (int)cudaGetLastError();
+}
+
+// registers, local bytes, resident blocks an SM and static shared bytes of a kernel
+template <typename K>
+int kernel_info(K kernel, int threads, int* out) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return (int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, 0);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = blocks;
+  out[3] = (int)attr.sharedSizeBytes;
+  return 0;
 }
 
 }  // namespace
@@ -350,36 +487,57 @@ int nvmk_gsi_join(const void* words, const void* adj, const void* nbr, const voi
 // out: registers a thread, local bytes a thread, resident blocks an SM,
 // static shared bytes a block, pairs a block
 int nvmk_gsi_info(int* out) {
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, gsi_join_kernel<false>);
-  if (err != cudaSuccess) return (int)err;
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, gsi_join_kernel<false>,
-                                                      32 * JOIN_WARPS, 0);
-  if (err != cudaSuccess) return (int)err;
-  out[0] = attr.numRegs;
-  out[1] = (int)attr.localSizeBytes;
-  out[2] = blocks;
-  out[3] = (int)attr.sharedSizeBytes;
+  const int rc = kernel_info(gsi_join_kernel<false>, 32 * JOIN_WARPS, out);
   out[4] = JOIN_WARPS;
-  return 0;
+  return rc;
 }
 
-int nvmk_dedup(const void* in, const void* counts_in, int B, int nq, int P, int W64, void* keys,
+// K20 over B pairs, a row's atom mask W64 (1-4) words; ``spill`` uint64
+// [B, P, W64] for the survivors past DEDUP_SHARED_ROWS, null when P <=
+// DEDUP_SHARED_ROWS.
+int nvmk_dedup(const void* in, const void* counts_in, int B, int nq, int P, int W64, void* spill,
                void* out, void* counts_out, void* stream) {
-  dedup_kernel<<<B, THREADS, 0, (cudaStream_t)stream>>>(
-      (const int16_t*)in, (const int32_t*)counts_in, nq, P, W64, (uint64_t*)keys, (int16_t*)out,
-      (int32_t*)counts_out);
+  if (W64 < 1 || W64 > MAX_MASK_WORDS || nq < 1 || (P > DEDUP_SHARED_ROWS && spill == nullptr))
+    return (int)cudaErrorInvalidValue;
+  switch (W64) {
+    case 1: return launch_dedup<1>(in, counts_in, B, nq, P, spill, out, counts_out, stream);
+    case 2: return launch_dedup<2>(in, counts_in, B, nq, P, spill, out, counts_out, stream);
+    case 3: return launch_dedup<3>(in, counts_in, B, nq, P, spill, out, counts_out, stream);
+    default: return launch_dedup<4>(in, counts_in, B, nq, P, spill, out, counts_out, stream);
+  }
+}
+
+// K21 over B pairs: ``ends`` int64 [B], the inclusive cumsum of the kept
+// rows min(count, max_matches); nq <= 64, P * nq < 2^31.
+int nvmk_extract(const void* frontier, const void* counts, const void* ends, const void* perm,
+                 int B, int nq, int P, int max_matches, void* out, void* stream) {
+  if (nq < 1 || nq > MAX_NQ || (long long)P * nq >= (1ll << 31))
+    return (int)cudaErrorInvalidValue;
+  const unsigned blocks =
+      card_grid(extract_kernel, 32 * EXTRACT_WARPS, (B + EXTRACT_WARPS - 1) / EXTRACT_WARPS);
+  extract_kernel<<<blocks, 32 * EXTRACT_WARPS, 0, (cudaStream_t)stream>>>(
+      (const int16_t*)frontier, (const int32_t*)counts, (const int64_t*)ends,
+      (const int32_t*)perm, B, nq, P, max_matches, (int32_t*)out);
   return (int)cudaGetLastError();
 }
 
-int nvmk_extract(const void* frontier, const void* offsets, const void* perm, int B, int nq, int P,
-                 long long n_out, void* out, void* stream) {
-  const long long blocks = (n_out + THREADS - 1) / THREADS;
-  extract_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      (const int16_t*)frontier, (const int64_t*)offsets, (const int32_t*)perm, B, nq, P, n_out,
-      (int32_t*)out);
-  return (int)cudaGetLastError();
+// out[0:7] K20 (one mask word, 32-bit slot pairs), out[7:14] K21: registers a thread, local bytes a
+// thread, resident blocks an SM, static shared bytes a block, pairs a block,
+// the grid a launch over B pairs takes, and threads a block
+int nvmk_dedup_extract_info(int B, int* out) {
+  int rc = kernel_info(dedup_kernel<1, true>, 32 * DEDUP_WARPS, out);
+  if (rc != 0) return rc;
+  out[4] = DEDUP_WARPS;
+  out[5] = (int)card_grid(dedup_kernel<1, true>, 32 * DEDUP_WARPS,
+                          (B + DEDUP_WARPS - 1) / DEDUP_WARPS);
+  out[6] = 32 * DEDUP_WARPS;
+  rc = kernel_info(extract_kernel, 32 * EXTRACT_WARPS, out + 7);
+  if (rc != 0) return rc;
+  out[11] = EXTRACT_WARPS;
+  out[12] = (int)card_grid(extract_kernel, 32 * EXTRACT_WARPS,
+                           (B + EXTRACT_WARPS - 1) / EXTRACT_WARPS);
+  out[13] = 32 * EXTRACT_WARPS;
+  return 0;
 }
 
 int nvmk_root_mask(const void* frontier, const void* counts, int B, int P, int nq, int slot0, int T,

@@ -50,6 +50,7 @@ MAX_T = 256      # the largest atom bucket: ids fit int16, a row's atom mask 4 w
 MAX_EDGES = 4    # EDGE_BUCKETS' largest
 MAX_NQ = 64      # QUERY_BUCKETS' largest: K19's back edges ride in its parameters
 MAX_DEGREE = 64  # K19 keeps a row's survivors among its walked neighbours in 64 bits
+DEDUP_SHARED_ROWS = 128  # K20's survivors' masks a pair keeps in shared memory (csrc)
 # the phases of K19's per-pair clock (``_launch_gsi(..., phase_cycles=True)``)
 K19_PHASES = ("level0", "tests", "scan", "writes")
 
@@ -258,38 +259,43 @@ def dedup_plain(frontier, counts, T: int):
 
 def dedup(frontier, counts, T: int):
     """(frontier', counts'): each pair's first row of every set of matched
-    atoms, recompacted to a prefix. K20 for CUDA tensors, the plain version
-    for CPU tensors."""
+    atoms, recompacted to a prefix. K20 for CUDA tensors (rows past a
+    pair's new count left unwritten), the plain version for CPU tensors."""
     if not frontier.is_cuda:
         return dedup_plain(frontier, counts, T)
     dev = frontier.device
     _check("frontier", frontier, torch.int16, 3, dev)
     _check("counts", counts, torch.int32, 1, dev)
     B, P, nq = frontier.shape
-    if counts.shape[0] != B or T > MAX_T:
-        raise ValueError(f"K20 takes [B] counts and T <= {MAX_T}, got {tuple(counts.shape)}, T {T}")
+    if counts.shape[0] != B or T > MAX_T or nq < 1:
+        raise ValueError(f"K20 takes [B] counts, nq >= 1 and T <= {MAX_T}, got "
+                         f"{tuple(counts.shape)}, nq {nq}, T {T}")
     out = torch.empty_like(frontier)
     new_counts = torch.empty_like(counts)
     if B == 0:
         return out, new_counts
     W64 = -(-T // 64)
-    keys = torch.empty((B, P, W64), dtype=torch.int64, device=dev)
+    # the survivors' masks past the kernel's shared memory (a raised P only)
+    spill = (torch.empty((B, P, W64), dtype=torch.int64, device=dev)
+             if P > DEDUP_SHARED_ROWS else None)
     lib = substruct_gpu_lib()
     with torch.cuda.device(dev):
         rc = lib.nvmk_dedup(frontier.data_ptr(), counts.data_ptr(), B, nq, P, W64,
-                            keys.data_ptr(), out.data_ptr(), new_counts.data_ptr(),
-                            torch.cuda.current_stream().cuda_stream)
+                            None if spill is None else spill.data_ptr(), out.data_ptr(),
+                            new_counts.data_ptr(), torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"dedup kernel launch failed with CUDA error {rc}")
     launch_counts["dedup"] += 1
     return out, new_counts
 
 
-def kept_offsets(counts, max_matches: int) -> torch.Tensor:
-    """int64 [B + 1]: the exclusive cumsum of each pair's kept rows,
-    ``min(count, max_matches)`` (an overflowed pair's count is 0)."""
-    kept = counts.long().clamp(max=max_matches)
-    return torch.cat([kept.new_zeros(1), torch.cumsum(kept, dim=0)])
+def kept_offsets(counts, max_matches: int, frontier_cap: int) -> torch.Tensor:
+    """int64 [B]: the inclusive cumsum of each pair's kept rows,
+    ``min(count, max_matches)`` (an overflowed pair's count is 0). One
+    launch when ``max_matches >= frontier_cap`` (no count exceeds the cap),
+    two otherwise."""
+    kept = counts if max_matches >= frontier_cap else counts.clamp(max=max_matches)
+    return torch.cumsum(kept, dim=0, dtype=torch.int64)
 
 
 def extract_plain(frontier, counts, perm, max_matches: int):
@@ -308,28 +314,50 @@ def extract(frontier, counts, perm, max_matches: int, n_rows: int | None = None)
     the host) saves a sync."""
     if not frontier.is_cuda:
         return extract_plain(frontier, counts, perm, max_matches)
+    ends = kept_offsets(counts, max_matches, frontier.shape[1])
+    return _launch_extract(frontier, counts, perm, max_matches, ends, n_rows)
+
+
+def _launch_extract(frontier, counts, perm, max_matches: int, ends, n_rows: int | None = None):
+    """One K21 launch on ``ends`` (:func:`kept_offsets` of the counts)."""
     dev = frontier.device
     _check("frontier", frontier, torch.int16, 3, dev)
     _check("counts", counts, torch.int32, 1, dev)
     _check("perm", perm, torch.int32, 1, dev)
+    _check("ends", ends, torch.int64, 1, dev)
     B, P, nq = frontier.shape
-    if counts.shape[0] != B or perm.shape[0] != nq:
-        raise ValueError(f"K21 takes [B] counts and [nq] perm, got {tuple(counts.shape)}, "
-                         f"{tuple(perm.shape)} for a [{B}, {P}, {nq}] frontier")
-    offsets = kept_offsets(counts, max_matches)
+    if (counts.shape[0] != B or perm.shape[0] != nq or ends.shape[0] != B or not 1 <= nq <= MAX_NQ
+            or P * nq >= 2**31 or max_matches < 0):
+        raise ValueError(f"K21 takes [B] counts and ends, [nq <= {MAX_NQ}] perm, P * nq < 2^31 "
+                         f"and max_matches >= 0, got {tuple(counts.shape)}, {tuple(ends.shape)}, "
+                         f"{tuple(perm.shape)} for a [{B}, {P}, {nq}] frontier, {max_matches}")
     if n_rows is None:
-        n_rows = int(offsets[-1])
+        n_rows = int(ends[-1]) if B else 0
     out = torch.empty((n_rows, nq), dtype=torch.int32, device=dev)
     if n_rows == 0:
         return out
     lib = substruct_gpu_lib()
     with torch.cuda.device(dev):
-        rc = lib.nvmk_extract(frontier.data_ptr(), offsets.data_ptr(), perm.data_ptr(), B, nq, P,
-                              n_rows * nq, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        rc = lib.nvmk_extract(frontier.data_ptr(), counts.data_ptr(), ends.data_ptr(),
+                              perm.data_ptr(), B, nq, P, min(max_matches, P), out.data_ptr(),
+                              torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"extract kernel launch failed with CUDA error {rc}")
     launch_counts["extract"] += 1
     return out
+
+
+def dedup_extract_info(B: int = 0) -> dict:
+    """K20's (at one mask word) and K21's instantiations: registers and
+    spilled bytes a thread, resident blocks an SM, shared bytes, pairs and
+    threads a block, and the grid a launch over ``B`` pairs takes."""
+    out = (ctypes.c_int * 14)()
+    rc = substruct_gpu_lib().nvmk_dedup_extract_info(B, out)
+    if rc != 0:
+        raise RuntimeError(f"nvmk_dedup_extract_info failed with CUDA error {rc}")
+    keys = ("registers", "local_bytes", "blocks_per_sm", "shared_bytes", "pairs_per_block", "grid",
+            "threads")
+    return {"dedup": dict(zip(keys, out[0:7])), "extract": dict(zip(keys, out[7:14]))}
 
 
 def root_mask_plain(frontier, counts, slot0: int, T: int):

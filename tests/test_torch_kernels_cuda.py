@@ -1917,6 +1917,107 @@ def test_substruct_overflow_exactly_at_the_cap(cuda):
         assert bool(_check_substruct_kernels(cuda, labels, adj, cq, P)[0]) == want
 
 
+def frontier_case(seed, B, P, nq, T, rows, copies):
+    """A uniquify or extraction input without a join: int16 [B, P, nq]
+    frontier and int32 [B] counts, pair b's first ``rows[b]`` rows valid
+    (-1 past them). Every row is one of ``copies`` orderings of one of the
+    pair's atom sets (nq distinct atoms below T; ``copies`` 1: no duplicate,
+    12: a benzene match's automorphic copies), the rows of a pair shuffled."""
+    rng = np.random.default_rng(seed)
+    rows = np.broadcast_to(np.asarray(rows, np.int64), (B,))
+    frontier = np.full((B, P, nq), -1, np.int16)
+    pair = np.repeat(np.arange(B), rows)
+    k = np.arange(len(pair)) - np.repeat(np.cumsum(rows) - rows, rows)
+    sets, which = np.unique(pair * P + k // copies, return_inverse=True)
+    atoms = np.empty((len(sets), nq), np.int64)
+    for lo in range(0, len(sets), 4096):
+        atoms[lo:lo + 4096] = rng.random((len(sets[lo:lo + 4096]), T)).argsort(1)[:, :nq]
+    r = atoms[which.ravel()]
+    r = np.take_along_axis(r, rng.random(r.shape).argsort(1), 1)
+    frontier[pair, k] = r[np.lexsort((rng.random(len(pair)), pair))]
+    return frontier, rows.astype(np.int32)
+
+
+# (B, P, nq, T, rows a pair: an int, (low, high) drawn per pair, or None: a
+# third of the pairs none (dead or overflowed), the rest full; copies)
+DEDUP_EXTRACT_CASES = {
+    "full_p128_automorphic": (300, 128, 6, 64, 128, 12),
+    "full_p128_unique": (300, 128, 6, 64, 128, 1),
+    "p1024_unique": (24, 1024, 6, 256, (900, 1025), 1),
+    "p1024_copies": (24, 1024, 8, 192, (0, 1025), 3),
+    "t256_nq64": (64, 128, 64, 256, (0, 129), 12),
+    "t64_nq64_one_set": (16, 40, 64, 64, 40, 1),
+    "rows_past_32": (200, 128, 9, 96, (33, 129), 5),
+    "zero_counts": (500, 128, 6, 64, None, 12),
+    "b1": (1, 128, 6, 64, 100, 12),
+    "past_one_wave": (20000, 16, 6, 64, (0, 17), 12),
+    "past_one_wave_t192": (12000, 32, 7, 192, (0, 33), 2),
+}
+
+
+def _frontier_case_from(name):
+    B, P, nq, T, rows, copies = DEDUP_EXTRACT_CASES[name]
+    seed = sum(map(ord, name))
+    if isinstance(rows, tuple):
+        rows = np.random.default_rng(seed).integers(*rows, B)
+    elif rows is None:
+        rows = np.where(np.arange(B) % 3 == 0, 0, P)
+    return (*frontier_case(seed, B, P, nq, T, rows, copies), T)
+
+
+@pytest.mark.parametrize("name", sorted(DEDUP_EXTRACT_CASES))
+def test_dedup_and_extract_match_plain_at_stress_shapes(cuda, name):
+    """K20 and K21 equal their plain versions bit for bit on the valid rows
+    and counts: frontiers full to P = 128 of 12 automorphic copies and of
+    no duplicate, P = 1024 (survivors past the shared-memory masks), T = 256
+    (4 mask words) with nq = 64, more than 32 rows a pair, maxMatches 1, 3
+    and one cutting pairs mid-way, zero counts (dead or overflowed pairs),
+    B = 1 and B past one wave of warps. K21 on the join's frontier and on
+    K20's (rows past its counts unwritten)."""
+    from nvmolkit_tpu_torch.ops import substruct_kernels as sk
+
+    frontier, counts, T = _frontier_case_from(name)
+    B, P, nq = frontier.shape
+    f, c = torch.from_numpy(frontier).to(cuda), torch.from_numpy(counts).to(cuda)
+    perm = torch.from_numpy(np.random.default_rng(nq).permutation(nq).astype(np.int32)).to(cuda)
+    before = dict(sk.launch_counts)
+    df, dc = sk.dedup(f, c, T)
+    pdf, pdc = sk.dedup_plain(f, c, T)
+    valid = torch.arange(P, device=cuda)[None, :] < dc[:, None]
+    assert torch.equal(dc, pdc) and torch.equal(df[valid], pdf[valid])
+    mid = max(1, int(counts.max()) // 2 + 1)
+    extracts = 0
+    for fr, cn in ((f, c), (df, dc)):
+        for mm in (1, 3, mid, 2**31 - 1):
+            got = sk.extract(fr, cn, perm, mm)
+            extracts += int(cn.sum()) > 0
+            assert got.dtype == torch.int32 and torch.equal(got, sk.extract_plain(fr, cn, perm, mm))
+    torch.cuda.synchronize()
+    after = sk.launch_counts
+    assert after["dedup"] - before["dedup"] == 1
+    assert after["extract"] - before["extract"] == extracts
+
+
+def test_extract_past_2_31_elements(cuda):
+    """K21's output offsets past 2^31 elements: 262,200 full pairs of 128
+    rows x 64 slots (2.15e9 int32 out), the pairs around the 2^31st element
+    and the last ones against their plain rows."""
+    from nvmolkit_tpu_torch.ops import substruct_kernels as sk
+
+    B, P, nq = 262_200, 128, 64
+    f = (torch.arange(B * P * nq, device=cuda, dtype=torch.int64) % 251).to(torch.int16)
+    f = f.view(B, P, nq)
+    c = torch.full((B,), P, dtype=torch.int32, device=cuda)
+    perm = torch.from_numpy(np.random.default_rng(0).permutation(nq).astype(np.int32)).to(cuda)
+    got = sk.extract(f, c, perm, 2**31 - 1)
+    assert got.shape == (B * P, nq) and got.numel() > 2**31
+    cross = 2**31 // (P * nq)
+    for b in (0, cross - 1, cross, cross + 1, B - 1):
+        assert torch.equal(got[b * P:(b + 1) * P], f[b][:, perm.long()].to(torch.int32)), b
+    del got, f
+    torch.cuda.empty_cache()
+
+
 def test_substructure_on_cuda_equals_the_cpu(cuda):
     """The public API on the card (K19-K22) equals its plain run on the CPU
     bit for bit, with uniquify, maxMatches, a frontier cap of 8 and

@@ -33,6 +33,7 @@ from nvmolkit_tpu_torch.ops import substruct_device as psd
 from nvmolkit_tpu_torch.ops import substruct_kernels as sk
 from tests.data.smiles import SMILES_100
 from tests.test_smarts_matrix import MATRIX_QUERIES
+from tests.test_torch_kernels_cuda import frontier_case
 
 T_BUCKETS = (32, 64)
 JOIN_B = 64  # the JAX join's batch, padded (each shape compiles anew)
@@ -235,6 +236,41 @@ def test_overflow_exactly_at_the_cap():
         adj[0, :16, 16:] = adj[0, 16:, :16] = 1  # every first atom bonded to every second
         o = _check_kernels(labels, adj, np.array([0]), cq, P, (n_first, n_second))
         assert bool(o[0]) == (n_first * n_second > P or n_first > P) == want
+
+
+@pytest.mark.parametrize("B,P,nq,T,copies", [(8, 128, 6, 256, 12), (8, 128, 9, 256, 1),
+                                               (6, 32, 64, 256, 12), (4, 40, 64, 64, 1)])
+def test_dedup_and_extract_plain_equal_jax_at_stress_shapes(B, P, nq, T, copies):
+    """``dedup_plain`` and ``extract_plain`` (the yardsticks of K20 and K21
+    on the card) against ``_dedup_frontier`` and ``_extract_flat`` with the
+    JAX decode on frontiers without a join: full of duplicates (each row one
+    of 12 orderings of an atom set) or of none, at T = 256 (4 mask words)
+    and with a 64-atom query (at T = 64 every row the same set), a pair full
+    to P and a pair with no row, maxMatches 1, 3, one cutting pairs mid-way
+    and none."""
+    rng = np.random.default_rng(nq * T + copies)
+    rows = rng.integers(P // 2, P + 1, B)
+    rows[0], rows[-1] = P, 0
+    frontier, counts = frontier_case(nq + T, B, P, nq, T, rows, copies)
+    jf, jc = frontier.astype(np.int32), counts
+    jdf, jdc = (np.asarray(a) for a in jsd._dedup_frontier(jf, jc, T))
+    df, dc = (a.numpy() for a in sk.dedup_plain(torch.from_numpy(frontier),
+                                                torch.from_numpy(counts), T))
+    assert np.array_equal(dc, jdc) and (dc < counts).any() == (copies > 1 or T == nq)
+    for b in range(B):
+        assert np.array_equal(df[b, :dc[b]], jdf[b, :dc[b]]), b
+    perm_np = rng.permutation(nq).astype(np.int32)
+    perm = torch.from_numpy(perm_np)
+    for fr, cn, jfr, jcn in ((frontier, counts, jf, jc), (df, dc, jdf, jdc)):
+        jcounts = np.asarray(jcn).astype(np.int64)
+        total = int(jcounts.sum())
+        cap = min(1 << max(8, int(np.ceil(np.log2(max(1, total))))), B * P)
+        flat = np.asarray(jsd._extract_flat(jfr, jcn, cap, nq, False))[:total].astype(np.int32)
+        parts = np.split(flat[:, perm_np], np.cumsum(jcounts)[:-1])
+        for mm in (1, 3, int(jcounts.max()) // 2 + 1, 2**31 - 1):
+            want = np.concatenate([p[:mm] for p in parts])
+            got = sk.extract_plain(torch.from_numpy(fr), torch.from_numpy(cn), perm, mm).numpy()
+            assert got.dtype == np.int32 and np.array_equal(got, want), mm
 
 
 def _grid_inputs():
