@@ -226,6 +226,12 @@ TOL_QUANTILES = (0.5, 0.9, 0.99, 0.999, 1.0)  # of K3's derived tolerance over t
 DIHEDRAL_OPS = 72
 TFD_PAIR_OPS, TFD_TORSION_OPS, TFD_SINGLE_OPS = 9, 5, 4
 TFD_RING_QUARTET_OPS, TFD_RING_OPS, TFD_SYM_PAIRING_OPS = 6, 4, 5
+# K18 counted as the function can be computed with each Ring torsion's
+# per-conformer mean taken once per conformer: per (conformer, Ring) 3 a
+# quartet (difference, absolute value, sum) and the division; per pair and
+# Ring the difference of the means and its absolute value; per pair the
+# final clamp, test and division (no index recovery)
+TFD_RING_MEAN_QUARTET_OPS, TFD_RING_MEAN_OPS, TFD_RING_PAIR_OPS, TFD_FINAL_OPS = 3, 1, 2, 3
 K18_TOL = 1e-6  # K18 sums in its plain version's order: equal but for the last bit
 TFD_CUTOFF = 0.2  # Butina over the ensemble's (b) TFD matrix
 # bench.py's substructure configuration: make_druglike_smiles(8192) x the
@@ -760,6 +766,29 @@ def k18_work(sets, n_confs, rates: dict) -> dict:
             own = np.where(ts.types == 1, TFD_RING_QUARTET_OPS * nq + TFD_RING_OPS,
                            np.where(ts.types == 2, TFD_SYM_PAIRING_OPS * nq * nq, TFD_SINGLE_OPS))
             n_ops += pairs * (TFD_PAIR_OPS + int((own + TFD_TORSION_OPS).sum()))
+            n_bytes += 4 * c * len(ts.quartets) + 20 * ts.n_torsions + 48 + 4 * pairs
+    return bound(n_bytes, n_ops, rates, "fp32")
+
+
+def k18_work_once(sets, n_confs, rates: dict) -> dict:
+    """K18 over the same bytes as :func:`k18_work`, its operations counted
+    as the function can be computed with each Ring torsion's mean over its
+    quartets taken once per conformer (TFD_RING_MEAN_*) and not once per
+    pair: per pair TFD_FINAL_OPS, per torsion TFD_TORSION_OPS and its type's
+    own (Single TFD_SINGLE_OPS, Ring TFD_RING_PAIR_OPS, Symmetric
+    TFD_SYM_PAIRING_OPS a pairing)."""
+    import numpy as np
+
+    n_bytes = n_ops = 0
+    for ts, c in zip(sets, n_confs):
+        if ts.n_torsions:
+            pairs = c * (c - 1) // 2
+            nq = np.diff(ts.quartet_starts).astype(np.int64)
+            ring = ts.types == 1
+            own = np.where(ring, TFD_RING_PAIR_OPS,
+                           np.where(ts.types == 2, TFD_SYM_PAIRING_OPS * nq * nq, TFD_SINGLE_OPS))
+            n_ops += pairs * (TFD_FINAL_OPS + int((own + TFD_TORSION_OPS).sum()))
+            n_ops += c * int((TFD_RING_MEAN_QUARTET_OPS * nq[ring] + TFD_RING_MEAN_OPS).sum())
             n_bytes += 4 * c * len(ts.quartets) + 20 * ts.n_torsions + 48 + 4 * pairs
     return bound(n_bytes, n_ops, rates, "fp32")
 
