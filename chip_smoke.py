@@ -62,8 +62,9 @@ Phases, each reported as one JSON line with its seconds:
      views of one buffer equal to K18's on the call's batch, the rigid
      copies' TFD within tfd_tolerance of 0; K17 against its plain version
      (circular difference within dihedral_tolerance) and K18 on K17's
-     angles against its plain version (K18_TOL) at (c), (b) and bench.py's
-     TFD configuration (make_smiles(64) x 100 conformers from the port's
+     angles against its plain version and its first design
+     (tools/k18_k22_first_design.cu; K18_TOL each) at (c), (b), the embed
+     chain's TFD step and bench.py's TFD configuration (make_smiles(64) x 100 conformers from the port's
      EmbedMolecules, maxIterations 8, through positionsFrom: first and warm
      walls, pairs/s); (b) through GetTFDMatrix -> square -> butina, valid
      clusters;
@@ -140,7 +141,9 @@ Phases, each reported as one JSON line with its seconds:
      (K19 and K22 in the counts screens, K21 in the matches, K20 in a
      uniquify=True search; the launch counts of those four searches), every
      launch of them and of a deviceFrontierCap=8 search with drained pairs
-     (its first 1,024 targets) held against the plain versions on the card;
+     (its first 1,024 targets) held against the plain versions on the card
+     (K20 and K21 also against their first designs, tools/k20_k21_first_design.cu,
+     K22 against its, tools/k18_k22_first_design.cu, bit for bit);
      the totals and each pair's counts equal to the native engine's (as
      bench.py asserts), each pair's rows equal to the native engine's as
      sorted row sets, hasSubstructMatch equal to counts > 0; first and
@@ -168,7 +171,10 @@ Phases, each reported as one JSON line with its seconds:
      that count INT32 operations or POPCs as well as bytes, then one more
      launch of each with per-phase cycles (line butina_phases: the split of
      each kernel's time, K15's clusters taken one by one and its rounds);
-     K17 and K18 at (c) and (b); K19-K22 at the substructure path's largest launches, with
+     K17 and K18 at (c), (b) and bench.py's TFD configuration, K18 beside its
+     first design and its second bound (Ring means once per conformer,
+     k18_work_once); K19-K22 at the substructure path's largest launches
+     (K20-K22 beside their first designs, K21 and K22 also as whole calls), with
      INT32 bounds from each launch's data (K19's: the bond-code rows its
      back edges read and the candidates each level's rows admit);
   8. trace, per phase of the paths: three warm untraced walls, then one run
@@ -2004,10 +2010,17 @@ def main() -> int:
     # and K21 launch of the substructure path is held against them too
     k20_k21_tool = load_by_path("tools/k20_k21_phase_split.py")
     first_k20_k21 = {}
+    # K18's and K22's first designs (tools/k18_k22_first_design.cu): every K18
+    # launch of the TFD paths and every K22 launch of the substructure path
+    # is held against them too
+    k18_k22_tool = load_by_path("tools/k18_k22_phase_split.py")
+    first_k18_k22 = {}
     libs = {"nvcc_s": _build.similarity_lib, "nvcc_rmsd_s": _build.rmsd_lib,
             "nvcc_k9_k3_first_s": lambda: first_k9_k3.setdefault("lib", split_tool.first_lib()),
             "nvcc_k20_k21_first_s": lambda: first_k20_k21.setdefault(
                 "lib", k20_k21_tool.first_lib()),
+            "nvcc_k18_k22_first_s": lambda: first_k18_k22.setdefault(
+                "lib", k18_k22_tool.first_lib()),
             "nvcc_mmff_s": _build.mmff_lib, "nvcc_uff_s": _build.uff_lib,
             "nvcc_constraints_s": _build.constraints_lib,
             "nvcc_triangle_smooth_s": _build.triangle_smooth_lib,
@@ -2719,7 +2732,7 @@ def main() -> int:
     def check_tfd(coords, batch, what):
         """K17 against its plain version (circular difference within
         dihedral_tolerance), K18 on K17's angles against its plain version
-        (K18_TOL); returns K18's buffer."""
+        and its first design (K18_TOL each); returns K18's buffer."""
         angles = tfd_ops.dihedral_angles(coords, batch)
         plain = tfd_ops.dihedral_angles_plain(coords, batch)
         diff = (angles.double() - plain.double()).abs()
@@ -2733,9 +2746,14 @@ def main() -> int:
         err = float((out - tfd_ops.tfd_pairs_plain(angles, batch)).abs().max())
         check(err <= K18_TOL, f"K18 {what}: max |err| {err} > {K18_TOL}")
         errs[K18] = max(errs[K18], err)
+        first, _ = k18_k22_tool.first_tfd_pairs(first_k18_k22["lib"], angles, batch)
+        k18_vs_first[what] = {"max_abs_err": float((out - first).abs().max()),
+                              "equal": bool(torch.equal(out, first))}
+        check(k18_vs_first[what]["max_abs_err"] <= K18_TOL,
+              f"K18 {what}: differs from its first design by {k18_vs_first[what]}")
         return out
 
-    k17_fit = {}
+    k17_fit, k18_vs_first = {}, {}
     out_c = check_tfd(coords_c, batch_c, "(c)")
     check(len({r.torch().untyped_storage().data_ptr() for r in tfd_c}) == 1,
           "TFD (c): the per-molecule vectors are not views of one buffer")
@@ -2780,9 +2798,10 @@ def main() -> int:
                                           for k in kept]
           and all(np.isfinite(v).all() for v in bench_out), "TFD bench: shape or finite")
     slots_bench = [np.nonzero(r)[0] for r in bench_pf.conf_mask.cpu().numpy()]
-    check_tfd(*tfd_api.positions_batch(
-        bench_pf.positions, slots_bench, [tfd_ops.enumerate_torsions(m) for m in bench_set],
-        cuda), "(bench)")
+    sets_bench = [tfd_ops.enumerate_torsions(m) for m in bench_set]
+    coords_bench, batch_bench = tfd_api.positions_batch(bench_pf.positions, slots_bench,
+                                                        sets_bench, cuda)
+    check_tfd(coords_bench, batch_bench, "(bench)")
 
     # (b) -> Butina: the public call, the condensed vector expanded, butina
     def tfd_big_butina():
@@ -2821,7 +2840,8 @@ def main() -> int:
          ensemble_pairs=int(tfd_b.shape[0]), ensemble_first_call_s=tfd_big_s,
          ensemble_cutoff=TFD_CUTOFF, ensemble_clusters=len(tfd_cents),
          ensemble_launches=big_launches, k17_max_abs_err_deg=errs[K17], k17_fit=k17_fit,
-         k18_max_abs_err=errs[K18], seconds=time.perf_counter() - t_phase)
+         k18_max_abs_err=errs[K18], k18_vs_first_design=k18_vs_first,
+         seconds=time.perf_counter() - t_phase)
 
     # MMFF minimization at a user's size ----------------------------------------------
     # the fixture's molecules x MMFF_CONFS conformers, through the public API
@@ -3500,6 +3520,14 @@ def main() -> int:
           and all(torch.equal(a, b) for a, b in zip(dev_clusters, c_tfd_clusters)),
           "chain: TFD's device half differs from GetTFDMatrices")
     del dev_tfd, dev_clusters
+    # the chain's K18 launch, again on its own inputs, against its plain
+    # version and its first design
+    sel = torch.tensor(c_kept, device=cuda)
+    chain_out = check_tfd(*tfd_api.positions_batch(
+        c_min.positions[sel], [np.nonzero(r)[0] for r in c_min.conf_mask[sel].cpu().numpy()],
+        chain_sets, cuda), "(chain)")
+    check(torch.equal(chain_out, torch.cat(c_tfd)), "chain: K18 differs from GetTFDMatrices")
+    del sel, chain_out
     # the chain's TFD against the host path on the same minimized coordinates
     # (the first 128 molecules: the same kernels on the same values, equal)
     per_mol = c_min.per_molecule()
@@ -3527,6 +3555,7 @@ def main() -> int:
          tfd_molecules=len(c_kept), tfd_host_path_molecules=len(host_mols),
          tfd_clusters_mean=float(np.mean([int(c.max()) + 1 for c in c_tfd_clusters])),
          launches={k: v for k, v in chain_launches.items() if v},
+         k18_vs_first_design=k18_vs_first["(chain)"],
          seconds=time.perf_counter() - t_phase)
 
     # 6e. ETKDG: the default EmbedParameters() through the ETK stage ---------------
@@ -3899,6 +3928,8 @@ def main() -> int:
         else:
             check(torch.equal(out, sk.root_mask_plain(*args)),
                   f"K22 differs from its plain version at launch {idx}")
+            first_mask, _ = k18_k22_tool.first_root_mask(first_k18_k22["lib"], *args)
+            check(torch.equal(out, first_mask), f"K22 differs from its first design at launch {idx}")
     # the result against the native engine: bench.py's totals, each pair's
     # counts, and each pair's rows as sorted row sets
     nat_cfg = sub_api.SubstructSearchConfig(useDeviceEngine=False)
@@ -4391,24 +4422,51 @@ def main() -> int:
          k15=phase_split(k15_split["phase_cycles"].cpu(), butina_ops.K15_PHASES, k15_row["ms"]),
          k16=phase_split(k16_split["phase_cycles"].cpu(), butina_ops.K16_PHASES, k16_row["ms"]))
     del k15_split, k16_split
-    # K17 and K18 at (c) and (b), K18 on K17's angles
+    # K17 and K18 at (c), (b) and bench.py's configuration, K18 on K17's
+    # angles beside its first design, in turns (K18, first, K18, first), and
+    # its second bound (each Ring torsion's mean once per conformer)
     tfd_rows = {}
+    first_lib18 = first_k18_k22["lib"]
+    bench_nc = [len(x) for x in slots_bench]
     for label, coords, batch, sets, nc in (
             ("druglike", coords_c, batch_c, sets_c, [RMSD_CONFS] * RMSD_MOLS),
-            ("ensemble", coords_b, batch_b, sets_b, [n_ens])):
+            ("ensemble", coords_b, batch_b, sets_b, [n_ens]),
+            ("bench", coords_bench, batch_bench, sets_bench, bench_nc)):
         tfd_rows[K17, label] = row(
-            K17, f"{len(nc)} mols x {nc[0]} confs, {batch.n_angles} angles ({label})",
+            K17, f"{len(nc)} mols x {max(nc)} confs, {batch.n_angles} angles ({label})",
             k17_work(sets, nc, rates), lambda c=coords, b=batch: tfd_ops.dihedral_angles(c, b),
             lambda c=coords, b=batch: tfd_ops.dihedral_angles_plain(c, b), cold=True)
         angles = tfd_ops.dihedral_angles(coords, batch)
-        tfd_rows[K18, label] = row(
-            K18, f"{len(nc)} mols x {nc[0]} confs, {batch.n_pairs} pairs ({label})",
+        entry = tfd_rows[K18, label] = row(
+            K18, f"{len(nc)} mols x {max(nc)} confs, {batch.n_pairs} pairs ({label})",
             k18_work(sets, nc, rates), lambda a=angles, b=batch: tfd_ops.tfd_pairs(a, b),
             lambda a=angles, b=batch: tfd_ops.tfd_pairs_plain(a, b), cold=True)
-    for key in (K17, K18):  # the kernels line holds (c), with (b) beside it
-        tfd_rows[key, "druglike"]["at_ensemble"] = {
-            k: tfd_rows[key, "ensemble"][k] for k in ("shape", "ms", "cold_l2_ms", "plain_ms",
-                                                      "bound_ms", "bound_by")}
+        once = k18_work_once(sets, nc, rates)
+        entry["bound_means_once"] = {"bound_ms": once["bound_ms"], "bound_by": once["bound_by"],
+                                     "fp32": once["fp32"],
+                                     "share_hot": once["bound_ms"] / entry["ms"]}
+
+        def first_fn(a=angles, b=batch):
+            return k18_k22_tool.first_tfd_pairs(first_lib18, a, b)
+
+        first_ms = (median_ms(first_fn), median_ms(first_fn, flush=flush))
+        entry["ms_again"] = median_ms(lambda a=angles, b=batch: tfd_ops.tfd_pairs(a, b))
+        entry["first_design"] = {"ms": first_ms[0], "cold_l2_ms": first_ms[1],
+                                 "ms_again": median_ms(first_fn)}
+        got, first = tfd_ops.tfd_pairs(angles, batch), first_fn()[0]
+        entry["equal_to_first_design"] = bool(torch.equal(got, first))
+        entry["max_abs_err_vs_first_design"] = float((got - first).abs().max())
+        entry["tiles"] = int(batch.tiles.shape[0])
+        check(entry["max_abs_err_vs_first_design"] <= K18_TOL,
+              f"K18 ({label}) differs from its first design at the timed launch")
+        del got, first
+    for key in (K17, K18):  # the kernels line holds (c), with (b) and bench.py's beside it
+        for other in ("ensemble", "bench"):
+            tfd_rows[key, "druglike"][f"at_{other}"] = {
+                k: tfd_rows[key, other][k] for k in (
+                    "shape", "ms", "cold_l2_ms", "plain_ms", "bound_ms", "bound_by",
+                    "bound_means_once", "ms_again", "first_design", "equal_to_first_design",
+                    "max_abs_err_vs_first_design", "tiles") if k in tfd_rows[key, other]}
     # K19-K22 at the substructure path's largest launches (K19 and K22 in the
     # counts screens, K20 in the uniquify search, K21 in getSubstructMatches);
     # K21 by its raw launch, its offsets' cumsum made once before (the whole
@@ -4453,10 +4511,34 @@ def main() -> int:
     sub_rows[K21]["equal_to_first_design"] = bool(torch.equal(k21_launch(), firsts[K21][0]()[0]))
     check(sub_rows[K20]["equal_to_first_design"] and sub_rows[K21]["equal_to_first_design"],
           "K20 or K21 differs from its first design at the timed launch")
+    # K22 by its raw launch into an output made once before (the whole call,
+    # its allocation included, as call_ms), beside its first design (the
+    # kernel into an output zeroed once; its call, torch.zeros and the kernel,
+    # as call_ms)
     _, a22, o22, _ = sub_launch[K22]
+    out22 = torch.empty_like(o22)
+    first22 = torch.zeros_like(o22)
+
+    def k22_launch():
+        return sk._launch_root_mask(*a22, out22)
+
+    def k22_first():
+        return k18_k22_tool.first_root_mask_into(first_k18_k22["lib"], *a22, first22)
+
     sub_rows[K22] = row(K22, f"{a22[0].shape[0]} pairs, {int(a22[1].sum())} rows, T {a22[3]} "
                         f"(a recursive sub-pattern)", k22_work(a22[0], a22[1], a22[3], rates),
-                        lambda: sk.root_mask(*a22), lambda: sk.root_mask_plain(*a22), cold=True)
+                        k22_launch, lambda: sk.root_mask_plain(*a22), cold=True)
+    sub_rows[K22]["call_ms"] = median_ms(lambda: sk.root_mask(*a22))
+    first_ms = (median_ms(k22_first), median_ms(k22_first, flush=flush))
+    sub_rows[K22]["ms_again"] = median_ms(k22_launch)
+    sub_rows[K22]["first_design"] = {
+        "ms": first_ms[0], "cold_l2_ms": first_ms[1], "ms_again": median_ms(k22_first),
+        "call_ms": median_ms(lambda: k18_k22_tool.first_root_mask(first_k18_k22["lib"], *a22))}
+    k22_launch()
+    k22_first()
+    sub_rows[K22]["equal_to_first_design"] = bool(torch.equal(out22, first22))
+    check(sub_rows[K22]["equal_to_first_design"] and torch.equal(out22, o22),
+          "K22 differs from its first design or its path's output at the timed launch")
     del recorded, sub_launch
     del flush, hits24
     emit(phase="timings", kernels=measured, m_skinny_sweep=sweep, m_skinny=sim_ops.M_SKINNY,
@@ -4656,7 +4738,9 @@ def main() -> int:
               "K2's first counts)", "nvmolkit_tpu/ops/butina.py:131", butina_cu),
         K17: ("dihedral_kernel (K17: one thread per conformer and quartet)",
               "nvmolkit_tpu/ops/tfd.py:334", "nvmolkit_tpu_torch/csrc/tfd.cu"),
-        K18: ("tfd_kernel (K18: one thread per conformer pair, each torsion its type's work)",
+        K18: ("tfd_kernel (K18: a block per 64 x 64 tile of a molecule's pair triangle, the "
+              "tile's conformers' values staged in shared memory, each Ring torsion's mean once "
+              "per conformer, lanes along a row's pairs)",
               "nvmolkit_tpu/ops/tfd.py:367", "nvmolkit_tpu_torch/csrc/tfd.cu"),
         K19: ("gsi_join_kernel (K19: the GSI join, a warp per pair, each row's candidates "
               "from a back-edge atom's neighbour list, a warp scan per chunk of 32 rows)", "nvmolkit_tpu/ops/substruct_device.py:316",
@@ -4667,7 +4751,8 @@ def main() -> int:
         K21: ("extract_kernel (K21: match rows into query-atom order at CSR offsets, a warp "
               "per pair, each pair's outputs one coalesced run)",
               "nvmolkit_tpu/ops/substruct_device.py:514", substruct_cu),
-        K22: ("root_mask_kernel (K22: recursive SMARTS root masks, one thread per row)",
+        K22: ("root_mask_kernel (K22: recursive SMARTS root masks, a warp per pair, the "
+              "row's bits ORed in shared memory, every byte of the row written)",
               "nvmolkit_tpu/ops/substruct_device.py:557", substruct_cu),
     }
     lines = []
@@ -4691,7 +4776,8 @@ def main() -> int:
                                      "hessian_buffer_bytes",
                                      "first_design_hessian_buffer_bytes", "layouts",
                                      "first_design", "ms_again", "equal_to_first_design",
-                                     "call_ms",
+                                     "call_ms", "at_bench", "bound_means_once", "cold_l2_ms",
+                                     "max_abs_err_vs_first_design", "tiles",
                                      "by_shape")
                if k in entry}})
     print(json.dumps({"kernels": lines}))

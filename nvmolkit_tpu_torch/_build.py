@@ -510,7 +510,9 @@ def _declare_tfd(lib: ctypes.CDLL) -> None:
     lib.nvmk_dihedral_angles.restype = ci
     lib.nvmk_dihedral_angles.argtypes = [vp, vp, vp, vp, vp, ci, cll, vp, vp]
     lib.nvmk_tfd_pairs.restype = ci
-    lib.nvmk_tfd_pairs.argtypes = [vp, vp, vp, vp, vp, vp, ci, cll, vp, vp]
+    lib.nvmk_tfd_pairs.argtypes = [vp] * 8 + [ci, cll, ci, ci, ci, vp, vp]
+    lib.nvmk_tfd_pairs_info.restype = ci
+    lib.nvmk_tfd_pairs_info.argtypes = [ci, ci, ctypes.POINTER(ci)]
 
 
 def tfd_lib() -> ctypes.CDLL:
@@ -537,6 +539,8 @@ def _declare_substruct_gpu(lib: ctypes.CDLL) -> None:
     lib.nvmk_dedup_extract_info.argtypes = [ci, ctypes.POINTER(ci)]
     lib.nvmk_root_mask.restype = ci
     lib.nvmk_root_mask.argtypes = [vp, vp, ci, ci, ci, ci, ci, vp, vp]
+    lib.nvmk_root_mask_info.restype = ci
+    lib.nvmk_root_mask_info.argtypes = [ci, ctypes.POINTER(ci)]
 
 
 def substruct_gpu_lib() -> ctypes.CDLL:

@@ -71,9 +71,17 @@
 // 64-bit division and a binary search over the pairs' offsets for each) is
 // kept in tools/k20_k21_first_design.cu.
 //
-// K22 root_mask_kernel replaces _root_mask_kernel: one thread per (pair,
-// frontier row); a valid row stores 1 at [pair, frontier[row][slot0]], the
-// target atoms where a complete match of a recursive pattern puts its atom 0.
+// K22 root_mask_kernel replaces _root_mask_kernel: the target atoms where a
+// complete match of a recursive pattern puts its atom 0, [pair, T] bytes. A
+// warp per pair, MASK_WARPS pairs a block, the grid sized to the card: the
+// warp reads its pair's count once and the root slot of its valid rows only
+// (a row a lane, min(count, P) rows; a slot outside [0, T) is ignored), ORs
+// them into the row's T-bit mask (8 words of the warp's in shared memory),
+// then writes all T bytes of the row, zeros included, as 32-bit words where
+// T and the output allow it (lane l on word 32 i + l), so the wrapper's
+// output needs no fill. The first design (a thread per (pair, frontier row),
+// most of them only testing the count, into an output zeroed by a fill
+// launch) is kept in tools/k18_k22_first_design.cu.
 //
 // What bounds them: integer work. K19 does ~5-12 INT32 operations per tested
 // cell (the label bit, then only for label survivors the injectivity
@@ -86,20 +94,22 @@
 // three, a microsecond at the HBM rate, so what bounds them is the launch and
 // each warp's chain of dependent loads: a warp per pair keeps the chain to
 // the pair's count, its rows and the stores, one wave of warps on the card.
-// K22 keeps its first design: a thread per frontier row.
+// K22 reads 4 bytes a pair and 2 a valid row and writes T bytes a pair: a
+// launch and that chain, as K20 and K21.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int THREADS = 256;      // K22's block
 constexpr int MAX_EDGES = 4;     // EDGE_BUCKETS' largest entry
 constexpr int MAX_MASK_WORDS = 4;  // 64-bit words of a row's atom mask, T <= 256
 constexpr unsigned FULL_MASK = 0xffffffffu;
 constexpr int DEDUP_WARPS = 8;          // K20's pairs a block
 constexpr int DEDUP_SHARED_ROWS = 128;  // survivors' masks a pair keeps in shared memory
 constexpr int EXTRACT_WARPS = 4;        // K21's pairs a block
+constexpr int MASK_WARPS = 8;           // K22's pairs a block
+constexpr int MASK_WORDS = 8;           // 32-bit words of a row's mask, T <= 256
 
 constexpr int MAX_NQ = 64;         // QUERY_BUCKETS' largest
 constexpr int JOIN_WARPS = 4;      // K19's pairs a block
@@ -387,15 +397,39 @@ __global__ void __launch_bounds__(32 * EXTRACT_WARPS) extract_kernel(
   }
 }
 
-__global__ void __launch_bounds__(THREADS) root_mask_kernel(
+// K22: a warp per pair, MASK_WARPS pairs a block, the grid sized to the
+// card. WORDS: T % 4 == 0 and the output 4-byte aligned, so each row is
+// written as T / 4 32-bit words (byte t of word u: bit 4u + (t & 3)).
+template <bool WORDS>
+__global__ void __launch_bounds__(32 * MASK_WARPS) root_mask_kernel(
     const int16_t* __restrict__ frontier, const int32_t* __restrict__ counts, int B, int P, int nq,
     int slot0, int T, uint8_t* __restrict__ mask) {
-  const long long g = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (g >= (long long)B * P) return;
-  const int b = (int)(g / P);
-  const int r = (int)(g - (long long)b * P);
-  if (r >= counts[b]) return;
-  mask[(size_t)b * T + frontier[((size_t)b * P + r) * nq + slot0]] = 1;
+  __shared__ unsigned bits[MASK_WARPS][MASK_WORDS];
+  const int lane = threadIdx.x & 31;
+  unsigned* row_bits = bits[threadIdx.x >> 5];
+  const int stride = gridDim.x * MASK_WARPS;
+  for (int b = blockIdx.x * MASK_WARPS + (threadIdx.x >> 5); b < B; b += stride) {
+    const int c = min(counts[b], P);
+    if (lane < MASK_WORDS) row_bits[lane] = 0u;
+    __syncwarp();
+    const int16_t* root = frontier + (size_t)b * P * nq + slot0;
+    for (int r = lane; r < c; r += 32) {
+      const int a = root[(size_t)r * nq];
+      if ((unsigned)a < (unsigned)T) atomicOr(&row_bits[a >> 5], 1u << (a & 31));
+    }
+    __syncwarp();
+    uint8_t* dst = mask + (size_t)b * T;
+    if (WORDS) {
+      for (int u = lane; u < (T >> 2); u += 32) {
+        const unsigned nib = (row_bits[u >> 3] >> ((u & 7) * 4)) & 0xfu;
+        reinterpret_cast<uint32_t*>(dst)[u] =
+            (nib & 1u) | ((nib & 2u) << 7) | ((nib & 4u) << 14) | ((nib & 8u) << 21);
+      }
+    } else {
+      for (int t = lane; t < T; t += 32) dst[t] = (uint8_t)((row_bits[t >> 5] >> (t & 31)) & 1u);
+    }
+    __syncwarp();  // the words are read before the next pair clears them
+  }
 }
 
 // The blocks a launch takes: `needed`, or as many as the card holds at once
@@ -540,12 +574,34 @@ int nvmk_dedup_extract_info(int B, int* out) {
   return 0;
 }
 
+// K22 over B pairs into ``mask`` uint8 [B, T], every byte written; T <= 256.
 int nvmk_root_mask(const void* frontier, const void* counts, int B, int P, int nq, int slot0, int T,
                    void* mask, void* stream) {
-  const long long blocks = ((long long)B * P + THREADS - 1) / THREADS;
-  root_mask_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      (const int16_t*)frontier, (const int32_t*)counts, B, P, nq, slot0, T, (uint8_t*)mask);
+  if (T < 1 || T > 32 * MASK_WORDS || B < 1 || slot0 < 0 || slot0 >= nq)
+    return (int)cudaErrorInvalidValue;
+  const long long needed = (B + MASK_WARPS - 1) / MASK_WARPS;
+  if (T % 4 == 0 && (uintptr_t)mask % 4 == 0)
+    root_mask_kernel<true><<<card_grid(root_mask_kernel<true>, 32 * MASK_WARPS, needed),
+                             32 * MASK_WARPS, 0, (cudaStream_t)stream>>>(
+        (const int16_t*)frontier, (const int32_t*)counts, B, P, nq, slot0, T, (uint8_t*)mask);
+  else
+    root_mask_kernel<false><<<card_grid(root_mask_kernel<false>, 32 * MASK_WARPS, needed),
+                              32 * MASK_WARPS, 0, (cudaStream_t)stream>>>(
+        (const int16_t*)frontier, (const int32_t*)counts, B, P, nq, slot0, T, (uint8_t*)mask);
   return (int)cudaGetLastError();
+}
+
+// K22's instantiation (32-bit words): registers a thread, local bytes a
+// thread, resident blocks an SM, static shared bytes a block, pairs a block,
+// the grid a launch over B pairs takes, threads a block
+int nvmk_root_mask_info(int B, int* out) {
+  const int rc = kernel_info(root_mask_kernel<true>, 32 * MASK_WARPS, out);
+  if (rc != 0) return rc;
+  out[4] = MASK_WARPS;
+  out[5] = (int)card_grid(root_mask_kernel<true>, 32 * MASK_WARPS,
+                          (B + MASK_WARPS - 1) / MASK_WARPS);
+  out[6] = 32 * MASK_WARPS;
+  return 0;
 }
 
 }  // extern "C"

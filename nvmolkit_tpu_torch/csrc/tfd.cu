@@ -17,38 +17,61 @@
 //
 // K18 tfd_kernel replaces nvmolkit_tpu/ops/tfd.py tfd_matrix_condensed (the
 // same, over a [P, T, Q, Q] padded block per molecule, every torsion type's
-// deviation computed for every torsion): one thread per (molecule,
-// condensed pair p). It finds its molecule by a binary search over the pair
-// offsets, recovers (i, j), i > j, from p = i(i-1)/2 + j by a float64 square
-// root and one integer correction each way (a float32 root is wrong past ~1e6
-// pairs; one molecule of 2,000 conformers has 1,999,000), then walks the
-// molecule's torsions, each doing only its own type's work:
-//   Single:    circular difference min(|a - b|, 360 - |a - b|) of quartet 0;
-//   Ring:      |mean_q |a_q - 180| - mean_q |b_q - 180||;
+// deviation computed for every torsion): a block of 256 threads per tile of a
+// molecule's pair triangle, from a table of (molecule, i0, j0) tiles built on
+// the host with the batch (TFDBatch.tiles): rows i in [i0, i0 + TILE),
+// columns j in [j0, j0 + TILE), the pairs i > j of the tile. No thread
+// searches for its molecule or takes a float64 square root: on a tile off
+// the diagonal warp w takes rows i0 + w + 8k, lane l columns j0 + l and
+// j0 + l + 32, so a warp's stores into the condensed layout (i(i-1)/2 + j)
+// are one contiguous run; a diagonal tile's TILE (TILE - 1) / 2 pairs are
+// packed, thread t on the local pairs t + 256 c (their (i, j) from a float32
+// root once a tile), so no lane idles on its empty half and a molecule of up
+// to TILE conformers stores one contiguous run. The block walks its molecule's torsions in chunks whose staged values
+// fit `cap` (TFDBatch.value_starts: a Single or Ring torsion stages one value
+// a conformer, a Symmetric torsion one a quartet); per chunk it stages in
+// shared memory the torsion table (type, weight, max(max_dev, 1e-6)) and,
+// slot-major so that lanes read consecutive conformers, each of the tile's
+// row and column conformers' values: quartet 0's angle of a Single torsion,
+// every quartet's of a Symmetric one, and a Ring torsion's mean |a - 180| over
+// its quartets, summed in quartet order, once per conformer and not once per
+// pair. Then each torsion's deviation:
+//   Single:    circular difference min(|a - b|, 360 - |a - b|);
+//   Ring:      |mean_a - mean_b|;
 //   Symmetric: the least circular difference over every (q_a, q_b) pairing;
-// divided by max(max_dev, 1e-6), and writes sum(w dev) / sum(w) (0 where
-// sum(w) <= 1e-10) straight to the molecule's condensed offset in the call's
-// buffer, so the host gathers nothing. The threads of a warp belong to one
-// molecule but at its edges, so they walk the same torsions in step.
+// divided by d = max(max_dev, 1e-6) through RN(1 / d) and one correction
+// step, which gives the IEEE quotient (div_by), summed w dev torsion by
+// torsion into registers, and sum(w dev) / sum(w) (0
+// where sum(w) <= 1e-10) stored at the molecule's condensed offset in the
+// call's buffer. The sums run in the first design's and the plain version's
+// order, so the bits are theirs. The first design (a thread per condensed
+// pair, a binary search over the molecules' pair offsets, a float64 square
+// root for (i, j), the torsion table and strided angles from global memory,
+// the Ring means recomputed for every pair) is kept in
+// tools/k18_k22_first_design.cu.
 //
 // What bounds them: K17 reads 48 bytes of coordinates and 16 of atom
 // indices per work item and writes 4; ~55 FP32 operations each (an atan2,
-// a square root or a division counted once). K18 reads the two conformers'
-// angles of the molecule (a few hundred bytes, from L1/L2: a molecule's
-// angles are a few kB) and writes 4 bytes per pair; its operations grow
-// with the quartets: 4 per Single, 6 per quartet of a Ring, 4 per pairing
-// of a Symmetric torsion. At the sizes users run (10^2 conformers, tens of
-// torsions) both are small next to the host's torsion enumeration; they are
-// written for being right first: no shared-memory staging of the torsion
-// table, one pair per thread. IEEE arithmetic throughout (no fast math);
-// float32 as the JAX package's default working dtype.
+// a square root or a division counted once). K18 reads each conformer's
+// angles (a few kB a molecule) and writes 4 bytes per pair; its operations
+// grow with the quartets: per pair and torsion a deviation (4 for a Single,
+// 2 for a Ring, 5 a pairing of a Symmetric torsion), the division and the
+// weighted sum, so it is bound by FP32 issue. IEEE arithmetic throughout (no
+// fast math); float32 as the JAX package's default working dtype.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int THREADS = 256;      // K17's block
+constexpr int TILE = 64;          // conformers a side of K18's tile (ops/tfd.py TILE)
+constexpr int TILE_WARPS = 8;     // K18's block: 8 warps
+constexpr int TILE_ROWS = TILE / TILE_WARPS;  // rows a warp
+constexpr int TILE_COLS = TILE / 32;          // columns a lane
+constexpr int DIAG_PAIRS = TILE * (TILE - 1) / 2;  // pairs of a diagonal tile
+constexpr int DIAG_CELLS = (DIAG_PAIRS + 32 * TILE_WARPS - 1) / (32 * TILE_WARPS);  // a thread's
+static_assert(DIAG_CELLS <= TILE_ROWS * TILE_COLS && TILE <= 256, "a diagonal tile's cells");
 constexpr int TORSION_RING = 1;
 constexpr int TORSION_SYMMETRIC = 2;
 constexpr float DEGREES = 57.29577951308232f;  // 180 / pi
@@ -121,53 +144,237 @@ __device__ __forceinline__ float circular(float a, float b) {
   return fminf(d, __fsub_rn(360.0f, d));
 }
 
-__global__ void __launch_bounds__(THREADS)
+// K18's shared memory for a chunk of `cap` staged values: the values
+// [cap][vstride] (vstride 2 TILE, or TILE where every tile of the launch is
+// on a diagonal), then per torsion of the chunk its type, first value, quartet
+// count, weight, d = max(max_dev, 1e-6) and RN(1 / d), then per value its
+// first quartet and (a Ring mean) its quartet count or -1 (an angle).
+__host__ __device__ constexpr size_t tile_shared_bytes(int cap, int vstride) {
+  return (size_t)cap * (vstride * sizeof(float) + 8 * sizeof(int));
+}
+
+// dev / d from r = RN(1 / d): q = RN(dev r) is within an ulp of the
+// quotient, e = dev - d q is exact (a fused multiply-add), and RN(q + e r) is
+// the correctly rounded quotient where nothing underflows (Markstein's
+// theorem), so the bits of the IEEE division. Three instructions a pair and
+// torsion in place of __fdiv_rn's routine (a dozen and a slow path).
+__device__ __forceinline__ float div_by(float dev, float d, float r) {
+  const float q = __fmul_rn(dev, r);
+  return __fmaf_rn(__fmaf_rn(-d, q, dev), r, q);
+}
+
+// Local (row, column), column < row, of the p-th pair of a diagonal tile:
+// p = row (row - 1) / 2 + column, p < TILE (TILE - 1) / 2.
+__device__ __forceinline__ int diagonal_cell(int p) {
+  int row = (int)((1.0f + sqrtf((float)(8 * p + 1))) * 0.5f);
+  if (row * (row - 1) / 2 > p) --row;
+  if ((row + 1) * row / 2 <= p) ++row;
+  return row << 8 | (p - row * (row - 1) / 2);
+}
+
+__global__ void __launch_bounds__(32 * TILE_WARPS)
 tfd_kernel(const float* __restrict__ angles, const int64_t* __restrict__ off,
-           const int64_t* __restrict__ tq, const int* __restrict__ types,
-           const float* __restrict__ weights, const float* __restrict__ max_dev, int n_mol,
-           int64_t n_pairs, float* __restrict__ out) {
-  const int64_t g = (int64_t)blockIdx.x * THREADS + threadIdx.x;
-  if (g >= n_pairs) return;
+           const int64_t* __restrict__ tq, const int64_t* __restrict__ vstart,
+           const int* __restrict__ types, const float* __restrict__ weights,
+           const float* __restrict__ max_dev, const int* __restrict__ tiles, int n_mol, int cap,
+           int vstride, float* __restrict__ out) {
+  extern __shared__ __align__(16) float vals[];
+  int* t_type = reinterpret_cast<int*>(vals + (size_t)cap * vstride);
+  int* t_voff = t_type + cap;
+  int* t_nq = t_voff + cap;
+  float* t_w = reinterpret_cast<float*>(t_nq + cap);
+  float* t_md = t_w + cap;
+  float* t_rmd = t_md + cap;
+  int* s_q = reinterpret_cast<int*>(t_rmd + cap);
+  int* s_n = s_q + cap;
+  const int m = tiles[3 * blockIdx.x], i0 = tiles[3 * blockIdx.x + 1],
+            j0 = tiles[3 * blockIdx.x + 2];
   const int64_t stride = n_mol + 1;
-  const int m = find_segment(off + PAIRS * stride, n_mol, g);
-  const int64_t p = g - off[PAIRS * stride + m];
-  int64_t i = (int64_t)((1.0 + sqrt(8.0 * (double)p + 1.0)) * 0.5);
-  if (i * (i + 1) / 2 <= p) ++i;
-  if (i * (i - 1) / 2 > p) --i;
-  const int64_t j = p - i * (i - 1) / 2;
   const int64_t t_begin = off[TORSIONS * stride + m], t_end = off[TORSIONS * stride + m + 1];
   const int64_t q_first = tq[t_begin];
   const int64_t n_q = tq[t_end] - q_first;
-  // angle of the batch's quartet q in conformer i: angles[ia + q] (j: ib)
-  const int64_t ia = off[ANGLES * stride + m] - q_first + i * n_q;
-  const int64_t ib = off[ANGLES * stride + m] - q_first + j * n_q;
-  float num = 0.0f, wsum = 0.0f;
-  for (int64_t t = t_begin; t < t_end; ++t) {
-    const int64_t qs = tq[t], qe = tq[t + 1];
-    const int type = types[t];
-    float dev;
-    if (type == TORSION_RING) {
-      float sa = 0.0f, sb = 0.0f;
-      for (int64_t q = qs; q < qe; ++q) {
-        sa = __fadd_rn(sa, fabsf(__fsub_rn(angles[ia + q], 180.0f)));
-        sb = __fadd_rn(sb, fabsf(__fsub_rn(angles[ib + q], 180.0f)));
-      }
-      const float nq = (float)(qe - qs > 1 ? qe - qs : 1);
-      dev = fabsf(__fsub_rn(__fdiv_rn(sa, nq), __fdiv_rn(sb, nq)));
-    } else if (type == TORSION_SYMMETRIC) {
-      dev = 180.0f;
-      for (int64_t qa = qs; qa < qe; ++qa)
-        for (int64_t qb = qs; qb < qe; ++qb)
-          dev = fminf(dev, circular(angles[ia + qa], angles[ib + qb]));
-    } else {
-      dev = circular(angles[ia + qs], angles[ib + qs]);
+  const int n_c = (int)(off[CONFS * stride + m + 1] - off[CONFS * stride + m]);
+  // conformer c's angle of the molecule's local quartet q: ang[c * n_q + q]
+  const float* ang = angles + off[ANGLES * stride + m];
+  const bool diag = i0 == j0;
+  const int width = diag ? TILE : 2 * TILE;  // conformers staged: rows, then columns
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float num[TILE_ROWS][TILE_COLS];
+#pragma unroll
+  for (int r = 0; r < TILE_ROWS; ++r)
+#pragma unroll
+    for (int h = 0; h < TILE_COLS; ++h) num[r][h] = 0.0f;
+  float wsum = 0.0f;
+  // a diagonal tile's cells: thread t's c-th pair is p = t + 256 c, its local
+  // (row, column) in cell[c] ((0, 0) past the tile), bit c of `own` where it
+  // is a pair of the molecule, of `live` where some lane of the warp has one
+  // (a warp-uniform skip)
+  int cell[DIAG_CELLS];
+  unsigned own = 0u, live = 0u;
+  if (diag) {
+#pragma unroll
+    for (int c = 0; c < DIAG_CELLS; ++c) {
+      const int p = threadIdx.x + 32 * TILE_WARPS * c;
+      cell[c] = p < DIAG_PAIRS ? diagonal_cell(p) : 0;
+      const bool mine = p < DIAG_PAIRS && i0 + (cell[c] >> 8) < n_c;
+      own |= (mine ? 1u : 0u) << c;
+      live |= (__ballot_sync(0xffffffffu, mine) != 0u ? 1u : 0u) << c;
     }
-    const float wt = weights[t];
-    dev = __fdiv_rn(dev, fmaxf(max_dev[t], 1e-6f));
-    num = __fadd_rn(num, __fmul_rn(dev, wt));
-    wsum = __fadd_rn(wsum, wt);
   }
-  out[off[OUT * stride + m] + p] = wsum > 1e-10f ? __fdiv_rn(num, fmaxf(wsum, 1e-10f)) : 0.0f;
+  for (int64_t t_lo = t_begin; t_lo < t_end;) {
+    // the chunk: the most torsions from t_lo whose values fit `cap` (the
+    // wrapper makes cap at least any one torsion's)
+    const int64_t v0 = vstart[t_lo];
+    int64_t lo = t_end;  // the rest of the molecule, as a rule
+    if (vstart[t_end] - v0 > cap) {
+      lo = t_lo + 1;
+      int64_t hi = t_end - 1;
+      while (lo < hi) {
+        const int64_t mid = (lo + hi + 1) >> 1;
+        if (vstart[mid] - v0 <= cap) lo = mid; else hi = mid - 1;
+      }
+    }
+    const int nt = (int)(lo - t_lo), nv = (int)(vstart[lo] - v0);
+    for (int k = threadIdx.x; k < nt; k += blockDim.x) {
+      const int64_t t = t_lo + k;
+      const int type = types[t];
+      const int qs = (int)(tq[t] - q_first), nq = (int)(tq[t + 1] - tq[t]);
+      const int voff = (int)(vstart[t] - v0);
+      t_type[k] = type;
+      t_voff[k] = voff;
+      t_nq[k] = nq;
+      t_w[k] = weights[t];
+      t_md[k] = fmaxf(max_dev[t], 1e-6f);
+      t_rmd[k] = __frcp_rn(t_md[k]);
+      if (type == TORSION_SYMMETRIC) {
+        for (int u = 0; u < nq; ++u) {
+          s_q[voff + u] = qs + u;
+          s_n[voff + u] = -1;
+        }
+      } else {
+        s_q[voff] = qs;
+        s_n[voff] = type == TORSION_RING ? nq : -1;
+      }
+    }
+    __syncthreads();
+    // the tile's conformers' values, slot-major (a conformer past the
+    // molecule's stages 0: its pairs are never stored)
+    const int shift = __ffs(width) - 1;  // log2(width)
+    for (int e = threadIdx.x; e < nv * width; e += blockDim.x) {
+      const int s = e >> shift, k = e & (width - 1);
+      const int c = k < TILE ? i0 + k : j0 + k - TILE;
+      float v = 0.0f;
+      if (c < n_c) {
+        const float* a = ang + (int64_t)c * n_q + s_q[s];
+        const int n = s_n[s];
+        if (n < 0) {
+          v = a[0];
+        } else {
+          for (int u = 0; u < n; ++u) v = __fadd_rn(v, fabsf(__fsub_rn(a[u], 180.0f)));
+          v = __fdiv_rn(v, (float)(n > 1 ? n : 1));
+        }
+      }
+      vals[s * vstride + k] = v;
+    }
+    __syncthreads();
+    if (diag) {
+      // a diagonal tile's pairs packed, p = i (i - 1) / 2 + j locally, thread
+      // t on p = t + 256 c: no lane idles on the empty half
+      for (int k = 0; k < nt; ++k) {
+        const int type = t_type[k];
+        const float* v = vals + t_voff[k] * vstride;  // conformer l's value at v[l]
+        const float w = t_w[k], md = t_md[k], rmd = t_rmd[k];
+        wsum = __fadd_rn(wsum, w);
+        const int nq = type == TORSION_SYMMETRIC ? t_nq[k] : 1;
+#pragma unroll
+        for (int c = 0; c < DIAG_CELLS; ++c) {
+          if (!(live >> c & 1u)) continue;  // the warp's cells c are all past the tile
+          const int ri = cell[c] >> 8, cj = cell[c] & 0xff;
+          float dev;
+          if (type == TORSION_SYMMETRIC) {
+            dev = 180.0f;
+            for (int qa = 0; qa < nq; ++qa) {
+              const float a = v[qa * vstride + ri];
+              for (int qb = 0; qb < nq; ++qb) dev = fminf(dev, circular(a, v[qb * vstride + cj]));
+            }
+          } else {
+            const float a = v[ri], b = v[cj];
+            dev = type == TORSION_RING ? fabsf(__fsub_rn(a, b)) : circular(a, b);
+          }
+          num[c / TILE_COLS][c % TILE_COLS] =
+              __fadd_rn(num[c / TILE_COLS][c % TILE_COLS], __fmul_rn(div_by(dev, md, rmd), w));
+        }
+      }
+    } else {
+      // rows i0 + warp + 8 r, columns j0 + lane + 32 h: every cell a pair
+      for (int k = 0; k < nt; ++k) {
+        const int type = t_type[k];
+        const float* rv = vals + t_voff[k] * vstride;  // row r's value at rv[r]
+        const float* cv = rv + TILE;                   // column l's at cv[l]
+        const float w = t_w[k], md = t_md[k], rmd = t_rmd[k];
+        wsum = __fadd_rn(wsum, w);
+        if (type == TORSION_SYMMETRIC) {
+          const int nq = t_nq[k];
+#pragma unroll
+          for (int r = 0; r < TILE_ROWS; ++r) {
+            const int ri = warp + TILE_WARPS * r;
+            if (i0 + ri >= n_c) continue;
+#pragma unroll
+            for (int h = 0; h < TILE_COLS; ++h) {
+              const int cj = lane + 32 * h;
+              float dev = 180.0f;
+              for (int qa = 0; qa < nq; ++qa) {
+                const float a = rv[qa * vstride + ri];
+                for (int qb = 0; qb < nq; ++qb)
+                  dev = fminf(dev, circular(a, cv[qb * vstride + cj]));
+              }
+              num[r][h] = __fadd_rn(num[r][h], __fmul_rn(div_by(dev, md, rmd), w));
+            }
+          }
+        } else {
+          const bool ring = type == TORSION_RING;
+          float b[TILE_COLS];
+#pragma unroll
+          for (int h = 0; h < TILE_COLS; ++h) b[h] = cv[lane + 32 * h];
+#pragma unroll
+          for (int r = 0; r < TILE_ROWS; ++r) {
+            const int ri = warp + TILE_WARPS * r;
+            if (i0 + ri >= n_c) continue;
+            const float a = rv[ri];
+#pragma unroll
+            for (int h = 0; h < TILE_COLS; ++h) {
+              const float dev = ring ? fabsf(__fsub_rn(a, b[h])) : circular(a, b[h]);
+              num[r][h] = __fadd_rn(num[r][h], __fmul_rn(div_by(dev, md, rmd), w));
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();  // the next chunk restages
+    t_lo = lo;
+  }
+  float* dst = out + off[OUT * stride + m];
+  if (diag) {
+#pragma unroll
+    for (int c = 0; c < DIAG_CELLS; ++c) {
+      if (!(own >> c & 1u)) continue;
+      const int i = i0 + (cell[c] >> 8), j = i0 + (cell[c] & 0xff);
+      dst[(int64_t)i * (i - 1) / 2 + j] =
+          wsum > 1e-10f ? __fdiv_rn(num[c / TILE_COLS][c % TILE_COLS], fmaxf(wsum, 1e-10f)) : 0.0f;
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < TILE_ROWS; ++r) {
+      const int i = i0 + warp + TILE_WARPS * r;
+      if (i >= n_c) continue;
+      const int64_t row = (int64_t)i * (i - 1) / 2;
+#pragma unroll
+      for (int h = 0; h < TILE_COLS; ++h) {
+        const int j = j0 + lane + 32 * h;
+        dst[row + j] = wsum > 1e-10f ? __fdiv_rn(num[r][h], fmaxf(wsum, 1e-10f)) : 0.0f;
+      }
+    }
+  }
 }
 
 unsigned grid_for(int64_t n) { return (unsigned)((n + THREADS - 1) / THREADS); }
@@ -189,17 +396,55 @@ int nvmk_dihedral_angles(const float* coords, const int64_t* conf_rows, const in
   return (int)cudaGetLastError();
 }
 
-// K18. angles float32 [n_angles] (K17's); types int32 [T]; weights and
-// max_dev float32 [T]; out float32, the call's condensed buffer (entries of
-// molecules outside the batch untouched). Returns cudaGetLastError().
-int nvmk_tfd_pairs(const float* angles, const int64_t* off, const int64_t* tq, const int* types,
-                   const float* weights, const float* max_dev, int n_mol, long long n_pairs,
-                   float* out, cudaStream_t stream) {
-  if (n_mol <= 0 || n_pairs <= 0) return (int)cudaErrorInvalidValue;
-  if ((n_pairs + THREADS - 1) / THREADS > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  tfd_kernel<<<grid_for(n_pairs), THREADS, 0, stream>>>(angles, off, tq, types, weights, max_dev,
-                                                         n_mol, n_pairs, out);
+// K18. angles float32 [n_angles] (K17's); vstart int64 [T + 1], each
+// torsion's first staged value (a Symmetric torsion's values its quartets, any
+// other's one); types int32 [T]; weights and max_dev float32 [T]; tiles int32
+// [n_tiles, 3] (batch molecule, i0, j0) with side `tile` (TILE); cap the
+// values a chunk stages (at least any one torsion's); vstride 2 TILE, or TILE
+// where every tile is on a diagonal (i0 == j0); out float32, the call's
+// condensed buffer (entries of molecules outside the batch untouched).
+// Returns cudaGetLastError() after the launch (0 on success).
+int nvmk_tfd_pairs(const float* angles, const int64_t* off, const int64_t* tq,
+                   const int64_t* vstart, const int* types, const float* weights,
+                   const float* max_dev, const int* tiles, int n_mol, long long n_tiles, int tile,
+                   int cap, int vstride, float* out, cudaStream_t stream) {
+  if (n_mol <= 0 || n_tiles <= 0 || tile != TILE || cap < 1 ||
+      (vstride != TILE && vstride != 2 * TILE))
+    return (int)cudaErrorInvalidValue;
+  if (n_tiles > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  const size_t bytes = tile_shared_bytes(cap, vstride);
+  if (bytes > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(tfd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  tfd_kernel<<<(unsigned)n_tiles, 32 * TILE_WARPS, bytes, stream>>>(
+      angles, off, tq, vstart, types, weights, max_dev, tiles, n_mol, cap, vstride, out);
   return (int)cudaGetLastError();
+}
+
+// K18's instantiation at `cap` values a chunk and `vstride`: out[0] registers
+// a thread, [1] local bytes a thread, [2] resident blocks an SM, [3] shared
+// bytes a block (dynamic), [4] threads a block, [5] the tile side.
+int nvmk_tfd_pairs_info(int cap, int vstride, int* out) {
+  const size_t bytes = tile_shared_bytes(cap, vstride);
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, tfd_kernel);
+  if (err != cudaSuccess) return (int)err;
+  if (bytes > 48 * 1024) {
+    err = cudaFuncSetAttribute(tfd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, tfd_kernel, 32 * TILE_WARPS, bytes);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = blocks;
+  out[3] = (int)bytes;
+  out[4] = 32 * TILE_WARPS;
+  out[5] = TILE;
+  return 0;
 }
 
 }  // extern "C"

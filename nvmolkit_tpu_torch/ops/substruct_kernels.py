@@ -22,7 +22,8 @@ One call covers one query against the live targets of one atom bucket
   pair, the JAX ``_extract_flat`` with the host decode ``flat[:, perm]``.
 * :func:`root_mask` — K22, else :func:`root_mask_plain`: ``[B, T]`` bool,
   the target atoms where a complete match puts the pattern's atom 0, the
-  JAX ``_root_mask_kernel``.
+  JAX ``_root_mask_kernel``. K22 writes every byte of its output, so the
+  wrapper allocates it with ``torch.empty`` (no fill launch).
 
 Layouts: label bits as int32 words ``[N, nq, W]`` (bit t of slot s in word
 t // 32, :func:`pack_label_words`), the bucket's bond codes ``kind +
@@ -376,14 +377,23 @@ def root_mask(frontier, counts, slot0: int, T: int):
     tensors."""
     if not frontier.is_cuda:
         return root_mask_plain(frontier, counts, slot0, T)
+    B = frontier.shape[0] if frontier.dim() == 3 else 0
+    out = torch.empty((B, T), dtype=torch.bool, device=frontier.device)
+    return _launch_root_mask(frontier, counts, slot0, T, out)
+
+
+def _launch_root_mask(frontier, counts, slot0: int, T: int, out):
+    """K22 into ``out`` (bool [B, T], contiguous, on the frontier's
+    device), every byte written; returns ``out``."""
     dev = frontier.device
     _check("frontier", frontier, torch.int16, 3, dev)
     _check("counts", counts, torch.int32, 1, dev)
+    _check("out", out, torch.bool, 2, dev)
     B, P, nq = frontier.shape
-    if counts.shape[0] != B or not 0 <= slot0 < nq or T > MAX_T:
-        raise ValueError(f"K22 takes [B] counts, a slot below {nq} and T <= {MAX_T}, got "
-                         f"{tuple(counts.shape)}, {slot0}, {T}")
-    out = torch.zeros((B, T), dtype=torch.bool, device=dev)
+    if counts.shape[0] != B or not 0 <= slot0 < nq or not 1 <= T <= MAX_T or out.shape != (B, T):
+        raise ValueError(f"K22 takes [B] counts, a slot below {nq}, 1 <= T <= {MAX_T} and a "
+                         f"[B, T] output, got {tuple(counts.shape)}, {slot0}, {T}, "
+                         f"{tuple(out.shape)}")
     if B == 0:
         return out
     lib = substruct_gpu_lib()
@@ -394,3 +404,16 @@ def root_mask(frontier, counts, slot0: int, T: int):
         raise RuntimeError(f"root_mask kernel launch failed with CUDA error {rc}")
     launch_counts["root_mask"] += 1
     return out
+
+
+def root_mask_info(B: int = 0) -> dict:
+    """K22's instantiation: registers and spilled bytes a thread, resident
+    blocks an SM, shared bytes, pairs and threads a block, and the grid a
+    launch over ``B`` pairs takes."""
+    out = (ctypes.c_int * 7)()
+    rc = substruct_gpu_lib().nvmk_root_mask_info(B, out)
+    if rc != 0:
+        raise RuntimeError(f"nvmk_root_mask_info failed with CUDA error {rc}")
+    keys = ("registers", "local_bytes", "blocks_per_sm", "shared_bytes", "pairs_per_block", "grid",
+            "threads")
+    return dict(zip(keys, out))

@@ -27,7 +27,11 @@ The device half works on one flat CSR batch of a call's molecules
   |angle - 180|) or Symmetric (least circular difference over every
   pairing of the quartets) deviation over ``max_dev``, as the JAX
   ``tfd_matrix_condensed`` does, written to each molecule's condensed
-  offset (i > j at i(i-1)/2 + j) in one flat float32 buffer.
+  offset (i > j at i(i-1)/2 + j) in one flat float32 buffer. K18 runs a
+  block per tile of a molecule's pair triangle (``TFDBatch.tiles``, made
+  with the batch: rows [i0, i0 + TILE), columns [j0, j0 + TILE)), its
+  conformers' values staged in shared memory a chunk of torsions at a time
+  (``TFDBatch.value_starts``, ``cap``).
 
 A build or launch failure raises; there is no fallback. Everything on the
 device is float32, the JAX package's default. ``launch_counts`` counts the
@@ -338,6 +342,9 @@ launch_counts = {"dihedral_angles": 0, "tfd_pairs": 0}
 
 # rows of TFDBatch.mol_offsets
 ANGLES, CONFS, PAIRS, OUT, TORSIONS = range(5)
+TILE = 64        # conformers a side of K18's tile (csrc/tfd.cu TILE)
+VALUE_CAP = 128  # values K18 stages a chunk, unless one torsion has more
+MAX_SHARED_BYTES = 232_448  # shared memory a block may take on sm_90
 EPS32 = 2.0 ** -23
 _DEGREES = 57.29577951308232  # 180 / pi, as a float32 factor on both sides
 _PLAIN_BUDGET = 1 << 25  # float32 elements of tfd_pairs_plain's [pairs, T, Q, Q] per chunk
@@ -361,8 +368,17 @@ class TFDBatch:
     coordinate row of each conformer, in pair order. ``torsion_quartets``
     int64 [T + 1]: the quartet offsets of the torsions. ``quartets`` int32
     [Q, 4] atom indices, ``types`` int32 [T] (``TORSION_*``), ``weights``
-    and ``max_dev`` float32 [T]. ``coords`` float32 [R, 3] when the
-    coordinates were packed on the host and copied with the tables."""
+    and ``max_dev`` float32 [T]. ``value_starts`` int64 [T + 1]: each
+    torsion's first value among those K18 stages a conformer (a Symmetric
+    torsion's values its quartets' angles, a Single's its angle, a Ring's
+    its mean). ``tiles`` int32 [n_tiles, 3]: K18's tiles (batch molecule,
+    i0, j0), i0 >= j0 multiples of ``TILE``, each molecule's in order, which
+    together cover each of its pairs once. ``cap``: the values a K18 chunk
+    stages (the largest molecule's, at most ``VALUE_CAP`` unless one torsion
+    has more); ``vstride``: ``2 * TILE``, or ``TILE`` where every tile is on
+    a diagonal (no molecule has more than ``TILE`` conformers). ``coords``
+    float32 [R, 3] when the coordinates were packed on the host and copied
+    with the tables."""
 
     mol_offsets: torch.Tensor
     conf_rows: torch.Tensor
@@ -371,9 +387,13 @@ class TFDBatch:
     types: torch.Tensor
     weights: torch.Tensor
     max_dev: torch.Tensor
+    value_starts: torch.Tensor
+    tiles: torch.Tensor
     n_angles: int
     n_pairs: int
     n_out: int
+    cap: int
+    vstride: int
     coords: torch.Tensor | None = None
 
     @property
@@ -388,6 +408,24 @@ def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.to(device)
 
 
+def pair_tiles(conf_counts: np.ndarray) -> np.ndarray:
+    """int32 [n_tiles, 3]: K18's tiles (molecule, i0, j0) over molecules of
+    ``conf_counts`` conformers, each molecule's in order: every (I, J), I >=
+    J, of its ceil(C / TILE) blocks of conformers, at (I TILE, J TILE)."""
+    sides = -(-np.asarray(conf_counts, np.int64) // TILE)
+    parts = [np.zeros((0, 3), np.int32)]
+    for n in np.unique(sides):
+        ks = np.nonzero(sides == n)[0]
+        big, small = np.tril_indices(int(n))
+        part = np.empty((len(ks), len(big), 3), np.int32)
+        part[..., 0] = ks[:, None]
+        part[..., 1] = big * TILE
+        part[..., 2] = small * TILE
+        parts.append(part.reshape(-1, 3))
+    tiles = np.concatenate(parts)
+    return tiles[np.argsort(tiles[:, 0], kind="stable")]
+
+
 def make_batch(torsion_sets: list[TorsionSet], conf_rows: list[np.ndarray], device,
                coords: np.ndarray | None = None) -> TFDBatch:
     """The batch of a call's molecules: ``torsion_sets`` and ``conf_rows``
@@ -395,8 +433,9 @@ def make_batch(torsion_sets: list[TorsionSet], conf_rows: list[np.ndarray], devi
     two or more) cover every molecule, in order, and the call's condensed
     buffer holds C(C-1)/2 entries for each; the molecules without torsions
     stay out of the batch (their entries stay 0). The integer tables, the
-    quartets and the float tables (with ``coords``, float32 [R, 3], when
-    given) go to ``device`` in one copy each."""
+    quartets with the types and K18's tiles, and the float tables (with
+    ``coords``, float32 [R, 3], when given) go to ``device`` in one copy
+    each."""
     device = torch.device(device)
     n_confs = np.array([len(r) for r in conf_rows], np.int64)
     pairs = n_confs * (n_confs - 1) // 2
@@ -416,10 +455,15 @@ def make_batch(torsion_sets: list[TorsionSet], conf_rows: list[np.ndarray], devi
     torsion_quartets = np.concatenate(
         [[0]] + [q_base[k] + ts.quartet_starts[1:] for k, ts in enumerate(sets)]).astype(np.int64)
     rows = np.concatenate([np.zeros(0, np.int64)] + [conf_rows[k] for k in active])
-    ints = np.concatenate([off.ravel(), rows.astype(np.int64), torsion_quartets])
+    types = np.concatenate([np.zeros(0, np.int32)] + [ts.types.astype(np.int32) for ts in sets])
+    values = np.where(types == TORSION_SYMMETRIC, np.diff(torsion_quartets), 1)
+    value_starts = np.concatenate([[0], np.cumsum(values)]).astype(np.int64)
+    per_mol = value_starts[off[TORSIONS, 1:]] - value_starts[off[TORSIONS, :-1]]
+    cap = max(min(VALUE_CAP, int(per_mol.max(initial=1))), int(values.max(initial=1)))
+    tiles = pair_tiles(conf_counts)
+    ints = np.concatenate([off.ravel(), rows.astype(np.int64), torsion_quartets, value_starts])
     quartets = np.concatenate([np.zeros((0, 4), np.int32)] + [ts.quartets for ts in sets])
-    i32 = np.concatenate([quartets.astype(np.int32).ravel()]
-                         + [ts.types.astype(np.int32) for ts in sets])
+    i32 = np.concatenate([quartets.astype(np.int32).ravel(), types, tiles.ravel()])
     n_t = int(off[TORSIONS, -1])
     floats = [ts.weights for ts in sets] + [ts.max_dev for ts in sets]
     if coords is not None:
@@ -427,11 +471,14 @@ def make_batch(torsion_sets: list[TorsionSet], conf_rows: list[np.ndarray], devi
     f32 = np.concatenate([np.zeros(0, np.float32)] + floats).astype(np.float32)
     ints_d, i32_d, f32_d = (_to_device(a, device) for a in (ints, i32, f32))
     n_off, n_rows, n_q = off.size, len(rows), len(quartets)
+    n_tq = n_off + n_rows + n_t + 1
     return TFDBatch(
         mol_offsets=ints_d[:n_off].view(5, -1), conf_rows=ints_d[n_off:n_off + n_rows],
-        torsion_quartets=ints_d[n_off + n_rows:], quartets=i32_d[:4 * n_q].view(n_q, 4),
-        types=i32_d[4 * n_q:], weights=f32_d[:n_t], max_dev=f32_d[n_t:2 * n_t],
+        torsion_quartets=ints_d[n_off + n_rows:n_tq], quartets=i32_d[:4 * n_q].view(n_q, 4),
+        types=i32_d[4 * n_q:4 * n_q + n_t], weights=f32_d[:n_t], max_dev=f32_d[n_t:2 * n_t],
+        value_starts=ints_d[n_tq:], tiles=i32_d[4 * n_q + n_t:].view(-1, 3),
         n_angles=int(off[ANGLES, -1]), n_pairs=int(off[PAIRS, -1]), n_out=int(first_out[-1]),
+        cap=cap, vstride=2 * TILE if (conf_counts > TILE).any() else TILE,
         coords=f32_d[2 * n_t:].view(-1, 3) if coords is not None else None)
 
 
@@ -620,7 +667,7 @@ def tfd_pairs_plain(angles: torch.Tensor, batch: TFDBatch) -> torch.Tensor:
 
 def _check_batch(batch: TFDBatch, device: torch.device) -> None:
     for name in ("mol_offsets", "conf_rows", "torsion_quartets", "quartets", "types", "weights",
-                 "max_dev"):
+                 "max_dev", "value_starts", "tiles"):
         t = getattr(batch, name)
         if t.device != device or not t.is_contiguous():
             raise ValueError(f"the batch's {name} must be contiguous and on {device}")
@@ -655,11 +702,17 @@ def dihedral_angles(coords: torch.Tensor, batch: TFDBatch) -> torch.Tensor:
     return out
 
 
+def tile_shared_bytes(cap: int, vstride: int) -> int:
+    """K18's shared memory a block (csrc/tfd.cu ``tile_shared_bytes``): the
+    chunk's ``cap`` values for ``vstride`` conformers, 8 words a value."""
+    return cap * (4 * vstride + 32)
+
+
 def tfd_pairs(angles: torch.Tensor, batch: TFDBatch) -> torch.Tensor:
     """Float32 [n_out]: the call's condensed TFD buffer, each molecule's
     pairs (i > j at i(i-1)/2 + j) from its row OUT offset on, 0 for the
     molecules without torsions. K18 for CUDA tensors (one launch for the
-    batch), the plain version for CPU tensors."""
+    batch, a block per tile), the plain version for CPU tensors."""
     if angles.shape != (batch.n_angles,):
         raise ValueError(f"{batch.n_angles} angles expected, got {tuple(angles.shape)}")
     if not angles.is_cuda:
@@ -668,6 +721,9 @@ def tfd_pairs(angles: torch.Tensor, batch: TFDBatch) -> torch.Tensor:
         raise ValueError(f"K18 takes contiguous float32 angles, got {angles.dtype}")
     dev = angles.device
     _check_batch(batch, dev)
+    if tile_shared_bytes(batch.cap, batch.vstride) > MAX_SHARED_BYTES:
+        raise ValueError(f"K18 stages at most {MAX_SHARED_BYTES} bytes a block; a torsion of "
+                         f"{batch.cap} values needs {tile_shared_bytes(batch.cap, batch.vstride)}")
     out = torch.empty(batch.n_out, dtype=torch.float32, device=dev)
     if batch.n_pairs < batch.n_out:  # a molecule without torsions: its entries are 0
         out.zero_()
@@ -677,9 +733,27 @@ def tfd_pairs(angles: torch.Tensor, batch: TFDBatch) -> torch.Tensor:
     with torch.cuda.device(dev):
         rc = lib.nvmk_tfd_pairs(
             angles.data_ptr(), batch.mol_offsets.data_ptr(), batch.torsion_quartets.data_ptr(),
-            batch.types.data_ptr(), batch.weights.data_ptr(), batch.max_dev.data_ptr(),
-            batch.n_mols, batch.n_pairs, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            batch.value_starts.data_ptr(), batch.types.data_ptr(), batch.weights.data_ptr(),
+            batch.max_dev.data_ptr(), batch.tiles.data_ptr(), batch.n_mols,
+            batch.tiles.shape[0], TILE, batch.cap, batch.vstride, out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"tfd_pairs kernel launch failed with CUDA error {rc}")
     launch_counts["tfd_pairs"] += 1
     return out
+
+
+def tfd_pairs_info(batch: TFDBatch) -> dict:
+    """K18's instantiation for ``batch``: registers and spilled bytes a
+    thread, resident blocks an SM and shared bytes a block at its ``cap``
+    and ``vstride``, threads a block, the tile side, the grid (its tiles)
+    and ``cap``."""
+    import ctypes
+
+    out = (ctypes.c_int * 6)()
+    rc = tfd_lib().nvmk_tfd_pairs_info(batch.cap, batch.vstride, out)
+    if rc != 0:
+        raise RuntimeError(f"nvmk_tfd_pairs_info failed with CUDA error {rc}")
+    keys = ("registers", "local_bytes", "blocks_per_sm", "shared_bytes", "threads", "tile")
+    return {**dict(zip(keys, out)), "grid": int(batch.tiles.shape[0]), "cap": batch.cap,
+            "vstride": batch.vstride}

@@ -1805,6 +1805,99 @@ def test_tfd_kernels_raise_on_failure(cuda, tmp_path, monkeypatch):
     assert tfd.launch_counts == before
 
 
+# K18's stress torsions, (type, quartets, weight, max_dev): a Symmetric
+# torsion (type 2) of 9 quartets, a Ring (1) of 8, a zero-weight Single (0),
+# a Ring of 3 and a Symmetric of 2 between Singles
+TFD_STRESS_KINDS = [(0, 1, 0.7, 180.0), (2, 9, 0.35, 60.0), (1, 8, 1.9, 37.1), (0, 1, 0.0, 90.0),
+                    (1, 3, 0.4, 5.3), (2, 2, 1.1, 30.0), (0, 1, 0.05, 180.0)]
+
+
+def tfd_stress_set(rng, kinds):
+    """A TorsionSet of ``kinds`` over made-up atoms: K18 reads only the
+    tables and the angles."""
+    from nvmolkit_tpu_torch.ops import tfd
+
+    starts = np.concatenate([[0], np.cumsum([q for _, q, _, _ in kinds])]).astype(np.int32)
+    return tfd.TorsionSet(
+        rng.integers(0, 40, (int(starts[-1]), 4)).astype(np.int32), starts,
+        np.array([t for t, _, _, _ in kinds], np.int32),
+        np.array([w for _, _, w, _ in kinds], np.float32),
+        np.array([d for _, _, _, d in kinds], np.float32))
+
+
+def tfd_stress_batch(seed, counts, device, kinds=TFD_STRESS_KINDS):
+    """(sets, batch, angles) over molecules of ``counts`` conformers: the
+    stress set and its reverse in turn, a molecule without torsions after
+    each of them but the last; angles uniform in [0, 360) with exact 0, 180
+    and just-under-360 entries."""
+    from nvmolkit_tpu_torch.ops import tfd
+
+    rng = np.random.default_rng(seed)
+    sets, rows = [], []
+    for k, c in enumerate(counts):
+        sets.append(tfd_stress_set(rng, kinds if k % 2 == 0 else kinds[::-1]))
+        rows.append(np.zeros(c, np.int64))
+        if k + 1 < len(counts):
+            sets.append(tfd.TorsionSet.empty())
+            rows.append(np.zeros(3, np.int64))
+    batch = tfd.make_batch(sets, rows, device)
+    angles = rng.uniform(0.0, 360.0, batch.n_angles).astype(np.float32)
+    angles[::13] = 0.0
+    angles[5::13] = np.nextafter(np.float32(360.0), np.float32(0.0))
+    angles[9::13] = 180.0
+    return sets, batch, torch.from_numpy(angles).to(device)
+
+
+# conformer counts of the molecules of each K18 stress batch, and the values a
+# chunk stages (None: ops/tfd.VALUE_CAP)
+TFD_STRESS_CASES = {
+    "tile_edges": ([2, 63, 64, 65, 129], None),
+    "ensemble_2000": ([2000], None),
+    "chunks_of_4_values": ([129, 70, 2], 4),
+    "one_torsion_a_chunk": ([65, 64], 1),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TFD_STRESS_CASES))
+def test_tfd_pairs_match_plain_at_stress_shapes(cuda, name, monkeypatch):
+    """K18 against its plain version on the same angles, within 1e-6 (it
+    sums in the plain version's order): molecules of 2, TILE - 1, TILE,
+    TILE + 1, 2 TILE + 1 and 2,000 conformers, a Symmetric torsion of 9
+    quartets and a Ring of 8, zero weights, molecules without torsions
+    between; the staged values cut into chunks of 4 and of one torsion."""
+    from nvmolkit_tpu_torch.ops import tfd
+
+    counts, cap = TFD_STRESS_CASES[name]
+    if cap is not None:
+        monkeypatch.setattr(tfd, "VALUE_CAP", cap)
+    _, batch, angles = tfd_stress_batch(sum(map(ord, name)), counts, cuda)
+    before = tfd.launch_counts["tfd_pairs"]
+    out = tfd.tfd_pairs(angles, batch)
+    torch.cuda.synchronize()
+    assert tfd.launch_counts["tfd_pairs"] == before + 1
+    want = tfd.tfd_pairs_plain(angles, batch)
+    assert out.shape == want.shape and float((out - want).abs().max()) <= 1e-6
+
+
+def test_tfd_pairs_past_2_31_pairs(cuda):
+    """One molecule of 65,600 conformers: 2,151,647,200 condensed entries
+    (8.6 GB of float32), past 2^31, so no tile's index may wrap in 32 bits;
+    K18 against its plain version slice by slice."""
+    from nvmolkit_tpu_torch.ops import tfd
+
+    kinds = [(0, 1, 0.7, 180.0), (1, 3, 0.4, 5.3), (2, 2, 1.1, 30.0)]
+    _, batch, angles = tfd_stress_batch(5, [65_600], cuda, kinds)
+    assert batch.n_pairs == 2_151_647_200 > 2**31
+    out = tfd.tfd_pairs(angles, batch)
+    want = tfd.tfd_pairs_plain(angles, batch)
+    step = 1 << 28
+    for lo in range(0, batch.n_pairs, step):
+        err = float((out[lo:lo + step] - want[lo:lo + step]).abs().max())
+        assert err <= 1e-6, (lo, err)
+    del out, want
+    torch.cuda.empty_cache()
+
+
 def _substruct_random(rng, T, smarts, n=96):
     """Random label bits and symmetric bond codes (chain and ring codes of
     every kind) over ``n`` targets of T atoms, and a compiled query."""
@@ -1955,6 +2048,44 @@ DEDUP_EXTRACT_CASES = {
 }
 
 
+def root_mask_case(seed, B, P, nq, T, rows, one_root=False):
+    """A K22 input: int16 [B, P, nq] frontier and int32 [B] counts, pair b's
+    first ``rows[b]`` rows valid (an int, or (low, high) drawn per pair),
+    each slot an atom below T (with ``one_root`` every valid row of a pair
+    on one root). The rows past the counts hold atoms below T and slots out
+    of range (-1, T, 32767, -32768): read, either would change the mask or
+    fault."""
+    rng = np.random.default_rng(seed)
+    if isinstance(rows, tuple):
+        rows = rng.integers(*rows, B)
+    rows = np.broadcast_to(np.asarray(rows, np.int64), (B,))
+    frontier = rng.integers(0, T, (B, P, nq)).astype(np.int16)
+    past = np.arange(P)[None, :] >= rows[:, None]
+    junk = np.array([-1, T, 32767, -32768], np.int16)[rng.integers(0, 4, (B, P, nq))]
+    frontier = np.where(past[:, :, None] & (rng.random((B, P, 1)) < 0.5), junk, frontier)
+    if one_root:
+        frontier = np.where(past[:, :, None], frontier,
+                            rng.integers(0, T, (B, 1, 1)).astype(np.int16))
+    return np.ascontiguousarray(frontier, np.int16), rows.astype(np.int32)
+
+
+# (B, P, nq, T, rows a pair: an int or (low, high) drawn per pair, every
+# valid row on one root)
+ROOT_MASK_CASES = {
+    "p1024_t256": (40, 1024, 6, 256, (0, 1025), False),
+    "zero_counts": (64, 128, 2, 64, 0, False),
+    "one_root": (50, 128, 4, 128, 128, True),
+    "rows_past_32_t32": (100, 64, 3, 32, (33, 65), False),
+    "t50_bytes": (30, 16, 2, 50, (0, 17), False),
+    "past_one_wave": (20_000, 8, 2, 32, (0, 9), False),
+}
+
+
+def root_mask_case_from(name):
+    B, P, nq, T, rows, one_root = ROOT_MASK_CASES[name]
+    return (*root_mask_case(sum(map(ord, name)), B, P, nq, T, rows, one_root), T)
+
+
 def _frontier_case_from(name):
     B, P, nq, T, rows, copies = DEDUP_EXTRACT_CASES[name]
     seed = sum(map(ord, name))
@@ -1996,6 +2127,31 @@ def test_dedup_and_extract_match_plain_at_stress_shapes(cuda, name):
     after = sk.launch_counts
     assert after["dedup"] - before["dedup"] == 1
     assert after["extract"] - before["extract"] == extracts
+
+
+@pytest.mark.parametrize("name", sorted(ROOT_MASK_CASES))
+def test_root_mask_matches_plain_at_stress_shapes(cuda, name):
+    """K22 equals its plain version bit for bit at P = 1024 with T = 256,
+    zero counts, every valid row on one root, more than 32 rows a pair, T
+    not a multiple of 4 (byte stores), B past one wave of warps, with rows
+    past the counts holding out-of-range slots; and into an output whose
+    memory was filled with 1 and freed just before (the wrapper allocates
+    with torch.empty: every byte must be written)."""
+    from nvmolkit_tpu_torch.ops import substruct_kernels as sk
+
+    frontier, counts, T = root_mask_case_from(name)
+    f, c = torch.from_numpy(frontier).to(cuda), torch.from_numpy(counts).to(cuda)
+    B, _, nq = frontier.shape
+    for slot0 in sorted({0, nq - 1}):
+        poison = torch.ones((B, T), dtype=torch.bool, device=cuda)
+        ptr = poison.data_ptr()
+        del poison
+        before = sk.launch_counts["root_mask"]
+        got = sk.root_mask(f, c, slot0, T)
+        torch.cuda.synchronize()
+        assert sk.launch_counts["root_mask"] == before + 1
+        assert got.data_ptr() == ptr  # the caching allocator handed back the filled block
+        assert torch.equal(got, sk.root_mask_plain(f, c, slot0, T)), (name, slot0)
 
 
 def test_extract_past_2_31_elements(cuda):

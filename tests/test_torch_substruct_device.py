@@ -33,7 +33,7 @@ from nvmolkit_tpu_torch.ops import substruct_device as psd
 from nvmolkit_tpu_torch.ops import substruct_kernels as sk
 from tests.data.smiles import SMILES_100
 from tests.test_smarts_matrix import MATRIX_QUERIES
-from tests.test_torch_kernels_cuda import frontier_case
+from tests.test_torch_kernels_cuda import ROOT_MASK_CASES, frontier_case, root_mask_case_from
 
 T_BUCKETS = (32, 64)
 JOIN_B = 64  # the JAX join's batch, padded (each shape compiles anew)
@@ -315,6 +315,22 @@ def test_device_substruct_matches_equal_jax(counts_only):
             else:
                 assert got_pairs[key].dtype == np.int32 and np.array_equal(got_pairs[key],
                                                                            value), key
+
+
+@pytest.mark.parametrize("name", sorted(ROOT_MASK_CASES))
+def test_root_mask_plain_equals_jax_at_stress_shapes(name):
+    """root_mask_plain against _root_mask_kernel: P = 1024 with T = 256,
+    zero counts, every valid row on one root, more than 32 rows a pair, T
+    not a multiple of 4, B past one wave of K22's warps; the rows past the
+    counts hold atoms below T and out-of-range slots, which neither reads."""
+    frontier, counts, T = root_mask_case_from(name)
+    B, _, nq = frontier.shape
+    for slot0 in sorted({0, nq - 1}):
+        want = np.asarray(jsd._root_mask_kernel(frontier, counts, slot0, T))
+        got = sk.root_mask_plain(torch.from_numpy(frontier), torch.from_numpy(counts), slot0, T)
+        assert got.dtype == torch.bool and got.shape == (B, T)
+        assert np.array_equal(got.numpy(), want), (name, slot0)
+    assert (want.sum(axis=1) <= counts).all()
 
 
 def test_launch_counts_stay_zero_on_the_cpu():

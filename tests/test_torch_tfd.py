@@ -44,6 +44,7 @@ from nvmolkit_tpu_torch.types import AsyncResult, Dense3DResult
 from nvmolkit_tpu_torch.utils.config import HardwareOptions
 from tests.data.smiles import SMILES_100
 from tests.molgen import random_smiles_batch
+from tests.test_torch_kernels_cuda import TFD_STRESS_KINDS, tfd_stress_batch, tfd_stress_set
 
 GOLDEN = pathlib.Path(__file__).resolve().parent / "golden"
 # symmetric sides (tert-butyl, CF3, isopropyl, carboxylate), small and large
@@ -479,3 +480,178 @@ def test_matches_a_float64_scalar_recompute():
                 checked += 1
         assert k == len(got)
     assert checked == 3 * 15
+
+
+# K18's tiles and stress torsions ---------------------------------------------
+
+def _stress_batch(rng, n_confs):
+    """Molecules of ``n_confs``, 3 and 5 conformers: the stress set
+    (``TFD_STRESS_KINDS``), one without torsions, the set reversed."""
+    sets, batch, angles = tfd_stress_batch(int(rng.integers(1 << 30)), [n_confs, 5], "cpu")
+    return sets, [n_confs, 3, 5], batch, angles
+
+
+def tfd_pairs_tiled_model(angles, batch):
+    """K18's schedule (csrc/tfd.cu) in PyTorch operations: tile by tile
+    (``batch.tiles``), chunk by chunk of torsions whose staged values fit
+    ``batch.cap`` (the largest t_hi with value_starts[t_hi] - value_starts[t_lo]
+    <= cap, at least one torsion), each conformer's values staged once (a
+    Ring torsion's mean |a - 180| summed in quartet order), then each pair's
+    w dev summed torsion by torsion; float32 throughout."""
+    off, tq = batch.mol_offsets.numpy(), batch.torsion_quartets.numpy()
+    vs, types = batch.value_starts.numpy(), batch.types.numpy()
+    f32 = torch.float32
+    out = torch.zeros(batch.n_out, dtype=f32)
+    for m, i0, j0 in batch.tiles.tolist():
+        t_begin, t_end = int(off[tfd.TORSIONS, m]), int(off[tfd.TORSIONS, m + 1])
+        q_first, n_q = int(tq[t_begin]), int(tq[t_end] - tq[t_begin])
+        n_c = int(off[tfd.CONFS, m + 1] - off[tfd.CONFS, m])
+        rows = torch.arange(i0, min(i0 + tfd.TILE, n_c))
+        cols = torch.arange(j0, min(j0 + tfd.TILE, n_c))
+        conf = angles[off[tfd.ANGLES, m]:off[tfd.ANGLES, m + 1]].view(n_c, n_q)
+        num = torch.zeros(len(rows), len(cols), dtype=f32)
+        wsum = torch.zeros((), dtype=f32)
+        t_lo = t_begin
+        while t_lo < t_end:
+            t_hi = t_lo + 1
+            while t_hi < t_end and vs[t_hi + 1] - vs[t_lo] <= batch.cap:
+                t_hi += 1
+            for t in range(t_lo, t_hi):
+                qs, qe = int(tq[t] - q_first), int(tq[t + 1] - q_first)
+                if types[t] == tfd.TORSION_RING:
+                    mean = torch.zeros(n_c, dtype=f32)
+                    for q in range(qs, qe):
+                        mean = mean + (conf[:, q] - 180.0).abs()
+                    mean = mean / float(max(qe - qs, 1))
+                    dev = (mean[rows][:, None] - mean[cols][None, :]).abs()
+                elif types[t] == tfd.TORSION_SYMMETRIC:
+                    dev = torch.full((len(rows), len(cols)), 180.0, dtype=f32)
+                    for qa in range(qs, qe):
+                        for qb in range(qs, qe):
+                            dev = torch.minimum(dev, tfd.circular_difference(
+                                conf[rows, qa][:, None], conf[cols, qb][None, :]))
+                else:
+                    dev = tfd.circular_difference(conf[rows, qs][:, None], conf[cols, qs][None, :])
+                w = batch.weights[t]
+                num = num + dev / batch.max_dev[t].clamp_min(1e-6) * w
+                wsum = wsum + w
+            t_lo = t_hi
+        i, j = torch.meshgrid(rows, cols, indexing="ij")
+        keep = j < i
+        val = torch.where(wsum > 1e-10, num / wsum.clamp_min(1e-10), torch.zeros((), dtype=f32))
+        out[off[tfd.OUT, m] + i[keep] * (i[keep] - 1) // 2 + j[keep]] = val[keep]
+    return out
+
+
+@pytest.mark.parametrize("n_confs", [2, 63, 64, 65, 129])
+def test_tfd_pairs_plain_matches_jax_at_tile_edges(n_confs):
+    """tfd_pairs_plain against the JAX tfd_matrix_condensed at conformer
+    counts around K18's tile (2, TILE - 1, TILE, TILE + 1, 2 TILE + 1) with a
+    Symmetric torsion of 9 quartets, a Ring of 8 and a zero weight, a
+    molecule without torsions between two with them; |diff| <= 1e-5 (the JAX
+    package's float32 bound). K18's schedule (tfd_pairs_tiled_model) equals
+    the plain version bit for bit on the same."""
+    rng = np.random.default_rng(n_confs)
+    sets, counts, batch, angles = _stress_batch(rng, n_confs)
+    got = tfd.tfd_pairs(angles, batch).numpy()
+    assert np.array_equal(tfd_pairs_tiled_model(angles, batch).numpy(), got)
+    ang = angles.numpy()
+    off = batch.mol_offsets.numpy()
+    base = np.concatenate([[0], np.cumsum([c * (c - 1) // 2 for c in counts])])
+    assert not got[base[1]:base[2]].any()
+    q_max = 9
+    for k, (ts, c) in zip((0, 1), ((sets[0], counts[0]), (sets[2], counts[2]))):
+        t_n, nq = ts.n_torsions, len(ts.quartets)
+        flat = ang[off[tfd.ANGLES, k]:off[tfd.ANGLES, k + 1]].reshape(c, nq)
+        dense = np.zeros((c, t_n, q_max), np.float32)
+        qm = np.zeros((t_n, q_max), bool)
+        for t in range(t_n):
+            s, e = ts.quartet_starts[t], ts.quartet_starts[t + 1]
+            dense[:, t, :e - s] = flat[:, s:e]
+            qm[t, :e - s] = True
+        pairs = np.array([(i, j) for i in range(1, c) for j in range(i)], np.int32)
+        want = np.asarray(jax_tfd.tfd_matrix_condensed(
+            jnp.asarray(dense), jnp.asarray(qm), jnp.asarray(ts.types), jnp.asarray(ts.weights),
+            jnp.asarray(ts.max_dev), jnp.asarray(np.ones(t_n, bool)), jnp.asarray(pairs)))
+        mine = got[off[tfd.OUT, k]:off[tfd.OUT, k] + len(pairs)]
+        assert np.abs(mine - want).max() <= 1e-5, (k, np.abs(mine - want).max())
+
+
+@pytest.mark.parametrize("cap", [1, 4, 9, 10])
+def test_tiled_schedule_in_chunks_equals_plain(cap, monkeypatch):
+    """K18's schedule with the staged values cut into chunks (VALUE_CAP 1,
+    4, 9, 10 against the stress set's 24 values a molecule: chunks of one
+    torsion, several, the 9-quartet Symmetric torsion alone) equals the
+    plain version bit for bit at 2 TILE + 1 conformers."""
+    monkeypatch.setattr(tfd, "VALUE_CAP", cap)
+    rng = np.random.default_rng(cap)
+    _, _, batch, angles = _stress_batch(rng, 2 * tfd.TILE + 1)
+    assert batch.cap == max(cap, 9) and batch.vstride == 2 * tfd.TILE
+    assert batch.value_starts.tolist()[:8] == [0, 1, 10, 11, 12, 13, 15, 16]
+    assert torch.equal(tfd_pairs_tiled_model(angles, batch), tfd.tfd_pairs_plain(angles, batch))
+
+
+@pytest.mark.parametrize("counts", [[2], [63], [64], [65], [129], [2000], [2, 130, 1, 64, 3]])
+def test_tile_table_covers_each_pair_once(counts):
+    """The tiles of make_batch cover every pair (i > j) of every molecule
+    exactly once, each molecule's in order, i0 >= j0 multiples of TILE."""
+    rng = np.random.default_rng(len(counts))
+    sets = [tfd_stress_set(rng, TFD_STRESS_KINDS[:2]) for _ in counts]
+    batch = tfd.make_batch(sets, [np.zeros(c, np.int64) for c in counts], "cpu")
+    tiles = batch.tiles.numpy()
+    assert tiles.dtype == np.int32 and (np.diff(tiles[:, 0]) >= 0).all()
+    assert (tiles[:, 1] % tfd.TILE == 0).all() and (tiles[:, 1] >= tiles[:, 2]).all()
+    assert batch.vstride == (2 * tfd.TILE if max(counts) > tfd.TILE else tfd.TILE)
+    seen = []
+    for m, i0, j0 in tiles.tolist():
+        c = counts[m]
+        i, j = np.meshgrid(np.arange(i0, min(i0 + tfd.TILE, c)),
+                           np.arange(j0, min(j0 + tfd.TILE, c)), indexing="ij")
+        keep = j < i
+        seen.append(m * 10**8 + i[keep] * (i[keep] - 1) // 2 + j[keep])
+    seen = np.sort(np.concatenate(seen))
+    want = np.concatenate([m * 10**8 + np.arange(c * (c - 1) // 2) for m, c in enumerate(counts)])
+    assert np.array_equal(seen, want)
+
+
+def _round_f32(x):
+    """The Fraction ``x`` correctly rounded to float32 (half to even), for
+    values in float32's normal range or 0."""
+    from fractions import Fraction
+
+    if x == 0:
+        return np.float32(0.0)
+    sign, x = (-1 if x < 0 else 1), abs(x)
+    e = x.numerator.bit_length() - x.denominator.bit_length()
+    if Fraction(2) ** e > x:
+        e -= 1                                   # 2^e <= x < 2^(e + 1)
+    scaled = x / Fraction(2) ** (e - 23)         # in [2^23, 2^24)
+    m = scaled.numerator // scaled.denominator
+    rem = scaled - m
+    if rem > Fraction(1, 2) or (rem == Fraction(1, 2) and m % 2):
+        m += 1
+    return np.float32(sign * m * 2.0 ** (e - 23))
+
+
+@pytest.mark.parametrize("max_dev", [180.0, 90.0, 60.0, 30.0, 37.1, 5.3, 1e-6, 0.7, 1234.5])
+def test_reciprocal_division_gives_the_ieee_quotient(max_dev):
+    """K18's division (csrc/tfd.cu ``div_by``): r = RN(1 / d), q = RN(dev r),
+    e = dev - d q (a fused multiply-add: exact), RN(q + e r), evaluated in
+    exact rationals, equals the IEEE float32 quotient dev / d for deviations
+    across [0, 360], near 0 and at their largest (Markstein's theorem)."""
+    from fractions import Fraction
+
+    rng = np.random.default_rng(int(max_dev * 1000) % 2**32)
+    d = np.float32(max_dev)
+    r = np.float32(1.0) / d
+    devs = np.concatenate([rng.uniform(0.0, 360.0, 1500), rng.uniform(0.0, 1e-3, 200),
+                           10.0 ** rng.uniform(-30, 2, 200), [0.0, 180.0, 360.0,
+                           np.nextafter(np.float32(360.0), np.float32(0.0))]]).astype(np.float32)
+    for dev in devs:
+        q = np.float32(dev * r)
+        e = Fraction(float(dev)) - Fraction(float(d)) * Fraction(float(q))
+        e32 = _round_f32(e)
+        assert Fraction(float(e32)) == e  # the residual is a float32: the fma is exact
+        got = _round_f32(Fraction(float(q)) + Fraction(float(e32)) * Fraction(float(r)))
+        want = np.float32(dev) / d
+        assert got.view(np.uint32) == want.view(np.uint32), (float(dev), max_dev, got, want)
