@@ -27,27 +27,28 @@
 // are one contiguous run; a diagonal tile's TILE (TILE - 1) / 2 pairs are
 // packed, thread t on the local pairs t + 256 c (their (i, j) from a float32
 // root once a tile), so no lane idles on its empty half and a molecule of up
-// to TILE conformers stores one contiguous run. The block walks its molecule's torsions in chunks whose staged values
-// fit `cap` (TFDBatch.value_starts: a Single or Ring torsion stages one value
-// a conformer, a Symmetric torsion one a quartet); per chunk it stages in
-// shared memory the torsion table (type, weight, max(max_dev, 1e-6)) and,
-// slot-major so that lanes read consecutive conformers, each of the tile's
-// row and column conformers' values: quartet 0's angle of a Single torsion,
-// every quartet's of a Symmetric one, and a Ring torsion's mean |a - 180| over
-// its quartets, summed in quartet order, once per conformer and not once per
-// pair. Then each torsion's deviation:
+// to TILE conformers stores one contiguous run. The block walks its
+// molecule's torsions in chunks whose staged values fit `cap`
+// (TFDBatch.value_starts: a Single or Ring torsion stages one value a
+// conformer, a Symmetric torsion one a quartet); per chunk it stages in
+// shared memory the torsion table (type, weight, d = max(max_dev, 1e-6),
+// RN(1 / d)) and, slot-major so that lanes read consecutive conformers, the
+// tile's row and column conformers' values: quartet 0's angle of a Single
+// torsion, every quartet's of a Symmetric one, and a Ring torsion's mean
+// |a - 180| over its quartets, summed in quartet order, once per conformer
+// and not once per pair. Then each torsion's deviation:
 //   Single:    circular difference min(|a - b|, 360 - |a - b|);
 //   Ring:      |mean_a - mean_b|;
 //   Symmetric: the least circular difference over every (q_a, q_b) pairing;
-// divided by d = max(max_dev, 1e-6) through RN(1 / d) and one correction
-// step, which gives the IEEE quotient (div_by), summed w dev torsion by
-// torsion into registers, and sum(w dev) / sum(w) (0
-// where sum(w) <= 1e-10) stored at the molecule's condensed offset in the
-// call's buffer. The sums run in the first design's and the plain version's
-// order, so the bits are theirs. The first design (a thread per condensed
-// pair, a binary search over the molecules' pair offsets, a float64 square
-// root for (i, j), the torsion table and strided angles from global memory,
-// the Ring means recomputed for every pair) is kept in
+// divided by d through RN(1 / d) and one correction step, which gives the
+// IEEE quotient (div_by), summed w dev torsion by torsion into registers, and
+// sum(w dev) / sum(w) (0 where sum(w) <= 1e-10) stored at the molecule's
+// condensed offset in the call's buffer. The sums run in the first design's
+// and the plain version's order, so the bits are theirs. The first design
+// (a thread per condensed pair, a binary search over the molecules' pair
+// offsets, a float64 square root for (i, j), the torsion table and strided
+// angles from global memory, the Ring means recomputed for every pair, an
+// IEEE division routine per pair and torsion) is kept in
 // tools/k18_k22_first_design.cu.
 //
 // What bounds them: K17 reads 48 bytes of coordinates and 16 of atom
@@ -403,7 +404,8 @@ int nvmk_dihedral_angles(const float* coords, const int64_t* conf_rows, const in
 // values a chunk stages (at least any one torsion's); vstride 2 TILE, or TILE
 // where every tile is on a diagonal (i0 == j0); out float32, the call's
 // condensed buffer (entries of molecules outside the batch untouched).
-// Returns cudaGetLastError() after the launch (0 on success).
+// Returns cudaGetLastError() after the launch (0 on success), or
+// cudaErrorInvalidValue where a chunk's staging passes what a block may hold.
 int nvmk_tfd_pairs(const float* angles, const int64_t* off, const int64_t* tq,
                    const int64_t* vstart, const int* types, const float* weights,
                    const float* max_dev, const int* tiles, int n_mol, long long n_tiles, int tile,
@@ -413,6 +415,7 @@ int nvmk_tfd_pairs(const float* angles, const int64_t* off, const int64_t* tq,
     return (int)cudaErrorInvalidValue;
   if (n_tiles > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   const size_t bytes = tile_shared_bytes(cap, vstride);
+  if (bytes > 227 * 1024) return (int)cudaErrorInvalidValue;
   if (bytes > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(tfd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);

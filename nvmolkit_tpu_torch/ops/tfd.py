@@ -344,7 +344,6 @@ launch_counts = {"dihedral_angles": 0, "tfd_pairs": 0}
 ANGLES, CONFS, PAIRS, OUT, TORSIONS = range(5)
 TILE = 64        # conformers a side of K18's tile (csrc/tfd.cu TILE)
 VALUE_CAP = 128  # values K18 stages a chunk, unless one torsion has more
-MAX_SHARED_BYTES = 232_448  # shared memory a block may take on sm_90
 EPS32 = 2.0 ** -23
 _DEGREES = 57.29577951308232  # 180 / pi, as a float32 factor on both sides
 _PLAIN_BUDGET = 1 << 25  # float32 elements of tfd_pairs_plain's [pairs, T, Q, Q] per chunk
@@ -702,12 +701,6 @@ def dihedral_angles(coords: torch.Tensor, batch: TFDBatch) -> torch.Tensor:
     return out
 
 
-def tile_shared_bytes(cap: int, vstride: int) -> int:
-    """K18's shared memory a block (csrc/tfd.cu ``tile_shared_bytes``): the
-    chunk's ``cap`` values for ``vstride`` conformers, 8 words a value."""
-    return cap * (4 * vstride + 32)
-
-
 def tfd_pairs(angles: torch.Tensor, batch: TFDBatch) -> torch.Tensor:
     """Float32 [n_out]: the call's condensed TFD buffer, each molecule's
     pairs (i > j at i(i-1)/2 + j) from its row OUT offset on, 0 for the
@@ -721,9 +714,6 @@ def tfd_pairs(angles: torch.Tensor, batch: TFDBatch) -> torch.Tensor:
         raise ValueError(f"K18 takes contiguous float32 angles, got {angles.dtype}")
     dev = angles.device
     _check_batch(batch, dev)
-    if tile_shared_bytes(batch.cap, batch.vstride) > MAX_SHARED_BYTES:
-        raise ValueError(f"K18 stages at most {MAX_SHARED_BYTES} bytes a block; a torsion of "
-                         f"{batch.cap} values needs {tile_shared_bytes(batch.cap, batch.vstride)}")
     out = torch.empty(batch.n_out, dtype=torch.float32, device=dev)
     if batch.n_pairs < batch.n_out:  # a molecule without torsions: its entries are 0
         out.zero_()
