@@ -510,9 +510,9 @@ def _declare_tfd(lib: ctypes.CDLL) -> None:
     lib.nvmk_dihedral_angles.restype = ci
     lib.nvmk_dihedral_angles.argtypes = [vp, vp, vp, vp, vp, ci, cll, vp, vp]
     lib.nvmk_tfd_pairs.restype = ci
-    lib.nvmk_tfd_pairs.argtypes = [vp] * 8 + [ci, cll, ci, ci, ci, vp, vp]
+    lib.nvmk_tfd_pairs.argtypes = [vp] * 8 + [ci, cll, ci, vp, vp]
     lib.nvmk_tfd_pairs_info.restype = ci
-    lib.nvmk_tfd_pairs_info.argtypes = [ci, ci, ctypes.POINTER(ci)]
+    lib.nvmk_tfd_pairs_info.argtypes = [ci, ctypes.POINTER(ci)]
 
 
 def tfd_lib() -> ctypes.CDLL:

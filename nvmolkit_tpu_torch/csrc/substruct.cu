@@ -77,11 +77,10 @@
 // warp reads its pair's count once and the root slot of its valid rows only
 // (a row a lane, min(count, P) rows; a slot outside [0, T) is ignored), ORs
 // them into the row's T-bit mask (8 words of the warp's in shared memory),
-// then writes all T bytes of the row, zeros included, as 32-bit words where
-// T and the output allow it (lane l on word 32 i + l), so the wrapper's
-// output needs no fill. The first design (a thread per (pair, frontier row),
-// most of them only testing the count, into an output zeroed by a fill
-// launch) is kept in tools/k18_k22_first_design.cu.
+// then writes all T bytes of the row, zeros included (lane l on bytes l,
+// l + 32, ...), so the wrapper's output needs no fill. The first design (a
+// thread per (pair, frontier row), most of them only testing the count, into
+// an output zeroed by a fill launch) is kept in tools/k18_k22_first_design.cu.
 //
 // What bounds them: integer work. K19 does ~5-12 INT32 operations per tested
 // cell (the label bit, then only for label survivors the injectivity
@@ -398,9 +397,7 @@ __global__ void __launch_bounds__(32 * EXTRACT_WARPS) extract_kernel(
 }
 
 // K22: a warp per pair, MASK_WARPS pairs a block, the grid sized to the
-// card. WORDS: T % 4 == 0 and the output 4-byte aligned, so each row is
-// written as T / 4 32-bit words (byte t of word u: bit 4u + (t & 3)).
-template <bool WORDS>
+// card; lane l writes bytes l, l + 32, ... of the pair's row.
 __global__ void __launch_bounds__(32 * MASK_WARPS) root_mask_kernel(
     const int16_t* __restrict__ frontier, const int32_t* __restrict__ counts, int B, int P, int nq,
     int slot0, int T, uint8_t* __restrict__ mask) {
@@ -419,15 +416,7 @@ __global__ void __launch_bounds__(32 * MASK_WARPS) root_mask_kernel(
     }
     __syncwarp();
     uint8_t* dst = mask + (size_t)b * T;
-    if (WORDS) {
-      for (int u = lane; u < (T >> 2); u += 32) {
-        const unsigned nib = (row_bits[u >> 3] >> ((u & 7) * 4)) & 0xfu;
-        reinterpret_cast<uint32_t*>(dst)[u] =
-            (nib & 1u) | ((nib & 2u) << 7) | ((nib & 4u) << 14) | ((nib & 8u) << 21);
-      }
-    } else {
-      for (int t = lane; t < T; t += 32) dst[t] = (uint8_t)((row_bits[t >> 5] >> (t & 31)) & 1u);
-    }
+    for (int t = lane; t < T; t += 32) dst[t] = (uint8_t)((row_bits[t >> 5] >> (t & 31)) & 1u);
     __syncwarp();  // the words are read before the next pair clears them
   }
 }
@@ -579,26 +568,21 @@ int nvmk_root_mask(const void* frontier, const void* counts, int B, int P, int n
                    void* mask, void* stream) {
   if (T < 1 || T > 32 * MASK_WORDS || B < 1 || slot0 < 0 || slot0 >= nq)
     return (int)cudaErrorInvalidValue;
-  const long long needed = (B + MASK_WARPS - 1) / MASK_WARPS;
-  if (T % 4 == 0 && (uintptr_t)mask % 4 == 0)
-    root_mask_kernel<true><<<card_grid(root_mask_kernel<true>, 32 * MASK_WARPS, needed),
-                             32 * MASK_WARPS, 0, (cudaStream_t)stream>>>(
-        (const int16_t*)frontier, (const int32_t*)counts, B, P, nq, slot0, T, (uint8_t*)mask);
-  else
-    root_mask_kernel<false><<<card_grid(root_mask_kernel<false>, 32 * MASK_WARPS, needed),
-                              32 * MASK_WARPS, 0, (cudaStream_t)stream>>>(
-        (const int16_t*)frontier, (const int32_t*)counts, B, P, nq, slot0, T, (uint8_t*)mask);
+  const unsigned blocks =
+      card_grid(root_mask_kernel, 32 * MASK_WARPS, (B + MASK_WARPS - 1) / MASK_WARPS);
+  root_mask_kernel<<<blocks, 32 * MASK_WARPS, 0, (cudaStream_t)stream>>>(
+      (const int16_t*)frontier, (const int32_t*)counts, B, P, nq, slot0, T, (uint8_t*)mask);
   return (int)cudaGetLastError();
 }
 
-// K22's instantiation (32-bit words): registers a thread, local bytes a
-// thread, resident blocks an SM, static shared bytes a block, pairs a block,
-// the grid a launch over B pairs takes, threads a block
+// K22's instantiation: registers a thread, local bytes a thread, resident
+// blocks an SM, static shared bytes a block, pairs a block, the grid a launch
+// over B pairs takes, threads a block
 int nvmk_root_mask_info(int B, int* out) {
-  const int rc = kernel_info(root_mask_kernel<true>, 32 * MASK_WARPS, out);
+  const int rc = kernel_info(root_mask_kernel, 32 * MASK_WARPS, out);
   if (rc != 0) return rc;
   out[4] = MASK_WARPS;
-  out[5] = (int)card_grid(root_mask_kernel<true>, 32 * MASK_WARPS,
+  out[5] = (int)card_grid(root_mask_kernel, 32 * MASK_WARPS,
                           (B + MASK_WARPS - 1) / MASK_WARPS);
   out[6] = 32 * MASK_WARPS;
   return 0;

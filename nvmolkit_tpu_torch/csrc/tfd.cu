@@ -68,6 +68,7 @@ namespace {
 constexpr int THREADS = 256;      // K17's block
 constexpr int TILE = 64;          // conformers a side of K18's tile (ops/tfd.py TILE)
 constexpr int TILE_WARPS = 8;     // K18's block: 8 warps
+constexpr int VSTRIDE = 2 * TILE;  // a staged value's slots: the tile's rows, then its columns
 constexpr int TILE_ROWS = TILE / TILE_WARPS;  // rows a warp
 constexpr int TILE_COLS = TILE / 32;          // columns a lane
 constexpr int DIAG_PAIRS = TILE * (TILE - 1) / 2;  // pairs of a diagonal tile
@@ -146,12 +147,12 @@ __device__ __forceinline__ float circular(float a, float b) {
 }
 
 // K18's shared memory for a chunk of `cap` staged values: the values
-// [cap][vstride] (vstride 2 TILE, or TILE where every tile of the launch is
-// on a diagonal), then per torsion of the chunk its type, first value, quartet
-// count, weight, d = max(max_dev, 1e-6) and RN(1 / d), then per value its
-// first quartet and (a Ring mean) its quartet count or -1 (an angle).
-__host__ __device__ constexpr size_t tile_shared_bytes(int cap, int vstride) {
-  return (size_t)cap * (vstride * sizeof(float) + 8 * sizeof(int));
+// [cap][VSTRIDE] (a diagonal tile fills the first TILE of each), then per
+// torsion of the chunk its type, first value, quartet count, weight, d =
+// max(max_dev, 1e-6) and RN(1 / d), then per value its first quartet and (a
+// Ring mean) its quartet count or -1 (an angle).
+__host__ __device__ constexpr size_t tile_shared_bytes(int cap) {
+  return (size_t)cap * (VSTRIDE * sizeof(float) + 8 * sizeof(int));
 }
 
 // dev / d from r = RN(1 / d): q = RN(dev r) is within an ulp of the
@@ -178,9 +179,9 @@ tfd_kernel(const float* __restrict__ angles, const int64_t* __restrict__ off,
            const int64_t* __restrict__ tq, const int64_t* __restrict__ vstart,
            const int* __restrict__ types, const float* __restrict__ weights,
            const float* __restrict__ max_dev, const int* __restrict__ tiles, int n_mol, int cap,
-           int vstride, float* __restrict__ out) {
+           float* __restrict__ out) {
   extern __shared__ __align__(16) float vals[];
-  int* t_type = reinterpret_cast<int*>(vals + (size_t)cap * vstride);
+  int* t_type = reinterpret_cast<int*>(vals + (size_t)cap * VSTRIDE);
   int* t_voff = t_type + cap;
   int* t_nq = t_voff + cap;
   float* t_w = reinterpret_cast<float*>(t_nq + cap);
@@ -275,7 +276,7 @@ tfd_kernel(const float* __restrict__ angles, const int64_t* __restrict__ off,
           v = __fdiv_rn(v, (float)(n > 1 ? n : 1));
         }
       }
-      vals[s * vstride + k] = v;
+      vals[s * VSTRIDE + k] = v;
     }
     __syncthreads();
     if (diag) {
@@ -283,7 +284,7 @@ tfd_kernel(const float* __restrict__ angles, const int64_t* __restrict__ off,
       // t on p = t + 256 c: no lane idles on the empty half
       for (int k = 0; k < nt; ++k) {
         const int type = t_type[k];
-        const float* v = vals + t_voff[k] * vstride;  // conformer l's value at v[l]
+        const float* v = vals + t_voff[k] * VSTRIDE;  // conformer l's value at v[l]
         const float w = t_w[k], md = t_md[k], rmd = t_rmd[k];
         wsum = __fadd_rn(wsum, w);
         const int nq = type == TORSION_SYMMETRIC ? t_nq[k] : 1;
@@ -295,8 +296,8 @@ tfd_kernel(const float* __restrict__ angles, const int64_t* __restrict__ off,
           if (type == TORSION_SYMMETRIC) {
             dev = 180.0f;
             for (int qa = 0; qa < nq; ++qa) {
-              const float a = v[qa * vstride + ri];
-              for (int qb = 0; qb < nq; ++qb) dev = fminf(dev, circular(a, v[qb * vstride + cj]));
+              const float a = v[qa * VSTRIDE + ri];
+              for (int qb = 0; qb < nq; ++qb) dev = fminf(dev, circular(a, v[qb * VSTRIDE + cj]));
             }
           } else {
             const float a = v[ri], b = v[cj];
@@ -310,7 +311,7 @@ tfd_kernel(const float* __restrict__ angles, const int64_t* __restrict__ off,
       // rows i0 + warp + 8 r, columns j0 + lane + 32 h: every cell a pair
       for (int k = 0; k < nt; ++k) {
         const int type = t_type[k];
-        const float* rv = vals + t_voff[k] * vstride;  // row r's value at rv[r]
+        const float* rv = vals + t_voff[k] * VSTRIDE;  // row r's value at rv[r]
         const float* cv = rv + TILE;                   // column l's at cv[l]
         const float w = t_w[k], md = t_md[k], rmd = t_rmd[k];
         wsum = __fadd_rn(wsum, w);
@@ -325,9 +326,9 @@ tfd_kernel(const float* __restrict__ angles, const int64_t* __restrict__ off,
               const int cj = lane + 32 * h;
               float dev = 180.0f;
               for (int qa = 0; qa < nq; ++qa) {
-                const float a = rv[qa * vstride + ri];
+                const float a = rv[qa * VSTRIDE + ri];
                 for (int qb = 0; qb < nq; ++qb)
-                  dev = fminf(dev, circular(a, cv[qb * vstride + cj]));
+                  dev = fminf(dev, circular(a, cv[qb * VSTRIDE + cj]));
               }
               num[r][h] = __fadd_rn(num[r][h], __fmul_rn(div_by(dev, md, rmd), w));
             }
@@ -400,21 +401,18 @@ int nvmk_dihedral_angles(const float* coords, const int64_t* conf_rows, const in
 // K18. angles float32 [n_angles] (K17's); vstart int64 [T + 1], each
 // torsion's first staged value (a Symmetric torsion's values its quartets, any
 // other's one); types int32 [T]; weights and max_dev float32 [T]; tiles int32
-// [n_tiles, 3] (batch molecule, i0, j0) with side `tile` (TILE); cap the
-// values a chunk stages (at least any one torsion's); vstride 2 TILE, or TILE
-// where every tile is on a diagonal (i0 == j0); out float32, the call's
-// condensed buffer (entries of molecules outside the batch untouched).
-// Returns cudaGetLastError() after the launch (0 on success), or
+// [n_tiles, 3] (batch molecule, i0, j0) of side TILE; cap the values a chunk
+// stages (at least any one torsion's); out float32, the call's condensed
+// buffer (entries of molecules outside the batch untouched). Returns
+// cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue where a chunk's staging passes what a block may hold.
 int nvmk_tfd_pairs(const float* angles, const int64_t* off, const int64_t* tq,
                    const int64_t* vstart, const int* types, const float* weights,
-                   const float* max_dev, const int* tiles, int n_mol, long long n_tiles, int tile,
-                   int cap, int vstride, float* out, cudaStream_t stream) {
-  if (n_mol <= 0 || n_tiles <= 0 || tile != TILE || cap < 1 ||
-      (vstride != TILE && vstride != 2 * TILE))
-    return (int)cudaErrorInvalidValue;
+                   const float* max_dev, const int* tiles, int n_mol, long long n_tiles, int cap,
+                   float* out, cudaStream_t stream) {
+  if (n_mol <= 0 || n_tiles <= 0 || cap < 1) return (int)cudaErrorInvalidValue;
   if (n_tiles > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  const size_t bytes = tile_shared_bytes(cap, vstride);
+  const size_t bytes = tile_shared_bytes(cap);
   if (bytes > 227 * 1024) return (int)cudaErrorInvalidValue;
   if (bytes > 48 * 1024) {
     const cudaError_t err =
@@ -422,15 +420,15 @@ int nvmk_tfd_pairs(const float* angles, const int64_t* off, const int64_t* tq,
     if (err != cudaSuccess) return (int)err;
   }
   tfd_kernel<<<(unsigned)n_tiles, 32 * TILE_WARPS, bytes, stream>>>(
-      angles, off, tq, vstart, types, weights, max_dev, tiles, n_mol, cap, vstride, out);
+      angles, off, tq, vstart, types, weights, max_dev, tiles, n_mol, cap, out);
   return (int)cudaGetLastError();
 }
 
-// K18's instantiation at `cap` values a chunk and `vstride`: out[0] registers
-// a thread, [1] local bytes a thread, [2] resident blocks an SM, [3] shared
-// bytes a block (dynamic), [4] threads a block, [5] the tile side.
-int nvmk_tfd_pairs_info(int cap, int vstride, int* out) {
-  const size_t bytes = tile_shared_bytes(cap, vstride);
+// K18's instantiation at `cap` values a chunk: out[0] registers a thread,
+// [1] local bytes a thread, [2] resident blocks an SM, [3] shared bytes a
+// block (dynamic), [4] threads a block, [5] the tile side.
+int nvmk_tfd_pairs_info(int cap, int* out) {
+  const size_t bytes = tile_shared_bytes(cap);
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, tfd_kernel);
   if (err != cudaSuccess) return (int)err;

@@ -374,10 +374,8 @@ class TFDBatch:
     i0, j0), i0 >= j0 multiples of ``TILE``, each molecule's in order, which
     together cover each of its pairs once. ``cap``: the values a K18 chunk
     stages (the largest molecule's, at most ``VALUE_CAP`` unless one torsion
-    has more); ``vstride``: ``2 * TILE``, or ``TILE`` where every tile is on
-    a diagonal (no molecule has more than ``TILE`` conformers). ``coords``
-    float32 [R, 3] when the coordinates were packed on the host and copied
-    with the tables."""
+    has more). ``coords`` float32 [R, 3] when the coordinates were packed on
+    the host and copied with the tables."""
 
     mol_offsets: torch.Tensor
     conf_rows: torch.Tensor
@@ -392,7 +390,6 @@ class TFDBatch:
     n_pairs: int
     n_out: int
     cap: int
-    vstride: int
     coords: torch.Tensor | None = None
 
     @property
@@ -410,10 +407,11 @@ def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
 def pair_tiles(conf_counts: np.ndarray) -> np.ndarray:
     """int32 [n_tiles, 3]: K18's tiles (molecule, i0, j0) over molecules of
     ``conf_counts`` conformers, each molecule's in order: every (I, J), I >=
-    J, of its ceil(C / TILE) blocks of conformers, at (I TILE, J TILE)."""
+    J, of its ceil(C / TILE) blocks of conformers, at (I TILE, J TILE).
+    (Not ``np.unique``: its first call can import ``numpy.ma``, ~0.1 s.)"""
     sides = -(-np.asarray(conf_counts, np.int64) // TILE)
     parts = [np.zeros((0, 3), np.int32)]
-    for n in np.unique(sides):
+    for n in sorted(set(sides.tolist())):
         ks = np.nonzero(sides == n)[0]
         big, small = np.tril_indices(int(n))
         part = np.empty((len(ks), len(big), 3), np.int32)
@@ -477,7 +475,7 @@ def make_batch(torsion_sets: list[TorsionSet], conf_rows: list[np.ndarray], devi
         types=i32_d[4 * n_q:4 * n_q + n_t], weights=f32_d[:n_t], max_dev=f32_d[n_t:2 * n_t],
         value_starts=ints_d[n_tq:], tiles=i32_d[4 * n_q + n_t:].view(-1, 3),
         n_angles=int(off[ANGLES, -1]), n_pairs=int(off[PAIRS, -1]), n_out=int(first_out[-1]),
-        cap=cap, vstride=2 * TILE if (conf_counts > TILE).any() else TILE,
+        cap=cap,
         coords=f32_d[2 * n_t:].view(-1, 3) if coords is not None else None)
 
 
@@ -725,7 +723,7 @@ def tfd_pairs(angles: torch.Tensor, batch: TFDBatch) -> torch.Tensor:
             angles.data_ptr(), batch.mol_offsets.data_ptr(), batch.torsion_quartets.data_ptr(),
             batch.value_starts.data_ptr(), batch.types.data_ptr(), batch.weights.data_ptr(),
             batch.max_dev.data_ptr(), batch.tiles.data_ptr(), batch.n_mols,
-            batch.tiles.shape[0], TILE, batch.cap, batch.vstride, out.data_ptr(),
+            batch.tiles.shape[0], batch.cap, out.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"tfd_pairs kernel launch failed with CUDA error {rc}")
@@ -735,15 +733,13 @@ def tfd_pairs(angles: torch.Tensor, batch: TFDBatch) -> torch.Tensor:
 
 def tfd_pairs_info(batch: TFDBatch) -> dict:
     """K18's instantiation for ``batch``: registers and spilled bytes a
-    thread, resident blocks an SM and shared bytes a block at its ``cap``
-    and ``vstride``, threads a block, the tile side, the grid (its tiles)
-    and ``cap``."""
+    thread, resident blocks an SM and shared bytes a block at its ``cap``,
+    threads a block, the tile side, the grid (its tiles) and ``cap``."""
     import ctypes
 
     out = (ctypes.c_int * 6)()
-    rc = tfd_lib().nvmk_tfd_pairs_info(batch.cap, batch.vstride, out)
+    rc = tfd_lib().nvmk_tfd_pairs_info(batch.cap, out)
     if rc != 0:
         raise RuntimeError(f"nvmk_tfd_pairs_info failed with CUDA error {rc}")
     keys = ("registers", "local_bytes", "blocks_per_sm", "shared_bytes", "threads", "tile")
-    return {**dict(zip(keys, out)), "grid": int(batch.tiles.shape[0]), "cap": batch.cap,
-            "vstride": batch.vstride}
+    return {**dict(zip(keys, out)), "grid": int(batch.tiles.shape[0]), "cap": batch.cap}

@@ -2133,7 +2133,7 @@ def test_dedup_and_extract_match_plain_at_stress_shapes(cuda, name):
 def test_root_mask_matches_plain_at_stress_shapes(cuda, name):
     """K22 equals its plain version bit for bit at P = 1024 with T = 256,
     zero counts, every valid row on one root, more than 32 rows a pair, T
-    not a multiple of 4 (byte stores), B past one wave of warps, with rows
+    not a multiple of 4, B past one wave of warps, with rows
     past the counts holding out-of-range slots; and into an output whose
     memory was filled with 1 and freed just before (the wrapper allocates
     with torch.empty: every byte must be written)."""

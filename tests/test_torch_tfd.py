@@ -586,7 +586,7 @@ def test_tiled_schedule_in_chunks_equals_plain(cap, monkeypatch):
     monkeypatch.setattr(tfd, "VALUE_CAP", cap)
     rng = np.random.default_rng(cap)
     _, _, batch, angles = _stress_batch(rng, 2 * tfd.TILE + 1)
-    assert batch.cap == max(cap, 9) and batch.vstride == 2 * tfd.TILE
+    assert batch.cap == max(cap, 9)
     assert batch.value_starts.tolist()[:8] == [0, 1, 10, 11, 12, 13, 15, 16]
     assert torch.equal(tfd_pairs_tiled_model(angles, batch), tfd.tfd_pairs_plain(angles, batch))
 
@@ -601,7 +601,6 @@ def test_tile_table_covers_each_pair_once(counts):
     tiles = batch.tiles.numpy()
     assert tiles.dtype == np.int32 and (np.diff(tiles[:, 0]) >= 0).all()
     assert (tiles[:, 1] % tfd.TILE == 0).all() and (tiles[:, 1] >= tiles[:, 2]).all()
-    assert batch.vstride == (2 * tfd.TILE if max(counts) > tfd.TILE else tfd.TILE)
     seen = []
     for m, i0, j0 in tiles.tolist():
         c = counts[m]

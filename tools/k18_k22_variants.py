@@ -9,7 +9,9 @@ built with nvcc (all at once); its ``nvmk_tfd_pairs`` / ``nvmk_root_mask``
 package's output (K18: the largest |difference| and whether it is equal;
 K22: equal), and is timed hot and cold (``chip_smoke.median_ms``) in turns:
 package, each variant, then the same backwards. A variant with ``tile``
-runs on a tile table of that side (``ops/tfd.pair_tiles``). ``clocked``
+runs on a tile table of that side (``ops/tfd.pair_tiles``); one in
+``DIAGONAL_ONLY`` runs only on inputs whose tiles are all on the diagonal
+(no molecule past ``TILE`` conformers). ``clocked``
 adds clock64() laps of thread 0 of each block (setup, chunk table,
 staging, pairs, store) and prints their split
 (``chip_smoke.phase_split``). A ``probe_`` variant leaves out part of the
@@ -23,6 +25,8 @@ from concurrent.futures import ThreadPoolExecutor
 
 K18_CLOCK_PHASES = ("setup", "chunk_table", "staging", "pairs", "store")
 _DIV = "div_by(dev, md, rmd)"
+_BYTE_ROW = ("    for (int t = lane; t < T; t += 32) "
+             "dst[t] = (uint8_t)((row_bits[t >> 5] >> (t & 31)) & 1u);\n")
 _LAP = ("{ if (threadIdx.x == 0) { const long long n_ = clock64(); clk_acc[%d] += n_ - clk_t; "
         "clk_t = n_; } }")
 _CLOCKED = [
@@ -76,9 +80,20 @@ VARIANTS = {
                                                  "constexpr int MASK_WARPS = 4;")], None),
     "root_mask_16_pairs_a_block": ("root_mask", [("constexpr int MASK_WARPS = 8;",
                                                   "constexpr int MASK_WARPS = 16;")], None),
-    "root_mask_byte_stores": ("root_mask", [("if (T % 4 == 0 && (uintptr_t)mask % 4 == 0)",
-                                             "if (false)")], None),
+    # the staged values at a stride of TILE: only where every tile is diagonal
+    "stride_tile": ("tfd", [("constexpr int VSTRIDE = 2 * TILE;", "constexpr int VSTRIDE = TILE;")],
+                    None),
+    # the row written as T / 4 32-bit words (byte t of word u from bit 4u + (t & 3)):
+    # only where T % 4 == 0 and the output is 4-byte aligned, as at the path's launches
+    "root_mask_word_stores": ("root_mask", [(
+        _BYTE_ROW,
+        "    for (int u = lane; u < (T >> 2); u += 32) {\n"
+        "      const unsigned nib = (row_bits[u >> 3] >> ((u & 7) * 4)) & 0xfu;\n"
+        "      reinterpret_cast<uint32_t*>(dst)[u] =\n"
+        "          (nib & 1u) | ((nib & 2u) << 7) | ((nib & 4u) << 14) | ((nib & 8u) << 21);\n"
+        "    }\n")], None),
 }
+DIAGONAL_ONLY = {"stride_tile"}
 
 
 def _build_variant(name: str, kernel: str, patches) -> ctypes.CDLL:
@@ -112,7 +127,7 @@ def _stream():
 
 
 def _tiles_of(batch, tile: int):
-    """(tiles int32 [n, 3] on the batch's device, vstride) at another side."""
+    """Tiles int32 [n, 3] on the batch's device at another side."""
     import torch
 
     from nvmolkit_tpu_torch.ops import tfd as tfd_ops
@@ -124,25 +139,21 @@ def _tiles_of(batch, tile: int):
         tiles = tfd_ops.pair_tiles(counts)
     finally:
         tfd_ops.TILE = saved
-    return (torch.from_numpy(tiles).to(batch.tiles.device),
-            2 * tile if (counts > tile).any() else tile)
+    return torch.from_numpy(tiles).to(batch.tiles.device)
 
 
 def _k18_with(lib, angles, batch, tile=None):
     import torch
 
-    from nvmolkit_tpu_torch.ops import tfd as tfd_ops
-
-    tiles, vstride = ((batch.tiles, batch.vstride) if tile is None
-                      else _tiles_of(batch, tile))
+    tiles = batch.tiles if tile is None else _tiles_of(batch, tile)
     out = torch.zeros(batch.n_out, dtype=torch.float32, device=angles.device)
 
     def launch():
         rc = lib.nvmk_tfd_pairs(
             angles.data_ptr(), batch.mol_offsets.data_ptr(), batch.torsion_quartets.data_ptr(),
             batch.value_starts.data_ptr(), batch.types.data_ptr(), batch.weights.data_ptr(),
-            batch.max_dev.data_ptr(), tiles.data_ptr(), batch.n_mols, tiles.shape[0],
-            tile or tfd_ops.TILE, batch.cap, vstride, out.data_ptr(), _stream())
+            batch.max_dev.data_ptr(), tiles.data_ptr(), batch.n_mols, tiles.shape[0], batch.cap,
+            out.data_ptr(), _stream())
         if rc != 0:
             raise RuntimeError(f"nvmk_tfd_pairs failed with CUDA error {rc}")
         return out
@@ -192,7 +203,9 @@ def run(smoke, tfd_inputs, k22_args, rates, reps, flush, emit) -> None:
             except RuntimeError as err:  # a variant that does not build is reported, not timed
                 emit(result="variant_build_failed", variant=name, error=str(err)[-2000:])
     for label, angles, batch, _, _ in tfd_inputs:
-        names = [n for n, (k, _, _) in VARIANTS.items() if k == "tfd" and n in libs]
+        diagonal = bool((batch.tiles[:, 1] == batch.tiles[:, 2]).all())
+        names = [n for n, (k, _, _) in VARIANTS.items()
+                 if k == "tfd" and n in libs and (diagonal or n not in DIAGONAL_ONLY)]
         fns, grids = {}, {}
         fns["package"], grids["package"] = _k18_with(_build.tfd_lib(), angles, batch)
         for n in names:
