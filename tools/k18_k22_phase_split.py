@@ -204,9 +204,10 @@ def prebuild(first: dict) -> dict:
         return {k: job.result() for k, job in jobs.items()}
 
 
-def tfd_inputs(smoke, cuda) -> list:
-    """(label, angles, batch, torsion sets, conformer counts) of (c), (b)
-    and bench.py's configuration, made as ``chip_smoke.py`` makes them."""
+def tfd_coords(smoke, cuda) -> list:
+    """(label, coordinates, batch, torsion sets, conformer counts) of (c),
+    (b) and bench.py's configuration, made as ``chip_smoke.py`` makes them:
+    K17's inputs."""
     import numpy as np
     import torch
 
@@ -236,8 +237,7 @@ def tfd_inputs(smoke, cuda) -> list:
     for label, group in (("(c)", drug_mols), ("(b)", [big])):
         sets = [tfd_ops.enumerate_torsions(m) for m in group]
         coords, batch = tfd_api.conformer_batch(group, sets, cuda)
-        out.append((label, tfd_ops.dihedral_angles(coords, batch), batch, sets,
-                    [len(m.conformers) for m in group]))
+        out.append((label, coords, batch, sets, [len(m.conformers) for m in group]))
     bench_mols = mols_from_smiles(smoke.load_by_path("benchmarks/_common.py").make_smiles(64))
     dense = embed_api.EmbedMolecules(bench_mols, confsPerMolecule=100, maxIterations=8,
                                      output=CoordinateOutput.DEVICE, device=cuda)
@@ -247,9 +247,17 @@ def tfd_inputs(smoke, cuda) -> list:
     slots = [np.nonzero(r)[0] for r in dense.conf_mask[sel].cpu().numpy()]
     sets = [tfd_ops.enumerate_torsions(bench_mols[k]) for k in kept]
     coords, batch = tfd_api.positions_batch(dense.positions[sel].contiguous(), slots, sets, cuda)
-    out.append(("bench", tfd_ops.dihedral_angles(coords, batch), batch, sets,
-                [len(s) for s in slots]))
+    out.append(("bench", coords, batch, sets, [len(s) for s in slots]))
     return out
+
+
+def tfd_inputs(smoke, cuda) -> list:
+    """(label, angles, batch, torsion sets, conformer counts): K18's inputs,
+    on K17's angles of :func:`tfd_coords`."""
+    from nvmolkit_tpu_torch.ops import tfd as tfd_ops
+
+    return [(label, tfd_ops.dihedral_angles(coords, batch), batch, sets, nc)
+            for label, coords, batch, sets, nc in tfd_coords(smoke, cuda)]
 
 
 def k18_results(smoke, lib, inputs, rates, reps, flush, first_only) -> None:
