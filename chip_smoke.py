@@ -61,8 +61,9 @@ Phases, each reported as one JSON line with its seconds:
      the split; then a second call's wall), its vectors
      views of one buffer equal to K18's on the call's batch, the rigid
      copies' TFD within tfd_tolerance of 0; K17 against its plain version
-     (circular difference within dihedral_tolerance) and K18 on K17's
-     angles against its plain version and its first design
+     (circular difference within dihedral_tolerance) and its first design
+     (tools/k17_first_design.cu, bit for bit), and K18 on K17's angles
+     against its plain version and its first design
      (tools/k18_k22_first_design.cu; K18_TOL each) at (c), (b), the embed
      chain's TFD step and bench.py's TFD configuration (make_smiles(64) x 100 conformers from the port's
      EmbedMolecules, maxIterations 8, through positionsFrom: first and warm
@@ -171,8 +172,9 @@ Phases, each reported as one JSON line with its seconds:
      that count INT32 operations or POPCs as well as bytes, then one more
      launch of each with per-phase cycles (line butina_phases: the split of
      each kernel's time, K15's clusters taken one by one and its rounds);
-     K17 and K18 at (c), (b) and bench.py's TFD configuration, K18 beside its
-     first design and its second bound (Ring means once per conformer,
+     K17 and K18 at (c), (b) and bench.py's TFD configuration, each beside
+     its first design (K17 also beside an empty kernel at its grid), K18
+     beside its second bound (Ring means once per conformer,
      k18_work_once); K19-K22 at the substructure path's largest launches
      (K20-K22 beside their first designs, K21 and K22 also as whole calls), with
      INT32 bounds from each launch's data (K19's: the bond-code rows its
@@ -2015,12 +2017,17 @@ def main() -> int:
     # is held against them too
     k18_k22_tool = load_by_path("tools/k18_k22_phase_split.py")
     first_k18_k22 = {}
+    # K17's first design (tools/k17_first_design.cu): every K17 launch of the
+    # TFD paths is held against it, bit for bit
+    k17_tool = load_by_path("tools/k17_phase_split.py")
+    first_k17 = {}
     libs = {"nvcc_s": _build.similarity_lib, "nvcc_rmsd_s": _build.rmsd_lib,
             "nvcc_k9_k3_first_s": lambda: first_k9_k3.setdefault("lib", split_tool.first_lib()),
             "nvcc_k20_k21_first_s": lambda: first_k20_k21.setdefault(
                 "lib", k20_k21_tool.first_lib()),
             "nvcc_k18_k22_first_s": lambda: first_k18_k22.setdefault(
                 "lib", k18_k22_tool.first_lib()),
+            "nvcc_k17_first_s": lambda: first_k17.setdefault("lib", k17_tool.first_lib()),
             "nvcc_mmff_s": _build.mmff_lib, "nvcc_uff_s": _build.uff_lib,
             "nvcc_constraints_s": _build.constraints_lib,
             "nvcc_triangle_smooth_s": _build.triangle_smooth_lib,
@@ -2731,9 +2738,13 @@ def main() -> int:
 
     def check_tfd(coords, batch, what):
         """K17 against its plain version (circular difference within
-        dihedral_tolerance), K18 on K17's angles against its plain version
-        and its first design (K18_TOL each); returns K18's buffer."""
+        dihedral_tolerance) and its first design (bit for bit), K18 on K17's
+        angles against its plain version and its first design (K18_TOL
+        each); returns K18's buffer."""
         angles = tfd_ops.dihedral_angles(coords, batch)
+        k17_vs_first[what] = bool(torch.equal(
+            angles, k17_tool.first_dihedral_angles(first_k17["lib"], coords, batch)[0]))
+        check(k17_vs_first[what], f"K17 {what}: differs from its first design")
         plain = tfd_ops.dihedral_angles_plain(coords, batch)
         diff = (angles.double() - plain.double()).abs()
         diff = torch.minimum(diff, 360.0 - diff)
@@ -2753,7 +2764,7 @@ def main() -> int:
               f"K18 {what}: differs from its first design by {k18_vs_first[what]}")
         return out
 
-    k17_fit, k18_vs_first = {}, {}
+    k17_fit, k17_vs_first, k18_vs_first = {}, {}, {}
     out_c = check_tfd(coords_c, batch_c, "(c)")
     check(len({r.torch().untyped_storage().data_ptr() for r in tfd_c}) == 1,
           "TFD (c): the per-molecule vectors are not views of one buffer")
@@ -2840,6 +2851,7 @@ def main() -> int:
          ensemble_pairs=int(tfd_b.shape[0]), ensemble_first_call_s=tfd_big_s,
          ensemble_cutoff=TFD_CUTOFF, ensemble_clusters=len(tfd_cents),
          ensemble_launches=big_launches, k17_max_abs_err_deg=errs[K17], k17_fit=k17_fit,
+         k17_equal_to_first_design=k17_vs_first,
          k18_max_abs_err=errs[K18], k18_vs_first_design=k18_vs_first,
          seconds=time.perf_counter() - t_phase)
 
@@ -3555,6 +3567,7 @@ def main() -> int:
          tfd_molecules=len(c_kept), tfd_host_path_molecules=len(host_mols),
          tfd_clusters_mean=float(np.mean([int(c.max()) + 1 for c in c_tfd_clusters])),
          launches={k: v for k, v in chain_launches.items() if v},
+         k17_equal_to_first_design=k17_vs_first["(chain)"],
          k18_vs_first_design=k18_vs_first["(chain)"],
          seconds=time.perf_counter() - t_phase)
 
@@ -4422,20 +4435,37 @@ def main() -> int:
          k15=phase_split(k15_split["phase_cycles"].cpu(), butina_ops.K15_PHASES, k15_row["ms"]),
          k16=phase_split(k16_split["phase_cycles"].cpu(), butina_ops.K16_PHASES, k16_row["ms"]))
     del k15_split, k16_split
-    # K17 and K18 at (c), (b) and bench.py's configuration, K18 on K17's
-    # angles beside its first design, in turns (K18, first, K18, first), and
-    # its second bound (each Ring torsion's mean once per conformer)
+    # K17 and K18 at (c), (b) and bench.py's configuration, each beside its
+    # first design in turns (kernel, first, kernel, first), K17 beside an
+    # empty kernel at its grid, K18 on K17's angles beside its second bound
+    # (each Ring torsion's mean once per conformer)
     tfd_rows = {}
-    first_lib18 = first_k18_k22["lib"]
+    first_lib18, first_lib17 = first_k18_k22["lib"], first_k17["lib"]
     bench_nc = [len(x) for x in slots_bench]
     for label, coords, batch, sets, nc in (
             ("druglike", coords_c, batch_c, sets_c, [RMSD_CONFS] * RMSD_MOLS),
             ("ensemble", coords_b, batch_b, sets_b, [n_ens]),
             ("bench", coords_bench, batch_bench, sets_bench, bench_nc)):
-        tfd_rows[K17, label] = row(
+        entry = tfd_rows[K17, label] = row(
             K17, f"{len(nc)} mols x {max(nc)} confs, {batch.n_angles} angles ({label})",
             k17_work(sets, nc, rates), lambda c=coords, b=batch: tfd_ops.dihedral_angles(c, b),
             lambda c=coords, b=batch: tfd_ops.dihedral_angles_plain(c, b), cold=True)
+
+        def first17(c=coords, b=batch):
+            return k17_tool.first_dihedral_angles(first_lib17, c, b)
+
+        first_ms = (median_ms(first17), median_ms(first17, flush=flush))
+        entry["ms_again"] = median_ms(lambda c=coords, b=batch: tfd_ops.dihedral_angles(c, b))
+        entry["first_design"] = {"ms": first_ms[0], "cold_l2_ms": first_ms[1],
+                                 "ms_again": median_ms(first17)}
+        entry["equal_to_first_design"] = bool(torch.equal(
+            tfd_ops.dihedral_angles(coords, batch), first17()[0]))
+        check(entry["equal_to_first_design"],
+              f"K17 ({label}) differs from its first design at the timed launch")
+        info = tfd_ops.dihedral_angles_info(batch)
+        entry["blocks"] = info["grid"]
+        entry["empty_kernel_ms"] = median_ms(lambda i=info: k17_tool.empty(
+            first_lib17, i["grid"], i["threads"]))
         angles = tfd_ops.dihedral_angles(coords, batch)
         entry = tfd_rows[K18, label] = row(
             K18, f"{len(nc)} mols x {max(nc)} confs, {batch.n_pairs} pairs ({label})",
@@ -4466,7 +4496,8 @@ def main() -> int:
                 k: tfd_rows[key, other][k] for k in (
                     "shape", "ms", "cold_l2_ms", "plain_ms", "bound_ms", "bound_by",
                     "bound_means_once", "ms_again", "first_design", "equal_to_first_design",
-                    "max_abs_err_vs_first_design", "tiles") if k in tfd_rows[key, other]}
+                    "max_abs_err_vs_first_design", "tiles", "blocks", "empty_kernel_ms")
+                if k in tfd_rows[key, other]}
     # K19-K22 at the substructure path's largest launches (K19 and K22 in the
     # counts screens, K20 in the uniquify search, K21 in getSubstructMatches);
     # K21 by its raw launch, its offsets' cumsum made once before (the whole
@@ -4736,7 +4767,10 @@ def main() -> int:
               "nvmolkit_tpu/ops/butina.py:41", butina_cu),
         K16: ("fused_loop_kernel (K16: the fused Butina loop in one cooperative launch, after "
               "K2's first counts)", "nvmolkit_tpu/ops/butina.py:131", butina_cu),
-        K17: ("dihedral_kernel (K17: one thread per conformer and quartet)",
+        K17: ("dihedral_kernel (K17: a block per piece of a molecule's conformers from a "
+              "table built with the batch, the molecule's quartets and the conformers' rows "
+              "staged in shared memory once, the coordinates through the read-only path, "
+              "each block's stores one contiguous run)",
               "nvmolkit_tpu/ops/tfd.py:334", "nvmolkit_tpu_torch/csrc/tfd.cu"),
         K18: ("tfd_kernel (K18: a block per 64 x 64 tile of a molecule's pair triangle, the "
               "tile's conformers' values staged in shared memory, each Ring torsion's mean once "
@@ -4778,7 +4812,7 @@ def main() -> int:
                                      "first_design", "ms_again", "equal_to_first_design",
                                      "call_ms", "at_bench", "bound_means_once", "cold_l2_ms",
                                      "max_abs_err_vs_first_design", "tiles",
-                                     "by_shape")
+                                     "blocks", "empty_kernel_ms", "by_shape")
                if k in entry}})
     print(json.dumps({"kernels": lines}))
     print(smi_line)

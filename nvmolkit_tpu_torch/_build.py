@@ -508,7 +508,9 @@ def butina_lib() -> ctypes.CDLL:
 def _declare_tfd(lib: ctypes.CDLL) -> None:
     vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.nvmk_dihedral_angles.restype = ci
-    lib.nvmk_dihedral_angles.argtypes = [vp, vp, vp, vp, vp, ci, cll, vp, vp]
+    lib.nvmk_dihedral_angles.argtypes = [vp] * 5 + [cll, ci, vp, vp]
+    lib.nvmk_dihedral_angles_info.restype = ci
+    lib.nvmk_dihedral_angles_info.argtypes = [ci, ctypes.POINTER(ci)]
     lib.nvmk_tfd_pairs.restype = ci
     lib.nvmk_tfd_pairs.argtypes = [vp] * 8 + [ci, cll, ci, vp, vp]
     lib.nvmk_tfd_pairs_info.restype = ci

@@ -3,17 +3,37 @@
 //
 // K17 dihedral_kernel replaces nvmolkit_tpu/ops/tfd.py dihedral_angles (an
 // XLA program over [C, T, Q] padded quartets, vmapped over [M] padded
-// molecules): one thread per (molecule, conformer, quartet) work item. It
-// finds its molecule by a binary search over the work items' offsets (as
-// nvMolKit's tfd_kernels.cu does), reads the quartet's four atoms, and
-// writes the dihedral in [0, 360] degrees as the JAX function computes it:
+// molecules): a block of 256 threads per piece of one molecule's
+// conformers, from a table built on the host with the batch
+// (TFDBatch.conformer_blocks: molecule, first conformer, conformer count,
+// quartet count; TFDBatch.block_starts: the molecule's first quartet, the
+// piece's first entry of conf_rows and its first angle, int64), so no
+// thread searches for its molecule or walks the offset tables. The block
+// copies its molecule's quartets (an int4 each) and its conformers' rows
+// into shared memory once (cp.async, every copy in flight at once), then
+// takes the work items c * n_q + q of its conformers (conformer-major, the
+// layout K18 reads): thread t items t, t + 256, ..., (c, q) stepped without
+// a division, so a block's stores are one contiguous run, and a warp's 32
+// items name a conformer or two, whose few hundred bytes of atoms its
+// coordinate loads (the read-only path) share in L1. Staging the atoms in
+// shared memory instead was slower at every measured shape (PERF.md §6,
+// PR 23). Each item writes the dihedral in [0, 360] degrees as the JAX
+// function computes it:
 //   b1 = p2 - p1, v1 = p0 - p1, v2 = p3 - p2, n1 = v1 x b1, n2 = b1 x v2,
 //   deg = degrees(atan2((n1 x n2) . b1 / max(|b1|, 1e-10), n1 . n2)),
 //   0 where |n1| or |n2| < 1e-10, plus 360 where negative (a tiny negative
 //   angle plus 360 rounds to 360.0, as in the JAX and plain versions).
 // The products and sums are rounded one by one (__fmul_rn, __fadd_rn), as
 // the plain PyTorch version's separate operations round them: no fused
-// multiply-add turns a normal by a different rounding.
+// multiply-add turns a normal by a different rounding. The guard compares
+// |n|^2 with 1e-20f, the least float whose correctly rounded root reaches
+// 1e-10f: the root is monotonic, so the same decisions without two square
+// roots (checked in exact rationals in tests/test_torch_tfd.py). The rest
+// is the first design's arithmetic, so the bits are the first design's.
+// The first design (a thread per work item, its molecule by a binary search
+// over the work items' offsets as nvMolKit's tfd_kernels.cu does, then the
+// offsets, the row, the quartet and 12 scattered coordinates: 89 % of its
+// cycles) is kept in tools/k17_first_design.cu.
 //
 // K18 tfd_kernel replaces nvmolkit_tpu/ops/tfd.py tfd_matrix_condensed (the
 // same, over a [P, T, Q, Q] padded block per molecule, every torsion type's
@@ -51,9 +71,11 @@
 // IEEE division routine per pair and torsion) is kept in
 // tools/k18_k22_first_design.cu.
 //
-// What bounds them: K17 reads 48 bytes of coordinates and 16 of atom
-// indices per work item and writes 4; ~55 FP32 operations each (an atan2,
-// a square root or a division counted once). K18 reads each conformer's
+// What bounds them: K17 reads each conformer's named atoms once (12 bytes
+// each) and writes 4 bytes per work item; ~72 FP32 operations each (an
+// atan2, a square root or a division counted once), but ~180 instructions
+// issued (atan2f and the IEEE division and root with their range checks),
+// so at the drug-like set's size its issue, ~9 us, passes its bytes. K18 reads each conformer's
 // angles (a few kB a molecule) and writes 4 bytes per pair; its operations
 // grow with the quartets: per pair and torsion a deviation (4 for a Single,
 // 2 for a Ring, 5 a pairing of a Symmetric torsion), the division and the
@@ -80,21 +102,13 @@ constexpr float DEGREES = 57.29577951308232f;  // 180 / pi
 // rows of the [5, n_mol + 1] offsets table (nvmolkit_tpu_torch/ops/tfd.py)
 constexpr int ANGLES = 0, CONFS = 1, PAIRS = 2, OUT = 3, TORSIONS = 4;
 
-// The largest k in [0, n) with off[k] <= x (off non-decreasing, off[0] = 0).
-__device__ __forceinline__ int find_segment(const int64_t* off, int n, int64_t x) {
-  int lo = 0, hi = n - 1;
-  while (lo < hi) {
-    const int mid = (lo + hi + 1) >> 1;
-    if (off[mid] <= x) lo = mid; else hi = mid - 1;
-  }
-  return lo;
-}
-
 struct V3 {
   float x, y, z;
 };
 
-__device__ __forceinline__ V3 load3(const float* __restrict__ p) { return {p[0], p[1], p[2]}; }
+__device__ __forceinline__ V3 load3(const float* __restrict__ p) {
+  return {__ldg(p), __ldg(p + 1), __ldg(p + 2)};
+}
 
 __device__ __forceinline__ V3 sub(V3 a, V3 b) {
   return {__fsub_rn(a.x, b.x), __fsub_rn(a.y, b.y), __fsub_rn(a.z, b.z)};
@@ -112,33 +126,64 @@ __device__ __forceinline__ float dot(V3 a, V3 b) {
 
 __device__ __forceinline__ float norm(V3 a) { return __fsqrt_rn(dot(a, a)); }
 
-__global__ void __launch_bounds__(THREADS)
-dihedral_kernel(const float* __restrict__ coords, const int64_t* __restrict__ conf_rows,
-                const int* __restrict__ quartets, const int64_t* __restrict__ off,
-                const int64_t* __restrict__ tq, int n_mol, int64_t n_angles,
-                float* __restrict__ out) {
-  const int64_t w = (int64_t)blockIdx.x * THREADS + threadIdx.x;
-  if (w >= n_angles) return;
-  const int64_t stride = n_mol + 1;
-  const int m = find_segment(off + ANGLES * stride, n_mol, w);
-  const int64_t q_first = tq[off[TORSIONS * stride + m]];
-  const int64_t n_q = tq[off[TORSIONS * stride + m + 1]] - q_first;
-  const int64_t local = w - off[ANGLES * stride + m];
-  const int64_t c = local / n_q;
-  const int64_t row = conf_rows[off[CONFS * stride + m] + c];
-  const int* q = quartets + 4 * (q_first + local - c * n_q);
-  const V3 p0 = load3(coords + 3 * (row + q[0]));
-  const V3 p1 = load3(coords + 3 * (row + q[1]));
-  const V3 p2 = load3(coords + 3 * (row + q[2]));
-  const V3 p3 = load3(coords + 3 * (row + q[3]));
+// The dihedral of (p0, p1, p2, p3) in [0, 360] degrees, as the first design
+// computes it (its guard's roots by their squares: the same decisions).
+__device__ __forceinline__ float dihedral(V3 p0, V3 p1, V3 p2, V3 p3) {
   const V3 b1 = sub(p2, p1);
   const V3 n1 = cross(sub(p0, p1), b1);
   const V3 n2 = cross(b1, sub(p3, p2));
   const float x = dot(n1, n2);
   const float y = __fdiv_rn(dot(cross(n1, n2), b1), fmaxf(norm(b1), 1e-10f));
   float deg = __fmul_rn(atan2f(y, x), DEGREES);
-  if (norm(n1) < 1e-10f || norm(n2) < 1e-10f) deg = 0.0f;
-  out[w] = deg < 0.0f ? __fadd_rn(deg, 360.0f) : deg;
+  if (dot(n1, n1) < 1e-20f || dot(n2, n2) < 1e-20f) deg = 0.0f;
+  return deg < 0.0f ? __fadd_rn(deg, 360.0f) : deg;
+}
+
+// Asynchronous copies into shared memory (cp.async): a thread issues all of
+// its copies before it waits for any.
+__device__ __forceinline__ void copy_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::
+               "r"((unsigned)__cvta_generic_to_shared(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void copy_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::
+               "r"((unsigned)__cvta_generic_to_shared(dst)), "l"(src) : "memory");
+}
+
+__global__ void __launch_bounds__(THREADS)
+dihedral_kernel(const float* __restrict__ coords, const int64_t* __restrict__ conf_rows,
+                const int4* __restrict__ quartets, const int4* __restrict__ blocks,
+                const int64_t* __restrict__ starts, float* __restrict__ out) {
+  // 16 n_q + 8 n_c bytes: the molecule's quartets, then the block's rows
+  extern __shared__ int4 s_quartets[];
+  const int4 blk = blocks[blockIdx.x];
+  const int n_c = blk.z, n_q = blk.w;
+  const int64_t* start = starts + 3 * (int64_t)blockIdx.x;
+  const int64_t q_first = start[0];
+  const int64_t* rows = conf_rows + start[1];
+  float* dst = out + start[2];
+  int64_t* s_rows = reinterpret_cast<int64_t*>(s_quartets + n_q);
+  for (int q = threadIdx.x; q < n_q; q += THREADS)
+    copy_async16(s_quartets + q, quartets + q_first + q);
+  for (int j = threadIdx.x; j < n_c; j += THREADS) copy_async8(s_rows + j, rows + j);
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+  // work item i = c * n_q + q of the block; thread t's are t, t + THREADS, ...
+  const int n_items = n_c * n_q, dc = THREADS / n_q, dq = THREADS - dc * n_q;
+  int c = (int)threadIdx.x / n_q, q = (int)threadIdx.x - c * n_q;
+  for (int i = threadIdx.x; i < n_items; i += THREADS) {
+    const int4 a = s_quartets[q];
+    const float* x = coords + 3 * s_rows[c];
+    dst[i] = dihedral(load3(x + 3 * a.x), load3(x + 3 * a.y), load3(x + 3 * a.z),
+                      load3(x + 3 * a.w));
+    c += dc;
+    q += dq;
+    if (q >= n_q) {
+      q -= n_q;
+      ++c;
+    }
+  }
 }
 
 __device__ __forceinline__ float circular(float a, float b) {
@@ -379,23 +424,58 @@ tfd_kernel(const float* __restrict__ angles, const int64_t* __restrict__ off,
   }
 }
 
-unsigned grid_for(int64_t n) { return (unsigned)((n + THREADS - 1) / THREADS); }
-
 }  // namespace
 
 extern "C" {
 
-// K17. coords float32 [R, 3]; conf_rows int64 [sum C]; quartets int32
-// [Q, 4]; off int64 [5, n_mol + 1]; tq int64 [T + 1]; out float32
-// [n_angles]. Returns cudaGetLastError() after the launch (0 on success).
+// K17. coords float32 [R, 3]; conf_rows int64 [sum C]; quartets int32 [Q,
+// 4]; blocks int32 [n_blocks, 4] (batch molecule, first conformer,
+// conformer count, quartet count; quartets and blocks 16-byte aligned: the
+// kernel reads them as int4); starts int64 [n_blocks, 3] (the molecule's
+// first quartet, the block's first entry of conf_rows, its first angle);
+// shared_bytes the most any block stages, 16 n_q + 8 n_c; out float32
+// [n_angles]. Returns cudaGetLastError() after the launch (0 on success), or
+// cudaErrorInvalidValue where a block's staging passes what a block may hold.
 int nvmk_dihedral_angles(const float* coords, const int64_t* conf_rows, const int* quartets,
-                         const int64_t* off, const int64_t* tq, int n_mol, long long n_angles,
-                         float* out, cudaStream_t stream) {
-  if (n_mol <= 0 || n_angles <= 0) return (int)cudaErrorInvalidValue;
-  if ((n_angles + THREADS - 1) / THREADS > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  dihedral_kernel<<<grid_for(n_angles), THREADS, 0, stream>>>(coords, conf_rows, quartets, off,
-                                                               tq, n_mol, n_angles, out);
+                         const int* blocks, const int64_t* starts, long long n_blocks,
+                         int shared_bytes, float* out, cudaStream_t stream) {
+  if (n_blocks <= 0 || shared_bytes <= 0) return (int)cudaErrorInvalidValue;
+  if (n_blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  if (shared_bytes > 227 * 1024) return (int)cudaErrorInvalidValue;
+  if (((uintptr_t)quartets | (uintptr_t)blocks) & 15) return (int)cudaErrorMisalignedAddress;
+  if (shared_bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        dihedral_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared_bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  dihedral_kernel<<<(unsigned)n_blocks, THREADS, shared_bytes, stream>>>(
+      coords, conf_rows, reinterpret_cast<const int4*>(quartets),
+      reinterpret_cast<const int4*>(blocks), starts, out);
   return (int)cudaGetLastError();
+}
+
+// K17's instantiation at `shared_bytes` a block: out[0] registers a thread,
+// [1] local bytes a thread, [2] resident blocks an SM, [3] shared bytes a
+// block (dynamic), [4] threads a block.
+int nvmk_dihedral_angles_info(int shared_bytes, int* out) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, dihedral_kernel);
+  if (err != cudaSuccess) return (int)err;
+  if (shared_bytes > 48 * 1024) {
+    err = cudaFuncSetAttribute(dihedral_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               shared_bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, dihedral_kernel, THREADS,
+                                                      shared_bytes);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = blocks;
+  out[3] = shared_bytes;
+  out[4] = THREADS;
+  return 0;
 }
 
 // K18. angles float32 [n_angles] (K17's); vstart int64 [T + 1], each

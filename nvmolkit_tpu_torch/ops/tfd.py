@@ -344,6 +344,10 @@ launch_counts = {"dihedral_angles": 0, "tfd_pairs": 0}
 ANGLES, CONFS, PAIRS, OUT, TORSIONS = range(5)
 TILE = 64        # conformers a side of K18's tile (csrc/tfd.cu TILE)
 VALUE_CAP = 128  # values K18 stages a chunk, unless one torsion has more
+# work items of a K17 block: about a K17_BLOCKS-th of the batch's, between
+# K17_MIN_ITEMS and K17_ITEMS (one conformer's may pass them)
+K17_ITEMS, K17_MIN_ITEMS, K17_BLOCKS = 1024, 256, 1024
+SHARED_MAX = 227 * 1024  # shared bytes a block may hold (sm_90)
 EPS32 = 2.0 ** -23
 _DEGREES = 57.29577951308232  # 180 / pi, as a float32 factor on both sides
 _PLAIN_BUDGET = 1 << 25  # float32 elements of tfd_pairs_plain's [pairs, T, Q, Q] per chunk
@@ -374,8 +378,14 @@ class TFDBatch:
     i0, j0), i0 >= j0 multiples of ``TILE``, each molecule's in order, which
     together cover each of its pairs once. ``cap``: the values a K18 chunk
     stages (the largest molecule's, at most ``VALUE_CAP`` unless one torsion
-    has more). ``coords`` float32 [R, 3] when the coordinates were packed on
-    the host and copied with the tables."""
+    has more). ``conformer_blocks`` int32 [n_blocks, 4]: K17's blocks
+    (batch molecule, first conformer, conformer count, quartet count), each
+    molecule's in order, which together cover each of its conformers once;
+    ``block_starts`` int64 [n_blocks, 3]: each block's molecule's first
+    quartet, its first entry of ``conf_rows`` and its first angle;
+    ``block_bytes``: the most shared memory one of them stages.
+    ``coords`` float32 [R, 3] when the coordinates were packed on the host
+    and copied with the tables."""
 
     mol_offsets: torch.Tensor
     conf_rows: torch.Tensor
@@ -386,10 +396,13 @@ class TFDBatch:
     max_dev: torch.Tensor
     value_starts: torch.Tensor
     tiles: torch.Tensor
+    conformer_blocks: torch.Tensor
+    block_starts: torch.Tensor
     n_angles: int
     n_pairs: int
     n_out: int
     cap: int
+    block_bytes: int
     coords: torch.Tensor | None = None
 
     @property
@@ -423,6 +436,40 @@ def pair_tiles(conf_counts: np.ndarray) -> np.ndarray:
     return tiles[np.argsort(tiles[:, 0], kind="stable")]
 
 
+def conformer_blocks(conf_counts, n_quartets, items: int | None = None) -> np.ndarray:
+    """int32 [n_blocks, 4]: K17's blocks (molecule, first conformer,
+    conformer count, quartet count) over molecules of ``conf_counts``
+    conformers and ``n_quartets`` quartets, each molecule's in order: its
+    conformers cut into the fewest even pieces of at most ``items`` work
+    items (by default a ``K17_BLOCKS``-th of the batch's, between
+    ``K17_MIN_ITEMS`` and ``K17_ITEMS``), one conformer at least."""
+    counts = np.asarray(conf_counts, np.int64)
+    n_quartets = np.asarray(n_quartets, np.int64)
+    if items is None:
+        items = min(K17_ITEMS, max(K17_MIN_ITEMS, int(counts @ n_quartets) // K17_BLOCKS))
+    pieces = -(-counts // np.maximum(1, items // n_quartets))
+    size = -(-counts // np.maximum(pieces, 1))
+    mol = np.repeat(np.arange(len(counts)), pieces)
+    first = (np.arange(len(mol)) - np.repeat(np.cumsum(pieces) - pieces, pieces)) * size[mol]
+    return np.stack([mol, first, np.minimum(size[mol], counts[mol] - first), n_quartets[mol]],
+                    axis=1).astype(np.int32)
+
+
+def block_starts(blocks: np.ndarray, off: np.ndarray, q_first: np.ndarray) -> np.ndarray:
+    """int64 [n_blocks, 3]: each K17 block's molecule's first quartet
+    (``q_first`` per molecule), its first entry of ``conf_rows`` and its first
+    angle (``off``: the batch's ``mol_offsets``)."""
+    mol, first = blocks[:, 0], blocks[:, 1].astype(np.int64)
+    return np.stack([np.asarray(q_first, np.int64)[mol], off[CONFS, mol] + first,
+                     off[ANGLES, mol] + first * blocks[:, 3]], axis=1)
+
+
+def k17_block_bytes(blocks: np.ndarray) -> int:
+    """The most shared memory a K17 block of ``blocks`` stages: its
+    molecule's quartets (16 bytes each) and its conformers' rows (8)."""
+    return int((16 * blocks[:, 3].astype(np.int64) + 8 * blocks[:, 2]).max(initial=0))
+
+
 def make_batch(torsion_sets: list[TorsionSet], conf_rows: list[np.ndarray], device,
                coords: np.ndarray | None = None) -> TFDBatch:
     """The batch of a call's molecules: ``torsion_sets`` and ``conf_rows``
@@ -430,9 +477,9 @@ def make_batch(torsion_sets: list[TorsionSet], conf_rows: list[np.ndarray], devi
     two or more) cover every molecule, in order, and the call's condensed
     buffer holds C(C-1)/2 entries for each; the molecules without torsions
     stay out of the batch (their entries stay 0). The integer tables, the
-    quartets with the types and K18's tiles, and the float tables (with
-    ``coords``, float32 [R, 3], when given) go to ``device`` in one copy
-    each."""
+    quartets with the types, K18's tiles and K17's blocks, and the float
+    tables (with ``coords``, float32 [R, 3], when given) go to ``device`` in
+    one copy each."""
     device = torch.device(device)
     n_confs = np.array([len(r) for r in conf_rows], np.int64)
     pairs = n_confs * (n_confs - 1) // 2
@@ -458,9 +505,13 @@ def make_batch(torsion_sets: list[TorsionSet], conf_rows: list[np.ndarray], devi
     per_mol = value_starts[off[TORSIONS, 1:]] - value_starts[off[TORSIONS, :-1]]
     cap = max(min(VALUE_CAP, int(per_mol.max(initial=1))), int(values.max(initial=1)))
     tiles = pair_tiles(conf_counts)
-    ints = np.concatenate([off.ravel(), rows.astype(np.int64), torsion_quartets, value_starts])
+    blocks = conformer_blocks(conf_counts, n_quartets)
+    ints = np.concatenate([off.ravel(), rows.astype(np.int64), torsion_quartets, value_starts,
+                           block_starts(blocks, off, q_base).ravel()])
     quartets = np.concatenate([np.zeros((0, 4), np.int32)] + [ts.quartets for ts in sets])
-    i32 = np.concatenate([quartets.astype(np.int32).ravel(), types, tiles.ravel()])
+    # the quartets and K17's blocks first: K17 reads both as int4 (16-byte aligned)
+    i32 = np.concatenate([quartets.astype(np.int32).ravel(), blocks.ravel(), types,
+                          tiles.ravel()])
     n_t = int(off[TORSIONS, -1])
     floats = [ts.weights for ts in sets] + [ts.max_dev for ts in sets]
     if coords is not None:
@@ -469,13 +520,17 @@ def make_batch(torsion_sets: list[TorsionSet], conf_rows: list[np.ndarray], devi
     ints_d, i32_d, f32_d = (_to_device(a, device) for a in (ints, i32, f32))
     n_off, n_rows, n_q = off.size, len(rows), len(quartets)
     n_tq = n_off + n_rows + n_t + 1
+    n_vs = n_tq + n_t + 1
+    n_types = 4 * n_q + blocks.size
     return TFDBatch(
         mol_offsets=ints_d[:n_off].view(5, -1), conf_rows=ints_d[n_off:n_off + n_rows],
         torsion_quartets=ints_d[n_off + n_rows:n_tq], quartets=i32_d[:4 * n_q].view(n_q, 4),
-        types=i32_d[4 * n_q:4 * n_q + n_t], weights=f32_d[:n_t], max_dev=f32_d[n_t:2 * n_t],
-        value_starts=ints_d[n_tq:], tiles=i32_d[4 * n_q + n_t:].view(-1, 3),
+        conformer_blocks=i32_d[4 * n_q:n_types].view(-1, 4),
+        types=i32_d[n_types:n_types + n_t], weights=f32_d[:n_t], max_dev=f32_d[n_t:2 * n_t],
+        value_starts=ints_d[n_tq:n_vs], tiles=i32_d[n_types + n_t:].view(-1, 3),
+        block_starts=ints_d[n_vs:].view(-1, 3),
         n_angles=int(off[ANGLES, -1]), n_pairs=int(off[PAIRS, -1]), n_out=int(first_out[-1]),
-        cap=cap,
+        cap=cap, block_bytes=k17_block_bytes(blocks),
         coords=f32_d[2 * n_t:].view(-1, 3) if coords is not None else None)
 
 
@@ -511,7 +566,12 @@ def _quartet_points(coords: torch.Tensor, batch: TFDBatch) -> torch.Tensor:
 def dihedral_angles_plain(coords: torch.Tensor, batch: TFDBatch) -> torch.Tensor:
     """The plain version of :func:`dihedral_angles`: the JAX
     ``dihedral_angles`` arithmetic over every work item at once."""
-    p = _quartet_points(coords, batch)
+    return dihedral_of_points(_quartet_points(coords, batch))
+
+
+def dihedral_of_points(p: torch.Tensor) -> torch.Tensor:
+    """The JAX ``dihedral_angles`` arithmetic on quartets of points [n, 4, 3]:
+    the dihedral of each in [0, 360] degrees."""
     b1 = p[:, 2] - p[:, 1]
     v1 = p[:, 0] - p[:, 1]
     v2 = p[:, 3] - p[:, 2]
@@ -664,7 +724,7 @@ def tfd_pairs_plain(angles: torch.Tensor, batch: TFDBatch) -> torch.Tensor:
 
 def _check_batch(batch: TFDBatch, device: torch.device) -> None:
     for name in ("mol_offsets", "conf_rows", "torsion_quartets", "quartets", "types", "weights",
-                 "max_dev", "value_starts", "tiles"):
+                 "max_dev", "value_starts", "tiles", "conformer_blocks", "block_starts"):
         t = getattr(batch, name)
         if t.device != device or not t.is_contiguous():
             raise ValueError(f"the batch's {name} must be contiguous and on {device}")
@@ -675,7 +735,8 @@ def dihedral_angles(coords: torch.Tensor, batch: TFDBatch) -> torch.Tensor:
     of each conformer of the batch's molecules, molecule by molecule,
     conformer-major. ``coords`` [R, 3] holds the conformers' atoms, each
     conformer's from its ``conf_rows`` entry on. K17 for CUDA tensors (one
-    launch for the batch), the plain version for CPU tensors."""
+    launch for the batch, a block per piece of a molecule's conformers), the
+    plain version for CPU tensors."""
     if coords.dim() != 2 or coords.shape[1] != 3:
         raise ValueError(f"coordinates must be [R, 3], got {tuple(coords.shape)}")
     if not coords.is_cuda:
@@ -684,6 +745,9 @@ def dihedral_angles(coords: torch.Tensor, batch: TFDBatch) -> torch.Tensor:
         raise ValueError(f"K17 takes contiguous float32 coordinates, got {coords.dtype}")
     dev = coords.device
     _check_batch(batch, dev)
+    if batch.block_bytes > SHARED_MAX:
+        raise ValueError(f"a K17 block stages {batch.block_bytes} bytes, past {SHARED_MAX}: "
+                         "a molecule's quartets must fit a block")
     out = torch.empty(batch.n_angles, dtype=torch.float32, device=dev)
     if batch.n_angles == 0:
         return out
@@ -691,12 +755,27 @@ def dihedral_angles(coords: torch.Tensor, batch: TFDBatch) -> torch.Tensor:
     with torch.cuda.device(dev):
         rc = lib.nvmk_dihedral_angles(
             coords.data_ptr(), batch.conf_rows.data_ptr(), batch.quartets.data_ptr(),
-            batch.mol_offsets.data_ptr(), batch.torsion_quartets.data_ptr(), batch.n_mols,
-            batch.n_angles, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            batch.conformer_blocks.data_ptr(), batch.block_starts.data_ptr(),
+            batch.conformer_blocks.shape[0], batch.block_bytes, out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"dihedral_angles kernel launch failed with CUDA error {rc}")
     launch_counts["dihedral_angles"] += 1
     return out
+
+
+def dihedral_angles_info(batch: TFDBatch) -> dict:
+    """K17's instantiation for ``batch``: registers and spilled bytes a
+    thread, resident blocks an SM and shared bytes a block at its
+    ``block_bytes``, threads a block and the grid (its blocks)."""
+    import ctypes
+
+    out = (ctypes.c_int * 5)()
+    rc = tfd_lib().nvmk_dihedral_angles_info(batch.block_bytes, out)
+    if rc != 0:
+        raise RuntimeError(f"nvmk_dihedral_angles_info failed with CUDA error {rc}")
+    keys = ("registers", "local_bytes", "blocks_per_sm", "shared_bytes", "threads")
+    return {**dict(zip(keys, out)), "grid": int(batch.conformer_blocks.shape[0])}
 
 
 def tfd_pairs(angles: torch.Tensor, batch: TFDBatch) -> torch.Tensor:

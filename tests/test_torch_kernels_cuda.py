@@ -1898,6 +1898,184 @@ def test_tfd_pairs_past_2_31_pairs(cuda):
     torch.cuda.empty_cache()
 
 
+# K17's degenerate quartets on one conformer of made-up atoms (float32): the
+# 0 guard (collinear atoms, a normal at 1e-10 and just below or above it),
+# planar quartets (0 and 180), angles just below 0 (one wraps to a value
+# below 360, one to 360.0), numerators of 1e-39 (subnormal), a central bond
+# of 2e-10 and one of 5e-11 (the 1e-10 clamp of |b1|)
+K17_DEGENERATE_ATOMS = np.array(
+    [[0, 0, 0], [1, 0, 0], [2, 0, 0], [3, 0, 0], [1, 1, 0], [2, 1, 0], [2, -1, 0],
+     [2, -1, 1e-6], [2, -1, 1e-7], [2, 1, 1e-39], [2, -1, 1e-39],
+     [0, 1e-10, 0], [0, np.nextafter(np.float32(1e-10), np.float32(0)), 0],
+     [0, np.nextafter(np.float32(1e-10), np.float32(1)), 0],
+     [0, 0, 5], [5e-11, 0, 5], [2e-10, 0, 5], [0, 4, 5], [5e-11, 4, 9], [2e-10, 4, 9]],
+    np.float32)
+K17_DEGENERATE_QUARTETS = np.array(
+    [[0, 1, 2, 3], [4, 1, 2, 3], [0, 1, 2, 5], [4, 1, 2, 5], [4, 1, 2, 6], [6, 2, 1, 4],
+     [4, 1, 2, 7], [4, 1, 2, 8], [7, 2, 1, 4], [4, 1, 2, 9], [4, 1, 2, 10], [10, 2, 1, 4],
+     [11, 1, 2, 5], [12, 1, 2, 5], [13, 1, 2, 5], [5, 2, 1, 12],
+     [17, 14, 15, 18], [18, 15, 14, 17], [17, 14, 16, 19]], np.int32)
+
+
+def k17_degenerate_conformers():
+    """[4, A, 3] float32: the degenerate atoms, scaled by 2, 1/2 and 2^-20
+    (exactly: the same planes and lines; at 2^-20 every normal vanishes)."""
+    return np.stack([K17_DEGENERATE_ATOMS * np.float32(s) for s in (1.0, 2.0, 0.5, 2.0**-20)])
+
+
+def k17_stress_batch(seed, specs, scatter, device):
+    """(coords, batch) of K17 over made-up molecules: ``specs`` lists per
+    molecule (conformers, quartets, atoms), or None for a molecule without
+    torsions (3 conformers); each quartet a Single torsion of four distinct
+    random atoms, the first naming the last atom (the molecule's span), the
+    atoms normal at 1.7 around the origin. With ``scatter`` each molecule's
+    conformers take their rows from a pool of twice as many conformers, at
+    random: rows repeat and skip."""
+    from nvmolkit_tpu_torch.ops import tfd
+
+    rng = np.random.default_rng(seed)
+    sets, rows, pools, n_rows = [], [], [], 0
+    for spec in specs:
+        n_c, n_q, n_a = (3, 0, 5) if spec is None else spec
+        pool = 2 * n_c if scatter else n_c
+        pools.append((rng.standard_normal((pool * n_a, 3)) * 1.7).astype(np.float32))
+        slots = rng.integers(0, pool, n_c) if scatter else np.arange(n_c)
+        rows.append(n_rows + slots.astype(np.int64) * n_a)
+        n_rows += pool * n_a
+        if spec is None:
+            sets.append(tfd.TorsionSet.empty())
+            continue
+        q = np.stack([rng.choice(n_a, 4, replace=False) for _ in range(n_q)]).astype(np.int32)
+        if n_a - 1 not in q[0]:
+            q[0, 0] = n_a - 1
+        sets.append(tfd.TorsionSet(q, np.arange(n_q + 1, dtype=np.int32),
+                                   np.zeros(n_q, np.int32), np.ones(n_q, np.float32),
+                                   np.full(n_q, 180.0, np.float32)))
+    batch = tfd.make_batch(sets, rows, device, coords=np.concatenate(pools))
+    return batch.coords, batch
+
+
+def k17_block_conformers(n_q):
+    """The conformers of one full K17 block of a molecule of ``n_q`` quartets
+    in a batch of fewer than K17_MIN_ITEMS x K17_BLOCKS angles
+    (ops/tfd.conformer_blocks)."""
+    from nvmolkit_tpu_torch.ops import tfd
+
+    return int(tfd.conformer_blocks([10**6], [n_q], tfd.K17_MIN_ITEMS)[:, 2].max())
+
+
+def _k17_first(coords, batch):
+    """K17's first design (tools/k17_first_design.cu) on the batch."""
+    tool = _load_by_path("tools/k17_phase_split.py")
+    return tool.first_dihedral_angles(tool.first_lib(), coords, batch)[0]
+
+
+def _check_k17(coords, batch):
+    """K17 once against its first design (bit for bit) and its plain version
+    (circular difference within ``dihedral_tolerance``); returns its angles."""
+    from nvmolkit_tpu_torch.ops import tfd
+
+    before = tfd.launch_counts["dihedral_angles"]
+    got = tfd.dihedral_angles(coords, batch)
+    torch.cuda.synchronize()
+    assert tfd.launch_counts["dihedral_angles"] == before + 1
+    assert torch.equal(got, _k17_first(coords, batch))
+    diff = (got.double() - tfd.dihedral_angles_plain(coords, batch).double()).abs()
+    assert bool((torch.minimum(diff, 360.0 - diff)
+                 <= tfd.dihedral_tolerance(coords, batch)).all())
+    return got
+
+
+# K17's stress batches: (molecule specs, scattered rows); a spec is
+# (conformers, quartets, atoms), None a molecule without torsions, and a
+# conformer count of "block" one full block's at that size
+K17_STRESS_CASES = {
+    "two_conformers": ([(2, 7, 12), (2, 30, 40), (2, 1, 4)], False),
+    "block_edges": ([("block-1", 25, 32), ("block", 25, 32), ("block+1", 25, 32),
+                     ("block-1", 7, 30), ("block+1", 7, 30)], False),
+    "ensemble_2000": ([(2000, 27, 30)], False),
+    "one_and_300_quartets": ([(64, 1, 4), (64, 300, 60), (9, 300, 60)], False),
+    "torsion_free_between": ([None, (5, 9, 20), None, None, (70, 12, 33), None], False),
+    "rows_skip_and_repeat": ([(64, 25, 32), (3, 9, 10), (130, 12, 33)], True),
+}
+
+
+def k17_stress_specs(name):
+    """K17_STRESS_CASES[name]'s molecule specs, a block's conformer count
+    resolved, and its scattered-rows flag."""
+    specs, scatter = K17_STRESS_CASES[name]
+    step = {"block-1": -1, "block": 0, "block+1": 1}
+    return [spec if spec is None or not isinstance(spec[0], str)
+            else (k17_block_conformers(spec[1]) + step[spec[0]],) + spec[1:]
+            for spec in specs], scatter
+
+
+@pytest.mark.parametrize("name", sorted(K17_STRESS_CASES))
+def test_dihedral_angles_match_first_design_at_stress_shapes(cuda, name):
+    """K17 against its first design, bit for bit, and its plain version
+    within dihedral_tolerance: molecules of 2 conformers, of one block's
+    conformer count, one less and one more, of 2,000 conformers, of 1 quartet
+    and of 300, molecules without torsions between others, and conformer
+    rows that skip and repeat."""
+    coords, batch = k17_stress_batch(sum(map(ord, name)), *k17_stress_specs(name), cuda)
+    _check_k17(coords, batch)
+
+
+def test_dihedral_angles_at_degenerate_quartets(cuda):
+    """K17 on collinear and planar quartets (the 0 guard, 0 and 180), angles
+    just below 0 (the wrap, to 360.0 for one), subnormal numerators and
+    central bonds at and under the 1e-10 clamp, each conformer scaled
+    exactly: bit for bit its first design's, within dihedral_tolerance of its
+    plain version, in [0, 360]."""
+    from nvmolkit_tpu_torch.ops import tfd
+
+    x = k17_degenerate_conformers()
+    ts = tfd.TorsionSet(K17_DEGENERATE_QUARTETS, np.array([0, len(K17_DEGENERATE_QUARTETS)],
+                                                          np.int32),
+                        np.array([tfd.TORSION_SYMMETRIC], np.int32), np.ones(1, np.float32),
+                        np.full(1, 180.0, np.float32))
+    n_c, n_a = x.shape[:2]
+    batch = tfd.make_batch([ts], [np.arange(n_c, dtype=np.int64) * n_a], cuda,
+                           coords=x.reshape(-1, 3))
+    got = _check_k17(batch.coords, batch).view(n_c, -1).cpu()
+    assert bool(((got >= 0) & (got <= 360)).all())
+    assert bool((got[:, :3] == 0).all()) and bool((got[3] == 0).all())
+    assert float(got[0, 7]) == 360.0 and float(got[0, 6]) < 360.0
+
+
+def test_dihedral_angles_past_2_31_angles(cuda):
+    """980 molecules of 2,200 conformers x 1,000 quartets: 2,156,000,000
+    angles (8.6 GB of float32), past 2^31, so no block's offset may wrap in
+    32 bits. Every conformer's row repeats one of 7 conformers of 40 atoms,
+    so the angles repeat: K17 against its first design on the same batch,
+    bit for bit, and against the plain version of the 7 conformers, slice by
+    slice."""
+    from nvmolkit_tpu_torch.ops import tfd
+
+    rng = np.random.default_rng(31)
+    n_mol, n_c, n_q, n_a, pool = 980, 2_200, 1_000, 40, 7
+    q = np.stack([rng.choice(n_a, 4, replace=False) for _ in range(n_q)]).astype(np.int32)
+    ts = tfd.TorsionSet(q, np.arange(n_q + 1, dtype=np.int32), np.zeros(n_q, np.int32),
+                        np.ones(n_q, np.float32), np.full(n_q, 180.0, np.float32))
+    x = (rng.standard_normal((pool * n_a, 3)) * 1.7).astype(np.float32)
+    rows = (np.arange(n_c) % pool).astype(np.int64) * n_a
+    batch = tfd.make_batch([ts] * n_mol, [rows] * n_mol, cuda, coords=x)
+    assert batch.n_angles == n_mol * n_c * n_q > 2**31
+    small = tfd.make_batch([ts], [np.arange(pool, dtype=np.int64) * n_a], cuda, coords=x)
+    plain = tfd.dihedral_angles_plain(small.coords, small).view(pool, n_q)
+    tol = tfd.dihedral_tolerance(small.coords, small).view(pool, n_q)
+    want = plain[torch.arange(n_c, device=cuda) % pool]
+    tol = tol[torch.arange(n_c, device=cuda) % pool]
+    got = tfd.dihedral_angles(batch.coords, batch).view(n_mol, n_c, n_q)
+    first = _k17_first(batch.coords, batch).view(n_mol, n_c, n_q)
+    for k in range(0, n_mol, 70):
+        assert torch.equal(got[k:k + 70], first[k:k + 70]), k
+        diff = (got[k:k + 70].double() - want.double()).abs()
+        assert bool((torch.minimum(diff, 360.0 - diff) <= tol).all()), k
+    del got, first
+    torch.cuda.empty_cache()
+
+
 def _substruct_random(rng, T, smarts, n=96):
     """Random label bits and symmetric bond codes (chain and ring codes of
     every kind) over ``n`` targets of T atoms, and a compiled query."""

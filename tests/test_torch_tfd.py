@@ -44,7 +44,10 @@ from nvmolkit_tpu_torch.types import AsyncResult, Dense3DResult
 from nvmolkit_tpu_torch.utils.config import HardwareOptions
 from tests.data.smiles import SMILES_100
 from tests.molgen import random_smiles_batch
-from tests.test_torch_kernels_cuda import TFD_STRESS_KINDS, tfd_stress_batch, tfd_stress_set
+from tests.test_torch_kernels_cuda import (K17_DEGENERATE_QUARTETS, K17_STRESS_CASES,
+                                          TFD_STRESS_KINDS, k17_degenerate_conformers,
+                                          k17_stress_batch, k17_stress_specs,
+                                          tfd_stress_batch, tfd_stress_set)
 
 GOLDEN = pathlib.Path(__file__).resolve().parent / "golden"
 # symmetric sides (tert-butyl, CF3, isopropyl, carboxylate), small and large
@@ -176,6 +179,26 @@ def test_dihedral_angles_plain_matches_jax():
     assert (diff <= tol).all(), float((diff / tol).max())
     well_shaped = tol < 1e-3
     assert well_shaped.mean() > 0.9 and diff[well_shaped].max() < 1e-3
+
+
+def test_dihedral_angles_plain_matches_jax_at_degenerate_quartets():
+    """Collinear and planar quartets, angles just below 0 (one wraps to
+    360.0), subnormal numerators and central bonds at and under the 1e-10
+    clamp, on exactly scaled conformers: the plain version against the JAX
+    dihedral_angles within dihedral_tolerance, in [0, 360], the collinear
+    quartets 0 in both."""
+    coords = k17_degenerate_conformers()
+    want = np.asarray(jax_tfd.dihedral_angles(jnp.asarray(coords),
+                                              jnp.asarray(K17_DEGENERATE_QUARTETS[None])))[:, 0]
+    batch = _single_torsion_batch(K17_DEGENERATE_QUARTETS, coords)
+    got = tfd.dihedral_angles(batch.coords, batch).view(len(coords), -1).numpy()
+    assert ((got >= 0) & (got <= 360)).all() and ((want >= 0) & (want <= 360)).all()
+    assert (got[:, :3] == 0).all() and (want[:, :3] == 0).all() and (got[3] == 0).all()
+    assert got[0, 7] == 360.0 and got[0, 6] < 360.0
+    diff = np.abs(got - want)
+    diff = np.minimum(diff, 360.0 - diff)
+    tol = tfd.dihedral_tolerance(batch.coords, batch).view(len(coords), -1).numpy()
+    assert (diff <= tol).all(), float((diff / tol).max())
 
 
 def test_dihedral_tolerance_grows_near_collinear():
@@ -654,3 +677,102 @@ def test_reciprocal_division_gives_the_ieee_quotient(max_dev):
         got = _round_f32(Fraction(float(q)) + Fraction(float(e32)) * Fraction(float(r)))
         want = np.float32(dev) / d
         assert got.view(np.uint32) == want.view(np.uint32), (float(dev), max_dev, got, want)
+
+
+# K17's blocks --------------------------------------------------------------
+
+@pytest.mark.parametrize("name", sorted(K17_STRESS_CASES))
+def test_conformer_blocks_cover_each_conformer_once(name):
+    """make_batch's K17 blocks cover each (molecule, conformer) of the batch
+    exactly once, each molecule's in order, in the fewest even pieces of at
+    most a K17_BLOCKS-th of the batch's work items (between K17_MIN_ITEMS and
+    K17_ITEMS; one conformer at least); each block's starts are its
+    molecule's first quartet, its first conformer's entry of conf_rows and
+    its first angle, and block_bytes the most any block stages (quartets at
+    16 bytes, rows at 8)."""
+    _, batch = k17_stress_batch(sum(map(ord, name)), *k17_stress_specs(name), "cpu")
+    blocks, starts = batch.conformer_blocks.numpy(), batch.block_starts.numpy()
+    assert blocks.dtype == np.int32 and starts.dtype == np.int64
+    assert starts.shape == (len(blocks), 3) and (np.diff(blocks[:, 0]) >= 0).all()
+    off, tq = batch.mol_offsets.numpy(), batch.torsion_quartets.numpy()
+    q_first = tq[off[tfd.TORSIONS, :-1]]
+    n_q = tq[off[tfd.TORSIONS, 1:]] - q_first
+    n_c = np.diff(off[tfd.CONFS])
+    items = min(tfd.K17_ITEMS, max(tfd.K17_MIN_ITEMS, batch.n_angles // tfd.K17_BLOCKS))
+    for m in range(batch.n_mols):
+        mine = blocks[:, 0] == m
+        firsts, counts = blocks[mine, 1], blocks[mine, 2]
+        assert firsts[0] == 0 and (firsts[1:] == np.cumsum(counts)[:-1]).all()
+        assert counts.sum() == n_c[m] and (counts > 0).all() and (counts[:-1] == counts[0]).all()
+        assert (blocks[mine, 3] == n_q[m]).all()
+        assert ((counts * n_q[m] <= items) | (counts == 1)).all()
+        assert mine.sum() == -(-n_c[m] // max(1, items // n_q[m]))  # the fewest pieces
+        assert (starts[mine, 0] == q_first[m]).all()
+        assert (starts[mine, 1] == off[tfd.CONFS, m] + firsts).all()
+        assert (starts[mine, 2] == off[tfd.ANGLES, m] + firsts * n_q[m]).all()
+    assert batch.block_bytes == int((16 * blocks[:, 3].astype(np.int64) + 8 * blocks[:, 2]).max())
+
+
+def k17_schedule_model(coords, batch, threads=256):
+    """K17's schedule (csrc/tfd.cu dihedral_kernel) in numpy and PyTorch:
+    block by block (``batch.conformer_blocks``, ``batch.block_starts``), the
+    molecule's quartets and the block's rows from its starts, thread t's
+    work items t, t + threads, ... with (c, q) stepped as the kernel steps
+    them (asserted against i = c n_q + q), each written once at the block's
+    first angle plus i; the angles by the plain arithmetic on the atoms of
+    each conformer's row."""
+    rows, quartets, x = batch.conf_rows.numpy(), batch.quartets.numpy(), coords.numpy()
+    index, points = [], []
+    for (_, _, n_c, n_q), (q_first, r0, a0) in zip(batch.conformer_blocks.tolist(),
+                                                   batch.block_starts.tolist()):
+        block_rows, block_quartets = rows[r0:r0 + n_c], quartets[q_first:q_first + n_q]
+        t = np.arange(threads)
+        c, q = t // n_q, t % n_q
+        dc, dq = threads // n_q, threads % n_q
+        for i0 in range(0, n_c * n_q, threads):
+            i = i0 + t
+            live = i < n_c * n_q
+            assert (c[live] * n_q + q[live] == i[live]).all()
+            index.append(a0 + i[live])
+            points.append(x[block_rows[c[live]][:, None] + block_quartets[q[live]]])
+            c, q = c + dc, q + dq
+            c, q = np.where(q >= n_q, c + 1, c), np.where(q >= n_q, q - n_q, q)
+    index = np.concatenate(index)
+    assert np.array_equal(np.sort(index), np.arange(batch.n_angles))  # each written once
+    out = torch.empty(batch.n_angles, dtype=torch.float32)
+    out[torch.from_numpy(index)] = tfd.dihedral_of_points(torch.from_numpy(np.concatenate(points)))
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(K17_STRESS_CASES))
+def test_k17_schedule_equals_plain(name):
+    """K17's schedule (k17_schedule_model) writes each angle once and equals
+    the plain version bit for bit on the stress batches (2,000 conformers cut
+    to 500 here)."""
+    specs, scatter = k17_stress_specs(name)
+    specs = [s if s is None else (min(s[0], 500),) + s[1:] for s in specs]
+    coords, batch = k17_stress_batch(sum(map(ord, name)), specs, scatter, "cpu")
+    assert torch.equal(k17_schedule_model(coords, batch), tfd.dihedral_angles_plain(coords, batch))
+
+
+def test_guard_by_squares_takes_the_roots_decisions():
+    """K17's guard (csrc/tfd.cu ``dihedral``) tests |n|^2 < 1e-20f where the
+    first design tested RN(sqrt(|n|^2)) < 1e-10f: the same decision for every
+    float. In exact rationals, with f = float32(1e-10) and m the midpoint of
+    f and the float below it, RN(sqrt(s)) < f exactly where sqrt(s) < m (no
+    float's root is m: m^2 needs more than 24 bits), so where s < m^2; and
+    float32(1e-20) is the least float above m^2. Numpy's float32 root (IEEE)
+    agrees over 2^18 floats on either side of it, at 0, -0, subnormals, inf
+    and NaN."""
+    from fractions import Fraction
+
+    f = np.float32(1e-10)
+    m = (Fraction(float(f)) + Fraction(float(np.nextafter(f, np.float32(0))))) / 2
+    t = np.float32(1e-20)
+    below = np.nextafter(t, np.float32(0))
+    assert Fraction(float(below)) < m * m < Fraction(float(t))
+    bits = np.arange(-(1 << 18), 1 << 18, dtype=np.int64) + int(t.view(np.uint32))
+    s = np.concatenate([bits.astype(np.uint32).view(np.float32),
+                        np.array([0.0, -0.0, 1e-45, 1e-39, np.inf, np.nan], np.float32)])
+    with np.errstate(invalid="ignore"):
+        assert np.array_equal(np.sqrt(s) < f, s < t)

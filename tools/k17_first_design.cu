@@ -10,10 +10,11 @@
 //   b1 = p2 - p1, v1 = p0 - p1, v2 = p3 - p2, n1 = v1 x b1, n2 = b1 x v2,
 //   deg = degrees(atan2((n1 x n2) . b1 / max(|b1|, 1e-10), n1 . n2)),
 //   0 where |n1| or |n2| < 1e-10, plus 360 where negative.
-// ``mode`` changes the arithmetic for timing only (its output differs by
-// design): 1 multiplies by max(|b1|, 1e-10) in place of the division, 2
-// takes (y + x) in place of atan2(y, x), 3 tests the squared normals against
-// 1e-20 in place of the two square roots of the guard.
+// ``mode`` changes the arithmetic for timing: 1 multiplies by max(|b1|,
+// 1e-10) in place of the division and 2 takes (y + x) in place of atan2(y,
+// x) (their outputs differ by design); 3 tests the squared normals against
+// 1e-20f in place of the guard's two square roots (the same decisions: the
+// package's guard).
 // With ``cycles`` lane 0 of each warp adds clock64() cycles per phase, int64
 // [ceil(n_angles / 32), 8]; every thread of a clocked launch first makes the
 // phase's values an operand of an add (`settle`), so that a load's or an
@@ -179,7 +180,7 @@ extern "C" {
 // K17's first design over the batch's n_angles work items (the tables of
 // nvmolkit_tpu_torch/ops/tfd.py TFDBatch); ``cycles`` int64
 // [ceil(n_angles / 32), 8] or null; ``mode`` 0 (the first design), 1, 2 or 3
-// (timing only, see above; not clocked).
+// (see above; not clocked).
 int first_dihedral_angles(const float* coords, const int64_t* conf_rows, const int* quartets,
                           const int64_t* off, const int64_t* tq, int n_mol, long long n_angles,
                           float* out, void* cycles, int mode, void* stream) {

@@ -2,7 +2,7 @@
 """Per-phase split of the dihedral kernel (K17) on one NVIDIA GPU, beside
 its first design.
 
-    python3 tools/k17_phase_split.py [--first-only] [--reps N]
+    python3 tools/k17_phase_split.py [--first-only] [--reps N] [--variants]
 
 K17 at ``chip_smoke.py``'s TFD inputs: (c) 1,024 drug-like molecules with
 hydrogens x 64 conformers, (b) one molecule x 2,000 conformers in 50
@@ -18,9 +18,10 @@ CUDA-event times over ``--reps`` launches (behind a sleep kernel), hot
   with nvcc): a thread per (conformer, quartet) work item with a binary
   search over the molecules;
 * ``first_no_division``, ``first_no_atan2``, ``first_guard_squared``: the
-  first design with a product in place of the division, (y + x) in place of
-  atan2(y, x), and the squared normals tested in place of the guard's two
-  square roots (timing only: their outputs differ by design);
+  first design with a product in place of the division and (y + x) in
+  place of atan2(y, x) (timing only: their outputs differ by design), and
+  with the squared normals tested in place of the guard's two square roots
+  (the same decisions);
 * ``package``: ``ops/tfd.dihedral_angles`` (not with ``--first-only``).
 
 One more launch of the first design with its phase clocks (lane 0 of each
@@ -30,8 +31,11 @@ of each design; an empty kernel's time at each design's grid and at one
 block (the floor a launch cannot go under); K17's bound
 (``chip_smoke.k17_work``). Each result is held against the plain version
 (the largest circular difference over ``dihedral_tolerance``) and the
-package's against the first design's (equal bit for bit). One JSON line per
-result; the card's name and power limit first. Imports nothing of JAX.
+package's against the first design's (equal bit for bit). ``--variants``
+also times the variants of ``tools/k17_variants.py`` (the package's source
+with textual changes, and other block tables) in turns with the package's
+kernel. One JSON line per result; the card's name and power limit first.
+Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -96,6 +100,15 @@ def first_dihedral_angles(lib, coords, batch, cycles: bool = False, mode: int = 
     if rc != 0:
         raise RuntimeError(f"first_dihedral_angles failed with CUDA error {rc}")
     return out, cyc
+
+
+def empty(lib, blocks: int, threads: int) -> None:
+    """An empty kernel at ``blocks`` x ``threads``: the floor of a launch."""
+    import torch
+
+    rc = lib.first_empty(blocks, threads, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"first_empty failed with CUDA error {rc}")
 
 
 def err_over_bound(got, plain, tol) -> float:
@@ -190,8 +203,11 @@ def main() -> int:
     emit(result="build_s", **prebuild(first))
     split = smoke.load_by_path("tools/k18_k22_phase_split.py")
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=cuda)
-    for inputs in split.tfd_coords(smoke, cuda):
-        k17_results(smoke, split, first["lib"], inputs, rates, reps, flush, first_only)
+    inputs = split.tfd_coords(smoke, cuda)
+    for one in inputs:
+        k17_results(smoke, split, first["lib"], one, rates, reps, flush, first_only)
+    if "--variants" in args:
+        smoke.load_by_path("tools/k17_variants.py").run(smoke, inputs, reps, flush, emit)
     return 0
 
 
